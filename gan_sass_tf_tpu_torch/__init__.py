@@ -1,0 +1,18 @@
+"""gan_sass_tf_tpu_torch — PyTorch/CUDA port of gan_sass_tf_tpu for NVIDIA Hopper.
+
+The port runs one-shot separation (fused STFT features -> conv U-Net G ->
+fused masked iSTFT) with hand-written CUDA kernels for the two DSP hot ops
+and plain PyTorch everywhere else.  It shares the JAX package's presets
+(`gan_sass_tf_tpu.config`, which imports only `dataclasses` and `json`) and
+imports nothing else from it.
+
+Public surface:
+    from gan_sass_tf_tpu_torch import config, models, infer
+    cfg = config.get_config("wsj0_logmel")
+    g = models.load_generator(cfg, models.load_flax_npz("g.npz"), "cuda")
+    wavs = infer.separate(g, cfg, mixture, device="cuda")
+"""
+
+__version__ = "0.1.0"
+
+from gan_sass_tf_tpu import config  # noqa: F401

@@ -1,0 +1,112 @@
+"""Build the CUDA kernels with nvcc and load them with ctypes.
+
+All `csrc/*.cu` sources compile into one shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds).  The library is
+keyed by a hash of the sources and the flags and lives in `ops/_build/`
+(ignored by git), so the first CUDA call of a fresh checkout builds it and
+later processes reuse it.  Nothing happens at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import Optional
+
+_HERE = Path(__file__).resolve().parent
+CSRC = _HERE / "csrc"
+BUILD_DIR = _HERE / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # x, wc, ws, mel, spec, mag, logmag, logmel, B, T, F, n_fft, hop, K, M,
+    # eps, threads, smem_bytes, stream, device
+    "stft_features_launch": [_P] * 8 + [_I] * 7 + [ctypes.c_float]
+    + [_I, _I, _P, _I],
+    # spec, masks, ci, si, inv_env, out, B, S, F, n_fft, hop, K,
+    # complex_mask, threads, smem_bytes, stream, device
+    "masked_istft_launch": [_P] * 6 + [_I] * 7 + [_I, _I, _P, _I],
+    "stft_features_tile_frames": [],
+    "masked_istft_tile_rows": [],
+}
+
+_lib: Optional[ctypes.CDLL] = None
+build_seconds: Optional[float] = None   # wall time of this process's build
+build_log: str = ""                     # nvcc's output (ptxas register use)
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (os.path.join(home, "bin", "nvcc"), shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin and PATH): the CUDA "
+        "kernels are built from source on first use and need the toolkit"
+    )
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libgan_sass_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless a library for these sources exists."""
+    global build_seconds, build_log
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        build_log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+        os.replace(tmp, out)      # atomic: concurrent builders agree
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    build_seconds = time.perf_counter() - t0
+    return out
+
+
+def load_library() -> ctypes.CDLL:
+    """The kernels' shared library, built on first use."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def check_launch(rc: int, what: str) -> None:
+    """Raise if a launcher returned a non-zero cudaGetLastError()."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError {rc}")

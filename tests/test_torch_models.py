@@ -1,0 +1,129 @@
+"""The port's generator against the flax ConvUNetGenerator on the same
+converted weights and seeded features, in f32 and bf16."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gan_sass_tf_tpu import config
+from gan_sass_tf_tpu import models as jmodels
+from gan_sass_tf_tpu_torch import models as tmodels
+
+
+def _small(name="wsj0_logmel", **model):
+    cfg = config.get_config(name)
+    model = {"g_channels": (8, 16), **model}
+    dsp = {"n_mels": 32} if cfg.dsp.feature == "logmel" else {}
+    return cfg.replace(model=dataclasses.replace(cfg.model, **model),
+                       dsp=dataclasses.replace(cfg.dsp, **dsp))
+
+
+def _both(cfg, n_frames, seed=0):
+    """(flax masks, port masks) on the same params and features."""
+    g = jmodels.build_generator(cfg)
+    feats = np.random.default_rng(seed).standard_normal(
+        (2, n_frames, cfg.dsp.feature_dim)).astype(np.float32)
+    params = g.init(jax.random.PRNGKey(seed), jnp.asarray(feats))
+    ref = np.asarray(g.apply(params, jnp.asarray(feats)))
+    tg = tmodels.load_generator(cfg, jax.tree.map(np.asarray, params), "cpu")
+    with torch.no_grad():
+        ours = tg(torch.from_numpy(feats)).numpy()
+    return ref, ours
+
+
+@pytest.mark.parametrize("n_frames", [28, 31])   # even / odd SAME padding
+def test_generator_f32_matches_flax(n_frames):
+    ref, ours = _both(_small(compute_dtype="float32"), n_frames)
+    assert ours.shape == ref.shape == (2, 2, n_frames, 257)
+    assert ours.dtype == np.float32
+    np.testing.assert_allclose(ours, ref, atol=1e-4)
+
+
+@pytest.mark.parametrize("n_frames", [28, 31])
+def test_generator_bf16_matches_flax(n_frames):
+    cfg = _small()
+    assert cfg.model.compute_dtype == "bfloat16"       # as shipped
+    ref, ours = _both(cfg, n_frames)
+    assert ours.dtype == np.float32                     # masks leave in f32
+    np.testing.assert_allclose(ours, ref, atol=3e-2)
+
+
+@pytest.mark.parametrize("name,model", [
+    ("2src_toy_cpu", {}),                               # linear-grid 1x1 head
+    ("2src_toy_cpu", {"g_time_stride": False, "g_decoder_slim": 0.5}),
+])
+def test_generator_linear_head_matches_flax(name, model):
+    ref, ours = _both(_small(name, **model), 23)
+    np.testing.assert_allclose(ours, ref, atol=1e-4)
+
+
+def test_generator_complex_and_softmax_masks_match_flax():
+    cfg = _small("2src_toy_cpu")
+    cfg = cfg.replace(dsp=dataclasses.replace(cfg.dsp, mask_type="complex"))
+    ref, ours = _both(cfg, 20)
+    assert ours.shape == (2, 2, 20, 129, 2)
+    np.testing.assert_allclose(ours, ref, atol=1e-4)
+    cfg = cfg.replace(dsp=dataclasses.replace(
+        cfg.dsp, mask_type="magnitude", mask_activation="softmax",
+        mask_noise_slot=True))
+    ref, ours = _both(cfg, 20)
+    np.testing.assert_allclose(ours, ref, atol=1e-4)
+
+
+def test_flax_tree_names_and_npz_roundtrip(tmp_path):
+    cfg = _small(compute_dtype="float32")
+    g = tmodels.build_generator(cfg, "cpu", seed=3)
+    flat = tmodels.generator_params_to_flax(g.state_dict())
+    # Same names and shapes as the flax module's own init.
+    params = jmodels.build_generator(cfg).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 16, 32)))["params"]
+    ref = {"/".join(k.key for k in path): v.shape for path, v in
+           jax.tree_util.tree_leaves_with_path(params)}
+    assert {k: v.shape for k, v in flat.items()} == ref
+    path = str(tmp_path / "g.npz")
+    tmodels.save_flax_npz(path, g.state_dict())
+    g2 = tmodels.load_generator(cfg, tmodels.load_flax_npz(path), "cpu")
+    for k, v in g.state_dict().items():
+        torch.testing.assert_close(g2.state_dict()[k], v, atol=0, rtol=0)
+
+
+def test_seeded_init_is_reproducible():
+    cfg = _small()
+    a = tmodels.build_generator(cfg, "cpu", seed=1).state_dict()
+    b = tmodels.build_generator(cfg, "cpu", seed=1).state_dict()
+    c = tmodels.build_generator(cfg, "cpu", seed=2).state_dict()
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    assert not torch.equal(a["convs.0.weight"], c["convs.0.weight"])
+
+
+def test_full_width_wsj0_parameter_count():
+    g = tmodels.build_generator(config.get_config("wsj0_logmel"), "cpu")
+    assert sum(p.numel() for p in g.parameters()) == 1_061_218
+
+
+@pytest.mark.parametrize("name,change", [
+    ("2src_toy_cpu", {"model": {"generator": "toy"}}),
+    ("3src_pit", {}),
+    ("wsj0_logmel", {"model": {"g_stem_stride": (1, 2)}}),
+    ("wsj0_logmel", {"model": {"g_dec_l0": "subpixel"}}),
+    ("wsj0_logmel", {"model": {"g_phase_ct": True}}),
+    ("wsj0_logmel", {"model": {"g_head_mode": "dense"}}),
+    ("stream_v5e8", {}),                                # g_crop_nyquist
+    ("2src_toy_cpu", {"model": {"g_head_mode": "film"}}),
+])
+def test_unported_options_raise(name, change):
+    cfg = config.get_config(name)
+    cfg = cfg.replace(**{sec: dataclasses.replace(getattr(cfg, sec), **kw)
+                         for sec, kw in change.items()})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tmodels.build_generator(cfg, "cpu")
+
+
+def test_dropout_at_train_time_raises():
+    g = tmodels.build_generator(_small(dropout=0.1), "cpu")
+    with pytest.raises(NotImplementedError, match="dropout"):
+        g(torch.zeros(1, 8, 32), train=True)

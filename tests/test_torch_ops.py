@@ -1,0 +1,167 @@
+"""The port's DSP kernels' plain versions (gan_sass_tf_tpu_torch.ops)
+against the JAX package's Pallas kernels, run in TPU interpret mode as
+tests/test_pallas.py runs them, plus the dispatch guards.  The CUDA kernels
+themselves are compared with these plain versions on the card by
+chip_smoke.py (this process has no GPU)."""
+
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from gan_sass_tf_tpu import config
+from gan_sass_tf_tpu.dsp.features import mel_filterbank
+from gan_sass_tf_tpu.ops.pallas_istft import masked_istft_pallas
+from gan_sass_tf_tpu.ops.pallas_stft import stft_features_pallas
+from gan_sass_tf_tpu_torch.ops import dispatch
+from gan_sass_tf_tpu_torch.ops import masked_istft as k2
+from gan_sass_tf_tpu_torch.ops import stft_features as k1
+
+EMIT = ("spec", "mag", "logmag", "logmel")
+
+
+def _rand(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+@pytest.fixture
+def interpret():
+    with pltpu.force_tpu_interpret_mode():
+        yield
+
+
+@pytest.mark.parametrize("n_fft,hop,t,n_mels", [
+    (512, 128, 5000, 80),
+    (256, 64, 4000, 16),
+])
+def test_stft_features_reference_matches_pallas(rng, interpret, n_fft, hop,
+                                                t, n_mels):
+    x = _rand(rng, 2, t)
+    mel = mel_filterbank(n_mels, n_fft // 2 + 1, 8000)
+    ref = stft_features_pallas(jnp.asarray(x), n_fft, hop, emit=EMIT,
+                               mel_matrix=jnp.asarray(mel), eps=1e-8)
+    ours = k1.stft_features_reference(torch.from_numpy(x), n_fft, hop,
+                                      emit=EMIT, mel_matrix=torch.from_numpy(mel))
+    assert set(ours) == set(EMIT)
+    scale = float(np.abs(np.asarray(ref["mag"])).max())
+    for key in EMIT:
+        a, b = ours[key].numpy(), np.asarray(ref[key])
+        assert a.shape == b.shape, key
+        atol = 3e-4 * scale if key in ("spec", "mag") else 1e-3
+        np.testing.assert_allclose(a, b, atol=atol, err_msg=key)
+
+
+@pytest.mark.parametrize("mask_type", ["magnitude", "complex"])
+def test_masked_istft_reference_matches_pallas(rng, interpret, mask_type):
+    n_fft, hop, t, b, s = 512, 128, 5000, 2, 3
+    x = _rand(rng, b, t)
+    spec = np.array(k1.stft_features_reference(
+        torch.from_numpy(x), n_fft, hop)["spec"].numpy())
+    m_shape = (b, s) + spec.shape[-2:] + ((2,) if mask_type == "complex" else ())
+    masks = rng.uniform(-1, 1, m_shape).astype(np.float32)
+    ref = np.asarray(masked_istft_pallas(jnp.asarray(spec), jnp.asarray(masks),
+                                         n_fft, hop, mask_type=mask_type))
+    ours = k2.masked_istft_reference(torch.from_numpy(spec),
+                                     torch.from_numpy(masks), n_fft, hop,
+                                     mask_type=mask_type).numpy()
+    assert ours.shape == ref.shape
+    np.testing.assert_allclose(ours[..., hop:-hop], ref[..., hop:-hop],
+                               atol=3e-4, rtol=1e-3)
+
+
+def test_masked_istft_reference_env_none_and_length(rng):
+    n_fft, hop = 256, 64
+    x = torch.from_numpy(_rand(rng, 1, 2000))
+    spec = k1.stft_features_reference(x, n_fft, hop)["spec"]
+    masks = torch.ones((1, 1) + tuple(spec.shape[-2:]))
+    full = k2.masked_istft_reference(spec, masks, n_fft, hop)
+    raw = k2.masked_istft_reference(spec, masks, n_fft, hop, env="none")
+    inv = k2._inv_env(n_fft, hop, "hann", spec.shape[-2], torch.device("cpu"))
+    torch.testing.assert_close(full, raw * inv, atol=1e-6, rtol=1e-5)
+    cut = k2.masked_istft_reference(spec, masks, n_fft, hop, length=1000)
+    assert cut.shape == (1, 1, 1000)
+
+
+@pytest.mark.parametrize("emit", [("spec", "logmel"), ("logmag",), ("mag",)])
+def test_dispatch_cpu_takes_reference_and_counts_nothing(rng, emit):
+    dcfg = config.get_config("wsj0_logmel").dsp
+    x = torch.from_numpy(_rand(rng, 2, 4000))
+    before = (k1.launches, k2.launches)
+    out = dispatch.stft_features(x, dcfg, emit=emit)
+    ref = k1.stft_features_reference(
+        x, 512, 128, emit=emit,
+        mel_matrix=torch.from_numpy(mel_filterbank(80, 257, 8000)))
+    assert set(out) == set(emit)
+    for key in emit:
+        torch.testing.assert_close(out[key], ref[key])
+    if "spec" in emit:
+        masks = torch.full((2, 2) + tuple(out["spec"].shape[-2:]), 0.5)
+        y = dispatch.masked_istft(out["spec"], masks, 512, 128)
+        assert y.shape == (2, 2, 4000 - (4000 - 512) % 128)
+    assert (k1.launches, k2.launches) == before == (0, 0)
+
+
+def test_dispatch_win_length_pads_tail(rng):
+    dcfg = config.get_config("wsj0_logmel").dsp
+    dcfg = dcfg.__class__(**{**dcfg.__dict__, "win_length": 400})
+    x = torch.from_numpy(_rand(rng, 1, 5000))
+    out = dispatch.stft_features(x, dcfg, emit=("spec",))
+    assert out["spec"].shape[-2] == 1 + (5000 - 400) // 128
+    masks = torch.ones((1, 1) + tuple(out["spec"].shape[-2:]))
+    y = dispatch.masked_istft(out["spec"], masks, 512, 128, win_length=400)
+    assert y.shape[-1] == (out["spec"].shape[-2] - 1) * 128 + 400
+
+
+def test_kernel_wrappers_reject_bad_input(rng):
+    x = torch.zeros(1, 4000)
+    spec = torch.zeros(1, 10, 257, dtype=torch.complex64)
+    masks = torch.zeros(1, 2, 10, 257)
+    cases = [
+        (lambda: k1.stft_features_kernel(x, 512, 100), "hop"),
+        (lambda: k1.stft_features_kernel(x.double(), 512, 128), "float32"),
+        (lambda: k1.stft_features_kernel(x[:, :100], 512, 128), "shorter"),
+        (lambda: k1.stft_features_kernel(x, 512, 128, emit=("nope",)), "emit"),
+        (lambda: k1.stft_features_kernel(x, 512, 128, emit=("logmel",)), "mel"),
+        (lambda: k1.stft_features_kernel(x, 512, 128), "CUDA"),
+        (lambda: k2.masked_istft_kernel(spec, masks, 512, 100), "hop"),
+        (lambda: k2.masked_istft_kernel(spec, masks, 256, 64), "bins"),
+        (lambda: k2.masked_istft_kernel(spec.real.contiguous(), masks, 512, 128),
+         "complex64"),
+        (lambda: k2.masked_istft_kernel(spec, masks, 512, 128,
+                                        mask_type="complex"), "masks must"),
+        (lambda: k2.masked_istft_kernel(spec, masks[:, :, :9], 512, 128),
+         "masks must"),
+        (lambda: k2.masked_istft_kernel(spec, masks, 512, 128), "CUDA"),
+        (lambda: k2.masked_istft_kernel(spec, masks, 512, 128, env="x"), "env"),
+    ]
+    for fn, match in cases:
+        with pytest.raises(ValueError, match=match):
+            fn()
+    assert (k1.launches, k2.launches) == (0, 0)
+
+
+def test_force_backend(rng):
+    dcfg = config.get_config("wsj0_logmel").dsp
+    x = torch.from_numpy(_rand(rng, 1, 4000))
+    with dispatch.force_backend("kernel"):
+        with pytest.raises(ValueError, match="CUDA"):
+            dispatch.stft_features(x, dcfg, emit=("spec",))
+    with dispatch.force_backend("reference"):
+        assert "spec" in dispatch.stft_features(x, dcfg, emit=("spec",))
+    with pytest.raises(ValueError, match="backend"):
+        with dispatch.force_backend("pallas"):
+            pass
+    assert dispatch._FORCED is None
+
+
+def test_kernel_modules_import_without_toolchain():
+    from gan_sass_tf_tpu_torch.ops import build
+
+    assert "triton" not in sys.modules
+    assert build._lib is None
+    assert [p.name for p in build._sources()] == ["masked_istft.cu",
+                                                   "stft_features.cu"]
+    assert build.library_path().parent == build.BUILD_DIR
