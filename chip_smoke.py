@@ -5,7 +5,7 @@
 
 Phases, one JSON line each:
   1 device    the card's name; nvidia-smi's name and power limit line
-  2 build     nvcc builds both CUDA kernels from ops/csrc (seconds)
+  2 build     nvcc builds the CUDA kernels from ops/csrc (seconds)
   3 k1        stft_features kernel vs its plain version at the shapes of
               the wsj0_logmel path, a 60 s input and two other geometries
   4 k2        masked_istft kernel vs its plain version (magnitude and
@@ -14,15 +14,23 @@ Phases, one JSON line each:
               on 16 x 3 s mixtures, with seeded-random weights at the full
               wsj0_logmel width; both kernels must have launched, and the
               same call on the plain DSP path must agree (SI-SDR >= 40 dB)
-  6 timing    median per-call time of each kernel's wrapper beside its plain
-              version (CUDA events around back-to-back calls), and
-              separate() throughput on both paths
+  6 k3        the differentiable iSTFT (forward kernel, backward on the
+              stft_features kernel) vs its plain version and autograd, at
+              the stream_v5e8 train shape and two other geometries
+  7 train     Experiment(stream_v5e8).train() at full width, batch 32: the
+              losses finite, G and D moved, the three kernels of the step
+              launched; one step from one state on the kernel and the plain
+              DSP path agrees; evaluate(); the CLI trains wsj0_logmel
+  8 timing    median per-call time of each kernel's wrapper beside its plain
+              version (CUDA events around back-to-back calls), separate()
+              throughput and the stream_v5e8 train step on both DSP paths
 Then a `kernels` summary line and, last, the result line.  Any failed
 check exits non-zero before the result line.  Needs one CUDA device.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import statistics
 import subprocess
@@ -45,8 +53,10 @@ from gan_sass_tf_tpu_torch.models import (
     save_flax_npz,
 )
 from gan_sass_tf_tpu_torch.ops import build, dispatch
+from gan_sass_tf_tpu_torch.ops import istft as k3
 from gan_sass_tf_tpu_torch.ops import masked_istft as k2
 from gan_sass_tf_tpu_torch.ops import stft_features as k1
+from gan_sass_tf_tpu_torch.train import Experiment
 from gan_sass_tf_tpu_torch.utils.wav_io import read_wav, write_wav
 
 SEED = 0
@@ -55,6 +65,9 @@ B_MAIN, T_MAIN = 16, 23936          # wsj0_logmel segment: F = 184
 T_LONG = 480000                      # 60 s at 8 kHz: F = 3747
 TIMING_SAMPLES = 20                  # per path; each the mean of CALLS_PER_SAMPLE
 CALLS_PER_SAMPLE = 10
+B_TRAIN, T_TRAIN = 64, 32000         # stream_v5e8 step: B·S signals, 2 s at 16 kHz
+TRAIN_STEPS = 6
+STEP_SAMPLES = 12                    # timed train steps per DSP path
 
 
 def emit(phase: str, **kw) -> None:
@@ -68,7 +81,7 @@ def check(cond: bool, msg: str) -> None:
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
-    return float((a - b).abs().max())
+    return float((a - b).detach().abs().max())
 
 
 def mixtures(rng, b: int, t: int) -> np.ndarray:
@@ -240,6 +253,119 @@ def phase_main_path(rng, dev, tmp: Path):
     return cfg, g, batch, counts
 
 
+def k3_case(rng, dev, b, t, n_fft, hop):
+    """Forward and gradient of the kernel path against the plain path on the
+    STFT planes of noise; returns the errors and the tensors for timing."""
+    x = torch.from_numpy(rng.standard_normal((b, t), np.float32)).to(dev)
+    spec = k1.stft_features_reference(x, n_fft, hop)["spec"]
+    re = spec.real.contiguous().requires_grad_()
+    im = spec.imag.contiguous().requires_grad_()
+    y = k3.istft_kernel(re, im, n_fft, hop)
+    ref = k3.istft_reference(re, im, n_fft, hop)
+    dy = torch.randn_like(ref)
+    g_ker = torch.autograd.grad(y, (re, im), dy, retain_graph=True)
+    g_ref = torch.autograd.grad(ref, (re, im), dy, retain_graph=True)
+    torch.cuda.synchronize()
+    check(y.shape == ref.shape, f"k3 shape {y.shape} != {ref.shape}")
+    inner = (y - ref)[..., hop:-hop].abs()
+    ok_in = bool((inner <= 2e-4 + 1e-3 * ref[..., hop:-hop].abs()).all())
+    full, tol_full = max_err(y, ref), 1e-3 * float(ref.abs().max())
+    check(ok_in, f"k3 forward interior at n_fft {n_fft}: max err "
+          f"{float(inner.max())} over atol 2e-4 rtol 1e-3")
+    check(full <= tol_full, f"k3 forward full length: {full} > {tol_full}")
+    grad_errs = []
+    for a, r in zip(g_ker, g_ref):
+        scale = float(r.abs().max())
+        ok = bool(((a - r).abs() <= 5e-4 * scale + 1e-3 * r.abs()).all())
+        grad_errs.append(max_err(a, r))
+        check(ok, f"k3 backward at n_fft {n_fft}: max err {grad_errs[-1]} "
+              f"over atol 5e-4*{scale} rtol 1e-3")
+    errs = {"forward_interior": float(inner.max()), "forward_full": full,
+            "grad_re": grad_errs[0], "grad_im": grad_errs[1]}
+    return errs, (re, im, y, ref, dy)
+
+
+def phase_k3(rng, dev):
+    errs, tensors = k3_case(rng, dev, B_TRAIN, T_TRAIN, N_FFT, HOP)
+    f = tensors[0].shape[-2]
+    emit("k3", signals=B_TRAIN, frames=f, bins=N_FFT // 2 + 1, max_abs_err=errs,
+         tol="forward interior atol 2e-4 rtol 1e-3, full 1e-3*max|y|; "
+             "grad atol 5e-4*max|grad| rtol 1e-3")
+    for n_fft, hop in ((256, 64), (2048, 512)):
+        e, _ = k3_case(rng, dev, 3, 8000, n_fft, hop)
+        emit("k3", n_fft=n_fft, hop=hop, signals=3, max_abs_err=e)
+    return errs, tensors
+
+
+def phase_train(dev):
+    cfg = config.get_config("stream_v5e8")
+    exp = Experiment(cfg, device=dev)
+    g0 = [p.detach().clone() for p in exp.state.g.parameters()]
+    d0 = [p.detach().clone() for p in exp.state.d.parameters()]
+    k1.launches = k3.launches = k3.bwd_launches = 0
+    t0 = time.perf_counter()
+    last = exp.train(num_steps=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"stft_features": k1.launches, "istft": k3.launches,
+              "istft_bwd": k3.bwd_launches}
+    check(min(counts.values()) > 0, f"a kernel of the train step never "
+          f"launched: {counts}")
+    check(all(np.isfinite(v) for v in last.values()), f"non-finite: {last}")
+    moved = {"g": max(max_err(a, p) for a, p in zip(g0, exp.state.g.parameters())),
+             "d": max(max_err(a, p) for a, p in zip(d0, exp.state.d.parameters()))}
+    check(min(moved.values()) > 0, f"a net did not move: {moved}")
+
+    # One step from one state and one batch on each DSP path.
+    step = exp._train_step
+    out = {}
+    for path in (None, "reference"):
+        state = copy.deepcopy(exp.state)
+        with dispatch.force_backend(path):
+            _, m = step(state, exp._bank, exp._train_seed)
+        out[path or "kernel"] = {k: float(v) for k, v in m.items()}
+    gaps = {}
+    for key in ("g_recon", "d_loss"):
+        a, b = out["kernel"][key], out["reference"][key]
+        # -SI-SDR is in dB and may sit near 0, so the relative gap has a
+        # floor of 1 (0.01 dB); d_loss is O(1).
+        gaps[key] = abs(a - b) / max(abs(b), 1.0)
+        check(gaps[key] <= 1e-2, f"train step {key}: kernel {a} vs plain {b}")
+    ev = exp.evaluate(num_batches=2)
+    check(all(np.isfinite(v) for v in ev.values()), f"eval non-finite: {ev}")
+    rc = cli.main(["train", "--config", "wsj0_logmel", "--steps", "2"])
+    check(rc == 0, f"cli train wsj0_logmel exited {rc}")
+    emit("train", config="stream_v5e8", batch=cfg.train.batch_size,
+         segment_samples=cfg.segment_samples, steps=TRAIN_STEPS,
+         g_params=sum(p.numel() for p in exp.state.g.parameters()),
+         d_params=sum(p.numel() for p in exp.state.d.parameters()),
+         wall_s=wall, last=last, launches=counts, moved_max_abs=moved,
+         one_step={"kernel": out["kernel"], "plain": out["reference"]},
+         gap=gaps, tol="|kernel - plain| <= 1e-2 * max(|plain|, 1)",
+         eval=ev, cli_wsj0_logmel_rc=rc)
+    return exp, counts
+
+
+def time_steps(exp):
+    """Median wall ms of one train step (synchronized) on each DSP path,
+    samples alternating kernel, plain, plain, kernel."""
+    def one(path):
+        with dispatch.force_backend(path):
+            t0 = time.perf_counter()
+            exp._train_step(exp.state, exp._bank, exp._train_seed)
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    for _ in range(2):
+        one(None)
+        one("reference")
+    times = {None: [], "reference": []}
+    for i in range(2 * STEP_SAMPLES):
+        path = (None, "reference", "reference", None)[i % 4]
+        times[path].append(one(path))
+    return statistics.median(times[None]), statistics.median(times["reference"])
+
+
 def time_pair(plain, kernel, samples=TIMING_SAMPLES, calls=CALLS_PER_SAMPLE):
     """Median per-call ms of each: CUDA events around `calls` back-to-back
     calls make one sample; samples alternate plain, kernel, kernel, plain."""
@@ -261,7 +387,7 @@ def time_pair(plain, kernel, samples=TIMING_SAMPLES, calls=CALLS_PER_SAMPLE):
     return statistics.median(times["plain"]), statistics.median(times["kernel"])
 
 
-def phase_timing(rng, dev, x, spec, cfg, g, batch):
+def phase_timing(rng, dev, x, spec, cfg, g, batch, k3_tensors, exp):
     mel = torch.from_numpy(mel_filterbank(N_MELS, N_FFT // 2 + 1, SR)).to(dev)
     emits = ("spec", "logmel")
     k1_plain, k1_ms = time_pair(
@@ -281,6 +407,16 @@ def phase_timing(rng, dev, x, spec, cfg, g, batch):
 
     sep_plain, sep_kernel = time_pair(run_sep("reference"), run_sep(None))
     audio_s = batch.shape[0] * batch.shape[1] / SR
+    re, im, y, ref, dy = k3_tensors
+    with torch.no_grad():
+        k3_plain, k3_ms = time_pair(
+            lambda: k3.istft_reference(re, im, N_FFT, HOP),
+            lambda: k3.istft_kernel(re, im, N_FFT, HOP))
+    bwd_plain, bwd_ms = time_pair(
+        lambda: torch.autograd.grad(ref, (re, im), dy, retain_graph=True),
+        lambda: torch.autograd.grad(y, (re, im), dy, retain_graph=True))
+    step_kernel, step_plain = time_steps(exp)
+    mix_s = exp.cfg.train.batch_size * exp.cfg.segment_samples / exp.cfg.dsp.sample_rate
     emit("timing", shape=[B_MAIN, T_MAIN], samples=TIMING_SAMPLES,
          calls_per_sample=CALLS_PER_SAMPLE,
          stft_features_ms={"kernel": k1_ms, "plain": k1_plain},
@@ -288,8 +424,17 @@ def phase_timing(rng, dev, x, spec, cfg, g, batch):
          separate_ms={"kernel": sep_kernel, "plain": sep_plain},
          separate_mix_sec_per_sec={"kernel": audio_s / sep_kernel * 1e3,
                                    "plain": audio_s / sep_plain * 1e3},
-         note="separate() includes host->device copy and the result's copy back")
-    return {"stft_features": (k1_ms, k1_plain), "masked_istft": (k2_ms, k2_plain)}
+         istft_shape=list(re.shape),
+         istft_ms={"kernel": k3_ms, "plain": k3_plain},
+         istft_bwd_ms={"kernel": bwd_ms, "plain": bwd_plain},
+         train_step_samples=STEP_SAMPLES,
+         train_step_ms={"kernel": step_kernel, "plain": step_plain},
+         train_mix_sec_per_sec={"kernel": mix_s / step_kernel * 1e3,
+                                "plain": mix_s / step_plain * 1e3},
+         note="separate() includes host->device copy and the result's copy "
+              "back; a train step is timed on the host clock to a synchronize")
+    return {"stft_features": (k1_ms, k1_plain), "masked_istft": (k2_ms, k2_plain),
+            "istft": (k3_ms, k3_plain), "istft_bwd": (bwd_ms, bwd_plain)}
 
 
 def main() -> int:
@@ -301,7 +446,9 @@ def main() -> int:
     k2_err = phase_k2(rng, dev, x, spec)
     with tempfile.TemporaryDirectory() as tmp:
         cfg, g, batch, counts = phase_main_path(rng, dev, Path(tmp))
-    times = phase_timing(rng, dev, x, spec, cfg, g, batch)
+    k3_errs, k3_tensors = phase_k3(rng, dev)
+    exp, train_counts = phase_train(dev)
+    times = phase_timing(rng, dev, x, spec, cfg, g, batch, k3_tensors, exp)
     kernels = [
         {"name": "stft_features", "route": "cuda",
          "source": "gan_sass_tf_tpu_torch/ops/csrc/stft_features.cu",
@@ -313,6 +460,17 @@ def main() -> int:
          "replaces": "gan_sass_tf_tpu/ops/pallas_istft.py:175",
          "launches": counts["masked_istft"], "max_abs_err": k2_err,
          "ms": times["masked_istft"][0], "plain_ms": times["masked_istft"][1]},
+        {"name": "istft", "route": "cuda",
+         "source": "gan_sass_tf_tpu_torch/ops/csrc/masked_istft.cu",
+         "replaces": "gan_sass_tf_tpu/ops/pallas_istft.py:71",
+         "launches": train_counts["istft"], "max_abs_err": k3_errs["forward_full"],
+         "ms": times["istft"][0], "plain_ms": times["istft"][1]},
+        {"name": "istft_bwd", "route": "cuda",
+         "source": "gan_sass_tf_tpu_torch/ops/csrc/stft_features.cu",
+         "replaces": "gan_sass_tf_tpu/ops/pallas_istft.py:151",
+         "launches": train_counts["istft_bwd"],
+         "max_abs_err": max(k3_errs["grad_re"], k3_errs["grad_im"]),
+         "ms": times["istft_bwd"][0], "plain_ms": times["istft_bwd"][1]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

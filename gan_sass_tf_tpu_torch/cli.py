@@ -1,12 +1,17 @@
 """Command line for the PyTorch port.
 
     python -m gan_sass_tf_tpu_torch.cli configs
+    python -m gan_sass_tf_tpu_torch.cli train --config stream_v5e8 --steps 20
+    python -m gan_sass_tf_tpu_torch.cli eval --config stream_v5e8 --batches 4
     python -m gan_sass_tf_tpu_torch.cli separate --config wsj0_logmel \
         --params g.npz --input mix.wav --output-dir out/ [--device cuda]
 
-`--params` is a flat `.npz` of flax generator params ("/"-joined paths,
-see models/convert.py).  `--device` defaults to cuda and fails when no GPU
-is visible; the CPU runs only when asked for with `--device cpu`.
+`train` runs the alternating G/D loop from a seeded init; `eval` scores a
+seeded-init generator on held-out mixtures (checkpoints, and with them
+`--workdir`, are not ported yet).  `--params` is a flat `.npz` of flax
+generator params ("/"-joined paths, see models/convert.py).  `--device`
+defaults to cuda and fails when no GPU is visible; the CPU runs only when
+asked for with `--device cpu`.
 """
 
 from __future__ import annotations
@@ -48,19 +53,50 @@ def _apply_overrides(cfg, overrides):
     })
 
 
+def _add_common(p):
+    p.add_argument("--config", required=True, help="preset name")
+    p.add_argument("--device", default="cuda", help="torch device")
+    p.add_argument("--set", action="append", default=[], metavar="SEC.KEY=VAL",
+                   help="config override, e.g. train.batch_size=8")
+
+
+def _run_experiment(args, cfg, device) -> int:
+    from gan_sass_tf_tpu_torch.train import Experiment
+
+    exp = Experiment(cfg, workdir=args.workdir, device=device)
+    if args.cmd == "eval":
+        for k, v in exp.evaluate(num_batches=args.batches).items():
+            print(f"{k}: {v:.3f}")
+        return 0
+
+    def log(step, m):
+        print(f"step {step}: g={m['g_loss']:.4f} d={m['d_loss']:.4f} "
+              f"recon={m['g_recon']:.4f} "
+              f"thr={m['mixture_sec_per_sec']:.1f} mix-s/s", flush=True)
+
+    exp.train(num_steps=args.steps, log_fn=log)
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="gan_sass_tf_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
+    p_train = sub.add_parser("train", help="run the alternating G/D training loop")
+    p_train.add_argument("--steps", type=int, default=None)
+    p_train.add_argument("--profile-steps", default=None, metavar="A:B",
+                         help="profile steps [A, B): not ported yet (raises)")
+    p_eval = sub.add_parser("eval", help="SI-SDR evaluation on held-out mixtures")
+    p_eval.add_argument("--batches", type=int, default=8)
+    for p in (p_train, p_eval):
+        _add_common(p)
+        p.add_argument("--workdir", default=None,
+                       help="run directory: not ported yet (raises)")
     p_sep = sub.add_parser("separate", help="separate a mixture wav into sources")
-    p_sep.add_argument("--config", required=True, help="preset name")
+    _add_common(p_sep)
     p_sep.add_argument("--params", required=True,
                        help="flax generator params as a flat .npz")
     p_sep.add_argument("--input", required=True, help="mixture wav path")
     p_sep.add_argument("--output-dir", required=True)
-    p_sep.add_argument("--device", default="cuda", help="torch device")
-    p_sep.add_argument("--set", action="append", default=[],
-                       metavar="SEC.KEY=VAL",
-                       help="config override, e.g. model.compute_dtype=float32")
     sub.add_parser("configs", help="list available config presets")
     args = parser.parse_args(argv)
 
@@ -69,6 +105,10 @@ def main(argv=None) -> int:
             print(name)
         return 0
 
+    if getattr(args, "profile_steps", None):
+        raise NotImplementedError(
+            "--profile-steps is not ported yet (ROADMAP.md, 'Modules to "
+            "port', item 10: torch.profiler hooks)")
     import torch
 
     from gan_sass_tf_tpu_torch.infer import separate_file
@@ -80,6 +120,8 @@ def main(argv=None) -> int:
               "(pass --device cpu to run on the CPU)", file=sys.stderr)
         return 1
     cfg = _apply_overrides(config_lib.get_config(args.config), args.set)
+    if args.cmd in ("train", "eval"):
+        return _run_experiment(args, cfg, device)
     g = load_generator(cfg, load_flax_npz(args.params), device)
     for p in separate_file(g, cfg, args.input, args.output_dir, device):
         print(p)

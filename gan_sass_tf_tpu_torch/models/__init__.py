@@ -1,17 +1,24 @@
-"""Separation generator (conv U-Net) and its flax weight converter."""
+"""Separation generator (conv U-Net), spectral-norm conv discriminator, and
+their flax weight converters."""
 
 from gan_sass_tf_tpu_torch.models.convert import (
+    convert_discriminator_variables,
     convert_generator_params,
+    discriminator_variables_to_flax,
     generator_params_to_flax,
+    load_discriminator,
     load_flax_npz,
     load_generator,
     save_flax_npz,
 )
+from gan_sass_tf_tpu_torch.models.discriminator import ConvDiscriminator
 from gan_sass_tf_tpu_torch.models.generator import ConvUNetGenerator, MaskHead
-from gan_sass_tf_tpu_torch.models.registry import build_generator
+from gan_sass_tf_tpu_torch.models.registry import build_discriminator, build_generator
 
 __all__ = [
-    "ConvUNetGenerator", "MaskHead", "build_generator",
-    "convert_generator_params", "generator_params_to_flax",
-    "load_flax_npz", "load_generator", "save_flax_npz",
+    "ConvUNetGenerator", "MaskHead", "ConvDiscriminator", "build_generator",
+    "build_discriminator", "convert_generator_params",
+    "generator_params_to_flax", "convert_discriminator_variables",
+    "discriminator_variables_to_flax", "load_flax_npz", "load_generator",
+    "load_discriminator", "save_flax_npz",
 ]

@@ -14,6 +14,8 @@ the JAX package's.  Flax semantics kept exactly:
     the per-axis padding of `_ct_padding`, then a crop to the skip.
   * `compute_dtype` casts activations and weights for every conv and the
     mel warp; params stay f32 and masks leave in f32.
+  * `crop_nyquist` (`g_crop_nyquist`) drops the Nyquist bin of linear-grid
+    features before the net and repeats the last mask column after it.
 """
 
 from __future__ import annotations
@@ -115,9 +117,13 @@ class ConvUNetGenerator(nn.Module):
                  channels: Sequence[int] = (32, 64, 128), leak: float = 0.2,
                  dropout: float = 0.0, dtype: torch.dtype = torch.float32,
                  time_stride: bool = True, decoder_slim: float = 1.0,
-                 sample_rate: float = 0.0):
+                 sample_rate: float = 0.0, crop_nyquist: bool = False):
         super().__init__()
         self.leak, self.dropout, self.dtype = leak, dropout, dtype
+        self.n_bins = n_bins
+        # g_crop_nyquist: run the net on the even K-1 bin grid and copy the
+        # top bin's mask from its neighbour (linear-grid features, odd K).
+        self.crop = crop_nyquist and feature_dim == n_bins and n_bins % 2 == 1
         self.down = (2, 2) if time_stride else (1, 2)
         convs, deconvs = [], []
         cin = 1
@@ -142,9 +148,12 @@ class ConvUNetGenerator(nn.Module):
         if train and self.dropout > 0:
             raise NotImplementedError(
                 "dropout at train time is not ported yet (ROADMAP.md, "
-                "'Modules to port': train state and step)")
+                "'Modules to port', item 9: remaining model options)")
         act = lambda v: F.leaky_relu(v, self.leak)
         dt, L = self.dtype, self.n_levels
+        crop = self.crop and feats.shape[2] == self.n_bins
+        if crop:
+            feats = feats[:, :, :-1]
         x = _standardize(feats.float(), dims=(1, 2))[:, None].to(dt)
         skips = []
         for lvl in range(L):
@@ -160,7 +169,10 @@ class ConvUNetGenerator(nn.Module):
             x = act(x[:, :, : skip.shape[2], : skip.shape[3]])
             x = torch.cat([x, skip], dim=1)
             x = act(_conv(self.convs[2 * L + 1 + lvl], x, dt))
-        return self.head(x, dt)
+        masks = self.head(x, dt)
+        if crop:           # Nyquist-bin mask := its neighbour's (axis 3 = bins)
+            masks = torch.cat([masks, masks[:, :, :, -1:]], dim=3)
+        return masks
 
 
 def init_params_(module: nn.Module, generator: torch.Generator) -> nn.Module:

@@ -1,7 +1,7 @@
-"""Generator registry: ModelConfig names -> PyTorch modules.
+"""Model registry: ModelConfig names -> PyTorch modules.
 
-Port of `gan_sass_tf_tpu/models/registry.py` for what the one-shot
-separation slice runs.  Options that are not ported raise
+Port of `gan_sass_tf_tpu/models/registry.py` for what the ported slices
+(one-shot separation and the train step) run.  Options that are not ported raise
 NotImplementedError naming the ROADMAP item that brings them; none falls
 through to another path.
 """
@@ -10,10 +10,11 @@ from __future__ import annotations
 
 import torch
 
+from gan_sass_tf_tpu_torch.models import discriminator as _d
 from gan_sass_tf_tpu_torch.models.generator import ConvUNetGenerator, init_params_
 
-_LATER = ("is not ported yet (ROADMAP.md, 'Modules to port': remaining "
-          "presets and model options)")
+_LATER = ("is not ported yet (ROADMAP.md, 'Modules to port', item 9: "
+          "remaining presets and model options)")
 
 
 def _unported(what: str):
@@ -28,8 +29,6 @@ def _check_conv(cfg) -> None:
         _unported(f"g_dec_l0={m.g_dec_l0!r}")
     if m.g_phase_ct:
         _unported("g_phase_ct")
-    if m.g_crop_nyquist:
-        _unported("g_crop_nyquist")
     if d.feature_dim != d.n_bins and m.g_head_mode != "interp":
         _unported(f"g_head_mode={m.g_head_mode!r} on the mel grid")
     if d.feature_dim == d.n_bins and m.g_head_mode in ("film", "fold"):
@@ -57,6 +56,28 @@ def build_generator(cfg, device, seed: int = 0) -> ConvUNetGenerator:
         time_stride=cfg.model.g_time_stride,
         decoder_slim=cfg.model.g_decoder_slim,
         sample_rate=float(cfg.dsp.sample_rate),
+        crop_nyquist=cfg.model.g_crop_nyquist,
     )
     init_params_(g, torch.Generator().manual_seed(seed))
     return g.to(device).eval()
+
+
+def build_discriminator(cfg, device, seed: int = 1) -> _d.ConvDiscriminator:
+    """cfg: full Config.  A seeded-init spectral-norm conv D on `device`."""
+    m = cfg.model
+    if m.discriminator != "conv":
+        if m.discriminator == "patch":
+            _unported("discriminator 'patch'")
+        raise KeyError(f"unknown discriminator {m.discriminator!r}; have ['conv']")
+    if m.d_norm != "spectral":
+        _unported(f"d_norm={m.d_norm!r}")
+    if m.d_input_fold != 1:
+        _unported(f"d_input_fold={m.d_input_fold}")
+    if m.dropout > 0:
+        _unported("dropout in D")
+    d = _d.ConvDiscriminator(
+        channels=tuple(m.d_channels), leak=m.leak,
+        stem_stride=tuple(m.d_stem_stride),
+        dtype=getattr(torch, m.compute_dtype))
+    _d.init_params_(d, torch.Generator().manual_seed(seed))
+    return d.to(device)

@@ -37,6 +37,9 @@ _SIGNATURES = {
     # spec, masks, ci, si, inv_env, out, B, S, F, n_fft, hop, K,
     # complex_mask, threads, smem_bytes, stream, device
     "masked_istft_launch": [_P] * 6 + [_I] * 7 + [_I, _I, _P, _I],
+    # re, im, ci, si, inv_env, out, B, F, n_fft, hop, K, threads,
+    # smem_bytes, stream, device
+    "istft_launch": [_P] * 6 + [_I] * 5 + [_I, _I, _P, _I],
     "stft_features_tile_frames": [],
     "masked_istft_tile_rows": [],
 }

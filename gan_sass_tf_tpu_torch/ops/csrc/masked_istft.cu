@@ -1,29 +1,38 @@
-// Fused mask-apply + inverse real DFT + windowed overlap-add + least-squares
-// envelope for Hopper (sm_90a): mixture STFT and per-source masks in,
-// separated waveforms out.  The masked spectra never reach device memory.
+// Inverse real DFT + windowed overlap-add + least-squares envelope for
+// Hopper (sm_90a), in two instantiations of one kernel body:
 //
-// Replaces: gan_sass_tf_tpu/ops/pallas_istft.py, _masked_istft_kernel
-// (entry masked_istft_pallas).
+//   K2  mixture STFT and per-source masks in, separated waveforms out; the
+//       masked spectra never reach device memory.
+//       Replaces: gan_sass_tf_tpu/ops/pallas_istft.py, _masked_istft_kernel
+//       (entry masked_istft_pallas).
+//   K3  real and imaginary f32 planes in, waveforms out, no mask: the
+//       forward of the train step's differentiable iSTFT (its backward runs
+//       on the STFT-features kernel, see ops/istft.py).
+//       Replaces: gan_sass_tf_tpu/ops/pallas_istft.py, _istft_kernel
+//       (_istft_ri_fwd_impl under the _istft_ri custom VJP, entry
+//       istft_pallas).
 //
-// What bounds it on this card: 4·K·n_fft f32 flops per (source, frame) —
-// 3.1 GFLOP at the wsj0_logmel batch (B=16, S=2, F=184) against ~16 MB of
+// What bounds it on this card: 4·K·n_fft f32 flops per (signal, frame) —
+// 3.1 GFLOP for K2 at the wsj0_logmel batch (B=16, S=2, F=184) and 8.3 GFLOP
+// for K3 at the stream_v5e8 train step (B·S=64, F=247), against 16-33 MB of
 // spectra, masks, matrices and output, so it is compute bound on the CUDA
 // cores (f32; TF32 would break the 2e-4 reconstruction tolerance).  Each
-// FMA pair reads one float2 of masked spectrum from shared memory (a warp
+// FMA pair reads one float2 of spectrum from shared memory (a warp
 // broadcast) and, per bin, the synthesis matrices from L2 (coalesced
 // across output samples): shared-memory issue is its limit.
 //
-// Design: the grid is (tiles of kRows output hop-rows) x (batch·source).
-// Output row q holds chunk j of frame q - j for j < r = n_fft/hop, so a tile
-// of rows [q0, q0+kRows) needs frames q0-r+1 .. q0+kRows-1: a halo of r-1
-// frames.  The block masks those frames' spectra into shared memory, bin-
-// major so that the kRows frames one thread reads for a bin sit at fixed
-// offsets from one base (1.6x faster than frame-major on the card), then
-// each thread owns one sample column of the tile and sums every frame's
-// contribution in registers: no atomics, nothing staged per whole signal,
-// so the input length has no cap.  The synthesis window and hermitian bin
-// weights are folded into Ci/Si (built on the host in float64); the clamped
-// inverse envelope multiplies on the way out (null = env "none").
+// Design: the grid is (tiles of kRows output hop-rows) x (signals).  Output
+// row q holds chunk j of frame q - j for j < r = n_fft/hop, so a tile of
+// rows [q0, q0+kRows) needs frames q0-r+1 .. q0+kRows-1: a halo of r-1
+// frames.  The block stages those frames' (masked) spectra in shared
+// memory, bin-major so that the kRows frames one thread reads for a bin sit
+// at fixed offsets from one base (1.6x faster than frame-major on the
+// card), then each thread owns one sample column of the tile and sums every
+// frame's contribution in registers: no atomics, nothing staged per whole
+// signal, so the input length has no cap.  The synthesis window and
+// hermitian bin weights are folded into Ci/Si (built on the host in
+// float64); the clamped inverse envelope multiplies on the way out (null =
+// env "none").  Only the staging loop differs between K2 and K3.
 
 #include <cuda_runtime.h>
 
@@ -31,35 +40,48 @@ namespace {
 
 constexpr int kRows = 16;   // output hop-rows per block
 
-__global__ void masked_istft_kernel(
-    const float2* __restrict__ spec,   // (B, F, K) complex as (re, im)
-    const float* __restrict__ masks,   // (B, S, F, K) or (B, S, F, K, 2)
+// Where a block's spectrum comes from.
+enum SpecInput : int {
+  kPlanes = 0,         // K3: re and im planes, (B, F, K) each, no mask
+  kMagnitudeMask = 1,  // K2: complex spectrum (B, F, K) x masks (B, S, F, K)
+  kComplexMask = 2,    // K2: complex spectrum x masks (B, S, F, K, 2)
+};
+
+// a: kPlanes -> re plane; otherwise the complex spectrum as (re, im) pairs.
+// b: kPlanes -> im plane; otherwise the masks.
+template <int kInput>
+__global__ void istft_ola_kernel(
+    const float* __restrict__ a,
+    const float* __restrict__ b,
     const float* __restrict__ ci,      // (K, n_fft)
     const float* __restrict__ si,      // (K, n_fft)
     const float* __restrict__ inv_env, // (nrows * hop) or null
-    float* __restrict__ out,           // (B, S, nrows * hop)
-    int S, int F, int n_fft, int hop, int K, int complex_mask) {
-  extern __shared__ float2 ms[];       // (K, kRows + r - 1) masked spectra
+    float* __restrict__ out,           // (signals, nrows * hop)
+    int S, int F, int n_fft, int hop, int K) {
+  extern __shared__ float2 ms[];       // (K, kRows + r - 1) staged spectra
   const int r = n_fft / hop;
   const int nrows = F + r - 1;
   const int nfr = kRows + r - 1;
-  const int bs = blockIdx.y;
-  const int b = bs / S;
+  const int bs = blockIdx.y;           // signal: batch·source (S = 1 for K3)
   const int q0 = blockIdx.x * kRows;
   const int fbase = q0 - r + 1;        // frame of local index 0
-  const float2* sp = spec + (size_t)b * F * K;
   for (int i = threadIdx.x; i < nfr * K; i += blockDim.x) {
     const int f = fbase + i / K, k = i % K;
     float2 v = make_float2(0.f, 0.f);
     if (f >= 0 && f < F) {
-      const float2 X = sp[(size_t)f * K + k];
-      const size_t mi = ((size_t)bs * F + f) * K + k;
-      if (complex_mask) {
-        const float2 m = reinterpret_cast<const float2*>(masks)[mi];
-        v = make_float2(m.x * X.x - m.y * X.y, m.x * X.y + m.y * X.x);
+      const size_t o = ((size_t)bs * F + f) * K + k;
+      if (kInput == kPlanes) {
+        v = make_float2(a[o], b[o]);
       } else {
-        const float m = masks[mi];
-        v = make_float2(m * X.x, m * X.y);
+        const float2 X =
+            reinterpret_cast<const float2*>(a)[((size_t)(bs / S) * F + f) * K + k];
+        if (kInput == kComplexMask) {
+          const float2 m = reinterpret_cast<const float2*>(b)[o];
+          v = make_float2(m.x * X.x - m.y * X.y, m.x * X.y + m.y * X.x);
+        } else {
+          const float m = b[o];
+          v = make_float2(m * X.x, m * X.y);
+        }
       }
     }
     ms[(size_t)k * nfr + i / K] = v;   // bin-major: a row run is contiguous
@@ -96,27 +118,49 @@ __global__ void masked_istft_kernel(
   }
 }
 
+template <int kInput>
+int launch(const void* a, const void* b, const void* ci, const void* si,
+           const void* inv_env, void* out, int signals, int S, int F,
+           int n_fft, int hop, int K, int threads, int smem_bytes,
+           void* stream, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(istft_ola_kernel<kInput>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int nrows = F + n_fft / hop - 1;
+  dim3 grid((nrows + kRows - 1) / kRows, signals);
+  istft_ola_kernel<kInput><<<grid, threads, smem_bytes, (cudaStream_t)stream>>>(
+      (const float*)a, (const float*)b, (const float*)ci, (const float*)si,
+      (const float*)inv_env, (float*)out, S, F, n_fft, hop, K);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int masked_istft_tile_rows() { return kRows; }
 
-// Returns cudaGetLastError() after the launch (0 = launched).
+// K2.  Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int masked_istft_launch(
     const void* spec, const void* masks, const void* ci, const void* si,
     const void* inv_env, void* out,
     int B, int S, int F, int n_fft, int hop, int K, int complex_mask,
     int threads, int smem_bytes, void* stream, int device) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(masked_istft_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem_bytes);
-  if (err != cudaSuccess) return (int)err;
-  const int nrows = F + n_fft / hop - 1;
-  dim3 grid((nrows + kRows - 1) / kRows, B * S);
-  masked_istft_kernel<<<grid, threads, smem_bytes, (cudaStream_t)stream>>>(
-      (const float2*)spec, (const float*)masks, (const float*)ci,
-      (const float*)si, (const float*)inv_env, (float*)out,
-      S, F, n_fft, hop, K, complex_mask);
-  return (int)cudaGetLastError();
+  if (complex_mask)
+    return launch<kComplexMask>(spec, masks, ci, si, inv_env, out, B * S, S,
+                                F, n_fft, hop, K, threads, smem_bytes, stream,
+                                device);
+  return launch<kMagnitudeMask>(spec, masks, ci, si, inv_env, out, B * S, S, F,
+                                n_fft, hop, K, threads, smem_bytes, stream,
+                                device);
+}
+
+// K3.  Returns cudaGetLastError() after the launch (0 = launched).
+extern "C" int istft_launch(
+    const void* re, const void* im, const void* ci, const void* si,
+    const void* inv_env, void* out, int B, int F, int n_fft, int hop, int K,
+    int threads, int smem_bytes, void* stream, int device) {
+  return launch<kPlanes>(re, im, ci, si, inv_env, out, B, 1, F, n_fft, hop, K,
+                         threads, smem_bytes, stream, device);
 }

@@ -22,7 +22,9 @@ import torch
 import torch.nn.functional as F
 
 from gan_sass_tf_tpu_torch.dsp.features import mel_filterbank
+from gan_sass_tf_tpu_torch.dsp.stft import istft as _plain_istft
 from gan_sass_tf_tpu_torch.dsp.windows import encode_win_length
+from gan_sass_tf_tpu_torch.ops.istft import istft_kernel
 from gan_sass_tf_tpu_torch.ops.masked_istft import (
     masked_istft_kernel,
     masked_istft_reference,
@@ -96,3 +98,20 @@ def masked_istft(spec: torch.Tensor, masks: torch.Tensor, n_fft: int,
                                    n_fft, hop, window, mask_type, length)
     return masked_istft_reference(spec, masks, n_fft, hop, window, mask_type,
                                   length)
+
+
+def istft(spec: torch.Tensor, n_fft: int, hop: int, window: str = "hann",
+          length: Optional[int] = None,
+          win_length: Optional[int] = None) -> torch.Tensor:
+    """Differentiable least-squares iSTFT: complex (..., F, K) -> (..., T)
+    f32, the train step's waveform-domain path.  On a CUDA tensor the K3
+    kernel runs forward and the K1 kernel backward; on a CPU tensor the
+    plain `dsp.istft(norm="global")`, differentiated by torch autograd."""
+    window, pad = encode_win_length(window, n_fft, win_length)
+    if pad and length is None:
+        length = (spec.shape[-2] - 1) * hop + win_length
+    if _use_kernel(spec):
+        return istft_kernel(spec.real.float().contiguous(),
+                            spec.imag.float().contiguous(), n_fft, hop,
+                            window, length)
+    return _plain_istft(spec, n_fft, hop, window, length, norm="global")

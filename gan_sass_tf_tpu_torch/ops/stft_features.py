@@ -85,6 +85,10 @@ def stft_features_kernel(x: torch.Tensor, n_fft: int, hop: int,
     from gan_sass_tf_tpu_torch.ops import build
 
     _check_emit(emit, mel_matrix)
+    _require(not (x.requires_grad and torch.is_grad_enabled()),
+             "the kernel has no backward, and the input requires grad; a "
+             "gradient would stop here (detach it, or differentiate through "
+             "stft_features_reference)")
     _require(n_fft % hop == 0, f"needs hop | n_fft, got {n_fft}/{hop}")
     _require(x.dtype == torch.float32, f"needs float32, got {x.dtype}")
     _require(x.dim() >= 1, "needs a (..., T) waveform")

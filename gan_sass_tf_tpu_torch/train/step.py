@@ -1,15 +1,207 @@
-"""The separation graph: fused STFT features -> G masks -> fused masked
-iSTFT.  Port of `build_separate_fn` in `gan_sass_tf_tpu/train/step.py`;
-the train step joins it here in a later slice."""
+"""The alternating G/D train step, the separation graph and the eval step.
+
+Port of `gan_sass_tf_tpu/train/step.py` (`build_train_step`,
+`build_separate_fn`, `build_eval_step`) on one device.  PyTorch runs
+eagerly, so the step is a sequence of launches rather than one compiled
+program; its semantics are the reference's:
+
+  * sample the bank (or take the given sources) and mix;
+  * the fused STFT-features kernel emits what the step needs for the
+    mixture and the targets;
+  * ONE G forward per step: `apply_mask` then |·| when the step needs the
+    estimated spectrum (waveform or complex domains, complex masks), m·|X|
+    otherwise;
+  * PIT matching on a pooled bf16 grid, with no gradient;
+  * the (real, fake) D input is built once, detached, and reused across
+    `d_steps` D updates, each storing D's new spectral-norm state;
+  * the G loss is taken against the just-updated D: D's parameters get no
+    update from it, but its gradient flows through D to the estimate;
+  * instance noise, R1, the EMA shadow of G and the lr schedules as the
+    reference has them.
+
+Random numbers (bank picks, gains, noise) come from `data.counter_rng`,
+keyed by (seed, step, example), and not from the JAX package's threefry
+streams.
+"""
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from gan_sass_tf_tpu_torch.data.counter_rng import counter_normal
+from gan_sass_tf_tpu_torch.data.device_bank import sample_bank
+from gan_sass_tf_tpu_torch.data.mixer import mix_sources
+from gan_sass_tf_tpu_torch.dsp.masks import apply_mask
+from gan_sass_tf_tpu_torch.losses import (
+    align_to_perm,
+    gan_d_loss,
+    gan_g_loss,
+    pit_si_sdr,
+    pooled_match_perm,
+    recon_loss,
+    si_sdr,
+)
 from gan_sass_tf_tpu_torch.ops import dispatch as ops
+from gan_sass_tf_tpu_torch.train.state import TrainState
+
+STREAM_D_NOISE, STREAM_G_NOISE = 31, 61   # + 2·d_step; each uses two streams
+
+
+def instance_noise(x: torch.Tensor, std: float, seed: int, step: int,
+                   stream: int) -> torch.Tensor:
+    """x + std·N(0, 1), the noise drawn per row of x from the counters and
+    rounded to x's dtype, as the reference adds it."""
+    if std <= 0.0:
+        return x
+    rows = torch.arange(x.shape[0], device=x.device)
+    noise = counter_normal(seed, step, rows, stream, x[0].numel())
+    return x + std * noise.reshape(x.shape).to(x.dtype)
+
+
+def build_train_step(cfg, from_bank: bool = False, local_batch: int = 0
+                     ) -> Callable[[TrainState, torch.Tensor, int],
+                                   Tuple[TrainState, Dict[str, torch.Tensor]]]:
+    """Returns train_step(state, data, seed) -> (state, metrics).  `data` is
+    the (B, S, T) f32 sources or, with from_bank=True, the (S, N_bank, T)
+    bank on the device, sampled for `local_batch` examples.  The state is
+    updated in place and returned; the metrics are 0-d tensors on the
+    device (reading them synchronizes)."""
+    dcfg, lcfg, tcfg = cfg.dsp, cfg.loss, cfg.train
+    n_fft, hop = dcfg.n_fft, dcfg.hop_length
+    domains = tuple(lcfg.recon_domain.split("+"))
+    for dn in domains:
+        if dn not in ("spec", "mag", "wav", "cspec"):
+            raise ValueError(f"unknown recon domain {dn!r} "
+                             f"(in {lcfg.recon_domain!r})")
+    dweights = lcfg.recon_domain_weights or (1.0,) * len(domains)
+    if len(dweights) != len(domains):
+        raise ValueError(
+            f"recon_domain_weights has {len(dweights)} entries for "
+            f"{len(domains)} domains in {lcfg.recon_domain!r}")
+    need_est_spec = (any(dn in ("wav", "cspec") for dn in domains)
+                     or dcfg.mask_type != "magnitude")
+    mag_domain, cspec_domain = "mag" in domains, "cspec" in domains
+    wav_domain = "wav" in domains
+    mag_primary = domains[0] == "mag"          # PIT matches in the 1st domain
+    spec_kind = "l1" if lcfg.recon_loss == "si_sdr" else lcfg.recon_loss
+    d_dtype = getattr(torch, cfg.model.compute_dtype)
+    d_noise, r1_gamma = float(tcfg.d_instance_noise), float(tcfg.r1_gamma)
+    mix_emit = (("spec",) if need_est_spec else ()) + ("mag", "logmag") \
+        + (("logmel",) if dcfg.feature == "logmel" else ())
+    tgt_emit = (("mag", "logmag") if mag_domain else ("logmag",)) \
+        + (("spec",) if cspec_domain else ())
+
+    def d_input(mix_logmag, cand_logmag):
+        """(B, T, K) mixture + (B, S, T, K) candidates -> (B·S, T, K, 2)
+        pairs in the compute dtype."""
+        b, s = cand_logmag.shape[:2]
+        mix_b = mix_logmag[:, None].expand_as(cand_logmag)
+        x = torch.stack([mix_b.to(d_dtype), cand_logmag.to(d_dtype)], dim=-1)
+        return x.reshape(b * s, *x.shape[2:])
+
+    def d_update(state: TrainState, x_d, seed, step, di):
+        """One D step on the detached pair batch: loss, grads, optimizer,
+        and the new spectral-norm state stored."""
+        d = state.d
+        x = instance_noise(x_d, d_noise, seed, step, STREAM_D_NOISE + 2 * di)
+        loss = 0.0
+        if r1_gamma > 0.0:
+            # Zero-centred R1 on the real half, from the stored (pre-update)
+            # spectral-norm state; the D gradient goes through the input
+            # gradient (create_graph).
+            x_real = x[: x.shape[0] // 2].float().requires_grad_()
+            lg = d(x_real.to(x.dtype), update_stats=False)
+            (gx,) = torch.autograd.grad(lg.float().sum(), x_real, create_graph=True)
+            loss = 0.5 * r1_gamma * gx.square().sum(dim=tuple(range(1, gx.dim()))).mean()
+        real, fake = d(x, update_stats=True).chunk(2)
+        loss = gan_d_loss(real, fake, lcfg.gan_loss) + loss
+        grads = torch.autograd.grad(loss, state.d_opt.params)
+        state.d_opt.step(grads)
+        return loss.detach(), real.detach().mean(), fake.detach().mean()
+
+    def train_step(state: TrainState, data: torch.Tensor, seed: int):
+        step = state.step
+        sources = sample_bank(data, seed, step, local_batch) if from_bank else data
+        mixture, scaled = mix_sources(sources, seed, step, cfg.data)
+        mix_out = ops.stft_features(mixture, dcfg, emit=mix_emit)
+        spec_mix, mag_mix = mix_out.get("spec"), mix_out["mag"]
+        mix_logmag = mix_out["logmag"]
+        feats = mix_out["logmel"] if dcfg.feature == "logmel" else mix_logmag
+        tgt_out = ops.stft_features(scaled, dcfg, emit=tgt_emit)
+        tgt_logmag, tgt_mag, tgt_spec = (tgt_out["logmag"], tgt_out.get("mag"),
+                                         tgt_out.get("spec"))
+
+        # The one G forward of the step.
+        masks = state.g(feats, train=True)
+        if need_est_spec:
+            est_spec = apply_mask(spec_mix, masks, dcfg.mask_type)
+            est_mag = est_spec.abs()
+        else:          # magnitude masks: |m·X| = m·|X|, no complex product
+            est_spec = None
+            est_mag = masks * mag_mix[:, None]
+        est_logmag = torch.log(est_mag + dcfg.eps)
+        est_logmag_sg = est_logmag.detach()
+
+        if lcfg.use_pit:
+            with torch.no_grad():
+                match_kind = "l1" if lcfg.recon_loss == "si_sdr" else lcfg.recon_loss
+                perm = pooled_match_perm(
+                    est_mag.detach() if mag_primary else est_logmag_sg,
+                    tgt_mag if mag_primary else tgt_logmag, match_kind)
+            tgt_logmag = align_to_perm(tgt_logmag, perm)
+            tgt_mag = align_to_perm(tgt_mag, perm) if mag_domain else None
+            scaled = align_to_perm(scaled, perm) if wav_domain else scaled
+            tgt_spec = align_to_perm(tgt_spec, perm) if cspec_domain else None
+
+        # D updates on the pair batch built once, detached.
+        x_d = torch.cat([d_input(mix_logmag, tgt_logmag),
+                         d_input(mix_logmag, est_logmag_sg)])
+        for di in range(tcfg.d_steps):
+            d_loss, real_m, fake_m = d_update(state, x_d, seed, step, di)
+
+        def domain_rec(dname):
+            if dname == "wav":
+                est_r = ops.istft(est_spec, n_fft, hop, window=dcfg.window,
+                                  win_length=dcfg.win_length)
+                tgt_r = scaled[..., : est_r.shape[-1]]
+                if lcfg.recon_loss == "si_sdr":
+                    return -si_sdr(est_r, tgt_r).mean()
+                return recon_loss(est_r, tgt_r, lcfg.recon_loss)
+            if dname == "cspec":
+                return recon_loss(torch.view_as_real(est_spec),
+                                  torch.view_as_real(tgt_spec), spec_kind)
+            if dname == "mag":
+                return recon_loss(est_mag, tgt_mag, spec_kind)
+            return recon_loss(est_logmag, tgt_logmag, spec_kind)
+
+        rec = sum(w * domain_rec(dn) for w, dn in zip(dweights, domains))
+        # Adversarial term against the just-updated D, fresh noise.
+        fake_logits = state.d(
+            instance_noise(d_input(mix_logmag, est_logmag), d_noise, seed,
+                           step, STREAM_G_NOISE),
+            update_stats=False)
+        adv = gan_g_loss(fake_logits, lcfg.gan_loss)
+        g_loss = lcfg.adv_weight * adv + lcfg.recon_weight * rec
+        state.g_opt.step(torch.autograd.grad(g_loss, state.g_opt.params))
+
+        if state.g_ema is not None:
+            # Warm-up ramp min(decay, (1+t)/(10+t)), t the post-update count.
+            t = float(step + 1)
+            decay = min(tcfg.g_ema, (1.0 + t) / (10.0 + t))
+            with torch.no_grad():
+                for name, p in state.g.named_parameters():
+                    e = state.g_ema[name]
+                    e.copy_(e * decay + p * (1.0 - decay))
+        state.step = step + 1
+        metrics = {"d_loss": d_loss, "g_loss": g_loss.detach(),
+                   "g_adv": adv.detach(), "g_recon": rec.detach(),
+                   "d_real_logit": real_m, "d_fake_logit": fake_m}
+        return state, metrics
+
+    return train_step
 
 
 def build_separate_fn(cfg, g: torch.nn.Module) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -35,3 +227,24 @@ def build_separate_fn(cfg, g: torch.nn.Module) -> Callable[[torch.Tensor], torch
         return wavs[..., :t]
 
     return separate
+
+
+def build_eval_step(cfg, g: torch.nn.Module
+                    ) -> Callable[[torch.Tensor, int], Dict[str, torch.Tensor]]:
+    """eval_step(sources (B, S, T), seed) -> best-permutation SI-SDR of the
+    separated estimates, the mixture's own, and the improvement (batch
+    means, 0-d tensors)."""
+    separate = build_separate_fn(cfg, g)
+
+    @torch.inference_mode()
+    def eval_step(sources: torch.Tensor, seed: int) -> Dict[str, torch.Tensor]:
+        mixture, scaled = mix_sources(sources, seed, 0, cfg.data)
+        est = separate(mixture)
+        t = est.shape[-1]
+        tgt = scaled[..., :t]
+        sisdr = pit_si_sdr(est, tgt).mean()
+        baseline = pit_si_sdr(mixture[:, None, :t].expand_as(tgt), tgt).mean()
+        return {"si_sdr": sisdr, "si_sdr_mix": baseline,
+                "si_sdr_improvement": sisdr - baseline}
+
+    return eval_step

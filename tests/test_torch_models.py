@@ -1,5 +1,5 @@
-"""The port's generator against the flax ConvUNetGenerator on the same
-converted weights and seeded features, in f32 and bf16."""
+"""The port's generator and discriminator against the flax modules on the
+same converted weights and seeded inputs, in f32 and bf16."""
 
 import dataclasses
 
@@ -112,7 +112,7 @@ def test_full_width_wsj0_parameter_count():
     ("wsj0_logmel", {"model": {"g_dec_l0": "subpixel"}}),
     ("wsj0_logmel", {"model": {"g_phase_ct": True}}),
     ("wsj0_logmel", {"model": {"g_head_mode": "dense"}}),
-    ("stream_v5e8", {}),                                # g_crop_nyquist
+    ("stream_v5e8", {"model": {"g_head_mode": "fold"}}),
     ("2src_toy_cpu", {"model": {"g_head_mode": "film"}}),
 ])
 def test_unported_options_raise(name, change):
@@ -127,3 +127,114 @@ def test_dropout_at_train_time_raises():
     g = tmodels.build_generator(_small(dropout=0.1), "cpu")
     with pytest.raises(NotImplementedError, match="dropout"):
         g(torch.zeros(1, 8, 32), train=True)
+
+
+@pytest.mark.parametrize("n_frames", [28, 31])
+def test_generator_crop_nyquist_matches_flax(n_frames):
+    """stream_v5e8's g_crop_nyquist: G runs on K-1 bins and the Nyquist
+    mask repeats its neighbour's."""
+    cfg = _small("stream_v5e8", compute_dtype="float32")
+    assert cfg.model.g_crop_nyquist
+    ref, ours = _both(cfg, n_frames)
+    assert ours.shape == ref.shape == (2, 2, n_frames, 257)
+    np.testing.assert_allclose(ours, ref, atol=1e-4)
+    np.testing.assert_array_equal(ours[..., -1], ours[..., -2])
+
+
+def _d_cfg(dtype="float32", **model):
+    cfg = config.get_config("stream_v5e8")
+    return cfg.replace(model=dataclasses.replace(
+        cfg.model, d_channels=(8, 16), compute_dtype=dtype, **model))
+
+
+@pytest.mark.parametrize("dtype,atol", [("float32", 1e-4), ("bfloat16", 3e-2)])
+@pytest.mark.parametrize("update_stats", [False, True])
+def test_spectral_norm_discriminator_matches_flax(rng, dtype, atol, update_stats):
+    """Logits, and the power-iteration state (u, sigma) each call leaves
+    behind, against flax's SpectralNorm with converted params and stats."""
+    cfg = _d_cfg(dtype)
+    d = jmodels.build_discriminator(cfg)
+    x = rng.standard_normal((3, 21, 257, 2)).astype(np.float32)
+    variables = jax.tree.map(np.asarray, d.init(jax.random.PRNGKey(1), jnp.asarray(x)))
+    # A second call from the stored state, so u has moved off its init.
+    _, moved = d.apply(variables, jnp.asarray(x), train=True, mutable=["batch_stats"])
+    variables = {"params": variables["params"],
+                 "batch_stats": jax.tree.map(np.asarray, moved["batch_stats"])}
+    ref, new = d.apply(variables, jnp.asarray(x), train=update_stats,
+                       mutable=["batch_stats"])
+    td = tmodels.load_discriminator(cfg, variables, "cpu")
+    with torch.no_grad():
+        ours = td(torch.from_numpy(x), update_stats=update_stats)
+    assert ours.dtype == torch.float32 and ours.shape == (3,)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=atol)
+    after = tmodels.discriminator_variables_to_flax(td.state_dict())["batch_stats"]
+    want = jax.tree.map(np.asarray, new["batch_stats"])
+    for sn, leaves in want.items():
+        for name, v in leaves.items():
+            np.testing.assert_allclose(after[sn][name], v, atol=1e-6, err_msg=name)
+    if not update_stats:        # nothing stored: the state is what went in
+        for sn, leaves in variables["batch_stats"].items():
+            for name, v in leaves.items():
+                np.testing.assert_array_equal(after[sn][name], v)
+
+
+def test_spectral_norm_gradient_flows_through_sigma(rng):
+    """d logits / d W matches flax's (u, v constant, sigma differentiated)."""
+    cfg = _d_cfg()
+    d = jmodels.build_discriminator(cfg)
+    x = rng.standard_normal((2, 12, 257, 2)).astype(np.float32)
+    variables = jax.tree.map(np.asarray, d.init(jax.random.PRNGKey(2), jnp.asarray(x)))
+
+    def jloss(params):
+        out, _ = d.apply({"params": params,
+                          "batch_stats": variables["batch_stats"]},
+                         jnp.asarray(x), train=False, mutable=["batch_stats"])
+        return jnp.sum(out ** 2)
+
+    jgrad = jax.grad(jloss)(variables["params"])
+    td = tmodels.load_discriminator(cfg, variables, "cpu")
+    (td(torch.from_numpy(x)) ** 2).sum().backward()
+    np.testing.assert_allclose(td.convs[0].weight.grad.numpy(),
+                               np.asarray(jgrad["Conv_0"]["kernel"]).transpose(3, 2, 0, 1),
+                               atol=1e-6, rtol=1e-4)
+    np.testing.assert_allclose(td.head.weight.grad.numpy(),
+                               np.asarray(jgrad["Dense_0"]["kernel"]).T,
+                               atol=1e-6, rtol=1e-4)
+
+
+def test_discriminator_tree_names_and_roundtrip():
+    cfg = _d_cfg()
+    td = tmodels.build_discriminator(cfg, "cpu", seed=4)
+    flat = tmodels.discriminator_variables_to_flax(td.state_dict())
+    ref = jmodels.build_discriminator(cfg).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 16, 257, 2)))
+    shapes = lambda t: jax.tree.map(np.shape, t)      # noqa: E731
+    assert shapes(flat) == shapes(jax.tree.map(np.asarray, dict(ref)))
+    td2 = tmodels.load_discriminator(cfg, flat, "cpu")
+    for k, v in td.state_dict().items():
+        torch.testing.assert_close(td2.state_dict()[k], v, atol=0, rtol=0)
+
+
+def test_full_width_stream_v5e8_parameter_counts():
+    cfg = config.get_config("stream_v5e8")
+    g = tmodels.build_generator(cfg, "cpu")
+    d = tmodels.build_discriminator(cfg, "cpu")
+    jg = jax.eval_shape(jmodels.build_generator(cfg).init, jax.random.PRNGKey(0),
+                        jnp.zeros((1, 16, 257)))["params"]
+    jd = jax.eval_shape(jmodels.build_discriminator(cfg).init,
+                        jax.random.PRNGKey(0), jnp.zeros((1, 16, 257, 2)))["params"]
+    count = lambda t: sum(np.prod(a.shape) for a in jax.tree.leaves(t))  # noqa: E731
+    assert sum(p.numel() for p in g.parameters()) == count(jg)
+    assert sum(p.numel() for p in d.parameters()) == count(jd)
+
+
+@pytest.mark.parametrize("change", [
+    {"discriminator": "patch"},
+    {"d_norm": "batch"},
+    {"d_norm": "group"},
+    {"d_input_fold": 2},
+    {"dropout": 0.1},
+])
+def test_unported_discriminator_options_raise(change):
+    with pytest.raises(NotImplementedError, match="item 9"):
+        tmodels.build_discriminator(_d_cfg(**change), "cpu")

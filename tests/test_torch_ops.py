@@ -6,6 +6,7 @@ chip_smoke.py (this process has no GPU)."""
 
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,9 +15,11 @@ from jax.experimental.pallas import tpu as pltpu
 
 from gan_sass_tf_tpu import config
 from gan_sass_tf_tpu.dsp.features import mel_filterbank
-from gan_sass_tf_tpu.ops.pallas_istft import masked_istft_pallas
+from gan_sass_tf_tpu.ops.pallas_istft import istft_pallas, masked_istft_pallas
 from gan_sass_tf_tpu.ops.pallas_stft import stft_features_pallas
+from gan_sass_tf_tpu_torch.dsp import istft as plain_istft
 from gan_sass_tf_tpu_torch.ops import dispatch
+from gan_sass_tf_tpu_torch.ops import istft as k3
 from gan_sass_tf_tpu_torch.ops import masked_istft as k2
 from gan_sass_tf_tpu_torch.ops import stft_features as k1
 
@@ -143,6 +146,40 @@ def test_kernel_wrappers_reject_bad_input(rng):
     assert (k1.launches, k2.launches) == (0, 0)
 
 
+def test_istft_kernel_rejects_bad_input():
+    re = torch.zeros(1, 10, 257)
+    k3_cases = [
+        (lambda: k3.istft_kernel(re, re, 512, 100), "hop"),
+        (lambda: k3.istft_kernel(re.double(), re, 512, 128), "float32"),
+        (lambda: k3.istft_kernel(re, re[:, :9], 512, 128), "one shape"),
+        (lambda: k3.istft_kernel(re, re, 256, 64), "bins"),
+        (lambda: k3.istft_kernel(re.transpose(1, 2).contiguous().transpose(1, 2),
+                                 re, 512, 128), "contiguous"),
+        (lambda: k3._launch_forward(torch.zeros(0, 10, 257), re, 512, 128,
+                                    "hann"), "batch"),
+    ]
+    for fn, match in k3_cases:
+        with pytest.raises(ValueError, match=match):
+            fn()
+    assert (k3.launches, k3.bwd_launches) == (0, 0)
+
+
+def test_stft_features_kernel_refuses_a_gradient(rng):
+    """The K1 kernel has no backward: an input that requires grad raises
+    (before the device check, so it is reachable here) instead of cutting
+    the gradient without a word."""
+    dcfg = config.get_config("stream_v5e8").dsp
+    x = torch.from_numpy(_rand(rng, 1, 4000)).requires_grad_()
+    with dispatch.force_backend("kernel"):
+        with pytest.raises(ValueError, match="no backward"):
+            dispatch.stft_features(x, dcfg, emit=("spec",))
+        with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+            dispatch.stft_features(x, dcfg, emit=("spec",))
+    with pytest.raises(ValueError, match="CUDA"):
+        k1.stft_features_kernel(x.detach(), 512, 128)
+    assert k1.launches == 0
+
+
 def test_force_backend(rng):
     dcfg = config.get_config("wsj0_logmel").dsp
     x = torch.from_numpy(_rand(rng, 1, 4000))
@@ -164,4 +201,93 @@ def test_kernel_modules_import_without_toolchain():
     assert build._lib is None
     assert [p.name for p in build._sources()] == ["masked_istft.cu",
                                                    "stft_features.cu"]
+    assert "istft_launch" in build._SIGNATURES
     assert build.library_path().parent == build.BUILD_DIR
+
+
+ISTFT_GRIDS = [            # tests/test_pallas.py GRIDS
+    (256, 64, 4000),
+    (512, 128, 16384),
+    (512, 128, 24064),
+]
+
+
+def _planes(rng, b, t, n_fft, hop):
+    spec = k1.stft_features_reference(torch.from_numpy(_rand(rng, b, t)),
+                                      n_fft, hop)["spec"]
+    return np.array(spec.real.numpy()), np.array(spec.imag.numpy())
+
+
+@pytest.mark.parametrize("n_fft,hop,t", ISTFT_GRIDS)
+def test_istft_matches_pallas(rng, interpret, n_fft, hop, t):
+    """K3 forward: the plain version and the autograd wrapper's CPU path
+    against istft_pallas; interior atol 2e-4 / rtol 1e-3 as the reference's
+    own test, the full length within 1e-3·max|y|."""
+    re, im = _planes(rng, 2, t, n_fft, hop)
+    ref = np.asarray(istft_pallas(jax.lax.complex(jnp.asarray(re), jnp.asarray(im)),
+                                  n_fft, hop))
+    tre, tim = torch.from_numpy(re), torch.from_numpy(im)
+    for ours in (k3.istft_reference(tre, tim, n_fft, hop).numpy(),
+                 k3.istft_kernel(tre, tim, n_fft, hop).numpy()):
+        assert ours.shape == ref.shape
+        np.testing.assert_allclose(ours[:, hop:-hop], ref[:, hop:-hop],
+                                   atol=2e-4, rtol=1e-3)
+        assert np.abs(ours - ref).max() <= 1e-3 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("n_fft,hop,t", [(256, 64, 2048), (512, 128, 5000)])
+def test_istft_vjp_matches_pallas_custom_vjp(rng, interpret, n_fft, hop, t):
+    """K3 backward: the wrapper's gradient (the K1-form adjoint on the plain
+    STFT) and plain autograd, against jax.grad through istft_pallas's custom
+    VJP; atol 5e-4·scale, rtol 1e-3 (tests/test_pallas.py)."""
+    re, im = _planes(rng, 2, t, n_fft, hop)
+    f = re.shape[-2]
+    tgt = _rand(rng, 2, (f - 1) * hop + n_fft - 37)
+
+    def jloss(a, b):
+        y = istft_pallas(jax.lax.complex(a, b), n_fft, hop, length=tgt.shape[-1])
+        return jnp.mean((y - tgt) ** 2)
+
+    ref = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(re), jnp.asarray(im))
+    for fn in (k3.istft_kernel, k3.istft_reference):
+        tre = torch.from_numpy(re).requires_grad_()
+        tim = torch.from_numpy(im).requires_grad_()
+        y = fn(tre, tim, n_fft, hop, length=tgt.shape[-1])
+        ((y - torch.from_numpy(tgt)) ** 2).mean().backward()
+        for ours, want in zip((tre.grad, tim.grad), ref):
+            want = np.asarray(want)
+            scale = np.abs(want).max() + 1e-12
+            np.testing.assert_allclose(ours.numpy(), want, atol=5e-4 * scale,
+                                       rtol=1e-3)
+
+
+def test_k1_form_adjoint_equals_autograd_through_plain_istft(rng):
+    """The identity the card runs: dre, dim = a_k · STFT_w(dy·inv_env)."""
+    n_fft, hop = 512, 128
+    re, im = (torch.from_numpy(a).requires_grad_()
+              for a in _planes(rng, 3, 6000, n_fft, hop))
+    y = plain_istft(torch.complex(re, im), n_fft, hop, norm="global")
+    dy = torch.from_numpy(_rand(rng, *y.shape))
+    y.backward(dy)
+    dre, dim = k3.istft_adjoint(dy, n_fft, hop, "hann", re.shape[-2])
+    for ours, want in ((dre, re.grad), (dim, im.grad)):
+        scale = float(want.abs().max())
+        torch.testing.assert_close(ours, want, atol=1e-6 * scale, rtol=1e-5)
+
+
+def test_dispatch_istft_cpu_takes_plain_path(rng):
+    n_fft, hop = 512, 128
+    re, im = _planes(rng, 2, 5000, n_fft, hop)
+    spec = torch.complex(torch.from_numpy(re), torch.from_numpy(im))
+    spec = spec.reshape(1, 2, *spec.shape[-2:]).requires_grad_()
+    y = dispatch.istft(spec, n_fft, hop)
+    assert y.shape == (1, 2, (re.shape[-2] - 1) * hop + n_fft)
+    torch.testing.assert_close(y, plain_istft(spec, n_fft, hop, norm="global"))
+    y.square().sum().backward()
+    assert spec.grad is not None and torch.isfinite(spec.grad).all()
+    assert dispatch.istft(spec, n_fft, hop, win_length=400).shape[-1] == \
+        (re.shape[-2] - 1) * hop + 400
+    with dispatch.force_backend("kernel"):          # the wrapper's CPU path
+        torch.testing.assert_close(dispatch.istft(spec, n_fft, hop), y,
+                                   atol=1e-6, rtol=1e-5)
+    assert (k3.launches, k3.bwd_launches, k1.launches) == (0, 0, 0)

@@ -1,0 +1,306 @@
+"""The port's train step against the JAX package's `build_train_step`, from
+the same converted init on the same injected sources, plus the optimizer,
+the Experiment and CLI entry points.
+
+The configs are small `stream_v5e8` variants in f32 with no gain jitter, no
+noise sources and no instance noise, so the JAX step draws no random number
+that matters and nothing random has to match across the two frameworks.
+Each JAX step is compiled once per module (module-scoped fixtures)."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from gan_sass_tf_tpu import config
+from gan_sass_tf_tpu import models as jmodels
+from gan_sass_tf_tpu.data.synthetic import SyntheticDataset
+from gan_sass_tf_tpu.train.state import _lr_schedule as j_lr_schedule
+from gan_sass_tf_tpu.train.state import create_train_state
+from gan_sass_tf_tpu.train.step import build_train_step as j_build_train_step
+from gan_sass_tf_tpu_torch import cli
+from gan_sass_tf_tpu_torch import models as tmodels
+from gan_sass_tf_tpu_torch.train import (
+    ClippedAdam,
+    Experiment,
+    build_train_step,
+    load_train_state,
+)
+from gan_sass_tf_tpu_torch.train.state import clip_by_global_norm, lr_schedule
+from gan_sass_tf_tpu_torch.train.step import instance_noise
+
+METRICS = ("d_loss", "g_loss", "g_adv", "g_recon", "d_real_logit",
+           "d_fake_logit")
+
+
+_LOSS = {
+    "wav": {"recon_domain": "wav"},
+    "mag": {"recon_domain": "mag", "recon_loss": "l1", "recon_weight": 100.0},
+    # music_complex_44k's form: complex masks, (re, im) L1, no PIT.
+    "cspec": {"recon_domain": "cspec", "recon_loss": "l1", "use_pit": False},
+}
+
+
+def _cfg(domain="wav", **train):
+    cfg = config.get_config("stream_v5e8")
+    mask = "complex" if domain == "cspec" else "magnitude"
+    return cfg.replace(
+        dsp=dataclasses.replace(cfg.dsp, mask_type=mask),
+        model=dataclasses.replace(cfg.model, g_channels=(8, 16),
+                                  d_channels=(8, 16), compute_dtype="float32",
+                                  dropout=0.0),
+        loss=dataclasses.replace(cfg.loss, **_LOSS[domain]),
+        train=dataclasses.replace(cfg.train, **{
+            "batch_size": 2, "d_instance_noise": 0.0, **train}),
+        data=dataclasses.replace(cfg.data, segment_seconds=0.25,
+                                 gain_jitter_db=0.0, num_noise=0,
+                                 bank_utterances=4))
+
+
+def _run_both(cfg, n_steps=2):
+    """Two steps of each package from one init on the same sources: the
+    per-step metrics of both, and the states after step 1."""
+    g, d = jmodels.build_generator(cfg), jmodels.build_discriminator(cfg)
+    jstate = create_train_state(cfg, g, d, jax.random.PRNGKey(0))
+    jstep = jax.jit(j_build_train_step(cfg, g, d))
+    tstate = load_train_state(
+        cfg, jax.tree.map(np.asarray, jstate.g_params),
+        {"params": jax.tree.map(np.asarray, jstate.d_params),
+         "batch_stats": jax.tree.map(np.asarray, jstate.d_batch_stats)}, "cpu")
+    tstep = build_train_step(cfg)
+    ds = SyntheticDataset(cfg, seed=3)
+    out = {"jax": [], "torch": [], "cfg": cfg,
+           "jstate0": jax.tree.map(np.asarray, jstate)}
+    for i in range(n_steps):
+        src = ds.batch()
+        jstate, jm = jstep(jstate, jnp.asarray(src), jax.random.PRNGKey(7))
+        tstate, tm = tstep(tstate, torch.from_numpy(src), 7)
+        out["jax"].append({k: float(v) for k, v in jm.items()})
+        out["torch"].append({k: float(v) for k, v in tm.items()})
+        if i == 0:
+            out["jstate1"] = jax.tree.map(np.asarray, jstate)
+            out["tstate1"] = (
+                tmodels.generator_params_to_flax(tstate.g.state_dict()),
+                tmodels.discriminator_variables_to_flax(tstate.d.state_dict()),
+                None if tstate.g_ema is None else
+                tmodels.generator_params_to_flax(tstate.g_ema))
+    return out
+
+
+@pytest.fixture(scope="module")
+def wav_run():
+    return _run_both(_cfg("wav"))
+
+
+@pytest.fixture(scope="module")
+def mag_run():
+    return _run_both(_cfg("mag"))
+
+
+@pytest.fixture(scope="module")
+def cspec_run():
+    return _run_both(_cfg("cspec"))
+
+
+@pytest.fixture(scope="module")
+def extras_run():
+    """R1, the G EMA and cosine/linear lr schedules, all on at once."""
+    return _run_both(_cfg("wav", r1_gamma=1.0, g_ema=0.9,
+                          g_lr_schedule="cosine", d_lr_schedule="linear",
+                          lr_decay_steps=3))
+
+
+def _flat(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", np.asarray(v)
+
+
+def _check_moves(ours, ref, init, lr, what):
+    """Parameters after one Adam step.  Where the reference moved a weight
+    by about lr·sign(g) (|move| >= 0.99 lr) the port must agree within
+    1e-2·lr.  Elsewhere |g| is within a few eps of 0, where the first
+    Adam step g/(|g| + eps) turns on float noise: there the port's move
+    must only keep Adam's bound |move| <= lr, and such weights must be
+    rare."""
+    for k, v in ours:
+        a, a0 = ref[k], init[k]
+        sharp = np.abs(a - a0) >= 0.99 * lr
+        np.testing.assert_allclose(v[sharp], a[sharp], atol=1e-2 * lr, rtol=0,
+                                   err_msg=f"{what} {k}")
+        assert np.all(np.abs(v - a0)[~sharp] <= lr * (1 + 1e-4)), (what, k)
+        assert (~sharp).mean() <= 0.05, (what, k, (~sharp).mean())
+
+
+def _check_run(run):
+    for step, (j, t) in enumerate(zip(run["jax"], run["torch"]), 1):
+        for k in METRICS:
+            assert np.isfinite(t[k]), (step, k)
+            np.testing.assert_allclose(t[k], j[k], rtol=1e-4,
+                                       err_msg=f"{k} after step {step}")
+    cfg, js, j0 = run["cfg"], run["jstate1"], run["jstate0"]
+    tg, td, tema = run["tstate1"]
+    g_lr, d_lr = cfg.train.g_lr, cfg.train.d_lr
+    _check_moves(_flat(tg), dict(_flat(js.g_params)), dict(_flat(j0.g_params)),
+                 g_lr, "G")
+    _check_moves(_flat(td["params"]), dict(_flat(js.d_params)),
+                 dict(_flat(j0.d_params)), d_lr, "D")
+    stats = dict(_flat(js.d_batch_stats))       # power iteration: no Adam
+    for k, v in _flat(td["batch_stats"]):
+        np.testing.assert_allclose(v, stats[k], atol=1e-2 * d_lr, rtol=0, err_msg=k)
+    if tema is not None:
+        # EMA = decay·init + (1 - decay)·params: the same rule, scaled.
+        t = 1.0
+        decay = min(cfg.train.g_ema, (1.0 + t) / (10.0 + t))
+        _check_moves(_flat(tema), dict(_flat(js.g_ema_params)),
+                     dict(_flat(j0.g_params)), (1 - decay) * g_lr, "EMA")
+
+
+def test_train_step_wav_domain_matches_jax(wav_run):
+    """stream_v5e8's form: −SI-SDR through the differentiable iSTFT."""
+    _check_run(wav_run)
+
+
+def test_train_step_mag_domain_matches_jax(mag_run):
+    """wsj0_logmel's form: linear-magnitude L1, no iSTFT."""
+    _check_run(mag_run)
+
+
+def test_train_step_cspec_complex_masks_match_jax(cspec_run):
+    """The complex-mask branch: apply_mask then |·|, (re, im) L1."""
+    _check_run(cspec_run)
+
+
+def test_train_step_r1_ema_and_lr_schedules_match_jax(extras_run):
+    _check_run(extras_run)
+    assert extras_run["tstate1"][2] is not None
+
+
+def test_r1_changes_the_d_update(wav_run, extras_run):
+    # Same init and data: the R1 term enters d_loss from the first step.
+    assert extras_run["torch"][0]["d_loss"] > wav_run["torch"][0]["d_loss"]
+
+
+@pytest.mark.parametrize("kind", ["constant", "cosine", "linear"])
+def test_lr_schedules_match_optax(kind):
+    cfg = _cfg(g_lr_schedule=kind, lr_decay_steps=7, lr_end_factor=0.2)
+    ours = lr_schedule(cfg, cfg.train.g_lr, kind)
+    ref = j_lr_schedule(cfg, cfg.train.g_lr, kind)
+    for count in range(10):
+        want = ref if isinstance(ref, float) else float(ref(count))
+        np.testing.assert_allclose(ours(count), want, rtol=1e-6)
+
+
+@pytest.mark.parametrize("scale", [0.1, 100.0])     # below / above the clip
+def test_clipped_adam_matches_optax(rng, scale):
+    shapes = [(3, 4), (5,), (2, 2, 2)]
+    params = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    grads = [[scale * rng.standard_normal(s).astype(np.float32) for s in shapes]
+             for _ in range(3)]
+    tx = optax.chain(optax.clip_by_global_norm(5.0),
+                     optax.adam(2e-4, b1=0.5, b2=0.999))
+    jp = [jnp.asarray(p) for p in params]
+    st = tx.init(jp)
+    tp = [torch.from_numpy(p.copy()) for p in params]
+    opt = ClippedAdam(tp, lambda c: 2e-4, 5.0, 0.5, 0.999)
+    for g in grads:
+        upd, st = tx.update([jnp.asarray(x) for x in g], st, jp)
+        jp = optax.apply_updates(jp, upd)
+        opt.step([torch.from_numpy(x) for x in g])
+    for a, b in zip(tp, jp):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-7, rtol=1e-6)
+
+
+@pytest.mark.parametrize("norm", [4.0, 5.0, 6.0])  # below, at, above c = 5
+def test_clip_by_global_norm_is_optax_rule(rng, norm):
+    g = [rng.standard_normal(s).astype(np.float32) for s in ((3, 4), (5,))]
+    total = np.sqrt(sum((x.astype(np.float64) ** 2).sum() for x in g))
+    g = [(x * norm / total).astype(np.float32) for x in g]
+    ref, _ = optax.clip_by_global_norm(5.0).update([jnp.asarray(x) for x in g],
+                                                   None)
+    ours = clip_by_global_norm([torch.from_numpy(x) for x in g], 5.0)
+    for a, b in zip(ours, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6)
+    if norm < 5.0:               # untouched, where torch's rule would scale
+        assert all(np.array_equal(a.numpy(), x) for a, x in zip(ours, g))
+
+
+def test_instance_noise_std_and_determinism():
+    x = torch.zeros(64, 10, 9, 2)
+    a = instance_noise(x, 0.5, 3, 2, 31)
+    b = instance_noise(x, 0.5, 3, 2, 31)
+    c = instance_noise(x, 0.5, 3, 3, 31)
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    assert abs(float(a.std()) - 0.5) < 0.02 and abs(float(a.mean())) < 0.02
+    assert instance_noise(x, 0.0, 3, 2, 31) is x
+
+
+def _tiny(**train):
+    cfg = _cfg("wav", **train)
+    return cfg.replace(train=dataclasses.replace(cfg.train, log_every=1))
+
+
+def test_experiment_trains_both_nets_and_evaluates():
+    exp = Experiment(_tiny(), device="cpu")
+    g0 = {k: v.clone() for k, v in exp.state.g.state_dict().items()}
+    d0 = {k: v.clone() for k, v in exp.state.d.state_dict().items()}
+    logged = []
+    m = exp.train(num_steps=2, log_fn=lambda s, m: logged.append(s))
+    assert logged == [1, 2] and exp.state.step == 2
+    assert all(np.isfinite(v) for v in m.values()) and m["mixture_sec_per_sec"] > 0
+    assert any(not torch.equal(g0[k], v) for k, v in exp.state.g.state_dict().items())
+    assert any(not torch.equal(d0[k], v) for k, v in exp.state.d.state_dict().items())
+    ev = exp.evaluate(num_batches=1)
+    assert set(ev) == {"si_sdr", "si_sdr_mix", "si_sdr_improvement"}
+    assert all(np.isfinite(v) for v in ev.values())
+
+
+def test_experiment_noise_ema_and_reseed():
+    exp = Experiment(_tiny(d_instance_noise=0.1, g_ema=0.5), device="cpu")
+    exp.train(num_steps=1)
+    ema = exp.eval_g_params
+    live = dict(exp.state.g.named_parameters())
+    assert set(ema) == set(live)
+    assert any(not torch.equal(ema[k], live[k]) for k in live)
+    assert np.isfinite(exp.evaluate(num_batches=1)["si_sdr"])
+    g1 = exp.state.g.state_dict()["convs.0.weight"].clone()
+    exp.reseed(5)
+    assert exp.state.step == 0
+    assert not torch.equal(exp.state.g.state_dict()["convs.0.weight"], g1)
+
+
+def test_experiment_refuses_workdir_and_host_batches(tmp_path):
+    with pytest.raises(NotImplementedError, match="item 6"):
+        Experiment(_tiny(), workdir=str(tmp_path), device="cpu")
+    cfg = _tiny()
+    cfg = cfg.replace(data=dataclasses.replace(cfg.data, device_bank=False))
+    with pytest.raises(NotImplementedError, match="item 6"):
+        Experiment(cfg, device="cpu")
+
+
+_CLI_SET = ["--device", "cpu", "--set", "model.g_channels=8,16",
+            "--set", "model.d_channels=8,16", "--set", "train.batch_size=2",
+            "--set", "data.segment_seconds=0.25",
+            "--set", "data.bank_utterances=4"]
+
+
+def test_cli_train_and_eval(capsys, tmp_path):
+    assert cli.main(["train", "--config", "stream_v5e8", "--steps", "2",
+                     *_CLI_SET]) == 0
+    out = capsys.readouterr().out
+    assert "step 2:" in out and "mix-s/s" in out
+    assert cli.main(["eval", "--config", "stream_v5e8", "--batches", "1",
+                     *_CLI_SET]) == 0
+    assert "si_sdr_improvement" in capsys.readouterr().out
+    with pytest.raises(NotImplementedError, match="item 6"):
+        cli.main(["train", "--config", "stream_v5e8", "--steps", "1",
+                  "--workdir", str(tmp_path), *_CLI_SET])
+    with pytest.raises(NotImplementedError, match="item 10"):
+        cli.main(["train", "--config", "stream_v5e8", "--steps", "1",
+                  "--profile-steps", "1:2", *_CLI_SET])
