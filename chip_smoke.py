@@ -21,17 +21,35 @@ Phases, one JSON line each:
               losses finite, G and D moved, the three kernels of the step
               launched; one step from one state on the kernel and the plain
               DSP path agrees; evaluate(); the CLI trains wsj0_logmel
-  8 timing    median per-call time of each kernel's wrapper beside its plain
+  8 k4        the complex STFT kernel vs its plain version at the
+              stream_v5e8 oracle shapes (32 mixtures, 32 x 2 sources), the
+              music_complex_44k shape (8 x 2 sources, n_fft 2048), a 60 s
+              input and an encoded win_length < n_fft window
+  9 bounds    scripts.recompute_bounds for stream_v5e8, wsj0_logmel,
+              3src_pit and music_complex_44k, easy and --hard: the stft and
+              masked_istft kernels launched; the bound on the kernel path
+              within 0.01 dB of the plain path and within 1.0 dB of the JAX
+              package's number on the CPU
+ 10 quality   scripts.quality_protocol at full width: stream_v5e8 --hard
+              --seeds 0,7 and music_complex_44k (batch 8, G (64, 64, 128,
+              256)); the JAX script's keys, finite values, the kernels of
+              each path launched; the music train step's wall ms and peak
+              device memory
+ 11 timing    median per-call time of each kernel's wrapper beside its plain
               version (CUDA events around back-to-back calls), separate()
-              throughput and the stream_v5e8 train step on both DSP paths
+              throughput, the stream_v5e8 train step on both DSP paths and
+              the wall seconds of one recompute_bounds per preset
 Then a `kernels` summary line and, last, the result line.  Any failed
 check exits non-zero before the result line.  Needs one CUDA device.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import io
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -55,7 +73,9 @@ from gan_sass_tf_tpu_torch.models import (
 from gan_sass_tf_tpu_torch.ops import build, dispatch
 from gan_sass_tf_tpu_torch.ops import istft as k3
 from gan_sass_tf_tpu_torch.ops import masked_istft as k2
+from gan_sass_tf_tpu_torch.ops import stft as k4
 from gan_sass_tf_tpu_torch.ops import stft_features as k1
+from gan_sass_tf_tpu_torch.scripts import quality_protocol, recompute_bounds
 from gan_sass_tf_tpu_torch.train import Experiment
 from gan_sass_tf_tpu_torch.utils.wav_io import read_wav, write_wav
 
@@ -68,6 +88,30 @@ CALLS_PER_SAMPLE = 10
 B_TRAIN, T_TRAIN = 64, 32000         # stream_v5e8 step: B·S signals, 2 s at 16 kHz
 TRAIN_STEPS = 6
 STEP_SAMPLES = 12                    # timed train steps per DSP path
+MUSIC_N_FFT, MUSIC_HOP = 2048, 512
+B_MUSIC, T_MUSIC = 8, 132300         # music_complex_44k: 3 s at 44.1 kHz, F = 255
+PRESETS = ("stream_v5e8", "wsj0_logmel", "3src_pit", "music_complex_44k")
+# The JAX package's oracle bounds (dB) on the CPU, from
+#   JAX_PLATFORMS=cpu python scripts/recompute_bounds.py PRESET [--hard] --cpu
+# keyed (preset, hard).  The port mixes with its counter RNG, not
+# jax.random, so its bounds differ by that sampling alone (0.09 dB at
+# most, both on the CPU).
+JAX_CPU_BOUNDS = {
+    ("stream_v5e8", False): 24.06, ("stream_v5e8", True): 13.29,
+    ("wsj0_logmel", False): 25.11, ("wsj0_logmel", True): 14.79,
+    ("3src_pit", False): 24.37, ("3src_pit", True): 9.85,
+    ("music_complex_44k", False): 23.71, ("music_complex_44k", True): 23.73,
+}
+BOUND_TOL_DB, JAX_BOUND_TOL_DB = 0.01, 1.0
+QUALITY_STREAM_STEPS, QUALITY_MUSIC_STEPS = 10, 4
+# The keys of scripts/quality_protocol.py's JSON line (tests/test_torch_oracle.py
+# holds the port's key set equal to the JAX script's).
+QUALITY_KEYS = {
+    "preset", "hard", "steps", "seeds", "si_sdr_improvement",
+    "si_sdr_improvement_per_seed", "si_sdr_improvement_half_range",
+    "si_sdr_improvement_train_dist", "oracle_bound", "headroom", "d_loss",
+    "d_loss_traj_per_seed", "d_norm", "throughput",
+}
 
 
 def emit(phase: str, **kw) -> None:
@@ -346,6 +390,159 @@ def phase_train(dev):
     return exp, counts
 
 
+def k4_check(ker, ref, what):
+    """K4 kernel vs plain: complex64, one shape, and |ker - ref| within
+    atol 3e-4·max|X| + rtol 1e-3 (tests/test_pallas.py)."""
+    check(ker.dtype == torch.complex64, f"k4 {what}: dtype {ker.dtype}")
+    check(ker.shape == ref.shape, f"k4 {what}: shape {ker.shape} != {ref.shape}")
+    err = (ker - ref).abs()
+    atol = 3e-4 * float(ref.abs().max())
+    ok = bool((err <= atol + 1e-3 * ref.abs()).all())
+    check(ok, f"k4 {what}: max err {float(err.max())} over atol {atol} rtol 1e-3")
+    return float(err.max())
+
+
+def phase_k4(rng, dev):
+    def noise(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(dev)
+
+    stream_srcs = noise(B_TRAIN // 2, 2, T_TRAIN)
+    music_srcs = noise(B_MUSIC, 2, T_MUSIC)
+    cases = [
+        ("stream_v5e8 mixtures", noise(B_TRAIN // 2, T_TRAIN), N_FFT, HOP),
+        ("stream_v5e8 sources", stream_srcs, N_FFT, HOP),
+        ("music_complex_44k sources", music_srcs, MUSIC_N_FFT, MUSIC_HOP),
+        ("60 s at 8 kHz", noise(1, T_LONG), N_FFT, HOP),
+    ]
+    errs = {}
+    for what, x, n_fft, hop in cases:
+        ker = k4.stft_kernel(x, n_fft, hop)
+        ref = k4.stft_reference(x, n_fft, hop)
+        torch.cuda.synchronize()
+        errs[what] = k4_check(ker, ref, what)
+        emit("k4", case=what, shape=list(x.shape), n_fft=n_fft, hop=hop,
+             out=list(ker.shape), max_abs_err=errs[what],
+             tol="atol 3e-4*max|X|, rtol 1e-3")
+    x = noise(4, 8000)
+    ker = dispatch.stft(x, N_FFT, HOP, win_length=400)
+    with dispatch.force_backend("reference"):
+        ref = dispatch.stft(x, N_FFT, HOP, win_length=400)
+    torch.cuda.synchronize()
+    check(ker.shape[-2] == 1 + (8000 - 400) // HOP, f"k4 win_length: {ker.shape}")
+    errs["win_length 400"] = k4_check(ker, ref, "win_length 400 via dispatch")
+    emit("k4", case="win_length 400 < n_fft 512 via dispatch.stft",
+         out=list(ker.shape), max_abs_err=errs["win_length 400"])
+    return max(errs.values()), stream_srcs, music_srcs
+
+
+def captured_json(fn, argv):
+    """Run an entry point's main(argv) and parse the JSON line it prints
+    last on stdout."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(argv)
+    check(rc == 0, f"{fn.__module__}.main({argv}) returned {rc}")
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def phase_bounds(dev):
+    """recompute_bounds on the kernel path for each preset and protocol,
+    then the same batches on both DSP paths, unrounded."""
+    launches, walls = {"stft": 0, "masked_istft": 0}, {}
+    for preset in PRESETS:
+        for hard in (False, True):
+            argv = [preset, "--device", str(dev)] + (["--hard"] if hard else [])
+            k4.launches = k2.launches = 0
+            t0 = time.perf_counter()
+            line = captured_json(recompute_bounds.main, argv)
+            wall = time.perf_counter() - t0
+            counts = {"stft": k4.launches, "masked_istft": k2.launches}
+            check(min(counts.values()) > 0, f"bounds {argv}: a kernel never "
+                  f"launched: {counts}")
+            for k, v in counts.items():
+                launches[k] += v
+            walls[f"{preset}{' --hard' if hard else ''}"] = wall
+            cfg = recompute_bounds.protocol_config(preset, hard)
+            kernel = recompute_bounds.oracle_bound(cfg, dev)
+            with dispatch.force_backend("reference"):
+                plain = recompute_bounds.oracle_bound(cfg, dev)
+            jax_db = JAX_CPU_BOUNDS[(preset, hard)]
+            check(line["oracle_bound"] == round(kernel, 2),
+                  f"bounds {argv}: printed {line['oracle_bound']}, kernel "
+                  f"path {kernel}")
+            check(abs(kernel - plain) <= BOUND_TOL_DB,
+                  f"bounds {argv}: kernel {kernel} vs plain {plain} dB")
+            check(abs(kernel - jax_db) <= JAX_BOUND_TOL_DB,
+                  f"bounds {argv}: {kernel} dB vs the JAX package's {jax_db}")
+            emit("bounds", preset=preset, hard=hard, line=line,
+                 kernel_db=kernel, plain_db=plain, jax_cpu_db=jax_db,
+                 kernel_minus_plain_db=kernel - plain,
+                 port_minus_jax_db=kernel - jax_db, launches=counts,
+                 wall_s=wall, tol_db={"plain": BOUND_TOL_DB,
+                                      "jax_cpu": JAX_BOUND_TOL_DB})
+    return launches, walls
+
+
+def finite(value) -> bool:
+    if isinstance(value, list):
+        return all(finite(v) for v in value)
+    return not isinstance(value, float) or math.isfinite(value)
+
+
+def phase_quality(dev):
+    """The quality protocol through its main() at full width, then the
+    music train step's wall time on both DSP paths and its peak memory."""
+    def reset():
+        k1.launches = k2.launches = k3.launches = k3.bwd_launches = 0
+        k4.launches = 0
+
+    def counts():
+        return {"stft_features": k1.launches, "masked_istft": k2.launches,
+                "istft": k3.launches, "istft_bwd": k3.bwd_launches,
+                "stft": k4.launches}
+
+    runs = {}
+    for name, argv, need in (
+        ("stream_v5e8 --hard", ["stream_v5e8", str(QUALITY_STREAM_STEPS),
+                                "--hard", "--seeds", "0,7", "--device", str(dev)],
+         ("stft_features", "masked_istft", "istft", "istft_bwd", "stft")),
+        ("music_complex_44k", ["music_complex_44k", str(QUALITY_MUSIC_STEPS),
+                               "--device", str(dev)],
+         ("stft_features", "masked_istft", "stft")),
+    ):
+        reset()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = captured_json(quality_protocol.main, argv)
+        wall = time.perf_counter() - t0
+        got = counts()
+        check(set(out) == QUALITY_KEYS, f"quality {name}: keys {sorted(out)}")
+        check(all(finite(v) for v in out.values()), f"quality {name}: {out}")
+        check(all(got[k] > 0 for k in need), f"quality {name}: a kernel of "
+              f"the path never launched: {got}")
+        runs[name] = {"line": out, "launches": got, "wall_s": wall,
+                      "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
+
+    cfg = quality_protocol.protocol_config("music_complex_44k", False)
+    exp = Experiment(cfg, device=dev)
+    step_kernel, step_plain = time_steps(exp)
+    torch.cuda.reset_peak_memory_stats()
+    exp._train_step(exp.state, exp._bank, exp._train_seed)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    mix_s = cfg.train.batch_size * cfg.segment_samples / cfg.dsp.sample_rate
+    emit("quality", runs=runs, music_step={
+        "batch": cfg.train.batch_size, "segment_samples": cfg.segment_samples,
+        "g_channels": list(cfg.model.g_channels),
+        "g_params": sum(p.numel() for p in exp.state.g.parameters()),
+        "d_params": sum(p.numel() for p in exp.state.d.parameters()),
+        "wall_ms": {"kernel": step_kernel, "plain": step_plain},
+        "mixture_sec_per_sec": {"kernel": mix_s / step_kernel * 1e3,
+                                "plain": mix_s / step_plain * 1e3},
+        "peak_device_mib": peak})
+    return runs
+
+
 def time_steps(exp):
     """Median wall ms of one train step (synchronized) on each DSP path,
     samples alternating kernel, plain, plain, kernel."""
@@ -387,7 +584,8 @@ def time_pair(plain, kernel, samples=TIMING_SAMPLES, calls=CALLS_PER_SAMPLE):
     return statistics.median(times["plain"]), statistics.median(times["kernel"])
 
 
-def phase_timing(rng, dev, x, spec, cfg, g, batch, k3_tensors, exp):
+def phase_timing(rng, dev, x, spec, cfg, g, batch, k3_tensors, exp, k4_inputs,
+                 bound_walls):
     mel = torch.from_numpy(mel_filterbank(N_MELS, N_FFT // 2 + 1, SR)).to(dev)
     emits = ("spec", "logmel")
     k1_plain, k1_ms = time_pair(
@@ -415,6 +613,12 @@ def phase_timing(rng, dev, x, spec, cfg, g, batch, k3_tensors, exp):
     bwd_plain, bwd_ms = time_pair(
         lambda: torch.autograd.grad(ref, (re, im), dy, retain_graph=True),
         lambda: torch.autograd.grad(y, (re, im), dy, retain_graph=True))
+    stream_srcs, music_srcs = k4_inputs
+    k4_plain, k4_ms = time_pair(lambda: k4.stft_reference(stream_srcs, N_FFT, HOP),
+                                lambda: k4.stft_kernel(stream_srcs, N_FFT, HOP))
+    k4_music_plain, k4_music_ms = time_pair(
+        lambda: k4.stft_reference(music_srcs, MUSIC_N_FFT, MUSIC_HOP),
+        lambda: k4.stft_kernel(music_srcs, MUSIC_N_FFT, MUSIC_HOP))
     step_kernel, step_plain = time_steps(exp)
     mix_s = exp.cfg.train.batch_size * exp.cfg.segment_samples / exp.cfg.dsp.sample_rate
     emit("timing", shape=[B_MAIN, T_MAIN], samples=TIMING_SAMPLES,
@@ -431,10 +635,16 @@ def phase_timing(rng, dev, x, spec, cfg, g, batch, k3_tensors, exp):
          train_step_ms={"kernel": step_kernel, "plain": step_plain},
          train_mix_sec_per_sec={"kernel": mix_s / step_kernel * 1e3,
                                 "plain": mix_s / step_plain * 1e3},
+         stft_shape=list(stream_srcs.shape),
+         stft_ms={"kernel": k4_ms, "plain": k4_plain},
+         stft_music_shape=list(music_srcs.shape),
+         stft_music_ms={"kernel": k4_music_ms, "plain": k4_music_plain},
+         recompute_bounds_wall_s=bound_walls,
          note="separate() includes host->device copy and the result's copy "
               "back; a train step is timed on the host clock to a synchronize")
     return {"stft_features": (k1_ms, k1_plain), "masked_istft": (k2_ms, k2_plain),
-            "istft": (k3_ms, k3_plain), "istft_bwd": (bwd_ms, bwd_plain)}
+            "istft": (k3_ms, k3_plain), "istft_bwd": (bwd_ms, bwd_plain),
+            "stft": (k4_ms, k4_plain)}
 
 
 def main() -> int:
@@ -447,8 +657,14 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         cfg, g, batch, counts = phase_main_path(rng, dev, Path(tmp))
     k3_errs, k3_tensors = phase_k3(rng, dev)
+    k4_err, *k4_inputs = phase_k4(rng, dev)
     exp, train_counts = phase_train(dev)
-    times = phase_timing(rng, dev, x, spec, cfg, g, batch, k3_tensors, exp)
+    bound_launches, bound_walls = phase_bounds(dev)
+    quality_runs = phase_quality(dev)
+    times = phase_timing(rng, dev, x, spec, cfg, g, batch, k3_tensors, exp,
+                         k4_inputs, bound_walls)
+    k4_launches = bound_launches["stft"] + sum(
+        r["launches"]["stft"] for r in quality_runs.values())
     kernels = [
         {"name": "stft_features", "route": "cuda",
          "source": "gan_sass_tf_tpu_torch/ops/csrc/stft_features.cu",
@@ -471,6 +687,11 @@ def main() -> int:
          "launches": train_counts["istft_bwd"],
          "max_abs_err": max(k3_errs["grad_re"], k3_errs["grad_im"]),
          "ms": times["istft_bwd"][0], "plain_ms": times["istft_bwd"][1]},
+        {"name": "stft", "route": "cuda",
+         "source": "gan_sass_tf_tpu_torch/ops/csrc/stft_features.cu",
+         "replaces": "gan_sass_tf_tpu/ops/pallas_stft.py:228",
+         "launches": k4_launches, "max_abs_err": k4_err,
+         "ms": times["stft"][0], "plain_ms": times["stft"][1]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

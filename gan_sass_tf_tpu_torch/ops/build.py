@@ -34,6 +34,9 @@ _SIGNATURES = {
     # eps, threads, smem_bytes, stream, device
     "stft_features_launch": [_P] * 8 + [_I] * 7 + [ctypes.c_float]
     + [_I, _I, _P, _I],
+    # x, wc, ws, spec, B, T, F, n_fft, hop, K, threads, smem_bytes, stream,
+    # device
+    "stft_launch": [_P] * 4 + [_I] * 6 + [_I, _I, _P, _I],
     # spec, masks, ci, si, inv_env, out, B, S, F, n_fft, hop, K,
     # complex_mask, threads, smem_bytes, stream, device
     "masked_istft_launch": [_P] * 6 + [_I] * 7 + [_I, _I, _P, _I],

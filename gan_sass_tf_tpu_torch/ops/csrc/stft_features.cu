@@ -3,7 +3,14 @@
 // spectrum, |X|, log(|X| + eps) and log(|X| @ mel + eps).
 //
 // Replaces: gan_sass_tf_tpu/ops/pallas_stft.py, _stft_features_kernel
-// (entry stft_features_pallas).
+// (entry stft_features_pallas), and, as the spec-only instantiation
+// stft_features_kernel<true> behind stft_launch, _stft_kernel (entry
+// stft_pallas): the plain complex STFT of the oracle bounds.  That one has
+// no |X|/log/mel epilogue and stages no |X| tile; its DFT loop is K1's, so
+// it has K1's bound below, and it does O(n_fft) work per bin where an FFT
+// does O(log n_fft): at n_fft 2048 a cuFFT rfft is an order faster.  Fewer
+// registers than the full epilogue (64 against 96) let two blocks share an
+// SM.
 //
 // What bounds it on this card: the DFT is 4·n_fft·K flops per frame in
 // f32 (TF32 would break the 3e-4·max|X| tolerance, so no tensor cores);
@@ -28,6 +35,7 @@ namespace {
 
 constexpr int kTileF = 16;   // frames per block
 
+template <bool kSpecOnly>
 __global__ void stft_features_kernel(
     const float* __restrict__ x,       // (B, T)
     const float* __restrict__ wc,      // (n_fft, K)  w[n]·cos(2πnk/N)
@@ -74,15 +82,18 @@ __global__ void stft_features_kernel(
     for (int f = 0; f < kTileF; ++f) {
       if (f < nf) {
         const size_t o = ((size_t)b * F + f0 + f) * K + k;
-        if (spec) reinterpret_cast<float2*>(spec)[o] = make_float2(re[f], im[f]);
-        const float m = sqrtf(re[f] * re[f] + im[f] * im[f]);
-        if (mag_out) mag_out[o] = m;
-        if (logmag_out) logmag_out[o] = logf(m + eps);
-        if (logmel_out) mag_s[f * K + k] = m;
+        if (kSpecOnly || spec)
+          reinterpret_cast<float2*>(spec)[o] = make_float2(re[f], im[f]);
+        if constexpr (!kSpecOnly) {
+          const float m = sqrtf(re[f] * re[f] + im[f] * im[f]);
+          if (mag_out) mag_out[o] = m;
+          if (logmag_out) logmag_out[o] = logf(m + eps);
+          if (logmel_out) mag_s[f * K + k] = m;
+        }
       }
     }
   }
-  if (logmel_out == nullptr) return;   // uniform across the block
+  if (kSpecOnly || logmel_out == nullptr) return;   // uniform across the block
   __syncthreads();
   for (int i = threadIdx.x; i < nf * M; i += blockDim.x) {
     const int f = i / M, m = i % M;
@@ -93,26 +104,47 @@ __global__ void stft_features_kernel(
   }
 }
 
+template <bool kSpecOnly>
+int launch(const void* x, const void* wc, const void* ws, const void* mel,
+           void* spec, void* mag, void* logmag, void* logmel,
+           int B, int T, int F, int n_fft, int hop, int K, int M, float eps,
+           int threads, int smem_bytes, void* stream, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(stft_features_kernel<kSpecOnly>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((F + kTileF - 1) / kTileF, B);
+  stft_features_kernel<kSpecOnly>
+      <<<grid, threads, smem_bytes, (cudaStream_t)stream>>>(
+          (const float*)x, (const float*)wc, (const float*)ws,
+          (const float*)mel, (float*)spec, (float*)mag, (float*)logmag,
+          (float*)logmel, T, F, n_fft, hop, K, M, eps);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int stft_features_tile_frames() { return kTileF; }
 
-// Returns cudaGetLastError() after the launch (0 = launched).
+// Each launcher returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int stft_features_launch(
     const void* x, const void* wc, const void* ws, const void* mel,
     void* spec, void* mag, void* logmag, void* logmel,
     int B, int T, int F, int n_fft, int hop, int K, int M, float eps,
     int threads, int smem_bytes, void* stream, int device) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(stft_features_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem_bytes);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((F + kTileF - 1) / kTileF, B);
-  stft_features_kernel<<<grid, threads, smem_bytes, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)wc, (const float*)ws, (const float*)mel,
-      (float*)spec, (float*)mag, (float*)logmag, (float*)logmel,
-      T, F, n_fft, hop, K, M, eps);
-  return (int)cudaGetLastError();
+  return launch<false>(x, wc, ws, mel, spec, mag, logmag, logmel, B, T, F,
+                       n_fft, hop, K, M, eps, threads, smem_bytes, stream,
+                       device);
+}
+
+// The complex STFT alone: spec (B, F, K, 2) f32, interleaved re/im.
+extern "C" int stft_launch(
+    const void* x, const void* wc, const void* ws, void* spec,
+    int B, int T, int F, int n_fft, int hop, int K,
+    int threads, int smem_bytes, void* stream, int device) {
+  return launch<true>(x, wc, ws, nullptr, spec, nullptr, nullptr, nullptr, B,
+                      T, F, n_fft, hop, K, 0, 0.f, threads, smem_bytes,
+                      stream, device);
 }

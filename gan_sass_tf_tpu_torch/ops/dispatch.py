@@ -29,6 +29,7 @@ from gan_sass_tf_tpu_torch.ops.masked_istft import (
     masked_istft_kernel,
     masked_istft_reference,
 )
+from gan_sass_tf_tpu_torch.ops.stft import stft_kernel, stft_reference
 from gan_sass_tf_tpu_torch.ops.stft_features import (
     stft_features_kernel,
     stft_features_reference,
@@ -68,6 +69,17 @@ def _pad_tail(x: torch.Tensor, pad: int) -> torch.Tensor:
 def _mel(n_mels: int, n_bins: int, sample_rate: int,
          device: torch.device) -> torch.Tensor:
     return torch.from_numpy(mel_filterbank(n_mels, n_bins, sample_rate)).to(device)
+
+
+def stft(x: torch.Tensor, n_fft: int, hop: int, window: str = "hann",
+         win_length: Optional[int] = None) -> torch.Tensor:
+    """(..., T) -> (..., F, n_fft//2 + 1) complex64 STFT, tf.signal's frame
+    count 1 + (T - win_length)//hop.  On a CUDA tensor this is one launch
+    of the K4 kernel."""
+    window, pad = encode_win_length(window, n_fft, win_length)
+    x = _pad_tail(x.float(), pad).contiguous()
+    fn = stft_kernel if _use_kernel(x) else stft_reference
+    return fn(x, n_fft, hop, window)
 
 
 def stft_features(x: torch.Tensor, dsp_cfg, emit=("logmag",)):

@@ -17,8 +17,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from gan_sass_tf_tpu_torch.data.device_bank import build_bank
-from gan_sass_tf_tpu_torch.data.synthetic import SyntheticDataset
+from gan_sass_tf_tpu_torch.data import build_bank, make_dataset
 from gan_sass_tf_tpu_torch.models import build_generator
 from gan_sass_tf_tpu_torch.train.state import TrainState, create_train_state
 from gan_sass_tf_tpu_torch.train.step import build_eval_step, build_train_step
@@ -62,8 +61,8 @@ class Experiment:
         cfg = self.cfg
         self.state: TrainState = create_train_state(cfg, self.device, seed)
         self._train_seed = seed + 1
-        self.eval_dataset = SyntheticDataset(cfg, seed=seed + 9999,
-                                             split=cfg.data.eval_split)
+        self.eval_dataset = make_dataset(cfg, seed=seed + 9999,
+                                         split=cfg.data.eval_split)
         self._bank = torch.from_numpy(build_bank(cfg, seed=seed)).to(self.device)
         self._eval_g = None
 

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from gan_sass_tf_tpu import config
+from gan_sass_tf_tpu.data import make_dataset as j_make_dataset
 from gan_sass_tf_tpu.data.device_bank import build_bank as j_build_bank
 from gan_sass_tf_tpu.data.device_bank import sample_bank as j_sample_bank
 from gan_sass_tf_tpu.data.mixer import mix_sources as j_mix_sources
@@ -33,6 +34,8 @@ def _cfg(name="stream_v5e8", **data):
     ("stream_v5e8", {}),
     ("stream_v5e8", {"f0_mode": "shared"}),
     ("music_complex_44k", {"segment_seconds": 0.1}),   # vocal + accomp slots
+    ("3src_pit", {}),                                    # three source slots
+    ("3src_pit", {"f0_mode": "shared"}),
 ])
 def test_synthetic_bank_and_eval_batches_bit_identical(name, data):
     cfg = _cfg(name, **data)
@@ -44,6 +47,23 @@ def test_synthetic_bank_and_eval_batches_bit_identical(name, data):
         a, b = ours.batch(), ref.batch()
         assert a.dtype == b.dtype == np.float32
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("split", ["train", "eval"])
+def test_make_dataset_matches_jax(split):
+    cfg = _cfg("3src_pit")
+    ours, ref = tdata.make_dataset(cfg, seed=2, split=split), j_make_dataset(
+        cfg, seed=2, split=split)
+    assert isinstance(ours, tdata.SyntheticDataset) and ours.split == split
+    np.testing.assert_array_equal(ours.batch(), ref.batch())
+
+
+def test_make_dataset_refuses_wav_dir_and_unknown():
+    cfg = _cfg(dataset="wav_dir", data_dir="/nonexistent")
+    with pytest.raises(NotImplementedError, match="item 6"):
+        tdata.make_dataset(cfg)
+    with pytest.raises(ValueError, match="unknown dataset"):
+        tdata.make_dataset(_cfg(dataset="nope"))
 
 
 def _jax_draws(rng, b, s, nb, t, offset=0):

@@ -15,12 +15,14 @@ from jax.experimental.pallas import tpu as pltpu
 
 from gan_sass_tf_tpu import config
 from gan_sass_tf_tpu.dsp.features import mel_filterbank
+from gan_sass_tf_tpu.ops import dispatch as j_dispatch
 from gan_sass_tf_tpu.ops.pallas_istft import istft_pallas, masked_istft_pallas
-from gan_sass_tf_tpu.ops.pallas_stft import stft_features_pallas
+from gan_sass_tf_tpu.ops.pallas_stft import stft_features_pallas, stft_pallas
 from gan_sass_tf_tpu_torch.dsp import istft as plain_istft
 from gan_sass_tf_tpu_torch.ops import dispatch
 from gan_sass_tf_tpu_torch.ops import istft as k3
 from gan_sass_tf_tpu_torch.ops import masked_istft as k2
+from gan_sass_tf_tpu_torch.ops import stft as k4
 from gan_sass_tf_tpu_torch.ops import stft_features as k1
 
 EMIT = ("spec", "mag", "logmag", "logmel")
@@ -202,6 +204,7 @@ def test_kernel_modules_import_without_toolchain():
     assert [p.name for p in build._sources()] == ["masked_istft.cu",
                                                    "stft_features.cu"]
     assert "istft_launch" in build._SIGNATURES
+    assert "stft_launch" in build._SIGNATURES
     assert build.library_path().parent == build.BUILD_DIR
 
 
@@ -291,3 +294,61 @@ def test_dispatch_istft_cpu_takes_plain_path(rng):
         torch.testing.assert_close(dispatch.istft(spec, n_fft, hop), y,
                                    atol=1e-6, rtol=1e-5)
     assert (k3.launches, k3.bwd_launches, k1.launches) == (0, 0, 0)
+
+
+STFT_GRIDS = [             # tests/test_pallas.py GRIDS, then music_complex_44k's
+    ((2, 4000), 256, 64),
+    ((2, 16384), 512, 128),
+    ((2, 24064), 512, 128),
+    ((2, 10752), 2048, 512),
+    ((2, 3, 4000), 256, 64),       # (B, S, T), as for the oracle's targets
+]
+
+
+@pytest.mark.parametrize("shape,n_fft,hop", STFT_GRIDS)
+def test_stft_reference_matches_stft_pallas(rng, interpret, shape, n_fft, hop):
+    """K4's plain version against stft_pallas at the reference's STFT
+    tolerance: atol 3e-4·max|X|, rtol 1e-3."""
+    x = _rand(rng, *shape)
+    ref = np.asarray(stft_pallas(jnp.asarray(x), n_fft, hop))
+    ours = k4.stft_reference(torch.from_numpy(x), n_fft, hop)
+    assert ours.dtype == torch.complex64 and ours.shape == ref.shape
+    np.testing.assert_allclose(ours.numpy(), ref, atol=3e-4 * np.abs(ref).max(),
+                               rtol=1e-3)
+
+
+@pytest.mark.parametrize("n_fft,hop,win_length", [(512, 128, 400), (256, 64, 256)])
+def test_dispatch_stft_matches_jax_dispatch(rng, n_fft, hop, win_length):
+    """The encoded window and the tail padding of win_length < n_fft, on
+    the CPU path, against the JAX package's ops.dispatch.stft."""
+    x = _rand(rng, 2, 3, 5000)
+    ref = np.asarray(j_dispatch.stft(jnp.asarray(x), n_fft, hop,
+                                     win_length=win_length))
+    ours = dispatch.stft(torch.from_numpy(x), n_fft, hop, win_length=win_length)
+    assert ours.shape == ref.shape == (2, 3, 1 + (5000 - win_length) // hop,
+                                       n_fft // 2 + 1)
+    np.testing.assert_allclose(ours.numpy(), ref, atol=3e-4 * np.abs(ref).max(),
+                               rtol=1e-3)
+    with dispatch.force_backend("reference"):
+        torch.testing.assert_close(
+            dispatch.stft(torch.from_numpy(x), n_fft, hop, win_length=win_length),
+            ours, atol=0, rtol=0)
+    assert k4.launches == 0
+
+
+def test_stft_kernel_rejects_bad_input(rng):
+    x = torch.zeros(2, 4000)
+    cases = [
+        (lambda: k4.stft_kernel(x, 512, 100), "hop"),
+        (lambda: k4.stft_kernel(x.double(), 512, 128), "float32"),
+        (lambda: k4.stft_kernel(x[:, :100], 512, 128), "shorter"),
+        (lambda: k4.stft_kernel(torch.zeros(0, 4000), 512, 128), "batch"),
+        (lambda: k4.stft_kernel(x.requires_grad_(), 512, 128), "no backward"),
+        (lambda: k4.stft_kernel(x.detach(), 512, 128), "CUDA"),
+    ]
+    for fn, match in cases:
+        with pytest.raises(ValueError, match=match):
+            fn()
+    with dispatch.force_backend("kernel"), pytest.raises(ValueError, match="CUDA"):
+        dispatch.stft(torch.from_numpy(_rand(rng, 1, 4000)), 512, 128)
+    assert k4.launches == 0
