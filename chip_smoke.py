@@ -7,7 +7,9 @@ Phases, one JSON line each:
   1 device    the card's name; nvidia-smi's name and power limit line
   2 build     nvcc builds the CUDA kernels from ops/csrc (seconds)
   3 k1        stft_features kernel vs its plain version at the shapes of
-              the wsj0_logmel path, a 60 s input and two other geometries
+              the wsj0_logmel path, a 60 s input, two other geometries, the
+              music_complex_44k step's two launches (8 mixtures: spec, mag,
+              logmag; 16 targets: logmag, spec) and a near-silent signal
   4 k2        masked_istft kernel vs its plain version (magnitude and
               complex masks, 60 s input, STFT -> iSTFT round trip)
   5 main_path the CLI `separate` on a 3 s and a 60 s wav and `separate()`
@@ -20,7 +22,8 @@ Phases, one JSON line each:
   7 train     Experiment(stream_v5e8).train() at full width, batch 32: the
               losses finite, G and D moved, the three kernels of the step
               launched; one step from one state on the kernel and the plain
-              DSP path agrees; evaluate(); the CLI trains wsj0_logmel
+              DSP path agrees; the step's device ms by kernel family
+              (torch.profiler); evaluate(); the CLI trains wsj0_logmel
   8 k4        the complex STFT kernel vs its plain version at the
               stream_v5e8 oracle shapes (32 mixtures, 32 x 2 sources), the
               music_complex_44k shape (8 x 2 sources, n_fft 2048), a 60 s
@@ -33,14 +36,20 @@ Phases, one JSON line each:
  10 quality   scripts.quality_protocol at full width: stream_v5e8 --hard
               --seeds 0,7 and music_complex_44k (batch 8, G (64, 64, 128,
               256)); the JAX script's keys, finite values, the kernels of
-              each path launched; the music train step's wall ms and peak
-              device memory
+              each path launched; the music train step's wall ms, device
+              ms by kernel family and peak device memory
  11 timing    median per-call time of each kernel's wrapper beside its plain
-              version (CUDA events around back-to-back calls), separate()
-              throughput, the stream_v5e8 train step on both DSP paths and
-              the wall seconds of one recompute_bounds per preset
-Then a `kernels` summary line and, last, the result line.  Any failed
-check exits non-zero before the result line.  Needs one CUDA device.
+              version and, where one PyTorch call computes the same function
+              (torch.stft for the STFT kernels), that call (CUDA events
+              around back-to-back calls); K1 at the separation and music
+              step shapes, K3's whole backward and its K1 launch alone, K4
+              at the stream and music shapes; separate() throughput, the
+              stream_v5e8 train step on both DSP paths and the wall seconds
+              of one recompute_bounds per preset
+Then a `kernels` summary line (each kernel's launches on the main path, its
+error, its time beside its plain version's, the library call's and its
+bound from the shapes) and, last, the result line.  Any failed check exits
+non-zero before the result line.  Needs one CUDA device.
 """
 
 from __future__ import annotations
@@ -62,6 +71,7 @@ import torch
 
 from gan_sass_tf_tpu_torch import cli, config
 from gan_sass_tf_tpu_torch.dsp.features import mel_filterbank
+from gan_sass_tf_tpu_torch.dsp.windows import get_window
 from gan_sass_tf_tpu_torch.infer import separate
 from gan_sass_tf_tpu_torch.losses import si_sdr
 from gan_sass_tf_tpu_torch.models import (
@@ -90,6 +100,13 @@ TRAIN_STEPS = 6
 STEP_SAMPLES = 12                    # timed train steps per DSP path
 MUSIC_N_FFT, MUSIC_HOP = 2048, 512
 B_MUSIC, T_MUSIC = 8, 132300         # music_complex_44k: 3 s at 44.1 kHz, F = 255
+S_MUSIC = 2                          # its sources: the step's K1 targets are 16
+SEED_MUSIC = 44100                   # the K1 music-shape cases' own generator
+LOGMAG_FLOOR = 1e-3                  # -60 dB re the frame's RMS |X| (k1_case)
+# The H100 SXM's published peaks (NVIDIA's data sheet): HBM bytes/s and
+# f32 flops/s outside the tensor cores.  A kernel's bound is the larger of
+# its bytes and its flops over these.
+HBM_BYTES_PER_S, F32_FLOPS_PER_S = 3.35e12, 67e12
 PRESETS = ("stream_v5e8", "wsj0_logmel", "3src_pit", "music_complex_44k")
 # The JAX package's oracle bounds (dB) on the CPU, from
 #   JAX_PLATFORMS=cpu python scripts/recompute_bounds.py PRESET [--hard] --cpu
@@ -104,6 +121,21 @@ JAX_CPU_BOUNDS = {
 }
 BOUND_TOL_DB, JAX_BOUND_TOL_DB = 0.01, 1.0
 QUALITY_STREAM_STEPS, QUALITY_MUSIC_STEPS = 10, 4
+PROFILE_STEPS = 5                    # train steps traced for the step profile
+# A train step's device time by kernel family: substrings of the lower-cased
+# kernel name, first match wins.  cuDNN's layout transposes are
+# nchwToNhwc/nhwcToNchw kernels; its conv kernels carry "nhwc" too.
+KERNEL_FAMILIES = (
+    ("K1 stft_features", ("stft_features_kernel",)),
+    ("K2/K3 istft_ola", ("istft_ola_kernel",)),
+    ("layout transposes", ("nchwtonhwc", "nhwctonchw")),
+    ("convs and GEMMs", ("conv", "gemm", "xmma", "cutlass", "wgrad", "dgrad")),
+    ("cuFFT", ("fft",)),
+    ("optimizers", ("multi_tensor", "foreach")),
+    ("reductions", ("reduce",)),
+    ("copies, cat, gather", ("copy", "cat", "gather", "index", "scatter")),
+    ("elementwise", ("elementwise",)),
+)
 # The keys of scripts/quality_protocol.py's JSON line (tests/test_torch_oracle.py
 # holds the port's key set equal to the JAX script's).
 QUALITY_KEYS = {
@@ -140,6 +172,54 @@ def mixtures(rng, b: int, t: int) -> np.ndarray:
     return np.stack(out).astype(np.float32)
 
 
+def near_silent(sr: int, t: int, seed: int = 1) -> np.ndarray:
+    """One signal: a tone of amplitude 1 with -20 dB noise over the first
+    40 %, -120 dB noise alone to 80 %, digital silence after.  Each
+    frame's log|X| can be held to 1e-3 only if the FFT's error follows the
+    frame's own level (tests/test_torch_ops.py runs the same signal through
+    the kernel's schedule on the CPU)."""
+    r = np.random.default_rng(seed)
+    n = np.arange(t)
+    x = (np.sin(2 * np.pi * 440.3 * n / sr) + 0.1 * r.standard_normal(t)) * (n < 0.4 * t)
+    x += 1e-6 * r.standard_normal(t) * (n >= 0.4 * t) * (n < 0.8 * t)
+    return x.astype(np.float32)[None]
+
+
+def bound(nbytes: float, flops: float):
+    """(ms, "bytes" or "operations"): the least time the card could take to
+    move `nbytes` and do `flops` f32 operations."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def fft_flops(frames: int, n_fft: int) -> float:
+    return frames * 2.5 * n_fft * math.log2(n_fft)
+
+
+def stft_bound(x, n_fft, hop, emits=("spec",), n_mels=0):
+    """The bound of an STFT of x (..., T) emitting `emits`: the input read
+    once, each output written once, the mel matrix; an FFT a frame, plus
+    2·K·M flops a frame for log-mel."""
+    t = x.shape[-1]
+    b, f, k = x.numel() // t, 1 + (t - n_fft) // hop, n_fft // 2 + 1
+    width = {"spec": 8 * k, "mag": 4 * k, "logmag": 4 * k, "logmel": 4 * n_mels}
+    nbytes = 4 * b * t + b * f * sum(width[e] for e in emits)
+    flops = fft_flops(b * f, n_fft)
+    if "logmel" in emits:
+        nbytes += 4 * k * n_mels
+        flops += 2 * b * f * k * n_mels
+    return bound(nbytes, flops)
+
+
+def istft_bound(spec_bytes, b, s, f, n_fft, hop, mask_bytes=0, mask_flops=0):
+    """The bound of an overlap-added inverse STFT of b·s signals of f frames
+    from `spec_bytes` of spectrum (and `mask_bytes` of masks): an inverse
+    FFT a frame, the f32 output written once."""
+    out = 4 * b * s * ((f - 1) * hop + n_fft)
+    return bound(spec_bytes + mask_bytes + out,
+                 fft_flops(b * s * f, n_fft) + mask_flops)
+
+
 def phase_device() -> str:
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
     torch.backends.cuda.matmul.allow_tf32 = False    # f32 parity is the point
@@ -163,18 +243,37 @@ def phase_build() -> None:
          library=build.library_path().name, ptxas=ptxas)
 
 
-def k1_case(x, n_fft, hop, emits, mel):
+def k1_case(x, n_fft, hop, emits, mel, logmag_floor=None):
+    """K1 against its plain version on x.  With `logmag_floor`, logmag is
+    held to 1e-3 only at bins whose plain |X| reaches that fraction of
+    their frame's RMS |X|; spec and mag are held at every bin."""
     ker = k1.stft_features_kernel(x, n_fft, hop, emit=emits, mel_matrix=mel)
     ref = k1.stft_features_reference(x, n_fft, hop, emit=emits, mel_matrix=mel)
     torch.cuda.synchronize()
     scale = float(ref["spec"].abs().max()) if "spec" in ref else 1.0
     errs = {}
     for key in emits:
-        errs[key] = max_err(ker[key], ref[key])
-        tol = 3e-4 * scale if key in ("spec", "mag") else 1e-3
         check(ker[key].shape == ref[key].shape, f"k1 {key} shape")
+        a, b = ker[key], ref[key]
+        if key == "logmag" and logmag_floor is not None:
+            mag = ref["spec"].abs()
+            keep = mag >= logmag_floor * mag.square().mean(-1, keepdim=True).sqrt()
+            errs["logmag_all_bins"] = max_err(a, b)
+            errs["logmag_bins_under_floor"] = int((~keep).sum())
+            a, b = a[keep], b[keep]
+        errs[key] = max_err(a, b)
+        tol = 3e-4 * scale if key in ("spec", "mag") else 1e-3
         check(errs[key] <= tol, f"k1 {key} at n_fft {n_fft} hop {hop} shape "
               f"{tuple(x.shape)}: max err {errs[key]} > {tol}")
+    if "logmag" in emits:
+        # Not a check: how far each f32 version's log|X| lies from the same
+        # function (the same f32 window) computed in float64.
+        w = torch.from_numpy(get_window("hann", n_fft)).to(x.device).double()
+        exact = torch.stft(x.reshape(-1, x.shape[-1]).double(), n_fft, hop, window=w,
+                           center=False, return_complex=True)
+        exact = torch.log(exact.abs() + 1e-8).transpose(-1, -2).reshape(ref["logmag"].shape)
+        errs["logmag_vs_f64"] = {"kernel": max_err(ker["logmag"], exact),
+                                 "plain": max_err(ref["logmag"], exact)}
     return errs, ker
 
 
@@ -192,7 +291,31 @@ def phase_k1(rng, dev):
         xs = torch.from_numpy(rng.standard_normal((2, 8000), np.float32)).to(dev)
         errs, _ = k1_case(xs, n_fft, hop, ("spec", "mag", "logmag", "logmel"), m)
         emit("k1", n_fft=n_fft, hop=hop, shape=[2, 8000], max_abs_err=errs)
-    return x, ker["spec"], main_errs["spec"]
+    # The music_complex_44k step's two launches: mixtures, then targets, on
+    # a generator of their own.  Among their 6.3 M white-noise bins the
+    # Rayleigh tail puts a few near |X| = 0, where log|X| of two f32
+    # versions differs by their spec gap (~1e-5) over |X|: logmag is held
+    # where |X| is at least LOGMAG_FLOOR of the frame's RMS |X|.
+    music, rng_music = {}, np.random.default_rng(SEED_MUSIC)
+    for what, shape, emits in (
+            ("mixtures", (B_MUSIC, T_MUSIC), ("spec", "mag", "logmag")),
+            ("targets", (B_MUSIC * S_MUSIC, T_MUSIC), ("logmag", "spec"))):
+        xm = torch.from_numpy(rng_music.standard_normal(shape, np.float32)).to(dev)
+        errs, _ = k1_case(xm, MUSIC_N_FFT, MUSIC_HOP, emits, None, LOGMAG_FLOOR)
+        music[what] = (xm, emits)
+        emit("k1", case=f"music_complex_44k {what}", shape=list(shape),
+             n_fft=MUSIC_N_FFT, hop=MUSIC_HOP, max_abs_err=errs,
+             tol=f"spec, mag 3e-4*max|X|; logmag 1e-3 where |X| >= "
+                 f"{LOGMAG_FLOOR} * frame RMS |X|")
+    for n_fft, hop, sr, emits in ((N_FFT, HOP, SR, ("spec", "logmag", "logmel")),
+                                  (MUSIC_N_FFT, MUSIC_HOP, 44100, ("spec", "logmag"))):
+        m = torch.from_numpy(mel_filterbank(N_MELS, n_fft // 2 + 1, sr)).to(dev)
+        xq = torch.from_numpy(near_silent(sr, 2 * sr)).to(dev)
+        errs, _ = k1_case(xq, n_fft, hop, emits, m)
+        emit("k1", case="near-silent: tone, then -120 dB noise, then zeros",
+             n_fft=n_fft, hop=hop, shape=list(xq.shape), max_abs_err=errs,
+             tol="spec 3e-4*max|X|, logmag and logmel 1e-3")
+    return x, ker["spec"], main_errs["spec"], music
 
 
 def k2_case(spec, masks, n_fft, hop, mask_type):
@@ -375,6 +498,7 @@ def phase_train(dev):
         # floor of 1 (0.01 dB); d_loss is O(1).
         gaps[key] = abs(a - b) / max(abs(b), 1.0)
         check(gaps[key] <= 1e-2, f"train step {key}: kernel {a} vs plain {b}")
+    profile = step_profile(exp)
     ev = exp.evaluate(num_batches=2)
     check(all(np.isfinite(v) for v in ev.values()), f"eval non-finite: {ev}")
     rc = cli.main(["train", "--config", "wsj0_logmel", "--steps", "2"])
@@ -386,7 +510,7 @@ def phase_train(dev):
          wall_s=wall, last=last, launches=counts, moved_max_abs=moved,
          one_step={"kernel": out["kernel"], "plain": out["reference"]},
          gap=gaps, tol="|kernel - plain| <= 1e-2 * max(|plain|, 1)",
-         eval=ev, cli_wsj0_logmel_rc=rc)
+         step_profile=profile, eval=ev, cli_wsj0_logmel_rc=rc)
     return exp, counts
 
 
@@ -526,6 +650,7 @@ def phase_quality(dev):
     cfg = quality_protocol.protocol_config("music_complex_44k", False)
     exp = Experiment(cfg, device=dev)
     step_kernel, step_plain = time_steps(exp)
+    profile = step_profile(exp)
     torch.cuda.reset_peak_memory_stats()
     exp._train_step(exp.state, exp._bank, exp._train_seed)
     torch.cuda.synchronize()
@@ -539,7 +664,7 @@ def phase_quality(dev):
         "wall_ms": {"kernel": step_kernel, "plain": step_plain},
         "mixture_sec_per_sec": {"kernel": mix_s / step_kernel * 1e3,
                                 "plain": mix_s / step_plain * 1e3},
-        "peak_device_mib": peak})
+        "peak_device_mib": peak, "step_profile": profile})
     return runs
 
 
@@ -563,17 +688,18 @@ def time_steps(exp):
     return statistics.median(times[None]), statistics.median(times["reference"])
 
 
-def time_pair(plain, kernel, samples=TIMING_SAMPLES, calls=CALLS_PER_SAMPLE):
-    """Median per-call ms of each: CUDA events around `calls` back-to-back
-    calls make one sample; samples alternate plain, kernel, kernel, plain."""
-    fns = {"plain": plain, "kernel": kernel}
+def time_fns(samples=TIMING_SAMPLES, calls=CALLS_PER_SAMPLE, **fns):
+    """Median per-call ms of each function: CUDA events around `calls`
+    back-to-back calls make one sample; the samples take the functions in
+    turn, forward then backward (plain, kernel, kernel, plain, ...)."""
     for _ in range(3):
-        plain()
-        kernel()
+        for fn in fns.values():
+            fn()
     torch.cuda.synchronize()
-    times = {"plain": [], "kernel": []}
-    for i in range(2 * samples):
-        name = ("plain", "kernel", "kernel", "plain")[i % 4]
+    order = list(fns) + list(fns)[::-1]
+    times = {name: [] for name in fns}
+    for i in range(samples * len(fns)):
+        name = order[i % len(order)]
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
         for _ in range(calls):
@@ -581,21 +707,97 @@ def time_pair(plain, kernel, samples=TIMING_SAMPLES, calls=CALLS_PER_SAMPLE):
         b.record()
         b.synchronize()
         times[name].append(a.elapsed_time(b) / calls)
-    return statistics.median(times["plain"]), statistics.median(times["kernel"])
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def time_pair(plain, kernel):
+    """(plain ms, kernel ms), timed in turns."""
+    t = time_fns(plain=plain, kernel=kernel)
+    return t["plain"], t["kernel"]
+
+
+def library_stft(x, n_fft, hop):
+    """torch.stft on the same frames and window: the one PyTorch call that
+    computes the same function as the STFT kernels (its layout is (K, F)),
+    timed beside them and used nowhere in the port."""
+    w = torch.from_numpy(get_window("hann", n_fft)).to(x.device)
+    flat = x.reshape(-1, x.shape[-1])
+    return lambda: torch.stft(flat, n_fft, hop, window=w, center=False,
+                              return_complex=True)
+
+
+def device_kernels(fn, calls=CALLS_PER_SAMPLE) -> dict:
+    """{kernel name: (device ms, launches) per call} of the kernels `fn`
+    launches, from torch.profiler after one warm-up call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: (e.self_device_time_total / calls / 1e3, e.count / calls)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
+def device_ms(fn, calls=CALLS_PER_SAMPLE) -> float:
+    """Device ms per call of the kernels `fn` launches: the card's time
+    without the wrapper's host time."""
+    return sum(ms for ms, _ in device_kernels(fn, calls).values())
+
+
+def step_profile(exp) -> dict:
+    """Device ms (and launches) a train step by kernel family, over
+    PROFILE_STEPS steps on the kernel path, and the busy total."""
+    fams = {}
+    for name, (ms, n) in device_kernels(
+            lambda: exp._train_step(exp.state, exp._bank, exp._train_seed),
+            PROFILE_STEPS).items():
+        low = name.lower()
+        fam = next((f for f, keys in KERNEL_FAMILIES if any(k in low for k in keys)),
+                   "other")
+        ms0, n0 = fams.get(fam, (0.0, 0.0))
+        fams[fam] = (ms0 + ms, n0 + n)
+    return {"steps": PROFILE_STEPS, "device_busy_ms": sum(ms for ms, _ in fams.values()),
+            "by_family": {f: {"ms": ms, "launches": n} for f, (ms, n)
+                          in sorted(fams.items(), key=lambda kv: -kv[1][0])}}
+
+
+def time_stft(kernel, plain, x, n_fft, hop, emits=("spec",), n_mels=0):
+    """A K1 or K4 call timed beside its plain version and torch.stft, with
+    its bound; the dict the timing line and the kernels line read."""
+    fns = {"plain": plain, "kernel": kernel, "library": library_stft(x, n_fft, hop)}
+    t = time_fns(**fns)
+    ms, by = stft_bound(x, n_fft, hop, emits, n_mels)
+    return {"shape": list(x.shape), "n_fft": n_fft, "emit": list(emits),
+            "kernel": t["kernel"], "plain": t["plain"], "library": t["library"],
+            "device": {name: device_ms(fn) for name, fn in fns.items()},
+            "bound": ms, "bound_by": by}
+
+
+def k1_timing(x, n_fft, hop, emits, mel=None):
+    n_mels = mel.shape[1] if mel is not None else 0
+    return time_stft(
+        lambda: k1.stft_features_kernel(x, n_fft, hop, emit=emits, mel_matrix=mel),
+        lambda: k1.stft_features_reference(x, n_fft, hop, emit=emits, mel_matrix=mel),
+        x, n_fft, hop, emits, n_mels)
 
 
 def phase_timing(rng, dev, x, spec, cfg, g, batch, k3_tensors, exp, k4_inputs,
-                 bound_walls):
+                 k1_music, bound_walls):
     mel = torch.from_numpy(mel_filterbank(N_MELS, N_FFT // 2 + 1, SR)).to(dev)
-    emits = ("spec", "logmel")
-    k1_plain, k1_ms = time_pair(
-        lambda: k1.stft_features_reference(x, N_FFT, HOP, emit=emits, mel_matrix=mel),
-        lambda: k1.stft_features_kernel(x, N_FFT, HOP, emit=emits, mel_matrix=mel))
+    k1_sep = k1_timing(x, N_FFT, HOP, ("spec", "logmel"), mel)
+    k1_steps = {what: k1_timing(xm, MUSIC_N_FFT, MUSIC_HOP, emits)
+                for what, (xm, emits) in k1_music.items()}
     masks = torch.from_numpy(rng.uniform(0, 1, (B_MAIN, 2) + tuple(spec.shape[-2:]))
                              .astype(np.float32)).to(dev)
     k2_plain, k2_ms = time_pair(
         lambda: k2.masked_istft_reference(spec, masks, N_FFT, HOP),
         lambda: k2.masked_istft_kernel(spec, masks, N_FFT, HOP))
+    k2_bound = istft_bound(spec.numel() * 8, B_MAIN, 2, spec.shape[-2], N_FFT, HOP,
+                           masks.numel() * 4, 2 * masks.numel())
 
     def run_sep(path):
         def go():
@@ -610,41 +812,57 @@ def phase_timing(rng, dev, x, spec, cfg, g, batch, k3_tensors, exp, k4_inputs,
         k3_plain, k3_ms = time_pair(
             lambda: k3.istft_reference(re, im, N_FFT, HOP),
             lambda: k3.istft_kernel(re, im, N_FFT, HOP))
+    k3_bound = istft_bound(re.numel() * 8, re.shape[0], 1, re.shape[-2], N_FFT, HOP)
     bwd_plain, bwd_ms = time_pair(
         lambda: torch.autograd.grad(ref, (re, im), dy, retain_graph=True),
         lambda: torch.autograd.grad(y, (re, im), dy, retain_graph=True))
+    # The backward reads the cotangent once and writes both planes once,
+    # with an FFT a frame: the bytes and flops of a spec-only STFT of it.
+    bwd_bound = stft_bound(ref, N_FFT, HOP)
+    # Its one K1 launch (on dy·inv_env, before the per-bin scale) alone, on
+    # a cotangent of the same shape, beside torch.stft.
+    z = torch.randn_like(ref).contiguous()
+    k1_bwd = k1_timing(z, N_FFT, HOP, ("spec",))
     stream_srcs, music_srcs = k4_inputs
-    k4_plain, k4_ms = time_pair(lambda: k4.stft_reference(stream_srcs, N_FFT, HOP),
-                                lambda: k4.stft_kernel(stream_srcs, N_FFT, HOP))
-    k4_music_plain, k4_music_ms = time_pair(
-        lambda: k4.stft_reference(music_srcs, MUSIC_N_FFT, MUSIC_HOP),
-        lambda: k4.stft_kernel(music_srcs, MUSIC_N_FFT, MUSIC_HOP))
+    k4_times = {what: time_stft(lambda: k4.stft_kernel(xs, n, h),
+                                lambda: k4.stft_reference(xs, n, h), xs, n, h)
+                for what, xs, n, h in (("stream", stream_srcs, N_FFT, HOP),
+                                       ("music", music_srcs, MUSIC_N_FFT, MUSIC_HOP))}
     step_kernel, step_plain = time_steps(exp)
     mix_s = exp.cfg.train.batch_size * exp.cfg.segment_samples / exp.cfg.dsp.sample_rate
     emit("timing", shape=[B_MAIN, T_MAIN], samples=TIMING_SAMPLES,
          calls_per_sample=CALLS_PER_SAMPLE,
-         stft_features_ms={"kernel": k1_ms, "plain": k1_plain},
-         masked_istft_ms={"kernel": k2_ms, "plain": k2_plain},
+         stft_features_ms=k1_sep, stft_features_music_step_ms=k1_steps,
+         stft_features_as_istft_bwd_ms=k1_bwd,
+         masked_istft_ms={"kernel": k2_ms, "plain": k2_plain, "bound": k2_bound[0]},
          separate_ms={"kernel": sep_kernel, "plain": sep_plain},
          separate_mix_sec_per_sec={"kernel": audio_s / sep_kernel * 1e3,
                                    "plain": audio_s / sep_plain * 1e3},
          istft_shape=list(re.shape),
-         istft_ms={"kernel": k3_ms, "plain": k3_plain},
-         istft_bwd_ms={"kernel": bwd_ms, "plain": bwd_plain},
+         istft_ms={"kernel": k3_ms, "plain": k3_plain, "bound": k3_bound[0]},
+         istft_bwd_ms={"kernel": bwd_ms, "plain": bwd_plain, "bound": bwd_bound[0]},
          train_step_samples=STEP_SAMPLES,
          train_step_ms={"kernel": step_kernel, "plain": step_plain},
          train_mix_sec_per_sec={"kernel": mix_s / step_kernel * 1e3,
                                 "plain": mix_s / step_plain * 1e3},
-         stft_shape=list(stream_srcs.shape),
-         stft_ms={"kernel": k4_ms, "plain": k4_plain},
-         stft_music_shape=list(music_srcs.shape),
-         stft_music_ms={"kernel": k4_music_ms, "plain": k4_music_plain},
-         recompute_bounds_wall_s=bound_walls,
+         stft_ms=k4_times, recompute_bounds_wall_s=bound_walls,
          note="separate() includes host->device copy and the result's copy "
-              "back; a train step is timed on the host clock to a synchronize")
-    return {"stft_features": (k1_ms, k1_plain), "masked_istft": (k2_ms, k2_plain),
-            "istft": (k3_ms, k3_plain), "istft_bwd": (bwd_ms, bwd_plain),
-            "stft": (k4_ms, k4_plain)}
+              "back; a train step is timed on the host clock to a synchronize; "
+              "istft_bwd_ms is the whole autograd backward")
+
+    def row(t):
+        return {"ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": t["bound"],
+                "bound_by": t["bound_by"], "library_ms": t["library"]}
+
+    return {"stft_features": {**row(k1_sep), "library_ms": None},
+            "masked_istft": {"ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound[0],
+                             "bound_by": k2_bound[1], "library_ms": None},
+            "istft": {"ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bound[0],
+                      "bound_by": k3_bound[1], "library_ms": None},
+            "istft_bwd": {"ms": bwd_ms, "plain_ms": bwd_plain, "bound_ms": bwd_bound[0],
+                          "bound_by": bwd_bound[1], "library_ms": None,
+                          "k1_launch": row(k1_bwd)},
+            "stft": row(k4_times["stream"])}
 
 
 def main() -> int:
@@ -652,7 +870,7 @@ def main() -> int:
     phase_build()
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(SEED)
-    x, spec, k1_err = phase_k1(rng, dev)
+    x, spec, k1_err, k1_music = phase_k1(rng, dev)
     k2_err = phase_k2(rng, dev, x, spec)
     with tempfile.TemporaryDirectory() as tmp:
         cfg, g, batch, counts = phase_main_path(rng, dev, Path(tmp))
@@ -662,7 +880,7 @@ def main() -> int:
     bound_launches, bound_walls = phase_bounds(dev)
     quality_runs = phase_quality(dev)
     times = phase_timing(rng, dev, x, spec, cfg, g, batch, k3_tensors, exp,
-                         k4_inputs, bound_walls)
+                         k4_inputs, k1_music, bound_walls)
     k4_launches = bound_launches["stft"] + sum(
         r["launches"]["stft"] for r in quality_runs.values())
     kernels = [
@@ -670,28 +888,27 @@ def main() -> int:
          "source": "gan_sass_tf_tpu_torch/ops/csrc/stft_features.cu",
          "replaces": "gan_sass_tf_tpu/ops/pallas_stft.py:63",
          "launches": counts["stft_features"], "max_abs_err": k1_err,
-         "ms": times["stft_features"][0], "plain_ms": times["stft_features"][1]},
+         **times["stft_features"]},
         {"name": "masked_istft", "route": "cuda",
          "source": "gan_sass_tf_tpu_torch/ops/csrc/masked_istft.cu",
          "replaces": "gan_sass_tf_tpu/ops/pallas_istft.py:175",
          "launches": counts["masked_istft"], "max_abs_err": k2_err,
-         "ms": times["masked_istft"][0], "plain_ms": times["masked_istft"][1]},
+         **times["masked_istft"]},
         {"name": "istft", "route": "cuda",
          "source": "gan_sass_tf_tpu_torch/ops/csrc/masked_istft.cu",
          "replaces": "gan_sass_tf_tpu/ops/pallas_istft.py:71",
          "launches": train_counts["istft"], "max_abs_err": k3_errs["forward_full"],
-         "ms": times["istft"][0], "plain_ms": times["istft"][1]},
+         **times["istft"]},
         {"name": "istft_bwd", "route": "cuda",
          "source": "gan_sass_tf_tpu_torch/ops/csrc/stft_features.cu",
          "replaces": "gan_sass_tf_tpu/ops/pallas_istft.py:151",
          "launches": train_counts["istft_bwd"],
          "max_abs_err": max(k3_errs["grad_re"], k3_errs["grad_im"]),
-         "ms": times["istft_bwd"][0], "plain_ms": times["istft_bwd"][1]},
+         **times["istft_bwd"]},
         {"name": "stft", "route": "cuda",
          "source": "gan_sass_tf_tpu_torch/ops/csrc/stft_features.cu",
          "replaces": "gan_sass_tf_tpu/ops/pallas_stft.py:228",
-         "launches": k4_launches, "max_abs_err": k4_err,
-         "ms": times["stft"][0], "plain_ms": times["stft"][1]},
+         "launches": k4_launches, "max_abs_err": k4_err, **times["stft"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

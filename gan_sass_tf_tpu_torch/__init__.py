@@ -2,9 +2,9 @@
 
 The port runs one-shot separation (fused STFT features -> conv U-Net G ->
 fused masked iSTFT) with hand-written CUDA kernels for the two DSP hot ops
-and plain PyTorch everywhere else.  It shares the JAX package's presets
-(`gan_sass_tf_tpu.config`, which imports only `dataclasses` and `json`) and
-imports nothing else from it.
+and plain PyTorch everywhere else.  It keeps its own copy of the JAX
+package's presets (`config`, equal preset for preset) and imports nothing
+of that package.
 
 Public surface:
     from gan_sass_tf_tpu_torch import config, models, infer
@@ -15,4 +15,4 @@ Public surface:
 
 __version__ = "0.1.0"
 
-from gan_sass_tf_tpu import config  # noqa: F401
+from gan_sass_tf_tpu_torch import config  # noqa: F401

@@ -20,7 +20,7 @@ import argparse
 import dataclasses
 import sys
 
-from gan_sass_tf_tpu import config as config_lib
+from gan_sass_tf_tpu_torch import config as config_lib
 
 
 def _apply_overrides(cfg, overrides):

@@ -1,10 +1,11 @@
 """Build the CUDA kernels with nvcc and load them with ctypes.
 
-All `csrc/*.cu` sources compile into one shared library with a plain C
-interface (no PyTorch headers, so a build takes seconds).  The library is
-keyed by a hash of the sources and the flags and lives in `ops/_build/`
-(ignored by git), so the first CUDA call of a fresh checkout builds it and
-later processes reuse it.  Nothing happens at import time.
+Each `csrc/*.cu` source compiles to an object in its own nvcc process, all
+started together, and the objects link into one shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds).  The
+library is keyed by a hash of the sources and the flags and lives in
+`ops/_build/` (ignored by git), so the first CUDA call of a fresh checkout
+builds it and later processes reuse it.  Nothing happens at import time.
 """
 
 from __future__ import annotations
@@ -24,26 +25,23 @@ CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # x, wc, ws, mel, spec, mag, logmag, logmel, B, T, F, n_fft, hop, K, M,
-    # eps, threads, smem_bytes, stream, device
-    "stft_features_launch": [_P] * 8 + [_I] * 7 + [ctypes.c_float]
-    + [_I, _I, _P, _I],
-    # x, wc, ws, spec, B, T, F, n_fft, hop, K, threads, smem_bytes, stream,
-    # device
-    "stft_launch": [_P] * 4 + [_I] * 6 + [_I, _I, _P, _I],
+    # x, win, tw, tws, mel, spec, mag, logmag, logmel, B, T, F, n_fft, hop,
+    # M, eps, stream, device
+    "stft_features_launch": [_P] * 9 + [_I] * 6 + [ctypes.c_float, _P, _I],
+    # x, win, tw, tws, spec, B, T, F, n_fft, hop, stream, device
+    "stft_launch": [_P] * 5 + [_I] * 5 + [_P, _I],
     # spec, masks, ci, si, inv_env, out, B, S, F, n_fft, hop, K,
     # complex_mask, threads, smem_bytes, stream, device
     "masked_istft_launch": [_P] * 6 + [_I] * 7 + [_I, _I, _P, _I],
     # re, im, ci, si, inv_env, out, B, F, n_fft, hop, K, threads,
     # smem_bytes, stream, device
     "istft_launch": [_P] * 6 + [_I] * 5 + [_I, _I, _P, _I],
-    "stft_features_tile_frames": [],
     "masked_istft_tile_rows": [],
 }
 
@@ -83,18 +81,23 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-        os.replace(tmp, out)      # atomic: concurrent builders agree
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, src.stem + ".o") for src in _sources()]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True)
+                 for src, obj in zip(_sources(), objs)]
+        build_log = "".join(p.communicate()[0] for p in procs)
+        if any(p.returncode for p in procs):
+            raise RuntimeError(f"nvcc failed:\n{build_log}")
+        lib = os.path.join(tmp, out.name)
+        link = subprocess.run([nvcc, "-shared", "-o", lib, *objs],
+                              capture_output=True, text=True)
+        build_log += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{build_log}")
+        os.replace(lib, out)      # atomic: concurrent builders agree
     build_seconds = time.perf_counter() - t0
     return out
 

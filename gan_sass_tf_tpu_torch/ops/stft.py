@@ -4,7 +4,8 @@ version.
 Port of `gan_sass_tf_tpu/ops/pallas_stft.py::stft_pallas` (the oracle
 bounds' STFT): (..., T) f32 -> (..., F, n_fft//2 + 1) complex64.
 `stft_kernel` launches the spec-only instantiation of the K1 kernel body in
-`csrc/stft_features.cu` (`stft_launch`: no |X|, log or mel epilogue);
+`csrc/stft_features.cu` (`stft_launch`: the same FFT, no |X|, log or mel
+epilogue);
 `stft_reference` is `dsp.stft`.  `ops.dispatch.stft` chooses between them
 by the tensor's device.
 """
@@ -14,12 +15,7 @@ from __future__ import annotations
 import torch
 
 from gan_sass_tf_tpu_torch.dsp.stft import stft as stft_reference  # noqa: F401
-from gan_sass_tf_tpu_torch.ops.stft_features import (
-    _MAX_SMEM,
-    _dft_matrices,
-    block_threads,
-    check_waveform,
-)
+from gan_sass_tf_tpu_torch.ops.stft_features import _device_tables, check_waveform
 
 launches = 0   # kernel launches since the last reset (chip_smoke reads it)
 
@@ -38,17 +34,13 @@ def stft_kernel(x: torch.Tensor, n_fft: int, hop: int,
 
     lead, b, t, f, k = check_waveform(x, n_fft, hop, _require)
     lib = build.load_library()
-    smem = 4 * ((lib.stft_features_tile_frames() - 1) * hop + n_fft)
-    _require(smem <= _MAX_SMEM, f"needs {smem} B of shared memory "
-             f"(n_fft {n_fft}, hop {hop}); the card has {_MAX_SMEM}")
     dev = x.device
-    wc, ws = _dft_matrices(n_fft, window, dev)
+    win, tw, tws = _device_tables(n_fft, window, dev)
     out = torch.empty((b, f, k), dtype=torch.complex64, device=dev)
     rc = lib.stft_launch(
-        x.data_ptr(), wc.data_ptr(), ws.data_ptr(),
-        torch.view_as_real(out).data_ptr(), b, t, f, n_fft, hop, k,
-        block_threads(k), smem, torch.cuda.current_stream(dev).cuda_stream,
-        dev.index)
+        x.data_ptr(), win.data_ptr(), tw.data_ptr(), tws.data_ptr(),
+        torch.view_as_real(out).data_ptr(), b, t, f, n_fft, hop,
+        torch.cuda.current_stream(dev).cuda_stream, dev.index)
     build.check_launch(rc, "stft")
     launches += 1
     return out.reshape(*lead, f, k)

@@ -3,7 +3,8 @@ PyTorch version.
 
 Port of `gan_sass_tf_tpu/ops/pallas_stft.py::stft_features_pallas`.  One
 call emits any subset of {"spec", "mag", "logmag", "logmel"} as a dict.
-`stft_features_kernel` launches `csrc/stft_features.cu` on a CUDA tensor;
+`stft_features_kernel` launches `csrc/stft_features.cu` (an FFT per frame
+in shared memory, n_fft a power of two from 64 to 4096) on a CUDA tensor;
 `stft_features_reference` composes `dsp.stft` -> abs -> log -> mel matmul.
 `ops.dispatch` chooses between them by the tensor's device.
 """
@@ -11,6 +12,7 @@ call emits any subset of {"spec", "mag", "logmag", "logmel"} as a dict.
 from __future__ import annotations
 
 import functools
+import math
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -20,7 +22,7 @@ from gan_sass_tf_tpu_torch.dsp.stft import stft as _stft
 from gan_sass_tf_tpu_torch.dsp.windows import get_window
 
 EMITS = ("spec", "mag", "logmag", "logmel")
-_MAX_SMEM = 227 * 1024      # dynamic shared memory a Hopper block may use
+MIN_FFT, MAX_FFT = 64, 4096   # the kernel's n_fft: a power of two in this range
 
 launches = 0   # kernel launches since the last reset (chip_smoke reads it)
 
@@ -33,26 +35,22 @@ def _check_emit(emit: Sequence[str], mel: Optional[torch.Tensor]) -> None:
         raise ValueError("logmel requires mel_matrix")
 
 
+def fft_tables(n_fft: int, window: str
+               ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The kernel's tables, built in float64 and stored f32: the window
+    (n_fft,), the Stockham stage twiddles e^{-2πim/H} (H,) and the split
+    twiddles e^{-2πik/N} (H + 1,) as complex64, for H = n_fft / 2."""
+    h = n_fft // 2
+    win = get_window(window, n_fft, np.float64).astype(np.float32)
+    stage = np.exp(-2j * np.pi * np.arange(h) / h).astype(np.complex64)
+    split = np.exp(-2j * np.pi * np.arange(h + 1) / n_fft).astype(np.complex64)
+    return win, stage, split
+
+
 @functools.lru_cache(maxsize=16)
-def _dft_matrices(n_fft: int, window: str,
-                  device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Windowed rDFT matrices (n_fft, K) on `device`: wc = w[n]·cos(2πnk/N),
-    ws = -w[n]·sin(2πnk/N); built in float64, stored f32 (the formulas of
-    pallas_stft._dft_matrices, unpadded and unsplit)."""
-    n_bins = n_fft // 2 + 1
-    w = get_window(window, n_fft).astype(np.float64)
-    ang = 2.0 * np.pi * np.arange(n_fft)[:, None] * np.arange(n_bins)[None, :] / n_fft
-    wc = (np.cos(ang) * w[:, None]).astype(np.float32)
-    ws = (-np.sin(ang) * w[:, None]).astype(np.float32)
-    return (torch.from_numpy(wc).to(device), torch.from_numpy(ws).to(device))
-
-
-def block_threads(n_bins: int) -> int:
-    """Threads per block, one bin per thread and pass: the bins rounded up
-    to a warp, at most 512.  (Spreading K = 1025 evenly over 3 passes of
-    352 threads measured 16-20 % slower on an H100 than 512 threads with a
-    last pass of one bin: fewer warps stay resident.)"""
-    return min(-(-n_bins // 32) * 32, 512)
+def _device_tables(n_fft: int, window: str,
+                   device: torch.device) -> Tuple[torch.Tensor, ...]:
+    return tuple(torch.from_numpy(a).to(device) for a in fft_tables(n_fft, window))
 
 
 def stft_features_reference(x: torch.Tensor, n_fft: int, hop: int,
@@ -90,12 +88,14 @@ def check_waveform(x: torch.Tensor, n_fft: int, hop: int, require
             "the kernel has no backward, and the input requires grad; a "
             "gradient would stop here (detach it, or differentiate through "
             "the plain version)")
+    require(MIN_FFT <= n_fft <= MAX_FFT and n_fft & (n_fft - 1) == 0,
+            f"needs n_fft a power of two in [{MIN_FFT}, {MAX_FFT}], got {n_fft}")
     require(n_fft % hop == 0, f"needs hop | n_fft, got {n_fft}/{hop}")
     require(x.dtype == torch.float32, f"needs float32, got {x.dtype}")
     require(x.dim() >= 1, "needs a (..., T) waveform")
     *lead, t = x.shape
     require(t >= n_fft, f"signal ({t}) shorter than n_fft ({n_fft})")
-    b = int(np.prod(lead)) if lead else 1
+    b = math.prod(lead)
     require(0 < b <= 65535, f"batch {b} outside [1, 65535]")
     require(x.is_cuda, f"needs a CUDA tensor, got one on {x.device}")
     require(x.is_contiguous(), "needs a contiguous waveform")
@@ -123,11 +123,7 @@ def stft_features_kernel(x: torch.Tensor, n_fft: int, hop: int,
                  f"mel matrix must be contiguous f32 ({k}, M) on {dev}")
         m = mel_matrix.shape[1]
     lib = build.load_library()
-    tile = lib.stft_features_tile_frames()
-    smem = 4 * ((tile - 1) * hop + n_fft + (tile * k if m else 0))
-    _require(smem <= _MAX_SMEM, f"needs {smem} B of shared memory "
-             f"(n_fft {n_fft}, hop {hop}); the card has {_MAX_SMEM}")
-    wc, ws = _dft_matrices(n_fft, window, dev)
+    win, tw, tws = _device_tables(n_fft, window, dev)
 
     def new(width, dtype=torch.float32):
         return torch.empty((b, f, width), dtype=dtype, device=dev)
@@ -147,12 +143,11 @@ def stft_features_kernel(x: torch.Tensor, n_fft: int, hop: int,
         a = out[name]
         return (torch.view_as_real(a) if a.is_complex() else a).data_ptr()
 
-    threads = block_threads(k)
     rc = lib.stft_features_launch(
-        x.data_ptr(), wc.data_ptr(), ws.data_ptr(),
+        x.data_ptr(), win.data_ptr(), tw.data_ptr(), tws.data_ptr(),
         mel_matrix.data_ptr() if m else None,
         ptr("spec"), ptr("mag"), ptr("logmag"), ptr("logmel"),
-        b, t, f, n_fft, hop, k, m, eps, threads, smem,
+        b, t, f, n_fft, hop, m, eps,
         torch.cuda.current_stream(dev).cuda_stream, dev.index)
     build.check_launch(rc, "stft_features")
     launches += 1

@@ -36,7 +36,7 @@ import sys
 
 import torch
 
-from gan_sass_tf_tpu import config as config_lib
+from gan_sass_tf_tpu_torch import config as config_lib
 from gan_sass_tf_tpu_torch.cli import _apply_overrides
 from gan_sass_tf_tpu_torch.data import make_dataset, mix_sources
 from gan_sass_tf_tpu_torch.losses import oracle_bound_si_sdr

@@ -10,12 +10,13 @@ import numpy as np
 import pytest
 import torch
 
-from gan_sass_tf_tpu import config
+from gan_sass_tf_tpu import config as j_config
 from gan_sass_tf_tpu.data import make_dataset as j_make_dataset
 from gan_sass_tf_tpu.data.device_bank import build_bank as j_build_bank
 from gan_sass_tf_tpu.data.device_bank import sample_bank as j_sample_bank
 from gan_sass_tf_tpu.data.mixer import mix_sources as j_mix_sources
 from gan_sass_tf_tpu.data.synthetic import SyntheticDataset as JSynthetic
+from gan_sass_tf_tpu_torch import config
 from gan_sass_tf_tpu_torch import data as tdata
 from gan_sass_tf_tpu_torch.data.counter_rng import (
     counter_bits,
@@ -30,6 +31,11 @@ def _cfg(name="stream_v5e8", **data):
     return cfg.replace(data=dataclasses.replace(cfg.data, **data))
 
 
+def _jax(cfg):
+    """The same configuration as the JAX package's Config, for its side."""
+    return j_config.Config.from_json(cfg.to_json())
+
+
 @pytest.mark.parametrize("name,data", [
     ("stream_v5e8", {}),
     ("stream_v5e8", {"f0_mode": "shared"}),
@@ -40,9 +46,9 @@ def _cfg(name="stream_v5e8", **data):
 def test_synthetic_bank_and_eval_batches_bit_identical(name, data):
     cfg = _cfg(name, **data)
     np.testing.assert_array_equal(tdata.build_bank(cfg, seed=4),
-                                  j_build_bank(cfg, seed=4))
+                                  j_build_bank(_jax(cfg), seed=4))
     ours = tdata.SyntheticDataset(cfg, seed=9, split="eval")
-    ref = JSynthetic(cfg, seed=9, split="eval")
+    ref = JSynthetic(_jax(cfg), seed=9, split="eval")
     for _ in range(2):
         a, b = ours.batch(), ref.batch()
         assert a.dtype == b.dtype == np.float32
@@ -53,7 +59,7 @@ def test_synthetic_bank_and_eval_batches_bit_identical(name, data):
 def test_make_dataset_matches_jax(split):
     cfg = _cfg("3src_pit")
     ours, ref = tdata.make_dataset(cfg, seed=2, split=split), j_make_dataset(
-        cfg, seed=2, split=split)
+        _jax(cfg), seed=2, split=split)
     assert isinstance(ours, tdata.SyntheticDataset) and ours.split == split
     np.testing.assert_array_equal(ours.batch(), ref.batch())
 
@@ -109,7 +115,7 @@ def test_apply_mix_matches_mix_sources_on_injected_draws(rng, num_noise):
     cfg = _cfg(gain_jitter_db=3.0, num_noise=num_noise, snr_db=10.0)
     src = rng.standard_normal((3, 2, 400)).astype(np.float32)
     key = jax.random.PRNGKey(11)
-    mix, scaled = j_mix_sources(jnp.asarray(src), key, cfg.data, 2)
+    mix, scaled = j_mix_sources(jnp.asarray(src), key, _jax(cfg).data, 2)
     # The same gains and noise, by mix_sources' own recipe.
     keys = jax.vmap(jax.random.fold_in, (None, 0))(key, 2 + jnp.arange(3))
 

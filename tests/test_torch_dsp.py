@@ -111,13 +111,16 @@ def test_apply_mask_matches_jax(rng, mask_type):
 
 
 def test_features_match_jax(rng):
-    from gan_sass_tf_tpu import config
+    from gan_sass_tf_tpu import config as j_config
+    from gan_sass_tf_tpu_torch import config
 
     dcfg = config.get_config("wsj0_logmel").dsp
+    j_dcfg = j_config.get_config("wsj0_logmel").dsp
     x = _rand(rng, 2, 5000)
     spec = np.array(jdsp.stft(jnp.asarray(x), 512, 128))
     for fn in ("logmag", "spec_features"):
         args = () if fn == "logmag" else (dcfg,)
+        j_args = () if fn == "logmag" else (j_dcfg,)
         ours = getattr(tdsp, fn)(torch.from_numpy(spec), *args).numpy()
-        ref = np.asarray(getattr(jdsp, fn)(jnp.asarray(spec), *args))
+        ref = np.asarray(getattr(jdsp, fn)(jnp.asarray(spec), *j_args))
         np.testing.assert_allclose(ours, ref, atol=1e-4)

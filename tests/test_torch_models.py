@@ -9,8 +9,9 @@ import numpy as np
 import pytest
 import torch
 
-from gan_sass_tf_tpu import config
+from gan_sass_tf_tpu import config as j_config
 from gan_sass_tf_tpu import models as jmodels
+from gan_sass_tf_tpu_torch import config
 from gan_sass_tf_tpu_torch import models as tmodels
 
 
@@ -22,9 +23,14 @@ def _small(name="wsj0_logmel", **model):
                        dsp=dataclasses.replace(cfg.dsp, **dsp))
 
 
+def _jax(cfg):
+    """The same configuration as the JAX package's Config, for its side."""
+    return j_config.Config.from_json(cfg.to_json())
+
+
 def _both(cfg, n_frames, seed=0):
     """(flax masks, port masks) on the same params and features."""
-    g = jmodels.build_generator(cfg)
+    g = jmodels.build_generator(_jax(cfg))
     feats = np.random.default_rng(seed).standard_normal(
         (2, n_frames, cfg.dsp.feature_dim)).astype(np.float32)
     params = g.init(jax.random.PRNGKey(seed), jnp.asarray(feats))
@@ -79,7 +85,7 @@ def test_flax_tree_names_and_npz_roundtrip(tmp_path):
     g = tmodels.build_generator(cfg, "cpu", seed=3)
     flat = tmodels.generator_params_to_flax(g.state_dict())
     # Same names and shapes as the flax module's own init.
-    params = jmodels.build_generator(cfg).init(
+    params = jmodels.build_generator(_jax(cfg)).init(
         jax.random.PRNGKey(0), jnp.zeros((1, 16, 32)))["params"]
     ref = {"/".join(k.key for k in path): v.shape for path, v in
            jax.tree_util.tree_leaves_with_path(params)}
@@ -153,7 +159,7 @@ def test_spectral_norm_discriminator_matches_flax(rng, dtype, atol, update_stats
     """Logits, and the power-iteration state (u, sigma) each call leaves
     behind, against flax's SpectralNorm with converted params and stats."""
     cfg = _d_cfg(dtype)
-    d = jmodels.build_discriminator(cfg)
+    d = jmodels.build_discriminator(_jax(cfg))
     x = rng.standard_normal((3, 21, 257, 2)).astype(np.float32)
     variables = jax.tree.map(np.asarray, d.init(jax.random.PRNGKey(1), jnp.asarray(x)))
     # A second call from the stored state, so u has moved off its init.
@@ -181,7 +187,7 @@ def test_spectral_norm_discriminator_matches_flax(rng, dtype, atol, update_stats
 def test_spectral_norm_gradient_flows_through_sigma(rng):
     """d logits / d W matches flax's (u, v constant, sigma differentiated)."""
     cfg = _d_cfg()
-    d = jmodels.build_discriminator(cfg)
+    d = jmodels.build_discriminator(_jax(cfg))
     x = rng.standard_normal((2, 12, 257, 2)).astype(np.float32)
     variables = jax.tree.map(np.asarray, d.init(jax.random.PRNGKey(2), jnp.asarray(x)))
 
@@ -206,7 +212,7 @@ def test_discriminator_tree_names_and_roundtrip():
     cfg = _d_cfg()
     td = tmodels.build_discriminator(cfg, "cpu", seed=4)
     flat = tmodels.discriminator_variables_to_flax(td.state_dict())
-    ref = jmodels.build_discriminator(cfg).init(
+    ref = jmodels.build_discriminator(_jax(cfg)).init(
         jax.random.PRNGKey(0), jnp.zeros((1, 16, 257, 2)))
     shapes = lambda t: jax.tree.map(np.shape, t)      # noqa: E731
     assert shapes(flat) == shapes(jax.tree.map(np.asarray, dict(ref)))
@@ -219,9 +225,9 @@ def test_full_width_stream_v5e8_parameter_counts():
     cfg = config.get_config("stream_v5e8")
     g = tmodels.build_generator(cfg, "cpu")
     d = tmodels.build_discriminator(cfg, "cpu")
-    jg = jax.eval_shape(jmodels.build_generator(cfg).init, jax.random.PRNGKey(0),
+    jg = jax.eval_shape(jmodels.build_generator(_jax(cfg)).init, jax.random.PRNGKey(0),
                         jnp.zeros((1, 16, 257)))["params"]
-    jd = jax.eval_shape(jmodels.build_discriminator(cfg).init,
+    jd = jax.eval_shape(jmodels.build_discriminator(_jax(cfg)).init,
                         jax.random.PRNGKey(0), jnp.zeros((1, 16, 257, 2)))["params"]
     count = lambda t: sum(np.prod(a.shape) for a in jax.tree.leaves(t))  # noqa: E731
     assert sum(p.numel() for p in g.parameters()) == count(jg)

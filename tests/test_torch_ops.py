@@ -13,12 +13,13 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
-from gan_sass_tf_tpu import config
 from gan_sass_tf_tpu.dsp.features import mel_filterbank
 from gan_sass_tf_tpu.ops import dispatch as j_dispatch
 from gan_sass_tf_tpu.ops.pallas_istft import istft_pallas, masked_istft_pallas
 from gan_sass_tf_tpu.ops.pallas_stft import stft_features_pallas, stft_pallas
+from gan_sass_tf_tpu_torch import config
 from gan_sass_tf_tpu_torch.dsp import istft as plain_istft
+from gan_sass_tf_tpu_torch.dsp.windows import get_window
 from gan_sass_tf_tpu_torch.ops import dispatch
 from gan_sass_tf_tpu_torch.ops import istft as k3
 from gan_sass_tf_tpu_torch.ops import masked_istft as k2
@@ -352,3 +353,104 @@ def test_stft_kernel_rejects_bad_input(rng):
     with dispatch.force_backend("kernel"), pytest.raises(ValueError, match="CUDA"):
         dispatch.stft(torch.from_numpy(_rand(rng, 1, 4000)), 512, 128)
     assert k4.launches == 0
+
+
+def _fft_schedule(x, n_fft, hop, window):
+    """The CUDA kernel's schedule in numpy f32: frames packed as
+    z[m] = w[2m]·x[2m] + i·w[2m+1]·x[2m+1], Stockham stages (one radix-2
+    stage first where log2(n_fft/2) is odd, then radix 4) reading the
+    port's host-built tables, and the split into the n_fft/2 + 1 bins."""
+    win, tw, tws = k1.fft_tables(n_fft, window)
+    h, q = n_fft // 2, n_fft // 8
+    f = 1 + (x.shape[-1] - n_fft) // hop
+    frames = x[..., np.arange(f)[:, None] * hop + np.arange(n_fft)]
+    src = (frames[..., 0::2] * win[0::2]
+           + 1j * (frames[..., 1::2] * win[1::2])).astype(np.complex64)
+    ns = 1
+    if int(np.log2(h)) % 2:
+        a, c = src[..., :h // 2], src[..., h // 2:]
+        src = np.stack([a + c, a - c], axis=-1).reshape(src.shape)
+        ns = 2
+    j = np.arange(q)
+    while ns < h:
+        k = j % ns
+        v = [src[..., j + r * q] * (tw[r * k * (h // (4 * ns))] if r else 1)
+             for r in range(4)]
+        a0, a1, a2, d = v[0] + v[2], v[0] - v[2], v[1] + v[3], v[1] - v[3]
+        a3 = (d.imag - 1j * d.real).astype(np.complex64)      # -i·(v1 - v3)
+        dst = np.empty_like(src)
+        for r, out in enumerate((a0 + a2, a1 + a3, a0 - a2, a1 - a3)):
+            dst[..., (j - k) * 4 + k + r * ns] = out
+        src, ns = dst, ns * 4
+    kk = np.arange(h + 1)
+    a, c = src[..., kk % h], np.conj(src[..., (h - kk) % h])
+    e, dd = np.float32(0.5) * (a + c), np.float32(0.5) * (a - c)
+    wd = tws * dd
+    return ((e.real + wd.imag) + 1j * (e.imag - wd.real)).astype(np.complex64)
+
+
+@pytest.mark.parametrize("n_fft,hop,t,window", [
+    (256, 64, 4000, "hann"),
+    (512, 128, 5000, "hann"),
+    (512, 128, 5000, "hann@400"),
+    (2048, 512, 10752, "hann"),
+])
+def test_fft_schedule_matches_rfft_and_stft_pallas(rng, interpret, n_fft, hop,
+                                                   t, window):
+    """The K1/K4 kernel body's FFT schedule on the CPU: within 1e-5·max|X|
+    of a float64 rfft, and within the reference's tolerance (atol
+    3e-4·max|X|, rtol 1e-3) of stft_pallas in interpret mode."""
+    x = _rand(rng, 2, t)
+    ours = _fft_schedule(x, n_fft, hop, window)
+    f = 1 + (t - n_fft) // hop
+    frames = x.astype(np.float64)[..., np.arange(f)[:, None] * hop + np.arange(n_fft)]
+    exact = np.fft.rfft(frames * get_window(window, n_fft, np.float64), axis=-1)
+    assert ours.shape == exact.shape == (2, f, n_fft // 2 + 1)
+    np.testing.assert_allclose(ours, exact, rtol=0,
+                               atol=1e-5 * np.abs(exact).max())
+    ref = np.asarray(stft_pallas(jnp.asarray(x), n_fft, hop, window))
+    np.testing.assert_allclose(ours, ref, atol=3e-4 * np.abs(ref).max(), rtol=1e-3)
+
+
+def _near_silent(sr, t, seed=1):
+    """A tone of amplitude 1 with -20 dB noise over the first 40 %, -120 dB
+    noise alone to 80 %, digital silence after (chip_smoke.near_silent)."""
+    r = np.random.default_rng(seed)
+    n = np.arange(t)
+    x = (np.sin(2 * np.pi * 440.3 * n / sr) + 0.1 * r.standard_normal(t)) * (n < 0.4 * t)
+    x += 1e-6 * r.standard_normal(t) * (n >= 0.4 * t) * (n < 0.8 * t)
+    return x.astype(np.float32)[None]
+
+
+@pytest.mark.parametrize("n_fft,hop,sr", [(512, 128, 8000), (2048, 512, 44100)])
+def test_fft_schedule_near_silent_frames(n_fft, hop, sr):
+    """Frames of a loud tone, then frames of -120 dB noise alone, then
+    digital silence, in one signal: the schedule's log|X| within 1e-3 of
+    float64 on every bin, so its error follows each frame's own level.
+    (A -120 dB floor under a full-scale tone in the same frame is below the
+    f32 roundoff of any FFT, so no f32 version can be held to 1e-3 there.)"""
+    x = _near_silent(sr, 2 * sr)
+    ours = np.log(np.abs(_fft_schedule(x, n_fft, hop, "hann")) + 1e-8)
+    f = 1 + (x.shape[-1] - n_fft) // hop
+    frames = x.astype(np.float64)[..., np.arange(f)[:, None] * hop + np.arange(n_fft)]
+    exact = np.fft.rfft(frames * get_window("hann", n_fft, np.float64), axis=-1)
+    np.testing.assert_allclose(ours, np.log(np.abs(exact) + 1e-8), rtol=0, atol=1e-3)
+    assert (np.abs(exact[:, -5:]) == 0).all()
+
+
+@pytest.mark.parametrize("n_fft,hop", [(500, 125), (8192, 2048), (32, 8)])
+def test_stft_kernels_reject_n_fft_before_the_library(monkeypatch, n_fft, hop):
+    """Both wrappers of the FFT body refuse an n_fft that is not a power of
+    two in [64, 4096] before they load (or build) the library."""
+    from gan_sass_tf_tpu_torch.ops import build
+
+    def no_library():
+        raise AssertionError("the library was loaded")
+
+    monkeypatch.setattr(build, "load_library", no_library)
+    x = torch.zeros(1, 3 * n_fft)
+    for fn in (lambda: k1.stft_features_kernel(x, n_fft, hop),
+               lambda: k4.stft_kernel(x, n_fft, hop)):
+        with pytest.raises(ValueError, match="power of two"):
+            fn()
+    assert (k1.launches, k4.launches) == (0, 0)

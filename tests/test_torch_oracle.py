@@ -4,6 +4,7 @@ tests/test_oracle.py on the port, and the port's quality-protocol and
 recompute-bounds scripts against the JAX scripts' configs and JSON keys."""
 
 import ast
+import dataclasses
 import importlib.util
 import json
 import math
@@ -15,11 +16,12 @@ import numpy as np
 import pytest
 import torch
 
-from gan_sass_tf_tpu import config
+from gan_sass_tf_tpu import config as j_config
 from gan_sass_tf_tpu.data.mixer import mix_sources as j_mix_sources
 from gan_sass_tf_tpu.data.synthetic import SyntheticDataset as JSynthetic
 from gan_sass_tf_tpu.losses import oracle_bound_si_sdr as j_oracle_bound
 from gan_sass_tf_tpu.losses import oracle_masks as j_oracle_masks
+from gan_sass_tf_tpu_torch import config
 from gan_sass_tf_tpu_torch import data as tdata
 from gan_sass_tf_tpu_torch.losses import oracle_bound_si_sdr, oracle_masks
 from gan_sass_tf_tpu_torch.ops import masked_istft as k2
@@ -41,6 +43,11 @@ def _cfg(name="2src_toy_cpu", **data_kw):
 
 def _with_dsp(cfg, **dsp_kw):
     return cfg.replace(dsp=cfg.dsp.__class__(**{**cfg.dsp.__dict__, **dsp_kw}))
+
+
+def _jax(cfg):
+    """The same configuration as the JAX package's Config, for its side."""
+    return j_config.Config.from_json(cfg.to_json())
 
 
 def _bound(cfg, seed=0):
@@ -103,9 +110,10 @@ def test_oracle_bound_matches_jax_on_injected_draws(name, mask_type, act, hard):
     cfg = quality_protocol.protocol_config(name, hard, [
         f"dsp.mask_type={mask_type}", f"dsp.mask_activation={act}",
         "data.segment_seconds=0.25", "train.batch_size=2"])
-    src = JSynthetic(cfg, seed=5, split="eval").batch()
+    jcfg = _jax(cfg)
+    src = JSynthetic(jcfg, seed=5, split="eval").batch()
     key = jax.random.PRNGKey(quality_protocol.BOUND_SEED)
-    ref = j_oracle_bound(*j_mix_sources(jnp.asarray(src), key, cfg.data), cfg.dsp)
+    ref = j_oracle_bound(*j_mix_sources(jnp.asarray(src), key, jcfg.data), jcfg.dsp)
     b, s, t = src.shape
     gains, noise = _jax_mix_draws(key, b, s, t, cfg.data.gain_jitter_db)
     mix, scaled = tdata.apply_mix(torch.from_numpy(src), gains, noise, cfg.data)
@@ -205,8 +213,10 @@ def test_protocol_config_equals_the_jax_scripts(hard):
     ref = _jax_script("quality_protocol")
     overrides = ["train.batch_size=2", "model.g_channels=8,16"]
     for name in config.list_configs():
-        assert quality_protocol.protocol_config(name, hard, overrides) == \
-            ref.protocol_config(name, hard, overrides), name
+        ours = quality_protocol.protocol_config(name, hard, overrides)
+        assert ours.__module__ == "gan_sass_tf_tpu_torch.config"
+        assert dataclasses.asdict(ours) == dataclasses.asdict(
+            ref.protocol_config(name, hard, overrides)), name
 
 
 _TOY = ["--device", "cpu", "--set", "train.batch_size=2",

@@ -16,13 +16,13 @@ import optax
 import pytest
 import torch
 
-from gan_sass_tf_tpu import config
+from gan_sass_tf_tpu import config as j_config
 from gan_sass_tf_tpu import models as jmodels
 from gan_sass_tf_tpu.data.synthetic import SyntheticDataset
 from gan_sass_tf_tpu.train.state import _lr_schedule as j_lr_schedule
 from gan_sass_tf_tpu.train.state import create_train_state
 from gan_sass_tf_tpu.train.step import build_train_step as j_build_train_step
-from gan_sass_tf_tpu_torch import cli
+from gan_sass_tf_tpu_torch import cli, config
 from gan_sass_tf_tpu_torch import models as tmodels
 from gan_sass_tf_tpu_torch.train import (
     ClippedAdam,
@@ -61,18 +61,24 @@ def _cfg(domain="wav", **train):
                                  bank_utterances=4))
 
 
+def _jax(cfg):
+    """The same configuration as the JAX package's Config, for its side."""
+    return j_config.Config.from_json(cfg.to_json())
+
+
 def _run_both(cfg, n_steps=2):
     """Two steps of each package from one init on the same sources: the
     per-step metrics of both, and the states after step 1."""
-    g, d = jmodels.build_generator(cfg), jmodels.build_discriminator(cfg)
-    jstate = create_train_state(cfg, g, d, jax.random.PRNGKey(0))
-    jstep = jax.jit(j_build_train_step(cfg, g, d))
+    jcfg = _jax(cfg)
+    g, d = jmodels.build_generator(jcfg), jmodels.build_discriminator(jcfg)
+    jstate = create_train_state(jcfg, g, d, jax.random.PRNGKey(0))
+    jstep = jax.jit(j_build_train_step(jcfg, g, d))
     tstate = load_train_state(
         cfg, jax.tree.map(np.asarray, jstate.g_params),
         {"params": jax.tree.map(np.asarray, jstate.d_params),
          "batch_stats": jax.tree.map(np.asarray, jstate.d_batch_stats)}, "cpu")
     tstep = build_train_step(cfg)
-    ds = SyntheticDataset(cfg, seed=3)
+    ds = SyntheticDataset(jcfg, seed=3)
     out = {"jax": [], "torch": [], "cfg": cfg,
            "jstate0": jax.tree.map(np.asarray, jstate)}
     for i in range(n_steps):
@@ -222,7 +228,7 @@ def test_r1_changes_the_d_update(wav_run, extras_run):
 def test_lr_schedules_match_optax(kind):
     cfg = _cfg(g_lr_schedule=kind, lr_decay_steps=7, lr_end_factor=0.2)
     ours = lr_schedule(cfg, cfg.train.g_lr, kind)
-    ref = j_lr_schedule(cfg, cfg.train.g_lr, kind)
+    ref = j_lr_schedule(_jax(cfg), cfg.train.g_lr, kind)
     for count in range(10):
         want = ref if isinstance(ref, float) else float(ref(count))
         np.testing.assert_allclose(ours(count), want, rtol=1e-6)
