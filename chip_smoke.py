@@ -11,14 +11,17 @@ Phases, one JSON line each:
               music_complex_44k step's two launches (8 mixtures: spec, mag,
               logmag; 16 targets: logmag, spec) and a near-silent signal
   4 k2        masked_istft kernel vs its plain version (magnitude and
-              complex masks, 60 s input, STFT -> iSTFT round trip)
+              complex masks, 60 s input, STFT -> iSTFT round trip, the
+              music_complex_44k bound batch at n_fft 2048, and one frame
+              and ROWS + 1 frames, the block's edges)
   5 main_path the CLI `separate` on a 3 s and a 60 s wav and `separate()`
               on 16 x 3 s mixtures, with seeded-random weights at the full
               wsj0_logmel width; both kernels must have launched, and the
               same call on the plain DSP path must agree (SI-SDR >= 40 dB)
   6 k3        the differentiable iSTFT (forward kernel, backward on the
-              stft_features kernel) vs its plain version and autograd, at
-              the stream_v5e8 train shape and two other geometries
+              adjoint kernel) vs its plain version and autograd, at the
+              stream_v5e8 train shape, two other geometries and the edges
+              of k2
   7 train     Experiment(stream_v5e8).train() at full width, batch 32: the
               losses finite, G and D moved, the three kernels of the step
               launched; one step from one state on the kernel and the plain
@@ -41,8 +44,10 @@ Phases, one JSON line each:
  11 timing    median per-call time of each kernel's wrapper beside its plain
               version and, where one PyTorch call computes the same function
               (torch.stft for the STFT kernels), that call (CUDA events
-              around back-to-back calls); K1 at the separation and music
-              step shapes, K3's whole backward and its K1 launch alone, K4
+              around back-to-back calls), and the kernels' device ms
+              (torch.profiler); K1 at the separation and music step
+              shapes, K2 at the separation and music bound shapes, K3's
+              whole backward and its adjoint launch alone, K4
               at the stream and music shapes; separate() throughput, the
               stream_v5e8 train step on both DSP paths and the wall seconds
               of one recompute_bounds per preset
@@ -102,6 +107,7 @@ MUSIC_N_FFT, MUSIC_HOP = 2048, 512
 B_MUSIC, T_MUSIC = 8, 132300         # music_complex_44k: 3 s at 44.1 kHz, F = 255
 S_MUSIC = 2                          # its sources: the step's K1 targets are 16
 SEED_MUSIC = 44100                   # the K1 music-shape cases' own generator
+SEED_SYNTH = 5                       # the K2/K3 music-shape and edge cases' own
 LOGMAG_FLOOR = 1e-3                  # -60 dB re the frame's RMS |X| (k1_case)
 # The H100 SXM's published peaks (NVIDIA's data sheet): HBM bytes/s and
 # f32 flops/s outside the tensor cores.  A kernel's bound is the larger of
@@ -126,6 +132,7 @@ PROFILE_STEPS = 5                    # train steps traced for the step profile
 # kernel name, first match wins.  cuDNN's layout transposes are
 # nchwToNhwc/nhwcToNchw kernels; its conv kernels carry "nhwc" too.
 KERNEL_FAMILIES = (
+    ("K3 backward istft_adjoint", ("istft_adjoint_kernel",)),
     ("K1 stft_features", ("stft_features_kernel",)),
     ("K2/K3 istft_ola", ("istft_ola_kernel",)),
     ("layout transposes", ("nchwtonhwc", "nhwctonchw")),
@@ -367,7 +374,33 @@ def phase_k2(rng, dev, x, spec):
     rt = max_err(y[:, HOP:t_grid - HOP], x[:, HOP:t_grid - HOP])
     check(rt <= 2e-4, f"k1 -> k2 round trip: max err {rt} > 2e-4")
     emit("k2", round_trip_max_abs_err=rt, tol=2e-4)
-    return errs["magnitude"]
+    # The music_complex_44k bound batch, then one frame and ROWS + 1
+    # frames (a second, partial block), on a generator of their own.
+    rs = np.random.default_rng(SEED_SYNTH)
+
+    def spectrum_and_masks(b, t, n_fft, hop, mask_type):
+        xs = torch.from_numpy(rs.standard_normal((b, t), np.float32)).to(dev)
+        ss = k1.stft_features_reference(xs, n_fft, hop)["spec"]
+        shape = (b, 2) + tuple(ss.shape[-2:]) + ((2,) if mask_type == "complex" else ())
+        lo = 0.0 if mask_type == "magnitude" else -1.0
+        return ss, torch.from_numpy(rs.uniform(lo, 1, shape).astype(np.float32)).to(dev)
+
+    music = spectrum_and_masks(B_MUSIC, T_MUSIC, MUSIC_N_FFT, MUSIC_HOP, "complex")
+    interior, full = k2_case(*music, MUSIC_N_FFT, MUSIC_HOP, "complex")
+    emit("k2", case="music_complex_44k bound batch", mask_type="complex",
+         masks=list(music[1].shape), n_fft=MUSIC_N_FFT, hop=MUSIC_HOP,
+         max_abs_err_interior=interior, max_abs_err_full=full)
+    for n_fft, hop, mask_type in ((N_FFT, HOP, "magnitude"),
+                                  (MUSIC_N_FFT, MUSIC_HOP, "complex")):
+        for frames in (1, k2.ROWS + 1):
+            ss, ms = spectrum_and_masks(3, (frames - 1) * hop + n_fft, n_fft, hop,
+                                        mask_type)
+            check(ss.shape[-2] == frames, f"k2 edge: {ss.shape}")
+            interior, full = k2_case(ss, ms, n_fft, hop, mask_type)
+            emit("k2", case=f"edge: {frames} frames", mask_type=mask_type,
+                 n_fft=n_fft, hop=hop, masks=list(ms.shape),
+                 max_abs_err_interior=interior, max_abs_err_full=full)
+    return errs["magnitude"], music
 
 
 def phase_main_path(rng, dev, tmp: Path):
@@ -461,6 +494,13 @@ def phase_k3(rng, dev):
     for n_fft, hop in ((256, 64), (2048, 512)):
         e, _ = k3_case(rng, dev, 3, 8000, n_fft, hop)
         emit("k3", n_fft=n_fft, hop=hop, signals=3, max_abs_err=e)
+    rs = np.random.default_rng(SEED_SYNTH + 1)
+    for n_fft, hop in ((N_FFT, HOP), (MUSIC_N_FFT, MUSIC_HOP)):
+        for frames in (1, k2.ROWS + 1):
+            e, (re, *_) = k3_case(rs, dev, 3, (frames - 1) * hop + n_fft, n_fft, hop)
+            check(re.shape[-2] == frames, f"k3 edge: {re.shape}")
+            emit("k3", case=f"edge: {frames} frames", n_fft=n_fft, hop=hop,
+                 signals=3, max_abs_err=e)
     return errs, tensors
 
 
@@ -748,6 +788,15 @@ def device_ms(fn, calls=CALLS_PER_SAMPLE) -> float:
     return sum(ms for ms, _ in device_kernels(fn, calls).values())
 
 
+def launch_ms(fn) -> dict:
+    """Device ms of the one kernel a wrapper launches, per launch the
+    profiler recorded, and the launches it recorded per call (1.0 when it
+    saw them all: some runs read 3.4x under the per-call time that CUDA
+    events around a CUDA graph of the same calls give, PERF.md)."""
+    (ms, n), = device_kernels(fn).values()
+    return {"ms": ms / n, "launches_per_call": n}
+
+
 def step_profile(exp) -> dict:
     """Device ms (and launches) a train step by kernel family, over
     PROFILE_STEPS steps on the kernel path, and the busy total."""
@@ -773,8 +822,18 @@ def time_stft(kernel, plain, x, n_fft, hop, emits=("spec",), n_mels=0):
     ms, by = stft_bound(x, n_fft, hop, emits, n_mels)
     return {"shape": list(x.shape), "n_fft": n_fft, "emit": list(emits),
             "kernel": t["kernel"], "plain": t["plain"], "library": t["library"],
-            "device": {name: device_ms(fn) for name, fn in fns.items()},
+            "device": {"kernel": launch_ms(kernel), "plain": device_ms(plain),
+                       "library": device_ms(fns["library"])},
             "bound": ms, "bound_by": by}
+
+
+def time_kernel(kernel, plain, bound_ms_by):
+    """A kernel call timed beside its plain version, through the wrapper
+    and on the device, with its bound; no one PyTorch call computes it."""
+    t = time_fns(plain=plain, kernel=kernel)
+    return {"kernel": t["kernel"], "plain": t["plain"],
+            "device": {"kernel": launch_ms(kernel), "plain": device_ms(plain)},
+            "bound": bound_ms_by[0], "bound_by": bound_ms_by[1]}
 
 
 def k1_timing(x, n_fft, hop, emits, mel=None):
@@ -786,18 +845,25 @@ def k1_timing(x, n_fft, hop, emits, mel=None):
 
 
 def phase_timing(rng, dev, x, spec, cfg, g, batch, k3_tensors, exp, k4_inputs,
-                 k1_music, bound_walls):
+                 k1_music, k2_music, bound_walls):
     mel = torch.from_numpy(mel_filterbank(N_MELS, N_FFT // 2 + 1, SR)).to(dev)
     k1_sep = k1_timing(x, N_FFT, HOP, ("spec", "logmel"), mel)
     k1_steps = {what: k1_timing(xm, MUSIC_N_FFT, MUSIC_HOP, emits)
                 for what, (xm, emits) in k1_music.items()}
     masks = torch.from_numpy(rng.uniform(0, 1, (B_MAIN, 2) + tuple(spec.shape[-2:]))
                              .astype(np.float32)).to(dev)
-    k2_plain, k2_ms = time_pair(
+    k2_sep = time_kernel(
+        lambda: k2.masked_istft_kernel(spec, masks, N_FFT, HOP),
         lambda: k2.masked_istft_reference(spec, masks, N_FFT, HOP),
-        lambda: k2.masked_istft_kernel(spec, masks, N_FFT, HOP))
-    k2_bound = istft_bound(spec.numel() * 8, B_MAIN, 2, spec.shape[-2], N_FFT, HOP,
-                           masks.numel() * 4, 2 * masks.numel())
+        istft_bound(spec.numel() * 8, B_MAIN, 2, spec.shape[-2], N_FFT, HOP,
+                    masks.numel() * 4, 2 * masks.numel()))
+    sm, mm = k2_music     # complex masks: 6 flops a (source, bin)
+    k2_mus = time_kernel(
+        lambda: k2.masked_istft_kernel(sm, mm, MUSIC_N_FFT, MUSIC_HOP, mask_type="complex"),
+        lambda: k2.masked_istft_reference(sm, mm, MUSIC_N_FFT, MUSIC_HOP,
+                                          mask_type="complex"),
+        istft_bound(sm.numel() * 8, B_MUSIC, 2, sm.shape[-2], MUSIC_N_FFT, MUSIC_HOP,
+                    mm.numel() * 4, 3 * mm.numel()))
 
     def run_sep(path):
         def go():
@@ -808,21 +874,25 @@ def phase_timing(rng, dev, x, spec, cfg, g, batch, k3_tensors, exp, k4_inputs,
     sep_plain, sep_kernel = time_pair(run_sep("reference"), run_sep(None))
     audio_s = batch.shape[0] * batch.shape[1] / SR
     re, im, y, ref, dy = k3_tensors
+    f = re.shape[-2]
     with torch.no_grad():
-        k3_plain, k3_ms = time_pair(
-            lambda: k3.istft_reference(re, im, N_FFT, HOP),
-            lambda: k3.istft_kernel(re, im, N_FFT, HOP))
-    k3_bound = istft_bound(re.numel() * 8, re.shape[0], 1, re.shape[-2], N_FFT, HOP)
-    bwd_plain, bwd_ms = time_pair(
-        lambda: torch.autograd.grad(ref, (re, im), dy, retain_graph=True),
-        lambda: torch.autograd.grad(y, (re, im), dy, retain_graph=True))
+        k3_t = time_kernel(lambda: k3.istft_kernel(re, im, N_FFT, HOP),
+                           lambda: k3.istft_reference(re, im, N_FFT, HOP),
+                           istft_bound(re.numel() * 8, re.shape[0], 1, f, N_FFT, HOP))
     # The backward reads the cotangent once and writes both planes once,
     # with an FFT a frame: the bytes and flops of a spec-only STFT of it.
     bwd_bound = stft_bound(ref, N_FFT, HOP)
-    # Its one K1 launch (on dy·inv_env, before the per-bin scale) alone, on
-    # a cotangent of the same shape, beside torch.stft.
+    bwd_t = time_kernel(
+        lambda: torch.autograd.grad(y, (re, im), dy, retain_graph=True),
+        lambda: torch.autograd.grad(ref, (re, im), dy, retain_graph=True), bwd_bound)
+    # Its one launch alone, on a cotangent of the same shape, beside the
+    # plain adjoint (the STFT of dy·inv_env scaled per bin).
     z = torch.randn_like(ref).contiguous()
-    k1_bwd = k1_timing(z, N_FFT, HOP, ("spec",))
+    inv, a_k = k2._inv_env(N_FFT, HOP, "hann", f, dev), k3._bin_weights(N_FFT, dev)
+    adjoint = time_kernel(
+        lambda: k3.istft_adjoint(z, N_FFT, HOP, "hann", f),
+        lambda: torch.view_as_real(
+            k1.stft_features_reference(z * inv, N_FFT, HOP)["spec"]) * a_k, bwd_bound)
     stream_srcs, music_srcs = k4_inputs
     k4_times = {what: time_stft(lambda: k4.stft_kernel(xs, n, h),
                                 lambda: k4.stft_reference(xs, n, h), xs, n, h)
@@ -833,14 +903,12 @@ def phase_timing(rng, dev, x, spec, cfg, g, batch, k3_tensors, exp, k4_inputs,
     emit("timing", shape=[B_MAIN, T_MAIN], samples=TIMING_SAMPLES,
          calls_per_sample=CALLS_PER_SAMPLE,
          stft_features_ms=k1_sep, stft_features_music_step_ms=k1_steps,
-         stft_features_as_istft_bwd_ms=k1_bwd,
-         masked_istft_ms={"kernel": k2_ms, "plain": k2_plain, "bound": k2_bound[0]},
+         masked_istft_ms=k2_sep, masked_istft_music_ms=k2_mus,
          separate_ms={"kernel": sep_kernel, "plain": sep_plain},
          separate_mix_sec_per_sec={"kernel": audio_s / sep_kernel * 1e3,
                                    "plain": audio_s / sep_plain * 1e3},
          istft_shape=list(re.shape),
-         istft_ms={"kernel": k3_ms, "plain": k3_plain, "bound": k3_bound[0]},
-         istft_bwd_ms={"kernel": bwd_ms, "plain": bwd_plain, "bound": bwd_bound[0]},
+         istft_ms=k3_t, istft_bwd_ms=bwd_t, istft_adjoint_launch_ms=adjoint,
          train_step_samples=STEP_SAMPLES,
          train_step_ms={"kernel": step_kernel, "plain": step_plain},
          train_mix_sec_per_sec={"kernel": mix_s / step_kernel * 1e3,
@@ -848,20 +916,22 @@ def phase_timing(rng, dev, x, spec, cfg, g, batch, k3_tensors, exp, k4_inputs,
          stft_ms=k4_times, recompute_bounds_wall_s=bound_walls,
          note="separate() includes host->device copy and the result's copy "
               "back; a train step is timed on the host clock to a synchronize; "
-              "istft_bwd_ms is the whole autograd backward")
+              "istft_bwd_ms is the whole autograd backward; device ms from "
+              "torch.profiler")
 
     def row(t):
         return {"ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": t["bound"],
                 "bound_by": t["bound_by"], "library_ms": t["library"]}
 
+    def synth_row(t):
+        return {"ms": t["kernel"], "device_ms": t["device"]["kernel"]["ms"],
+                "plain_ms": t["plain"], "plain_device_ms": t["device"]["plain"],
+                "bound_ms": t["bound"], "bound_by": t["bound_by"], "library_ms": None}
+
     return {"stft_features": {**row(k1_sep), "library_ms": None},
-            "masked_istft": {"ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound[0],
-                             "bound_by": k2_bound[1], "library_ms": None},
-            "istft": {"ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bound[0],
-                      "bound_by": k3_bound[1], "library_ms": None},
-            "istft_bwd": {"ms": bwd_ms, "plain_ms": bwd_plain, "bound_ms": bwd_bound[0],
-                          "bound_by": bwd_bound[1], "library_ms": None,
-                          "k1_launch": row(k1_bwd)},
+            "masked_istft": {**synth_row(k2_sep), "music_shape": synth_row(k2_mus)},
+            "istft": synth_row(k3_t),
+            "istft_bwd": {**synth_row(bwd_t), "adjoint_launch": synth_row(adjoint)},
             "stft": row(k4_times["stream"])}
 
 
@@ -871,7 +941,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(SEED)
     x, spec, k1_err, k1_music = phase_k1(rng, dev)
-    k2_err = phase_k2(rng, dev, x, spec)
+    k2_err, k2_music = phase_k2(rng, dev, x, spec)
     with tempfile.TemporaryDirectory() as tmp:
         cfg, g, batch, counts = phase_main_path(rng, dev, Path(tmp))
     k3_errs, k3_tensors = phase_k3(rng, dev)
@@ -880,7 +950,7 @@ def main() -> int:
     bound_launches, bound_walls = phase_bounds(dev)
     quality_runs = phase_quality(dev)
     times = phase_timing(rng, dev, x, spec, cfg, g, batch, k3_tensors, exp,
-                         k4_inputs, k1_music, bound_walls)
+                         k4_inputs, k1_music, k2_music, bound_walls)
     k4_launches = bound_launches["stft"] + sum(
         r["launches"]["stft"] for r in quality_runs.values())
     kernels = [

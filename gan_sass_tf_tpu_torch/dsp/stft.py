@@ -62,6 +62,22 @@ def stft(x: torch.Tensor, n_fft: int, hop: int, window: str = "hann",
     return torch.fft.rfft(frames, n=n_fft, dim=-1)
 
 
+def irfft(spec: torch.Tensor, n_fft: int) -> torch.Tensor:
+    """(..., n_fft//2 + 1) complex -> (..., n_fft) float32 inverse real DFT
+    as irfft is defined (numpy, JAX, pocketfft on the CPU): the imaginary
+    parts of the DC and Nyquist bins are dropped.  They are dropped here
+    before the transform, because cuFFT's C2R transform reads them at some
+    batch shapes (seen on an H100 at 16 x 255 frames of 1025 bins, not at
+    6 x 12), where a complex mask or a generator's estimate makes them
+    non-zero."""
+    keep = torch.ones(spec.shape[-1], dtype=spec.real.dtype, device=spec.device)
+    keep[0] = 0
+    if spec.shape[-1] == n_fft // 2 + 1 and n_fft % 2 == 0:
+        keep[-1] = 0
+    spec = torch.complex(spec.real, spec.imag * keep)
+    return torch.fft.irfft(spec, n=n_fft, dim=-1).float()
+
+
 def istft(
     spec: torch.Tensor,
     n_fft: int,
@@ -83,7 +99,7 @@ def istft(
     if pad and length is None:
         length = (f - 1) * hop + win_length
     w = get_window(window, n_fft)
-    frames_t = torch.fft.irfft(spec, n=n_fft, dim=-1).float()
+    frames_t = irfft(spec, n_fft)
     dev = spec.device
     if norm == "tf":
         d = np.zeros(hop, dtype=np.float64)

@@ -1,9 +1,10 @@
 """Build the CUDA kernels with nvcc and load them with ctypes.
 
-Each `csrc/*.cu` source compiles to an object in its own nvcc process, all
-started together, and the objects link into one shared library with a
-plain C interface (no PyTorch headers, so a build takes seconds).  The
-library is keyed by a hash of the sources and the flags and lives in
+Each `csrc/*.cu` source (with the `csrc/*.cuh` headers it includes)
+compiles to an object in its own nvcc process, all started together, and
+the objects link into one shared library with a plain C interface (no
+PyTorch headers, so a build takes seconds).  The library is keyed by a
+hash of the sources, the headers and the flags and lives in
 `ops/_build/` (ignored by git), so the first CUDA call of a fresh checkout
 builds it and later processes reuse it.  Nothing happens at import time.
 """
@@ -36,13 +37,14 @@ _SIGNATURES = {
     "stft_features_launch": [_P] * 9 + [_I] * 6 + [ctypes.c_float, _P, _I],
     # x, win, tw, tws, spec, B, T, F, n_fft, hop, stream, device
     "stft_launch": [_P] * 5 + [_I] * 5 + [_P, _I],
-    # spec, masks, ci, si, inv_env, out, B, S, F, n_fft, hop, K,
-    # complex_mask, threads, smem_bytes, stream, device
-    "masked_istft_launch": [_P] * 6 + [_I] * 7 + [_I, _I, _P, _I],
-    # re, im, ci, si, inv_env, out, B, F, n_fft, hop, K, threads,
-    # smem_bytes, stream, device
-    "istft_launch": [_P] * 6 + [_I] * 5 + [_I, _I, _P, _I],
-    "masked_istft_tile_rows": [],
+    # dy, inv_env, win, tw, tws, dre, dim, B, T, F, n_fft, hop, stream, device
+    "istft_adjoint_launch": [_P] * 7 + [_I] * 5 + [_P, _I],
+    # spec, masks, win, tw, tws, inv_env, out, B, S, F, n_fft, hop,
+    # complex_mask, rows, tile, stream, device
+    "masked_istft_launch": [_P] * 7 + [_I] * 8 + [_P, _I],
+    # re, im, win, tw, tws, inv_env, out, B, F, n_fft, hop, rows, tile,
+    # stream, device
+    "istft_launch": [_P] * 7 + [_I] * 6 + [_P, _I],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -52,6 +54,10 @@ build_log: str = ""                     # nvcc's output (ptxas register use)
 
 def _sources():
     return sorted(CSRC.glob("*.cu"))
+
+
+def _headers():
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -67,7 +73,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + _headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libgan_sass_kernels_{h.hexdigest()[:16]}.so"

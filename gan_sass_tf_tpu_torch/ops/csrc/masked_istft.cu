@@ -1,44 +1,56 @@
-// Inverse real DFT + windowed overlap-add + least-squares envelope for
-// Hopper (sm_90a), in two instantiations of one kernel body:
+// Inverse real FFT + windowed overlap-add + least-squares envelope for
+// Hopper (sm_90a), in three instantiations of one kernel body:
 //
-//   K2  mixture STFT and per-source masks in, separated waveforms out; the
-//       masked spectra never reach device memory.
-//       Replaces: gan_sass_tf_tpu/ops/pallas_istft.py, _masked_istft_kernel
-//       (entry masked_istft_pallas).
+//   K2  mixture STFT and per-source masks in (magnitude or complex masks),
+//       separated waveforms out; the masks are applied as the spectrum is
+//       loaded, so the masked spectra never reach device memory.
+//       Replaces: gan_sass_tf_tpu/ops/pallas_istft.py:175,
+//       _masked_istft_kernel (entry masked_istft_pallas).
 //   K3  real and imaginary f32 planes in, waveforms out, no mask: the
-//       forward of the train step's differentiable iSTFT (its backward runs
-//       on the STFT-features kernel, see ops/istft.py).
-//       Replaces: gan_sass_tf_tpu/ops/pallas_istft.py, _istft_kernel
+//       forward of the train step's differentiable iSTFT (its backward is
+//       istft_adjoint_kernel in stft_features.cu, see ops/istft.py).
+//       Replaces: gan_sass_tf_tpu/ops/pallas_istft.py:71, _istft_kernel
 //       (_istft_ri_fwd_impl under the _istft_ri custom VJP, entry
 //       istft_pallas).
 //
-// What bounds it on this card: 4·K·n_fft f32 flops per (signal, frame) —
-// 3.1 GFLOP for K2 at the wsj0_logmel batch (B=16, S=2, F=184) and 8.3 GFLOP
-// for K3 at the stream_v5e8 train step (B·S=64, F=247), against 16-33 MB of
-// spectra, masks, matrices and output, so it is compute bound on the CUDA
-// cores (f32; TF32 would break the 2e-4 reconstruction tolerance).  Each
-// FMA pair reads one float2 of spectrum from shared memory (a warp
-// broadcast) and, per bin, the synthesis matrices from L2 (coalesced
-// across output samples): shared-memory issue is its limit.
+// What bounds it on this card: memory.  Per frame an inverse FFT costs
+// about 2.5·n_fft·log2(n_fft) flops against 8·K bytes of spectrum (plus
+// 4·K or 8·K of mask) in and 4·hop bytes of output, so at the main path's
+// shapes the bytes take several times longer than the flops at 3.35 TB/s
+// and the 67 TFLOP/s f32 peak.
 //
-// Design: the grid is (tiles of kRows output hop-rows) x (signals).  Output
-// row q holds chunk j of frame q - j for j < r = n_fft/hop, so a tile of
-// rows [q0, q0+kRows) needs frames q0-r+1 .. q0+kRows-1: a halo of r-1
-// frames.  The block stages those frames' (masked) spectra in shared
-// memory, bin-major so that the kRows frames one thread reads for a bin sit
-// at fixed offsets from one base (1.6x faster than frame-major on the
-// card), then each thread owns one sample column of the tile and sums every
-// frame's contribution in registers: no atomics, nothing staged per whole
-// signal, so the input length has no cap.  The synthesis window and
-// hermitian bin weights are folded into Ci/Si (built on the host in
-// float64); the clamped inverse envelope multiplies on the way out (null =
-// env "none").  Only the staging loop differs between K2 and K3.
+// Design: the grid is (blocks of `rows` output hop-rows) x (signals).
+// Output row q holds chunk j of frame q - j for j < r = n_fft/hop, so the
+// rows [q0, q0 + rows) take frames q0 - r + 1 .. q0 + rows - 1: a halo of
+// r - 1 frames that the neighbouring block inverts too, so no sum crosses
+// blocks (no atomics, no second pass, no cap on the length).  The block
+// walks those frames in chunks of `tile`.  Per chunk, in shared memory:
+//   1. load X[k] and X[H-k] of each frame (H = n_fft/2), masks applied;
+//      Im X[0] and Im X[H] are set to 0, as irfft ignores them;
+//   2. the inverse split, scaled by 1/N (exact), into H complex points
+//        Z[k] = (X[k] + conj X[H-k])/N + i·e^{+2πik/N}·(X[k] - conj X[H-k])/N;
+//   3. the unscaled inverse FFT of H points (fft.cuh), after which the
+//      buffer read as floats is the frame, x[2m] + i·x[2m+1] = z[m];
+//   4. window × frame is added into an accumulator of rows·hop floats in
+//      shared memory, over the rows the chunk's frames touch: one thread a
+//      sample, which adds the chunk's frames in increasing order.  Chunks
+//      follow each other between barriers, so each sample sums its frames
+//      in the same order on every run and for every block shape.
+// After the last chunk the accumulator times the clamped inverse envelope
+// (null = env "none") is written out.  The window, the stage twiddles
+// e^{-2πim/H} and the split twiddles e^{-2πik/N} are the f32 tables of
+// ops/stft_features.py::fft_tables (built in float64), conjugated on read;
+// no sincos intrinsics, no fast math.  `rows` and `tile` come from the
+// wrapper (ops/masked_istft.py::synthesis_block).
 
 #include <cuda_runtime.h>
 
+#include "fft.cuh"
+
 namespace {
 
-constexpr int kRows = 16;   // output hop-rows per block
+constexpr int kThreads = 256;
+constexpr int kMinFft = 64, kMaxFft = 4096;
 
 // Where a block's spectrum comes from.
 enum SpecInput : int {
@@ -47,120 +59,158 @@ enum SpecInput : int {
   kComplexMask = 2,    // K2: complex spectrum x masks (B, S, F, K, 2)
 };
 
-// a: kPlanes -> re plane; otherwise the complex spectrum as (re, im) pairs.
-// b: kPlanes -> im plane; otherwise the masks.
+// Bin k of frame f of signal bs (signal bs of K2 is source bs % S of
+// mixture bs / S).  a: kPlanes -> re plane; otherwise the complex spectrum
+// as (re, im) pairs.  b: kPlanes -> im plane; otherwise the masks.
 template <int kInput>
-__global__ void istft_ola_kernel(
+__device__ __forceinline__ float2 load_bin(const float* __restrict__ a,
+                                           const float* __restrict__ b,
+                                           int bs, int S, int F, int K, int f,
+                                           int k) {
+  const size_t o = ((size_t)bs * F + f) * K + k;
+  if (kInput == kPlanes) return make_float2(a[o], b[o]);
+  const float2 X =
+      reinterpret_cast<const float2*>(a)[((size_t)(bs / S) * F + f) * K + k];
+  if (kInput == kComplexMask)
+    return cmul(reinterpret_cast<const float2*>(b)[o], X);
+  const float m = b[o];
+  return make_float2(m * X.x, m * X.y);
+}
+
+// Z[k] from a = X[k], c = X[H-k] and t = e^{-2πik/N}, scaled by s = 1/N.
+__device__ __forceinline__ float2 inverse_split(float2 a, float2 c, float2 t,
+                                                float s) {
+  const float2 e = make_float2(s * (a.x + c.x), s * (a.y - c.y));
+  const float2 d = make_float2(s * (a.x - c.x), s * (a.y + c.y));
+  const float2 wd = cmul(conjf2(t), d);
+  return make_float2(e.x - wd.y, e.y + wd.x);   // e + i·wd
+}
+
+template <int kInput>
+__global__ void __launch_bounds__(kThreads) istft_ola_kernel(
     const float* __restrict__ a,
     const float* __restrict__ b,
-    const float* __restrict__ ci,      // (K, n_fft)
-    const float* __restrict__ si,      // (K, n_fft)
-    const float* __restrict__ inv_env, // (nrows * hop) or null
-    float* __restrict__ out,           // (signals, nrows * hop)
-    int S, int F, int n_fft, int hop, int K) {
-  extern __shared__ float2 ms[];       // (K, kRows + r - 1) staged spectra
-  const int r = n_fft / hop;
+    const float* __restrict__ win,      // (n_fft,) synthesis window
+    const float2* __restrict__ tw,      // (H,)   e^{-2πim/H}
+    const float2* __restrict__ tws,     // (H+1,) e^{-2πik/N}
+    const float* __restrict__ inv_env,  // (nrows·hop,) or null
+    float* __restrict__ out,            // (signals, nrows·hop)
+    int S, int F, int n_fft, int log2h, int log2hop, int rows, int tile) {
+  extern __shared__ float4 smem_raw[];
+  const int H = n_fft >> 1, K = H + 1, half = H >> 1;
+  const int hop = 1 << log2hop, r = n_fft >> log2hop;
   const int nrows = F + r - 1;
-  const int nfr = kRows + r - 1;
-  const int bs = blockIdx.y;           // signal: batch·source (S = 1 for K3)
-  const int q0 = blockIdx.x * kRows;
-  const int fbase = q0 - r + 1;        // frame of local index 0
-  for (int i = threadIdx.x; i < nfr * K; i += blockDim.x) {
-    const int f = fbase + i / K, k = i % K;
-    float2 v = make_float2(0.f, 0.f);
-    if (f >= 0 && f < F) {
-      const size_t o = ((size_t)bs * F + f) * K + k;
-      if (kInput == kPlanes) {
-        v = make_float2(a[o], b[o]);
-      } else {
-        const float2 X =
-            reinterpret_cast<const float2*>(a)[((size_t)(bs / S) * F + f) * K + k];
-        if (kInput == kComplexMask) {
-          const float2 m = reinterpret_cast<const float2*>(b)[o];
-          v = make_float2(m.x * X.x - m.y * X.y, m.x * X.y + m.y * X.x);
-        } else {
-          const float m = b[o];
-          v = make_float2(m * X.x, m * X.y);
-        }
-      }
+  float2* buf0 = reinterpret_cast<float2*>(smem_raw);      // (tile, H)
+  float2* buf1 = buf0 + tile * H;                          // (tile, H)
+  float* acc = reinterpret_cast<float*>(buf1 + tile * H);  // (rows, hop)
+  const int span = rows << log2hop;
+  const int bs = blockIdx.y;
+  const int q0 = blockIdx.x * rows;
+  const int fbase = q0 - r + 1;   // frame of local index 0
+  // Local frames [lo, hi) touch the block's rows and exist.
+  const int lo = max(0, -fbase), hi = min(rows + r - 1, F - fbase);
+  const float s = 1.f / n_fft;    // exact: n_fft is a power of two
+  for (int i = threadIdx.x; i < span; i += kThreads) acc[i] = 0.f;
+
+  for (int c0 = lo; c0 < hi; c0 += tile) {
+    const int nf = min(tile, hi - c0);
+    // Steps 1-2, one (k, H - k) pair a thread: Z[k] and Z[H - k].
+    for (int i = threadIdx.x; i < nf * (half + 1); i += kThreads) {
+      const int l = i / (half + 1), k = i - l * (half + 1);
+      const int f = fbase + c0 + l;
+      float2 xk = load_bin<kInput>(a, b, bs, S, F, K, f, k);
+      float2 xh = load_bin<kInput>(a, b, bs, S, F, K, f, H - k);
+      if (k == 0) xk.y = xh.y = 0.f;   // Im X[0], Im X[H]
+      float2* z = buf0 + l * H;
+      z[k] = inverse_split(xk, xh, tws[k], s);
+      if (k != 0 && k != half) z[H - k] = inverse_split(xh, xk, tws[H - k], s);
     }
-    ms[(size_t)k * nfr + i / K] = v;   // bin-major: a row run is contiguous
+    __syncthreads();
+    // Step 3; frame c0 + l is x[l·n_fft .. (l + 1)·n_fft).
+    const float* x = reinterpret_cast<const float*>(
+        stockham<kThreads, true>(buf0, buf1, nf, H, log2h, tw));
+    // Step 4: row q0 + q takes sample (q + r - 1 - l)·hop + o of local
+    // frame l, for l in [q, q + r - 1]; so frames [c0, c0 + nf) touch the
+    // rows [c0 - r + 1, c0 + nf).
+    const int i1 = min(rows, c0 + nf) << log2hop;
+    for (int i = (max(0, c0 - r + 1) << log2hop) + threadIdx.x; i < i1;
+         i += kThreads) {
+      const int q = i >> log2hop, o = i & (hop - 1);
+      const int l1 = min(q + r, c0 + nf);
+      float v = acc[i];
+      for (int l = max(q, c0); l < l1; ++l) {
+        const int n = ((q + r - 1 - l) << log2hop) + o;
+        v = fmaf(__ldg(win + n), x[(l - c0) * n_fft + n], v);
+      }
+      acc[i] = v;
+    }
+    __syncthreads();   // the next chunk refills both buffers
   }
-  __syncthreads();
 
   float* ob = out + (size_t)bs * nrows * hop;
-  for (int o = threadIdx.x; o < hop; o += blockDim.x) {
-    float acc[kRows];
-#pragma unroll
-    for (int q = 0; q < kRows; ++q) acc[q] = 0.f;
-    for (int j = 0; j < r; ++j) {
-      const int n = j * hop + o;
-      // Row q0+q takes chunk j of frame q0+q-j: local index q + (r-1-j).
-      const float2* mj = ms + (r - 1 - j);
-      for (int k = 0; k < K; ++k) {
-        const float c = __ldg(ci + (size_t)k * n_fft + n);
-        const float s = __ldg(si + (size_t)k * n_fft + n);
-#pragma unroll
-        for (int q = 0; q < kRows; ++q) {
-          const float2 v = mj[(size_t)k * nfr + q];
-          acc[q] = fmaf(v.x, c, fmaf(v.y, s, acc[q]));
-        }
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < kRows; ++q) {
-      const int row = q0 + q;
-      if (row < nrows) {
-        const size_t t = (size_t)row * hop + o;
-        ob[t] = inv_env ? acc[q] * inv_env[t] : acc[q];
-      }
+  for (int i = threadIdx.x; i < span; i += kThreads) {
+    if (q0 + (i >> log2hop) < nrows) {
+      const size_t t = ((size_t)q0 << log2hop) + i;
+      ob[t] = inv_env ? acc[i] * inv_env[t] : acc[i];
     }
   }
 }
 
 template <int kInput>
-int launch(const void* a, const void* b, const void* ci, const void* si,
-           const void* inv_env, void* out, int signals, int S, int F,
-           int n_fft, int hop, int K, int threads, int smem_bytes,
+int launch(const void* a, const void* b, const void* win, const void* tw,
+           const void* tws, const void* inv_env, void* out, int signals,
+           int S, int F, int n_fft, int hop, int rows, int tile,
            void* stream, int device) {
+  if (n_fft < kMinFft || n_fft > kMaxFft || (n_fft & (n_fft - 1)) ||
+      hop < 1 || n_fft % hop || rows < 1 || tile < 1 || F < 1)
+    return (int)cudaErrorInvalidValue;
+  int log2h = 0, log2hop = 0;
+  while ((2 << log2h) < n_fft) ++log2h;     // H = n_fft / 2 = 1 << log2h
+  while ((1 << log2hop) < hop) ++log2hop;   // hop | n_fft: a power of two
+  // Two (tile, H) float2 buffers and the (rows, hop) accumulator.
+  const int smem = 8 * n_fft * tile + 4 * rows * hop;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(istft_ola_kernel<kInput>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem_bytes);
-  if (err != cudaSuccess) return (int)err;
+  if (smem > 48 * 1024) {   // above the default only by opting in
+    err = cudaFuncSetAttribute(istft_ola_kernel<kInput>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return (int)err;
+  }
   const int nrows = F + n_fft / hop - 1;
-  dim3 grid((nrows + kRows - 1) / kRows, signals);
-  istft_ola_kernel<kInput><<<grid, threads, smem_bytes, (cudaStream_t)stream>>>(
-      (const float*)a, (const float*)b, (const float*)ci, (const float*)si,
-      (const float*)inv_env, (float*)out, S, F, n_fft, hop, K);
+  dim3 grid((nrows + rows - 1) / rows, signals);
+  istft_ola_kernel<kInput><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)a, (const float*)b, (const float*)win, (const float2*)tw,
+      (const float2*)tws, (const float*)inv_env, (float*)out, S, F, n_fft,
+      log2h, log2hop, rows, tile);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int masked_istft_tile_rows() { return kRows; }
+// Each launcher returns cudaGetLastError() after the launch (0 = launched);
+// win, tw and tws are the tables of ops/stft_features.py::fft_tables.
 
-// K2.  Returns cudaGetLastError() after the launch (0 = launched).
+// K2: spec (B, F, K, 2) f32 and masks -> out (B·S, (F - 1)·hop + n_fft).
 extern "C" int masked_istft_launch(
-    const void* spec, const void* masks, const void* ci, const void* si,
-    const void* inv_env, void* out,
-    int B, int S, int F, int n_fft, int hop, int K, int complex_mask,
-    int threads, int smem_bytes, void* stream, int device) {
+    const void* spec, const void* masks, const void* win, const void* tw,
+    const void* tws, const void* inv_env, void* out, int B, int S, int F,
+    int n_fft, int hop, int complex_mask, int rows, int tile, void* stream,
+    int device) {
   if (complex_mask)
-    return launch<kComplexMask>(spec, masks, ci, si, inv_env, out, B * S, S,
-                                F, n_fft, hop, K, threads, smem_bytes, stream,
+    return launch<kComplexMask>(spec, masks, win, tw, tws, inv_env, out,
+                                B * S, S, F, n_fft, hop, rows, tile, stream,
                                 device);
-  return launch<kMagnitudeMask>(spec, masks, ci, si, inv_env, out, B * S, S, F,
-                                n_fft, hop, K, threads, smem_bytes, stream,
+  return launch<kMagnitudeMask>(spec, masks, win, tw, tws, inv_env, out,
+                                B * S, S, F, n_fft, hop, rows, tile, stream,
                                 device);
 }
 
-// K3.  Returns cudaGetLastError() after the launch (0 = launched).
+// K3: re, im (B, F, K) -> out (B, (F - 1)·hop + n_fft).
 extern "C" int istft_launch(
-    const void* re, const void* im, const void* ci, const void* si,
-    const void* inv_env, void* out, int B, int F, int n_fft, int hop, int K,
-    int threads, int smem_bytes, void* stream, int device) {
-  return launch<kPlanes>(re, im, ci, si, inv_env, out, B, 1, F, n_fft, hop, K,
-                         threads, smem_bytes, stream, device);
+    const void* re, const void* im, const void* win, const void* tw,
+    const void* tws, const void* inv_env, void* out, int B, int F, int n_fft,
+    int hop, int rows, int tile, void* stream, int device) {
+  return launch<kPlanes>(re, im, win, tw, tws, inv_env, out, B, 1, F, n_fft,
+                         hop, rows, tile, stream, device);
 }

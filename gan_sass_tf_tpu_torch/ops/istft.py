@@ -15,8 +15,10 @@ an analysis STFT:
 
     dre[k] = a_k · Re STFT_w(dy·inv_env)[k],  dim[k] = a_k · Im STFT_w(dy·inv_env)[k]
 
-so it runs as one launch of the STFT-features kernel (K1, emit "spec")
-followed by a per-bin scale: no kernel of its own.
+so on CUDA it is one launch of the STFT body's adjoint instantiation
+(`istft_adjoint_launch` in `csrc/stft_features.cu`), which multiplies by
+inv_env as it stages dy and writes both scaled planes.  Im at DC and
+Nyquist comes out 0: the forward ignores those imaginary parts.
 
 `istft_kernel` is the autograd wrapper: on CUDA tensors it launches the
 kernels (or raises), on CPU tensors it computes the same forward with the
@@ -34,14 +36,15 @@ import numpy as np
 import torch
 
 from gan_sass_tf_tpu_torch.dsp.stft import istft as _istft
-from gan_sass_tf_tpu_torch.ops.masked_istft import _MAX_SMEM, _idft_matrices, _inv_env
+from gan_sass_tf_tpu_torch.ops.masked_istft import _inv_env, synthesis_block
 from gan_sass_tf_tpu_torch.ops.stft_features import (
-    stft_features_kernel,
+    _device_tables,
+    check_n_fft,
     stft_features_reference,
 )
 
 launches = 0       # forward kernel launches since the last reset
-bwd_launches = 0   # backward launches (each is one STFT-features launch)
+bwd_launches = 0   # backward (adjoint kernel) launches since the last reset
 
 
 def istft_reference(re: torch.Tensor, im: torch.Tensor, n_fft: int, hop: int,
@@ -74,22 +77,19 @@ def _launch_forward(re: torch.Tensor, im: torch.Tensor, n_fft: int, hop: int,
     global launches
     from gan_sass_tf_tpu_torch.ops import build
 
+    check_n_fft(n_fft, hop, _require)
     b, f, k = re.shape
     _require(0 < b <= 65535, f"batch {b} outside [1, 65535]")
-    r = n_fft // hop
+    rows, tile = synthesis_block(n_fft, hop, _require)
     lib = build.load_library()
-    smem = 8 * (lib.masked_istft_tile_rows() + r - 1) * k
-    _require(smem <= _MAX_SMEM, f"needs {smem} B of shared memory "
-             f"(n_fft {n_fft}, hop {hop}); the card has {_MAX_SMEM}")
     dev = re.device
-    ci, si = _idft_matrices(n_fft, window, dev)
+    win, tw, tws = _device_tables(n_fft, window, dev)
     inv = _inv_env(n_fft, hop, window, f, dev)
     out = torch.empty((b, (f - 1) * hop + n_fft), dtype=torch.float32, device=dev)
-    threads = min(-(-hop // 32) * 32, 256)
     rc = lib.istft_launch(
-        re.data_ptr(), im.data_ptr(), ci.data_ptr(), si.data_ptr(),
-        inv.data_ptr(), out.data_ptr(), b, f, n_fft, hop, k, threads, smem,
-        torch.cuda.current_stream(dev).cuda_stream, dev.index)
+        re.data_ptr(), im.data_ptr(), win.data_ptr(), tw.data_ptr(),
+        tws.data_ptr(), inv.data_ptr(), out.data_ptr(), b, f, n_fft, hop, rows,
+        tile, torch.cuda.current_stream(dev).cuda_stream, dev.index)
     build.check_launch(rc, "istft")
     launches += 1
     return out
@@ -98,21 +98,39 @@ def _launch_forward(re: torch.Tensor, im: torch.Tensor, n_fft: int, hop: int,
 def istft_adjoint(dy: torch.Tensor, n_fft: int, hop: int, window: str,
                   n_frames: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, (F-1)·hop + n_fft) cotangent -> (dre, dim), each (B, F, K): the
-    STFT of dy·inv_env scaled per bin.  One K1 launch on CUDA; the plain
-    STFT on the CPU."""
+    STFT of dy·inv_env scaled per bin.  One launch of the adjoint kernel on
+    CUDA; the plain STFT on the CPU."""
     global bwd_launches
-    z = (dy.float() * _inv_env(n_fft, hop, window, n_frames, dy.device)).contiguous()
-    if z.is_cuda:
-        spec = stft_features_kernel(z, n_fft, hop, window, emit=("spec",))["spec"]
-        bwd_launches += 1
-    else:
-        spec = stft_features_reference(z, n_fft, hop, window, emit=("spec",))["spec"]
-    ri = torch.view_as_real(spec) * _bin_weights(n_fft, dy.device)
-    return ri[..., 0], ri[..., 1]
+    inv = _inv_env(n_fft, hop, window, n_frames, dy.device)
+    if not dy.is_cuda:
+        spec = stft_features_reference(dy.float() * inv, n_fft, hop, window,
+                                       emit=("spec",))["spec"]
+        ri = torch.view_as_real(spec) * _bin_weights(n_fft, dy.device)
+        return ri[..., 0], ri[..., 1]
+    from gan_sass_tf_tpu_torch.ops import build
+
+    check_n_fft(n_fft, hop, _require)
+    dy = dy.float().contiguous()
+    b, t = dy.shape
+    _require(t == inv.shape[0], f"cotangent of {t} samples for {n_frames} "
+             f"frames (expected {inv.shape[0]})")
+    lib = build.load_library()
+    dev = dy.device
+    win, tw, tws = _device_tables(n_fft, window, dev)
+    dre = torch.empty((b, n_frames, n_fft // 2 + 1), dtype=torch.float32, device=dev)
+    dim = torch.empty_like(dre)
+    rc = lib.istft_adjoint_launch(
+        dy.data_ptr(), inv.data_ptr(), win.data_ptr(), tw.data_ptr(),
+        tws.data_ptr(), dre.data_ptr(), dim.data_ptr(), b, t, n_frames, n_fft,
+        hop, torch.cuda.current_stream(dev).cuda_stream, dev.index)
+    build.check_launch(rc, "istft_adjoint")
+    bwd_launches += 1
+    return dre, dim
 
 
 class _IstftRI(torch.autograd.Function):
-    """(B, F, K) re, im -> (B, (F-1)·hop + n_fft): K3 forward, K1 backward."""
+    """(B, F, K) re, im -> (B, (F-1)·hop + n_fft): K3 forward, its adjoint
+    kernel backward."""
 
     @staticmethod
     def forward(ctx, re, im, n_fft, hop, window):
@@ -133,7 +151,7 @@ def istft_kernel(re: torch.Tensor, im: torch.Tensor, n_fft: int, hop: int,
     """(..., F, K) f32 planes -> (..., T) waveforms, differentiable in re
     and im.  CUDA tensors launch the kernels; CPU tensors take the same
     forward and adjoint on the plain STFT/iSTFT."""
-    _require(n_fft % hop == 0, f"needs hop | n_fft, got {n_fft}/{hop}")
+    check_n_fft(n_fft, hop, _require)
     _require(re.dtype == im.dtype == torch.float32,
              f"needs float32 planes, got {re.dtype} and {im.dtype}")
     _require(re.dim() >= 2 and re.shape == im.shape,

@@ -3,9 +3,11 @@ its plain PyTorch version.
 
 Port of `gan_sass_tf_tpu/ops/pallas_istft.py::masked_istft_pallas`:
 mixture STFT (..., F, K) + masks (..., S, F, K[, 2]) -> (..., S, T) wavs.
-`masked_istft_kernel` launches `csrc/masked_istft.cu` on CUDA tensors;
-`masked_istft_reference` is `apply_mask` followed by `istft(norm="global")`.
-`ops.dispatch` chooses between them by the tensors' device.
+`masked_istft_kernel` launches `csrc/masked_istft.cu` (an inverse FFT per
+frame in shared memory, n_fft a power of two from 64 to 4096) on CUDA
+tensors; `masked_istft_reference` is `apply_mask` followed by
+`istft(norm="global")`.  `ops.dispatch` chooses between them by the
+tensors' device.
 """
 
 from __future__ import annotations
@@ -17,31 +19,32 @@ import numpy as np
 import torch
 
 from gan_sass_tf_tpu_torch.dsp.masks import apply_mask
-from gan_sass_tf_tpu_torch.dsp.stft import istft as _istft, overlap_add
+from gan_sass_tf_tpu_torch.dsp.stft import irfft, istft as _istft, overlap_add
 from gan_sass_tf_tpu_torch.dsp.windows import cola_norm, get_window, safe_inv_env
+from gan_sass_tf_tpu_torch.ops.stft_features import _device_tables, check_n_fft
 
 _MAX_SMEM = 227 * 1024      # dynamic shared memory a Hopper block may use
+# The synthesis block (K2 and K3): it owns ROWS output hop-rows and inverts
+# the frames that touch them TILE_SAMPLES // n_fft at a time.  Picked on an
+# H100 as the least device ms summed over the main path's three synthesis
+# shapes among ROWS 4-32 x TILE_SAMPLES 2048-16384
+# (gan_sass_tf_tpu_torch/scripts/time_synthesis.py --sweep; PERF.md).
+ROWS = 8
+TILE_SAMPLES = 4096
 
 launches = 0   # kernel launches since the last reset (chip_smoke reads it)
 
 
-@functools.lru_cache(maxsize=16)
-def _idft_matrices(n_fft: int, window: str,
-                   device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(K, n_fft) windowed inverse-rDFT matrices on `device`: frames =
-    re @ Ci + im @ Si reproduces irfft (hermitian bin weights) times the
-    synthesis window.  Built in float64 by the formulas of
-    pallas_istft._idft_matrices (unpadded), stored f32."""
-    n_bins = n_fft // 2 + 1
-    w = get_window(window, n_fft).astype(np.float64)
-    ang = 2.0 * np.pi * np.arange(n_bins)[:, None] * np.arange(n_fft)[None, :] / n_fft
-    a = np.full((n_bins, 1), 2.0 / n_fft)
-    a[0, 0] = 1.0 / n_fft
-    if n_fft % 2 == 0:
-        a[-1, 0] = 1.0 / n_fft
-    ci = (a * np.cos(ang) * w[None, :]).astype(np.float32)
-    si = (-a * np.sin(ang) * w[None, :]).astype(np.float32)
-    return (torch.from_numpy(ci).to(device), torch.from_numpy(si).to(device))
+def synthesis_block(n_fft: int, hop: int, require) -> Tuple[int, int]:
+    """(rows, tile) of a synthesis block for this geometry, after checking
+    its shared memory (two (tile, n_fft/2) float2 buffers and a (rows, hop)
+    f32 accumulator, as `csrc/masked_istft.cu` lays it out) against the
+    card's; `require(cond, msg)` reports a failure."""
+    tile = max(1, min(TILE_SAMPLES // n_fft, ROWS + n_fft // hop - 1))
+    smem = 8 * n_fft * tile + 4 * ROWS * hop
+    require(smem <= _MAX_SMEM, f"needs {smem} B of shared memory "
+            f"(n_fft {n_fft}, hop {hop}); the card has {_MAX_SMEM}")
+    return ROWS, tile
 
 
 @functools.lru_cache(maxsize=16)
@@ -71,7 +74,7 @@ def masked_istft_reference(spec: torch.Tensor, masks: torch.Tensor,
     if env == "full":
         return _istft(est, n_fft, hop, window, length, norm="global")
     w = torch.from_numpy(get_window(window, n_fft)).to(spec.device)
-    y = overlap_add(torch.fft.irfft(est, n=n_fft, dim=-1).float() * w, hop)
+    y = overlap_add(irfft(est, n_fft) * w, hop)
     return y if length is None else y[..., :length]
 
 
@@ -91,8 +94,8 @@ def masked_istft_kernel(spec: torch.Tensor, masks: torch.Tensor,
     from gan_sass_tf_tpu_torch.ops import build
 
     _check_mask_type(mask_type, env)
+    check_n_fft(n_fft, hop, _require)
     complex_mask = mask_type == "complex"
-    _require(n_fft % hop == 0, f"needs hop | n_fft, got {n_fft}/{hop}")
     _require(spec.dtype == torch.complex64,
              f"needs a complex64 spectrum, got {spec.dtype}")
     _require(masks.dtype == torch.float32, f"needs f32 masks, got {masks.dtype}")
@@ -114,23 +117,18 @@ def masked_istft_kernel(spec: torch.Tensor, masks: torch.Tensor,
              f"and {masks.device}")
     _require(spec.is_contiguous() and masks.is_contiguous(),
              "needs contiguous spectrum and masks")
-    r = n_fft // hop
+    rows, tile = synthesis_block(n_fft, hop, _require)
     lib = build.load_library()
-    rows = lib.masked_istft_tile_rows()
-    smem = 8 * (rows + r - 1) * k
-    _require(smem <= _MAX_SMEM, f"needs {smem} B of shared memory "
-             f"(n_fft {n_fft}, hop {hop}); the card has {_MAX_SMEM}")
     dev = spec.device
-    ci, si = _idft_matrices(n_fft, window, dev)
+    win, tw, tws = _device_tables(n_fft, window, dev)
     inv = _inv_env(n_fft, hop, window, f, dev) if env == "full" else None
     out_len = (f - 1) * hop + n_fft
     out = torch.empty((b, s, out_len), dtype=torch.float32, device=dev)
-    threads = min(-(-hop // 32) * 32, 256)
     rc = lib.masked_istft_launch(
-        torch.view_as_real(spec).data_ptr(), masks.data_ptr(),
-        ci.data_ptr(), si.data_ptr(), None if inv is None else inv.data_ptr(),
-        out.data_ptr(), b, s, f, n_fft, hop, k, int(complex_mask),
-        threads, smem, torch.cuda.current_stream(dev).cuda_stream, dev.index)
+        torch.view_as_real(spec).data_ptr(), masks.data_ptr(), win.data_ptr(),
+        tw.data_ptr(), tws.data_ptr(), None if inv is None else inv.data_ptr(),
+        out.data_ptr(), b, s, f, n_fft, hop, int(complex_mask), rows, tile,
+        torch.cuda.current_stream(dev).cuda_stream, dev.index)
     build.check_launch(rc, "masked_istft")
     launches += 1
     if length is not None:

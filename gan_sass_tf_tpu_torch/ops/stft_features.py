@@ -37,9 +37,10 @@ def _check_emit(emit: Sequence[str], mel: Optional[torch.Tensor]) -> None:
 
 def fft_tables(n_fft: int, window: str
                ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """The kernel's tables, built in float64 and stored f32: the window
+    """The FFT kernels' tables, built in float64 and stored f32: the window
     (n_fft,), the Stockham stage twiddles e^{-2πim/H} (H,) and the split
-    twiddles e^{-2πik/N} (H + 1,) as complex64, for H = n_fft / 2."""
+    twiddles e^{-2πik/N} (H + 1,) as complex64, for H = n_fft / 2.  The
+    synthesis kernels (K2, K3) read the twiddles conjugated."""
     h = n_fft // 2
     win = get_window(window, n_fft, np.float64).astype(np.float32)
     stage = np.exp(-2j * np.pi * np.arange(h) / h).astype(np.complex64)
@@ -80,6 +81,15 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(f"stft_features kernel: {msg}")
 
 
+def check_n_fft(n_fft: int, hop: int, require) -> None:
+    """The geometry every FFT kernel takes (analysis and synthesis), checked
+    before a wrapper loads the library: n_fft a power of two in [MIN_FFT,
+    MAX_FFT] and hop | n_fft."""
+    require(MIN_FFT <= n_fft <= MAX_FFT and n_fft & (n_fft - 1) == 0,
+            f"needs n_fft a power of two in [{MIN_FFT}, {MAX_FFT}], got {n_fft}")
+    require(n_fft % hop == 0, f"needs hop | n_fft, got {n_fft}/{hop}")
+
+
 def check_waveform(x: torch.Tensor, n_fft: int, hop: int, require
                    ) -> Tuple[list, int, int, int, int]:
     """The checks both STFT kernels make of a (..., T) waveform, reported
@@ -88,9 +98,7 @@ def check_waveform(x: torch.Tensor, n_fft: int, hop: int, require
             "the kernel has no backward, and the input requires grad; a "
             "gradient would stop here (detach it, or differentiate through "
             "the plain version)")
-    require(MIN_FFT <= n_fft <= MAX_FFT and n_fft & (n_fft - 1) == 0,
-            f"needs n_fft a power of two in [{MIN_FFT}, {MAX_FFT}], got {n_fft}")
-    require(n_fft % hop == 0, f"needs hop | n_fft, got {n_fft}/{hop}")
+    check_n_fft(n_fft, hop, require)
     require(x.dtype == torch.float32, f"needs float32, got {x.dtype}")
     require(x.dim() >= 1, "needs a (..., T) waveform")
     *lead, t = x.shape

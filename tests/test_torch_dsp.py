@@ -78,6 +78,25 @@ def test_istft_win_length_and_length(rng):
     assert cut.shape == (1, 3000)
 
 
+@pytest.mark.parametrize("n_fft", [256, 2048])
+def test_irfft_drops_imaginary_dc_and_nyquist(rng, n_fft):
+    """The plain path's irfft is irfft as JAX and numpy define it, whatever
+    the device's FFT does with Im X[0] and Im X[n_fft/2] (cuFFT reads them
+    at some batch shapes): equal to JAX's, and no gradient reaches them."""
+    from gan_sass_tf_tpu_torch.dsp.stft import irfft
+
+    k = n_fft // 2 + 1
+    spec = (rng.standard_normal((3, k)) + 1j * rng.standard_normal((3, k))
+            ).astype(np.complex64)
+    ref = np.asarray(jnp.fft.irfft(jnp.asarray(spec), n=n_fft))
+    t = torch.from_numpy(spec).requires_grad_()
+    y = irfft(t, n_fft)
+    np.testing.assert_allclose(y.detach().numpy(), ref, rtol=0,
+                               atol=1e-6 * np.abs(ref).max())
+    y.square().sum().backward()
+    assert (t.grad.imag[:, [0, -1]] == 0).all()
+
+
 @pytest.mark.parametrize("n_fft,hop", [(256, 64), (512, 128), (400, 160)])
 def test_frame_signal_and_overlap_add_match_jax(rng, n_fft, hop):
     x = _rand(rng, 2, 3, 4000)

@@ -204,8 +204,9 @@ def test_kernel_modules_import_without_toolchain():
     assert build._lib is None
     assert [p.name for p in build._sources()] == ["masked_istft.cu",
                                                    "stft_features.cu"]
-    assert "istft_launch" in build._SIGNATURES
-    assert "stft_launch" in build._SIGNATURES
+    assert [p.name for p in build._headers()] == ["fft.cuh"]
+    assert {"istft_launch", "istft_adjoint_launch", "masked_istft_launch",
+            "stft_launch", "stft_features_launch"} == set(build._SIGNATURES)
     assert build.library_path().parent == build.BUILD_DIR
 
 
@@ -355,17 +356,13 @@ def test_stft_kernel_rejects_bad_input(rng):
     assert k4.launches == 0
 
 
-def _fft_schedule(x, n_fft, hop, window):
-    """The CUDA kernel's schedule in numpy f32: frames packed as
-    z[m] = w[2m]·x[2m] + i·w[2m+1]·x[2m+1], Stockham stages (one radix-2
-    stage first where log2(n_fft/2) is odd, then radix 4) reading the
-    port's host-built tables, and the split into the n_fft/2 + 1 bins."""
-    win, tw, tws = k1.fft_tables(n_fft, window)
-    h, q = n_fft // 2, n_fft // 8
-    f = 1 + (x.shape[-1] - n_fft) // hop
-    frames = x[..., np.arange(f)[:, None] * hop + np.arange(n_fft)]
-    src = (frames[..., 0::2] * win[0::2]
-           + 1j * (frames[..., 1::2] * win[1::2])).astype(np.complex64)
+def _stockham(src, tw, inverse=False):
+    """csrc/fft.cuh in numpy f32: Stockham stages over the last axis of
+    H points, one radix-2 stage first where log2(H) is odd, then radix 4,
+    reading the stage twiddles e^{-2πim/H} (conjugated, and +i for the
+    radix-4 constant -i, when inverse: the unscaled inverse)."""
+    h = src.shape[-1]
+    q = h // 4
     ns = 1
     if int(np.log2(h)) % 2:
         a, c = src[..., :h // 2], src[..., h // 2:]
@@ -374,19 +371,89 @@ def _fft_schedule(x, n_fft, hop, window):
     j = np.arange(q)
     while ns < h:
         k = j % ns
-        v = [src[..., j + r * q] * (tw[r * k * (h // (4 * ns))] if r else 1)
+        t = np.conj(tw) if inverse else tw
+        v = [src[..., j + r * q] * (t[r * k * (h // (4 * ns))] if r else 1)
              for r in range(4)]
         a0, a1, a2, d = v[0] + v[2], v[0] - v[2], v[1] + v[3], v[1] - v[3]
-        a3 = (d.imag - 1j * d.real).astype(np.complex64)      # -i·(v1 - v3)
+        if inverse:
+            a3 = (-d.imag + 1j * d.real).astype(np.complex64)   # +i·(v1 - v3)
+        else:
+            a3 = (d.imag - 1j * d.real).astype(np.complex64)    # -i·(v1 - v3)
         dst = np.empty_like(src)
         for r, out in enumerate((a0 + a2, a1 + a3, a0 - a2, a1 - a3)):
             dst[..., (j - k) * 4 + k + r * ns] = out
         src, ns = dst, ns * 4
+    return src
+
+
+def _fft_schedule(x, n_fft, hop, window):
+    """The CUDA kernel's schedule in numpy f32: frames packed as
+    z[m] = w[2m]·x[2m] + i·w[2m+1]·x[2m+1], Stockham stages (one radix-2
+    stage first where log2(n_fft/2) is odd, then radix 4) reading the
+    port's host-built tables, and the split into the n_fft/2 + 1 bins."""
+    win, tw, tws = k1.fft_tables(n_fft, window)
+    h = n_fft // 2
+    f = 1 + (x.shape[-1] - n_fft) // hop
+    frames = x[..., np.arange(f)[:, None] * hop + np.arange(n_fft)]
+    src = (frames[..., 0::2] * win[0::2]
+           + 1j * (frames[..., 1::2] * win[1::2])).astype(np.complex64)
+    src = _stockham(src, tw)
     kk = np.arange(h + 1)
     a, c = src[..., kk % h], np.conj(src[..., (h - kk) % h])
     e, dd = np.float32(0.5) * (a + c), np.float32(0.5) * (a - c)
     wd = tws * dd
     return ((e.real + wd.imag) + 1j * (e.imag - wd.real)).astype(np.complex64)
+
+
+def _ifft_schedule(spec, n_fft, hop, window, env=True):
+    """The synthesis body of csrc/masked_istft.cu (K2, K3) in numpy f32, on
+    a (B, F, K) complex spectrum with any masks applied: Im X[0] and
+    Im X[H] set to 0; the inverse split scaled by 1/N,
+      Z[k] = (X[k] + conj X[H-k])/N + i·e^{+2πik/N}·(X[k] - conj X[H-k])/N;
+    the inverse Stockham stages, after which Z read as floats is the frame;
+    then the block-tiled overlap-add with ROWS and tile of the wrapper
+    (ops/masked_istft.py::synthesis_block): per block of output hop-rows,
+    the frames that touch it a tile at a time, each chunk adding into the
+    rows its frames touch, frames in increasing order; and the inverse
+    envelope (env=True)."""
+    win, tw, tws = k1.fft_tables(n_fft, window)
+    h, r = n_fft // 2, n_fft // hop
+    x = spec.astype(np.complex64)
+    x[..., 0] = x[..., 0].real
+    x[..., h] = x[..., h].real
+    s = np.float32(1.0 / n_fft)
+    k = np.arange(h)
+    a, c = x[..., k], np.conj(x[..., h - k])
+    e, d = (a + c) * s, (a - c) * s
+    wd = np.conj(tws[k]) * d
+    z = ((e.real - wd.imag) + 1j * (e.imag + wd.real)).astype(np.complex64)
+    frames = np.ascontiguousarray(_stockham(z, tw, inverse=True)).view(np.float32)
+    rows, tile = k2.synthesis_block(n_fft, hop, _assert)
+    b, f = frames.shape[:2]
+    nrows = f + r - 1
+    out = np.zeros((b, nrows * hop), np.float32)
+    i = np.arange(rows * hop)
+    q, o = i // hop, i % hop
+    for q0 in range(0, nrows, rows):
+        fbase = q0 - r + 1
+        acc = np.zeros((b, rows * hop), np.float32)
+        lo, hi = max(0, -fbase), min(rows + r - 1, f - fbase)
+        for c0 in range(lo, hi, tile):
+            c1 = min(c0 + tile, hi)
+            touched = (max(0, c0 - r + 1) <= q) & (q < c1)
+            for l in range(c0, c1):
+                sel = touched & (q <= l) & (l < q + r)
+                n = (q[sel] + r - 1 - l) * hop + o[sel]
+                acc[:, sel] += win[n] * frames[:, fbase + l, n]
+        keep = q0 + q < nrows
+        out[:, q0 * hop + i[keep]] = acc[:, keep]
+    if env:
+        out *= k2._inv_env(n_fft, hop, window, f, torch.device("cpu")).numpy()
+    return out
+
+
+def _assert(cond, msg):
+    assert cond, msg
 
 
 @pytest.mark.parametrize("n_fft,hop,t,window", [
@@ -438,10 +505,143 @@ def test_fft_schedule_near_silent_frames(n_fft, hop, sr):
     assert (np.abs(exact[:, -5:]) == 0).all()
 
 
+SYNTH_GEOMETRIES = [(256, 64, "hann"), (512, 128, "hann"), (512, 128, "hann@400"),
+                    (2048, 512, "hann")]
+
+
+def _spectrum(rng, *shape):
+    """complex64 noise, with non-zero imaginary parts at DC and Nyquist."""
+    return (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+            ).astype(np.complex64)
+
+
+def _irfft_ola(spec, n_fft, hop, window):
+    """float64: irfft (imaginary parts at DC and Nyquist ignored), window,
+    overlap-add, inverse envelope."""
+    x = spec.astype(np.complex128)
+    x[..., 0], x[..., -1] = x[..., 0].real, x[..., -1].real
+    frames = np.fft.irfft(x, n=n_fft, axis=-1) * get_window(window, n_fft, np.float64)
+    f = frames.shape[-2]
+    y = np.zeros(frames.shape[:-2] + ((f - 1) * hop + n_fft,))
+    for i in range(f):
+        y[..., i * hop:i * hop + n_fft] += frames[..., i, :]
+    return y * k2._inv_env(n_fft, hop, window, f, torch.device("cpu")).numpy()
+
+
+@pytest.mark.parametrize("n_frames", [1, 3, k2.ROWS + 1, 2 * k2.ROWS + 5])
+@pytest.mark.parametrize("n_fft,hop,window", SYNTH_GEOMETRIES)
+def test_ifft_schedule_matches_irfft_ola(rng, n_fft, hop, window, n_frames):
+    """The K2/K3 synthesis body on the CPU within 1e-5·max|y| of float64,
+    at one frame, fewer frames than n_fft/hop, ROWS + 1 frames (a second,
+    partial block) and several blocks."""
+    spec = _spectrum(rng, 2, n_frames, n_fft // 2 + 1)
+    ours = _ifft_schedule(spec, n_fft, hop, window)
+    exact = _irfft_ola(spec, n_fft, hop, window)
+    assert ours.shape == exact.shape == (2, (n_frames - 1) * hop + n_fft)
+    np.testing.assert_allclose(ours, exact, rtol=0, atol=1e-5 * np.abs(exact).max())
+
+
+def _hold_istft(ours, ref, hop, atol):
+    """The reference's iSTFT tolerance: the interior (one hop off each
+    edge) within atol + 1e-3·|ref|, the full length within 1e-3·max|ref|."""
+    assert ours.shape == ref.shape
+    np.testing.assert_allclose(ours[..., hop:-hop], ref[..., hop:-hop],
+                               atol=atol, rtol=1e-3)
+    assert np.abs(ours - ref).max() <= 1e-3 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("n_fft,hop,window,n_frames", [
+    (256, 64, "hann", k2.ROWS + 1),
+    (512, 128, "hann", 40),
+    (512, 128, "hann@400", 3),
+    (2048, 512, "hann", 1),
+])
+def test_ifft_schedule_matches_istft_pallas(rng, interpret, n_fft, hop, window,
+                                           n_frames):
+    """K3's forward schedule against istft_pallas in interpret mode, at the
+    reference's tolerance (interior atol 2e-4, rtol 1e-3)."""
+    spec = _spectrum(rng, 2, n_frames, n_fft // 2 + 1)
+    ref = np.asarray(istft_pallas(jnp.asarray(spec), n_fft, hop, window))
+    _hold_istft(_ifft_schedule(spec, n_fft, hop, window), ref, hop, 2e-4)
+
+
+@pytest.mark.parametrize("mask_type,n_fft,hop,n_frames", [
+    ("magnitude", 512, 128, k2.ROWS + 1),
+    ("magnitude", 256, 64, 1),
+    ("complex", 512, 128, 3),
+    ("complex", 2048, 512, k2.ROWS + 1),
+])
+def test_ifft_schedule_matches_masked_istft_pallas(rng, interpret, mask_type,
+                                                  n_fft, hop, n_frames):
+    """K2's schedule (masks applied to the spectrum as the kernel loads it)
+    against masked_istft_pallas in interpret mode, at the reference's
+    tolerance (interior atol 3e-4, rtol 1e-3); masks in [-1, 1] and a
+    spectrum with non-zero Im at DC and Nyquist."""
+    b, s, k = 2, 3, n_fft // 2 + 1
+    spec = _spectrum(rng, b, n_frames, k)
+    m_shape = (b, s, n_frames, k) + ((2,) if mask_type == "complex" else ())
+    masks = rng.uniform(-1, 1, m_shape).astype(np.float32)
+    ref = np.asarray(masked_istft_pallas(jnp.asarray(spec), jnp.asarray(masks),
+                                         n_fft, hop, mask_type=mask_type))
+    m = masks if mask_type == "magnitude" else masks[..., 0] + 1j * masks[..., 1]
+    est = (m * spec[:, None]).astype(np.complex64).reshape(b * s, n_frames, k)
+    ours = _ifft_schedule(est, n_fft, hop, "hann").reshape(b, s, -1)
+    _hold_istft(ours, ref, hop, 3e-4)
+
+
+def _adjoint_schedule(dy, n_fft, hop, window, n_frames):
+    """K3's backward, the adjoint instantiation of the STFT body, in numpy
+    f32: _fft_schedule of dy·inv_env, times a_k (1/N at DC and Nyquist, 2/N
+    elsewhere), Im at DC and Nyquist 0, as two (B, F, K) planes."""
+    inv = k2._inv_env(n_fft, hop, window, n_frames, torch.device("cpu")).numpy()
+    spec = _fft_schedule(dy * inv, n_fft, hop, window)
+    h = n_fft // 2
+    a = np.full(h + 1, 2.0 / n_fft, np.float32)
+    a[[0, h]] = 1.0 / n_fft
+    dre, dim = spec.real * a, spec.imag * a
+    dim[..., [0, h]] = 0.0
+    return dre, dim
+
+
+@pytest.mark.parametrize("n_fft,hop,window,n_frames", [
+    (256, 64, "hann", 3),
+    (512, 128, "hann", 40),
+    (512, 128, "hann@400", k2.ROWS + 1),
+    (2048, 512, "hann", 1),
+])
+def test_adjoint_schedule_matches_istft_pallas_vjp(rng, interpret, n_fft, hop,
+                                                   window, n_frames):
+    """The adjoint kernel's schedule against the VJP of the JAX package's
+    _istft_ri (istft_pallas's custom VJP), atol 5e-4·max|g|, rtol 1e-3 as
+    tests/test_pallas.py, and within 1e-5·max|g| of the float64 adjoint."""
+    from gan_sass_tf_tpu.ops.pallas_istft import _istft_ri
+
+    k = n_fft // 2 + 1
+    re, im = _rand(rng, 2, n_frames, k), _rand(rng, 2, n_frames, k)
+    dy = _rand(rng, 2, (n_frames - 1) * hop + n_fft)
+    _, vjp = jax.vjp(lambda a, b: _istft_ri(a, b, n_fft, hop, window),
+                     jnp.asarray(re), jnp.asarray(im))
+    inv = k2._inv_env(n_fft, hop, window, n_frames, torch.device("cpu")).numpy()
+    frames = (dy.astype(np.float64) * inv)[
+        :, np.arange(n_frames)[:, None] * hop + np.arange(n_fft)]
+    x = np.fft.rfft(frames * get_window(window, n_fft, np.float64), axis=-1)
+    a = np.full(k, 2.0 / n_fft)
+    a[[0, -1]] = 1.0 / n_fft
+    exact = (x.real * a, x.imag * a * (np.arange(k) % (k - 1) != 0))
+    for ours, want, ex in zip(_adjoint_schedule(dy, n_fft, hop, window, n_frames),
+                              vjp(jnp.asarray(dy)), exact):
+        want = np.asarray(want)
+        scale = np.abs(want).max()
+        assert ours.shape == want.shape == (2, n_frames, k)
+        np.testing.assert_allclose(ours, want, atol=5e-4 * scale, rtol=1e-3)
+        np.testing.assert_allclose(ours, ex, atol=1e-5 * scale, rtol=0)
+
+
 @pytest.mark.parametrize("n_fft,hop", [(500, 125), (8192, 2048), (32, 8)])
 def test_stft_kernels_reject_n_fft_before_the_library(monkeypatch, n_fft, hop):
-    """Both wrappers of the FFT body refuse an n_fft that is not a power of
-    two in [64, 4096] before they load (or build) the library."""
+    """Every wrapper of the FFT bodies (K1, K4, K2, and K3's autograd
+    wrapper and forward launch) refuses an n_fft that is not a power of two
+    in [64, 4096] before it loads (or builds) the library."""
     from gan_sass_tf_tpu_torch.ops import build
 
     def no_library():
@@ -449,8 +649,15 @@ def test_stft_kernels_reject_n_fft_before_the_library(monkeypatch, n_fft, hop):
 
     monkeypatch.setattr(build, "load_library", no_library)
     x = torch.zeros(1, 3 * n_fft)
+    k = n_fft // 2 + 1
+    spec = torch.zeros(1, 2, k, dtype=torch.complex64)
+    masks = torch.zeros(1, 1, 2, k)
+    re = torch.zeros(1, 2, k)
     for fn in (lambda: k1.stft_features_kernel(x, n_fft, hop),
-               lambda: k4.stft_kernel(x, n_fft, hop)):
+               lambda: k4.stft_kernel(x, n_fft, hop),
+               lambda: k2.masked_istft_kernel(spec, masks, n_fft, hop),
+               lambda: k3.istft_kernel(re, re, n_fft, hop),
+               lambda: k3._launch_forward(re, re, n_fft, hop, "hann")):
         with pytest.raises(ValueError, match="power of two"):
             fn()
-    assert (k1.launches, k4.launches) == (0, 0)
+    assert (k1.launches, k4.launches, k2.launches, k3.launches) == (0, 0, 0, 0)
