@@ -27,6 +27,21 @@ Phases, one JSON line each:
               launched; one step from one state on the kernel and the plain
               DSP path agrees; the step's device ms by kernel family
               (torch.profiler); evaluate(); the CLI trains wsj0_logmel
+    workdir   `cli train --config stream_v5e8 --workdir W` for 4 steps
+              (checkpoints and evals every 2) then 2 more that resume at
+              step 4: config.json, the checkpoints, best/, best.json and
+              metrics.jsonl written, a new Experiment restores a state equal
+              to the saved one (save and load wall ms), `cli eval --best`,
+              K3 and its backward launched; 2 steps from host batches and 2
+              from the device bank on a fixture wav corpus, losses finite
+    stream    `cli separate --workdir W --streaming` on a 60 s, 16 kHz wav in
+              batch and scan mode: (2, 960 000) finite sources, K1 and K2
+              launched exactly once a chunk group (8) and once a chunk
+              (62); the kernel path against the plain one, per chunk after
+              the best source permutation (SI-SDR >= 40 dB), and whether the
+              chained permutations agree; wall ms a stream per mode and
+              path, ms a chunk in scan mode, the device-busy share of a
+              batch-mode stream; K1 and K2 at the chunk shapes
   8 k4        the complex STFT kernel vs its plain version at the
               stream_v5e8 oracle shapes (32 mixtures, 32 x 2 sources), the
               music_complex_44k shape (8 x 2 sources, n_fft 2048), a 60 s
@@ -44,17 +59,21 @@ Phases, one JSON line each:
  11 timing    median per-call time of each kernel's wrapper beside its plain
               version and, where one PyTorch call computes the same function
               (torch.stft for the STFT kernels), that call (CUDA events
-              around back-to-back calls), and the kernels' device ms
-              (torch.profiler); K1 at the separation and music step
-              shapes, K2 at the separation and music bound shapes, K3's
+              around back-to-back calls), and the kernels' device ms (CUDA
+              events around a replayed CUDA graph of back-to-back calls;
+              torch.profiler's reading beside it); K1 at the separation,
+              stream step and music step shapes, K2 at the separation and
+              music bound shapes, K3's
               whole backward and its adjoint launch alone, K4
               at the stream and music shapes; separate() throughput, the
               stream_v5e8 train step on both DSP paths and the wall seconds
               of one recompute_bounds per preset
-Then a `kernels` summary line (each kernel's launches on the main path, its
-error, its time beside its plain version's, the library call's and its
-bound from the shapes) and, last, the result line.  Any failed check exits
-non-zero before the result line.  Needs one CUDA device.
+Then a `kernels` summary line (each kernel's launches, summed over the
+paths that drive it and by path, each path's counts set to 0 just before
+it and read just after; its error; its time beside its plain version's,
+the library call's and its bound from the shapes; K1 and K2 also at the
+streaming chunk shapes) and, last, the result line.  Any failed check
+exits non-zero before the result line.  Needs one CUDA device.
 """
 
 from __future__ import annotations
@@ -64,6 +83,7 @@ import copy
 import io
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -75,9 +95,15 @@ import numpy as np
 import torch
 
 from gan_sass_tf_tpu_torch import cli, config
+from gan_sass_tf_tpu_torch.data.fixtures import write_fixture_corpus
 from gan_sass_tf_tpu_torch.dsp.features import mel_filterbank
 from gan_sass_tf_tpu_torch.dsp.windows import get_window
-from gan_sass_tf_tpu_torch.infer import separate
+from gan_sass_tf_tpu_torch.infer import (
+    separate,
+    separate_streaming,
+    separate_streaming_scan,
+    streaming,
+)
 from gan_sass_tf_tpu_torch.losses import si_sdr
 from gan_sass_tf_tpu_torch.models import (
     build_generator,
@@ -91,6 +117,7 @@ from gan_sass_tf_tpu_torch.ops import masked_istft as k2
 from gan_sass_tf_tpu_torch.ops import stft as k4
 from gan_sass_tf_tpu_torch.ops import stft_features as k1
 from gan_sass_tf_tpu_torch.scripts import quality_protocol, recompute_bounds
+from gan_sass_tf_tpu_torch.losses.pit import permutations_for
 from gan_sass_tf_tpu_torch.train import Experiment
 from gan_sass_tf_tpu_torch.utils.wav_io import read_wav, write_wav
 
@@ -128,6 +155,11 @@ JAX_CPU_BOUNDS = {
 BOUND_TOL_DB, JAX_BOUND_TOL_DB = 0.01, 1.0
 QUALITY_STREAM_STEPS, QUALITY_MUSIC_STEPS = 10, 4
 PROFILE_STEPS = 5                    # train steps traced for the step profile
+PROFILE_PAD_S = 0.05                 # idle seconds at each end of a profile window
+FILL_LAUNCHES = 4000                 # small kernels after the calls (profiler check)
+SR_STREAM = 16000                    # stream_v5e8
+T_STREAM = 60 * SR_STREAM            # the streamed mixture: 62 chunks of 16 000
+STREAM_SAMPLES = 3                   # timed streams per mode and DSP path
 # A train step's device time by kernel family: substrings of the lower-cased
 # kernel name, first match wins.  cuDNN's layout transposes are
 # nchwToNhwc/nhwcToNchw kernels; its conv kernels carry "nhwc" too.
@@ -167,9 +199,9 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).detach().abs().max())
 
 
-def mixtures(rng, b: int, t: int) -> np.ndarray:
+def mixtures(rng, b: int, t: int, sr: int = SR) -> np.ndarray:
     """Two harmonic tones per mixture plus noise."""
-    n = np.arange(t) / SR
+    n = np.arange(t) / sr
     out = []
     for _ in range(b):
         f1, f2 = rng.uniform(100, 300), rng.uniform(400, 1200)
@@ -289,7 +321,10 @@ def phase_k1(rng, dev):
     x = torch.from_numpy(rng.standard_normal((B_MAIN, T_MAIN), np.float32)).to(dev)
     main_errs, ker = k1_case(x, N_FFT, HOP, ("spec", "logmel"), mel)
     emit("k1", shape=[B_MAIN, T_MAIN], frames=ker["spec"].shape[-2],
-         max_abs_err=main_errs, tol="spec 3e-4*max|X|, logmel 1e-3")
+         max_abs_err=main_errs, tol="spec 3e-4*max|X|, logmel 1e-3",
+         profiler_launches_per_call=profiler_window_check(
+             lambda: k1.stft_features_kernel(x, N_FFT, HOP, emit=("spec", "logmel"),
+                                             mel_matrix=mel), reps=20))
     xl = torch.from_numpy(rng.standard_normal((1, T_LONG), np.float32)).to(dev)
     errs, kl = k1_case(xl, N_FFT, HOP, ("spec", "logmel"), mel)
     emit("k1", shape=[1, T_LONG], frames=kl["spec"].shape[-2], max_abs_err=errs)
@@ -554,6 +589,230 @@ def phase_train(dev):
     return exp, counts
 
 
+def flat_state(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from flat_state(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def cli_losses(out: str, step: int) -> dict:
+    """The g, d and recon losses `cli train` printed for `step`."""
+    m = re.search(rf"step {step}: g=(\S+) d=(\S+) recon=(\S+)", out)
+    check(m is not None, f"cli train printed no step {step}: {out[-300:]}")
+    return dict(zip(("g", "d", "recon"), map(float, m.groups())))
+
+
+def phase_workdir(dev, tmp: Path):
+    """The workdir lifecycle of stream_v5e8 at full width through the CLI,
+    then host batches and the device bank from a fixture wav corpus."""
+    wd = tmp / "run"
+    common = ["--config", "stream_v5e8", "--workdir", str(wd), "--device", str(dev)]
+    sets = ["--set", "train.ckpt_every=2", "--set", "train.eval_every=2",
+            "--set", "train.eval_batches=1"]
+    k1.launches = k3.launches = k3.bwd_launches = 0
+    out = captured(cli.main, ["train", *common, "--steps", "4", *sets])
+    counts = {"stft_features": k1.launches, "istft": k3.launches,
+              "istft_bwd": k3.bwd_launches}
+    check(counts["istft"] == 4 and counts["istft_bwd"] == 4
+          and counts["stft_features"] >= 8, f"workdir train launches {counts}")
+    losses = {4: cli_losses(out, 4)}
+    best = json.loads((wd / "best.json").read_text())
+    written = sorted(str(p.relative_to(wd)) for p in wd.rglob("*") if p.is_file())
+    for name in ("config.json", "checkpoints/2.pt", "checkpoints/4.pt", "best.json",
+                 "metrics.jsonl", f"best/{best['step']}.pt"):
+        check(name in written, f"workdir: {name} missing from {written}")
+    out = captured(cli.main, ["train", *common, "--steps", "2", *sets])
+    check("resumed from step 4" in out, f"second cli train did not resume: {out}")
+    losses[6] = cli_losses(out, 6)
+    check(all(math.isfinite(v) for m in losses.values() for v in m.values()),
+          f"workdir losses {losses}")
+    cfg = config.Config.from_json((wd / "config.json").read_text())
+    exp = Experiment(cfg, workdir=str(wd), device=dev)
+    check(exp.state.step == 6, f"workdir resumed at {exp.state.step}, not 6")
+    saved = torch.load(wd / "checkpoints" / "6.pt", map_location="cpu",
+                       weights_only=True)
+    live = dict(flat_state(exp.state.state_dict()))
+    stored = dict(flat_state(saved["state"]))
+    check(live.keys() == stored.keys(), "restored state has other keys")
+    differ = [k for k, v in live.items()
+              if not (torch.equal(v.cpu(), stored[k]) if torch.is_tensor(v)
+                      else v == stored[k])]
+    check(not differ, f"restored state differs from the saved one: {differ[:5]}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    exp.save()
+    save_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    exp.restore()
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    ev = captured(cli.main, ["eval", *common, "--best", "--batches", "1"])
+    check("using best checkpoint" in ev and "si_sdr_improvement" in ev,
+          f"cli eval --best: {ev}")
+
+    corpus = tmp / "corpus"
+    write_fixture_corpus(str(corpus), n_speakers=6, utts_per_speaker=4,
+                         seconds=3.0, sample_rate=SR_STREAM, seed=SEED)
+    corpus_runs = {}
+    for mode, bank in (("host_batches", "False"), ("device_bank", "True")):
+        t0 = time.perf_counter()
+        out = captured(cli.main, [
+            "train", "--config", "stream_v5e8", "--steps", "2", "--device", str(dev),
+            "--set", "data.dataset=wav_dir", "--set", f"data.data_dir={corpus}",
+            "--set", f"data.device_bank={bank}"])
+        m = cli_losses(out, 2)
+        check(all(math.isfinite(v) for v in m.values()), f"{mode}: {m}")
+        corpus_runs[mode] = {"losses_step_2": m, "wall_s": time.perf_counter() - t0}
+    emit("workdir", config="stream_v5e8", batch=cfg.train.batch_size,
+         files=written, best=best, losses=losses, launches_first_run=counts,
+         resumed_at=4, ended_at=6, restored_equals_saved=True,
+         state_tensors=sum(torch.is_tensor(v) for v in live.values()),
+         checkpoint_mib=(wd / "checkpoints" / "6.pt").stat().st_size / 2**20,
+         save_ms=save_ms, load_ms=load_ms, wav_corpus=corpus_runs)
+    return wd, counts
+
+
+def segment_agreement(ker: np.ndarray, ref: np.ndarray, stride: int):
+    """(min SI-SDR over stride-long segments and sources, segments whose best
+    source permutation is the identity, segments): the kernel path's
+    stream against the plain path's, each segment after its own best
+    permutation, so that a chained permutation picked differently on a
+    near-tie costs that segment alone."""
+    s, t = ref.shape
+    perms = permutations_for(s)
+    worst, same, n = float("inf"), 0, 0
+    for a in range(0, t - stride + 1, stride):
+        k = torch.from_numpy(ker[:, a:a + stride])
+        r = torch.from_numpy(ref[:, a:a + stride])
+        scores = torch.stack([si_sdr(k[list(p)], r) for p in perms])   # (P, S)
+        best = int(scores.mean(dim=1).argmax())
+        worst = min(worst, float(scores[best].min()))
+        same += best == 0
+        n += 1
+    return worst, same, n
+
+
+def phase_stream(rng, dev, tmp: Path, wd: Path):
+    """Streaming separation of a 60 s mixture through the CLI with G from
+    the workdir, in both modes; kernel against plain path; timings."""
+    cfg = config.Config.from_json((wd / "config.json").read_text())
+    chunk, stride, _, n_chunks, _, _ = streaming._chunk_geometry(cfg, T_STREAM)
+    n_groups = -(-n_chunks // cfg.stream.batch_chunks)
+    expect = {"batch": n_groups, "scan": n_chunks}
+    wav = tmp / "stream60s.wav"
+    write_wav(str(wav), SR_STREAM, mixtures(rng, 1, T_STREAM, SR_STREAM)[0])
+    mix = read_wav(str(wav))[1]
+    launches = {}
+    for mode in ("batch", "scan"):
+        out_dir = tmp / f"stream_{mode}"
+        k1.launches = k2.launches = 0
+        captured(cli.main, [
+            "separate", "--config", "stream_v5e8", "--workdir", str(wd), "--device",
+            str(dev), "--input", str(wav), "--output-dir", str(out_dir),
+            "--streaming", "--streaming-mode", mode])
+        launches[mode] = {"stft_features": k1.launches, "masked_istft": k2.launches}
+        check(launches[mode] == {"stft_features": expect[mode],
+                                 "masked_istft": expect[mode]},
+              f"stream {mode}: launches {launches[mode]}, expected {expect[mode]} each")
+        srcs = np.stack([read_wav(str(out_dir / f"stream60s_src{i}.wav"))[1]
+                         for i in range(cfg.data.num_sources)])
+        check(srcs.shape == (2, T_STREAM) and np.isfinite(srcs).all(),
+              f"stream {mode}: {srcs.shape}")
+
+    exp = Experiment(cfg, workdir=str(wd), device=dev)
+    g = exp.eval_generator()
+    fns = {"batch": separate_streaming, "scan": separate_streaming_scan}
+    agree = {}
+    chained, inner = [], streaming._chain_permutations
+
+    def recording_chain(*args, **kwargs):
+        chained.append(inner(*args, **kwargs))
+        return chained[-1]
+
+    streaming._chain_permutations = recording_chain
+    try:
+        for mode, fn in fns.items():
+            ker = fn(g, cfg, mix, dev)
+            with dispatch.force_backend("reference"):
+                ref = fn(g, cfg, mix, dev)
+            check(ker.shape == ref.shape == (2, T_STREAM) and np.isfinite(ker).all(),
+                  f"stream {mode}: kernel path {ker.shape}")
+            worst, same, n = segment_agreement(ker, ref, stride)
+            agree[mode] = {"min_si_sdr_db": worst, "segments_same_permutation": same,
+                           "segments": n}
+            check(worst >= 40.0, f"stream {mode}: kernel vs plain SI-SDR {worst} dB < 40")
+    finally:
+        streaming._chain_permutations = inner
+    perm_equal = bool(np.array_equal(chained[0], chained[1]))
+
+    def run(mode, path):
+        def go():
+            with dispatch.force_backend(path):
+                t0 = time.perf_counter()
+                fns[mode](g, cfg, mix, dev)
+                return (time.perf_counter() - t0) * 1e3
+        return go
+
+    walls = {}
+    for mode in fns:
+        times = {None: [], "reference": []}
+        for i in range(2 * STREAM_SAMPLES):
+            path = (None, "reference", "reference", None)[i % 4]
+            times[path].append(run(mode, path)())
+        walls[mode] = {"kernel": statistics.median(times[None]),
+                       "plain": statistics.median(times["reference"])}
+    busy = {}
+    for mode in fns:
+        dk = device_kernels(run(mode, None), calls=1)
+        busy[mode] = {"device_ms": sum(ms for ms, _ in dk.values()),
+                      "wall_ms": walls[mode]["kernel"],
+                      "k1_launches_recorded": sum(
+                          n for name, (_, n) in dk.items()
+                          if "stft_features_kernel" in name)}
+        busy[mode]["busy_share"] = busy[mode]["device_ms"] / walls[mode]["kernel"]
+
+    # K1 and K2 at the chunk shapes: a group of batch_chunks chunks and one.
+    shapes = {}
+    n_fft, hop = cfg.dsp.n_fft, cfg.dsp.hop_length
+    for b in (cfg.stream.batch_chunks, 1):
+        x = torch.from_numpy(mixtures(rng, b, chunk, SR_STREAM)).to(dev)
+        if b > 1:       # the last group's zero chunks: log|X| = log(eps)
+            x[-(n_groups * b - n_chunks):] = 0.0
+        emits = ("spec", "logmag")
+        k1_errs, k1_out = k1_case(x, n_fft, hop, emits, None)
+        check(bool(torch.isfinite(k1_out["logmag"]).all()),
+              f"k1 logmag at {tuple(x.shape)} not finite")
+        k1_t = k1_timing(x, n_fft, hop, emits)
+        spec = k1.stft_features_reference(x, n_fft, hop)["spec"]
+        masks = torch.from_numpy(rng.uniform(0, 1, (b, 2) + tuple(spec.shape[-2:]))
+                                 .astype(np.float32)).to(dev)
+        interior, full = k2_case(spec, masks, n_fft, hop, "magnitude")
+        k2_t = time_kernel(
+            lambda: k2.masked_istft_kernel(spec, masks, n_fft, hop),
+            lambda: k2.masked_istft_reference(spec, masks, n_fft, hop),
+            istft_bound(spec.numel() * 8, b, 2, spec.shape[-2], n_fft, hop,
+                        masks.numel() * 4, 2 * masks.numel()))
+        shapes[b] = {"stft_features": k1_t, "masked_istft": k2_t,
+                     "stft_features_max_abs_err": k1_errs,
+                     "masked_istft_max_abs_err": full,
+                     "masks": list(masks.shape)}
+    emit("stream", config="stream_v5e8", seconds=T_STREAM / SR_STREAM,
+         chunk=chunk, stride=stride, chunks=n_chunks, groups=n_groups,
+         launches=launches, kernel_vs_plain=agree, tol_db=40.0,
+         batch_chained_permutations_equal=perm_equal,
+         wall_ms=walls, ms_per_chunk_scan={
+             p: walls["scan"][p] / n_chunks for p in ("kernel", "plain")},
+         mixture_sec_per_sec={m: {p: T_STREAM / SR_STREAM / w[p] * 1e3
+                                  for p in ("kernel", "plain")}
+                              for m, w in walls.items()},
+         device_busy=busy, chunk_shapes={str(b): v for b, v in shapes.items()},
+         note="wall: host array in, host array out; busy: torch.profiler "
+              "device ms of one stream over the median kernel-path wall")
+    return launches, shapes
+
+
 def k4_check(ker, ref, what):
     """K4 kernel vs plain: complex64, one shape, and |ker - ref| within
     atol 3e-4·max|X| + rtol 1e-3 (tests/test_pallas.py)."""
@@ -599,14 +858,19 @@ def phase_k4(rng, dev):
     return max(errs.values()), stream_srcs, music_srcs
 
 
-def captured_json(fn, argv):
-    """Run an entry point's main(argv) and parse the JSON line it prints
-    last on stdout."""
+def captured(fn, argv) -> str:
+    """Run an entry point's main(argv), check that it returns 0, and return
+    what it printed on stdout."""
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = fn(argv)
     check(rc == 0, f"{fn.__module__}.main({argv}) returned {rc}")
-    return json.loads(buf.getvalue().strip().splitlines()[-1])
+    return buf.getvalue()
+
+
+def captured_json(fn, argv):
+    """The JSON line an entry point's main(argv) prints last on stdout."""
+    return json.loads(captured(fn, argv).strip().splitlines()[-1])
 
 
 def phase_bounds(dev):
@@ -768,13 +1032,16 @@ def library_stft(x, n_fft, hop):
 
 def device_kernels(fn, calls=CALLS_PER_SAMPLE) -> dict:
     """{kernel name: (device ms, launches) per call} of the kernels `fn`
-    launches, from torch.profiler after one warm-up call."""
+    launches, from torch.profiler (CPU and CUDA activities) after one
+    warm-up call.  In short windows the profiler may miss launches (late
+    in a run, sometimes all of a 10-call window: PERF.md), so callers hold
+    the launches it recorded to the launches made."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
@@ -782,19 +1049,83 @@ def device_kernels(fn, calls=CALLS_PER_SAMPLE) -> dict:
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
 
 
-def device_ms(fn, calls=CALLS_PER_SAMPLE) -> float:
-    """Device ms per call of the kernels `fn` launches: the card's time
-    without the wrapper's host time."""
-    return sum(ms for ms, _ in device_kernels(fn, calls).values())
+def device_ms(fn, calls=CALLS_PER_SAMPLE):
+    """Device ms per call of the kernels `fn` launches (the card's time
+    without the wrapper's host time), or None where the profiler recorded
+    some kernel a fractional number of times a call, or none: then it
+    missed launches, and the sum would read low."""
+    dk = device_kernels(fn, calls)
+    if not dk or any(n != round(n) for _, n in dk.values()):
+        return None
+    return sum(ms for ms, _ in dk.values())
 
 
-def launch_ms(fn) -> dict:
-    """Device ms of the one kernel a wrapper launches, per launch the
-    profiler recorded, and the launches it recorded per call (1.0 when it
-    saw them all: some runs read 3.4x under the per-call time that CUDA
-    events around a CUDA graph of the same calls give, PERF.md)."""
-    (ms, n), = device_kernels(fn).values()
-    return {"ms": ms / n, "launches_per_call": n}
+def graph_ms(fn, calls=CALLS_PER_SAMPLE) -> float:
+    """Median device ms a call of `fn`: CUDA events around a replayed CUDA
+    graph of `calls` back-to-back calls, so every launch is timed and no
+    host time falls between them (as scripts/time_synthesis.py)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(TIMING_SAMPLES):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    return statistics.median(times)
+
+
+def launch_ms(fn, graph=True) -> dict:
+    """Device ms of the one kernel a wrapper launches: `ms` a call from a
+    replayed CUDA graph (graph=False: torch.profiler's per-call sum, given
+    only when it recorded every launch), beside the profiler's mean per
+    recorded launch and its launches recorded per call."""
+    dk = device_kernels(fn)
+    check(len(dk) <= 1, f"one wrapper call launched {sorted(dk)}")
+    ms, n = next(iter(dk.values()), (0.0, 0.0))
+    per_call = graph_ms(fn) if graph else (ms if n == 1.0 else None)
+    return {"ms": per_call, "profiler_ms_per_launch": ms / n if n else None,
+            "launches_per_call": n}
+
+
+def profiler_window_check(fn, name="stft_features_kernel", reps=4) -> dict:
+    """Launches per call of `name` that torch.profiler records over
+    CALLS_PER_SAMPLE calls of `fn`, `reps` times each: in a window padded
+    with idle time at both ends (as device_kernels), and in one where the
+    calls are followed by FILL_LAUNCHES small kernels before the window
+    closes (if the recorder holds a short window's records back until its
+    buffers fill, these push them out)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def recorded(fill):
+        fn()
+        torch.cuda.synchronize()
+        filler = torch.zeros(1, device="cuda")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
+            for _ in range(CALLS_PER_SAMPLE):
+                fn()
+            for _ in range(fill):
+                filler.add_(1.0)
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+        return sum(e.count for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and name in e.key) / CALLS_PER_SAMPLE
+
+    return {"padded": [recorded(0) for _ in range(reps)],
+            f"filled_{FILL_LAUNCHES}": [recorded(FILL_LAUNCHES) for _ in range(reps)]}
 
 
 def step_profile(exp) -> dict:
@@ -827,12 +1158,12 @@ def time_stft(kernel, plain, x, n_fft, hop, emits=("spec",), n_mels=0):
             "bound": ms, "bound_by": by}
 
 
-def time_kernel(kernel, plain, bound_ms_by):
+def time_kernel(kernel, plain, bound_ms_by, graph=True):
     """A kernel call timed beside its plain version, through the wrapper
     and on the device, with its bound; no one PyTorch call computes it."""
     t = time_fns(plain=plain, kernel=kernel)
     return {"kernel": t["kernel"], "plain": t["plain"],
-            "device": {"kernel": launch_ms(kernel), "plain": device_ms(plain)},
+            "device": {"kernel": launch_ms(kernel, graph), "plain": device_ms(plain)},
             "bound": bound_ms_by[0], "bound_by": bound_ms_by[1]}
 
 
@@ -884,7 +1215,8 @@ def phase_timing(rng, dev, x, spec, cfg, g, batch, k3_tensors, exp, k4_inputs,
     bwd_bound = stft_bound(ref, N_FFT, HOP)
     bwd_t = time_kernel(
         lambda: torch.autograd.grad(y, (re, im), dy, retain_graph=True),
-        lambda: torch.autograd.grad(ref, (re, im), dy, retain_graph=True), bwd_bound)
+        lambda: torch.autograd.grad(ref, (re, im), dy, retain_graph=True), bwd_bound,
+        graph=False)
     # Its one launch alone, on a cotangent of the same shape, beside the
     # plain adjoint (the STFT of dy·inv_env scaled per bin).
     z = torch.randn_like(ref).contiguous()
@@ -894,6 +1226,13 @@ def phase_timing(rng, dev, x, spec, cfg, g, batch, k3_tensors, exp, k4_inputs,
         lambda: torch.view_as_real(
             k1.stft_features_reference(z * inv, N_FFT, HOP)["spec"]) * a_k, bwd_bound)
     stream_srcs, music_srcs = k4_inputs
+    # K1 at the stream_v5e8 step's shape, spec only: torch.stft computes the
+    # same function there.
+    k1_stream_step = k1_timing(stream_srcs.reshape(-1, stream_srcs.shape[-1]),
+                               N_FFT, HOP, ("spec",))
+    prof_check = profiler_window_check(
+        lambda: k1.stft_features_kernel(x, N_FFT, HOP, emit=("spec", "logmel"),
+                                        mel_matrix=mel))
     k4_times = {what: time_stft(lambda: k4.stft_kernel(xs, n, h),
                                 lambda: k4.stft_reference(xs, n, h), xs, n, h)
                 for what, xs, n, h in (("stream", stream_srcs, N_FFT, HOP),
@@ -903,6 +1242,8 @@ def phase_timing(rng, dev, x, spec, cfg, g, batch, k3_tensors, exp, k4_inputs,
     emit("timing", shape=[B_MAIN, T_MAIN], samples=TIMING_SAMPLES,
          calls_per_sample=CALLS_PER_SAMPLE,
          stft_features_ms=k1_sep, stft_features_music_step_ms=k1_steps,
+         stft_features_stream_step_ms=k1_stream_step,
+         profiler_launches_per_call=prof_check,
          masked_istft_ms=k2_sep, masked_istft_music_ms=k2_mus,
          separate_ms={"kernel": sep_kernel, "plain": sep_plain},
          separate_mix_sec_per_sec={"kernel": audio_s / sep_kernel * 1e3,
@@ -916,23 +1257,26 @@ def phase_timing(rng, dev, x, spec, cfg, g, batch, k3_tensors, exp, k4_inputs,
          stft_ms=k4_times, recompute_bounds_wall_s=bound_walls,
          note="separate() includes host->device copy and the result's copy "
               "back; a train step is timed on the host clock to a synchronize; "
-              "istft_bwd_ms is the whole autograd backward; device ms from "
-              "torch.profiler")
-
-    def row(t):
-        return {"ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": t["bound"],
-                "bound_by": t["bound_by"], "library_ms": t["library"]}
-
-    def synth_row(t):
-        return {"ms": t["kernel"], "device_ms": t["device"]["kernel"]["ms"],
-                "plain_ms": t["plain"], "plain_device_ms": t["device"]["plain"],
-                "bound_ms": t["bound"], "bound_by": t["bound_by"], "library_ms": None}
-
-    return {"stft_features": {**row(k1_sep), "library_ms": None},
-            "masked_istft": {**synth_row(k2_sep), "music_shape": synth_row(k2_mus)},
-            "istft": synth_row(k3_t),
-            "istft_bwd": {**synth_row(bwd_t), "adjoint_launch": synth_row(adjoint)},
+              "istft_bwd_ms is the whole autograd backward; a kernel's device "
+              "ms from CUDA events around a replayed CUDA graph (the whole "
+              "backward: torch.profiler), a plain version's from "
+              "torch.profiler, null where it recorded a kernel a fractional "
+              "number of times a call")
+    return {"stft_features": {**row(k1_sep), "library_ms": None,
+                              "stream_step_shape": row(k1_stream_step)},
+            "masked_istft": {**row(k2_sep), "music_shape": row(k2_mus)},
+            "istft": row(k3_t),
+            "istft_bwd": {**row(bwd_t), "adjoint_launch": row(adjoint)},
             "stft": row(k4_times["stream"])}
+
+
+def row(t) -> dict:
+    """A `kernels` line entry from a time_stft or time_kernel dict."""
+    return {"ms": t["kernel"], "device_ms": t["device"]["kernel"]["ms"],
+            "plain_ms": t["plain"], "plain_device_ms": t["device"]["plain"],
+            "bound_ms": t["bound"], "bound_by": t["bound_by"],
+            "library_ms": t.get("library"),
+            **({"shape": t["shape"]} if "shape" in t else {})}
 
 
 def main() -> int:
@@ -947,38 +1291,56 @@ def main() -> int:
     k3_errs, k3_tensors = phase_k3(rng, dev)
     k4_err, *k4_inputs = phase_k4(rng, dev)
     exp, train_counts = phase_train(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        wd, workdir_counts = phase_workdir(dev, Path(tmp))
+        stream_launches, stream_shapes = phase_stream(rng, dev, Path(tmp), wd)
     bound_launches, bound_walls = phase_bounds(dev)
     quality_runs = phase_quality(dev)
     times = phase_timing(rng, dev, x, spec, cfg, g, batch, k3_tensors, exp,
                          k4_inputs, k1_music, k2_music, bound_walls)
-    k4_launches = bound_launches["stft"] + sum(
-        r["launches"]["stft"] for r in quality_runs.values())
+    quality_launches = {"stft": sum(r["launches"]["stft"] for r in quality_runs.values())}
+
+    def by_path(name, **paths):
+        got = {p: c[name] for p, c in paths.items()}
+        return {"launches": sum(got.values()), "launches_by_path": got}
+
+    def stream_rows(name):
+        return {f"{b} x {SR_STREAM} chunk{'s' if b > 1 else ''}": row(v[name])
+                for b, v in stream_shapes.items()}
+
     kernels = [
         {"name": "stft_features", "route": "cuda",
          "source": "gan_sass_tf_tpu_torch/ops/csrc/stft_features.cu",
          "replaces": "gan_sass_tf_tpu/ops/pallas_stft.py:63",
-         "launches": counts["stft_features"], "max_abs_err": k1_err,
-         **times["stft_features"]},
+         **by_path("stft_features", main_path=counts,
+                   stream_batch=stream_launches["batch"],
+                   stream_scan=stream_launches["scan"]),
+         "max_abs_err": k1_err, **times["stft_features"],
+         "stream_shape": stream_rows("stft_features")},
         {"name": "masked_istft", "route": "cuda",
          "source": "gan_sass_tf_tpu_torch/ops/csrc/masked_istft.cu",
          "replaces": "gan_sass_tf_tpu/ops/pallas_istft.py:175",
-         "launches": counts["masked_istft"], "max_abs_err": k2_err,
-         **times["masked_istft"]},
+         **by_path("masked_istft", main_path=counts,
+                   stream_batch=stream_launches["batch"],
+                   stream_scan=stream_launches["scan"]),
+         "max_abs_err": k2_err, **times["masked_istft"],
+         "stream_shape": stream_rows("masked_istft")},
         {"name": "istft", "route": "cuda",
          "source": "gan_sass_tf_tpu_torch/ops/csrc/masked_istft.cu",
          "replaces": "gan_sass_tf_tpu/ops/pallas_istft.py:71",
-         "launches": train_counts["istft"], "max_abs_err": k3_errs["forward_full"],
-         **times["istft"]},
+         **by_path("istft", train=train_counts, workdir=workdir_counts),
+         "max_abs_err": k3_errs["forward_full"], **times["istft"]},
         {"name": "istft_bwd", "route": "cuda",
          "source": "gan_sass_tf_tpu_torch/ops/csrc/stft_features.cu",
          "replaces": "gan_sass_tf_tpu/ops/pallas_istft.py:151",
-         "launches": train_counts["istft_bwd"],
+         **by_path("istft_bwd", train=train_counts, workdir=workdir_counts),
          "max_abs_err": max(k3_errs["grad_re"], k3_errs["grad_im"]),
          **times["istft_bwd"]},
         {"name": "stft", "route": "cuda",
          "source": "gan_sass_tf_tpu_torch/ops/csrc/stft_features.cu",
          "replaces": "gan_sass_tf_tpu/ops/pallas_stft.py:228",
-         "launches": k4_launches, "max_abs_err": k4_err, **times["stft"]},
+         **by_path("stft", bounds=bound_launches, quality=quality_launches),
+         "max_abs_err": k4_err, **times["stft"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,24 @@
 """Command line for the PyTorch port.
 
     python -m gan_sass_tf_tpu_torch.cli configs
-    python -m gan_sass_tf_tpu_torch.cli train --config stream_v5e8 --steps 20
-    python -m gan_sass_tf_tpu_torch.cli eval --config stream_v5e8 --batches 4
+    python -m gan_sass_tf_tpu_torch.cli train --config stream_v5e8 --workdir runs/a \
+        [--steps 20] [--no-resume]
+    python -m gan_sass_tf_tpu_torch.cli eval --config stream_v5e8 --workdir runs/a [--best]
+    python -m gan_sass_tf_tpu_torch.cli separate --config stream_v5e8 --workdir runs/a \
+        [--best] --input mix.wav --output-dir out/ [--streaming [--streaming-mode scan]]
     python -m gan_sass_tf_tpu_torch.cli separate --config wsj0_logmel \
-        --params g.npz --input mix.wav --output-dir out/ [--device cuda]
+        --params g.npz --input mix.wav --output-dir out/
 
-`train` runs the alternating G/D loop from a seeded init; `eval` scores a
-seeded-init generator on held-out mixtures (checkpoints, and with them
-`--workdir`, are not ported yet).  `--params` is a flat `.npz` of flax
-generator params ("/"-joined paths, see models/convert.py).  `--device`
+`train` runs the alternating G/D loop; with `--workdir` it checkpoints
+there and resumes from the newest checkpoint (unless `--no-resume`).
+`eval` scores the generator on held-out mixtures; `separate` writes
+<stem>_src<i>.wav per source, one-shot or `--streaming` in overlapping
+chunks (`batch`: groups of stream.batch_chunks chunks; `scan`: one chunk
+at a time).  For `eval` and `separate` a workdir's config.json is
+authoritative and `--best` loads its best checkpoint by held-out SI-SDRi;
+without a workdir, `eval` scores a seeded init and `separate` takes
+`--params`, a flat `.npz` of flax generator params ("/"-joined paths, see
+models/convert.py), e.g. a generator the JAX package trained.  `--device`
 defaults to cuda and fails when no GPU is visible; the CPU runs only when
 asked for with `--device cpu`.
 """
@@ -18,6 +27,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import sys
 
 from gan_sass_tf_tpu_torch import config as config_lib
@@ -56,25 +66,56 @@ def _apply_overrides(cfg, overrides):
 def _add_common(p):
     p.add_argument("--config", required=True, help="preset name")
     p.add_argument("--device", default="cuda", help="torch device")
+    p.add_argument("--workdir", default=None,
+                   help="run directory (checkpoints, best/, metrics.jsonl)")
     p.add_argument("--set", action="append", default=[], metavar="SEC.KEY=VAL",
                    help="config override, e.g. train.batch_size=8")
 
 
-def _run_experiment(args, cfg, device) -> int:
-    from gan_sass_tf_tpu_torch.train import Experiment
+def _workdir_config(args, cfg):
+    """For eval and separate against a workdir: its stored config (`cfg`
+    where it has none yet), or None after printing why not."""
+    cfg_path = os.path.join(args.workdir, "config.json")
+    if not os.path.exists(cfg_path):
+        return cfg
+    with open(cfg_path) as f:
+        stored = config_lib.Config.from_json(f.read())
+    if stored.name != cfg.name:
+        print(f"error: workdir was trained with config {stored.name!r}, not "
+              f"{cfg.name!r}", file=sys.stderr)
+        return None
+    if args.set:
+        print("note: ignoring --set overrides; using the workdir's stored config")
+    return stored
 
-    exp = Experiment(cfg, workdir=args.workdir, device=device)
-    if args.cmd == "eval":
-        for k, v in exp.evaluate(num_batches=args.batches).items():
-            print(f"{k}: {v:.3f}")
+
+def _write_sources(srcs, sr: int, in_path: str, out_dir: str) -> None:
+    from gan_sass_tf_tpu_torch.utils.wav_io import write_wav
+
+    os.makedirs(out_dir, exist_ok=True)
+    stem = os.path.splitext(os.path.basename(in_path))[0]
+    for i, w in enumerate(srcs):
+        path = os.path.join(out_dir, f"{stem}_src{i}.wav")
+        write_wav(path, sr, w)
+        print(path)
+
+
+def _separate(args, cfg, g, device) -> int:
+    from gan_sass_tf_tpu_torch import infer
+    from gan_sass_tf_tpu_torch.utils.wav_io import read_wav
+
+    if not args.streaming:
+        for p in infer.separate_file(g, cfg, args.input, args.output_dir, device):
+            print(p)
         return 0
-
-    def log(step, m):
-        print(f"step {step}: g={m['g_loss']:.4f} d={m['d_loss']:.4f} "
-              f"recon={m['g_recon']:.4f} "
-              f"thr={m['mixture_sec_per_sec']:.1f} mix-s/s", flush=True)
-
-    exp.train(num_steps=args.steps, log_fn=log)
+    sr, wav = read_wav(args.input)
+    if sr != cfg.dsp.sample_rate:
+        print(f"error: wav sample rate {sr} != config {cfg.dsp.sample_rate}",
+              file=sys.stderr)
+        return 1
+    fn = (infer.separate_streaming_scan if args.streaming_mode == "scan"
+          else infer.separate_streaming)
+    _write_sources(fn(g, cfg, wav, device), sr, args.input, args.output_dir)
     return 0
 
 
@@ -82,21 +123,34 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="gan_sass_tf_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
     p_train = sub.add_parser("train", help="run the alternating G/D training loop")
+    _add_common(p_train)
     p_train.add_argument("--steps", type=int, default=None)
+    p_train.add_argument("--no-resume", action="store_true",
+                         help="start from a seeded init even if the workdir "
+                              "holds checkpoints")
     p_train.add_argument("--profile-steps", default=None, metavar="A:B",
                          help="profile steps [A, B): not ported yet (raises)")
     p_eval = sub.add_parser("eval", help="SI-SDR evaluation on held-out mixtures")
+    _add_common(p_eval)
     p_eval.add_argument("--batches", type=int, default=8)
-    for p in (p_train, p_eval):
-        _add_common(p)
-        p.add_argument("--workdir", default=None,
-                       help="run directory: not ported yet (raises)")
     p_sep = sub.add_parser("separate", help="separate a mixture wav into sources")
     _add_common(p_sep)
-    p_sep.add_argument("--params", required=True,
-                       help="flax generator params as a flat .npz")
+    p_sep.add_argument("--params", default=None,
+                       help="flax generator params as a flat .npz (instead of "
+                            "--workdir)")
     p_sep.add_argument("--input", required=True, help="mixture wav path")
     p_sep.add_argument("--output-dir", required=True)
+    p_sep.add_argument("--streaming", action="store_true",
+                       help="separate in overlapping chunks")
+    p_sep.add_argument("--streaming-mode", choices=["batch", "scan"],
+                       default="batch",
+                       help="batch: groups of stream.batch_chunks chunks "
+                            "(throughput); scan: one chunk at a time, carrying "
+                            "the overlap (latency)")
+    for p in (p_eval, p_sep):
+        p.add_argument("--best", action="store_true",
+                       help="use the workdir's best checkpoint by held-out "
+                            "SI-SDRi instead of the newest")
     sub.add_parser("configs", help="list available config presets")
     args = parser.parse_args(argv)
 
@@ -109,10 +163,15 @@ def main(argv=None) -> int:
         raise NotImplementedError(
             "--profile-steps is not ported yet (ROADMAP.md, 'Modules to "
             "port', item 10: torch.profiler hooks)")
+    if args.cmd == "separate" and (args.params is None) == (args.workdir is None):
+        print("error: separate takes exactly one of --workdir (a run of this "
+              "port) and --params (a flat .npz of flax generator params)",
+              file=sys.stderr)
+        return 1
+    if getattr(args, "best", False) and not args.workdir:
+        print("error: --best needs --workdir", file=sys.stderr)
+        return 1
     import torch
-
-    from gan_sass_tf_tpu_torch.infer import separate_file
-    from gan_sass_tf_tpu_torch.models import load_flax_npz, load_generator
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -120,12 +179,48 @@ def main(argv=None) -> int:
               "(pass --device cpu to run on the CPU)", file=sys.stderr)
         return 1
     cfg = _apply_overrides(config_lib.get_config(args.config), args.set)
-    if args.cmd in ("train", "eval"):
-        return _run_experiment(args, cfg, device)
-    g = load_generator(cfg, load_flax_npz(args.params), device)
-    for p in separate_file(g, cfg, args.input, args.output_dir, device):
-        print(p)
-    return 0
+    if args.cmd == "separate" and args.params:
+        from gan_sass_tf_tpu_torch.models import load_flax_npz, load_generator
+
+        return _separate(args, cfg, load_generator(cfg, load_flax_npz(args.params),
+                                                   device), device)
+    if args.cmd != "train" and args.workdir:
+        cfg = _workdir_config(args, cfg)
+        if cfg is None:
+            return 1
+
+    from gan_sass_tf_tpu_torch.train import Experiment
+
+    if args.cmd == "train":
+        exp = Experiment(cfg, workdir=args.workdir, device=device,
+                         resume=not args.no_resume)
+        if exp.state.step:
+            print(f"resumed from step {exp.state.step}", flush=True)
+
+        def log(step, m):
+            print(f"step {step}: g={m['g_loss']:.4f} d={m['d_loss']:.4f} "
+                  f"recon={m['g_recon']:.4f} "
+                  f"thr={m['mixture_sec_per_sec']:.1f} mix-s/s", flush=True)
+
+        exp.train(num_steps=args.steps, log_fn=log)
+        exp.close()
+        return 0
+
+    exp = Experiment(cfg, workdir=args.workdir, device=device)
+    try:
+        if args.best:
+            print(f"using best checkpoint (step {exp.restore_best()})")
+        if args.cmd == "eval":
+            for k, v in exp.evaluate(num_batches=args.batches).items():
+                print(f"{k}: {v:.3f}")
+            return 0
+        if exp.state.step == 0:
+            print(f"error: no checkpoint under {args.workdir!r} to separate "
+                  "with", file=sys.stderr)
+            return 1
+        return _separate(args, cfg, exp.eval_generator(), device)
+    finally:
+        exp.close()
 
 
 if __name__ == "__main__":

@@ -13,21 +13,26 @@ import numpy as np
 import torch
 
 from gan_sass_tf_tpu_torch.data.counter_rng import counter_bits
-from gan_sass_tf_tpu_torch.data.synthetic import SyntheticDataset
 
 STREAM_PICK, STREAM_SHIFT = 11, 12
 
 
 def build_bank(cfg, seed: int = 0) -> np.ndarray:
-    """(S, N_bank, T) float32 source bank on the host: the synthetic
-    dataset's harmonic bank, as the JAX package builds it."""
-    if cfg.data.dataset != "synthetic":
-        raise NotImplementedError(
-            f"dataset {cfg.data.dataset!r} is not ported yet (ROADMAP.md, "
-            "'Modules to port', item 6: corpus reader)")
-    ds = SyntheticDataset(cfg, seed=seed)
-    ds.BANK_PER_SLOT = cfg.data.bank_utterances
-    return ds._build_bank()
+    """(S, N_bank, T) float32 source bank on the host, as the JAX package
+    builds it: synthetic -> the dataset's harmonic bank; wav_dir ->
+    data.bank_utterances decoded random segments per source slot."""
+    from gan_sass_tf_tpu_torch.data import make_dataset
+
+    ds = make_dataset(cfg, seed=seed)
+    s, t = cfg.data.num_sources, cfg.segment_samples
+    nb = cfg.data.bank_utterances
+    if hasattr(ds, "_build_bank"):
+        ds.BANK_PER_SLOT = nb
+        return ds._build_bank()
+    bank = np.zeros((s, nb, t), np.float32)
+    for i in range(nb):      # corpus: decode nb random utterances per slot
+        bank[:, i] = ds.batch(1)[0]
+    return bank
 
 
 def take_rows(bank: torch.Tensor, picks: torch.Tensor,

@@ -64,9 +64,11 @@ def test_make_dataset_matches_jax(split):
     np.testing.assert_array_equal(ours.batch(), ref.batch())
 
 
-def test_make_dataset_refuses_wav_dir_and_unknown():
-    cfg = _cfg(dataset="wav_dir", data_dir="/nonexistent")
-    with pytest.raises(NotImplementedError, match="item 6"):
+def test_make_dataset_refuses_wav_dir_and_unknown(tmp_path):
+    """wav_dir needs its corpus root (tests/test_torch_corpus.py reads
+    one); an unknown dataset name is refused."""
+    cfg = _cfg(dataset="wav_dir", data_dir=str(tmp_path / "nowhere"))
+    with pytest.raises(FileNotFoundError, match="wav_dir dataset root"):
         tdata.make_dataset(cfg)
     with pytest.raises(ValueError, match="unknown dataset"):
         tdata.make_dataset(_cfg(dataset="nope"))

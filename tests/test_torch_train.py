@@ -313,12 +313,23 @@ def test_experiment_noise_ema_and_reseed():
 
 
 def test_experiment_refuses_workdir_and_host_batches(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 6"):
-        Experiment(_tiny(), workdir=str(tmp_path), device="cpu")
+    """What stays refused: a workdir of the JAX package's orbax checkpoints
+    (its G loads through --params) and host batches from a corpus root that
+    is not there.  A workdir of the port and host batches both train
+    (tests/test_torch_checkpoint.py, tests/test_torch_corpus.py)."""
+    (tmp_path / "jax" / "checkpoints" / "100").mkdir(parents=True)
+    with pytest.raises(ValueError, match="--params"):
+        Experiment(_tiny(), workdir=str(tmp_path / "jax"), device="cpu")
+    exp = Experiment(_tiny(), workdir=str(tmp_path / "port"), device="cpu")
+    exp.train(num_steps=1)
+    assert (tmp_path / "port" / "checkpoints" / "1.pt").exists()
     cfg = _tiny()
-    cfg = cfg.replace(data=dataclasses.replace(cfg.data, device_bank=False))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        Experiment(cfg, device="cpu")
+    host = cfg.replace(data=dataclasses.replace(cfg.data, device_bank=False))
+    assert Experiment(host, device="cpu").train(num_steps=1)["g_loss"] != 0.0
+    missing = host.replace(data=dataclasses.replace(
+        host.data, dataset="wav_dir", data_dir=str(tmp_path / "nowhere")))
+    with pytest.raises(FileNotFoundError, match="wav_dir dataset root"):
+        Experiment(missing, device="cpu")
 
 
 _CLI_SET = ["--device", "cpu", "--set", "model.g_channels=8,16",
@@ -335,9 +346,13 @@ def test_cli_train_and_eval(capsys, tmp_path):
     assert cli.main(["eval", "--config", "stream_v5e8", "--batches", "1",
                      *_CLI_SET]) == 0
     assert "si_sdr_improvement" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 6"):
-        cli.main(["train", "--config", "stream_v5e8", "--steps", "1",
-                  "--workdir", str(tmp_path), *_CLI_SET])
+    wd = str(tmp_path / "run")
+    assert cli.main(["train", "--config", "stream_v5e8", "--steps", "1",
+                     "--workdir", wd, *_CLI_SET]) == 0
+    assert (tmp_path / "run" / "checkpoints" / "1.pt").exists()
+    assert cli.main(["eval", "--config", "stream_v5e8", "--batches", "1",
+                     "--workdir", wd, "--device", "cpu"]) == 0
+    assert "si_sdr_improvement" in capsys.readouterr().out
     with pytest.raises(NotImplementedError, match="item 10"):
         cli.main(["train", "--config", "stream_v5e8", "--steps", "1",
                   "--profile-steps", "1:2", *_CLI_SET])
