@@ -42,6 +42,19 @@ Phases, one JSON line each:
               chained permutations agree; wall ms a stream per mode and
               path, ms a chunk in scan mode, the device-busy share of a
               batch-mode stream; K1 and K2 at the chunk shapes
+    pit3      3src_pit at full width (the BiLSTM G 2 x 300 with the film head,
+              S = 3 softmax masks, batch 16 x 3 s): whether cuDNN takes the
+              LSTM in bf16 and the kernels it runs; the step's device ms by
+              kernel family; Experiment.train() for 5 steps (losses finite,
+              G and D moved, K1 exactly 2 launches a step), one step on the
+              kernel and the plain DSP path, the step's wall ms on both,
+              evaluate(); separate() on 16 x 3 s and `cli separate` on a 60 s
+              wav (K1 and K2 launched; kernel vs plain SI-SDR >= 40 dB after
+              the best of the 6 permutations) and their wall ms; `cli
+              train`; quality_protocol 3src_pit --hard --seeds 0 (K1, K2, K4
+              launched); K1 at the step's mixture, target and separation
+              shapes and K2 on the trained G's masks, against their plain
+              versions and timed
   8 k4        the complex STFT kernel vs its plain version at the
               stream_v5e8 oracle shapes (32 mixtures, 32 x 2 sources), the
               music_complex_44k shape (8 x 2 sources, n_fft 2048), a 60 s
@@ -95,6 +108,7 @@ import numpy as np
 import torch
 
 from gan_sass_tf_tpu_torch import cli, config
+from gan_sass_tf_tpu_torch.data import mix_sources, sample_bank
 from gan_sass_tf_tpu_torch.data.fixtures import write_fixture_corpus
 from gan_sass_tf_tpu_torch.dsp.features import mel_filterbank
 from gan_sass_tf_tpu_torch.dsp.windows import get_window
@@ -121,6 +135,7 @@ from gan_sass_tf_tpu_torch.losses.pit import permutations_for
 from gan_sass_tf_tpu_torch.train import Experiment
 from gan_sass_tf_tpu_torch.utils.wav_io import read_wav, write_wav
 
+T_START = time.perf_counter()
 SEED = 0
 SR, N_FFT, HOP, N_MELS = 8000, 512, 128, 80
 B_MAIN, T_MAIN = 16, 23936          # wsj0_logmel segment: F = 184
@@ -158,12 +173,16 @@ PROFILE_STEPS = 5                    # train steps traced for the step profile
 PROFILE_PAD_S = 0.05                 # idle seconds at each end of a profile window
 FILL_LAUNCHES = 4000                 # small kernels after the calls (profiler check)
 SR_STREAM = 16000                    # stream_v5e8
+B_PIT3, S_PIT3 = 16, 3               # 3src_pit: 16 x 3 s at 8 kHz (F = 184), 3 sources
+PIT3_STEPS, PIT3_QUALITY_STEPS = 5, 4
+SEP_SAMPLES, SEP_CALLS = 5, 2        # separate() timing: samples of calls per path
 T_STREAM = 60 * SR_STREAM            # the streamed mixture: 62 chunks of 16 000
 STREAM_SAMPLES = 3                   # timed streams per mode and DSP path
 # A train step's device time by kernel family: substrings of the lower-cased
 # kernel name, first match wins.  cuDNN's layout transposes are
 # nchwToNhwc/nhwcToNchw kernels; its conv kernels carry "nhwc" too.
 KERNEL_FAMILIES = (
+    ("LSTM (cuDNN RNN)", ("rnn", "lstm")),
     ("K3 backward istft_adjoint", ("istft_adjoint_kernel",)),
     ("K1 stft_features", ("stft_features_kernel",)),
     ("K2/K3 istft_ola", ("istft_ola_kernel",)),
@@ -186,7 +205,9 @@ QUALITY_KEYS = {
 
 
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One phase's JSON line, with the seconds since the script started."""
+    print(json.dumps({"phase": phase, "t_s": time.perf_counter() - T_START, **kw}),
+          flush=True)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -289,13 +310,15 @@ def k1_case(x, n_fft, hop, emits, mel, logmag_floor=None):
     ker = k1.stft_features_kernel(x, n_fft, hop, emit=emits, mel_matrix=mel)
     ref = k1.stft_features_reference(x, n_fft, hop, emit=emits, mel_matrix=mel)
     torch.cuda.synchronize()
-    scale = float(ref["spec"].abs().max()) if "spec" in ref else 1.0
+    mag = ref["mag"] if "mag" in ref else (
+        ref["spec"].abs() if "spec" in ref
+        else k1.stft_features_reference(x, n_fft, hop, emit=("mag",))["mag"])
+    scale = float(mag.max())
     errs = {}
     for key in emits:
         check(ker[key].shape == ref[key].shape, f"k1 {key} shape")
         a, b = ker[key], ref[key]
         if key == "logmag" and logmag_floor is not None:
-            mag = ref["spec"].abs()
             keep = mag >= logmag_floor * mag.square().mean(-1, keepdim=True).sqrt()
             errs["logmag_all_bins"] = max_err(a, b)
             errs["logmag_bins_under_floor"] = int((~keep).sum())
@@ -324,7 +347,7 @@ def phase_k1(rng, dev):
          max_abs_err=main_errs, tol="spec 3e-4*max|X|, logmel 1e-3",
          profiler_launches_per_call=profiler_window_check(
              lambda: k1.stft_features_kernel(x, N_FFT, HOP, emit=("spec", "logmel"),
-                                             mel_matrix=mel), reps=20))
+                                             mel_matrix=mel)))
     xl = torch.from_numpy(rng.standard_normal((1, T_LONG), np.float32)).to(dev)
     errs, kl = k1_case(xl, N_FFT, HOP, ("spec", "logmel"), mel)
     emit("k1", shape=[1, T_LONG], frames=kl["spec"].shape[-2], max_abs_err=errs)
@@ -587,6 +610,183 @@ def phase_train(dev):
          gap=gaps, tol="|kernel - plain| <= 1e-2 * max(|plain|, 1)",
          step_profile=profile, eval=ev, cli_wsj0_logmel_rc=rc)
     return exp, counts
+
+
+def best_perm_agreement(ker: np.ndarray, ref: np.ndarray) -> float:
+    """Min SI-SDR (dB) of (B, S, T) kernel-path outputs against the plain
+    path's, each example after its best source permutation."""
+    return min(segment_agreement(k, r, r.shape[-1])[0] for k, r in zip(ker, ref))
+
+
+def lstm_probe(dev) -> dict:
+    """The kernels one forward and backward of the 3src_pit BiLSTM trunk in
+    bf16 (with a dense head) launches: whether cuDNN's RNN kernels ran in
+    bf16 (`torch.backends.cudnn.is_acceptable` answers False for a bf16
+    tensor, yet torch.lstm calls cuDNN with it), the trunk's device ms,
+    and its 8 longest kernels (device ms and launches a call)."""
+    from gan_sass_tf_tpu_torch.models.generator import BiLSTMGenerator
+    g = BiLSTMGenerator(S_PIT3, N_FFT // 2 + 1, N_FFT // 2 + 1, "magnitude", "softmax",
+                        hidden=300, layers=2, dtype=torch.bfloat16,
+                        head_mode="dense").to(dev)
+    for p in g.parameters():
+        torch.nn.init.normal_(p, 0.0, 0.05)
+    feats = torch.randn(B_PIT3, 184, N_FFT // 2 + 1, device=dev)
+    kernels = device_kernels(lambda: g(feats, train=True).sum().backward(), calls=2)
+    cudnn_bf16 = sorted(name[:60] for name in kernels
+                        if "RNN" in name and "__nv_bfloat16" in name)
+    check(bool(cudnn_bf16), f"no cuDNN RNN kernel ran in bf16: {sorted(kernels)[:10]}")
+    return {"cudnn_rnn_kernels_bf16": cudnn_bf16,
+            "cudnn_is_acceptable_bf16": torch.backends.cudnn.is_acceptable(
+                feats.to(torch.bfloat16)),
+            "cudnn_version": torch.backends.cudnn.version(),
+            "fwd_bwd_device_ms": sum(ms for ms, _ in kernels.values()),
+            "longest": {name[:100]: [ms, n] for name, (ms, n) in sorted(
+                kernels.items(), key=lambda kv: -kv[1][0])[:8]}}
+
+
+def phase_pit3(rng, dev, tmp: Path):
+    """3src_pit at full width: the BiLSTM G (2 x 300, film head), S = 3
+    softmax masks, log-magnitude L1 with PIT over 6 permutations, batch
+    16 x 3 s.  Training, separation, the CLI and the quality protocol on
+    the kernel path; K1 and K2 at the shapes this path gives them."""
+    probe = lstm_probe(dev)
+    cfg = config.get_config("3src_pit")
+    exp = Experiment(cfg, device=dev)
+    g0 = [p.detach().clone() for p in exp.state.g.parameters()]
+    d0 = [p.detach().clone() for p in exp.state.d.parameters()]
+    profile = step_profile(exp)       # early in the phase: fewer dropped records
+    k1.launches = k2.launches = 0
+    t0 = time.perf_counter()
+    last = exp.train(num_steps=PIT3_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    train_counts = {"stft_features": k1.launches, "masked_istft": k2.launches}
+    check(train_counts == {"stft_features": 2 * PIT3_STEPS, "masked_istft": 0},
+          f"3src_pit train launches {train_counts}, expected K1 2 a step")
+    check(all(np.isfinite(v) for v in last.values()), f"3src_pit non-finite: {last}")
+    moved = {"g": max(max_err(a, p) for a, p in zip(g0, exp.state.g.parameters())),
+             "d": max(max_err(a, p) for a, p in zip(d0, exp.state.d.parameters()))}
+    check(min(moved.values()) > 0, f"3src_pit: a net did not move: {moved}")
+    out = {}
+    for path in (None, "reference"):
+        state = copy.deepcopy(exp.state)
+        with dispatch.force_backend(path):
+            _, m = exp._train_step(state, exp._bank, exp._train_seed)
+        out[path or "kernel"] = {k: float(v) for k, v in m.items()}
+    gaps = {}
+    for key in ("g_recon", "d_loss"):
+        a, b = out["kernel"][key], out["reference"][key]
+        gaps[key] = abs(a - b) / max(abs(b), 1.0)
+        check(gaps[key] <= 1e-2, f"3src_pit step {key}: kernel {a} vs plain {b}")
+    step_kernel, step_plain = time_steps(exp)
+    k1.launches = k2.launches = 0
+    ev = exp.evaluate(num_batches=2)
+    eval_counts = {"stft_features": k1.launches, "masked_istft": k2.launches}
+    check(all(np.isfinite(v) for v in ev.values()), f"3src_pit eval: {ev}")
+    check(eval_counts == {"stft_features": 2, "masked_istft": 2},
+          f"3src_pit eval launches {eval_counts}")
+
+    # Separation: separate() on 16 x 3 s and `cli separate` on 60 s, with
+    # the trained G, then each on the plain DSP path.
+    g = exp.eval_generator()
+    params, wav60 = tmp / "g3.npz", tmp / "mix60s_3src.wav"
+    save_flax_npz(str(params), g.state_dict())
+    sources = torch.from_numpy(np.stack([mixtures(rng, B_PIT3, T_MAIN)
+                                         for _ in range(S_PIT3)], axis=1))
+    batch = sources.sum(dim=1).numpy()
+    write_wav(str(wav60), SR, mixtures(rng, 1, T_LONG)[0])
+    long_mix = read_wav(str(wav60))[1]
+    k1.launches = k2.launches = 0
+    est = separate(g, cfg, batch, dev)
+    captured(cli.main, ["separate", "--config", "3src_pit", "--params", str(params),
+                        "--input", str(wav60), "--output-dir", str(tmp / "out3")])
+    torch.cuda.synchronize()
+    sep_counts = {"stft_features": k1.launches, "masked_istft": k2.launches}
+    check(sep_counts == {"stft_features": 2, "masked_istft": 2},
+          f"3src_pit separation launches {sep_counts}")
+    srcs = np.stack([read_wav(str(tmp / "out3" / f"{wav60.stem}_src{i}.wav"))[1]
+                     for i in range(S_PIT3)])
+    check(srcs.shape == (S_PIT3, T_LONG) and np.isfinite(srcs).all(),
+          f"3src_pit cli separate: {srcs.shape}")
+    check(est.shape == (B_PIT3, S_PIT3, T_MAIN) and np.isfinite(est).all(),
+          f"3src_pit separate: {est.shape}")
+    est_long = separate(g, cfg, long_mix, dev)
+    with dispatch.force_backend("reference"):
+        ref = separate(g, cfg, batch, dev)
+        ref_long = separate(g, cfg, long_mix, dev)
+    agree = {"batch_min_db": best_perm_agreement(est, ref),
+             "long_min_db": best_perm_agreement(est_long[None], ref_long[None])}
+    check(min(agree.values()) >= 40.0, f"3src_pit kernel vs plain: {agree}")
+
+    def run_sep(path, mix):
+        def go():
+            with dispatch.force_backend(path):
+                separate(g, cfg, mix, dev)
+        return go
+
+    sep_ms = {what: time_fns(SEP_SAMPLES, SEP_CALLS, plain=run_sep("reference", mix),
+                             kernel=run_sep(None, mix))
+              for what, mix in (("16 x 3 s", batch), ("60 s", long_mix))}
+
+    # The entry points: cli train and the quality protocol.
+    rc = cli.main(["train", "--config", "3src_pit", "--steps", "2"])
+    check(rc == 0, f"cli train 3src_pit exited {rc}")
+    k1.launches = k2.launches = k4.launches = 0
+    quality = captured_json(quality_protocol.main, [
+        "3src_pit", str(PIT3_QUALITY_STEPS), "--hard", "--seeds", "0",
+        "--device", str(dev)])
+    q_counts = {"stft_features": k1.launches, "masked_istft": k2.launches,
+                "stft": k4.launches}
+    check(set(quality) == QUALITY_KEYS, f"3src_pit quality keys {sorted(quality)}")
+    check(all(finite(v) for v in quality.values()), f"3src_pit quality: {quality}")
+    check(min(q_counts.values()) > 0, f"3src_pit quality launches {q_counts}")
+
+    # K1 at the train step's two launches and the separation launch, on the
+    # step's own mixtures and targets; K2 on the trained G's masks.
+    with torch.no_grad():
+        picked = sample_bank(exp._bank, exp._train_seed, 0, B_PIT3)
+        mixture, scaled = mix_sources(picked, exp._train_seed, 0, cfg.data)
+    k1_shapes = {"mixtures": (mixture, ("mag", "logmag")),
+                 "targets": (scaled.reshape(-1, scaled.shape[-1]), ("logmag",)),
+                 "separation": (mixture, ("spec", "logmag"))}
+    k1_rows, k1_errs = {}, {}
+    for what, (x, emits) in k1_shapes.items():
+        k1_errs[what], _ = k1_case(x.contiguous(), N_FFT, HOP, emits, None, LOGMAG_FLOOR)
+        k1_rows[what] = k1_timing(x.contiguous(), N_FFT, HOP, emits)
+    spec = k1.stft_features_reference(mixture, N_FFT, HOP)["spec"]
+    with torch.inference_mode():
+        masks = g(k1.stft_features_reference(mixture, N_FFT, HOP,
+                                              emit=("logmag",))["logmag"])
+    check(masks.shape == (B_PIT3, S_PIT3, spec.shape[-2], N_FFT // 2 + 1),
+          f"3src_pit masks {masks.shape}")
+    interior, full = k2_case(spec, masks, N_FFT, HOP, "magnitude")
+    k2_row = time_kernel(
+        lambda: k2.masked_istft_kernel(spec, masks, N_FFT, HOP),
+        lambda: k2.masked_istft_reference(spec, masks, N_FFT, HOP),
+        istft_bound(spec.numel() * 8, B_PIT3, S_PIT3, spec.shape[-2], N_FFT, HOP,
+                    masks.numel() * 4, 2 * masks.numel()))
+    mix_s = cfg.train.batch_size * cfg.segment_samples / cfg.dsp.sample_rate
+    emit("pit3", config="3src_pit", batch=cfg.train.batch_size,
+         segment_samples=cfg.segment_samples, frames=spec.shape[-2],
+         g_params=sum(p.numel() for p in exp.state.g.parameters()),
+         d_params=sum(p.numel() for p in exp.state.d.parameters()),
+         lstm=probe, steps=PIT3_STEPS, wall_s=wall, last=last,
+         launches={"train": train_counts, "eval": eval_counts,
+                   "separation": sep_counts, "quality": q_counts},
+         moved_max_abs=moved, one_step={"kernel": out["kernel"],
+                                        "plain": out["reference"]},
+         gap=gaps, tol="|kernel - plain| <= 1e-2 * max(|plain|, 1)",
+         step_ms={"kernel": step_kernel, "plain": step_plain},
+         train_mix_sec_per_sec={"kernel": mix_s / step_kernel * 1e3,
+                                "plain": mix_s / step_plain * 1e3},
+         step_profile=profile, eval=ev, separation_kernel_vs_plain=agree, tol_db=40.0,
+         separate_ms=sep_ms, cli_train_rc=rc, quality=quality,
+         k1_max_abs_err=k1_errs, k2_max_abs_err={"interior": interior, "full": full},
+         k1_timing=k1_rows, k2_timing=k2_row)
+    counts = {"train": train_counts, "eval": eval_counts, "separation": sep_counts,
+              "quality": q_counts}
+    return counts, {"stft_features": {w: row(t) for w, t in k1_rows.items()},
+                    "masked_istft": row(k2_row)}
 
 
 def flat_state(tree, prefix=""):
@@ -1292,6 +1492,8 @@ def main() -> int:
     k4_err, *k4_inputs = phase_k4(rng, dev)
     exp, train_counts = phase_train(dev)
     with tempfile.TemporaryDirectory() as tmp:
+        pit3_counts, pit3_rows = phase_pit3(rng, dev, Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
         wd, workdir_counts = phase_workdir(dev, Path(tmp))
         stream_launches, stream_shapes = phase_stream(rng, dev, Path(tmp), wd)
     bound_launches, bound_walls = phase_bounds(dev)
@@ -1314,17 +1516,25 @@ def main() -> int:
          "replaces": "gan_sass_tf_tpu/ops/pallas_stft.py:63",
          **by_path("stft_features", main_path=counts,
                    stream_batch=stream_launches["batch"],
-                   stream_scan=stream_launches["scan"]),
+                   stream_scan=stream_launches["scan"],
+                   pit3_train=pit3_counts["train"], pit3_eval=pit3_counts["eval"],
+                   pit3_separation=pit3_counts["separation"],
+                   pit3_quality=pit3_counts["quality"]),
          "max_abs_err": k1_err, **times["stft_features"],
-         "stream_shape": stream_rows("stft_features")},
+         "stream_shape": stream_rows("stft_features"),
+         "pit3_shape": pit3_rows["stft_features"]},
         {"name": "masked_istft", "route": "cuda",
          "source": "gan_sass_tf_tpu_torch/ops/csrc/masked_istft.cu",
          "replaces": "gan_sass_tf_tpu/ops/pallas_istft.py:175",
          **by_path("masked_istft", main_path=counts,
                    stream_batch=stream_launches["batch"],
-                   stream_scan=stream_launches["scan"]),
+                   stream_scan=stream_launches["scan"],
+                   pit3_eval=pit3_counts["eval"],
+                   pit3_separation=pit3_counts["separation"],
+                   pit3_quality=pit3_counts["quality"]),
          "max_abs_err": k2_err, **times["masked_istft"],
-         "stream_shape": stream_rows("masked_istft")},
+         "stream_shape": stream_rows("masked_istft"),
+         "pit3_shape": pit3_rows["masked_istft"]},
         {"name": "istft", "route": "cuda",
          "source": "gan_sass_tf_tpu_torch/ops/csrc/masked_istft.cu",
          "replaces": "gan_sass_tf_tpu/ops/pallas_istft.py:71",
@@ -1339,7 +1549,8 @@ def main() -> int:
         {"name": "stft", "route": "cuda",
          "source": "gan_sass_tf_tpu_torch/ops/csrc/stft_features.cu",
          "replaces": "gan_sass_tf_tpu/ops/pallas_stft.py:228",
-         **by_path("stft", bounds=bound_launches, quality=quality_launches),
+         **by_path("stft", bounds=bound_launches, quality=quality_launches,
+                   pit3_quality=pit3_counts["quality"]),
          "max_abs_err": k4_err, **times["stft"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,5 +1,5 @@
-"""Separation generator (conv U-Net), spectral-norm conv discriminator, and
-their flax weight converters."""
+"""Separation generators (conv U-Net, BiLSTM), the spectral-norm conv
+discriminator, and their flax weight converters."""
 
 from gan_sass_tf_tpu_torch.models.convert import (
     convert_discriminator_variables,
@@ -12,11 +12,17 @@ from gan_sass_tf_tpu_torch.models.convert import (
     save_flax_npz,
 )
 from gan_sass_tf_tpu_torch.models.discriminator import ConvDiscriminator
-from gan_sass_tf_tpu_torch.models.generator import ConvUNetGenerator, MaskHead
+from gan_sass_tf_tpu_torch.models.generator import (
+    BiLSTMGenerator,
+    ConvUNetGenerator,
+    MaskHead,
+    SequenceMaskHead,
+)
 from gan_sass_tf_tpu_torch.models.registry import build_discriminator, build_generator
 
 __all__ = [
-    "ConvUNetGenerator", "MaskHead", "ConvDiscriminator", "build_generator",
+    "ConvUNetGenerator", "MaskHead", "BiLSTMGenerator", "SequenceMaskHead",
+    "ConvDiscriminator", "build_generator",
     "build_discriminator", "convert_generator_params",
     "generator_params_to_flax", "convert_discriminator_variables",
     "discriminator_variables_to_flax", "load_flax_npz", "load_generator",

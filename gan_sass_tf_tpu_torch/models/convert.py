@@ -2,9 +2,13 @@
 
 The flax tree of `ConvUNetGenerator` (as nested numpy dicts) holds Conv_i,
 ConvTranspose_i and MaskHead_0/Conv_0, each with an HWIO `kernel` and a
-`bias`.  On disk it is a flat `.npz` whose keys are the "/"-joined flax
-paths, e.g. "MaskHead_0/Conv_0/kernel" (written on the JAX side with
-`jax.tree.map(np.asarray, params)` and flattened).
+`bias`.  The tree of `BiLSTMGenerator` holds OptimizedLSTMCell_{2l}
+(layer l forward) and OptimizedLSTMCell_{2l+1} (layer l backward), each
+with per-gate kernels ii/if/ig/io (in, H), hi/hf/hg/ho (H, H) and the
+biases of the h* gates, and MaskHead_0 with Conv_i (HWIO) and Dense_i
+((in, out) kernels).  On disk a tree is a flat `.npz` whose keys are the
+"/"-joined flax paths, e.g. "MaskHead_0/Conv_0/kernel" (written on the
+JAX side with `jax.tree.map(np.asarray, params)` and flattened).
 
 The spectral-norm `ConvDiscriminator`'s variables are {"params": {Conv_i,
 Dense_0}, "batch_stats": {SpectralNorm_i: {"<layer>/kernel/u",
@@ -21,38 +25,90 @@ import torch
 
 from gan_sass_tf_tpu_torch.models.registry import build_discriminator, build_generator
 
+_GATES = "ifgo"          # flax's gate names, in torch.lstm's packing order
+_LSTM = "OptimizedLSTMCell_"
 
-def _module_name(flax_name: str) -> str:
-    kind, _, idx = flax_name.rpartition("_")
-    if kind == "Conv":
-        return f"convs.{int(idx)}"
+
+def _index(flax_name: str) -> int:
+    return int(flax_name.rpartition("_")[2])
+
+
+def _tensor(a) -> torch.Tensor:
+    # np.array copies: JAX hands out read-only buffers.
+    return torch.from_numpy(np.array(a, np.float32, order="C"))
+
+
+def _from_lstm_cell(leaf) -> Dict[str, torch.Tensor]:
+    """flax OptimizedLSTMCell params -> LSTMCellParams' (gates packed along
+    the rows; the h* biases are the one bias a gate)."""
+    pack = lambda kind: np.concatenate(                 # noqa: E731
+        [np.asarray(leaf[f"{kind}{g}"]["kernel"]) for g in _GATES], axis=1).T
+    return {"weight_ih": _tensor(pack("i")), "weight_hh": _tensor(pack("h")),
+            "bias": _tensor(np.concatenate([leaf[f"h{g}"]["bias"] for g in _GATES]))}
+
+
+def _from_layer(flax_name: str, leaf) -> Dict[str, torch.Tensor]:
+    """A flax Conv (HWIO -> OIHW), ConvTranspose (HWIO -> (I, O, H, W)
+    flipped in H and W, because lax.conv_transpose correlates with the
+    unflipped kernel where conv_transpose2d flips it) or Dense ((in, out)
+    -> (out, in))."""
+    k = np.asarray(leaf["kernel"], np.float32)
+    kind = flax_name.rpartition("_")[0]
     if kind == "ConvTranspose":
-        return f"deconvs.{int(idx)}"
-    raise KeyError(f"unexpected flax module {flax_name!r} in a conv generator")
+        w = np.flip(k.transpose(2, 3, 0, 1), axis=(2, 3))
+    elif kind == "Dense":
+        w = k.T
+    else:
+        w = k.transpose(3, 2, 0, 1)
+    return {"weight": _tensor(w), "bias": _tensor(leaf["bias"])}
+
+
+def _module_name(flax_name: str, bilstm: bool) -> str:
+    """The port's module of a top-level or MaskHead_0 flax layer."""
+    kind, i = flax_name.rpartition("_")[0], _index(flax_name)
+    if kind == "Conv":
+        return f"convs.{i}"
+    if kind == "ConvTranspose" and not bilstm:
+        return f"deconvs.{i}"
+    if kind == "Dense" and bilstm:
+        return f"denses.{i}"
+    raise KeyError(f"unexpected flax module {flax_name!r} in a "
+                   f"{'BiLSTM' if bilstm else 'conv'} generator")
 
 
 def convert_generator_params(tree) -> Dict[str, torch.Tensor]:
     """Flax generator params (nested dicts of arrays, optionally under
-    "params") -> the port's state_dict.  Conv kernels HWIO -> OIHW;
-    ConvTranspose kernels HWIO -> (I, O, H, W) flipped in H and W, because
-    lax.conv_transpose correlates with the unflipped kernel where
-    conv_transpose2d flips it."""
+    "params") -> the port's state_dict, for the conv U-Net or the BiLSTM
+    G (the tree's names tell them apart)."""
     tree = tree.get("params", tree)
+    bilstm = any(name.startswith(_LSTM) for name in tree)
     sd = {}
     for name, leaf in tree.items():
-        if name == "MaskHead_0":
-            prefix, leaf = "head.conv", leaf["Conv_0"]
+        if name.startswith(_LSTM):
+            layers = {f"cells.{_index(name)}": _from_lstm_cell(leaf)}
+        elif name == "MaskHead_0" and not bilstm:
+            layers = {"head.conv": _from_layer("Conv_0", leaf["Conv_0"])}
+        elif name == "MaskHead_0":
+            layers = {f"head.{_module_name(n, True)}": _from_layer(n, sub)
+                      for n, sub in leaf.items()}
         else:
-            prefix = _module_name(name)
-        k = np.asarray(leaf["kernel"], np.float32)
-        if prefix.startswith("deconvs"):
-            w = np.flip(k.transpose(2, 3, 0, 1), axis=(2, 3))
-        else:
-            w = k.transpose(3, 2, 0, 1)
-        # np.array copies: JAX hands out read-only buffers.
-        sd[f"{prefix}.weight"] = torch.from_numpy(np.array(w, order="C"))
-        sd[f"{prefix}.bias"] = torch.from_numpy(np.array(leaf["bias"], np.float32))
+            layers = {_module_name(name, bilstm): _from_layer(name, leaf)}
+        for prefix, params in layers.items():
+            sd.update({f"{prefix}.{k}": v for k, v in params.items()})
     return sd
+
+
+def _flax_layer(module: str) -> str:
+    """The port's module name -> its flax path (the inverse of
+    `_module_name`, MaskHead_0 included)."""
+    if module == "head.conv":
+        return "MaskHead_0/Conv_0"
+    prefix = ""
+    if module.startswith("head."):
+        prefix, module = "MaskHead_0/", module[len("head."):]
+    group, i = module.split(".")
+    kind = {"convs": "Conv", "deconvs": "ConvTranspose", "denses": "Dense"}[group]
+    return f"{prefix}{kind}_{i}"
 
 
 def generator_params_to_flax(state_dict) -> Dict[str, np.ndarray]:
@@ -61,13 +117,19 @@ def generator_params_to_flax(state_dict) -> Dict[str, np.ndarray]:
     flat = {}
     for key, t in state_dict.items():
         a = t.detach().float().cpu().numpy().copy()   # no alias of a live tensor
-        if key.startswith("head.conv."):
-            path, leaf = "MaskHead_0/Conv_0", key.rsplit(".", 1)[1]
-        else:
-            group, idx, leaf = key.split(".")
-            path = f"{'Conv' if group == 'convs' else 'ConvTranspose'}_{idx}"
+        module, _, leaf = key.rpartition(".")
+        if module.startswith("cells."):
+            cell = f"{_LSTM}{module.split('.')[1]}"
+            kind = "i" if leaf == "weight_ih" else "h"
+            name = "bias" if leaf == "bias" else "kernel"
+            for g, part in zip(_GATES, np.split(a, 4, axis=0)):   # 1-D: .T is a no-op
+                flat[f"{cell}/{kind}{g}/{name}"] = np.ascontiguousarray(part.T)
+            continue
+        path = _flax_layer(module)
         if leaf == "weight":
-            if path.startswith("ConvTranspose"):
+            if a.ndim == 2:                                  # Dense
+                a = a.T
+            elif path.rpartition("/")[2].startswith("ConvTranspose"):
                 a = np.flip(a, axis=(2, 3)).transpose(2, 3, 0, 1)
             else:
                 a = a.transpose(2, 3, 1, 0)

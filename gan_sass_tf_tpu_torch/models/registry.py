@@ -1,9 +1,12 @@
 """Model registry: ModelConfig names -> PyTorch modules.
 
-Port of `gan_sass_tf_tpu/models/registry.py` for what the ported slices
-(one-shot separation and the train step) run.  Options that are not ported raise
-NotImplementedError naming the ROADMAP item that brings them; none falls
-through to another path.
+Port of `gan_sass_tf_tpu/models/registry.py` and the builders of
+`gan_sass_tf_tpu/models/generator.py`: the conv U-Net G (stride-(1,1)
+stem, `dec_l0="conv"`, linear-grid 1x1 and `interp` heads), the BiLSTM G
+with its `dense`, `film` and `filmpack` heads, and the spectral-norm conv
+D.  The builders validate as the JAX ones do, with the same exception
+types.  Options that are not ported raise NotImplementedError naming the
+ROADMAP item that brings them; none falls through to another path.
 """
 
 from __future__ import annotations
@@ -11,7 +14,11 @@ from __future__ import annotations
 import torch
 
 from gan_sass_tf_tpu_torch.models import discriminator as _d
-from gan_sass_tf_tpu_torch.models.generator import ConvUNetGenerator, init_params_
+from gan_sass_tf_tpu_torch.models.generator import (
+    BiLSTMGenerator,
+    ConvUNetGenerator,
+    init_params_,
+)
 
 _LATER = ("is not ported yet (ROADMAP.md, 'Modules to port', item 9: "
           "remaining presets and model options)")
@@ -21,7 +28,7 @@ def _unported(what: str):
     raise NotImplementedError(f"{what} {_LATER}")
 
 
-def _check_conv(cfg) -> None:
+def _conv_generator(cfg) -> ConvUNetGenerator:
     m, d = cfg.model, cfg.dsp
     if tuple(m.g_stem_stride) != (1, 1):
         _unported(f"g_stem_stride={tuple(m.g_stem_stride)}")
@@ -33,31 +40,64 @@ def _check_conv(cfg) -> None:
         _unported(f"g_head_mode={m.g_head_mode!r} on the mel grid")
     if d.feature_dim == d.n_bins and m.g_head_mode in ("film", "fold"):
         _unported(f"g_head_mode={m.g_head_mode!r}")
-
-
-def build_generator(cfg, device, seed: int = 0) -> ConvUNetGenerator:
-    """cfg: full Config.  A seeded-init generator on `device`, in eval mode."""
-    if cfg.model.generator != "conv":
-        if cfg.model.generator in ("toy", "bilstm"):
-            _unported(f"generator {cfg.model.generator!r}")
-        raise KeyError(f"unknown generator {cfg.model.generator!r}; have ['conv']")
-    _check_conv(cfg)
-    g = ConvUNetGenerator(
+    return ConvUNetGenerator(
         num_sources=cfg.data.num_sources,
-        n_bins=cfg.dsp.n_bins,
-        feature_dim=cfg.dsp.feature_dim,
-        mask_type=cfg.dsp.mask_type,
-        mask_activation=cfg.dsp.mask_activation,
-        noise_slot=cfg.dsp.mask_noise_slot,
-        channels=tuple(cfg.model.g_channels),
-        leak=cfg.model.leak,
-        dropout=cfg.model.dropout,
-        dtype=getattr(torch, cfg.model.compute_dtype),
-        time_stride=cfg.model.g_time_stride,
-        decoder_slim=cfg.model.g_decoder_slim,
-        sample_rate=float(cfg.dsp.sample_rate),
-        crop_nyquist=cfg.model.g_crop_nyquist,
+        n_bins=d.n_bins,
+        feature_dim=d.feature_dim,
+        mask_type=d.mask_type,
+        mask_activation=d.mask_activation,
+        noise_slot=d.mask_noise_slot,
+        channels=tuple(m.g_channels),
+        leak=m.leak,
+        dropout=m.dropout,
+        dtype=getattr(torch, m.compute_dtype),
+        time_stride=m.g_time_stride,
+        decoder_slim=m.g_decoder_slim,
+        sample_rate=float(d.sample_rate),
+        crop_nyquist=m.g_crop_nyquist,
     )
+
+
+def _bilstm_generator(cfg) -> BiLSTMGenerator:
+    m, d = cfg.model, cfg.dsp
+    if m.g_crop_nyquist:
+        raise ValueError("g_crop_nyquist is only supported by the 'conv' "
+                         "generator")
+    if m.g_head_mode not in ("dense", "film", "filmpack"):
+        raise ValueError("bilstm g_head_mode must be 'dense', 'film' or "
+                         f"'filmpack', got {m.g_head_mode!r}")
+    if m.g_head_mode in ("film", "filmpack") and d.feature_dim != d.n_bins:
+        raise ValueError(
+            "g_head_mode='film' needs linear-grid input features "
+            f"(feature_dim {d.feature_dim} != n_bins {d.n_bins})")
+    return BiLSTMGenerator(
+        num_sources=cfg.data.num_sources,
+        n_bins=d.n_bins,
+        feature_dim=d.feature_dim,
+        mask_type=d.mask_type,
+        mask_activation=d.mask_activation,
+        noise_slot=d.mask_noise_slot,
+        hidden=m.g_hidden,
+        layers=m.g_layers,
+        dropout=m.dropout,
+        dtype=getattr(torch, m.compute_dtype),
+        head_mode=m.g_head_mode,
+        film_channels=m.g_film_channels,
+        film_fold=m.g_film_fold,
+    )
+
+
+_GENERATORS = {"conv": _conv_generator, "bilstm": _bilstm_generator}
+
+
+def build_generator(cfg, device, seed: int = 0) -> torch.nn.Module:
+    """cfg: full Config.  A seeded-init generator on `device`, in eval mode."""
+    name = cfg.model.generator
+    if name not in _GENERATORS:
+        if name == "toy":
+            _unported("generator 'toy'")
+        raise KeyError(f"unknown generator {name!r}; have {sorted(_GENERATORS)}")
+    g = _GENERATORS[name](cfg)
     init_params_(g, torch.Generator().manual_seed(seed))
     return g.to(device).eval()
 

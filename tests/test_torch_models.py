@@ -113,7 +113,7 @@ def test_full_width_wsj0_parameter_count():
 
 @pytest.mark.parametrize("name,change", [
     ("2src_toy_cpu", {"model": {"generator": "toy"}}),
-    ("3src_pit", {}),
+    ("stream_v5e8", {"model": {"g_stem_mode": "fold", "g_stem_stride": (1, 2)}}),
     ("wsj0_logmel", {"model": {"g_stem_stride": (1, 2)}}),
     ("wsj0_logmel", {"model": {"g_dec_l0": "subpixel"}}),
     ("wsj0_logmel", {"model": {"g_phase_ct": True}}),
@@ -244,3 +244,185 @@ def test_full_width_stream_v5e8_parameter_counts():
 def test_unported_discriminator_options_raise(change):
     with pytest.raises(NotImplementedError, match="item 9"):
         tmodels.build_discriminator(_d_cfg(**change), "cpu")
+
+
+def _bilstm(head="film", dtype="float32", noise_slot=False, **model):
+    """3src_pit (S = 3, softmax masks, the BiLSTM G) at n_fft 64 (K = 33),
+    G hidden 16, film head width 8."""
+    cfg = config.get_config("3src_pit")
+    model = {"g_head_mode": head, "g_hidden": 16, "g_film_channels": 8,
+             "compute_dtype": dtype, **model}
+    return cfg.replace(
+        model=dataclasses.replace(cfg.model, **model),
+        dsp=dataclasses.replace(cfg.dsp, n_fft=64, hop_length=16, win_length=64,
+                                mask_noise_slot=noise_slot))
+
+
+def _nest(flat):
+    tree = {}
+    for key, v in flat.items():
+        *parents, leaf = key.split("/")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return tree
+
+
+def _bilstm_both(cfg, n_frames):
+    """(flax masks, port masks, port G) from the port's seeded init with
+    random biases, converted to flax's tree, on features whose second half
+    is three times louder than the first, so that the two time directions
+    of the BiLSTM see different sequences.  The flax side is jitted (one
+    compile, ~1 s, against ~5 s op by op)."""
+    tg = tmodels.build_generator(cfg, "cpu", seed=n_frames)
+    gen = torch.Generator().manual_seed(n_frames)
+    with torch.no_grad():
+        for name, p in tg.named_parameters():
+            if name.endswith("bias"):
+                p.normal_(0.0, 0.5, generator=gen)
+    params = {"params": _nest(tmodels.generator_params_to_flax(tg.state_dict()))}
+    feats = np.random.default_rng(n_frames).standard_normal(
+        (2, n_frames, cfg.dsp.feature_dim)).astype(np.float32)
+    feats[:, n_frames // 2:] *= 3.0
+    ref = np.asarray(jax.jit(jmodels.build_generator(_jax(cfg)).apply)(
+        params, jnp.asarray(feats)))
+    with torch.no_grad():
+        ours = tg(torch.from_numpy(feats)).numpy()
+    return ref, ours, tg, feats
+
+
+@pytest.mark.parametrize("n_frames", [20, 21])
+@pytest.mark.parametrize("noise_slot", [False, True])
+@pytest.mark.parametrize("head", ["film", "filmpack", "dense"])
+def test_bilstm_generator_f32_matches_flax(head, noise_slot, n_frames):
+    """Each sequence head, with and without the softmax noise slot, at an
+    even and an odd frame count; then the two directions of layer 0
+    swapped, which must not match."""
+    cfg = _bilstm(head, noise_slot=noise_slot)
+    ref, ours, tg, feats = _bilstm_both(cfg, n_frames)
+    assert ours.shape == ref.shape == (2, 3, n_frames, 33)
+    assert ours.dtype == np.float32
+    np.testing.assert_allclose(ours, ref, atol=1e-4)
+    np.testing.assert_allclose(ours.sum(axis=1) <= 1 + 1e-6, True)
+    fwd, bwd = tg.cells[0], tg.cells[1]
+    with torch.no_grad():
+        for name in ("weight_ih", "weight_hh", "bias"):
+            a, b = getattr(fwd, name), getattr(bwd, name)
+            tmp = a.clone()
+            a.copy_(b)
+            b.copy_(tmp)
+        swapped = tg(torch.from_numpy(feats)).numpy()
+    assert np.abs(swapped - ref).max() > 1e-2
+
+
+@pytest.mark.parametrize("head", ["film", "filmpack", "dense"])
+def test_bilstm_generator_bf16_matches_flax(head):
+    """bf16 compute: the port's LSTM keeps its hidden state in bf16 where
+    flax promotes the carry to f32, and rounds the gate sums once where
+    flax rounds each product; masks agree within 1e-2 (measured: up to
+    2.3e-3 on these inputs)."""
+    cfg = _bilstm(head, dtype="bfloat16")
+    ref, ours, _, _ = _bilstm_both(cfg, 20)
+    assert ours.dtype == np.float32
+    np.testing.assert_allclose(ours, ref, atol=1e-2)
+
+
+def test_position_encoding_is_built_as_jnp_builds_it():
+    """The film heads' fixed encoding in bf16: 2π rounded to bf16 before
+    the product, as jnp's weak-typed scalar is; exact in both dtypes."""
+    from gan_sass_tf_tpu_torch.models.generator import _position_encoding
+    for n in (33, 257):
+        for dt, jdt in ((torch.bfloat16, jnp.bfloat16), (torch.float32, jnp.float32)):
+            k = jnp.linspace(0.0, 1.0, n, dtype=jdt)
+            ref = jnp.stack([k] + [jnp.sin(2.0 * jnp.pi * k * q)
+                                   for q in (1.0, 2.0, 4.0, 8.0)], axis=-1)
+            ours = _position_encoding(n, dt, "cpu")
+            assert ours.dtype == dt
+            np.testing.assert_allclose(ours.float().numpy(),
+                                       np.asarray(ref.astype(jnp.float32)), atol=1e-7)
+
+
+@pytest.mark.parametrize("head", ["film", "filmpack", "dense"])
+def test_bilstm_flax_tree_names_and_npz_roundtrip(tmp_path, head):
+    cfg = _bilstm(head)
+    g = tmodels.build_generator(cfg, "cpu", seed=3)
+    flat = tmodels.generator_params_to_flax(g.state_dict())
+    params = jax.eval_shape(jmodels.build_generator(_jax(cfg)).init,
+                            jax.random.PRNGKey(0), jnp.zeros((1, 16, 33)))["params"]
+    ref = {"/".join(k.key for k in path): v.shape for path, v in
+           jax.tree_util.tree_leaves_with_path(params)}
+    assert {k: v.shape for k, v in flat.items()} == ref
+    path = str(tmp_path / "g.npz")
+    tmodels.save_flax_npz(path, g.state_dict())
+    g2 = tmodels.load_generator(cfg, tmodels.load_flax_npz(path), "cpu")
+    assert g2.state_dict().keys() == g.state_dict().keys()
+    for k, v in g.state_dict().items():
+        torch.testing.assert_close(g2.state_dict()[k], v, atol=0, rtol=0)
+
+
+def test_bilstm_seeded_init_follows_flax_defaults():
+    """Recurrent kernels orthogonal one H x H gate block at a time, input
+    kernels lecun-normal, biases zero; reproducible from the seed."""
+    cfg = _bilstm(g_hidden=32)
+    a = tmodels.build_generator(cfg, "cpu", seed=1)
+    b = tmodels.build_generator(cfg, "cpu", seed=1).state_dict()
+    assert all(torch.equal(v, b[k]) for k, v in a.state_dict().items())
+    for cell in a.cells:
+        for block in cell.weight_hh.detach().split(32):
+            torch.testing.assert_close(block @ block.T, torch.eye(32), atol=1e-5,
+                                       rtol=0)
+        assert not cell.bias.any()
+        fan_in = cell.weight_ih.shape[1]
+        assert abs(float(cell.weight_ih.detach().std()) * fan_in ** 0.5 - 1.0) < 0.1
+
+
+def test_full_width_3src_pit_generator():
+    """The BiLSTM G with the film head, with exactly flax's parameters: the
+    LSTM 1 339 200 + 2 162 400 (one bias a gate), the film head 274 051."""
+    cfg = config.get_config("3src_pit")
+    g = tmodels.build_generator(cfg, "cpu")
+    assert isinstance(g, tmodels.BiLSTMGenerator) and g.head.mode == "film"
+    count = lambda ps: sum(p.numel() for p in ps)      # noqa: E731
+    assert count(g.parameters()) == 3_775_651
+    assert count(g.cells[:2].parameters()) == 1_339_200
+    assert count(g.cells[2:].parameters()) == 2_162_400
+    assert count(g.head.parameters()) == 274_051
+    jg = jax.eval_shape(jmodels.build_generator(_jax(cfg)).init,
+                        jax.random.PRNGKey(0), jnp.zeros((1, 16, 257)))["params"]
+    ref = {"/".join(k.key for k in path): v.shape for path, v in
+           jax.tree_util.tree_leaves_with_path(jg)}
+    flat = tmodels.generator_params_to_flax(dict(g.named_parameters()))
+    assert {k: v.shape for k, v in flat.items()} == ref
+
+
+@pytest.mark.parametrize("model,dsp,match", [
+    ({"g_crop_nyquist": True}, {}, "only supported by the 'conv'"),
+    ({"g_head_mode": "interp"}, {}, "must be 'dense', 'film' or 'filmpack'"),
+    ({"g_head_mode": "film"}, {"feature": "logmel"}, "linear-grid"),
+    ({"g_head_mode": "filmpack"}, {"feature": "logmel"}, "linear-grid"),
+])
+def test_bilstm_validations_raise_as_jax(model, dsp, match):
+    cfg = config.get_config("3src_pit")
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, **model),
+                      dsp=dataclasses.replace(cfg.dsp, **dsp))
+    with pytest.raises(ValueError, match=match):
+        jmodels.build_generator(_jax(cfg))
+    with pytest.raises(ValueError, match=match):
+        tmodels.build_generator(cfg, "cpu")
+
+
+def test_bilstm_dense_head_on_the_mel_grid_and_unknown_generator():
+    cfg = config.get_config("3src_pit")
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, g_head_mode="dense",
+                                                g_hidden=8),
+                      dsp=dataclasses.replace(cfg.dsp, feature="logmel", n_mels=20))
+    g = tmodels.build_generator(cfg, "cpu")
+    with torch.no_grad():
+        assert g(torch.zeros(1, 5, 20)).shape == (1, 3, 5, 257)
+    with pytest.raises(NotImplementedError, match="dropout"):
+        tmodels.build_generator(_bilstm(dropout=0.1), "cpu")(
+            torch.zeros(1, 5, 33), train=True)
+    bad = cfg.replace(model=dataclasses.replace(cfg.model, generator="mlp"))
+    with pytest.raises(KeyError, match=r"have \['bilstm', 'conv'\]"):
+        tmodels.build_generator(bad, "cpu")

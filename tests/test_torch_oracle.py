@@ -243,7 +243,8 @@ def test_quality_protocol_prints_the_jax_scripts_keys(capsys):
 
 def test_quality_protocol_refuses_unported_generator_and_missing_gpu():
     with pytest.raises(NotImplementedError, match="item 9"):
-        quality_protocol.main(["3src_pit", "1", *_TOY])
+        quality_protocol.main(["2src_toy_cpu", "1", "--set", "model.generator=toy",
+                               *_TOY])
     with pytest.raises(SystemExit, match="no CUDA device"):
         quality_protocol.main(["2src_toy_cpu", "1", "--device", "cuda"])
 
