@@ -42,7 +42,28 @@ Phases, one JSON line each:
               chained permutations agree; wall ms a stream per mode and
               path, ms a chunk in scan mode, the device-busy share of a
               batch-mode stream; K1 and K2 at the chunk shapes
-    pit3      3src_pit at full width (the BiLSTM G 2 x 300 with the film head,
+    dp        data parallel over W = torch.cuda.device_count() NCCL ranks,
+              through `python -m torch.distributed.run --standalone
+              --nproc_per_node W`: `cli train --config stream_v5e8 --set
+              mesh.data_axis_size=-1 --workdir D` for 4 steps (checkpoints
+              and evals every 2; each rank runs this script's worker mode,
+              which calls cli.main and records the kernels it launched),
+              then 2 more resumed at 4 by `-m gan_sass_tf_tpu_torch.cli`
+              itself: finite losses, the workdir written once by rank 0,
+              K1, K3 and K3's backward launched; one step from one state
+              over the group and in this process without one (metrics,
+              every state tensor and evaluate(2) within 1e-5 relative at
+              W = 1; the ranks' states bitwise equal at W >= 2), the step's
+              profile over the group (one NCCL all-reduce a D step, one of
+              G's gradients, one of the metrics; NCCL kernels at W >= 2,
+              where at W = 1 NCCL completes an in-place SUM without one),
+              both steps' wall and device ms, the host ms of the all-reduce
+              of G's gradients; `cli separate --streaming`
+              (batch mode) of the stream phase's 60 s wav over the group
+              against this process's (>= 40 dB a segment after the best
+              permutation, the same chained permutations).  At W = 1 the
+              line names what only two or more GPUs would run
+    pit3     3src_pit at full width (the BiLSTM G 2 x 300 with the film head,
               S = 3 softmax masks, batch 16 x 3 s): whether cuDNN takes the
               LSTM in bf16 and the kernels it runs; the step's device ms by
               kernel family; Experiment.train() for 5 steps (losses finite,
@@ -83,10 +104,12 @@ Phases, one JSON line each:
               of one recompute_bounds per preset
 Then a `kernels` summary line (each kernel's launches, summed over the
 paths that drive it and by path, each path's counts set to 0 just before
-it and read just after; its error; its time beside its plain version's,
+it and read just after, a dp_* path's summed over its ranks; its error; its time beside its plain version's,
 the library call's and its bound from the shapes; K1 and K2 also at the
 streaming chunk shapes) and, last, the result line.  Any failed check
-exits non-zero before the result line.  Needs one CUDA device.
+exits non-zero before the result line, and so does a failed NCCL init or
+a rank that exits non-zero.  Needs one CUDA device; the dp phase takes
+every visible one.
 """
 
 from __future__ import annotations
@@ -96,6 +119,7 @@ import copy
 import io
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -132,10 +156,12 @@ from gan_sass_tf_tpu_torch.ops import stft as k4
 from gan_sass_tf_tpu_torch.ops import stft_features as k1
 from gan_sass_tf_tpu_torch.scripts import quality_protocol, recompute_bounds
 from gan_sass_tf_tpu_torch.losses.pit import permutations_for
-from gan_sass_tf_tpu_torch.train import Experiment
+from gan_sass_tf_tpu_torch.train import Experiment, build_train_step
 from gan_sass_tf_tpu_torch.utils.wav_io import read_wav, write_wav
 
 T_START = time.perf_counter()
+SCRIPT = Path(__file__).resolve()
+ROOT = SCRIPT.parent
 SEED = 0
 SR, N_FFT, HOP, N_MELS = 8000, 512, 128, 80
 B_MAIN, T_MAIN = 16, 23936          # wsj0_logmel segment: F = 184
@@ -178,6 +204,9 @@ PIT3_STEPS, PIT3_QUALITY_STEPS = 5, 4
 SEP_SAMPLES, SEP_CALLS = 5, 2        # separate() timing: samples of calls per path
 T_STREAM = 60 * SR_STREAM            # the streamed mixture: 62 chunks of 16 000
 STREAM_SAMPLES = 3                   # timed streams per mode and DSP path
+DP_STEP_SAMPLES = 12                 # timed train steps, dp phase, each side
+DP_REDUCE_SAMPLES = 20               # timed all-reduces of G's gradients
+DP_TIMEOUT_S = 400                   # one torchrun call of the dp phase
 # A train step's device time by kernel family: substrings of the lower-cased
 # kernel name, first match wins.  cuDNN's layout transposes are
 # nchwToNhwc/nhwcToNchw kernels; its conv kernels carry "nhwc" too.
@@ -1013,6 +1042,317 @@ def phase_stream(rng, dev, tmp: Path, wd: Path):
     return launches, shapes
 
 
+def launch_counts() -> dict:
+    return {"stft_features": k1.launches, "masked_istft": k2.launches,
+            "istft": k3.launches, "istft_bwd": k3.bwd_launches}
+
+
+def reset_launch_counts() -> None:
+    k1.launches = k2.launches = k3.launches = k3.bwd_launches = 0
+
+
+def flat_tensors(state) -> dict:
+    """{name: tensor} of a TrainState's state_dict, on the host."""
+    return {k: v.detach().cpu().clone() for k, v in flat_state(state.state_dict())
+            if torch.is_tensor(v)}
+
+
+def dp_step_report(exp) -> dict:
+    """The data-parallel phase's step on `exp`, run alike by this process
+    (no process group) and by every torchrun rank: one step (metrics,
+    launches, the state it leaves), evaluate(2) and its launches; then,
+    against the same step built without the group in the same process, a
+    profiled step each (device ms; NCCL kernels and collectives) and the
+    median wall ms of DP_STEP_SAMPLES synchronized steps each, in turns;
+    over a group, the median host ms (until the call returns) and wall ms
+    (synchronized) of DP_REDUCE_SAMPLES all-reduces of tensors shaped as
+    G's gradients.  Returns (report, state tensors after the one step)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    solo = build_train_step(exp.cfg, from_bank=exp._use_bank,
+                            local_batch=exp.dp.local_batch)
+    steps = {"group": exp._train_step, "solo": solo}
+
+    def run(name):
+        steps[name](exp.state, exp._bank, exp._train_seed)
+
+    def sync():
+        if exp.device.type == "cuda":
+            torch.cuda.synchronize()
+
+    reset_launch_counts()
+    _, m = exp._train_step(exp.state, exp._bank, exp._train_seed)
+    out = {"metrics": {k: float(v) for k, v in m.items()},
+           "step_launches": launch_counts()}
+    params = flat_tensors(exp.state)
+    reset_launch_counts()
+    out["eval"] = exp.evaluate(num_batches=2)
+    out["eval_launches"] = launch_counts()
+    activities = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if exp.device.type == "cuda" else [])
+    out["device_ms"], out["nccl_kernels"], out["collectives"] = {}, {}, {}
+    for name in steps:
+        run(name)
+        sync()
+        with profile(activities=activities) as prof:
+            run(name)
+            sync()
+        events = prof.key_averages()
+        kernels = [e for e in events if e.device_type == DeviceType.CUDA
+                   and not e.key.startswith("nccl:")]        # not the host ops' spans
+        out["device_ms"][name] = sum(e.self_device_time_total for e in kernels) / 1e3
+        out["nccl_kernels"][name] = {e.key[:100]: e.count for e in kernels if any(
+            s in e.key.lower() for s in ("nccl", "onerankreduce"))}
+        out["collectives"][name] = {e.key: e.count for e in events
+                                    if e.device_type == DeviceType.CPU
+                                    and e.key.startswith(("nccl:", "gloo:"))}
+    walls = {name: [] for name in steps}
+    for i in range(2 * DP_STEP_SAMPLES):
+        name = ("group", "solo", "solo", "group")[i % 4]
+        t0 = time.perf_counter()
+        run(name)
+        sync()
+        walls[name].append((time.perf_counter() - t0) * 1e3)
+    out["wall_ms"] = {name: statistics.median(w) for name, w in walls.items()}
+    out["all_reduce_g"] = None
+    if exp.dp.group is not None:
+        grads = [p.detach().clone() for p in exp.state.g_opt.params]
+        host, wall = [], []
+        for _ in range(DP_REDUCE_SAMPLES):
+            sync()
+            t0 = time.perf_counter()
+            exp.dp.all_reduce_mean(grads)
+            host.append((time.perf_counter() - t0) * 1e3)
+            sync()
+            wall.append((time.perf_counter() - t0) * 1e3)
+        out["all_reduce_g"] = {"numel": sum(g.numel() for g in grads),
+                               "host_ms": statistics.median(host),
+                               "wall_ms": statistics.median(wall)}
+    return out, params
+
+
+def dp_worker(spec_path: str) -> int:
+    """One torchrun rank of the dp phase, from the JSON spec the phase
+    wrote: join the group, then `cli.main(spec["train"])`, dp_step_report
+    on the workdir spec["step_workdir"] (resumed from its checkpoint) and
+    `cli.main(spec["separate"])` (cli.main is the function `python -m
+    gan_sass_tf_tpu_torch.cli` runs; it leaves a group it did not join
+    alone), each with the kernels it launched on this rank.  Writes
+    spec["out"].rank<r>.json and spec["out"].rank<r>.pt, the state after
+    the step."""
+    from gan_sass_tf_tpu_torch.parallel import (
+        initialize_distributed,
+        rank_device,
+        shutdown_distributed,
+    )
+
+    spec = json.loads(Path(spec_path).read_text())
+    torch.backends.cuda.matmul.allow_tf32 = False       # as phase_device
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True           # as phase_dp's reference
+    initialize_distributed(device=spec["device"])
+    rank = torch.distributed.get_rank()
+    res = {"rank": rank, "world": torch.distributed.get_world_size(),
+           "backend": torch.distributed.get_backend()}
+    try:
+        reset_launch_counts()
+        res["train_rc"] = cli.main(spec["train"])
+        res["train_launches"] = launch_counts()
+        cfg = config.Config.from_json((Path(spec["step_workdir"]) / "config.json").read_text())
+        exp = Experiment(cfg, workdir=spec["step_workdir"],
+                         device=rank_device(spec["device"]))
+        report, params = dp_step_report(exp)
+        exp.close()
+        res.update(report)
+        torch.save(params, f"{spec['out']}.rank{rank}.pt")
+        chained, inner = [], streaming._chain_permutations
+
+        def recording_chain(*a, **kw):
+            chained.append(inner(*a, **kw))
+            return chained[-1]
+
+        streaming._chain_permutations = recording_chain
+        reset_launch_counts()
+        res["separate_rc"] = cli.main(spec["separate"])
+        res["separate_launches"] = launch_counts()
+        res["chained"] = [c.tolist() for c in chained]
+    finally:
+        shutdown_distributed()
+    Path(f"{spec['out']}.rank{rank}.json").write_text(json.dumps(res))
+    return res["train_rc"] or res["separate_rc"]
+
+
+def torchrun(world: int, *argv) -> tuple:
+    """`python -m torch.distributed.run --standalone --nproc_per_node world
+    argv...` from the repo root: (wall ms, stdout); a non-zero exit (a
+    failed NCCL init, a failed rank) fails the run."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(world), *argv]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=DP_TIMEOUT_S, env={**os.environ, "PYTHONPATH": str(ROOT)})
+    wall = (time.perf_counter() - t0) * 1e3
+    if res.returncode != 0:
+        print(res.stdout[-3000:], res.stderr[-6000:], sep="\n", file=sys.stderr)
+    check(res.returncode == 0, f"torchrun {' '.join(argv[:6])} exited {res.returncode}")
+    return wall, res.stdout
+
+
+def summed(ranks: list, key: str) -> dict:
+    return {k: sum(r[key][k] for r in ranks) for k in ranks[0][key]}
+
+
+def phase_dp(dev, tmp: Path, sets=()):
+    """Data parallel over torch.cuda.device_count() NCCL ranks through
+    torchrun.  One torchrun call runs on every rank: `cli train` of
+    stream_v5e8 at full width for 4 steps (checkpoints and evals every 2),
+    one step from one checkpoint over the group (against this process's
+    step without one: equal within 1e-5 relative at world 1; the NCCL
+    kernels of its profile; wall and device ms beside the same step
+    without the group in the same rank), and `cli separate --streaming`
+    (batch mode) of the stream phase's 60 s wav (against this process's:
+    >= 40 dB a segment after the best permutation, the same chained
+    permutations).  A second call, `-m gan_sass_tf_tpu_torch.cli train`
+    itself, resumes at 4 for 2 more steps.  `sets` are extra --set
+    overrides, "sec.key=val" (smaller sizes for a rehearsal on the CPU)."""
+    world = torch.cuda.device_count() if dev.type == "cuda" else 2
+    t_phase = time.perf_counter()
+    overrides = ["mesh.data_axis_size=-1", *sets]
+    cfg = cli._apply_overrides(config.get_config("stream_v5e8"), overrides)
+    wd, ref_wd, out = tmp / "dp_run", tmp / "dp_step", tmp / "dp"
+    common = ["--config", "stream_v5e8", "--workdir", str(wd), "--device", dev.type,
+              *(a for o in overrides for a in ("--set", o))]
+    periods = ["--set", "train.ckpt_every=2", "--set", "train.eval_every=2",
+               "--set", "train.eval_batches=1"]
+    wav = tmp / "stream60s.wav"
+    separate_args = ["separate", "--config", "stream_v5e8", "--workdir", str(wd),
+                     "--device", dev.type, "--input", str(wav), "--streaming",
+                     "--streaming-mode", "batch"]
+
+    # This process's step from the checkpoint the ranks start from, with
+    # the ranks' cuDNN settings (deterministic algorithms, no TF32).
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        exp = Experiment(cfg, workdir=str(ref_wd), device=dev)
+        exp.save()                                          # checkpoints/0.pt
+        one, one_params = dp_step_report(exp)
+        exp.close()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    spec = tmp / "dp_spec.json"
+    spec.write_text(json.dumps({
+        "device": dev.type, "out": str(out), "step_workdir": str(ref_wd),
+        "train": ["train", *common, "--steps", "4", *periods],
+        "separate": [*separate_args, "--output-dir", str(tmp / "dp_stream_w")]}))
+    walls = {}
+    walls["ranks"], log = torchrun(world, str(SCRIPT), "--dp-worker", str(spec))
+    ranks = [json.loads(Path(f"{out}.rank{r}.json").read_text()) for r in range(world)]
+    losses = {4: cli_losses(log, 4)}
+    for r in ranks:
+        c = r["train_launches"]
+        check(c["stft_features"] >= 8 and c["istft"] == 4 and c["istft_bwd"] == 4,
+              f"dp train rank {r['rank']} launches {c}")
+
+    # The step over the group against this process's; every rank's state
+    # bitwise equal to rank 0's (a missing or wrong all-reduce breaks it).
+    dp_params = torch.load(f"{out}.rank0.pt", weights_only=True)
+    for r in range(1, world):
+        other = torch.load(f"{out}.rank{r}.pt", weights_only=True)
+        unequal = [k for k, v in dp_params.items() if not torch.equal(v, other[k])]
+        check(not unequal, f"dp step: rank {r}'s state differs from rank 0's in {unequal[:5]}")
+    step = ranks[0]
+    # Relative differences (floor 1 for the metrics and the eval, in dB or
+    # O(1)); every parameter, moment, buffer and EMA tensor by its max |.|.
+    rel = {"metrics": max(abs(step["metrics"][k] - v) / max(abs(v), 1.0)
+                          for k, v in one["metrics"].items()),
+           "params": max(float((dp_params[k] - v).abs().max()) / max(float(v.abs().max()), 1e-30)
+                         for k, v in one_params.items()),
+           "eval": max(abs(step["eval"][k] - v) / max(abs(v), 1.0)
+                       for k, v in one["eval"].items())}
+    # At W >= 2 the ranks sum in another order than one process: 1e-2 is a
+    # guess that no run with two or more GPUs has read yet.
+    tol = 1e-5 if world == 1 else 1e-2
+    check(max(rel.values()) <= tol, f"dp step at world {world} vs one process: {rel}")
+    reduces = sum(n for k, n in step["collectives"]["group"].items()
+                  if k.startswith(("nccl:all_reduce", "gloo:all_reduce")))
+    want = cfg.train.d_steps + 2               # D's grads a D step, G's grads, metrics
+    check(reduces == want, f"dp step: {reduces} all-reduces, not {want}: "
+                           f"{step['collectives']['group']}")
+    if world > 1 and dev.type == "cuda":
+        check(sum(step["nccl_kernels"]["group"].values()) > 0,
+              f"no NCCL kernel in the profiled dp step: {step['nccl_kernels']}")
+
+    # Batch-mode streaming over the group against this process's.
+    chained, inner = [], streaming._chain_permutations
+
+    def recording_chain(*a, **kw):
+        chained.append(inner(*a, **kw))
+        return chained[-1]
+
+    streaming._chain_permutations = recording_chain
+    try:
+        t0 = time.perf_counter()
+        captured(cli.main, [*separate_args, "--output-dir", str(tmp / "dp_stream_1")])
+        walls["stream_one_process"] = (time.perf_counter() - t0) * 1e3
+    finally:
+        streaming._chain_permutations = inner
+    got, ref = (np.stack([read_wav(str(tmp / d / f"{wav.stem}_src{i}.wav"))[1]
+                          for i in range(cfg.data.num_sources)])
+                for d in ("dp_stream_w", "dp_stream_1"))
+    _, stride, *_ = streaming._chunk_geometry(cfg, ref.shape[-1])
+    worst, same, n = segment_agreement(got, ref, stride)
+    check(worst >= 40.0, f"dp stream vs one process: {worst} dB < 40")
+    perm_equal = all(r["chained"] == [c.tolist() for c in chained] for r in ranks)
+    check(perm_equal, "dp stream: chained permutations differ from one process's")
+    stream_counts = summed(ranks, "separate_launches")
+    check(stream_counts["stft_features"] > 0 and stream_counts["masked_istft"] > 0,
+          f"dp stream launches {stream_counts}")
+
+    # The resumed run through the module itself, as a user starts it.
+    walls["resumed"], log = torchrun(
+        world, "-m", "gan_sass_tf_tpu_torch.cli", "train", *common, "--steps", "2", *periods)
+    check("resumed from step 4" in log, f"dp train did not resume: {log[-500:]}")
+    check(log.count("step 6:") == 1, f"dp train: step 6 printed {log.count('step 6:')} times")
+    losses[6] = cli_losses(log, 6)
+    check(all(math.isfinite(v) for m in losses.values() for v in m.values()),
+          f"dp losses {losses}")
+    files = sorted(str(p.relative_to(wd)) for p in wd.rglob("*") if p.is_file())
+    rows = [json.loads(line) for line in (wd / "metrics.jsonl").read_text().splitlines()]
+    logged = [r["step"] for r in rows if "g_loss" in r]
+    check(logged == sorted(set(logged)) and logged[-1] == 6,
+          f"dp metrics.jsonl train rows at steps {logged}")
+    for name in ("config.json", "checkpoints/4.pt", "checkpoints/6.pt", "best.json"):
+        check(name in files, f"dp workdir: {name} missing from {files}")
+    counts = {"dp_train": summed(ranks, "train_launches"),
+              "dp_eval": summed(ranks, "eval_launches"), "dp_stream": stream_counts}
+    keys = ("metrics", "eval", "wall_ms", "device_ms", "step_launches", "nccl_kernels",
+            "collectives", "all_reduce_g")
+    emit("dp", world=world, backend=step["backend"], config="stream_v5e8",
+         batch=cfg.train.batch_size, local_batch=cfg.train.batch_size // world,
+         wall_ms={**walls, "phase": (time.perf_counter() - t_phase) * 1e3},
+         losses=losses, workdir_files=files, metrics_rows_train=logged,
+         launches={**counts, "dp_train_by_rank": [r["train_launches"] for r in ranks]},
+         step={"one_process": {k: one[k] for k in keys},
+               "world": {k: step[k] for k in keys},
+               "max_rel_diff": rel, "tol": tol,
+               "tol_read_on_the_card": world == 1},
+         stream={"min_si_sdr_db": worst, "segments_same_permutation": same,
+                 "segments": n, "max_abs_diff": float(np.abs(got - ref).max()),
+                 "chained_permutations_equal": perm_equal},
+         note="step wall_ms: median of DP_STEP_SAMPLES synchronized steps over "
+              "the group ('group') and of the same step built without it "
+              "('solo'), in turns in one process; device_ms: torch.profiler, "
+              "one step each; walls of the torchrun calls include process "
+              "start, CUDA and NCCL init",
+         not_run=None if world > 1 else
+         "two or more ranks (one GPU visible): an all-reduce across cards, NCCL's "
+         "ring or tree kernels and a split batch; at world 1 NCCL completes each "
+         "in-place SUM all-reduce without a kernel")
+    return counts
+
+
 def k4_check(ker, ref, what):
     """K4 kernel vs plain: complex64, one shape, and |ker - ref| within
     atol 3e-4·max|X| + rtol 1e-3 (tests/test_pallas.py)."""
@@ -1496,6 +1836,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         wd, workdir_counts = phase_workdir(dev, Path(tmp))
         stream_launches, stream_shapes = phase_stream(rng, dev, Path(tmp), wd)
+        dp_counts = phase_dp(dev, Path(tmp))
     bound_launches, bound_walls = phase_bounds(dev)
     quality_runs = phase_quality(dev)
     times = phase_timing(rng, dev, x, spec, cfg, g, batch, k3_tensors, exp,
@@ -1519,7 +1860,7 @@ def main() -> int:
                    stream_scan=stream_launches["scan"],
                    pit3_train=pit3_counts["train"], pit3_eval=pit3_counts["eval"],
                    pit3_separation=pit3_counts["separation"],
-                   pit3_quality=pit3_counts["quality"]),
+                   pit3_quality=pit3_counts["quality"], **dp_counts),
          "max_abs_err": k1_err, **times["stft_features"],
          "stream_shape": stream_rows("stft_features"),
          "pit3_shape": pit3_rows["stft_features"]},
@@ -1531,19 +1872,21 @@ def main() -> int:
                    stream_scan=stream_launches["scan"],
                    pit3_eval=pit3_counts["eval"],
                    pit3_separation=pit3_counts["separation"],
-                   pit3_quality=pit3_counts["quality"]),
+                   pit3_quality=pit3_counts["quality"], **dp_counts),
          "max_abs_err": k2_err, **times["masked_istft"],
          "stream_shape": stream_rows("masked_istft"),
          "pit3_shape": pit3_rows["masked_istft"]},
         {"name": "istft", "route": "cuda",
          "source": "gan_sass_tf_tpu_torch/ops/csrc/masked_istft.cu",
          "replaces": "gan_sass_tf_tpu/ops/pallas_istft.py:71",
-         **by_path("istft", train=train_counts, workdir=workdir_counts),
+         **by_path("istft", train=train_counts, workdir=workdir_counts,
+                   dp_train=dp_counts["dp_train"]),
          "max_abs_err": k3_errs["forward_full"], **times["istft"]},
         {"name": "istft_bwd", "route": "cuda",
          "source": "gan_sass_tf_tpu_torch/ops/csrc/stft_features.cu",
          "replaces": "gan_sass_tf_tpu/ops/pallas_istft.py:151",
-         **by_path("istft_bwd", train=train_counts, workdir=workdir_counts),
+         **by_path("istft_bwd", train=train_counts, workdir=workdir_counts,
+                   dp_train=dp_counts["dp_train"]),
          "max_abs_err": max(k3_errs["grad_re"], k3_errs["grad_im"]),
          **times["istft_bwd"]},
         {"name": "stft", "route": "cuda",
@@ -1561,4 +1904,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(dp_worker(sys.argv[2]) if sys.argv[1:2] == ["--dp-worker"] else main())

@@ -21,6 +21,18 @@ without a workdir, `eval` scores a seeded init and `separate` takes
 models/convert.py), e.g. a generator the JAX package trained.  `--device`
 defaults to cuda and fails when no GPU is visible; the CPU runs only when
 asked for with `--device cpu`.
+
+Data parallel: under torchrun, `train`, `eval` and `separate` join the
+process group first (NCCL, one rank a GPU, `--device cuda` meaning
+cuda:LOCAL_RANK; gloo with `--device cpu`):
+
+    torchrun --nproc_per_node 4 -m gan_sass_tf_tpu_torch.cli train \
+        --config stream_v5e8 --set mesh.data_axis_size=-1 --workdir runs/a
+
+`train` and `eval` split each global batch over the ranks, `separate
+--streaming` in batch mode each chunk group; one-shot and scan-mode
+separation run on rank 0.  Only rank 0 prints, writes the workdir and
+writes wavs.
 """
 
 from __future__ import annotations
@@ -72,7 +84,7 @@ def _add_common(p):
                    help="config override, e.g. train.batch_size=8")
 
 
-def _workdir_config(args, cfg):
+def _workdir_config(args, cfg, say):
     """For eval and separate against a workdir: its stored config (`cfg`
     where it has none yet), or None after printing why not."""
     cfg_path = os.path.join(args.workdir, "config.json")
@@ -85,8 +97,12 @@ def _workdir_config(args, cfg):
               f"{cfg.name!r}", file=sys.stderr)
         return None
     if args.set:
-        print("note: ignoring --set overrides; using the workdir's stored config")
+        say("note: ignoring --set overrides; using the workdir's stored config")
     return stored
+
+
+def _quiet(*args, **kwargs) -> None:
+    """print() for the ranks after rank 0."""
 
 
 def _write_sources(srcs, sr: int, in_path: str, out_dir: str) -> None:
@@ -100,10 +116,15 @@ def _write_sources(srcs, sr: int, in_path: str, out_dir: str) -> None:
         print(path)
 
 
-def _separate(args, cfg, g, device) -> int:
+def _separate(args, cfg, g, device, main: bool) -> int:
+    """One-shot and scan-mode separation on rank 0 (`main`); batch-mode
+    streaming on every rank, rank 0 writing."""
     from gan_sass_tf_tpu_torch import infer
     from gan_sass_tf_tpu_torch.utils.wav_io import read_wav
 
+    batched = args.streaming and args.streaming_mode == "batch"
+    if not (main or batched):
+        return 0
     if not args.streaming:
         for p in infer.separate_file(g, cfg, args.input, args.output_dir, device):
             print(p)
@@ -113,9 +134,10 @@ def _separate(args, cfg, g, device) -> int:
         print(f"error: wav sample rate {sr} != config {cfg.dsp.sample_rate}",
               file=sys.stderr)
         return 1
-    fn = (infer.separate_streaming_scan if args.streaming_mode == "scan"
-          else infer.separate_streaming)
-    _write_sources(fn(g, cfg, wav, device), sr, args.input, args.output_dir)
+    fn = infer.separate_streaming if batched else infer.separate_streaming_scan
+    srcs = fn(g, cfg, wav, device)
+    if main:
+        _write_sources(srcs, sr, args.input, args.output_dir)
     return 0
 
 
@@ -173,19 +195,41 @@ def main(argv=None) -> int:
         return 1
     import torch
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    from gan_sass_tf_tpu_torch.parallel import (
+        initialize_distributed,
+        rank_device,
+        shutdown_distributed,
+    )
+
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         print("error: --device cuda but no CUDA device is visible "
               "(pass --device cpu to run on the CPU)", file=sys.stderr)
         return 1
+    import torch.distributed as dist
+
+    joined = not dist.is_initialized() and initialize_distributed(device=args.device)
+    try:
+        return _run(args, rank_device(args.device))
+    finally:
+        if joined:                 # a group the caller joined stays the caller's
+            shutdown_distributed()
+
+
+def _run(args, device) -> int:
+    """train, eval or separate on `device`, in the process group if one
+    was joined."""
+    import torch.distributed as dist
+
+    main = not dist.is_initialized() or dist.get_rank() == 0
+    say = print if main else _quiet
     cfg = _apply_overrides(config_lib.get_config(args.config), args.set)
     if args.cmd == "separate" and args.params:
         from gan_sass_tf_tpu_torch.models import load_flax_npz, load_generator
 
         return _separate(args, cfg, load_generator(cfg, load_flax_npz(args.params),
-                                                   device), device)
+                                                   device), device, main)
     if args.cmd != "train" and args.workdir:
-        cfg = _workdir_config(args, cfg)
+        cfg = _workdir_config(args, cfg, say)
         if cfg is None:
             return 1
 
@@ -195,12 +239,12 @@ def main(argv=None) -> int:
         exp = Experiment(cfg, workdir=args.workdir, device=device,
                          resume=not args.no_resume)
         if exp.state.step:
-            print(f"resumed from step {exp.state.step}", flush=True)
+            say(f"resumed from step {exp.state.step}", flush=True)
 
         def log(step, m):
-            print(f"step {step}: g={m['g_loss']:.4f} d={m['d_loss']:.4f} "
-                  f"recon={m['g_recon']:.4f} "
-                  f"thr={m['mixture_sec_per_sec']:.1f} mix-s/s", flush=True)
+            say(f"step {step}: g={m['g_loss']:.4f} d={m['d_loss']:.4f} "
+                f"recon={m['g_recon']:.4f} "
+                f"thr={m['mixture_sec_per_sec']:.1f} mix-s/s", flush=True)
 
         exp.train(num_steps=args.steps, log_fn=log)
         exp.close()
@@ -209,16 +253,16 @@ def main(argv=None) -> int:
     exp = Experiment(cfg, workdir=args.workdir, device=device)
     try:
         if args.best:
-            print(f"using best checkpoint (step {exp.restore_best()})")
+            say(f"using best checkpoint (step {exp.restore_best()})")
         if args.cmd == "eval":
             for k, v in exp.evaluate(num_batches=args.batches).items():
-                print(f"{k}: {v:.3f}")
+                say(f"{k}: {v:.3f}")
             return 0
         if exp.state.step == 0:
             print(f"error: no checkpoint under {args.workdir!r} to separate "
                   "with", file=sys.stderr)
             return 1
-        return _separate(args, cfg, exp.eval_generator(), device)
+        return _separate(args, cfg, exp.eval_generator(), device, main)
     finally:
         exp.close()
 

@@ -1,7 +1,9 @@
 """Streaming chunked separation: any length, in hop-aligned overlapping
 chunks.
 
-Port of `gan_sass_tf_tpu/infer/streaming.py` on one device.
+Port of `gan_sass_tf_tpu/infer/streaming.py`.  The batched path spreads
+each chunk group over the ranks of a process group, as the reference's
+`shard_map` over its mesh; the scan path runs on one device.
 
   1. The host slices the mixture into chunks of stream.chunk_seconds on the
      STFT frame grid, overlapping by stream.overlap_frames hops.
@@ -31,6 +33,7 @@ import torch
 
 from gan_sass_tf_tpu_torch.dsp.stft import overlap_add
 from gan_sass_tf_tpu_torch.losses.pit import permutations_for
+from gan_sass_tf_tpu_torch.parallel.mesh import data_parallel
 from gan_sass_tf_tpu_torch.train.step import build_separate_fn
 
 
@@ -151,17 +154,22 @@ def separate_streaming(g: Optional[torch.nn.Module], cfg, mixture: np.ndarray,
     """Long mixture (T,) float32 -> (S, T) separated sources, in groups of
     stream.batch_chunks chunks on `device`.  `separate_fn` (default
     `build_separate_fn(cfg, g)`) maps a (B, T_c) chunk batch on the device
-    to (B, S, T_c) waveforms."""
+    to (B, S, T_c) waveforms.  Inside a process group each rank separates
+    its batch_chunks / world chunks of a group and gathers the others';
+    every rank returns the whole result."""
     t_in = np.asarray(mixture).shape[-1]
     chunks, (chunk, stride, overlap, n_chunks, _, _) = _chunk_matrix(cfg, mixture)
     if separate_fn is None:
         separate_fn = build_separate_fn(cfg, g)
     bc = cfg.stream.batch_chunks
+    dp = data_parallel(cfg.mesh, bc, what="stream.batch_chunks")
+    mine = dp.batch_rows(bc)
     n_groups = -(-n_chunks // bc)
     # Zero chunks fill the last group; their outputs are dropped below.
     chunks_pad = np.pad(chunks, ((0, n_groups * bc - n_chunks), (0, 0)))
-    chunks_dev = torch.from_numpy(chunks_pad.reshape(n_groups, bc, -1)).to(device)
-    est = torch.cat([separate_fn(chunks_dev[gi])[..., :chunk]
+    chunks_dev = torch.from_numpy(np.ascontiguousarray(
+        chunks_pad.reshape(n_groups, bc, -1)[:, mine])).to(device)
+    est = torch.cat([dp.all_gather(separate_fn(chunks_dev[gi])[..., :chunk])
                      for gi in range(n_groups)])[:n_chunks]    # (N, S, chunk)
     strips = torch.cat([est[:, :, :overlap], est[:, :, stride : stride + overlap]],
                        dim=-1).cpu().numpy()                   # (N, S, 2*overlap)

@@ -15,7 +15,8 @@ half-range.  --device is a torch device (default cuda, which fails when no
 GPU is visible).
 
 Two differences from the JAX script: the global batch runs on one device
-(`mesh.data_axis_size` has no effect), and the bound's i-th batch is mixed
+(the script joins no process group, so `mesh.data_axis_size` has no
+effect; ROADMAP.md item 8's follow-up), and the bound's i-th batch is mixed
 with the counter RNG at seed 20 000 + i (`data.mix_sources`) where the JAX
 script used jax.random.PRNGKey(20 000 + i): on the same sources the two
 packages draw other gains and noise.

@@ -1,11 +1,15 @@
-"""The Experiment on one device: the train loop over the device bank or host
-batches, the held-out eval, the throughput metric, and the workdir
-(checkpoints with auto-resume, the config fingerprint guard, the best
-checkpoint by held-out SI-SDRi, and the metrics file).
+"""The Experiment: the train loop over the device bank or host batches, the
+held-out eval, the throughput metric, and the workdir (checkpoints with
+auto-resume, the config fingerprint guard, the best checkpoint by held-out
+SI-SDRi, and the metrics file), on one device or data parallel over a
+process group.
 
-Port of `gan_sass_tf_tpu/train/experiment.py` for one device.  Data
-parallelism over several devices is not ported yet (ROADMAP.md, 'Modules
-to port', item 8).
+Port of `gan_sass_tf_tpu/train/experiment.py`.  Data parallel over the
+process group that `parallel.initialize_distributed` joined, every rank
+builds the same seeded state (and rank 0's is broadcast after a reseed),
+the same bank, and draws the same global host batches, of which it keeps
+its rows (`parallel/mesh.py`); the step all-reduces.  Rank 0 alone writes
+the workdir, each write followed by a barrier; every rank reads it.
 
 A workdir holds
 
@@ -33,6 +37,7 @@ import torch
 
 from gan_sass_tf_tpu_torch.data import build_bank, make_dataset
 from gan_sass_tf_tpu_torch.models import build_generator
+from gan_sass_tf_tpu_torch.parallel.mesh import data_parallel
 from gan_sass_tf_tpu_torch.train.state import TrainState, create_train_state
 from gan_sass_tf_tpu_torch.train.step import build_eval_step, build_train_step
 from gan_sass_tf_tpu_torch.utils.metrics_writer import MetricsWriter
@@ -55,13 +60,25 @@ def checkpoint_steps(directory: str) -> List[int]:
                   if f.endswith(".pt") and f[:-3].isdigit())
 
 
+def _tensors(tree):
+    """The tensors of a nested state dict, in a fixed order."""
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _tensors(v)
+        elif torch.is_tensor(v):
+            yield v
+
+
 class Experiment:
-    """Train and evaluate one preset on one device.
+    """Train and evaluate one preset on one device, or data parallel.
 
         exp = Experiment(get_config("stream_v5e8"), workdir="runs/a", device="cuda")
         exp.train(num_steps=100, log_fn=print)     # resumes from runs/a if it can
         exp.evaluate(num_batches=4)
         exp.close()
+
+    Inside a process group (`parallel.initialize_distributed`) it trains
+    data parallel over every rank of it.
     """
 
     def __init__(self, cfg, workdir: Optional[str] = None, device="cuda",
@@ -71,12 +88,15 @@ class Experiment:
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device cuda asked for, but no CUDA device is visible")
+        self.dp = data_parallel(cfg.mesh, cfg.train.batch_size)
         # Device-bank mode samples every batch on the device; host-batch
         # mode copies one dataset batch a step from a prefetch thread.
         self._use_bank = cfg.data.device_bank
         self._spd = cfg.train.steps_per_dispatch if self._use_bank else 1
+        self._rows = self.dp.batch_rows(cfg.train.batch_size)
         self._train_step = build_train_step(
-            cfg, from_bank=self._use_bank, local_batch=cfg.train.batch_size)
+            cfg, from_bank=self._use_bank, local_batch=self.dp.local_batch,
+            dp=self.dp)
         self.reseed(cfg.train.seed)
         if workdir:
             self._init_checkpointing(resume)
@@ -85,7 +105,8 @@ class Experiment:
                 with open(best_path) as f:
                     self._best_metric = json.load(f)["eval_si_sdr_improvement"]
         self.metrics = MetricsWriter(
-            os.path.join(workdir, "metrics.jsonl") if workdir else None)
+            os.path.join(workdir, "metrics.jsonl")
+            if workdir and self.dp.is_main else None)
 
     def reseed(self, seed: int) -> None:
         """Re-initialize everything seed-dependent: G, D, both optimizers,
@@ -102,6 +123,16 @@ class Experiment:
             self._bank = torch.from_numpy(build_bank(cfg, seed=seed)).to(self.device)
         self._eval_g = None
         self._best_metric = float("-inf")
+        # Rank 0's parameters, optimizer moments, spectral-norm buffers and
+        # EMA into every rank's; the step, the update counts and the train
+        # seed are plain ints that every rank already shares.
+        self.dp.broadcast_(list(_tensors(self.state.state_dict())))
+
+    def _main_writes(self, write: Callable[[], None]) -> None:
+        """Run `write` on rank 0 alone, then wait for it on every rank."""
+        if self.dp.is_main:
+            write()
+        self.dp.barrier()
 
     # ------------------------------------------------------------------
     # The workdir: checkpoints, auto-resume, the config fingerprint guard.
@@ -119,7 +150,9 @@ class Experiment:
                 "(gan_sass_tf_tpu_torch/models/convert.py)")
         os.makedirs(ckpt_dir, exist_ok=True)
         cfg_path = os.path.join(self.workdir, "config.json")
-        if os.path.exists(cfg_path):
+        exists = os.path.exists(cfg_path)
+        self.dp.barrier()           # every rank has looked before rank 0 writes
+        if exists:
             with open(cfg_path) as f:
                 saved = f.read()
             # Compared through from_json, so that fields added since the
@@ -136,8 +169,10 @@ class Experiment:
                     f"workdir {self.workdir!r} was created with a different "
                     "config (fingerprint mismatch); refusing to mix runs")
         else:
-            with open(cfg_path, "w") as f:
-                f.write(self.cfg.to_json())
+            def write_config():
+                with open(cfg_path, "w") as f:
+                    f.write(self.cfg.to_json())
+            self._main_writes(write_config)
         if resume and checkpoint_steps(ckpt_dir):
             self.restore()
 
@@ -155,6 +190,7 @@ class Experiment:
             os.remove(os.path.join(directory, f"{old}.pt"))
 
     def _read(self, directory: str, step: int) -> None:
+        """Load directory/<step>.pt (every rank reads the same file)."""
         payload = torch.load(os.path.join(directory, f"{step}.pt"),
                              map_location=self.device, weights_only=True)
         self.state.load_state_dict(payload["state"])
@@ -163,8 +199,9 @@ class Experiment:
     def save(self) -> None:
         """Write checkpoints/<step>.pt (no-op without a workdir)."""
         if self.workdir:
-            self._write(os.path.join(self.workdir, "checkpoints"),
-                        self.state.step, KEEP_CHECKPOINTS)
+            self._main_writes(lambda: self._write(
+                os.path.join(self.workdir, "checkpoints"), self.state.step,
+                KEEP_CHECKPOINTS))
 
     def restore(self, step: Optional[int] = None) -> None:
         """Load checkpoints/<step>.pt, by default the newest."""
@@ -172,9 +209,15 @@ class Experiment:
         self._read(ckpt_dir, step if step is not None else checkpoint_steps(ckpt_dir)[-1])
 
     def _save_best(self, step: int, metric: float) -> None:
-        self._write(os.path.join(self.workdir, "best"), step, 1)
-        with open(os.path.join(self.workdir, "best.json"), "w") as f:
-            json.dump({"step": step, "eval_si_sdr_improvement": metric}, f)
+        def write():
+            self._write(os.path.join(self.workdir, "best"), step, 1)
+            with open(os.path.join(self.workdir, "best.json"), "w") as f:
+                json.dump({"step": step, "eval_si_sdr_improvement": metric}, f)
+        self._main_writes(write)
+
+    def _log(self, step: int, row: Dict[str, float]) -> None:
+        """A metrics.jsonl row (rank 0 writes it)."""
+        self._main_writes(lambda: self.metrics.write(step, row))
 
     def restore_best(self) -> int:
         """Load the checkpoint with the best held-out eval SI-SDRi
@@ -230,12 +273,12 @@ class Experiment:
         stop = threading.Event()
         thread = None
         if not self._use_bank:
-            dataset = self.dataset
+            dataset, rows = self.dataset, self._rows
 
             def producer():
                 while not stop.is_set():
                     try:
-                        item = dataset.batch()
+                        item = dataset.batch()[rows]
                     except Exception as exc:      # handed to the train loop
                         item = exc
                     while not stop.is_set():
@@ -278,7 +321,7 @@ class Experiment:
                     elapsed = time.perf_counter() - t_start
                     mix_sec = steps_timed * samples_per_step / cfg.dsp.sample_rate
                     last["mixture_sec_per_sec"] = mix_sec / elapsed
-                    self.metrics.write(completed, last)
+                    self._log(completed, last)
                     if log_fn:
                         log_fn(completed, last)
                 if self.workdir and crossed(completed, cfg.train.ckpt_every, length):
@@ -288,7 +331,7 @@ class Experiment:
                     # eval_batches, not evaluate()'s default: this metric
                     # ranks checkpoints for keep_best.
                     ev = self.evaluate(num_batches=cfg.train.eval_batches)
-                    self.metrics.write(completed, {"eval_" + k: v for k, v in ev.items()})
+                    self._log(completed, {"eval_" + k: v for k, v in ev.items()})
                     si = ev.get("si_sdr_improvement")
                     if (self.workdir and cfg.train.keep_best
                             and si is not None and si > self._best_metric):
@@ -322,12 +365,15 @@ class Experiment:
 
     def evaluate(self, num_batches: int = 4, dataset=None) -> Dict[str, float]:
         """PIT SI-SDR of the separated held-out mixtures (batch means over
-        `num_batches` batches of `dataset`, default the eval split)."""
+        `num_batches` batches of `dataset`, default the eval split; data
+        parallel, each rank scores its rows of every batch)."""
         dataset = dataset if dataset is not None else self.eval_dataset
-        eval_step = build_eval_step(self.cfg, self.eval_generator())
+        eval_step = build_eval_step(self.cfg, self.eval_generator(), self.dp)
         acc: Dict[str, float] = {}
         for i in range(num_batches):
-            sources = torch.from_numpy(dataset.batch()).to(self.device)
+            batch = dataset.batch()
+            sources = torch.from_numpy(
+                batch[self.dp.batch_rows(batch.shape[0])]).to(self.device)
             for k, v in eval_step(sources, 10_000 + i).items():
                 acc[k] = acc.get(k, 0.0) + float(v) / num_batches
         return acc

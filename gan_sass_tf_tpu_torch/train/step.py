@@ -1,9 +1,9 @@
 """The alternating G/D train step, the separation graph and the eval step.
 
 Port of `gan_sass_tf_tpu/train/step.py` (`build_train_step`,
-`build_separate_fn`, `build_eval_step`) on one device.  PyTorch runs
-eagerly, so the step is a sequence of launches rather than one compiled
-program; its semantics are the reference's:
+`build_separate_fn`, `build_eval_step`).  PyTorch runs eagerly, so the step
+is a sequence of launches rather than one compiled program; its semantics
+are the reference's:
 
   * sample the bank (or take the given sources) and mix;
   * the fused STFT-features kernel emits what the step needs for the
@@ -17,16 +17,26 @@ program; its semantics are the reference's:
   * the G loss is taken against the just-updated D: D's parameters get no
     update from it, but its gradient flows through D to the estimate;
   * instance noise, R1, the EMA shadow of G and the lr schedules as the
-    reference has them.
+    reference has them;
+  * data parallel (`dp`, the reference's `shard_map` over the mesh): each
+    rank runs the step on its rows of the global batch and all-reduces
+    (mean) D's gradients after each D step, G's gradients and the metrics,
+    as the reference's `pmean`s; the optimizers clip the reduced
+    gradients.  D's spectral-norm state is not reduced, where the
+    reference `pmean`s it: its power iteration reads only D's weights and
+    the stored u, which every rank holds equal, so every rank computes the
+    same u and sigma.
 
 Random numbers (bank picks, gains, noise) come from `data.counter_rng`,
-keyed by (seed, step, example), and not from the JAX package's threefry
-streams.
+keyed by (seed, step, global example), and not from the JAX package's
+threefry streams.  Instance noise is keyed by global pair row too, so R
+ranks of B/R examples draw exactly the noise of one rank of B (the
+reference folds the shard index into its key instead).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -45,30 +55,36 @@ from gan_sass_tf_tpu_torch.losses import (
     si_sdr,
 )
 from gan_sass_tf_tpu_torch.ops import dispatch as ops
+from gan_sass_tf_tpu_torch.parallel.mesh import DataParallel
 from gan_sass_tf_tpu_torch.train.state import TrainState
 
 STREAM_D_NOISE, STREAM_G_NOISE = 31, 61   # + 2·d_step; each uses two streams
 
 
 def instance_noise(x: torch.Tensor, std: float, seed: int, step: int,
-                   stream: int) -> torch.Tensor:
-    """x + std·N(0, 1), the noise drawn per row of x from the counters and
-    rounded to x's dtype, as the reference adds it."""
+                   stream: int, rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x + std·N(0, 1), the noise drawn per row of x from the counters (row
+    i keyed by rows[i], default i) and rounded to x's dtype, as the
+    reference adds it."""
     if std <= 0.0:
         return x
-    rows = torch.arange(x.shape[0], device=x.device)
+    if rows is None:
+        rows = torch.arange(x.shape[0], device=x.device)
     noise = counter_normal(seed, step, rows, stream, x[0].numel())
     return x + std * noise.reshape(x.shape).to(x.dtype)
 
 
-def build_train_step(cfg, from_bank: bool = False, local_batch: int = 0
+def build_train_step(cfg, from_bank: bool = False, local_batch: int = 0,
+                     dp: Optional[DataParallel] = None
                      ) -> Callable[[TrainState, torch.Tensor, int],
                                    Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """Returns train_step(state, data, seed) -> (state, metrics).  `data` is
-    the (B, S, T) f32 sources or, with from_bank=True, the (S, N_bank, T)
-    bank on the device, sampled for `local_batch` examples.  The state is
-    updated in place and returned; the metrics are 0-d tensors on the
-    device (reading them synchronizes)."""
+    the (B, S, T) f32 sources of this rank or, with from_bank=True, the
+    (S, N_bank, T) bank on the device, sampled for `local_batch` examples.
+    With `dp` the rank's examples start at global index dp.rank·B_local.
+    The state is updated in place and returned; the metrics are 0-d
+    tensors on the device (reading them synchronizes)."""
+    dp = dp or DataParallel()
     dcfg, lcfg, tcfg = cfg.dsp, cfg.loss, cfg.train
     n_fft, hop = dcfg.n_fft, dcfg.hop_length
     domains = tuple(lcfg.recon_domain.split("+"))
@@ -102,11 +118,12 @@ def build_train_step(cfg, from_bank: bool = False, local_batch: int = 0
         x = torch.stack([mix_b.to(d_dtype), cand_logmag.to(d_dtype)], dim=-1)
         return x.reshape(b * s, *x.shape[2:])
 
-    def d_update(state: TrainState, x_d, seed, step, di):
-        """One D step on the detached pair batch: loss, grads, optimizer,
-        and the new spectral-norm state stored."""
+    def d_update(state: TrainState, x_d, rows, seed, step, di):
+        """One D step on the detached pair batch (global pair rows `rows`):
+        loss, grads averaged over the ranks, optimizer, and the new
+        spectral-norm state stored."""
         d = state.d
-        x = instance_noise(x_d, d_noise, seed, step, STREAM_D_NOISE + 2 * di)
+        x = instance_noise(x_d, d_noise, seed, step, STREAM_D_NOISE + 2 * di, rows)
         loss = 0.0
         if r1_gamma > 0.0:
             # Zero-centred R1 on the real half, from the stored (pre-update)
@@ -119,13 +136,18 @@ def build_train_step(cfg, from_bank: bool = False, local_batch: int = 0
         real, fake = d(x, update_stats=True).chunk(2)
         loss = gan_d_loss(real, fake, lcfg.gan_loss) + loss
         grads = torch.autograd.grad(loss, state.d_opt.params)
+        dp.all_reduce_mean(grads)                 # before d_opt's clip
         state.d_opt.step(grads)
         return loss.detach(), real.detach().mean(), fake.detach().mean()
 
     def train_step(state: TrainState, data: torch.Tensor, seed: int):
         step = state.step
-        sources = sample_bank(data, seed, step, local_batch) if from_bank else data
-        mixture, scaled = mix_sources(sources, seed, step, cfg.data)
+        b = local_batch if from_bank else data.shape[0]
+        offset = dp.rank * b                      # this rank's first global example
+        sources = (sample_bank(data, seed, step, b, example_offset=offset)
+                   if from_bank else data)
+        mixture, scaled = mix_sources(sources, seed, step, cfg.data,
+                                      example_offset=offset)
         mix_out = ops.stft_features(mixture, dcfg, emit=mix_emit)
         spec_mix, mag_mix = mix_out.get("spec"), mix_out["mag"]
         mix_logmag = mix_out["logmag"]
@@ -159,8 +181,14 @@ def build_train_step(cfg, from_bank: bool = False, local_batch: int = 0
         # D updates on the pair batch built once, detached.
         x_d = torch.cat([d_input(mix_logmag, tgt_logmag),
                          d_input(mix_logmag, est_logmag_sg)])
+        # Global pair rows: the real half's at offset·S + i, the fake
+        # half's after all B·S real rows of the global batch.
+        s = tgt_logmag.shape[1]
+        real_rows = offset * s + torch.arange(b * s, device=x_d.device)
+        fake_rows = dp.world * b * s + real_rows
         for di in range(tcfg.d_steps):
-            d_loss, real_m, fake_m = d_update(state, x_d, seed, step, di)
+            d_loss, real_m, fake_m = d_update(
+                state, x_d, torch.cat([real_rows, fake_rows]), seed, step, di)
 
         def domain_rec(dname):
             if dname == "wav":
@@ -181,11 +209,13 @@ def build_train_step(cfg, from_bank: bool = False, local_batch: int = 0
         # Adversarial term against the just-updated D, fresh noise.
         fake_logits = state.d(
             instance_noise(d_input(mix_logmag, est_logmag), d_noise, seed,
-                           step, STREAM_G_NOISE),
+                           step, STREAM_G_NOISE, real_rows),
             update_stats=False)
         adv = gan_g_loss(fake_logits, lcfg.gan_loss)
         g_loss = lcfg.adv_weight * adv + lcfg.recon_weight * rec
-        state.g_opt.step(torch.autograd.grad(g_loss, state.g_opt.params))
+        g_grads = torch.autograd.grad(g_loss, state.g_opt.params)
+        dp.all_reduce_mean(g_grads)               # before g_opt's clip
+        state.g_opt.step(g_grads)
 
         if state.g_ema is not None:
             # Warm-up ramp min(decay, (1+t)/(10+t)), t the post-update count.
@@ -199,6 +229,7 @@ def build_train_step(cfg, from_bank: bool = False, local_batch: int = 0
         metrics = {"d_loss": d_loss, "g_loss": g_loss.detach(),
                    "g_adv": adv.detach(), "g_recon": rec.detach(),
                    "d_real_logit": real_m, "d_fake_logit": fake_m}
+        dp.all_reduce_mean(list(metrics.values()))
         return state, metrics
 
     return train_step
@@ -229,22 +260,27 @@ def build_separate_fn(cfg, g: torch.nn.Module) -> Callable[[torch.Tensor], torch
     return separate
 
 
-def build_eval_step(cfg, g: torch.nn.Module
+def build_eval_step(cfg, g: torch.nn.Module, dp: Optional[DataParallel] = None
                     ) -> Callable[[torch.Tensor, int], Dict[str, torch.Tensor]]:
     """eval_step(sources (B, S, T), seed) -> best-permutation SI-SDR of the
     separated estimates, the mixture's own, and the improvement (batch
-    means, 0-d tensors)."""
+    means, 0-d tensors).  With `dp`, `sources` are this rank's rows of the
+    global batch and the means are taken over all ranks."""
     separate = build_separate_fn(cfg, g)
+    dp = dp or DataParallel()
 
     @torch.inference_mode()
     def eval_step(sources: torch.Tensor, seed: int) -> Dict[str, torch.Tensor]:
-        mixture, scaled = mix_sources(sources, seed, 0, cfg.data)
+        mixture, scaled = mix_sources(sources, seed, 0, cfg.data,
+                                      example_offset=dp.rank * sources.shape[0])
         est = separate(mixture)
         t = est.shape[-1]
         tgt = scaled[..., :t]
         sisdr = pit_si_sdr(est, tgt).mean()
         baseline = pit_si_sdr(mixture[:, None, :t].expand_as(tgt), tgt).mean()
-        return {"si_sdr": sisdr, "si_sdr_mix": baseline,
-                "si_sdr_improvement": sisdr - baseline}
+        out = {"si_sdr": sisdr, "si_sdr_mix": baseline,
+               "si_sdr_improvement": sisdr - baseline}
+        dp.all_reduce_mean(list(out.values()))
+        return out
 
     return eval_step

@@ -129,13 +129,16 @@ def _imports(path):
 
 
 def test_port_imports_no_jax():
-    """No module of the port, and not chip_smoke.py, imports JAX, its
-    libraries or any module of the JAX package (the config included)."""
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    """No module of the port, not chip_smoke.py and not the ranks' code of
+    tests/test_torch_parallel.py imports JAX, its libraries or any module
+    of the JAX package (the config included)."""
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                          ROOT / "tests" / "_torch_dist_workers.py"]
     assert len(files) > 15
     names = {str(p.relative_to(PORT)) for p in files if PORT in p.parents}
     assert {"infer/streaming.py", "data/corpus.py", "data/fixtures.py",
-            "utils/metrics_writer.py", "train/experiment.py"} <= names
+            "utils/metrics_writer.py", "train/experiment.py",
+            "parallel/bootstrap.py", "parallel/mesh.py"} <= names
     bad = [f"{path.relative_to(ROOT)}: {mod}" for path in files
            for mod in _imports(path) if mod.split(".")[0] in FORBIDDEN]
     assert not bad, bad
