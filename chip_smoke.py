@@ -76,6 +76,22 @@ Phases, one JSON line each:
               launched); K1 at the step's mixture, target and separation
               shapes and K2 on the trained G's masks, against their plain
               versions and timed
+    options  the model options at full width: music_complex_44k with the fold
+              stem (1, 2) and fold head (one step on each DSP path from one
+              state; its step profile, wall ms and peak memory beside the
+              default music step's in this process; `cli train` into a
+              workdir, 4 steps then 2 resumed; `cli eval`; `cli separate`
+              of a 30 s 44.1 kHz wav, kernel vs plain >= 40 dB after the
+              best permutation; the quality protocol, K1, K2 and K4
+              launched); stream_v5e8 with the patch BN D on the
+              frame-folded input, dropout 0.1, the conv stem (1, 2), the
+              packed film head, subpixel dec_l0, PhaseConvTranspose and
+              g_remat (2 steps, K3 and its backward once a step, one step
+              on each DSP path, its step profile and wall ms beside the
+              default stream_v5e8 step's, BN statistics finite and moved, G's
+              gradients with and without remat within 1e-2 max|g|) and
+              one step with the group-norm D; `cli train` 2src_toy_cpu
+              with the conv and the toy G
   8 k4        the complex STFT kernel vs its plain version at the
               stream_v5e8 oracle shapes (32 mixtures, 32 x 2 sources), the
               music_complex_44k shape (8 x 2 sources, n_fft 2048), a 60 s
@@ -116,6 +132,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import io
 import json
 import math
@@ -1457,6 +1474,232 @@ def finite(value) -> bool:
     return not isinstance(value, float) or math.isfinite(value)
 
 
+# The options phase: music_complex_44k with the fold stem and fold head,
+# and stream_v5e8 with every other model option on.
+MUSIC_FOLD = ("model.g_stem_mode=fold", "model.g_stem_stride=1,2",
+              "model.g_head_mode=fold")
+STREAM_OPTIONS = ("model.discriminator=patch", "model.d_norm=batch",
+                  "model.d_input_fold=2", "model.dropout=0.1",
+                  "model.g_stem_mode=conv", "model.g_stem_stride=1,2",
+                  "model.g_head_mode=film", "model.g_dec_l0=subpixel",
+                  "model.g_phase_ct=true", "model.g_remat=true")
+OPTIONS_STEPS, OPTIONS_STEP_SAMPLES = 4, 8
+SEED_OPTIONS = 9                     # the options phase's own generator
+SR_MUSIC, T_MUSIC_SEP = 44100, 30 * 44100      # the separated music wav: 30 s
+
+
+def set_args(overrides) -> list:
+    return [a for o in overrides for a in ("--set", o)]
+
+
+def counted(fn):
+    """(fn(), the launches of every kernel it made), each count set to 0
+    just before and read just after (the device synchronized)."""
+    reset_launch_counts()
+    k4.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {**launch_counts(), "stft": k4.launches}
+
+
+def both_paths(exp, keys=("g_loss", "g_recon", "d_loss")):
+    """One step from one state on the kernel and on the plain DSP path: the
+    metrics, the states after, and the relative gaps, checked."""
+    out, states = {}, {}
+    for path in (None, "reference"):
+        states[path or "kernel"] = state = copy.deepcopy(exp.state)
+        with dispatch.force_backend(path):
+            _, m = exp._train_step(state, exp._bank, exp._train_seed)
+        out[path or "kernel"] = {k: float(v) for k, v in m.items()}
+    gaps = {}
+    for key in keys:
+        a, b = out["kernel"][key], out["reference"][key]
+        gaps[key] = abs(a - b) / max(abs(b), 1.0)
+        check(gaps[key] <= 1e-2, f"{exp.cfg.name} options step {key}: kernel {a} "
+              f"vs plain {b}")
+    return out, gaps, states
+
+
+def g_grads(step, exp) -> list:
+    """G's gradients (as the optimizer receives them) of one step of
+    `step` from a copy of exp's state."""
+    state = copy.deepcopy(exp.state)
+    got = []
+    inner = state.g_opt.step
+    state.g_opt.step = lambda grads: (got.append([g.detach().clone() for g in grads]),
+                                      inner(grads))
+    step(state, exp._bank, exp._train_seed)
+    return got[0]
+
+
+def paired_walls(exps: dict) -> dict:
+    """Median wall ms (synchronized) of one train step of each Experiment,
+    OPTIONS_STEP_SAMPLES each, in turns (a, b, b, a, ...)."""
+    names = list(exps)
+    walls = {n: [] for n in names}
+    for n in names:
+        exps[n]._train_step(exps[n].state, exps[n]._bank, exps[n]._train_seed)
+    for i in range(2 * OPTIONS_STEP_SAMPLES):
+        n = (names + names[::-1])[i % (2 * len(names))]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exps[n]._train_step(exps[n].state, exps[n]._bank, exps[n]._train_seed)
+        torch.cuda.synchronize()
+        walls[n].append((time.perf_counter() - t0) * 1e3)
+    return {n: statistics.median(w) for n, w in walls.items()}
+
+
+def phase_options(dev, tmp: Path):
+    """The model options at full width.  (a) music_complex_44k with the fold
+    stem (1, 2) and fold head: one step on each DSP path from one state;
+    the step profiled and timed beside the default music step in this
+    process; `cli train` into a workdir (4 steps, then 2 resumed), `cli
+    eval`, `cli separate` of a 30 s wav (kernel vs plain >= 40 dB), the
+    quality protocol.  (b) stream_v5e8 with the patch BN D on the folded
+    input, dropout, the conv stem, film head, subpixel dec_l0,
+    PhaseConvTranspose and g_remat: 2 steps (K3 and its backward once a
+    step), one step on each path, its step profile and wall beside the
+    default stream_v5e8 step's, BN statistics finite and moved, G's
+    gradients with and without remat; one step with the group-norm D.
+    (c) `cli train` 2src_toy_cpu as shipped and with the toy G.  Its own
+    generator leaves the later phases' inputs as they were."""
+    rng = np.random.default_rng(SEED_OPTIONS)
+    counts = {}
+    dev_args = ["--device", str(dev)]
+
+    # (a) music, fold head.
+    music_sets = set_args(MUSIC_FOLD)
+    cfg = cli._apply_overrides(config.get_config("music_complex_44k"), list(MUSIC_FOLD))
+    exp = Experiment(cfg, device=dev)
+    default = Experiment(config.get_config("music_complex_44k"), device=dev)
+    check(exp.state.g.fold_head and not hasattr(exp.state.g, "head"),
+          "music options: G has no fold head")
+    one_step, gaps, _ = both_paths(exp)
+    profiles = {"fold_head": step_profile(exp), "default": step_profile(default)}
+    for name, prof in profiles.items():
+        k1_fam = prof["by_family"].get("K1 stft_features", {}).get("launches")
+        prof["k1_launches_per_step_recorded"] = k1_fam
+    walls = paired_walls({"fold_head": exp, "default": default})
+    peaks = {}
+    for name, e in (("fold_head", exp), ("default", default)):
+        torch.cuda.reset_peak_memory_stats()
+        e._train_step(e.state, e._bank, e._train_seed)
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated() / 2**20
+    g_params = {n: sum(p.numel() for p in e.state.g.parameters())
+                for n, e in (("fold_head", exp), ("default", default))}
+    del exp, default
+    wd = tmp / "music_fold"
+    common = ["--config", "music_complex_44k", "--workdir", str(wd), *dev_args, *music_sets]
+    out, counts["options_music_train"] = counted(
+        lambda: captured(cli.main, ["train", *common, "--steps", str(OPTIONS_STEPS)]))
+    check(counts["options_music_train"]["stft_features"] == 2 * OPTIONS_STEPS,
+          f"music options train launches {counts['options_music_train']}")
+    losses = {OPTIONS_STEPS: cli_losses(out, OPTIONS_STEPS)}
+    out = captured(cli.main, ["train", *common, "--steps", "2"])
+    check(f"resumed from step {OPTIONS_STEPS}" in out, f"music options resume: {out}")
+    losses[OPTIONS_STEPS + 2] = cli_losses(out, OPTIONS_STEPS + 2)
+    check(all(math.isfinite(v) for m in losses.values() for v in m.values()),
+          f"music options losses {losses}")
+    ev, counts["options_music_eval"] = counted(lambda: captured(
+        cli.main, ["eval", *common, "--batches", "1"]))
+    check("si_sdr_improvement" in ev and counts["options_music_eval"]["masked_istft"] == 1
+          and counts["options_music_eval"]["stft_features"] == 1,
+          f"music options eval: {ev} {counts['options_music_eval']}")
+    wav = tmp / "music30s.wav"
+    write_wav(str(wav), SR_MUSIC, mixtures(rng, 1, T_MUSIC_SEP, SR_MUSIC)[0])
+    _, counts["options_music_separation"] = counted(lambda: captured(cli.main, [
+        "separate", *common, "--input", str(wav), "--output-dir", str(tmp / "music_out")]))
+    check(counts["options_music_separation"]["stft_features"] == 1
+          and counts["options_music_separation"]["masked_istft"] == 1,
+          f"music options separation launches {counts['options_music_separation']}")
+    srcs = np.stack([read_wav(str(tmp / "music_out" / f"{wav.stem}_src{i}.wav"))[1]
+                     for i in range(S_MUSIC)])
+    check(srcs.shape == (S_MUSIC, T_MUSIC_SEP) and np.isfinite(srcs).all(),
+          f"music options cli separate: {srcs.shape}")
+    trained = Experiment(config.Config.from_json((wd / "config.json").read_text()),
+                         workdir=str(wd), device=dev)
+    check(trained.state.step == OPTIONS_STEPS + 2, f"music options workdir at "
+          f"step {trained.state.step}")
+    g, mix = trained.eval_generator(), read_wav(str(wav))[1]
+    est = separate(g, trained.cfg, mix, dev)
+    with dispatch.force_backend("reference"):
+        ref = separate(g, trained.cfg, mix, dev)
+    sep_db = best_perm_agreement(est[None], ref[None])
+    check(sep_db >= 40.0, f"music options separation kernel vs plain {sep_db} dB")
+    del trained, g
+    quality, counts["options_music_quality"] = counted(lambda: captured_json(
+        quality_protocol.main, ["music_complex_44k", str(QUALITY_MUSIC_STEPS),
+                                *music_sets, *dev_args]))
+    check(set(quality) == QUALITY_KEYS and all(finite(v) for v in quality.values()),
+          f"music options quality: {quality}")
+    check(all(counts["options_music_quality"][k] > 0
+              for k in ("stft_features", "masked_istft", "stft")),
+          f"music options quality launches {counts['options_music_quality']}")
+    emit("options", path="music_complex_44k fold head", sets=list(MUSIC_FOLD),
+         batch=cfg.train.batch_size, segment_samples=cfg.segment_samples,
+         g_params=g_params, one_step=one_step, gap=gaps,
+         tol="|kernel - plain| <= 1e-2 * max(|plain|, 1)",
+         step_wall_ms=walls, peak_device_mib=peaks, step_profile=profiles,
+         cli_losses=losses, resumed_at=OPTIONS_STEPS, eval=ev.strip().splitlines(),
+         separation_kernel_vs_plain_min_db=sep_db, quality=quality,
+         launches={k: v for k, v in counts.items() if k.startswith("options_music")})
+
+    # (b) stream_v5e8, every other option.
+    cfg = cli._apply_overrides(config.get_config("stream_v5e8"), list(STREAM_OPTIONS))
+    exp = Experiment(cfg, device=dev)
+    d, g = exp.state.d, exp.state.g
+    check(d.patch and d.norm == "batch" and g.phase_ct and g.dec_l0 == "subpixel"
+          and g.head.mode == "pack", "stream options: the modules lack an option")
+    bn0 = [t.detach().clone() for n in d.norms for t in (n.mean, n.var)]
+    last, counts["options_stream_train"] = counted(lambda: exp.train(num_steps=2))
+    c = counts["options_stream_train"]
+    check(c["istft"] == 2 and c["istft_bwd"] == 2 and c["stft_features"] == 4,
+          f"stream options train launches {c}")
+    check(all(np.isfinite(v) for v in last.values()), f"stream options: {last}")
+    bn = [t.detach() for n in d.norms for t in (n.mean, n.var)]
+    bn_moved = max(max_err(a, b) for a, b in zip(bn0, bn))
+    check(all(bool(torch.isfinite(t).all()) for t in bn) and bn_moved > 0,
+          f"stream options BN statistics: moved {bn_moved}")
+    one_step_s, gaps_s, _ = both_paths(exp)
+    default = Experiment(config.get_config("stream_v5e8"), device=dev)
+    profiles_s = {"every_option": step_profile(exp), "default": step_profile(default)}
+    walls_s = paired_walls({"every_option": exp, "default": default})
+    del default
+    no_remat = build_train_step(
+        cfg.replace(model=dataclasses.replace(cfg.model, g_remat=False)),
+        from_bank=True, local_batch=exp.dp.local_batch)
+    ga, gb = g_grads(exp._train_step, exp), g_grads(no_remat, exp)
+    g_max = max(float(t.abs().max()) for t in gb)
+    remat_err = max(max_err(a, b) for a, b in zip(ga, gb))
+    check(remat_err <= 1e-2 * g_max, f"g_remat G gradients {remat_err} vs max {g_max}")
+    group_cfg = cli._apply_overrides(config.get_config("stream_v5e8"),
+                                     ["model.d_norm=group"])
+    group_last = Experiment(group_cfg, device=dev).train(num_steps=1)
+    check(all(np.isfinite(v) for v in group_last.values()), f"group D: {group_last}")
+    emit("options", path="stream_v5e8 every option", sets=list(STREAM_OPTIONS),
+         batch=cfg.train.batch_size, last=last, one_step=one_step_s, gap=gaps_s,
+         step_wall_ms=walls_s, step_profile=profiles_s,
+         bn_running_stats_moved_max_abs=bn_moved,
+         remat_g_grad_max_abs_err=remat_err, g_grad_max_abs=g_max,
+         remat_tol="<= 1e-2 * max|g|", group_norm_step=group_last,
+         launches=counts["options_stream_train"])
+    del exp, d, g
+
+    # (c) 2src_toy_cpu with both generators.
+    toy = {}
+    for name, sets in (("conv", []), ("toy", ["--set", "model.generator=toy"])):
+        out, counts[f"options_toy_{name}"] = counted(lambda: captured(cli.main, [
+            "train", "--config", "2src_toy_cpu", "--steps", "2", *dev_args, *sets]))
+        toy[name] = cli_losses(out, 2)
+        check(all(math.isfinite(v) for v in toy[name].values())
+              and counts[f"options_toy_{name}"]["stft_features"] == 4,
+              f"2src_toy_cpu {name}: {toy[name]} {counts[f'options_toy_{name}']}")
+    emit("options", path="2src_toy_cpu", losses_step_2=toy,
+         launches={k: v for k, v in counts.items() if k.startswith("options_toy")})
+    return counts
+
+
 def phase_quality(dev):
     """The quality protocol through its main() at full width, then the
     music train step's wall time on both DSP paths and its peak memory."""
@@ -1834,6 +2077,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         pit3_counts, pit3_rows = phase_pit3(rng, dev, Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
+        opt = phase_options(dev, Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
         wd, workdir_counts = phase_workdir(dev, Path(tmp))
         stream_launches, stream_shapes = phase_stream(rng, dev, Path(tmp), wd)
         dp_counts = phase_dp(dev, Path(tmp))
@@ -1860,7 +2105,7 @@ def main() -> int:
                    stream_scan=stream_launches["scan"],
                    pit3_train=pit3_counts["train"], pit3_eval=pit3_counts["eval"],
                    pit3_separation=pit3_counts["separation"],
-                   pit3_quality=pit3_counts["quality"], **dp_counts),
+                   pit3_quality=pit3_counts["quality"], **dp_counts, **opt),
          "max_abs_err": k1_err, **times["stft_features"],
          "stream_shape": stream_rows("stft_features"),
          "pit3_shape": pit3_rows["stft_features"]},
@@ -1872,7 +2117,10 @@ def main() -> int:
                    stream_scan=stream_launches["scan"],
                    pit3_eval=pit3_counts["eval"],
                    pit3_separation=pit3_counts["separation"],
-                   pit3_quality=pit3_counts["quality"], **dp_counts),
+                   pit3_quality=pit3_counts["quality"], **dp_counts,
+                   **{k: opt[k] for k in ("options_music_eval",
+                                          "options_music_separation",
+                                          "options_music_quality")}),
          "max_abs_err": k2_err, **times["masked_istft"],
          "stream_shape": stream_rows("masked_istft"),
          "pit3_shape": pit3_rows["masked_istft"]},
@@ -1880,20 +2128,23 @@ def main() -> int:
          "source": "gan_sass_tf_tpu_torch/ops/csrc/masked_istft.cu",
          "replaces": "gan_sass_tf_tpu/ops/pallas_istft.py:71",
          **by_path("istft", train=train_counts, workdir=workdir_counts,
-                   dp_train=dp_counts["dp_train"]),
+                   dp_train=dp_counts["dp_train"],
+                   options_stream_train=opt["options_stream_train"]),
          "max_abs_err": k3_errs["forward_full"], **times["istft"]},
         {"name": "istft_bwd", "route": "cuda",
          "source": "gan_sass_tf_tpu_torch/ops/csrc/stft_features.cu",
          "replaces": "gan_sass_tf_tpu/ops/pallas_istft.py:151",
          **by_path("istft_bwd", train=train_counts, workdir=workdir_counts,
-                   dp_train=dp_counts["dp_train"]),
+                   dp_train=dp_counts["dp_train"],
+                   options_stream_train=opt["options_stream_train"]),
          "max_abs_err": max(k3_errs["grad_re"], k3_errs["grad_im"]),
          **times["istft_bwd"]},
         {"name": "stft", "route": "cuda",
          "source": "gan_sass_tf_tpu_torch/ops/csrc/stft_features.cu",
          "replaces": "gan_sass_tf_tpu/ops/pallas_stft.py:228",
          **by_path("stft", bounds=bound_launches, quality=quality_launches,
-                   pit3_quality=pit3_counts["quality"]),
+                   pit3_quality=pit3_counts["quality"],
+                   options_music_quality=opt["options_music_quality"]),
          "max_abs_err": k4_err, **times["stft"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

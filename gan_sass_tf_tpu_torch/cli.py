@@ -195,24 +195,13 @@ def main(argv=None) -> int:
         return 1
     import torch
 
-    from gan_sass_tf_tpu_torch.parallel import (
-        initialize_distributed,
-        rank_device,
-        shutdown_distributed,
-    )
+    from gan_sass_tf_tpu_torch.parallel import run_in_group
 
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         print("error: --device cuda but no CUDA device is visible "
               "(pass --device cpu to run on the CPU)", file=sys.stderr)
         return 1
-    import torch.distributed as dist
-
-    joined = not dist.is_initialized() and initialize_distributed(device=args.device)
-    try:
-        return _run(args, rank_device(args.device))
-    finally:
-        if joined:                 # a group the caller joined stays the caller's
-            shutdown_distributed()
+    return run_in_group(args.device, lambda device: _run(args, device))
 
 
 def _run(args, device) -> int:

@@ -1,5 +1,5 @@
-"""Separation generators (conv U-Net, BiLSTM), the spectral-norm conv
-discriminator, and their flax weight converters."""
+"""Separation generators (conv U-Net, BiLSTM, toy MLP), the conv and patch
+discriminators, and their flax weight converters."""
 
 from gan_sass_tf_tpu_torch.models.convert import (
     convert_discriminator_variables,
@@ -16,12 +16,12 @@ from gan_sass_tf_tpu_torch.models.generator import (
     BiLSTMGenerator,
     ConvUNetGenerator,
     MaskHead,
-    SequenceMaskHead,
+    ToyMLPGenerator,
 )
 from gan_sass_tf_tpu_torch.models.registry import build_discriminator, build_generator
 
 __all__ = [
-    "ConvUNetGenerator", "MaskHead", "BiLSTMGenerator", "SequenceMaskHead",
+    "ConvUNetGenerator", "MaskHead", "BiLSTMGenerator", "ToyMLPGenerator",
     "ConvDiscriminator", "build_generator",
     "build_discriminator", "convert_generator_params",
     "generator_params_to_flax", "convert_discriminator_variables",

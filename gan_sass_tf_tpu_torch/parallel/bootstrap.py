@@ -64,3 +64,15 @@ def shutdown_distributed() -> None:
     """Destroy the default process group, if one was joined."""
     if dist.is_initialized():
         dist.destroy_process_group()
+
+
+def run_in_group(device, run):
+    """run(this rank's device) inside torchrun's process group when there
+    is one, joined here and left after (a group the caller joined stays
+    the caller's); else run(device)."""
+    joined = not dist.is_initialized() and initialize_distributed(device=device)
+    try:
+        return run(rank_device(device))
+    finally:
+        if joined:
+            shutdown_distributed()

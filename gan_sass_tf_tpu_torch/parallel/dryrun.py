@@ -1,13 +1,13 @@
 """One data-parallel train step of a tiny config over N ranks: the port's
 `dryrun_multichip` (`__graft_entry__.py`).
 
+    python -m gan_sass_tf_tpu_torch.parallel.dryrun --world 4
     python -m gan_sass_tf_tpu_torch.parallel.dryrun --world 2 --device cpu
-    python -m gan_sass_tf_tpu_torch.parallel.dryrun --world 4 --device cuda
 
-spawns N ranks (gloo on the CPU, NCCL with one GPU a rank for cuda), joins
-them through a file store in a temporary directory, runs one step of
-`stream_v5e8` cut to n_fft 128, 0.05 s segments and G/D (8, 16) at global
-batch N, and prints `dryrun_multichip(N): ok — metrics {...}` from rank 0.
+spawns N ranks (NCCL with one GPU a rank, the default; gloo on the CPU
+with --device cpu), joins them through a file store in a temporary
+directory, runs one step of `stream_v5e8` cut to n_fft 128, 0.05 s
+segments and G/D (8, 16) at global batch N, and prints `dryrun_multichip(N): ok — metrics {...}` from rank 0.
 Any rank's failure exits non-zero; a CUDA run without N visible GPUs
 fails before spawning.
 """
@@ -73,7 +73,7 @@ def _rank(rank: int, world: int, device: str, store: str) -> None:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="gan_sass_tf_tpu_torch.parallel.dryrun")
     p.add_argument("--world", type=int, default=2, help="number of ranks")
-    p.add_argument("--device", default="cpu", choices=("cpu", "cuda"))
+    p.add_argument("--device", default="cuda", choices=("cpu", "cuda"))
     args = p.parse_args(argv)
     if args.device == "cuda" and torch.cuda.device_count() < args.world:
         print(f"error: --device cuda --world {args.world} needs {args.world} "

@@ -14,12 +14,15 @@ train/eval once per seed (default seed 0) and reports the mean and the
 half-range.  --device is a torch device (default cuda, which fails when no
 GPU is visible).
 
-Two differences from the JAX script: the global batch runs on one device
-(the script joins no process group, so `mesh.data_axis_size` has no
-effect; ROADMAP.md item 8's follow-up), and the bound's i-th batch is mixed
-with the counter RNG at seed 20 000 + i (`data.mix_sources`) where the JAX
-script used jax.random.PRNGKey(20 000 + i): on the same sources the two
-packages draw other gains and noise.
+Under torchrun it joins the process group (`parallel.
+initialize_distributed`), as the JAX script fits every device into one
+data mesh: training and the evals run data parallel over every rank
+(`Experiment`), the bound's batches are dealt out to the ranks and their
+values summed, and rank 0 alone prints.  One difference from the JAX
+script: the bound's i-th batch is mixed with the counter RNG at seed
+20 000 + i (`data.mix_sources`) where the JAX script used
+jax.random.PRNGKey(20 000 + i): on the same sources the two packages draw
+other gains and noise.
 
 Prints one JSON line:
   {"preset":..., "hard":..., "steps":..., "seeds":[...],
@@ -34,13 +37,16 @@ from __future__ import annotations
 import dataclasses
 import json
 import sys
+from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from gan_sass_tf_tpu_torch import config as config_lib
-from gan_sass_tf_tpu_torch.cli import _apply_overrides
+from gan_sass_tf_tpu_torch.cli import _apply_overrides, _quiet
 from gan_sass_tf_tpu_torch.data import make_dataset, mix_sources
 from gan_sass_tf_tpu_torch.losses import oracle_bound_si_sdr
+from gan_sass_tf_tpu_torch.parallel import DataParallel, run_in_group
 
 BOUND_SEED = 20_000      # the bound's batch i is mixed at seed BOUND_SEED + i
 
@@ -72,27 +78,46 @@ def device_or_exit(name: str) -> torch.device:
 
 
 @torch.inference_mode()
-def mean_oracle_bound(cfg, dataset, device, num_batches: int) -> float:
+def mean_oracle_bound(cfg, dataset, device, num_batches: int,
+                      dp: Optional[DataParallel] = None) -> float:
     """Mean oracle SI-SDR improvement over `num_batches` fresh batches of
-    `dataset`, batch i mixed at seed BOUND_SEED + i."""
-    acc = 0.0
+    `dataset`, batch i mixed at seed BOUND_SEED + i.  Data parallel, every
+    rank draws every batch (the dataset's stream stays in step) and scores
+    those with i % world == rank; the per-batch values are summed over the
+    ranks, so every rank returns what one rank would, bit for bit."""
+    dp = dp or DataParallel()
+    values = torch.zeros(num_batches, dtype=torch.float64, device=device)
     for i in range(num_batches):
-        sources = torch.from_numpy(dataset.batch()).to(device)
-        mixture, scaled = mix_sources(sources, BOUND_SEED + i, 0, cfg.data)
-        out = oracle_bound_si_sdr(mixture, scaled, cfg.dsp)
-        acc += float(out["si_sdr_improvement"]) / num_batches
+        batch = dataset.batch()
+        if i % dp.world == dp.rank:
+            sources = torch.from_numpy(batch).to(device)
+            mixture, scaled = mix_sources(sources, BOUND_SEED + i, 0, cfg.data)
+            values[i] = float(oracle_bound_si_sdr(mixture, scaled, cfg.dsp)
+                              ["si_sdr_improvement"])
+    if dp.group is not None:
+        dist.all_reduce(values, op=dist.ReduceOp.SUM, group=dp.group)
+    acc = 0.0
+    for v in values.tolist():
+        acc += v / num_batches
     return acc
 
 
 def oracle_bound_on_eval(exp, num_batches: int = 4) -> float:
     """Oracle-mask SI-SDRi on the distribution `exp.evaluate()` scores (the
     next batches of its eval dataset)."""
-    return mean_oracle_bound(exp.cfg, exp.eval_dataset, exp.device, num_batches)
+    return mean_oracle_bound(exp.cfg, exp.eval_dataset, exp.device, num_batches,
+                             exp.dp)
+
+
+def in_process_group(device: str, run) -> int:
+    """run(device of this rank) inside torchrun's process group when there
+    is one, else on `device`; exits when `device` is cuda and no GPU is
+    visible."""
+    device_or_exit(device)
+    return run_in_group(device, run)
 
 
 def main(argv) -> int:
-    from gan_sass_tf_tpu_torch.train import Experiment
-
     hard = "--hard" in argv
     overrides, seeds, device, skip = [], [0], "cuda", set()
     for i, a in enumerate(argv):
@@ -112,16 +137,24 @@ def main(argv) -> int:
     steps = int(args[1]) if len(args) > 1 else 10_000
 
     cfg = protocol_config(preset, hard, overrides)
-    exp = Experiment(cfg, workdir=None, device=device_or_exit(device))
+    return in_process_group(device, lambda dev: _protocol(cfg, preset, hard, steps,
+                                                          seeds, dev))
+
+
+def _protocol(cfg, preset, hard, steps, seeds, device) -> int:
+    from gan_sass_tf_tpu_torch.train import Experiment
+
+    exp = Experiment(cfg, workdir=None, device=device)
+    say = print if exp.dp.is_main else _quiet
 
     d_traj: list = []   # (step, d_loss) at every log interval, current seed
 
     def log(step, m):
         d_traj.append((step, float(m["d_loss"])))
         if step % max(cfg.train.log_every * 10, 1) < cfg.train.log_every:
-            print(f"step {step}: g={m['g_loss']:.3f} d={m['d_loss']:.3f} "
-                  f"thr={m['mixture_sec_per_sec']:.0f}", file=sys.stderr,
-                  flush=True)
+            say(f"step {step}: g={m['g_loss']:.3f} d={m['d_loss']:.3f} "
+                f"thr={m['mixture_sec_per_sec']:.0f}", file=sys.stderr,
+                flush=True)
 
     def traj_summary():
         """d_loss at ~25/50/75/100% of training, the last pick on the
@@ -151,10 +184,10 @@ def main(argv) -> int:
             "d_loss_traj": traj_summary(),
             "throughput": metrics.get("mixture_sec_per_sec", 0.0),
         })
-        print(f"seed {seed}: held-out "
-              f"{ev['si_sdr_improvement']:+.2f} dB (train-dist "
-              f"{ev_tr['si_sdr_improvement']:+.2f}, bound {bound:.2f})",
-              file=sys.stderr, flush=True)
+        say(f"seed {seed}: held-out "
+            f"{ev['si_sdr_improvement']:+.2f} dB (train-dist "
+            f"{ev_tr['si_sdr_improvement']:+.2f}, bound {bound:.2f})",
+            file=sys.stderr, flush=True)
 
     def mean(key):
         return sum(r[key] for r in per_seed) / len(per_seed)
@@ -183,7 +216,7 @@ def main(argv) -> int:
         "d_norm": cfg.model.d_norm,
         "throughput": round(mean("throughput"), 1),
     }
-    print(json.dumps(out))
+    say(json.dumps(out), flush=True)
     return 0
 
 

@@ -7,7 +7,9 @@ batches.
 
 Port of `scripts/recompute_bounds.py`, with its arguments and JSON keys;
 its `--cpu` is `--device cpu` here.  It builds no model, so it runs for
-every preset.
+every preset.  Under torchrun it joins the process group and deals the
+batches out to the ranks (`quality_protocol.mean_oracle_bound`); rank 0
+alone prints.
 """
 
 from __future__ import annotations
@@ -16,8 +18,9 @@ import json
 import sys
 
 from gan_sass_tf_tpu_torch.data import make_dataset
+from gan_sass_tf_tpu_torch.parallel import data_parallel
 from gan_sass_tf_tpu_torch.scripts.quality_protocol import (
-    device_or_exit,
+    in_process_group,
     mean_oracle_bound,
     protocol_config,
 )
@@ -25,11 +28,11 @@ from gan_sass_tf_tpu_torch.scripts.quality_protocol import (
 NUM_BATCHES = 8
 
 
-def oracle_bound(cfg, device) -> float:
+def oracle_bound(cfg, device, dp=None) -> float:
     """The bound of `cfg`'s held-out split, unrounded."""
     eval_ds = make_dataset(cfg, seed=cfg.train.seed + 9999,
                            split=cfg.data.eval_split)
-    return mean_oracle_bound(cfg, eval_ds, device, NUM_BATCHES)
+    return mean_oracle_bound(cfg, eval_ds, device, NUM_BATCHES, dp)
 
 
 def main(argv) -> int:
@@ -46,15 +49,21 @@ def main(argv) -> int:
             if i not in values and not a.startswith("--")]
     preset = args[0] if args else "stream_v5e8"
 
-    dev = device_or_exit(device)
     cfg = protocol_config(preset, hard, overrides)
-    print(json.dumps({
-        "preset": preset, "hard": hard,
-        "oracle_bound": round(oracle_bound(cfg, dev), 2),
-        "mask_type": cfg.dsp.mask_type,
-        "mask_activation": cfg.dsp.mask_activation,
-    }))
-    return 0
+
+    def run(dev) -> int:
+        dp = data_parallel(cfg.mesh, cfg.train.batch_size)
+        line = json.dumps({
+            "preset": preset, "hard": hard,
+            "oracle_bound": round(oracle_bound(cfg, dev, dp), 2),
+            "mask_type": cfg.dsp.mask_type,
+            "mask_activation": cfg.dsp.mask_activation,
+        })
+        if dp.is_main:
+            print(line, flush=True)
+        return 0
+
+    return in_process_group(device, run)
 
 
 if __name__ == "__main__":

@@ -18,20 +18,31 @@ are the reference's:
     update from it, but its gradient flows through D to the estimate;
   * instance noise, R1, the EMA shadow of G and the lr schedules as the
     reference has them;
+  * D is called in train mode, as the reference's `d_apply` calls it: a
+    BN D normalizes with the statistics of the batch it is given (the
+    real+fake pairs in a D update, the real half in R1, the fake pairs in
+    the G loss) and stores running statistics from the D updates alone;
+    `d_input_fold` folds f frames of the pairs into channels;
+  * `g_remat` recomputes G's forward in the backward
+    (`torch.utils.checkpoint`, the reference's `jax.checkpoint`);
   * data parallel (`dp`, the reference's `shard_map` over the mesh): each
     rank runs the step on its rows of the global batch and all-reduces
     (mean) D's gradients after each D step, G's gradients and the metrics,
     as the reference's `pmean`s; the optimizers clip the reduced
-    gradients.  D's spectral-norm state is not reduced, where the
-    reference `pmean`s it: its power iteration reads only D's weights and
-    the stored u, which every rank holds equal, so every rank computes the
-    same u and sigma.
+    gradients.  A BN D normalizes each rank's pairs with their own
+    statistics and its running statistics are averaged over the ranks
+    after the D steps, as the reference `pmean`s them; so with BN, R ranks
+    do not compute what one rank does.  D's spectral-norm state is not
+    reduced, where the reference `pmean`s it: its power iteration reads
+    only D's weights and the stored u, which every rank holds equal, so
+    every rank computes the same u and sigma.
 
 Random numbers (bank picks, gains, noise) come from `data.counter_rng`,
 keyed by (seed, step, global example), and not from the JAX package's
-threefry streams.  Instance noise is keyed by global pair row too, so R
-ranks of B/R examples draw exactly the noise of one rank of B (the
-reference folds the shard index into its key instead).
+threefry streams.  Instance noise and dropout's keep-masks are keyed by
+global example or pair row too, each call site its own stream, so R ranks
+of B/R examples draw exactly the noise and masks of one rank of B (the
+reference folds the shard index into its keys instead).
 """
 
 from __future__ import annotations
@@ -40,11 +51,13 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from gan_sass_tf_tpu_torch.data.counter_rng import counter_normal
 from gan_sass_tf_tpu_torch.data.device_bank import sample_bank
 from gan_sass_tf_tpu_torch.data.mixer import mix_sources
 from gan_sass_tf_tpu_torch.dsp.masks import apply_mask
+from gan_sass_tf_tpu_torch.models.dropout import DropoutKey
 from gan_sass_tf_tpu_torch.losses import (
     align_to_perm,
     gan_d_loss,
@@ -59,6 +72,10 @@ from gan_sass_tf_tpu_torch.parallel.mesh import DataParallel
 from gan_sass_tf_tpu_torch.train.state import TrainState
 
 STREAM_D_NOISE, STREAM_G_NOISE = 31, 61   # + 2·d_step; each uses two streams
+# Dropout: the G forward, the G loss's D call, and per D step (+ 32·d_step)
+# its update and its R1 call; a module's dropout site i adds i.
+STREAM_G_DROP, STREAM_G_ADV_DROP = 1000, 4000
+STREAM_D_DROP, STREAM_R1_DROP = 2000, 3000
 
 
 def instance_noise(x: torch.Tensor, std: float, seed: int, step: int,
@@ -105,18 +122,27 @@ def build_train_step(cfg, from_bank: bool = False, local_batch: int = 0,
     spec_kind = "l1" if lcfg.recon_loss == "si_sdr" else lcfg.recon_loss
     d_dtype = getattr(torch, cfg.model.compute_dtype)
     d_noise, r1_gamma = float(tcfg.d_instance_noise), float(tcfg.r1_gamma)
+    d_fold, g_remat = cfg.model.d_input_fold, cfg.model.g_remat
     mix_emit = (("spec",) if need_est_spec else ()) + ("mag", "logmag") \
         + (("logmel",) if dcfg.feature == "logmel" else ())
     tgt_emit = (("mag", "logmag") if mag_domain else ("logmag",)) \
         + (("spec",) if cspec_domain else ())
 
     def d_input(mix_logmag, cand_logmag):
-        """(B, T, K) mixture + (B, S, T, K) candidates -> (B·S, T, K, 2)
-        pairs in the compute dtype."""
+        """(B, T, K) mixture + (B, S, T, K) candidates -> (B·S, T/f, K, 2f)
+        pairs in the compute dtype, f = d_input_fold consecutive frames
+        folded into channels (frame-major, as the reference), the frames
+        past the last whole group of f dropped."""
         b, s = cand_logmag.shape[:2]
         mix_b = mix_logmag[:, None].expand_as(cand_logmag)
         x = torch.stack([mix_b.to(d_dtype), cand_logmag.to(d_dtype)], dim=-1)
-        return x.reshape(b * s, *x.shape[2:])
+        x = x.reshape(b * s, *x.shape[2:])               # (B·S, T, K, 2)
+        if d_fold > 1:
+            n, t, k, c = x.shape
+            t2 = t // d_fold
+            x = x[:, : t2 * d_fold].reshape(n, t2, d_fold, k, c).transpose(2, 3)
+            x = x.reshape(n, t2, k, d_fold * c)
+        return x
 
     def d_update(state: TrainState, x_d, rows, seed, step, di):
         """One D step on the detached pair batch (global pair rows `rows`):
@@ -129,11 +155,14 @@ def build_train_step(cfg, from_bank: bool = False, local_batch: int = 0,
             # Zero-centred R1 on the real half, from the stored (pre-update)
             # spectral-norm state; the D gradient goes through the input
             # gradient (create_graph).
-            x_real = x[: x.shape[0] // 2].float().requires_grad_()
-            lg = d(x_real.to(x.dtype), update_stats=False)
+            half = x.shape[0] // 2
+            x_real = x[:half].float().requires_grad_()
+            lg = d(x_real.to(x.dtype), train=True, dropout=DropoutKey(
+                seed, step, STREAM_R1_DROP + 32 * di, rows[:half]))
             (gx,) = torch.autograd.grad(lg.float().sum(), x_real, create_graph=True)
             loss = 0.5 * r1_gamma * gx.square().sum(dim=tuple(range(1, gx.dim()))).mean()
-        real, fake = d(x, update_stats=True).chunk(2)
+        real, fake = d(x, update_stats=True, train=True, dropout=DropoutKey(
+            seed, step, STREAM_D_DROP + 32 * di, rows)).chunk(2)
         loss = gan_d_loss(real, fake, lcfg.gan_loss) + loss
         grads = torch.autograd.grad(loss, state.d_opt.params)
         dp.all_reduce_mean(grads)                 # before d_opt's clip
@@ -156,8 +185,16 @@ def build_train_step(cfg, from_bank: bool = False, local_batch: int = 0,
         tgt_logmag, tgt_mag, tgt_spec = (tgt_out["logmag"], tgt_out.get("mag"),
                                          tgt_out.get("spec"))
 
-        # The one G forward of the step.
-        masks = state.g(feats, train=True)
+        # The one G forward of the step (recomputed in the backward with
+        # g_remat; the keyed dropout masks come out the same).
+        g_key = DropoutKey(seed, step, STREAM_G_DROP,
+                           offset + torch.arange(b, device=feats.device))
+
+        def g_forward(f):
+            return state.g(f, train=True, dropout=g_key)
+
+        masks = (checkpoint(g_forward, feats, use_reentrant=False) if g_remat
+                 else g_forward(feats))
         if need_est_spec:
             est_spec = apply_mask(spec_mix, masks, dcfg.mask_type)
             est_mag = est_spec.abs()
@@ -189,6 +226,9 @@ def build_train_step(cfg, from_bank: bool = False, local_batch: int = 0,
         for di in range(tcfg.d_steps):
             d_loss, real_m, fake_m = d_update(
                 state, x_d, torch.cat([real_rows, fake_rows]), seed, step, di)
+        # BN running statistics, from each rank's own pairs, averaged.
+        dp.all_reduce_mean([t for n in state.d.norms if n.kind == "batch"
+                            for t in (n.mean, n.var)])
 
         def domain_rec(dname):
             if dname == "wav":
@@ -210,7 +250,7 @@ def build_train_step(cfg, from_bank: bool = False, local_batch: int = 0,
         fake_logits = state.d(
             instance_noise(d_input(mix_logmag, est_logmag), d_noise, seed,
                            step, STREAM_G_NOISE, real_rows),
-            update_stats=False)
+            train=True, dropout=DropoutKey(seed, step, STREAM_G_ADV_DROP, real_rows))
         adv = gan_g_loss(fake_logits, lcfg.gan_loss)
         g_loss = lcfg.adv_weight * adv + lcfg.recon_weight * rec
         g_grads = torch.autograd.grad(g_loss, state.g_opt.params)

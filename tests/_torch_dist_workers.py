@@ -8,8 +8,10 @@ ones."""
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
+import io
 import json
 import os
 import pickle
@@ -22,6 +24,7 @@ from gan_sass_tf_tpu_torch import config
 from gan_sass_tf_tpu_torch import models as tmodels
 from gan_sass_tf_tpu_torch.infer import streaming
 from gan_sass_tf_tpu_torch.parallel import data_parallel
+from gan_sass_tf_tpu_torch.scripts import quality_protocol, recompute_bounds
 from gan_sass_tf_tpu_torch.train import Experiment, build_train_step, load_train_state
 
 STEPS = 2
@@ -122,11 +125,11 @@ def _errors(world: int) -> dict:
     return out
 
 
-def _jax_case(tmp: str, rank: int) -> dict:
+def _jax_case(tmp: str, rank: int, name: str = "c") -> dict:
     """Case (c): from the JAX init the test converted, STEPS steps on the
     test's sources through build_train_step with the group; the metrics and
     the flax-layout state after step 1."""
-    with open(os.path.join(tmp, "c_input.pkl"), "rb") as f:
+    with open(os.path.join(tmp, f"{name}_input.pkl"), "rb") as f:
         inp = pickle.load(f)
     cfg = config.Config.from_json(inp["cfg"])
     state = load_train_state(cfg, inp["g_params"], inp["d_variables"], "cpu")
@@ -180,5 +183,48 @@ def suite(rank: int, world: int, tmp: str) -> None:
         # (g) refused setups.
         with open(os.path.join(tmp, f"errors_rank{rank}.json"), "w") as f:
             json.dump(_errors(world), f)
+    finally:
+        dist.destroy_process_group()
+
+
+def dropout_cfg():
+    """dp_cfg() (spectral-norm D) with dropout 0.2 in G and D."""
+    cfg = dp_cfg()
+    return cfg.replace(model=dataclasses.replace(cfg.model, dropout=0.2))
+
+
+# The quality scripts at the sizes of tests/test_torch_oracle.py's toy runs.
+QUALITY_ARGV = ["2src_toy_cpu", "2", "--hard", "--device", "cpu",
+                "--set", "train.batch_size=2", "--set", "data.segment_seconds=0.25",
+                "--set", "model.g_channels=8,16", "--set", "model.d_channels=8,16"]
+BOUNDS_ARGV = ["3src_pit", "--device", "cpu", "--set", "data.segment_seconds=0.25",
+               "--set", "train.batch_size=2"]
+
+
+def printed(main, argv) -> str:
+    """What `main(argv)` prints on stdout."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        if main(argv) != 0:
+            raise RuntimeError(f"{main.__module__} {argv} failed")
+    return out.getvalue()
+
+
+def options_suite(rank: int, world: int, tmp: str) -> None:
+    """The model options' cases at `world` ranks: the BN D against the JAX
+    shard_map step (bn_rank<r>.pkl), dropout against one rank
+    (dropout_rank<r>.npz), and what the quality scripts print on each rank
+    (quality_rank<r>.json)."""
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store", rank=rank,
+                            world_size=world, timeout=TIMEOUT)
+    try:
+        with open(os.path.join(tmp, f"bn_rank{rank}.pkl"), "wb") as f:
+            pickle.dump(_jax_case(tmp, rank, "bn"), f)
+        np.savez(os.path.join(tmp, f"dropout_rank{rank}.npz"),
+                 **run_steps(Experiment(dropout_cfg(), device="cpu")))
+        with open(os.path.join(tmp, f"quality_rank{rank}.json"), "w") as f:
+            json.dump({"quality": printed(quality_protocol.main, QUALITY_ARGV),
+                       "bounds": printed(recompute_bounds.main, BOUNDS_ARGV)}, f)
     finally:
         dist.destroy_process_group()

@@ -88,6 +88,33 @@ def test_resume_is_bit_identical(tmp_path):
     fresh.close()
 
 
+def test_resume_is_bit_identical_with_bn_d_and_dropout(tmp_path):
+    """The model options' state: a patch D with BN (its running mean and
+    var in the checkpoint), the frame-folded D input, dropout in G and D
+    (keyed by step, so the resumed steps draw the continuous run's masks)
+    and the fold G: 1 + 1 resumed step equal 2."""
+    base = _cfg()
+    cfg = base.replace(model=dataclasses.replace(
+        base.model, discriminator="patch", d_norm="batch", d_input_fold=2,
+        dropout=0.2, g_stem_mode="fold", g_stem_stride=(1, 2), g_head_mode="fold",
+        g_crop_nyquist=False))
+    full = Experiment(cfg, device="cpu")
+    full.train(num_steps=2)
+    wd = str(tmp_path / "run")
+    first = Experiment(cfg, workdir=wd, device="cpu")
+    first.train(num_steps=1)
+    first.close()
+    resumed = Experiment(cfg, workdir=wd, device="cpu")
+    _assert_same_state(resumed, first)
+    resumed.train(num_steps=1)
+    _assert_same_state(resumed, full)
+    sd = resumed.state.state_dict()["d"]
+    assert {"norms.0.mean", "norms.0.var"} <= set(sd) and not any(
+        k.startswith("u") for k in sd)
+    assert not torch.equal(sd["norms.0.var"], torch.ones_like(sd["norms.0.var"]))
+    resumed.close()
+
+
 def test_keep_best_checkpoint(tmp_path):
     """The state with the best held-out SI-SDRi is kept under best/ with
     best.json (equal to the best eval row of metrics.jsonl); restore_best

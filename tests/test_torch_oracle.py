@@ -241,10 +241,13 @@ def test_quality_protocol_prints_the_jax_scripts_keys(capsys):
     assert (k4.launches, k2.launches) == (0, 0)
 
 
-def test_quality_protocol_refuses_unported_generator_and_missing_gpu():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        quality_protocol.main(["2src_toy_cpu", "1", "--set", "model.generator=toy",
-                               *_TOY])
+def test_quality_protocol_refuses_unported_generator_and_missing_gpu(capsys):
+    """Every generator is ported: the toy G runs the protocol (one line);
+    the missing GPU is still refused."""
+    assert quality_protocol.main(["2src_toy_cpu", "1", "--set", "model.generator=toy",
+                                  "--set", "model.g_hidden=16", *_TOY]) == 0
+    out = json.loads(capsys.readouterr().out.strip())
+    assert out["steps"] == 1 and _finite(out["si_sdr_improvement"])
     with pytest.raises(SystemExit, match="no CUDA device"):
         quality_protocol.main(["2src_toy_cpu", "1", "--device", "cuda"])
 

@@ -330,3 +330,10 @@ def test_dryrun_refuses_cuda_without_a_card():
     out = _dryrun("--world", "2", "--device", "cuda")
     assert out.returncode != 0 and "ok" not in out.stdout
     assert "CUDA" in out.stderr
+
+
+def test_dryrun_defaults_to_cuda():
+    """Without --device the dryrun asks for the card, and fails without one."""
+    out = _dryrun("--world", "2")
+    assert out.returncode != 0 and "ok" not in out.stdout
+    assert "CUDA" in out.stderr
