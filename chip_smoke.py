@@ -118,6 +118,24 @@ Phases, one JSON line each:
               at the stream and music shapes; separate() throughput, the
               stream_v5e8 train step on both DSP paths and the wall seconds
               of one recompute_bounds per preset
+ 12 tools     the CLI's train flags and the tools at full width: `cli train
+              --config stream_v5e8 --workdir W --steps 6 --profile-steps
+              2:4 --tensorboard --debug-nans --debug-leaks` in a process of
+              its own (a trace is whole only early in its process): the
+              Chrome trace under W/profile holds 2 profiled steps and K1,
+              K2/K3's synthesis kernel and K3's backward (recorded against
+              4/2/2 made), W/tb read back by the port's own reader equals
+              W/metrics.jsonl at every logged step, K1, K3 and its backward
+              launched exactly 2, 1, 1 a step; the step's wall ms and
+              memory_allocated with the debug tripwires and without (in
+              turns, reported); entry(): (4, 2, T) finite, the kernel path
+              against the plain one >= 40 dB; `profile_step stream_v5e8
+              32` in a process of its own: the step's ranges hold >= 95 %
+              of the profiled device time; stream_quality at 20 steps
+              (finite); bench_presets over the five presets and streaming
+              at 1 warm-up and 3 timed steps (every value > 0);
+              bench_streaming_compute at 10 s; the quickstart at 4 steps;
+              train_wavdir_fixture at its 500 steps (finite, SI-SDRi > 0)
 Then a `kernels` summary line (each kernel's launches, summed over the
 paths that drive it and by path, each path's counts set to 0 just before
 it and read just after, a dp_* path's summed over its ranks; its error; its time beside its plain version's,
@@ -133,6 +151,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import importlib
 import io
 import json
 import math
@@ -149,6 +168,8 @@ import numpy as np
 import torch
 
 from gan_sass_tf_tpu_torch import cli, config
+from gan_sass_tf_tpu_torch import entry as port_entry
+from gan_sass_tf_tpu_torch.examples import quickstart
 from gan_sass_tf_tpu_torch.data import mix_sources, sample_bank
 from gan_sass_tf_tpu_torch.data.fixtures import write_fixture_corpus
 from gan_sass_tf_tpu_torch.dsp.features import mel_filterbank
@@ -171,9 +192,17 @@ from gan_sass_tf_tpu_torch.ops import istft as k3
 from gan_sass_tf_tpu_torch.ops import masked_istft as k2
 from gan_sass_tf_tpu_torch.ops import stft as k4
 from gan_sass_tf_tpu_torch.ops import stft_features as k1
-from gan_sass_tf_tpu_torch.scripts import quality_protocol, recompute_bounds
+from gan_sass_tf_tpu_torch.scripts import (
+    bench_presets,
+    bench_streaming_compute,
+    quality_protocol,
+    recompute_bounds,
+    stream_quality,
+    train_wavdir_fixture,
+)
 from gan_sass_tf_tpu_torch.losses.pit import permutations_for
 from gan_sass_tf_tpu_torch.train import Experiment, build_train_step
+from gan_sass_tf_tpu_torch.utils import profiler, tb_events
 from gan_sass_tf_tpu_torch.utils.wav_io import read_wav, write_wav
 
 T_START = time.perf_counter()
@@ -224,6 +253,15 @@ STREAM_SAMPLES = 3                   # timed streams per mode and DSP path
 DP_STEP_SAMPLES = 12                 # timed train steps, dp phase, each side
 DP_REDUCE_SAMPLES = 20               # timed all-reduces of G's gradients
 DP_TIMEOUT_S = 400                   # one torchrun call of the dp phase
+SEED_TOOLS = 12                      # the tools phase's own generator
+TOOLS_TIMEOUT_S = 300                # one subprocess of the tools phase
+TOOLS_STEPS, TOOLS_PROFILE = 6, (2, 4)          # cli train --profile-steps 2:4
+DEBUG_STEP_SAMPLES = 6               # timed steps with and without the tripwires
+STREAM_QUALITY_STEPS = 20
+BENCH_STEPS = "1:3"                  # bench_presets: warm-up 1, timed 3
+STREAMING_COMPUTE_SECONDS = 10
+QUICKSTART_STEPS = 4
+WAVDIR_STEPS = 500                   # train_wavdir_fixture's own default
 # A train step's device time by kernel family: substrings of the lower-cased
 # kernel name, first match wins.  cuDNN's layout transposes are
 # nchwToNhwc/nhwcToNchw kernels; its conv kernels carry "nhwc" too.
@@ -1027,7 +1065,11 @@ def phase_stream(rng, dev, tmp: Path, wd: Path):
         if b > 1:       # the last group's zero chunks: log|X| = log(eps)
             x[-(n_groups * b - n_chunks):] = 0.0
         emits = ("spec", "logmag")
-        k1_errs, k1_out = k1_case(x, n_fft, hop, emits, None)
+        # As the k1 phase's music cases: at bins below LOGMAG_FLOOR of their
+        # frame's RMS |X|, two f32 FFTs' log|X| differ by their spec gap over
+        # |X| (up to 0.015 there on other inputs of this shape, the kernel
+        # the closer to float64 at most): logmag is held above the floor.
+        k1_errs, k1_out = k1_case(x, n_fft, hop, emits, None, LOGMAG_FLOOR)
         check(bool(torch.isfinite(k1_out["logmag"]).all()),
               f"k1 logmag at {tuple(x.shape)} not finite")
         k1_t = k1_timing(x, n_fft, hop, emits)
@@ -1054,6 +1096,8 @@ def phase_stream(rng, dev, tmp: Path, wd: Path):
                                   for p in ("kernel", "plain")}
                               for m, w in walls.items()},
          device_busy=busy, chunk_shapes={str(b): v for b, v in shapes.items()},
+         chunk_shapes_tol=f"k1 spec 3e-4*max|X|; logmag 1e-3 where |X| >= "
+                          f"{LOGMAG_FLOOR} * frame RMS |X|",
          note="wall: host array in, host array out; busy: torch.profiler "
               "device ms of one stream over the median kernel-path wall")
     return launches, shapes
@@ -1116,8 +1160,7 @@ def dp_step_report(exp) -> dict:
             run(name)
             sync()
         events = prof.key_averages()
-        kernels = [e for e in events if e.device_type == DeviceType.CUDA
-                   and not e.key.startswith("nccl:")]        # not the host ops' spans
+        kernels = profiler.device_work(prof)      # not the ranges' or NCCL ops' spans
         out["device_ms"][name] = sum(e.self_device_time_total for e in kernels) / 1e3
         out["nccl_kernels"][name] = {e.key[:100]: e.count for e in kernels if any(
             s in e.key.lower() for s in ("nccl", "onerankreduce"))}
@@ -1430,9 +1473,55 @@ def captured_json(fn, argv):
     return json.loads(captured(fn, argv).strip().splitlines()[-1])
 
 
+class TimedDataset:
+    """A dataset whose batch() calls add their host seconds to `seconds`."""
+
+    def __init__(self, dataset):
+        self.dataset, self.seconds = dataset, 0.0
+
+    def batch(self, *args):
+        t0 = time.perf_counter()
+        out = self.dataset.batch(*args)
+        self.seconds += time.perf_counter() - t0
+        return out
+
+
+def bound_split(cfg, dev) -> tuple:
+    """recompute_bounds.oracle_bound(cfg) on the kernel path, its wall split
+    into the host's synthesis of the batches (dataset.batch()) and the
+    rest (copies, launches, the device), with the device ms torch.profiler
+    recorded and the K4 launches it recorded against those made."""
+    from torch.profiler import ProfilerActivity, profile
+
+    made, inner = [], recompute_bounds.make_dataset
+
+    def timed(*args, **kwargs):
+        made.append(TimedDataset(inner(*args, **kwargs)))
+        return made[-1]
+
+    recompute_bounds.make_dataset = timed
+    k4.launches = 0
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            value = recompute_bounds.oracle_bound(cfg, dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        recompute_bounds.make_dataset = inner
+    dev_events = profiler.device_work(prof)
+    return value, {
+        "wall_s": wall, "host_synthesis_s": made[0].seconds,
+        "rest_s": wall - made[0].seconds,
+        "device_ms_recorded": sum(e.self_device_time_total for e in dev_events) / 1e3,
+        "k4_launches": {"made": k4.launches, "recorded": sum(
+            e.count for e in dev_events if "stft_features_kernel" in e.key)}}
+
+
 def phase_bounds(dev):
     """recompute_bounds on the kernel path for each preset and protocol,
-    then the same batches on both DSP paths, unrounded."""
+    then the same batches on both DSP paths, unrounded; the kernel path's
+    wall split into host synthesis and the rest."""
     launches, walls = {"stft": 0, "masked_istft": 0}, {}
     for preset in PRESETS:
         for hard in (False, True):
@@ -1448,7 +1537,7 @@ def phase_bounds(dev):
                 launches[k] += v
             walls[f"{preset}{' --hard' if hard else ''}"] = wall
             cfg = recompute_bounds.protocol_config(preset, hard)
-            kernel = recompute_bounds.oracle_bound(cfg, dev)
+            kernel, split = bound_split(cfg, dev)
             with dispatch.force_backend("reference"):
                 plain = recompute_bounds.oracle_bound(cfg, dev)
             jax_db = JAX_CPU_BOUNDS[(preset, hard)]
@@ -1463,7 +1552,7 @@ def phase_bounds(dev):
                  kernel_db=kernel, plain_db=plain, jax_cpu_db=jax_db,
                  kernel_minus_plain_db=kernel - plain,
                  port_minus_jax_db=kernel - jax_db, launches=counts,
-                 wall_s=wall, tol_db={"plain": BOUND_TOL_DB,
+                 wall_s=wall, kernel_path_split=split, tol_db={"plain": BOUND_TOL_DB,
                                       "jax_cpu": JAX_BOUND_TOL_DB})
     return launches, walls
 
@@ -1755,6 +1844,197 @@ def phase_quality(dev):
     return runs
 
 
+def tool_worker(out: str, module: str, *argv) -> int:
+    """A tools-phase process: `module.main(argv)`, what `python -m module
+    argv...` runs, then the kernels it launched and its exit code written
+    to `out` as JSON."""
+    reset_launch_counts()
+    k4.launches = 0
+    rc = importlib.import_module(module).main(list(argv))
+    Path(out).write_text(json.dumps({"rc": rc, "launches": {
+        **launch_counts(), "stft": k4.launches}}))
+    return rc
+
+
+def tool_process(tmp: Path, name: str, module: str, *argv) -> tuple:
+    """(wall s, stdout, launches) of `module.main(argv)` in a process of its
+    own (tool_worker); a non-zero exit fails the run."""
+    out = tmp / f"{name}.json"
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, str(SCRIPT), "--tool-worker", str(out),
+                          module, *argv], cwd=ROOT, capture_output=True, text=True,
+                         timeout=TOOLS_TIMEOUT_S,
+                         env={**os.environ, "PYTHONPATH": str(ROOT)})
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        print(res.stdout[-3000:], res.stderr[-6000:], sep="\n", file=sys.stderr)
+    check(res.returncode == 0, f"tools: {module} {' '.join(argv[:4])} exited "
+          f"{res.returncode}")
+    return wall, res.stdout, json.loads(out.read_text())["launches"]
+
+
+def trace_report(logdir: Path) -> dict:
+    """The profiled steps and the DSP kernels a --profile-steps trace
+    recorded (each against the launches its steps made), and its device
+    ms a step by the step's ranges."""
+    traces = profiler.trace_files(str(logdir))
+    check(len(traces) == 1, f"tools: {len(traces)} traces under {logdir}")
+    events = profiler.load_trace(traces[0])
+    steps = sorted(e["name"] for e in profiler.annotations(events, profiler.STEP_PREFIX))
+    n = TOOLS_PROFILE[1] - TOOLS_PROFILE[0]
+    check(steps == [f"{profiler.STEP_PREFIX}{i}" for i in range(*TOOLS_PROFILE)],
+          f"tools: the trace's steps {steps}")
+    kernels = [e["name"] for e in profiler.device_events(events)]
+    recorded = {k: sum(k in name for name in kernels) for k in (
+        "stft_features_kernel", "istft_ola_kernel", "istft_adjoint_kernel")}
+    check(min(recorded.values()) > 0, f"tools: a DSP kernel missing from the "
+          f"trace: {recorded}")
+    buckets = profiler.attribute(events, profiler.STEP_RANGES,
+                                 profiler.annotations(events, profiler.STEP_PREFIX))
+    return {"file": Path(traces[0]).name, "steps": steps, "kernels_recorded": recorded,
+            "kernels_made": {"stft_features_kernel": 2 * n, "istft_ola_kernel": n,
+                             "istft_adjoint_kernel": n},
+            "device_us_per_step": {k: v / n for k, v in buckets.items()}}
+
+
+def debug_walls(dev) -> dict:
+    """stream_v5e8 train steps (synchronized wall ms and memory_allocated
+    after each) with and without debug_nans and debug_leaks, in turns;
+    anomaly mode off again after."""
+    exp = Experiment(config.get_config("stream_v5e8"), device=dev)
+    exp._step(exp._bank)
+    walls = {False: [], True: []}
+    mib = {False: [], True: []}
+    for i in range(2 * DEBUG_STEP_SAMPLES):
+        debug = (False, True, True, False)[i % 4]
+        exp.debug_nans = exp.debug_leaks = debug
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exp._step(exp._bank)
+        torch.cuda.synchronize()
+        walls[debug].append((time.perf_counter() - t0) * 1e3)
+        mib[debug].append(torch.cuda.memory_allocated() / 2**20)
+    check(not torch.is_anomaly_enabled(), "tools: anomaly mode left on")
+    return {"step_wall_ms": {"debug": statistics.median(walls[True]),
+                             "plain": statistics.median(walls[False])},
+            "memory_allocated_mib": {"debug": mib[True], "plain": mib[False]},
+            "steps_each": DEBUG_STEP_SAMPLES}
+
+
+def phase_tools(dev, tmp: Path):
+    """The CLI's train flags and the tools at full width, each path's kernel
+    launches counted (counts set to 0 just before, read just after)."""
+    rng = np.random.default_rng(SEED_TOOLS)
+    paths, report = {}, {}
+
+    # cli train with every new flag, in a process of its own.
+    wd = tmp / "run"
+    wall, out, paths["tools_cli_train"] = tool_process(
+        tmp, "cli_train", "gan_sass_tf_tpu_torch.cli", "train", "--config",
+        "stream_v5e8", "--workdir", str(wd), "--steps", str(TOOLS_STEPS),
+        "--profile-steps", "{}:{}".format(*TOOLS_PROFILE), "--tensorboard",
+        "--debug-nans", "--debug-leaks", "--device", str(dev), "--set",
+        "train.log_every=1")
+    got = paths["tools_cli_train"]
+    check((got["stft_features"], got["istft"], got["istft_bwd"]) ==
+          (2 * TOOLS_STEPS, TOOLS_STEPS, TOOLS_STEPS), f"tools cli train launches {got}")
+    rows = [json.loads(ln) for ln in (wd / "metrics.jsonl").read_text().splitlines()]
+    scalars = {(step, tag): v for step, tag, v in tb_events.read_dir(str(wd / "tb"))}
+    want = {(r["step"], k): v for r in rows for k, v in r.items()
+            if k not in ("step", "time") and isinstance(v, float)}
+    check(len(rows) == TOOLS_STEPS and set(scalars) == set(want)
+          and all(scalars[k] == float(np.float32(v)) for k, v in want.items()),
+          f"tools: W/tb does not equal W/metrics.jsonl ({len(scalars)} scalars, "
+          f"{len(want)} values)")
+    check(all(math.isfinite(v) for v in want.values()), f"tools: {rows[-1]}")
+    report["cli_train"] = {"wall_s": wall, "launches": got, "trace": trace_report(
+        wd / "profile"), "tensorboard_scalars": len(scalars), "logged_steps": len(rows),
+        "last": cli_losses(out, TOOLS_STEPS)}
+    report["debug_tripwires"] = debug_walls(dev)
+
+    # entry(): the zero example mixture, then kernel vs plain on a seeded one.
+    def run_entry():
+        fn, (g, mix0) = port_entry.entry()
+        x = torch.from_numpy(mixtures(rng, 4, mix0.shape[1], SR_STREAM)).to(dev)
+        with dispatch.force_backend("reference"):
+            ref = fn(g, x)
+        return fn(g, mix0), fn(g, x), ref
+
+    (out0, ker, ref), got = counted(run_entry)
+    paths["tools_entry"] = got
+    agree = float(si_sdr(ker.float().cpu(), ref.float().cpu()).min())
+    check(tuple(out0.shape) == (4, 2, out0.shape[-1]) and bool(torch.isfinite(out0).all())
+          and got["stft_features"] == 2 and got["masked_istft"] == 2 and agree >= 40.0,
+          f"tools entry(): {tuple(out0.shape)}, launches {got}, {agree} dB")
+    report["entry"] = {"out": list(out0.shape), "launches": got,
+                       "si_sdr_kernel_vs_plain_db_min": agree, "tol_db": 40.0}
+
+    # profile_step in a process of its own, early in it.
+    wall, out, paths["tools_profile_step"] = tool_process(
+        tmp, "profile_step", "gan_sass_tf_tpu_torch.scripts.profile_step",
+        "stream_v5e8", "32", "--device", str(dev))
+    line = json.loads(out.strip().splitlines()[-1])
+    buckets = line["buckets_us_per_step"]
+    named = sum(v for k, v in buckets.items() if k != "other")
+    total = line["device_ms_per_step"] * 1e3
+    check(named >= 0.95 * total, f"tools profile_step: the step's ranges hold "
+          f"{named} of {total} device us")
+    report["profile_step"] = {"wall_s": wall, "line": line, "ranges_share": named / total,
+                              "launches": paths["tools_profile_step"]}
+
+    line, paths["tools_stream_quality"] = counted(lambda: captured_json(
+        stream_quality.main, [str(STREAM_QUALITY_STEPS), "--device", str(dev)]))
+    check(all(finite(v) for v in line.values()) and len(line) == 11,
+          f"tools stream_quality: {line}")
+    report["stream_quality"] = {"line": line, "launches": paths["tools_stream_quality"]}
+
+    t0 = time.perf_counter()
+    out, paths["tools_bench_presets"] = counted(lambda: captured(
+        bench_presets.main, ["--steps", BENCH_STEPS, "--device", str(dev),
+                             *bench_presets.PRESET_STEPS, "streaming"]))
+    rows = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+    check(len(rows) == len(bench_presets.PRESET_STEPS) + 2
+          and all(r["value"] > 0 for r in rows), f"tools bench_presets: {rows}")
+    report["bench_presets"] = {"rows": rows, "steps": BENCH_STEPS,
+                               "wall_s": time.perf_counter() - t0,
+                               "launches": paths["tools_bench_presets"]}
+
+    out, paths["tools_bench_streaming_compute"] = counted(lambda: captured(
+        bench_streaming_compute.main, [str(STREAMING_COMPUTE_SECONDS), "5",
+                                       "--device", str(dev)]))
+    rows = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+    check([r["mode"] for r in rows] == ["scan", "batch"]
+          and all(r["ms_per_chunk"] > 0 for r in rows),
+          f"tools bench_streaming_compute: {rows}")
+    report["bench_streaming_compute"] = {"rows": rows}
+
+    qs = tmp / "quickstart"
+    out, paths["tools_quickstart"] = counted(lambda: captured(
+        quickstart.main, [str(qs), str(QUICKSTART_STEPS), "--device", str(dev)]))
+    wavs = [read_wav(str(qs / f"{n}.wav"))[1] for n in ("mixture", "source_0", "source_1")]
+    check(all(w.shape == wavs[0].shape and np.isfinite(w).all() for w in wavs)
+          and f"step {QUICKSTART_STEPS}:" in out, f"tools quickstart: {out[-300:]}")
+    report["quickstart"] = {"eval": out.strip().splitlines()[-3]}
+
+    t0 = time.perf_counter()
+    res, paths["tools_wavdir"] = counted(lambda: train_wavdir_fixture.run(
+        WAVDIR_STEPS, dev, log=lambda *_: None))
+    check(res["ok"], f"tools train_wavdir_fixture: {res}")
+    report["train_wavdir_fixture"] = {**res, "wall_s": time.perf_counter() - t0}
+
+    for path, got in paths.items():
+        check(got["stft_features"] > 0, f"tools {path}: K1 never launched: {got}")
+    for path in ("tools_stream_quality", "tools_bench_presets",
+                 "tools_bench_streaming_compute", "tools_quickstart", "tools_wavdir"):
+        check(paths[path]["masked_istft"] > 0, f"tools {path}: K2 never launched")
+    for path in ("tools_profile_step", "tools_stream_quality", "tools_bench_presets",
+                 "tools_quickstart"):
+        check(paths[path]["istft"] > 0 and paths[path]["istft_bwd"] > 0,
+              f"tools {path}: K3 or its backward never launched: {paths[path]}")
+    emit("tools", **report)
+    return paths
+
+
 def time_steps(exp):
     """Median wall ms of one train step (synchronized) on each DSP path,
     samples alternating kernel, plain, plain, kernel."""
@@ -1819,7 +2099,6 @@ def device_kernels(fn, calls=CALLS_PER_SAMPLE) -> dict:
     warm-up call.  In short windows the profiler may miss launches (late
     in a run, sometimes all of a 10-call window: PERF.md), so callers hold
     the launches it recorded to the launches made."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1829,7 +2108,7 @@ def device_kernels(fn, calls=CALLS_PER_SAMPLE) -> dict:
             fn()
         torch.cuda.synchronize()
     return {e.key: (e.self_device_time_total / calls / 1e3, e.count / calls)
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+            for e in profiler.device_work(prof)}
 
 
 def device_ms(fn, calls=CALLS_PER_SAMPLE):
@@ -2086,6 +2365,8 @@ def main() -> int:
     quality_runs = phase_quality(dev)
     times = phase_timing(rng, dev, x, spec, cfg, g, batch, k3_tensors, exp,
                          k4_inputs, k1_music, k2_music, bound_walls)
+    with tempfile.TemporaryDirectory() as tmp:
+        tools = phase_tools(dev, Path(tmp))
     quality_launches = {"stft": sum(r["launches"]["stft"] for r in quality_runs.values())}
 
     def by_path(name, **paths):
@@ -2105,7 +2386,8 @@ def main() -> int:
                    stream_scan=stream_launches["scan"],
                    pit3_train=pit3_counts["train"], pit3_eval=pit3_counts["eval"],
                    pit3_separation=pit3_counts["separation"],
-                   pit3_quality=pit3_counts["quality"], **dp_counts, **opt),
+                   pit3_quality=pit3_counts["quality"], **dp_counts, **opt,
+                   **tools),
          "max_abs_err": k1_err, **times["stft_features"],
          "stream_shape": stream_rows("stft_features"),
          "pit3_shape": pit3_rows["stft_features"]},
@@ -2120,7 +2402,7 @@ def main() -> int:
                    pit3_quality=pit3_counts["quality"], **dp_counts,
                    **{k: opt[k] for k in ("options_music_eval",
                                           "options_music_separation",
-                                          "options_music_quality")}),
+                                          "options_music_quality")}, **tools),
          "max_abs_err": k2_err, **times["masked_istft"],
          "stream_shape": stream_rows("masked_istft"),
          "pit3_shape": pit3_rows["masked_istft"]},
@@ -2129,14 +2411,14 @@ def main() -> int:
          "replaces": "gan_sass_tf_tpu/ops/pallas_istft.py:71",
          **by_path("istft", train=train_counts, workdir=workdir_counts,
                    dp_train=dp_counts["dp_train"],
-                   options_stream_train=opt["options_stream_train"]),
+                   options_stream_train=opt["options_stream_train"], **tools),
          "max_abs_err": k3_errs["forward_full"], **times["istft"]},
         {"name": "istft_bwd", "route": "cuda",
          "source": "gan_sass_tf_tpu_torch/ops/csrc/stft_features.cu",
          "replaces": "gan_sass_tf_tpu/ops/pallas_istft.py:151",
          **by_path("istft_bwd", train=train_counts, workdir=workdir_counts,
                    dp_train=dp_counts["dp_train"],
-                   options_stream_train=opt["options_stream_train"]),
+                   options_stream_train=opt["options_stream_train"], **tools),
          "max_abs_err": max(k3_errs["grad_re"], k3_errs["grad_im"]),
          **times["istft_bwd"]},
         {"name": "stft", "route": "cuda",
@@ -2155,4 +2437,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(dp_worker(sys.argv[2]) if sys.argv[1:2] == ["--dp-worker"] else main())
+    if sys.argv[1:2] == ["--dp-worker"]:
+        sys.exit(dp_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--tool-worker"]:
+        sys.exit(tool_worker(*sys.argv[2:]))
+    sys.exit(main())

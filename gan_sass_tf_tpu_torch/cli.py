@@ -2,7 +2,8 @@
 
     python -m gan_sass_tf_tpu_torch.cli configs
     python -m gan_sass_tf_tpu_torch.cli train --config stream_v5e8 --workdir runs/a \
-        [--steps 20] [--no-resume]
+        [--steps 20] [--no-resume] [--profile-steps 2:4] [--tensorboard] \
+        [--debug-nans] [--debug-leaks]
     python -m gan_sass_tf_tpu_torch.cli eval --config stream_v5e8 --workdir runs/a [--best]
     python -m gan_sass_tf_tpu_torch.cli separate --config stream_v5e8 --workdir runs/a \
         [--best] --input mix.wav --output-dir out/ [--streaming [--streaming-mode scan]]
@@ -10,7 +11,14 @@
         --params g.npz --input mix.wav --output-dir out/
 
 `train` runs the alternating G/D loop; with `--workdir` it checkpoints
-there and resumes from the newest checkpoint (unless `--no-resume`).
+there and resumes from the newest checkpoint (unless `--no-resume`),
+writes a torch.profiler Chrome trace of steps [A, B) under
+`<workdir>/profile` with `--profile-steps A:B`, and mirrors its metrics to
+TensorBoard event files under `<workdir>/tb` with `--tensorboard`.
+`--debug-nans` raises FloatingPointError at the first non-finite value in
+a step (autograd's anomaly mode, the metrics and the train state);
+`--debug-leaks` raises when a tensor of the train state or a metric
+carries an autograd graph out of a step.
 `eval` scores the generator on held-out mixtures; `separate` writes
 <stem>_src<i>.wav per source, one-shot or `--streaming` in overlapping
 chunks (`batch`: groups of stream.batch_chunks chunks; `scan`: one chunk
@@ -151,7 +159,16 @@ def main(argv=None) -> int:
                          help="start from a seeded init even if the workdir "
                               "holds checkpoints")
     p_train.add_argument("--profile-steps", default=None, metavar="A:B",
-                         help="profile steps [A, B): not ported yet (raises)")
+                         help="capture a torch.profiler trace for steps [A, B) "
+                              "under <workdir>/profile")
+    p_train.add_argument("--debug-nans", action="store_true",
+                         help="trip on the first non-finite value in the step")
+    p_train.add_argument("--debug-leaks", action="store_true",
+                         help="trip on a tensor that carries an autograd graph "
+                              "out of the step")
+    p_train.add_argument("--tensorboard", action="store_true",
+                         help="mirror metrics to <workdir>/tb as TensorBoard "
+                              "event files")
     p_eval = sub.add_parser("eval", help="SI-SDR evaluation on held-out mixtures")
     _add_common(p_eval)
     p_eval.add_argument("--batches", type=int, default=8)
@@ -181,10 +198,6 @@ def main(argv=None) -> int:
             print(name)
         return 0
 
-    if getattr(args, "profile_steps", None):
-        raise NotImplementedError(
-            "--profile-steps is not ported yet (ROADMAP.md, 'Modules to "
-            "port', item 10: torch.profiler hooks)")
     if args.cmd == "separate" and (args.params is None) == (args.workdir is None):
         print("error: separate takes exactly one of --workdir (a run of this "
               "port) and --params (a flat .npz of flax generator params)",
@@ -225,8 +238,11 @@ def _run(args, device) -> int:
     from gan_sass_tf_tpu_torch.train import Experiment
 
     if args.cmd == "train":
+        from gan_sass_tf_tpu_torch.utils.profiler import parse_profile_steps
+
         exp = Experiment(cfg, workdir=args.workdir, device=device,
-                         resume=not args.no_resume)
+                         resume=not args.no_resume, debug_nans=args.debug_nans,
+                         debug_leaks=args.debug_leaks, tensorboard=args.tensorboard)
         if exp.state.step:
             say(f"resumed from step {exp.state.step}", flush=True)
 
@@ -235,7 +251,8 @@ def _run(args, device) -> int:
                 f"recon={m['g_recon']:.4f} "
                 f"thr={m['mixture_sec_per_sec']:.1f} mix-s/s", flush=True)
 
-        exp.train(num_steps=args.steps, log_fn=log)
+        exp.train(num_steps=args.steps, log_fn=log, profile_steps=(
+            parse_profile_steps(args.profile_steps) if args.profile_steps else None))
         exp.close()
         return 0
 

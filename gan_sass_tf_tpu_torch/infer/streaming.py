@@ -201,14 +201,25 @@ def separate_streaming_scan(g: Optional[torch.nn.Module], cfg,
     it against the zero initial carry, a tie of all S! permutations that
     its float rounding may break either way at hysteresis 0.)"""
     t_in = np.asarray(mixture).shape[-1]
-    chunks, (_, stride, overlap, n_chunks, _, ext) = _chunk_matrix(cfg, mixture)
-    separate = build_separate_fn(cfg, g)
+    chunks, (_, stride, overlap, _, _, ext) = _chunk_matrix(cfg, mixture)
+    full = scan_chunks(build_separate_fn(cfg, g), cfg,
+                       torch.from_numpy(chunks).to(device), stride, overlap, ext)
+    return full.cpu().numpy()[..., :t_in]
+
+
+@torch.inference_mode()
+def scan_chunks(separate: Callable[[torch.Tensor], torch.Tensor], cfg,
+                chunks_dev: torch.Tensor, stride: int, overlap: int,
+                ext: int) -> torch.Tensor:
+    """The scan of `separate_streaming_scan` over (N, chunk + ext) chunks
+    already on the device: the (S, T_full) stream on the device, the
+    loop never waiting for it."""
+    n_chunks = chunks_dev.shape[0]
     s = cfg.data.num_sources
-    chunks_dev = torch.from_numpy(chunks).to(device)
     dev = chunks_dev.device
     perms = torch.from_numpy(permutations_for(s)).long().to(dev)   # (P, S)
     hyst = float(cfg.stream.perm_hysteresis)
-    t_c = chunks.shape[-1] - ext                # overlap-add span of a chunk
+    t_c = chunks_dev.shape[-1] - ext            # overlap-add span of a chunk
     ramp = _fade_ramp(overlap, dev)
     tail = torch.zeros((s, overlap), dtype=torch.float32, device=dev)
     prev = torch.zeros((), dtype=torch.long, device=dev)     # identity
@@ -228,5 +239,4 @@ def separate_streaming_scan(g: Optional[torch.nn.Module], cfg,
         faded = head if i == 0 else tail * (1.0 - ramp) + head * ramp
         segs.append(torch.cat([faded, wavs[:, overlap:stride]], dim=-1))
         tail = wavs[:, stride:]
-    full = torch.cat([torch.stack(segs, dim=1).reshape(s, -1), tail], dim=-1)
-    return full.cpu().numpy()[..., :t_in]
+    return torch.cat([torch.stack(segs, dim=1).reshape(s, -1), tail], dim=-1)

@@ -141,7 +141,10 @@ class _IstftRI(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        dre, dim = istft_adjoint(dy, *ctx.geometry)
+        # In the train step's "dsp" profiler range (utils/profiler.py
+        # STEP_RANGES), though it runs inside G's backward.
+        with torch.profiler.record_function("dsp"):
+            dre, dim = istft_adjoint(dy, *ctx.geometry)
         return dre, dim, None, None, None
 
 

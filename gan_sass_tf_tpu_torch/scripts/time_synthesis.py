@@ -41,6 +41,7 @@ import gan_sass_tf_tpu_torch
 from gan_sass_tf_tpu_torch.ops import istft as k3
 from gan_sass_tf_tpu_torch.ops import masked_istft as k2
 from gan_sass_tf_tpu_torch.ops import stft_features as k1
+from gan_sass_tf_tpu_torch.utils import profiler
 
 SAMPLES, CALLS = 20, 10
 SWEEP_ROWS = (4, 8, 16, 32)
@@ -51,7 +52,6 @@ def device_kernels(fn, calls=CALLS) -> dict:
     """{kernel name: (device ms, launches) per call} of the CUDA kernels
     `fn` launches, from torch.profiler over `calls` calls after one warm-up
     call."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -61,7 +61,7 @@ def device_kernels(fn, calls=CALLS) -> dict:
             fn()
         torch.cuda.synchronize()
     return {e.key: (e.self_device_time_total / calls / 1e3, e.count / calls)
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+            for e in profiler.device_work(prof)}
 
 
 def device_ms(fn) -> float:

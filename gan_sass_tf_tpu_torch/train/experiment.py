@@ -18,6 +18,8 @@ A workdir holds
     best/<step>.pt         the state with the best eval SI-SDRi (keep_best)
     best.json              {"step", "eval_si_sdr_improvement"} of best/
     metrics.jsonl          logged train metrics and eval rows ("eval_" keys)
+    tb/                    the same scalars as TensorBoard events (tensorboard=True)
+    profile/               Chrome traces of the steps train(profile_steps=) names
 
 The checkpoint format is the port's own; orbax checkpoints of the JAX
 package are refused (their G weights load through `--params`,
@@ -26,12 +28,13 @@ models/convert.py).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import queue
 import threading
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -41,6 +44,7 @@ from gan_sass_tf_tpu_torch.parallel.mesh import data_parallel
 from gan_sass_tf_tpu_torch.train.state import TrainState, create_train_state
 from gan_sass_tf_tpu_torch.train.step import build_eval_step, build_train_step
 from gan_sass_tf_tpu_torch.utils.metrics_writer import MetricsWriter
+from gan_sass_tf_tpu_torch.utils.profiler import profile_trace, step_range
 
 KEEP_CHECKPOINTS = 3
 
@@ -60,13 +64,40 @@ def checkpoint_steps(directory: str) -> List[int]:
                   if f.endswith(".pt") and f[:-3].isdigit())
 
 
-def _tensors(tree):
-    """The tensors of a nested state dict, in a fixed order."""
-    for v in tree.values():
+def _named_tensors(tree, prefix=""):
+    """(path, tensor) of a nested state dict, in a fixed order."""
+    for k, v in tree.items():
         if isinstance(v, dict):
-            yield from _tensors(v)
+            yield from _named_tensors(v, f"{prefix}{k}/")
         elif torch.is_tensor(v):
-            yield v
+            yield prefix + k, v
+
+
+def _tensors(tree) -> List[torch.Tensor]:
+    """The tensors of a nested state dict, in a fixed order."""
+    return [t for _, t in _named_tensors(tree)]
+
+
+def check_finite(step: int, named) -> None:
+    """FloatingPointError naming the first (path, tensor) of `named` that
+    holds a NaN or an infinity (one device sync for all of them)."""
+    named = list(named)
+    ok = torch.stack([torch.isfinite(t).all() for _, t in named]).tolist()
+    for (path, t), good in zip(named, ok):
+        if not good:
+            raise FloatingPointError(
+                f"debug_nans: non-finite value in {path} after step {step}"
+                + (f" ({float(t)})" if t.numel() == 1 else ""))
+
+
+def check_no_graph(step: int, named) -> None:
+    """RuntimeError naming the first (path, tensor) of `named` that carries
+    an autograd graph (a grad_fn) out of the step."""
+    for path, t in named:
+        if t.grad_fn is not None:
+            raise RuntimeError(
+                f"debug_leaks: {path} carries an autograd graph "
+                f"({t.grad_fn.name()}) out of step {step}")
 
 
 class Experiment:
@@ -79,12 +110,27 @@ class Experiment:
 
     Inside a process group (`parallel.initialize_distributed`) it trains
     data parallel over every rank of it.
+
+    The debug tripwires (every rank checks its own state):
+      debug_nans   each step runs under autograd's anomaly mode (restored
+                   after the step), and its metrics and the whole train
+                   state after it are checked; the first NaN or infinity
+                   raises FloatingPointError naming where it was found
+                   (the counterpart of jax_debug_nans);
+      debug_leaks  after each step no tensor of the train state and no
+                   metric may carry an autograd graph out of it, which
+                   would keep that graph alive; one that does raises
+                   RuntimeError naming it (the counterpart of
+                   jax_check_tracer_leaks).
+    tensorboard=True mirrors the metrics to <workdir>/tb (rank 0).
     """
 
     def __init__(self, cfg, workdir: Optional[str] = None, device="cuda",
-                 resume: bool = True):
+                 resume: bool = True, debug_nans: bool = False,
+                 debug_leaks: bool = False, tensorboard: bool = False):
         self.cfg = cfg
         self.workdir = workdir
+        self.debug_nans, self.debug_leaks = debug_nans, debug_leaks
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device cuda asked for, but no CUDA device is visible")
@@ -104,9 +150,10 @@ class Experiment:
             if os.path.exists(best_path):
                 with open(best_path) as f:
                     self._best_metric = json.load(f)["eval_si_sdr_improvement"]
+        writes = bool(workdir) and self.dp.is_main
         self.metrics = MetricsWriter(
-            os.path.join(workdir, "metrics.jsonl")
-            if workdir and self.dp.is_main else None)
+            os.path.join(workdir, "metrics.jsonl") if writes else None,
+            os.path.join(workdir, "tb") if writes and tensorboard else None)
 
     def reseed(self, seed: int) -> None:
         """Re-initialize everything seed-dependent: G, D, both optimizers,
@@ -126,7 +173,7 @@ class Experiment:
         # Rank 0's parameters, optimizer moments, spectral-norm buffers and
         # EMA into every rank's; the step, the update counts and the train
         # seed are plain ints that every rank already shares.
-        self.dp.broadcast_(list(_tensors(self.state.state_dict())))
+        self.dp.broadcast_(_tensors(self.state.state_dict()))
 
     def _main_writes(self, write: Callable[[], None]) -> None:
         """Run `write` on rank 0 alone, then wait for it on every rank."""
@@ -241,8 +288,31 @@ class Experiment:
             x = x.pin_memory().to(self.device, non_blocking=True)
         return x
 
+    def _step(self, data: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """One train step on `data`, under the debug tripwires asked for."""
+        step = self.state.step
+        if not self.debug_nans:
+            self.state, metrics = self._train_step(self.state, data, self._train_seed)
+        else:
+            try:
+                with torch.autograd.set_detect_anomaly(True, check_nan=True):
+                    self.state, metrics = self._train_step(
+                        self.state, data, self._train_seed)
+            except RuntimeError as exc:
+                if "nan values" not in str(exc):
+                    raise
+                raise FloatingPointError(
+                    f"debug_nans: in the backward of step {step}: {exc}") from exc
+            check_finite(step, [(f"metrics/{k}", v) for k, v in metrics.items()])
+            check_finite(step, _named_tensors(self.state.state_dict()))
+        if self.debug_leaks:
+            check_no_graph(step, [(f"metrics/{k}", v) for k, v in metrics.items()])
+            check_no_graph(step, _named_tensors(self.state.state_dict(keep_vars=True)))
+        return metrics
+
     def train(self, num_steps: Optional[int] = None,
-              log_fn: Optional[Callable[[int, Dict[str, float]], None]] = None
+              log_fn: Optional[Callable[[int, Dict[str, float]], None]] = None,
+              profile_steps: Optional[Tuple[int, int]] = None
               ) -> Dict[str, float]:
         """Run `num_steps` steps (default train.total_steps) from the
         current step and return the last logged metrics, with
@@ -257,7 +327,11 @@ class Experiment:
         dispatch.)  The log, checkpoint and eval boundaries are multiples
         of their periods counted from step 0, so a resumed run meets them
         where the continuous run did.  With a workdir the state is saved
-        every train.ckpt_every steps and at the end."""
+        every train.ckpt_every steps and at the end.
+
+        profile_steps=(A, B) with a workdir traces steps A to B - 1 into
+        <workdir>/profile (rank 0; utils/profiler.py), each step in a
+        "ProfilerStep#<step>" range."""
         cfg = self.cfg
         total = num_steps if num_steps is not None else cfg.train.total_steps
         n_full, rem = divmod(total, self._spd)
@@ -302,6 +376,9 @@ class Experiment:
                 raise item
             return self._to_device(item)
 
+        profile = (profile_steps if profile_steps and self.workdir and self.dp.is_main
+                   else None)
+        tracing, profiling = contextlib.ExitStack(), False
         last: Dict[str, float] = {}
         t_start, steps_timed = time.perf_counter(), 0
         step_now = saved = self.state.step
@@ -311,8 +388,17 @@ class Experiment:
                     _sync(self.device)
                     t_start, steps_timed = time.perf_counter(), 0
                 for _ in range(length):
-                    self.state, metrics = self._train_step(
-                        self.state, next_data(), self._train_seed)
+                    s = self.state.step
+                    traced = profile is not None and profile[0] <= s < profile[1]
+                    if traced and not profiling:
+                        tracing.enter_context(profile_trace(
+                            os.path.join(self.workdir, "profile")))
+                        profiling = True
+                    with step_range(s) if traced else contextlib.nullcontext():
+                        metrics = self._step(next_data())
+                    if profiling and s + 1 >= profile[1]:
+                        tracing.close()
+                        profiling = False
                 steps_timed += length
                 completed = step_now + length
                 if crossed(completed, cfg.train.log_every, length) \
@@ -339,6 +425,7 @@ class Experiment:
                         self._save_best(completed, si)
                 step_now = completed
         finally:
+            tracing.close()
             stop.set()
             if thread is not None:
                 thread.join(timeout=5)

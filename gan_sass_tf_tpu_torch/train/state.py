@@ -152,12 +152,14 @@ class TrainState:
     d_opt: ClippedAdam
     g_ema: Optional[Dict[str, torch.Tensor]] = None
 
-    def state_dict(self) -> dict:
+    def state_dict(self, keep_vars: bool = False) -> dict:
         """The step, G's and D's state_dicts (D's spectral-norm u and sigma
         buffers included), both optimizers and the EMA shadow (or None).
-        The tensors are the live ones, as Module.state_dict gives them."""
-        return {"step": self.step, "g": self.g.state_dict(),
-                "d": self.d.state_dict(), "g_opt": self.g_opt.state_dict(),
+        The tensors are the live ones, as Module.state_dict gives them
+        (with `keep_vars`, the modules' tensors themselves, not detached)."""
+        return {"step": self.step, "g": self.g.state_dict(keep_vars=keep_vars),
+                "d": self.d.state_dict(keep_vars=keep_vars),
+                "g_opt": self.g_opt.state_dict(),
                 "d_opt": self.d_opt.state_dict(), "g_ema": self.g_ema}
 
     def load_state_dict(self, sd: dict) -> None:

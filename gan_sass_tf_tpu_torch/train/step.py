@@ -25,6 +25,9 @@ are the reference's:
     `d_input_fold` folds f frames of the pairs into channels;
   * `g_remat` recomputes G's forward in the backward
     (`torch.utils.checkpoint`, the reference's `jax.checkpoint`);
+  * the step's parts run in torch.profiler ranges named by
+    `utils/profiler.STEP_RANGES` (`scripts/profile_step.py` buckets
+    device time by them); they change no number;
   * data parallel (`dp`, the reference's `shard_map` over the mesh): each
     rank runs the step on its rows of the global batch and all-reduces
     (mean) D's gradients after each D step, G's gradients and the metrics,
@@ -51,6 +54,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from gan_sass_tf_tpu_torch.data.counter_rng import counter_normal
@@ -166,22 +170,24 @@ def build_train_step(cfg, from_bank: bool = False, local_batch: int = 0,
         loss = gan_d_loss(real, fake, lcfg.gan_loss) + loss
         grads = torch.autograd.grad(loss, state.d_opt.params)
         dp.all_reduce_mean(grads)                 # before d_opt's clip
-        state.d_opt.step(grads)
+        with record_function("optimizer"):
+            state.d_opt.step(grads)
         return loss.detach(), real.detach().mean(), fake.detach().mean()
 
     def train_step(state: TrainState, data: torch.Tensor, seed: int):
         step = state.step
         b = local_batch if from_bank else data.shape[0]
         offset = dp.rank * b                      # this rank's first global example
-        sources = (sample_bank(data, seed, step, b, example_offset=offset)
-                   if from_bank else data)
-        mixture, scaled = mix_sources(sources, seed, step, cfg.data,
-                                      example_offset=offset)
-        mix_out = ops.stft_features(mixture, dcfg, emit=mix_emit)
+        with record_function("dsp"):
+            sources = (sample_bank(data, seed, step, b, example_offset=offset)
+                       if from_bank else data)
+            mixture, scaled = mix_sources(sources, seed, step, cfg.data,
+                                          example_offset=offset)
+            mix_out = ops.stft_features(mixture, dcfg, emit=mix_emit)
+            tgt_out = ops.stft_features(scaled, dcfg, emit=tgt_emit)
         spec_mix, mag_mix = mix_out.get("spec"), mix_out["mag"]
         mix_logmag = mix_out["logmag"]
         feats = mix_out["logmel"] if dcfg.feature == "logmel" else mix_logmag
-        tgt_out = ops.stft_features(scaled, dcfg, emit=tgt_emit)
         tgt_logmag, tgt_mag, tgt_spec = (tgt_out["logmag"], tgt_out.get("mag"),
                                          tgt_out.get("spec"))
 
@@ -193,47 +199,50 @@ def build_train_step(cfg, from_bank: bool = False, local_batch: int = 0,
         def g_forward(f):
             return state.g(f, train=True, dropout=g_key)
 
-        masks = (checkpoint(g_forward, feats, use_reentrant=False) if g_remat
-                 else g_forward(feats))
-        if need_est_spec:
-            est_spec = apply_mask(spec_mix, masks, dcfg.mask_type)
-            est_mag = est_spec.abs()
-        else:          # magnitude masks: |m·X| = m·|X|, no complex product
-            est_spec = None
-            est_mag = masks * mag_mix[:, None]
-        est_logmag = torch.log(est_mag + dcfg.eps)
+        with record_function("g_fwd"):
+            masks = (checkpoint(g_forward, feats, use_reentrant=False) if g_remat
+                     else g_forward(feats))
+            if need_est_spec:
+                est_spec = apply_mask(spec_mix, masks, dcfg.mask_type)
+                est_mag = est_spec.abs()
+            else:      # magnitude masks: |m·X| = m·|X|, no complex product
+                est_spec = None
+                est_mag = masks * mag_mix[:, None]
+            est_logmag = torch.log(est_mag + dcfg.eps)
         est_logmag_sg = est_logmag.detach()
 
         if lcfg.use_pit:
-            with torch.no_grad():
+            with torch.no_grad(), record_function("pit"):
                 match_kind = "l1" if lcfg.recon_loss == "si_sdr" else lcfg.recon_loss
                 perm = pooled_match_perm(
                     est_mag.detach() if mag_primary else est_logmag_sg,
                     tgt_mag if mag_primary else tgt_logmag, match_kind)
-            tgt_logmag = align_to_perm(tgt_logmag, perm)
-            tgt_mag = align_to_perm(tgt_mag, perm) if mag_domain else None
-            scaled = align_to_perm(scaled, perm) if wav_domain else scaled
-            tgt_spec = align_to_perm(tgt_spec, perm) if cspec_domain else None
+                tgt_logmag = align_to_perm(tgt_logmag, perm)
+                tgt_mag = align_to_perm(tgt_mag, perm) if mag_domain else None
+                scaled = align_to_perm(scaled, perm) if wav_domain else scaled
+                tgt_spec = align_to_perm(tgt_spec, perm) if cspec_domain else None
 
-        # D updates on the pair batch built once, detached.
-        x_d = torch.cat([d_input(mix_logmag, tgt_logmag),
-                         d_input(mix_logmag, est_logmag_sg)])
-        # Global pair rows: the real half's at offset·S + i, the fake
-        # half's after all B·S real rows of the global batch.
-        s = tgt_logmag.shape[1]
-        real_rows = offset * s + torch.arange(b * s, device=x_d.device)
-        fake_rows = dp.world * b * s + real_rows
-        for di in range(tcfg.d_steps):
-            d_loss, real_m, fake_m = d_update(
-                state, x_d, torch.cat([real_rows, fake_rows]), seed, step, di)
-        # BN running statistics, from each rank's own pairs, averaged.
-        dp.all_reduce_mean([t for n in state.d.norms if n.kind == "batch"
-                            for t in (n.mean, n.var)])
+        with record_function("d_step"):
+            # D updates on the pair batch built once, detached.
+            x_d = torch.cat([d_input(mix_logmag, tgt_logmag),
+                             d_input(mix_logmag, est_logmag_sg)])
+            # Global pair rows: the real half's at offset·S + i, the fake
+            # half's after all B·S real rows of the global batch.
+            s = tgt_logmag.shape[1]
+            real_rows = offset * s + torch.arange(b * s, device=x_d.device)
+            fake_rows = dp.world * b * s + real_rows
+            for di in range(tcfg.d_steps):
+                d_loss, real_m, fake_m = d_update(
+                    state, x_d, torch.cat([real_rows, fake_rows]), seed, step, di)
+            # BN running statistics, from each rank's own pairs, averaged.
+            dp.all_reduce_mean([t for n in state.d.norms if n.kind == "batch"
+                                for t in (n.mean, n.var)])
 
         def domain_rec(dname):
             if dname == "wav":
-                est_r = ops.istft(est_spec, n_fft, hop, window=dcfg.window,
-                                  win_length=dcfg.win_length)
+                with record_function("dsp"):
+                    est_r = ops.istft(est_spec, n_fft, hop, window=dcfg.window,
+                                      win_length=dcfg.win_length)
                 tgt_r = scaled[..., : est_r.shape[-1]]
                 if lcfg.recon_loss == "si_sdr":
                     return -si_sdr(est_r, tgt_r).mean()
@@ -245,26 +254,28 @@ def build_train_step(cfg, from_bank: bool = False, local_batch: int = 0,
                 return recon_loss(est_mag, tgt_mag, spec_kind)
             return recon_loss(est_logmag, tgt_logmag, spec_kind)
 
-        rec = sum(w * domain_rec(dn) for w, dn in zip(dweights, domains))
-        # Adversarial term against the just-updated D, fresh noise.
-        fake_logits = state.d(
-            instance_noise(d_input(mix_logmag, est_logmag), d_noise, seed,
-                           step, STREAM_G_NOISE, real_rows),
-            train=True, dropout=DropoutKey(seed, step, STREAM_G_ADV_DROP, real_rows))
-        adv = gan_g_loss(fake_logits, lcfg.gan_loss)
-        g_loss = lcfg.adv_weight * adv + lcfg.recon_weight * rec
-        g_grads = torch.autograd.grad(g_loss, state.g_opt.params)
-        dp.all_reduce_mean(g_grads)               # before g_opt's clip
-        state.g_opt.step(g_grads)
-
-        if state.g_ema is not None:
-            # Warm-up ramp min(decay, (1+t)/(10+t)), t the post-update count.
-            t = float(step + 1)
-            decay = min(tcfg.g_ema, (1.0 + t) / (10.0 + t))
-            with torch.no_grad():
-                for name, p in state.g.named_parameters():
-                    e = state.g_ema[name]
-                    e.copy_(e * decay + p * (1.0 - decay))
+        with record_function("g_fwd"):
+            rec = sum(w * domain_rec(dn) for w, dn in zip(dweights, domains))
+            # Adversarial term against the just-updated D, fresh noise.
+            fake_logits = state.d(
+                instance_noise(d_input(mix_logmag, est_logmag), d_noise, seed,
+                               step, STREAM_G_NOISE, real_rows),
+                train=True, dropout=DropoutKey(seed, step, STREAM_G_ADV_DROP, real_rows))
+            adv = gan_g_loss(fake_logits, lcfg.gan_loss)
+            g_loss = lcfg.adv_weight * adv + lcfg.recon_weight * rec
+        with record_function("g_bwd"):
+            g_grads = torch.autograd.grad(g_loss, state.g_opt.params)
+            dp.all_reduce_mean(g_grads)           # before g_opt's clip
+        with record_function("optimizer"):
+            state.g_opt.step(g_grads)
+            if state.g_ema is not None:
+                # Warm-up ramp min(decay, (1+t)/(10+t)), t the post-update count.
+                t = float(step + 1)
+                decay = min(tcfg.g_ema, (1.0 + t) / (10.0 + t))
+                with torch.no_grad():
+                    for name, p in state.g.named_parameters():
+                        e = state.g_ema[name]
+                        e.copy_(e * decay + p * (1.0 - decay))
         state.step = step + 1
         metrics = {"d_loss": d_loss, "g_loss": g_loss.detach(),
                    "g_adv": adv.detach(), "g_recon": rec.detach(),

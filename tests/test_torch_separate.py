@@ -23,7 +23,8 @@ from gan_sass_tf_tpu_torch.utils.wav_io import read_wav, write_wav
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "gan_sass_tf_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "gan_sass_tf_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "gan_sass_tf_tpu",
+             "tensorflow", "tensorboard")
 
 
 def _cfg(**model):
@@ -130,15 +131,21 @@ def _imports(path):
 
 def test_port_imports_no_jax():
     """No module of the port, not chip_smoke.py and not the ranks' code of
-    tests/test_torch_parallel.py imports JAX, its libraries or any module
-    of the JAX package (the config included)."""
+    tests/test_torch_parallel.py imports JAX, its libraries, any module
+    of the JAX package (the config included), TensorFlow or tensorboard
+    (the card's machine has neither; the port writes its TensorBoard
+    event files itself)."""
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                           ROOT / "tests" / "_torch_dist_workers.py"]
     assert len(files) > 15
     names = {str(p.relative_to(PORT)) for p in files if PORT in p.parents}
     assert {"infer/streaming.py", "data/corpus.py", "data/fixtures.py",
             "utils/metrics_writer.py", "train/experiment.py",
-            "parallel/bootstrap.py", "parallel/mesh.py"} <= names
+            "parallel/bootstrap.py", "parallel/mesh.py", "entry.py",
+            "utils/profiler.py", "utils/tb_events.py", "scripts/profile_step.py",
+            "scripts/stream_quality.py", "scripts/bench_presets.py",
+            "scripts/bench_streaming_compute.py", "scripts/train_wavdir_fixture.py",
+            "scripts/run_queue.py", "examples/quickstart.py"} <= names
     bad = [f"{path.relative_to(ROOT)}: {mod}" for path in files
            for mod in _imports(path) if mod.split(".")[0] in FORBIDDEN]
     assert not bad, bad
