@@ -136,6 +136,21 @@ Phases, one JSON line each:
               at 1 warm-up and 3 timed steps (every value > 0);
               bench_streaming_compute at 10 s; the quickstart at 4 steps;
               train_wavdir_fixture at its 500 steps (finite, SI-SDRi > 0)
+ 13 install   the port as a user installs it: `pip wheel` of a copy of
+              the checkout (the wheel holds every ops/csrc source and
+              header, no library, the gan-sass-torch console script),
+              `pip install --target T/site`, the package made read-only;
+              each process below runs from T with `python -P`,
+              PYTHONPATH=T/site and XDG_CACHE_HOME=T/cache, nothing of the
+              checkout on its path.  A worker (`--install-worker`) checks
+              that the port and its build directory lie there, builds the
+              library under T/cache and holds K1, K2, K3 with its backward
+              and K4 through ops.dispatch against their plain versions;
+              `gan-sass-torch configs` runs as a process; the console
+              script trains stream_v5e8 2 steps into a workdir (K1, K3 and
+              its backward exactly 4, 2, 2) and separates a 3 s wav with
+              it (K1, K2 once; a finite 3 s wav a source); the installed
+              recompute_bounds runs stream_v5e8's bound (K4)
 Then a `kernels` summary line (each kernel's launches, summed over the
 paths that drive it and by path, each path's counts set to 0 just before
 it and read just after, a dp_* path's summed over its ranks; its error; its time beside its plain version's,
@@ -144,6 +159,12 @@ streaming chunk shapes) and, last, the result line.  Any failed check
 exits non-zero before the result line, and so does a failed NCCL init or
 a rank that exits non-zero.  Needs one CUDA device; the dp phase takes
 every visible one.
+
+    python3 chip_smoke.py --installed MODULE [ARGS...]
+
+runs `python -m MODULE ARGS` on the port installed as the install phase
+installs it (for jobs too long for this script, e.g. the quality
+protocol at 10 000 steps).
 """
 
 from __future__ import annotations
@@ -157,11 +178,14 @@ import json
 import math
 import os
 import re
+import runpy
+import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+import zipfile
 from pathlib import Path
 
 import numpy as np
@@ -262,6 +286,9 @@ BENCH_STEPS = "1:3"                  # bench_presets: warm-up 1, timed 3
 STREAMING_COMPUTE_SECONDS = 10
 QUICKSTART_STEPS = 4
 WAVDIR_STEPS = 500                   # train_wavdir_fixture's own default
+SEED_INSTALL = 13                    # the install phase's own generator
+INSTALL_TIMEOUT_S = 300              # one pip call or process of the install phase
+INSTALL_STEPS = 2                    # the installed console script's train
 # A train step's device time by kernel family: substrings of the lower-cased
 # kernel name, first match wins.  cuDNN's layout transposes are
 # nchwToNhwc/nhwcToNchw kernels; its conv kernels carry "nhwc" too.
@@ -467,19 +494,25 @@ def phase_k1(rng, dev):
     return x, ker["spec"], main_errs["spec"], music
 
 
-def k2_case(spec, masks, n_fft, hop, mask_type):
-    ker = k2.masked_istft_kernel(spec, masks, n_fft, hop, mask_type=mask_type)
-    ref = k2.masked_istft_reference(spec, masks, n_fft, hop, mask_type=mask_type)
-    torch.cuda.synchronize()
+def k2_check(ker, ref, hop, what):
+    """K2 kernel vs plain: (interior max err, full max err), the interior
+    within atol 3e-4 rtol 1e-3, the whole signal within 1e-3·max|y|."""
     check(ker.shape == ref.shape, f"k2 shape {ker.shape} != {ref.shape}")
     interior = (ker - ref)[..., hop:-hop].abs()
     ok_in = bool((interior <= 3e-4 + 1e-3 * ref[..., hop:-hop].abs()).all())
     full = max_err(ker, ref)
     tol_full = 1e-3 * float(ref.abs().max())
-    check(ok_in, f"k2 {mask_type} interior at n_fft {n_fft}: max err "
+    check(ok_in, f"k2 {what} interior: max err "
           f"{float(interior.max())} over atol 3e-4 rtol 1e-3")
-    check(full <= tol_full, f"k2 {mask_type} full length: {full} > {tol_full}")
+    check(full <= tol_full, f"k2 {what} full length: {full} > {tol_full}")
     return float(interior.max()), full
+
+
+def k2_case(spec, masks, n_fft, hop, mask_type):
+    ker = k2.masked_istft_kernel(spec, masks, n_fft, hop, mask_type=mask_type)
+    ref = k2.masked_istft_reference(spec, masks, n_fft, hop, mask_type=mask_type)
+    torch.cuda.synchronize()
+    return k2_check(ker, ref, hop, f"{mask_type} at n_fft {n_fft}")
 
 
 def phase_k2(rng, dev, x, spec):
@@ -605,26 +638,33 @@ def k3_case(rng, dev, b, t, n_fft, hop):
     y = k3.istft_kernel(re, im, n_fft, hop)
     ref = k3.istft_reference(re, im, n_fft, hop)
     dy = torch.randn_like(ref)
-    g_ker = torch.autograd.grad(y, (re, im), dy, retain_graph=True)
-    g_ref = torch.autograd.grad(ref, (re, im), dy, retain_graph=True)
+    return k3_check(y, ref, (re, im), dy, hop, f"at n_fft {n_fft}"), (re, im, y, ref, dy)
+
+
+def k3_check(y, ref, leaves, dy, hop, what):
+    """K3 forward and backward, kernel vs plain: the forward's interior
+    within atol 2e-4 rtol 1e-3 and the whole within 1e-3·max|y|, the
+    gradients w.r.t. `leaves` (from upstream `dy`) within atol
+    5e-4·max|g| rtol 1e-3."""
+    g_ker = torch.autograd.grad(y, leaves, dy, retain_graph=True)
+    g_ref = torch.autograd.grad(ref, leaves, dy, retain_graph=True)
     torch.cuda.synchronize()
     check(y.shape == ref.shape, f"k3 shape {y.shape} != {ref.shape}")
     inner = (y - ref)[..., hop:-hop].abs()
     ok_in = bool((inner <= 2e-4 + 1e-3 * ref[..., hop:-hop].abs()).all())
     full, tol_full = max_err(y, ref), 1e-3 * float(ref.abs().max())
-    check(ok_in, f"k3 forward interior at n_fft {n_fft}: max err "
+    check(ok_in, f"k3 forward interior {what}: max err "
           f"{float(inner.max())} over atol 2e-4 rtol 1e-3")
-    check(full <= tol_full, f"k3 forward full length: {full} > {tol_full}")
+    check(full <= tol_full, f"k3 forward full length {what}: {full} > {tol_full}")
     grad_errs = []
     for a, r in zip(g_ker, g_ref):
         scale = float(r.abs().max())
         ok = bool(((a - r).abs() <= 5e-4 * scale + 1e-3 * r.abs()).all())
         grad_errs.append(max_err(a, r))
-        check(ok, f"k3 backward at n_fft {n_fft}: max err {grad_errs[-1]} "
+        check(ok, f"k3 backward {what}: max err {grad_errs[-1]} "
               f"over atol 5e-4*{scale} rtol 1e-3")
-    errs = {"forward_interior": float(inner.max()), "forward_full": full,
+    return {"forward_interior": float(inner.max()), "forward_full": full,
             "grad_re": grad_errs[0], "grad_im": grad_errs[1]}
-    return errs, (re, im, y, ref, dy)
 
 
 def phase_k3(rng, dev):
@@ -1845,32 +1885,250 @@ def phase_quality(dev):
 
 
 def tool_worker(out: str, module: str, *argv) -> int:
-    """A tools-phase process: `module.main(argv)`, what `python -m module
-    argv...` runs, then the kernels it launched and its exit code written
-    to `out` as JSON."""
+    """A tools-phase or install-phase process: `module.main(argv)`, what
+    `python -m module argv...` runs, or, where `module` is a file (a
+    console script), that file run as `python FILE argv...` runs it; then
+    the kernels it launched, its exit code, and where the port and its
+    library came from, written to `out` as JSON."""
+    import gan_sass_tf_tpu_torch
+
     reset_launch_counts()
     k4.launches = 0
-    rc = importlib.import_module(module).main(list(argv))
+    if os.path.isfile(module):
+        sys.argv = [module, *argv]
+        try:
+            runpy.run_path(module, run_name="__main__")
+            rc = 0
+        except SystemExit as e:
+            rc = e.code if isinstance(e.code, int) else int(e.code is not None)
+    else:
+        rc = importlib.import_module(module).main(list(argv))
     Path(out).write_text(json.dumps({"rc": rc, "launches": {
-        **launch_counts(), "stft": k4.launches}}))
+        **launch_counts(), "stft": k4.launches},
+        "package": gan_sass_tf_tpu_torch.__file__,
+        "library": str(build.library_path()) if build._lib else None}))
     return rc
 
 
-def tool_process(tmp: Path, name: str, module: str, *argv) -> tuple:
-    """(wall s, stdout, launches) of `module.main(argv)` in a process of its
-    own (tool_worker); a non-zero exit fails the run."""
-    out = tmp / f"{name}.json"
+def installed_env(tmp: Path) -> dict:
+    """The environment of a process that runs the port installed under
+    tmp/site (install_port), its kernels built under tmp/cache."""
+    return {**os.environ, "PYTHONPATH": str(tmp / "site"),
+            "XDG_CACHE_HOME": str(tmp / "cache")}
+
+
+def worker_process(cmd: list, what: str, installed: Path = None) -> tuple:
+    """(wall s, stdout) of this script run as `cmd` (its arguments) in a
+    process of its own; a non-zero exit fails the run.  With `installed`
+    (install_port's directory) it runs from there with `python -P` and
+    installed_env, so that nothing of the checkout is on its path."""
+    flags, cwd, env = (), ROOT, {**os.environ, "PYTHONPATH": str(ROOT)}
+    if installed is not None:
+        flags, cwd, env = ("-P",), installed, installed_env(installed)
     t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, str(SCRIPT), "--tool-worker", str(out),
-                          module, *argv], cwd=ROOT, capture_output=True, text=True,
-                         timeout=TOOLS_TIMEOUT_S,
-                         env={**os.environ, "PYTHONPATH": str(ROOT)})
+    res = subprocess.run([sys.executable, *flags, str(SCRIPT), *cmd], cwd=cwd,
+                         capture_output=True, text=True, timeout=TOOLS_TIMEOUT_S,
+                         env=env)
     wall = time.perf_counter() - t0
     if res.returncode != 0:
         print(res.stdout[-3000:], res.stderr[-6000:], sep="\n", file=sys.stderr)
-    check(res.returncode == 0, f"tools: {module} {' '.join(argv[:4])} exited "
-          f"{res.returncode}")
-    return wall, res.stdout, json.loads(out.read_text())["launches"]
+    check(res.returncode == 0, f"{what} exited {res.returncode}")
+    return wall, res.stdout
+
+
+def tool_process(tmp: Path, name: str, module: str, *argv, installed: Path = None
+                 ) -> tuple:
+    """(wall s, stdout, tool_worker's report) of `module.main(argv)` (or the
+    file `module`) in a process of its own, counted by tool_worker; a
+    non-zero exit fails the run.  `installed`: as worker_process."""
+    out = tmp / f"{name}.json"
+    wall, stdout = worker_process(["--tool-worker", str(out), module, *argv],
+                                  f"tools: {module} {' '.join(argv[:4])}", installed)
+    return wall, stdout, json.loads(out.read_text())
+
+
+def pip(*argv) -> None:
+    """`python -m pip ARGV` with no package index; a non-zero exit fails
+    the run."""
+    res = subprocess.run([sys.executable, "-m", "pip", *argv, "--no-index", "-q"],
+                         capture_output=True, text=True, timeout=INSTALL_TIMEOUT_S)
+    if res.returncode != 0:
+        print(res.stdout[-3000:], res.stderr[-6000:], sep="\n", file=sys.stderr)
+    check(res.returncode == 0, f"install: pip {argv[0]} exited {res.returncode}")
+
+
+def install_port(tmp: Path) -> dict:
+    """Build a wheel of this checkout and install it under tmp/site, the
+    port's package made read-only.  The wheel is built from a copy of the
+    checkout (setuptools writes build/ and *.egg-info/ beside the sources),
+    ops/_build/ and any library in it included: the wheel must hold every
+    CUDA source and header, no library, and the `gan-sass-torch` console
+    script."""
+    src, dist, site = tmp / "src", tmp / "dist", tmp / "site"
+    shutil.copytree(ROOT, src, ignore=shutil.ignore_patterns(
+        ".git", "build", "*.egg-info"))
+    t0 = time.perf_counter()
+    pip("wheel", "--no-deps", "--no-build-isolation", "-w", str(dist), str(src))
+    wheel, = dist.glob("*.whl")
+    with zipfile.ZipFile(wheel) as z:
+        names = z.namelist()
+        scripts = z.read(next(n for n in names if n.endswith(
+            ".dist-info/entry_points.txt"))).decode()
+    csrc = sorted(n.rsplit("/", 1)[1] for n in names
+                  if n.startswith("gan_sass_tf_tpu_torch/ops/csrc/"))
+    want = sorted(p.name for p in build._sources() + build._headers())
+    check(csrc == want, f"install: the wheel's ops/csrc holds {csrc}, not {want}")
+    libs = [n for n in names if n.endswith(".so") or "/_build/" in n]
+    check(not libs, f"install: the wheel ships built files {libs}")
+    check(re.search(r"^gan-sass-torch = gan_sass_tf_tpu_torch\.cli:main$", scripts,
+                    re.M) is not None, f"install: console scripts {scripts!r}")
+    pip("install", "--no-deps", "--target", str(site), str(wheel))
+    subprocess.run(["chmod", "-R", "a-w", str(site / "gan_sass_tf_tpu_torch")],
+                   check=True)
+    return {"wheel": wheel.name, "files": len(names), "csrc": csrc,
+            "source_held_library": any((src / "gan_sass_tf_tpu_torch" / "ops" / "_build")
+                                       .glob("*.so")),
+            "seconds": time.perf_counter() - t0}
+
+
+def install_worker(out: str, site: str, cache: str) -> int:
+    """The install phase's checks, in a process that runs the installed
+    port (worker_process with `installed`): the package imported from
+    `site`, its library built by nvcc under `cache`, no module of JAX or
+    of the JAX package loaded; then K1, K2, K3 with its backward and K4
+    through ops.dispatch at one small shape each against their plain
+    versions, at the tolerances of the k1-k4 phases.  Its launches are
+    comparisons and count on no path."""
+    import gan_sass_tf_tpu_torch
+
+    pkg = Path(gan_sass_tf_tpu_torch.__file__).resolve()
+    check(Path(site).resolve() in pkg.parents, f"install: the port came from {pkg}")
+    check(Path(cache).resolve() in build.build_dir().resolve().parents,
+          f"install: the build directory is {build.build_dir()}")
+    loaded = sorted({m.split(".")[0] for m in sys.modules}
+                    & {"jax", "jaxlib", "flax", "optax", "gan_sass_tf_tpu"})
+    check(not loaded, f"install: the worker loaded {loaded}")
+    t0 = time.perf_counter()
+    build.load_library()
+    report = {"package": str(pkg), "library": str(build.library_path()),
+              "build_s": time.perf_counter() - t0, "nvcc_s": build.build_seconds}
+    reset_launch_counts()
+    k4.launches = 0
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(SEED_INSTALL)
+    dsp = config.get_config("wsj0_logmel").dsp
+    n_fft, hop = dsp.n_fft, dsp.hop_length
+    x = torch.from_numpy(mixtures(rng, 2, SR)).to(dev)
+
+    def both(fn):
+        ker = fn()
+        with dispatch.force_backend("reference"):
+            ref = fn()
+        torch.cuda.synchronize()
+        return ker, ref
+
+    errs = {}
+    feats, ref = both(lambda: dispatch.stft_features(x, dsp, emit=("spec", "logmel")))
+    scale = float(ref["spec"].abs().max())
+    for key, tol in (("spec", 3e-4 * scale), ("logmel", 1e-3)):
+        errs[f"k1_{key}"] = max_err(feats[key], ref[key])
+        check(errs[f"k1_{key}"] <= tol, f"install: k1 {key} {errs[f'k1_{key}']} > {tol}")
+    spec = ref["spec"]
+    masks = torch.from_numpy(rng.uniform(0, 1, (2, 2) + tuple(spec.shape[-2:]))
+                             .astype(np.float32)).to(dev)
+    errs["k2_interior"], errs["k2_full"] = k2_check(
+        *both(lambda: dispatch.masked_istft(spec, masks, n_fft, hop)), hop, "install")
+    re_, im_ = (spec.real.contiguous().requires_grad_(),
+                spec.imag.contiguous().requires_grad_())
+    y, ref = both(lambda: dispatch.istft(torch.complex(re_, im_), n_fft, hop))
+    errs["k3"] = k3_check(y, ref, (re_, im_), torch.randn_like(ref), hop, "install")
+    errs["k4"] = k4_check(*both(lambda: dispatch.stft(x, n_fft, hop)), "install")
+    report.update(max_abs_err=errs, compare_launches={
+        **launch_counts(), "stft": k4.launches},
+        tol="k1 spec 3e-4*max|X|, logmel 1e-3; k2, k3, k4 as their phases")
+    print(json.dumps(report), flush=True)
+    Path(out).write_text(json.dumps(report))
+    return 0
+
+
+def phase_install(tmp: Path) -> dict:
+    """The port as a user installs it: a wheel of the checkout installed
+    under tmp/site, read-only, every process below run from tmp with
+    nothing of the checkout on its path and XDG_CACHE_HOME=tmp/cache.
+    install_worker builds and checks the kernels there; then the wheel's
+    console script trains stream_v5e8 for INSTALL_STEPS steps into a
+    workdir and separates a 3 s wav with it (its wavs: one a source, 3 s,
+    finite), and the installed recompute_bounds runs stream_v5e8's bound.
+    Returns the launches of those three runs, the install path's."""
+    wheel = install_port(tmp)
+    site, rng = tmp / "site", np.random.default_rng(SEED_INSTALL)
+    try:
+        out = tmp / "install_worker.json"
+        wall, _ = worker_process(["--install-worker", str(out), str(site),
+                                  str(tmp / "cache")], "install: the worker", tmp)
+        worker = json.loads(out.read_text())
+        script = site / "bin" / "gan-sass-torch"
+        res = subprocess.run([str(script), "configs"], cwd=tmp, env=installed_env(tmp),
+                             capture_output=True, text=True, timeout=INSTALL_TIMEOUT_S)
+        check(res.returncode == 0 and "stream_v5e8" in res.stdout.split(),
+              f"install: {script} configs exited {res.returncode}: {res.stderr[-2000:]}")
+        wd, outdir, wav = tmp / "wd", tmp / "out", tmp / "mix.wav"
+        write_wav(str(wav), SR_STREAM, mixtures(rng, 1, 3 * SR_STREAM, SR_STREAM)[0])
+        runs = {}
+        for name, target, argv in (
+                ("train", str(script), ("train", "--config", "stream_v5e8", "--workdir",
+                                        str(wd), "--steps", str(INSTALL_STEPS))),
+                ("separate", str(script), ("separate", "--config", "stream_v5e8",
+                                           "--workdir", str(wd), "--input", str(wav),
+                                           "--output-dir", str(outdir))),
+                ("bounds", "gan_sass_tf_tpu_torch.scripts.recompute_bounds",
+                 ("stream_v5e8",))):
+            w, stdout, rep = tool_process(tmp, f"install_{name}", target, *argv,
+                                          installed=tmp)
+            check(Path(rep["package"]).resolve().is_relative_to(site.resolve())
+                  and Path(rep["library"] or "/").resolve().is_relative_to(
+                      (tmp / "cache").resolve()),
+                  f"install {name}: the port came from {rep['package']}, its "
+                  f"library from {rep['library']}")
+            runs[name] = {"wall_s": w, "launches": rep["launches"],
+                          "tail": stdout.strip().splitlines()[-1:]}
+        got = runs["train"]["launches"]
+        check((got["stft_features"], got["istft"], got["istft_bwd"])
+              == (2 * INSTALL_STEPS, INSTALL_STEPS, INSTALL_STEPS),
+              f"install train launches {got}")
+        got = runs["separate"]["launches"]
+        check((got["stft_features"], got["masked_istft"]) == (1, 1),
+              f"install separate launches {got}")
+        check(runs["bounds"]["launches"]["stft"] > 0,
+              f"install bounds launches {runs['bounds']['launches']}")
+        wavs = sorted(outdir.glob("*.wav"))
+        lengths = [read_wav(str(w))[1].shape for w in wavs]
+        sources = config.get_config("stream_v5e8").data.num_sources
+        check(len(wavs) == sources and all(n == (3 * SR_STREAM,) for n in lengths)
+              and all(np.isfinite(read_wav(str(w))[1]).all() for w in wavs),
+              f"install separate: {[w.name for w in wavs]} of {lengths}")
+    finally:
+        subprocess.run(["chmod", "-R", "u+w", str(site)], check=False)
+    emit("install", wheel=wheel, worker={**worker, "wall_s": wall}, runs=runs,
+         wavs=[w.name for w in wavs],
+         note="worker launches are kernel-vs-plain comparisons; the install path "
+              "counts the console script's train and separate and recompute_bounds")
+    return {k: sum(r["launches"][k] for r in runs.values())
+            for k in ("stft_features", "masked_istft", "istft", "istft_bwd", "stft")}
+
+
+def installed_run(module: str, *argv) -> int:
+    """`python -m module argv...` on the port installed as phase_install
+    installs it (install_port, in a temporary directory, XDG_CACHE_HOME
+    there): the way to run a long job from the installed port."""
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        print(json.dumps({"install": install_port(tmp)}), flush=True)
+        try:
+            return subprocess.run([sys.executable, "-P", "-m", module, *argv],
+                                  cwd=tmp, env=installed_env(tmp)).returncode
+        finally:
+            subprocess.run(["chmod", "-R", "u+w", str(tmp / "site")], check=False)
 
 
 def trace_report(logdir: Path) -> dict:
@@ -1929,12 +2187,13 @@ def phase_tools(dev, tmp: Path):
 
     # cli train with every new flag, in a process of its own.
     wd = tmp / "run"
-    wall, out, paths["tools_cli_train"] = tool_process(
+    wall, out, rep = tool_process(
         tmp, "cli_train", "gan_sass_tf_tpu_torch.cli", "train", "--config",
         "stream_v5e8", "--workdir", str(wd), "--steps", str(TOOLS_STEPS),
         "--profile-steps", "{}:{}".format(*TOOLS_PROFILE), "--tensorboard",
         "--debug-nans", "--debug-leaks", "--device", str(dev), "--set",
         "train.log_every=1")
+    paths["tools_cli_train"] = rep["launches"]
     got = paths["tools_cli_train"]
     check((got["stft_features"], got["istft"], got["istft_bwd"]) ==
           (2 * TOOLS_STEPS, TOOLS_STEPS, TOOLS_STEPS), f"tools cli train launches {got}")
@@ -1970,9 +2229,10 @@ def phase_tools(dev, tmp: Path):
                        "si_sdr_kernel_vs_plain_db_min": agree, "tol_db": 40.0}
 
     # profile_step in a process of its own, early in it.
-    wall, out, paths["tools_profile_step"] = tool_process(
+    wall, out, rep = tool_process(
         tmp, "profile_step", "gan_sass_tf_tpu_torch.scripts.profile_step",
         "stream_v5e8", "32", "--device", str(dev))
+    paths["tools_profile_step"] = rep["launches"]
     line = json.loads(out.strip().splitlines()[-1])
     buckets = line["buckets_us_per_step"]
     named = sum(v for k, v in buckets.items() if k != "other")
@@ -2367,6 +2627,8 @@ def main() -> int:
                          k4_inputs, k1_music, k2_music, bound_walls)
     with tempfile.TemporaryDirectory() as tmp:
         tools = phase_tools(dev, Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        install = phase_install(Path(tmp))
     quality_launches = {"stft": sum(r["launches"]["stft"] for r in quality_runs.values())}
 
     def by_path(name, **paths):
@@ -2387,7 +2649,7 @@ def main() -> int:
                    pit3_train=pit3_counts["train"], pit3_eval=pit3_counts["eval"],
                    pit3_separation=pit3_counts["separation"],
                    pit3_quality=pit3_counts["quality"], **dp_counts, **opt,
-                   **tools),
+                   **tools, install=install),
          "max_abs_err": k1_err, **times["stft_features"],
          "stream_shape": stream_rows("stft_features"),
          "pit3_shape": pit3_rows["stft_features"]},
@@ -2402,7 +2664,8 @@ def main() -> int:
                    pit3_quality=pit3_counts["quality"], **dp_counts,
                    **{k: opt[k] for k in ("options_music_eval",
                                           "options_music_separation",
-                                          "options_music_quality")}, **tools),
+                                          "options_music_quality")}, **tools,
+                   install=install),
          "max_abs_err": k2_err, **times["masked_istft"],
          "stream_shape": stream_rows("masked_istft"),
          "pit3_shape": pit3_rows["masked_istft"]},
@@ -2411,14 +2674,16 @@ def main() -> int:
          "replaces": "gan_sass_tf_tpu/ops/pallas_istft.py:71",
          **by_path("istft", train=train_counts, workdir=workdir_counts,
                    dp_train=dp_counts["dp_train"],
-                   options_stream_train=opt["options_stream_train"], **tools),
+                   options_stream_train=opt["options_stream_train"], **tools,
+                   install=install),
          "max_abs_err": k3_errs["forward_full"], **times["istft"]},
         {"name": "istft_bwd", "route": "cuda",
          "source": "gan_sass_tf_tpu_torch/ops/csrc/stft_features.cu",
          "replaces": "gan_sass_tf_tpu/ops/pallas_istft.py:151",
          **by_path("istft_bwd", train=train_counts, workdir=workdir_counts,
                    dp_train=dp_counts["dp_train"],
-                   options_stream_train=opt["options_stream_train"], **tools),
+                   options_stream_train=opt["options_stream_train"], **tools,
+                   install=install),
          "max_abs_err": max(k3_errs["grad_re"], k3_errs["grad_im"]),
          **times["istft_bwd"]},
         {"name": "stft", "route": "cuda",
@@ -2426,7 +2691,8 @@ def main() -> int:
          "replaces": "gan_sass_tf_tpu/ops/pallas_stft.py:228",
          **by_path("stft", bounds=bound_launches, quality=quality_launches,
                    pit3_quality=pit3_counts["quality"],
-                   options_music_quality=opt["options_music_quality"]),
+                   options_music_quality=opt["options_music_quality"],
+                   install=install),
          "max_abs_err": k4_err, **times["stft"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -2441,4 +2707,8 @@ if __name__ == "__main__":
         sys.exit(dp_worker(sys.argv[2]))
     if sys.argv[1:2] == ["--tool-worker"]:
         sys.exit(tool_worker(*sys.argv[2:]))
+    if sys.argv[1:2] == ["--install-worker"]:
+        sys.exit(install_worker(*sys.argv[2:]))
+    if sys.argv[1:2] == ["--installed"]:
+        sys.exit(installed_run(*sys.argv[2:]))
     sys.exit(main())

@@ -48,16 +48,20 @@ def _chunk_geometry(cfg, total: int):
         raise ValueError(f"overlap {overlap} >= chunk {chunk}")
     stride = chunk - overlap
     n_chunks = max(1, -(-(total - overlap) // stride))
-    # win_length < n_fft: the iSTFT cannot reconstruct the last
-    # n_fft - win_length samples of any segment (no analysis frame covers
-    # them; separate() zero-pads there).  Each chunk therefore READS a
-    # hop-aligned extension beyond its overlap-add span and its output is
-    # cropped back to `chunk`, so the silent tail never enters the fade.
-    ext = cfg.dsp.n_fft - cfg.dsp.win_length
-    if ext:
-        ext = -(-ext // hop) * hop
+    ext = _read_extension(cfg)
     padded = n_chunks * stride + overlap + ext
     return chunk, stride, overlap, n_chunks, padded, ext
+
+
+def _read_extension(cfg) -> int:
+    """Samples each chunk reads beyond its overlap-add span.  With
+    win_length < n_fft the iSTFT cannot reconstruct the last n_fft -
+    win_length samples of any segment (no analysis frame covers them;
+    separate() zero-pads there).  Each chunk therefore READS a hop-aligned
+    extension and its output is cropped back to `chunk`, so the silent
+    tail never enters the fade."""
+    hop, ext = cfg.dsp.hop_length, cfg.dsp.n_fft - cfg.dsp.win_length
+    return -(-ext // hop) * hop if ext else 0
 
 
 def _chain_permutations(heads: np.ndarray, tails: np.ndarray,
@@ -188,8 +192,8 @@ def separate_streaming(g: Optional[torch.nn.Module], cfg, mixture: np.ndarray,
 def separate_streaming_scan(g: Optional[torch.nn.Module], cfg,
                             mixture: np.ndarray, device) -> np.ndarray:
     """Long mixture (T,) float32 -> (S, T) separated sources, one chunk at a
-    time on `device`, each chunk's output final once the next chunk's head
-    has been faded against its tail.
+    time on `device` (`build_streaming_scan_fn`), each chunk's output final
+    once the next chunk's head has been faded against its tail.
 
     The loop carries the previous chunk's overlap tail, its permutation
     index and the stream's loudness so far (the running max of each
@@ -201,42 +205,62 @@ def separate_streaming_scan(g: Optional[torch.nn.Module], cfg,
     it against the zero initial carry, a tie of all S! permutations that
     its float rounding may break either way at hysteresis 0.)"""
     t_in = np.asarray(mixture).shape[-1]
-    chunks, (_, stride, overlap, _, _, ext) = _chunk_matrix(cfg, mixture)
-    full = scan_chunks(build_separate_fn(cfg, g), cfg,
-                       torch.from_numpy(chunks).to(device), stride, overlap, ext)
+    chunks, _ = _chunk_matrix(cfg, mixture)
+    full = scan_chunks(build_streaming_scan_fn(cfg, g),
+                       torch.from_numpy(chunks).to(device))
     return full.cpu().numpy()[..., :t_in]
 
 
-@torch.inference_mode()
-def scan_chunks(separate: Callable[[torch.Tensor], torch.Tensor], cfg,
-                chunks_dev: torch.Tensor, stride: int, overlap: int,
-                ext: int) -> torch.Tensor:
-    """The scan of `separate_streaming_scan` over (N, chunk + ext) chunks
-    already on the device: the (S, T_full) stream on the device, the
-    loop never waiting for it."""
-    n_chunks = chunks_dev.shape[0]
+def scan_chunks(scan_separate, chunks_dev: torch.Tensor) -> torch.Tensor:
+    """`scan_separate` (build_streaming_scan_fn) over (N, chunk + ext)
+    chunks already on the device, joined: the (S, T_full) stream on the
+    device, the loop never waiting for it."""
+    segs, tail = scan_separate(chunks_dev)
+    return torch.cat([segs.transpose(0, 1).reshape(segs.shape[1], -1), tail], dim=-1)
+
+
+def build_streaming_scan_fn(cfg, g: Optional[torch.nn.Module]):
+    """The scan of `separate_streaming_scan`: port of the JAX package's
+    `build_streaming_scan_fn`.
+
+    Returns scan_separate(chunks (N, chunk + ext), on a device) -> (segs
+    (N, S, stride) stride-aligned output segments, final_tail (S, overlap)),
+    on the chunks' device.  Concatenated along time, the segments and the
+    tail are the stream.  Unlike the JAX function it takes no `g_params`:
+    the port's G carries its weights.  The JAX package's jit-cache memo
+    `streaming_scan_fn_for` has no counterpart (there is no jit to
+    cache).  What the loop carries: `separate_streaming_scan`."""
+    separate = build_separate_fn(cfg, g)
     s = cfg.data.num_sources
-    dev = chunks_dev.device
-    perms = torch.from_numpy(permutations_for(s)).long().to(dev)   # (P, S)
+    overlap = cfg.stream.overlap_frames * cfg.dsp.hop_length
+    ext = _read_extension(cfg)
     hyst = float(cfg.stream.perm_hysteresis)
-    t_c = chunks_dev.shape[-1] - ext            # overlap-add span of a chunk
-    ramp = _fade_ramp(overlap, dev)
-    tail = torch.zeros((s, overlap), dtype=torch.float32, device=dev)
-    prev = torch.zeros((), dtype=torch.long, device=dev)     # identity
-    loud = torch.zeros((), dtype=torch.float32, device=dev)
-    segs = []
-    for i in range(n_chunks):
-        chunk = chunks_dev[i]
-        wavs = separate(chunk[None])[0][:, :t_c]                # (S, T_c)
-        loud = torch.maximum(loud, chunk.square().mean())
-        if i:
-            errs = (wavs[:, :overlap][perms] - tail).square().sum(dim=(1, 2))
-            best = torch.argmin(errs)
-            margin = hyst * loud * (s * overlap)
-            prev = torch.where(errs[best] < errs[prev] - margin, best, prev)
-        wavs = wavs[perms[prev]]
-        head = wavs[:, :overlap]
-        faded = head if i == 0 else tail * (1.0 - ramp) + head * ramp
-        segs.append(torch.cat([faded, wavs[:, overlap:stride]], dim=-1))
-        tail = wavs[:, stride:]
-    return torch.cat([torch.stack(segs, dim=1).reshape(s, -1), tail], dim=-1)
+
+    @torch.inference_mode()
+    def scan_separate(chunks: torch.Tensor):
+        dev = chunks.device
+        t_c = chunks.shape[-1] - ext            # overlap-add span of a chunk
+        stride = t_c - overlap
+        perms = torch.from_numpy(permutations_for(s)).long().to(dev)   # (P, S)
+        ramp = _fade_ramp(overlap, dev)
+        tail = torch.zeros((s, overlap), dtype=torch.float32, device=dev)
+        prev = torch.zeros((), dtype=torch.long, device=dev)     # identity
+        loud = torch.zeros((), dtype=torch.float32, device=dev)
+        segs = []
+        for i in range(chunks.shape[0]):
+            chunk = chunks[i]
+            wavs = separate(chunk[None])[0][:, :t_c]                # (S, T_c)
+            loud = torch.maximum(loud, chunk.square().mean())
+            if i:
+                errs = (wavs[:, :overlap][perms] - tail).square().sum(dim=(1, 2))
+                best = torch.argmin(errs)
+                margin = hyst * loud * (s * overlap)
+                prev = torch.where(errs[best] < errs[prev] - margin, best, prev)
+            wavs = wavs[perms[prev]]
+            head = wavs[:, :overlap]
+            faded = head if i == 0 else tail * (1.0 - ramp) + head * ramp
+            segs.append(torch.cat([faded, wavs[:, overlap:stride]], dim=-1))
+            tail = wavs[:, stride:]
+        return torch.stack(segs), tail
+
+    return scan_separate

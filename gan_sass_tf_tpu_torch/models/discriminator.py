@@ -214,6 +214,14 @@ class ConvDiscriminator(nn.Module):
         return logits
 
 
+class PatchDiscriminator(ConvDiscriminator):
+    """A ConvDiscriminator with the PatchGAN head: one logit per patch
+    (B, T', F') from a 1x1 conv (`patch=True` fixed)."""
+
+    def __init__(self, channels: Sequence[int] = (32, 64, 128), **kwargs):
+        super().__init__(channels, patch=True, **kwargs)
+
+
 def init_params_(d: ConvDiscriminator, generator: torch.Generator) -> ConvDiscriminator:
     """Seeded init in place: kernels normal with std 1/sqrt(fan_in), zero
     biases, u standard normal, sigma 1 (flax's SpectralNorm init); norms

@@ -6,9 +6,22 @@ Port of `gan_sass_tf_tpu/models/registry.py` and the builders of
 discriminators, with every option of `ModelConfig`.  The builders validate
 as the JAX ones do, with the same exception types (the JAX D raises its
 ValueErrors when it is first called; the port's when it is built).
+
+A builder is `fn(cfg) -> nn.Module`, registered under the name that
+`cfg.model.generator` or `cfg.model.discriminator` selects, as in the JAX
+package:
+
+    @register_generator("mine")
+    def _mine(cfg):
+        return MyGenerator(cfg.data.num_sources, cfg.dsp.n_bins)
+
+`build_generator` / `build_discriminator` then give the module a seeded
+init and move it to the device (see their docstrings for the init rules).
 """
 
 from __future__ import annotations
+
+from typing import Callable, Dict
 
 import torch
 
@@ -20,7 +33,37 @@ from gan_sass_tf_tpu_torch.models.generator import (
     init_params_,
 )
 
+_GENERATORS: Dict[str, Callable] = {}
+_DISCRIMINATORS: Dict[str, Callable] = {}
 
+
+def register_generator(name: str):
+    """Decorator: register `fn(cfg) -> nn.Module` as generator `name`."""
+    def deco(fn):
+        _GENERATORS[name] = fn
+        return fn
+
+    return deco
+
+
+def register_discriminator(name: str):
+    """Decorator: register `fn(cfg) -> nn.Module` as discriminator `name`."""
+    def deco(fn):
+        _DISCRIMINATORS[name] = fn
+        return fn
+
+    return deco
+
+
+def list_generators():
+    return tuple(sorted(_GENERATORS))
+
+
+def list_discriminators():
+    return tuple(sorted(_DISCRIMINATORS))
+
+
+@register_generator("toy")
 def _toy_generator(cfg) -> ToyMLPGenerator:
     m, d = cfg.model, cfg.dsp
     if m.g_crop_nyquist:
@@ -39,6 +82,7 @@ def _toy_generator(cfg) -> ToyMLPGenerator:
     )
 
 
+@register_generator("conv")
 def _conv_generator(cfg) -> ConvUNetGenerator:
     m, d = cfg.model, cfg.dsp
     linear = d.feature_dim == d.n_bins
@@ -87,6 +131,7 @@ def _conv_generator(cfg) -> ConvUNetGenerator:
     )
 
 
+@register_generator("bilstm")
 def _bilstm_generator(cfg) -> BiLSTMGenerator:
     m, d = cfg.model, cfg.dsp
     if m.g_crop_nyquist:
@@ -116,13 +161,28 @@ def _bilstm_generator(cfg) -> BiLSTMGenerator:
     )
 
 
-_GENERATORS = {"bilstm": _bilstm_generator, "conv": _conv_generator,
-               "toy": _toy_generator}
-_DISCRIMINATORS = ("conv", "patch")
+def _discriminator(cls, cfg) -> _d.ConvDiscriminator:
+    m = cfg.model
+    return cls(channels=tuple(m.d_channels), norm=m.d_norm, leak=m.leak,
+               dropout=m.dropout, stem_stride=tuple(m.d_stem_stride),
+               input_fold=m.d_input_fold, dtype=getattr(torch, m.compute_dtype))
+
+
+@register_discriminator("conv")
+def _conv_discriminator(cfg) -> _d.ConvDiscriminator:
+    return _discriminator(_d.ConvDiscriminator, cfg)
+
+
+@register_discriminator("patch")
+def _patch_discriminator(cfg) -> _d.PatchDiscriminator:
+    return _discriminator(_d.PatchDiscriminator, cfg)
 
 
 def build_generator(cfg, device, seed: int = 0) -> torch.nn.Module:
-    """cfg: full Config.  A seeded-init generator on `device`, in eval mode."""
+    """cfg: full Config.  The generator `cfg.model.generator` names, with
+    the seeded init of `models.generator.init_params_` (lecun-normal
+    kernels, orthogonal recurrent kernels, zero biases), on `device`, in
+    eval mode."""
     name = cfg.model.generator
     if name not in _GENERATORS:
         raise KeyError(f"unknown generator {name!r}; have {sorted(_GENERATORS)}")
@@ -131,16 +191,17 @@ def build_generator(cfg, device, seed: int = 0) -> torch.nn.Module:
     return g.to(device).eval()
 
 
-def build_discriminator(cfg, device, seed: int = 1) -> _d.ConvDiscriminator:
-    """cfg: full Config.  A seeded-init conv or patch D on `device`."""
-    m = cfg.model
-    if m.discriminator not in _DISCRIMINATORS:
-        raise KeyError(f"unknown discriminator {m.discriminator!r}; "
-                       f"have {list(_DISCRIMINATORS)}")
-    d = _d.ConvDiscriminator(
-        channels=tuple(m.d_channels), norm=m.d_norm, leak=m.leak,
-        dropout=m.dropout, stem_stride=tuple(m.d_stem_stride),
-        input_fold=m.d_input_fold, patch=m.discriminator == "patch",
-        dtype=getattr(torch, m.compute_dtype))
-    _d.init_params_(d, torch.Generator().manual_seed(seed))
+def build_discriminator(cfg, device, seed: int = 1) -> torch.nn.Module:
+    """cfg: full Config.  The discriminator `cfg.model.discriminator` names,
+    with a seeded init, on `device`.  A `ConvDiscriminator` (the `conv` and
+    `patch` builders') gets `models.discriminator.init_params_`; any other
+    registered D the generators' rule, `models.generator.init_params_`
+    (lecun-normal kernels, zero biases)."""
+    name = cfg.model.discriminator
+    if name not in _DISCRIMINATORS:
+        raise KeyError(f"unknown discriminator {name!r}; "
+                       f"have {sorted(_DISCRIMINATORS)}")
+    d = _DISCRIMINATORS[name](cfg)
+    init = _d.init_params_ if isinstance(d, _d.ConvDiscriminator) else init_params_
+    init(d, torch.Generator().manual_seed(seed))
     return d.to(device)

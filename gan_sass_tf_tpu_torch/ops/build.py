@@ -5,8 +5,10 @@ compiles to an object in its own nvcc process, all started together, and
 the objects link into one shared library with a plain C interface (no
 PyTorch headers, so a build takes seconds).  The library is keyed by a
 hash of the sources, the headers and the flags and lives in
-`ops/_build/` (ignored by git), so the first CUDA call of a fresh checkout
-builds it and later processes reuse it.  Nothing happens at import time.
+`build_dir()`: `ops/_build/` (ignored by git) in a checkout or any
+writable install, else `${XDG_CACHE_HOME:-~/.cache}/gan_sass_tf_tpu_torch/`
+for a package installed read-only.  The first CUDA call builds it and
+later processes reuse it.  Nothing happens at import time.
 """
 
 from __future__ import annotations
@@ -23,7 +25,6 @@ from typing import Optional
 
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
-BUILD_DIR = _HERE / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -48,6 +49,7 @@ _SIGNATURES = {
 }
 
 _lib: Optional[ctypes.CDLL] = None
+_build_dir: Optional[Path] = None       # chosen once a process
 build_seconds: Optional[float] = None   # wall time of this process's build
 build_log: str = ""                     # nvcc's output (ptxas register use)
 
@@ -71,12 +73,52 @@ def _nvcc() -> str:
     )
 
 
+def _writable(d: Path) -> bool:
+    """Whether files can be made in `d`, made here (with its parents) if
+    missing.  A directory whose mode bits grant no write counts as read-only
+    even to root, whom the kernel would let through: a package installed
+    read-only stays untouched."""
+    top = d
+    while not top.exists():
+        top = top.parent
+    if not (top.is_dir() and top.stat().st_mode & 0o222
+            and os.access(top, os.W_OK | os.X_OK)):
+        return False
+    try:
+        d.mkdir(parents=True, exist_ok=True)
+    except OSError:
+        return False
+    return True
+
+
+def build_dir() -> Path:
+    """Where the library is built: `ops/_build/` beside this module where
+    that can be written, else `${XDG_CACHE_HOME:-~/.cache}/
+    gan_sass_tf_tpu_torch/`.  Chosen at the first call of a process;
+    RuntimeError, naming both, where neither can be written."""
+    global _build_dir
+    if _build_dir is None:
+        in_tree = _HERE / "_build"
+        cache = Path(os.environ.get("XDG_CACHE_HOME")
+                     or Path.home() / ".cache") / "gan_sass_tf_tpu_torch"
+        for d in (in_tree, cache):
+            if _writable(d):
+                _build_dir = d
+                break
+        else:
+            raise RuntimeError(
+                f"no writable directory for the CUDA kernels' build: neither "
+                f"{in_tree} nor {cache} can be created and written (set "
+                f"XDG_CACHE_HOME to a writable directory)")
+    return _build_dir
+
+
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in _sources() + _headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libgan_sass_kernels_{h.hexdigest()[:16]}.so"
+    return build_dir() / f"libgan_sass_kernels_{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
@@ -85,10 +127,9 @@ def build() -> Path:
     out = library_path()
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     nvcc = _nvcc()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
         objs = [os.path.join(tmp, src.stem + ".o") for src in _sources()]
         procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT,

@@ -11,7 +11,7 @@ noise, cut into chunks and copied to the device first; one warm-up, then
 torch.cuda.synchronize(); the median, less the host ms of a synchronize
 on an idle device (measured, as the JAX script subtracts its fetch),
 over the chunks.  Scan mode runs the scan of `infer.separate_streaming_scan`
-(`infer/streaming.scan_chunks`); batch mode separates the groups of
+(`infer.build_streaming_scan_fn`); batch mode separates the groups of
 stream.batch_chunks chunks and joins them with the identity permutation
 (`_finalize_stream`): the chaining's host transfer is left out, as the
 JAX script leaves it out.
@@ -81,7 +81,9 @@ def main(argv=None) -> int:
     groups_dev = torch.nn.functional.pad(
         chunks_dev, (0, 0, 0, n_groups * bc - n_chunks)).reshape(n_groups, bc, -1)
     perm0 = torch.arange(cfg.data.num_sources, device=dev).repeat(n_chunks, 1)
-    separate = build_separate_fn(cfg, build_generator(cfg, dev, seed=0))
+    g = build_generator(cfg, dev, seed=0)
+    separate = build_separate_fn(cfg, g)
+    scan = streaming.build_streaming_scan_fn(cfg, g)
 
     # The host ms of a synchronize with nothing queued.
     _sync(dev)
@@ -91,7 +93,7 @@ def main(argv=None) -> int:
     fetch_ms = (time.perf_counter() - t0) / 5 * 1e3
 
     def run_scan():
-        streaming.scan_chunks(separate, cfg, chunks_dev, stride, overlap, ext)
+        streaming.scan_chunks(scan, chunks_dev)
 
     def run_batch():
         est = torch.cat([separate(groups_dev[gi])[..., :chunk]

@@ -207,7 +207,7 @@ def test_kernel_modules_import_without_toolchain():
     assert [p.name for p in build._headers()] == ["fft.cuh"]
     assert {"istft_launch", "istft_adjoint_launch", "masked_istft_launch",
             "stft_launch", "stft_features_launch"} == set(build._SIGNATURES)
-    assert build.library_path().parent == build.BUILD_DIR
+    assert build.library_path().parent == build.build_dir()
 
 
 ISTFT_GRIDS = [            # tests/test_pallas.py GRIDS

@@ -5,6 +5,8 @@ the rule that the port imports nothing of JAX."""
 import ast
 import dataclasses
 import pathlib
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -149,3 +151,20 @@ def test_port_imports_no_jax():
     bad = [f"{path.relative_to(ROOT)}: {mod}" for path in files
            for mod in _imports(path) if mod.split(".")[0] in FORBIDDEN]
     assert not bad, bad
+
+
+def test_install_worker_imports_no_jax():
+    """What chip_smoke.py's install worker loads (chip_smoke itself and, with
+    it, every subpackage of the port, `utils` with profile_trace among them)
+    pulls in no forbidden module by any path, and starts no CUDA."""
+    code = ("import sys, torch, chip_smoke, gan_sass_tf_tpu_torch.utils; "
+            "print(torch.cuda.is_initialized()); "
+            "print(' '.join(sorted({m.split('.')[0] for m in sys.modules})))")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    cuda, loaded = res.stdout.splitlines()[-2:]
+    assert cuda == "False"
+    loaded = set(loaded.split())
+    assert {"chip_smoke", "gan_sass_tf_tpu_torch"} <= loaded
+    assert not loaded & set(FORBIDDEN), loaded & set(FORBIDDEN)

@@ -140,6 +140,27 @@ def test_streaming_matches_jax(weights, monkeypatch, mode, chunk_seconds,
     np.testing.assert_allclose(ours, ref, rtol=0, atol=1e-3 * np.abs(ref).max())
 
 
+@pytest.mark.parametrize("chunk_seconds", [1.0, 0.064])
+def test_build_streaming_scan_fn_matches_jax(weights, chunk_seconds):
+    """The scan function alone against the jitted JAX one on the same
+    chunks: its (N, S, stride) segments and (S, overlap) final tail, within
+    1e-3·max|ref|.  A margin (hysteresis 1e-3) keeps JAX's chunk 0 in its
+    own order, as the port keeps it."""
+    params, g = weights
+    cfg = _cfg(chunk_seconds=chunk_seconds, perm_hysteresis=1e-3)
+    chunks, (_, stride, overlap, n, _, _) = streaming._chunk_matrix(cfg, _tones(2.5))
+    segs, tail = infer.build_streaming_scan_fn(cfg, g)(torch.from_numpy(chunks))
+    ref_segs, ref_tail = jax.jit(j_streaming.build_streaming_scan_fn(
+        _jax(cfg), jmodels.build_generator(_jax(cfg))))(params, jnp.asarray(chunks))
+    assert segs.shape == ref_segs.shape == (n, 2, stride) and n > 2
+    assert tail.shape == ref_tail.shape == (2, overlap)
+    scale = float(np.abs(np.asarray(ref_segs)).max())
+    np.testing.assert_allclose(segs.numpy(), np.asarray(ref_segs), rtol=0,
+                               atol=1e-3 * scale)
+    np.testing.assert_allclose(tail.numpy(), np.asarray(ref_tail), rtol=0,
+                               atol=1e-3 * scale)
+
+
 @pytest.mark.parametrize("fn", [infer.separate_streaming,
                                 infer.separate_streaming_scan])
 def test_streaming_short_input(weights, fn):
