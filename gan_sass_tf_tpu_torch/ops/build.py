@@ -21,7 +21,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Sequence
 
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
@@ -33,13 +33,15 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # x, win, tw, tws, mel, spec, mag, logmag, logmel, B, T, F, n_fft, hop,
-    # M, eps, stream, device
-    "stft_features_launch": [_P] * 9 + [_I] * 6 + [ctypes.c_float, _P, _I],
-    # x, win, tw, tws, spec, B, T, F, n_fft, hop, stream, device
-    "stft_launch": [_P] * 5 + [_I] * 5 + [_P, _I],
-    # dy, inv_env, win, tw, tws, dre, dim, B, T, F, n_fft, hop, stream, device
-    "istft_adjoint_launch": [_P] * 7 + [_I] * 5 + [_P, _I],
+    # x, win, tw, tws, ptw, mel, bands, spec, mag, logmag, logmel, B, T, F,
+    # n_fft, hop, M, eps, rounds, per_sm, stream, device
+    "stft_features_launch": [_P] * 11 + [_I] * 6 + [ctypes.c_float, _I, _I, _P, _I],
+    # x, win, tw, tws, ptw, spec, B, T, F, n_fft, hop, rounds, per_sm,
+    # stream, device
+    "stft_launch": [_P] * 6 + [_I] * 7 + [_P, _I],
+    # dy, inv_env, win, tw, tws, ptw, dre, dim, B, T, F, n_fft, hop, rounds,
+    # per_sm, stream, device
+    "istft_adjoint_launch": [_P] * 8 + [_I] * 7 + [_P, _I],
     # spec, masks, win, tw, tws, inv_env, out, B, S, F, n_fft, hop,
     # complex_mask, rows, tile, stream, device
     "masked_istft_launch": [_P] * 7 + [_I] * 8 + [_P, _I],
@@ -54,12 +56,12 @@ build_seconds: Optional[float] = None   # wall time of this process's build
 build_log: str = ""                     # nvcc's output (ptxas register use)
 
 
-def _sources():
-    return sorted(CSRC.glob("*.cu"))
+def _sources(csrc: Path = CSRC):
+    return sorted(csrc.glob("*.cu"))
 
 
-def _headers():
-    return sorted(CSRC.glob("*.cuh"))
+def _headers(csrc: Path = CSRC):
+    return sorted(csrc.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -113,28 +115,30 @@ def build_dir() -> Path:
     return _build_dir
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources() + _headers():
+def library_path(defines: Sequence[str] = (), csrc: Path = CSRC) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(defines)).encode())
+    for src in _sources(csrc) + _headers(csrc):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return build_dir() / f"libgan_sass_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the kernels unless a library for these sources exists."""
+def build(defines: Sequence[str] = (), csrc: Path = CSRC) -> Path:
+    """Compile the kernels unless a library for these sources (and these
+    -D flags) exists."""
     global build_seconds, build_log
-    out = library_path()
+    out = library_path(defines, csrc)
     if out.exists():
         return out
     t0 = time.perf_counter()
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
-        objs = [os.path.join(tmp, src.stem + ".o") for src in _sources()]
-        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+        objs = [os.path.join(tmp, src.stem + ".o") for src in _sources(csrc)]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, *defines, "-c", "-o", obj,
+                                   str(src)],
                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                   text=True)
-                 for src, obj in zip(_sources(), objs)]
+                 for src, obj in zip(_sources(csrc), objs)]
         build_log = "".join(p.communicate()[0] for p in procs)
         if any(p.returncode for p in procs):
             raise RuntimeError(f"nvcc failed:\n{build_log}")
@@ -149,17 +153,29 @@ def build() -> Path:
     return out
 
 
+def _load(path: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def load_library() -> ctypes.CDLL:
     """The kernels' shared library, built on first use."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = lib
+        _lib = _load(build())
     return _lib
+
+
+def load_variant(defines: Sequence[str] = (), csrc: Path = CSRC) -> ctypes.CDLL:
+    """A library built with extra -D flags (e.g. the analysis kernel's
+    STFT_THREADS), or from an edited copy of the sources in `csrc`, beside
+    the process's own, which it does not replace; scripts/time_analysis.py
+    times block shapes and edited kernels with it."""
+    return _load(build(defines, csrc))
 
 
 def check_launch(rc: int, what: str) -> None:

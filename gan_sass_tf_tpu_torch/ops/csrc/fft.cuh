@@ -1,13 +1,14 @@
-// The complex FFT that every kernel of this directory runs per frame in
-// shared memory: Stockham auto-sort stages (no bit-reversal pass) between
-// two float2 buffers of (frames, H) points, one radix-2 stage first where
+// Complex arithmetic for the kernels of this directory, and the inverse FFT
+// that the synthesis kernels (masked_istft.cu) run per frame in shared
+// memory: Stockham auto-sort stages (no bit-reversal pass) between two
+// float2 buffers of (frames, H) points, one radix-2 stage first where
 // log2(H) is odd, then radix-4 stages.  Every thread of the block works on
 // every frame: butterflies are numbered across the frames, with one
 // __syncthreads() after each stage.  The stage twiddles are the f32 table
-// e^{-2πim/H} of ops/stft_features.py::fft_tables; the inverse reads them
-// conjugated (exact) and turns the radix-4 constant -i into +i, so it is
-// the unscaled inverse transform.  tests/test_torch_ops.py mirrors both
-// directions in numpy f32 (_fft_schedule, _ifft_schedule).
+// e^{-2πim/H} of ops/stft_features.py::fft_tables read conjugated (exact),
+// and the radix-4 constant is +i, so it is the unscaled inverse transform.
+// tests/test_torch_ops.py mirrors it in numpy f32 (_ifft_schedule).  The
+// analysis kernels (stft_features.cu) run their own passes in registers.
 
 #pragma once
 
@@ -26,14 +27,15 @@ __device__ __forceinline__ float2 conjf2(float2 a) {
   return make_float2(a.x, -a.y);
 }
 
-// Transforms the nf frames of H = 1 << log2h points in src (frame f at
-// src + f·H), ping-ponging with dst; returns the buffer that holds the
-// result (the other one is then free).  The caller synchronizes between
-// filling src and this call.
+// Inverse-transforms the nf frames of H = 1 << log2h points in src (frame
+// f at src + f·H), ping-ponging with dst; returns the buffer that holds
+// the result (the other one is then free).  The caller synchronizes
+// between filling src and this call.
 template <int kThreads, bool kInverse>
 __device__ __forceinline__ float2* stockham(float2* src, float2* dst, int nf,
                                             int H, int log2h,
                                             const float2* __restrict__ tw) {
+  static_assert(kInverse, "the forward FFT runs in stft_features.cu");
   int ns = 1;   // length of the sub-transforms done so far
   if (log2h & 1) {   // radix 2, twiddles all 1
     const int half = H >> 1;
@@ -59,15 +61,16 @@ __device__ __forceinline__ float2* stockham(float2* src, float2* dst, int nf,
       if (ns > 1) {
         float2 t1 = tw[k * stride], t2 = tw[2 * k * stride],
                t3 = tw[3 * k * stride];
-        if (kInverse) { t1 = conjf2(t1); t2 = conjf2(t2); t3 = conjf2(t3); }
+        t1 = conjf2(t1);
+        t2 = conjf2(t2);
+        t3 = conjf2(t3);
         v1 = cmul(v1, t1);
         v2 = cmul(v2, t2);
         v3 = cmul(v3, t3);
       }
       const float2 a0 = cadd(v0, v2), a1 = csub(v0, v2), a2 = cadd(v1, v3);
       const float2 d = csub(v1, v3);
-      const float2 a3 = kInverse ? make_float2(-d.y, d.x)    // +i·(v1 - v3)
-                                 : make_float2(d.y, -d.x);   // -i·(v1 - v3)
+      const float2 a3 = make_float2(-d.y, d.x);   // +i·(v1 - v3)
       float2* o = dst + f * H + (j - k) * 4 + k;
       o[0] = cadd(a0, a2);
       o[ns] = cadd(a1, a3);

@@ -1,63 +1,103 @@
-// Fused STFT + features for Hopper (sm_90a): framing, windowed real FFT in
-// shared memory and an epilogue that writes only the requested outputs among
-// the complex spectrum, |X|, log(|X| + eps) and log(|X| @ mel + eps).
+// Fused STFT + features for Hopper (sm_90a): framing, windowed real FFT
+// with its passes in registers, and an epilogue that writes only the
+// requested outputs among the complex spectrum, |X|, log(|X| + eps) and
+// log(|X| @ mel + eps).
 //
 // Replaces: gan_sass_tf_tpu/ops/pallas_stft.py:63, _stft_features_kernel
-// (entry stft_features_pallas), and, as the spec-only instantiation
-// stft_features_kernel<true> behind stft_launch, pallas_stft.py:228,
-// _stft_kernel (entry stft_pallas): the plain complex STFT of the oracle
-// bounds.  That one has no |X|/log/mel epilogue.  Both Pallas kernels run
-// the DFT as a matmul on the MXU; on Hopper the f32 tensor-core route is
-// closed (TF32 breaks the 3e-4·max|X| tolerance, split bf16 blew up log|X|
-// at near-silent bins), so this is an FFT in f32 on the CUDA cores.
+// (entry stft_features_pallas); as the spec-only mode behind stft_launch,
+// pallas_stft.py:228, _stft_kernel (entry stft_pallas), the plain complex
+// STFT of the oracle bounds; and as the adjoint mode behind
+// istft_adjoint_launch, the backward of the differentiable iSTFT (K3), which
+// the reference leaves to XLA (gan_sass_tf_tpu/ops/pallas_istft.py:151,
+// _istft_ri_bwd): the cotangent times the inverse envelope is transformed
+// like any waveform, and the epilogue writes a_k·Re X and a_k·Im X (a_k =
+// 1/N at DC and Nyquist, 2/N elsewhere; Im X there is 0, the adjoint of the
+// synthesis side dropping those imaginary parts) into two (B, F, K) planes.
+// Both Pallas kernels run the DFT as a matmul on the MXU; on Hopper the f32
+// tensor-core route is closed (TF32 breaks the 3e-4·max|X| tolerance, split
+// bf16 blew up log|X| at near-silent bins), so this is an FFT in f32 on the
+// CUDA cores, with no fast math and no sincos intrinsics: every twiddle is
+// an f32 table built on the host in float64.
 //
-// The same body, as istft_adjoint_kernel (istft_adjoint_launch), is the
-// backward of the differentiable iSTFT (K3; XLA in the reference,
-// gan_sass_tf_tpu/ops/pallas_istft.py:151, _istft_ri_bwd): the cotangent
-// times the inverse envelope is staged, transformed like any waveform, and
-// the split epilogue writes a_k·Re X and a_k·Im X (a_k = 1/N at DC and
-// Nyquist, 2/N elsewhere; Im X there is 0, the adjoint of the synthesis
-// side dropping those imaginary parts) into two (B, F, K) f32 planes.
+// What bounds it on this card: bytes.  A frame costs about
+// 2.5·n_fft·log2(n_fft) flops (11.5 kFLOP at n_fft 512), plus 2·(band
+// widths) for log-mel, against 4·hop bytes of new waveform and 4 to 12·K
+// bytes of output (n_fft / hop = 4 in every preset).  At the main path's
+// shapes (128 × 23 936 at n_fft 512; 16 × 132 300 at 2048) the bytes take
+// 12-36 µs at 3.35 TB/s and the flops 3-5 µs at the 67 TFLOP/s f32 peak.
+// So the design keeps the waveform read once, every output written once
+// and wide, and the FFT's own traffic out of device memory and off the
+// critical path.  What holds it above that bound is instruction issue:
+// the epilogue's sqrt and log a bin, log-mel's sums and log a band, and
+// the FFT each take longer than the stores, at 2 blocks of 8 warps an SM
+// (PERF.md; scripts/time_analysis.py --ablate times each part).
 //
-// What bounds it on this card: memory.  Per frame an FFT costs about
-// 2.5·n_fft·log2(n_fft) flops (56 kFLOP at n_fft 2048), plus 2·K·M for the
-// log-mel product, against 4·hop bytes of new waveform and 8·K bytes of
-// complex output (n_fft / hop = 4 in every preset).  At the shapes the
-// main path uses the bytes take 2.6-17.5 µs at 3.35 TB/s and the flops
-// 1.4-3.4 µs at the 67 TFLOP/s f32 peak, so the least time is the input
-// read once plus each requested output written once.
-//
-// Design: a block covers a tile of frames of one signal (tile_frames():
-// kTileSamples / n_fft frames, from 1 to kMaxTile).  It stages
-// the tile's span of waveform samples, (tile - 1)·hop + n_fft floats, in
-// shared memory once, so each sample is read from device memory about once
-// rather than n_fft/hop times.  Each frame is a real input of n_fft points,
-// packed as z[m] = w[2m]·x[2m] + i·w[2m+1]·x[2m+1] into a complex FFT of
-// H = n_fft/2 points (fft.cuh: Stockham stages, radix 4 after one radix-2
-// stage where log2(H) is odd).  The split step gives the K = H + 1 bins,
-//   X[k] = ½(Z[k] + conj Z[H-k]) - ½·i·e^{-2πik/N}·(Z[k] - conj Z[H-k]),
-// with Z[H] = Z[0].  The window, the stage twiddles e^{-2πim/H} and the
-// split twiddles e^{-2πik/N} are f32 tables built on the host in float64
-// (no sincos intrinsics, no fast math).  Neighbouring threads write
-// neighbouring bins of one frame, and a tile's frames are contiguous rows,
-// so every store is coalesced.  For log-mel the |X| tile goes to the free
-// ping-pong buffer, and each thread forms one (frame, mel band) sum.
-// Nothing that was not requested is written.
+// - Register-resident radix passes.  Each frame of n_fft real samples is
+//   packed as z[m] = w[2m]·x[2m] + i·w[2m+1]·x[2m+1], a complex FFT of
+//   H = n_fft/2 points.  TF = H/16 threads own a frame, 16 points each, and
+//   run Stockham passes of radix 16 in registers (a 4×4 decomposition),
+//   then one pass of radix 2, 4 or 8 where log2(H) is not a multiple of 4
+//   (H = 256: 16·16; H = 1024: 16·16·4).  Points cross threads only
+//   between passes, through a shared buffer padded one float2 in 16 so
+//   that the transposes are free of bank conflicts, behind a __syncwarp
+//   (TF ≤ 32: a frame within a warp) or a named barrier over the frame's
+//   warps (bar.sync 1 + group, TF threads).  A pass's twiddles come from a
+//   shared copy of the pass table (ops/stft_features.py::pass_twiddles,
+//   entries of the stage table laid out [pass][r][k] so that neighbouring
+//   threads read neighbouring words); the radix-16 roots come from the
+//   stage table.  The split step gives the K = H + 1 bins,
+//     X[k] = ½(Z[k] + conj Z[H-k]) - ½·i·e^{-2πik/N}·(Z[k] - conj Z[H-k]),
+//   with Z[H] = Z[0] and the split twiddles from a shared copy.
+// - Persistent blocks fed ahead by asynchronous copies.  About (SMs ×
+//   BLOCKS_PER_SM) blocks walk the (row, tile) work items; a tile is
+//   `rounds` rounds of kThreads/TF frames of one row (fewer frames, down
+//   to one, where a call is too small to give every SM a tile), and its
+//   span of waveform, (frames - 1)·hop + n_fft floats, lands in one of
+//   two shared stages by cp.async (16-byte copies from the first 16-byte
+//   boundary, 4-byte copies at the ragged ends, so a row of any length
+//   works) while the block transforms and writes the tile before it.
+// - Banded log-mel.  The wrapper builds, once per mel matrix, a table of
+//   each band's first and last non-zero bin (ops/stft_features.py::
+//   mel_bands), so that no block reads the whole matrix; each block
+//   stages the table and the bands' weights in shared memory (or reads
+//   the weights from device memory where a matrix's bands are too wide
+//   for the stage).  A band sums its bins in order over that range
+//   only, one band a lane: the terms it skips are exact zeros
+//   (fmaf(|X|, 0, acc) = acc for finite |X|), so each band gives the f32
+//   sum the dense loop over all K bins gives, at 501 terms a frame
+//   instead of 20 560 for the presets' 80-band filterbanks.
+// - Wide stores.  A round's outputs are contiguous rows of (B, F, ·), and
+//   the epilogue walks them flat in groups of four, each group aligned in
+//   the output: float4 stores of |X|, log|X| and the adjoint's planes,
+//   two float4 stores of the complex spectrum, and float4 stores of
+//   log-mel gathered from eight lanes by shuffles; scalar stores only at
+//   a round's two ends.  Nothing that was not requested is written.
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
+#include <cstdint>
+#include <mutex>
+
 #include "fft.cuh"
+
+#ifndef STFT_THREADS
+#define STFT_THREADS 256
+#endif
 
 namespace {
 
-// Threads per block, and waveform samples per block (frames per block ×
-// n_fft).  Picked on an H100 by timing tiles of 2048 to 16384 samples with
-// 128, 256 and 512 threads at the main path's four STFT shapes (PERF.md,
-// Findings); chip_smoke.py times the chosen shape on every run.
-constexpr int kThreads = 256;
-constexpr int kTileSamples = 2048;
-constexpr int kMaxTile = 16;
-constexpr int kMinFft = 64, kMaxFft = 4096;
+// Threads per block: compile-time, as the register-resident passes need.
+// The frames per tile (in rounds) and the blocks per SM come from the
+// wrapper (ops/stft_features.py: TILE_ROUNDS, BLOCKS_PER_SM), picked on an
+// H100 by gan_sass_tf_tpu_torch/scripts/time_analysis.py --sweep, which
+// rebuilds this file with -DSTFT_THREADS= to sweep this one.
+constexpr int kThreads = STFT_THREADS;
+constexpr int kPoints = 16;       // points of a frame a thread holds
+constexpr int kMinLog2H = 5, kMaxLog2H = 11;   // n_fft 64 ... 4096
+constexpr int kMelStage = 2048;   // banded mel weights staged (floats)
+static_assert(kThreads % 128 == 0 && kThreads <= 1024,
+              "a block holds whole frames of up to 128 threads");
 
 // What the epilogue writes.
 enum Mode : int {
@@ -66,204 +106,779 @@ enum Mode : int {
   kAdjoint = 2,   // K3's backward: a_k-scaled re and im planes
 };
 
-int tile_frames(int n_fft) {
-  const int t = kTileSamples / n_fft;
-  return t < 1 ? 1 : (t > kMaxTile ? kMaxTile : t);
+__host__ __device__ constexpr int align4(int n) { return (n + 3) & ~3; }
+
+// Entries of the pass table for H = 1 << L: (R - 1)·ns for each pass after
+// the first (passes of radix 16, then the last radix 2^(L mod 4)).
+__host__ __device__ constexpr int pass_twiddle_count(int L) {
+  return (L / 4 >= 2 ? 15 * 16 : 0) +
+         (L % 4 ? ((1 << (L % 4)) - 1) << (4 * (L / 4)) : 0);
 }
 
-// Bytes of dynamic shared memory: two (tile, H) float2 buffers, then the
-// tile's span of samples.
-int smem_bytes(int n_fft, int hop) {
-  const int tile = tile_frames(n_fft);
-  return 8 * n_fft * tile + 4 * ((tile - 1) * hop + n_fft);
+// The geometry of one H = 1 << L.
+template <int L>
+struct Geo {
+  static constexpr int H = 1 << L, K = H + 1;
+  static constexpr int TF = H / kPoints;          // threads a frame
+  static constexpr int G = kThreads / TF;          // frames a round
+  static constexpr int ZS = H + H / 16;            // padded frame in zbuf
+  static constexpr int P16 = L / 4;                // radix-16 passes
+  static constexpr int RLAST = 1 << (L % 4);       // last radix (1: none)
+  static constexpr int PTW = pass_twiddle_count(L);
+  static_assert(G >= 1 && (TF <= 32 || G <= 15), "named barriers 1..15");
+};
+
+// The dynamic shared memory, in floats from a 16-byte-aligned base: two
+// waveform stages, the exchange buffer, the window, the split and pass
+// twiddles, then for K1 the |X| of a round and the banded mel.
+struct Layout {
+  int stage, zbuf, win, tws, ptw, mag, bands, wts, total;
+};
+
+__host__ __device__ inline Layout layout(int L, int tile_frames, int hop,
+                                         int M) {
+  const int H = 1 << L, K = H + 1, tf = H / kPoints, g = kThreads / tf;
+  Layout s;
+  const int span = (tile_frames - 1) * hop + 2 * H;
+  s.stage = align4(span + 4);   // + up to 3 floats ahead of a 16-byte boundary
+  s.zbuf = 2 * s.stage;
+  s.win = s.zbuf + align4(2 * g * (H + H / 16));
+  s.tws = s.win + align4(2 * H);
+  s.ptw = s.tws + align4(2 * K);
+  s.mag = s.ptw + align4(2 * pass_twiddle_count(L));
+  s.bands = s.mag + (M ? align4(g * K) : 0);
+  s.wts = s.bands + align4(3 * M + 1);
+  s.total = M ? s.wts + kMelStage : s.bands;
+  return s;
 }
 
-// out0: kFeatures/kSpec -> the (B, F, K, 2) spectrum or null; kAdjoint ->
-// the (B, F, K) re plane.  out1: kAdjoint -> the im plane.  inv_env
-// (length T) multiplies the staged samples in kAdjoint only.
-template <int kMode>
-__device__ __forceinline__ void analysis_tile(
-    const float* __restrict__ x,        // (B, T)
-    const float* __restrict__ inv_env,  // (T,) or null
-    const float* __restrict__ win,      // (n_fft,) analysis window
-    const float2* __restrict__ tw,      // (H,)   e^{-2πim/H}
-    const float2* __restrict__ tws,     // (H+1,) e^{-2πik/N}
-    const float* __restrict__ mel,      // (K, M) or null
-    float* __restrict__ out0,
-    float* __restrict__ out1,
-    float* __restrict__ mag_out,        // (B, F, K) or null
-    float* __restrict__ logmag_out,     // (B, F, K) or null
-    float* __restrict__ logmel_out,     // (B, F, M) or null
-    int T, int F, int n_fft, int log2h, int hop, int tile, int M,
-    float eps) {
-  extern __shared__ float4 smem_raw[];
-  const int H = n_fft >> 1, K = H + 1;
-  float2* buf0 = reinterpret_cast<float2*>(smem_raw);     // (tile, H)
-  float2* buf1 = buf0 + tile * H;                         // (tile, H)
-  float* xs = reinterpret_cast<float*>(buf1 + tile * H);  // the tile's samples
-  const int span = (tile - 1) * hop + n_fft;
-  const int b = blockIdx.y;
-  const int f0 = blockIdx.x * tile;
-  const int nf = min(tile, F - f0);
-  const float* xb = x + (size_t)b * T;
-  const long long s0 = (long long)f0 * hop;
-  for (int i = threadIdx.x; i < span; i += kThreads) {
-    const long long t = s0 + i;
-    float v = 0.f;
-    if (t < T) v = kMode == kAdjoint ? xb[t] * inv_env[t] : xb[t];
-    xs[i] = v;
+struct Args {
+  const float* x;         // (B, T) waveform or cotangent
+  const float* inv_env;   // (T,) kAdjoint only
+  const float* win;       // (n_fft,) analysis window
+  const float2* tw;       // (H,)   e^{-2πim/H}
+  const float2* tws;      // (H+1,) e^{-2πik/N}
+  const float2* ptw;      // pass twiddles (pass_twiddles)
+  const float* mel;       // (K, M) or null
+  const int* bands;       // mel_bands(mel): (3M + 1,) or null
+  float* out0;            // spectrum (B, F, K, 2), or kAdjoint's re plane
+  float* out1;            // kAdjoint's im plane
+  float* mag;             // (B, F, K) or null
+  float* logmag;          // (B, F, K) or null
+  float* logmel;          // (B, F, M) or null
+  int B, T, F, hop, M, tile_frames;
+  float eps;
+};
+
+// Exchange layout: one float2 of padding in 16.  The transform's result
+// is laid out with bits 4-5 of the bin xored into bits 0-1 (zout), so that
+// the epilogue's threads, each reading four neighbouring bins, hit
+// distinct banks.
+__device__ __forceinline__ int zpad(int i) { return i + (i >> 4); }
+__device__ __forceinline__ int zout(int k) { return k ^ ((k >> 4) & 3); }
+
+__device__ __forceinline__ float2 mul_neg_i(float2 a) {   // -i·a, exact
+  return make_float2(a.y, -a.x);
+}
+
+// Every product of this file is an explicit __fmul_rn or __fmaf_rn, so the
+// compiler fuses none differently from one build (or block shape) to the
+// next, and the kernel's bits depend on the source alone.
+__device__ __forceinline__ float2 cmul_rn(float2 a, float2 b) {
+  return make_float2(__fmaf_rn(a.x, b.x, __fmul_rn(-a.y, b.y)),
+                     __fmaf_rn(a.x, b.y, __fmul_rn(a.y, b.x)));
+}
+
+// The radix-16 roots e^{-2πie/16} the in-register DFTs use (e = 4: -i, exact).
+struct Roots {
+  float2 w1, w2, w3, w6, w9;
+};
+
+__device__ __forceinline__ void dft2(float2& a, float2& b) {
+  const float2 s = cadd(a, b), d = csub(a, b);
+  a = s;
+  b = d;
+}
+
+// y[r] = Σ_n u[n]·e^{-2πinr/4}.
+__device__ __forceinline__ void dft4(float2& u0, float2& u1, float2& u2,
+                                     float2& u3) {
+  const float2 a0 = cadd(u0, u2), a1 = csub(u0, u2), a2 = cadd(u1, u3);
+  const float2 a3 = mul_neg_i(csub(u1, u3));
+  u0 = cadd(a0, a2);
+  u1 = cadd(a1, a3);
+  u2 = csub(a0, a2);
+  u3 = csub(a1, a3);
+}
+
+// An R-point DFT in registers, R = 2, 4, 8 or 16.  R = 8 and 16 split
+// n = 4·n1 + n2, r = r1 + (R/4)·r2: a DFT over n1 for each n2, the twiddle
+// e^{-2πi·n2·r1/R}, a 4-point DFT over n2 for each r1.
+template <int R>
+__device__ __forceinline__ void dft(float2 (&u)[R], const Roots& w) {
+  if constexpr (R == 2) {
+    dft2(u[0], u[1]);
+  } else if constexpr (R == 4) {
+    dft4(u[0], u[1], u[2], u[3]);
+  } else if constexpr (R == 8) {
+#pragma unroll
+    for (int n2 = 0; n2 < 4; ++n2) dft2(u[n2], u[4 + n2]);   // r1 = 0, 1
+    u[5] = cmul_rn(u[5], w.w2);            // n2 = 1: e^{-2πi/8}
+    u[6] = mul_neg_i(u[6]);             // n2 = 2: -i
+    u[7] = cmul_rn(u[7], w.w6);            // n2 = 3: e^{-2πi·3/8}
+    float2 y[8];
+#pragma unroll
+    for (int r1 = 0; r1 < 2; ++r1) {
+      float2 a = u[4 * r1], b = u[4 * r1 + 1], c = u[4 * r1 + 2],
+             d = u[4 * r1 + 3];
+      dft4(a, b, c, d);
+      y[r1] = a;
+      y[r1 + 2] = b;
+      y[r1 + 4] = c;
+      y[r1 + 6] = d;
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) u[i] = y[i];
+  } else {
+    static_assert(R == 16, "radix 2, 4, 8 or 16");
+    float2 a[16];   // a[4·n2 + r1]
+#pragma unroll
+    for (int n2 = 0; n2 < 4; ++n2) {
+      float2 p = u[n2], q = u[4 + n2], r = u[8 + n2], s = u[12 + n2];
+      dft4(p, q, r, s);
+      a[4 * n2] = p;
+      a[4 * n2 + 1] = q;
+      a[4 * n2 + 2] = r;
+      a[4 * n2 + 3] = s;
+    }
+    a[5] = cmul_rn(a[5], w.w1);        // n2 = 1, r1 = 1: e^{-2πi/16}
+    a[6] = cmul_rn(a[6], w.w2);        // (1, 2): ^2
+    a[7] = cmul_rn(a[7], w.w3);        // (1, 3): ^3
+    a[9] = cmul_rn(a[9], w.w2);        // (2, 1): ^2
+    a[10] = mul_neg_i(a[10]);       // (2, 2): ^4 = -i
+    a[11] = cmul_rn(a[11], w.w6);      // (2, 3): ^6
+    a[13] = cmul_rn(a[13], w.w3);      // (3, 1): ^3
+    a[14] = cmul_rn(a[14], w.w6);      // (3, 2): ^6
+    a[15] = cmul_rn(a[15], w.w9);      // (3, 3): ^9
+#pragma unroll
+    for (int r1 = 0; r1 < 4; ++r1) {
+      float2 p = a[r1], q = a[4 + r1], r = a[8 + r1], s = a[12 + r1];
+      dft4(p, q, r, s);
+      u[r1] = p;
+      u[r1 + 4] = q;
+      u[r1 + 8] = r;
+      u[r1 + 12] = s;
+    }
   }
-  __syncthreads();
+}
 
-  // Pack each windowed frame into H complex points.
-  for (int i = threadIdx.x; i < nf * H; i += kThreads) {
-    const int f = i >> log2h, m = (i & (H - 1)) << 1;
-    const float* fr = xs + f * hop;
-    buf0[i] = make_float2(win[m] * fr[m], win[m + 1] * fr[m + 1]);
+// Syncs the threads of one frame: a warp, or the frame's warps.
+template <int L>
+__device__ __forceinline__ void frame_sync(int group) {
+  if constexpr (Geo<L>::TF <= 32) {
+    __syncwarp();
+  } else {
+    asm volatile("bar.sync %0, %1;" ::"r"(1 + group), "n"(Geo<L>::TF)
+                 : "memory");
   }
-  __syncthreads();
+}
 
-  const float2* src = stockham<kThreads, false>(buf0, buf1, nf, H, log2h, tw);
+// One Stockham pass of radix R after `ns` points per sub-transform, on the
+// 16 points v[s] = src[t + TF·s] that thread t of its frame holds: 16/R
+// butterflies j = t + q·TF, with inputs s = q + r·(16/R).  A pass that is
+// not the last writes its outputs to z at (j - k)·R + k + r·ns (k = j mod
+// ns), padded; the last leaves them in v, where v[s] is then Z[t + TF·s].
+template <int L, int R, int NS, int OFF, bool kLast>
+__device__ __forceinline__ void fft_pass(float2 (&v)[kPoints],
+                                         float2* __restrict__ z, int t,
+                                         const float2* __restrict__ ptw,
+                                         const Roots& w) {
+  constexpr int Q = kPoints / R;
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const int j = t + q * Geo<L>::TF;
+    const int k = j & (NS - 1);
+    float2 u[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      u[r] = v[q + r * Q];
+      if (NS > 1 && r > 0) u[r] = cmul_rn(u[r], ptw[OFF + (r - 1) * NS + k]);
+    }
+    dft<R>(u, w);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if constexpr (kLast)
+        v[q + r * Q] = u[r];
+      else
+        z[zpad((j - k) * R + k + r * NS)] = u[r];
+    }
+  }
+}
 
-  // Split into the K bins of the real transform, then the epilogue.
-  float* mag_s = reinterpret_cast<float*>(src == buf0 ? buf1 : buf0);   // (tile, K), logmel only
-  const size_t o0 = ((size_t)b * F + f0) * K;
-  const float inv_n = 1.f / n_fft;   // exact: n_fft is a power of two
-  for (int i = threadIdx.x; i < nf * K; i += kThreads) {
-    const int f = i / K, k = i - f * K;
-    const float2* z = src + f * H;
-    const float2 a = z[k & (H - 1)];
-    const float2 c = z[(H - k) & (H - 1)];
-    const float2 e = make_float2(0.5f * (a.x + c.x), 0.5f * (a.y - c.y));
-    const float2 h = make_float2(0.5f * (a.x - c.x), 0.5f * (a.y + c.y));
-    const float2 wd = cmul(tws[k], h);
-    const float re = e.x + wd.y, im = e.y - wd.x;   // e - i·w·h
-    if constexpr (kMode == kAdjoint) {
-      const bool edge = k == 0 || k == H;
-      const float ak = edge ? inv_n : 2.f * inv_n;
-      out0[o0 + i] = ak * re;
-      out1[o0 + i] = edge ? 0.f : ak * im;
+// Reads a frame's points back after an exchange: v[s] = z[t + TF·s].
+template <int L>
+__device__ __forceinline__ void gather(float2 (&v)[kPoints],
+                                       const float2* __restrict__ z, int t) {
+#pragma unroll
+  for (int s = 0; s < kPoints; ++s) v[s] = z[zpad(t + Geo<L>::TF * s)];
+}
+
+// The whole transform of the frame in v (packed, natural order in): the
+// radix-16 passes, then the last radix; Z[k] ends in z at zout(k).
+template <int L>
+__device__ __forceinline__ void fft_frame(float2 (&v)[kPoints], float2* z,
+                                          int t, int group,
+                                          const float2* __restrict__ ptw,
+                                          const Roots& w) {
+  using G = Geo<L>;
+  if constexpr (G::P16 == 1 && G::RLAST == 1) {
+    fft_pass<L, 16, 1, 0, true>(v, z, t, ptw, w);
+  } else {
+    fft_pass<L, 16, 1, 0, false>(v, z, t, ptw, w);
+    frame_sync<L>(group);
+    gather<L>(v, z, t);
+    frame_sync<L>(group);
+    if constexpr (G::P16 == 2) {
+      constexpr bool kLast2 = G::RLAST == 1;
+      fft_pass<L, 16, 16, 0, kLast2>(v, z, t, ptw, w);
+      if constexpr (!kLast2) {
+        frame_sync<L>(group);
+        gather<L>(v, z, t);
+        frame_sync<L>(group);
+        fft_pass<L, G::RLAST, 256, 240, true>(v, z, t, ptw, w);
+      }
     } else {
-      if (kMode == kSpec || out0)
-        reinterpret_cast<float2*>(out0)[o0 + i] = make_float2(re, im);
-    }
-    if constexpr (kMode == kFeatures) {
-      const float m = sqrtf(re * re + im * im);
-      if (mag_out) mag_out[o0 + i] = m;
-      if (logmag_out) logmag_out[o0 + i] = logf(m + eps);
-      if (logmel_out) mag_s[i] = m;
+      fft_pass<L, G::RLAST, 16, 0, true>(v, z, t, ptw, w);
     }
   }
-  if (kMode != kFeatures || logmel_out == nullptr) return;   // uniform across the block
+#pragma unroll
+  for (int s = 0; s < kPoints; ++s) z[zout(t + G::TF * s)] = v[s];
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_older() {   // all but the newest
+  asm volatile("cp.async.wait_group 1;" ::: "memory");
+}
+
+// Where element 0 of a span starting at src sits in its stage: the span is
+// placed so that 16-byte boundaries of device memory fall on 16-byte
+// boundaries of the stage.
+__device__ __forceinline__ int span_head(const float* src) {
+  return (int)((reinterpret_cast<uintptr_t>(src) >> 2) & 3);
+}
+
+// Starts the copy of span floats at src into stage (every thread takes a
+// share; the caller commits the group).
+__device__ __forceinline__ void prefetch(float* stage, const float* src,
+                                         int span) {
+  const int head = span_head(src);
+  const int first = (4 - head) & 3;   // floats before the first boundary
+  const int nvec = (span - first) >> 2;
+  const int rest = first + 4 * nvec;
+  float* dst = stage + head;
+  for (int i = threadIdx.x; i < first; i += kThreads)
+    cp_async4(dst + i, src + i);
+  for (int c = threadIdx.x; c < nvec; c += kThreads)
+    cp_async16(dst + first + 4 * c, src + first + 4 * c);
+  for (int i = rest + threadIdx.x; i < span; i += kThreads)
+    cp_async4(dst + i, src + i);
+}
+
+// Copies the band table of the (K, M) mel matrix (ops/stft_features.py::
+// mel_bands: each band's first and last non-zero bin, then the offsets of
+// the bands' weights, (3M + 1) ints) into shared memory and, when they fit
+// the stage, the bands' weights; returns whether they do.  Block-wide (a
+// barrier inside; the caller's next barrier publishes the weights).
+__device__ bool stage_mel(const float* __restrict__ mel,
+                          const int* __restrict__ bands, int M, int* lo,
+                          float* wts) {
+  const int* off = lo + 2 * M;
+  for (int i = threadIdx.x; i < 3 * M + 1; i += kThreads) lo[i] = __ldg(bands + i);
   __syncthreads();
-  for (int i = threadIdx.x; i < nf * M; i += kThreads) {
-    const int f = i / M, m = i - f * M;
-    float acc = 0.f;
-    for (int k = 0; k < K; ++k)
-      acc = fmaf(mag_s[f * K + k], __ldg(mel + (size_t)k * M + m), acc);
-    logmel_out[((size_t)b * F + f0 + f) * M + m] = logf(acc + eps);
+  const int total = off[M];
+  const bool staged = total <= kMelStage;
+  constexpr int kBatch = 8;   // independent loads in flight a thread
+  for (int i0 = threadIdx.x; staged && i0 < total; i0 += kBatch * kThreads) {
+    float v[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = i0 + u * kThreads;
+      if (i < total) {
+        int a = 0, b = M;   // the band m with off[m] <= i < off[m + 1]
+        while (b - a > 1) {
+          const int c = (a + b) >> 1;
+          if (off[c] <= i) a = c; else b = c;
+        }
+        v[u] = __ldg(mel + (size_t)(lo[a] + i - off[a]) * M + a);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+      if (i0 + u * kThreads < total) wts[i0 + u * kThreads] = v[u];
+  }
+  return staged;
+}
+
+template <int L, int kMode>
+__device__ __forceinline__ void analysis_body(const Args p) {
+  using G = Geo<L>;
+  constexpr int H = G::H, K = G::K, TF = G::TF;
+  extern __shared__ float4 smem_raw[];
+  float* sm = reinterpret_cast<float*>(smem_raw);
+  const bool want_mel = kMode == kFeatures && p.logmel != nullptr;
+  const Layout lay = layout(L, p.tile_frames, p.hop, want_mel ? p.M : 0);
+  float2* zbuf = reinterpret_cast<float2*>(sm + lay.zbuf);
+  const float2* win2 = reinterpret_cast<const float2*>(sm + lay.win);
+  float2* tws = reinterpret_cast<float2*>(sm + lay.tws);
+  float2* ptw = reinterpret_cast<float2*>(sm + lay.ptw);
+  float* mag_s = sm + lay.mag;
+
+  const int tid = threadIdx.x;
+  const int group = tid / TF, t = tid - group * TF;
+  const int n_tiles = (p.F + p.tile_frames - 1) / p.tile_frames;
+  const int n_items = p.B * n_tiles;
+  int item = blockIdx.x;
+
+  auto span_of = [&](int it, const float** src, int* nf) {
+    const int b = it / n_tiles, f0 = (it - b * n_tiles) * p.tile_frames;
+    *nf = min(p.tile_frames, p.F - f0);
+    *src = p.x + (size_t)b * p.T + (size_t)f0 * p.hop;
+    return (*nf - 1) * p.hop + 2 * H;
+  };
+  {
+    const float* src;
+    int nf;
+    const int span = span_of(item, &src, &nf);
+    prefetch(sm, src, span);
+    cp_async_commit();
+  }
+  for (int i = tid; i < 2 * H; i += kThreads) sm[lay.win + i] = __ldg(p.win + i);
+  for (int i = tid; i < K; i += kThreads) tws[i] = p.tws[i];
+  for (int i = tid; i < G::PTW; i += kThreads) ptw[i] = p.ptw[i];
+  const Roots w = {p.tw[H / 16], p.tw[2 * H / 16], p.tw[3 * H / 16],
+                   p.tw[6 * H / 16], p.tw[9 * H / 16]};
+  int* lo = reinterpret_cast<int*>(sm + lay.bands);   // then hi, off
+  const int *hi = lo + p.M, *off = lo + 2 * p.M;
+  float* wts = sm + lay.wts;
+  const bool mel_staged = want_mel && stage_mel(p.mel, p.bands, p.M, lo, wts);
+  constexpr float inv_n = 1.f / (2 * H);   // exact: n_fft is a power of two
+
+  for (int s = 0; item < n_items; item += gridDim.x, s ^= 1) {
+    const int next = item + gridDim.x;
+    if (next < n_items) {
+      const float* src;
+      int nf;
+      const int span = span_of(next, &src, &nf);
+      prefetch(sm + (s ^ 1) * lay.stage, src, span);
+    }
+    cp_async_commit();
+    cp_async_wait_older();
+    __syncthreads();   // this tile's span (and the tables) in place for all
+
+    const int b = item / n_tiles, f0 = (item - b * n_tiles) * p.tile_frames;
+    const int nf = min(p.tile_frames, p.F - f0);
+    const float* xs = sm + s * lay.stage + span_head(p.x + (size_t)b * p.T + (size_t)f0 * p.hop);
+    for (int r0 = 0; r0 < nf; r0 += G::G) {
+      const int nfr = min(G::G, nf - r0);
+      // Pack this thread's 16 points of its frame and transform it.  A
+      // warp whose frames all lie past the round's end skips; one that
+      // holds some repeats the last frame in the others, not written.
+      const int lead = TF <= 32 ? (tid & ~31) / TF : group;   // its first frame
+      if (lead < nfr) {
+        const int fi = min(r0 + group, nf - 1);
+        const float* fr = xs + fi * p.hop;
+        const bool paired = ((fr - sm) & 1) == 0;   // fr[2m] 8-byte aligned
+        float2 v[kPoints];
+#pragma unroll
+        for (int q = 0; q < kPoints; ++q) {
+          const int m = t + TF * q;
+          float a0, a1;
+          if (paired) {
+            const float2 x2 = reinterpret_cast<const float2*>(fr)[m];
+            a0 = x2.x;
+            a1 = x2.y;
+          } else {
+            a0 = fr[2 * m];
+            a1 = fr[2 * m + 1];
+          }
+          if constexpr (kMode == kAdjoint) {
+            const float* env = p.inv_env + (size_t)(f0 + fi) * p.hop + 2 * m;
+            a0 = __fmul_rn(a0, __ldg(env));
+            a1 = __fmul_rn(a1, __ldg(env + 1));
+          }
+          const float2 wm = win2[m];
+          v[q] = make_float2(__fmul_rn(wm.x, a0), __fmul_rn(wm.y, a1));
+        }
+        fft_frame<L>(v, zbuf + group * G::ZS, t, group, ptw, w);
+      }
+      __syncthreads();   // the round's spectra in zbuf
+
+      // Split into the K bins and write the requested outputs.
+      const size_t row0 = (size_t)b * p.F + f0 + r0;
+      auto bin = [&](int f, int k) -> float2 {   // bin k of the round's frame f
+        const float2* zf = zbuf + f * G::ZS;
+        const float2 a = zf[zout(k & (H - 1))];
+        const float2 c = zf[zout((H - k) & (H - 1))];
+        const float2 e = make_float2(__fmul_rn(0.5f, a.x + c.x),
+                                     __fmul_rn(0.5f, a.y - c.y));
+        const float2 h = make_float2(__fmul_rn(0.5f, a.x - c.x),
+                                     __fmul_rn(0.5f, a.y + c.y));
+        const float2 wd = cmul_rn(tws[k], h);
+        return make_float2(e.x + wd.y, e.y - wd.x);   // e - i·w·h
+      };
+      const int n = nfr * K;
+      const size_t g0 = row0 * K;
+      const int a = (int)(g0 & 3);
+      const int groups = (n + a + 3) >> 2;
+      for (int u = tid; u < groups; u += kThreads) {
+        const int i0 = 4 * u - a;
+        const bool whole = i0 >= 0 && i0 + 4 <= n;
+        float re[4], im[4];
+        int kb[4];
+        // (frame, bin) of the group's first value in the round, then one
+        // step a value; lanes outside the round repeat a bin, not stored.
+        const int ib = max(i0, 0);
+        int f = ib / K, k = ib - f * K;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 x = bin(min(f, nfr - 1), k);
+          re[e] = x.x;
+          im[e] = x.y;
+          kb[e] = k;
+          if (i0 + e >= 0 && ++k == K) {
+            k = 0;
+            ++f;
+          }
+        }
+        const size_t gb = g0 - a + 4 * (size_t)u;   // a multiple of 4
+        auto put = [&](float* out, float (&val)[4]) {
+          if (whole) {
+            *reinterpret_cast<float4*>(out + gb) =
+                make_float4(val[0], val[1], val[2], val[3]);
+          } else {
+            for (int e = 0; e < 4; ++e)
+              if (i0 + e >= 0 && i0 + e < n) out[gb + e] = val[e];
+          }
+        };
+        if constexpr (kMode == kAdjoint) {
+          float dre[4], dim[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool edge = kb[e] == 0 || kb[e] == H;
+            const float ak = edge ? inv_n : 2.f * inv_n;
+            dre[e] = __fmul_rn(ak, re[e]);
+            dim[e] = edge ? 0.f : __fmul_rn(ak, im[e]);
+          }
+          put(p.out0, dre);
+          put(p.out1, dim);
+        } else {
+          if (kMode == kSpec || p.out0) {
+            float2* spec = reinterpret_cast<float2*>(p.out0);
+            if (whole) {
+              float4* s4 = reinterpret_cast<float4*>(spec + gb);
+              s4[0] = make_float4(re[0], im[0], re[1], im[1]);
+              s4[1] = make_float4(re[2], im[2], re[3], im[3]);
+            } else {
+              for (int e = 0; e < 4; ++e)
+                if (i0 + e >= 0 && i0 + e < n)
+                  spec[gb + e] = make_float2(re[e], im[e]);
+            }
+          }
+          if constexpr (kMode == kFeatures) {
+            if (p.mag || p.logmag || want_mel) {
+              float m[4];
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                m[e] = sqrtf(__fmaf_rn(re[e], re[e], __fmul_rn(im[e], im[e])));
+              if (p.mag) put(p.mag, m);
+              if (p.logmag) {
+                float lm[4];
+#pragma unroll
+                for (int e = 0; e < 4; ++e) lm[e] = logf(m[e] + p.eps);
+                put(p.logmag, lm);
+              }
+              if (want_mel)
+                for (int e = 0; e < 4; ++e)
+                  if (i0 + e >= 0 && i0 + e < n) mag_s[i0 + e] = m[e];
+            }
+          }
+        }
+      }
+      if (want_mel) {
+        __syncthreads();   // the round's |X| in mag_s
+        const int M = p.M, nm = nfr * M;
+        const size_t gm = row0 * M;
+        const int am = (int)(gm & 3), lane = tid & 31;
+        // Band mb of the round's frame fb, summed in order of k over the
+        // band's bins (eight at a time, loads first); a term past the band
+        // adds nothing (skipped).
+        auto band = [&](int fb, int mb) -> float {
+          const float* mg = mag_s + fb * K;
+          const int k0 = lo[mb], k1 = hi[mb];
+          float acc = 0.f;
+          if (mel_staged) {
+            const float* wm = wts + off[mb] - k0;
+            for (int k = k0; k <= k1; k += 8) {
+              float x[8], y[8];
+#pragma unroll
+              for (int j = 0; j < 8; ++j) {
+                const bool in = k + j <= k1;
+                x[j] = in ? mg[k + j] : 0.f;
+                y[j] = in ? wm[k + j] : 0.f;
+              }
+#pragma unroll
+              for (int j = 0; j < 8; ++j)
+                if (k + j <= k1) acc = __fmaf_rn(x[j], y[j], acc);
+            }
+          } else {
+            for (int k = k0; k <= k1; ++k)
+              acc = __fmaf_rn(mg[k], __ldg(p.mel + (size_t)k * M + mb), acc);
+          }
+          return logf(acc + p.eps);
+        };
+        // One (frame, band) value a lane in windows of 32 that start on
+        // 16-byte boundaries of the output, two windows at a time (their
+        // sums independent); lanes 0-7 then store four values of each
+        // window, gathered by shuffles.  (f, m) steps by the windows'
+        // stride, so only the first value divides by M.
+        int i = (tid >> 5) * 32 + lane - am;   // this lane's value, first window
+        int f = 0, m = 0;
+        if (i >= 0) {
+          f = i / M;
+          m = i - f * M;
+        }
+        const int df = kThreads / M, dm = kThreads - df * M;
+        auto step = [&](int& fs, int& ms) {   // (f, m) of the value kThreads on
+          fs += df;
+          ms += dm;
+          if (ms >= M) {
+            ms -= M;
+            ++fs;
+          }
+        };
+        for (int w0 = (tid >> 5) * 32; w0 < nm + am; w0 += 2 * kThreads) {
+          int f1 = f, m1 = m;   // the value kThreads on (i + kThreads > 0)
+          if (i >= 0) {
+            step(f1, m1);
+          } else {
+            f1 = (i + kThreads) / M;
+            m1 = i + kThreads - f1 * M;
+          }
+          const float val[2] = {i >= 0 && i < nm ? band(f, m) : 0.f,
+                                i + kThreads < nm ? band(f1, m1) : 0.f};
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int wh = w0 + h * kThreads;
+            float4 v4;
+            v4.x = __shfl_sync(0xffffffffu, val[h], 4 * (lane & 7));
+            v4.y = __shfl_sync(0xffffffffu, val[h], 4 * (lane & 7) + 1);
+            v4.z = __shfl_sync(0xffffffffu, val[h], 4 * (lane & 7) + 2);
+            v4.w = __shfl_sync(0xffffffffu, val[h], 4 * (lane & 7) + 3);
+            const int j0 = wh + 4 * lane - am;   // lane < 8: its group's first value
+            float* out = p.logmel + (gm - am) + wh + 4 * lane;
+            if (lane < 8 && j0 + 4 > 0 && j0 < nm) {
+              if (j0 >= 0 && j0 + 4 <= nm) {
+                *reinterpret_cast<float4*>(out) = v4;
+              } else {
+                const float v[4] = {v4.x, v4.y, v4.z, v4.w};
+                for (int e = 0; e < 4; ++e)
+                  if (j0 + e >= 0 && j0 + e < nm) out[e] = v[e];
+              }
+            }
+          }
+          i += 2 * kThreads;   // two windows on
+          f = f1;
+          m = m1;
+          step(f, m);
+        }
+      }
+      __syncthreads();   // zbuf, mag_s and this stage free again
+    }
   }
 }
 
-template <bool kSpecOnly>
-__global__ void __launch_bounds__(kThreads) stft_features_kernel(
-    const float* __restrict__ x, const float* __restrict__ win,
-    const float2* __restrict__ tw, const float2* __restrict__ tws,
-    const float* __restrict__ mel, float* __restrict__ spec,
-    float* __restrict__ mag_out, float* __restrict__ logmag_out,
-    float* __restrict__ logmel_out, int T, int F, int n_fft, int log2h,
-    int hop, int tile, int M, float eps) {
-  analysis_tile<kSpecOnly ? kSpec : kFeatures>(
-      x, nullptr, win, tw, tws, mel, spec, nullptr, mag_out, logmag_out,
-      logmel_out, T, F, n_fft, log2h, hop, tile, M, eps);
+// The kernels, by the names traces and profiles know them: K1 and K4 (the
+// spectrum alone), and K3's backward.
+template <int L, bool kSpecOnly>
+__global__ void __launch_bounds__(kThreads) stft_features_kernel(const Args p) {
+  analysis_body<L, kSpecOnly ? kSpec : kFeatures>(p);
 }
 
-__global__ void __launch_bounds__(kThreads) istft_adjoint_kernel(
-    const float* __restrict__ dy, const float* __restrict__ inv_env,
-    const float* __restrict__ win, const float2* __restrict__ tw,
-    const float2* __restrict__ tws, float* __restrict__ dre,
-    float* __restrict__ dim, int T, int F, int n_fft, int log2h, int hop,
-    int tile) {
-  analysis_tile<kAdjoint>(dy, inv_env, win, tw, tws, nullptr, dre, dim,
-                          nullptr, nullptr, nullptr, T, F, n_fft, log2h, hop,
-                          tile, 0, 0.f);
+template <int L>
+__global__ void __launch_bounds__(kThreads) istft_adjoint_kernel(const Args p) {
+  analysis_body<L, kAdjoint>(p);
 }
 
-// Checks the geometry, selects the device and lets `kernel` take its
-// shared memory; 0 or a cudaError.
-int prepare(const void* kernel, int n_fft, int hop, int device, int* log2h,
-            int* tile, int* smem) {
-  if (n_fft < kMinFft || n_fft > kMaxFft || (n_fft & (n_fft - 1)) ||
-      hop < 1 || n_fft % hop)
+struct Occupancy {
+  const void* fn;
+  int smem, device, blocks;
+};
+
+int sm_count_and_optin(int device, int* sms, int* optin) {
+  static std::mutex mu;
+  static int cached_sms[64], cached_optin[64];
+  std::lock_guard<std::mutex> lock(mu);
+  if (device < 0 || device >= 64) return (int)cudaErrorInvalidDevice;
+  if (!cached_sms[device]) {
+    cudaError_t err =
+        cudaDeviceGetAttribute(&cached_sms[device], cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&cached_optin[device],
+                                   cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    if (err != cudaSuccess) {
+      cached_sms[device] = 0;
+      return (int)err;
+    }
+  }
+  *sms = cached_sms[device];
+  *optin = cached_optin[device];
+  return 0;
+}
+
+// Blocks of `fn` with `smem` bytes that fit an SM, cached; lets `fn` take
+// up to the opt-in maximum of dynamic shared memory.
+int blocks_per_sm(const void* fn, int smem, int optin, int device,
+                  int* blocks) {
+  static std::mutex mu;
+  static Occupancy cache[64];
+  static int used = 0;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < used; ++i)
+    if (cache[i].fn == fn && cache[i].smem == smem && cache[i].device == device) {
+      *blocks = cache[i].blocks;
+      return 0;
+    }
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, kThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (used < 64) cache[used++] = {fn, smem, device, *blocks};
+  return 0;
+}
+
+template <int L, int kMode>
+int launch_l(Args& a, int rounds, int per_sm, int device,
+             cudaStream_t stream) {
+  using G = Geo<L>;
+  void (*kernel)(const Args);
+  if constexpr (kMode == kAdjoint)
+    kernel = istft_adjoint_kernel<L>;
+  else
+    kernel = stft_features_kernel<L, kMode == kSpec>;
+  const void* fn = (const void*)kernel;
+  int sms, optin;
+  int rc = sm_count_and_optin(device, &sms, &optin);
+  if (rc) return rc;
+  const int m = kMode == kFeatures && a.logmel ? a.M : 0;
+  // A smaller tile where a long hop would overflow shared memory, or where
+  // the call has too few tiles to give every SM one: down to one frame, a
+  // block then transforming copies of its last frame beside it (a frame's
+  // bits do not depend on the tile).
+  int smem = 0;
+  for (a.tile_frames = rounds * G::G;; a.tile_frames >>= 1) {
+    smem = 4 * layout(L, a.tile_frames, a.hop, m).total;
+    const long long tiles =
+        (long long)a.B * ((a.F + a.tile_frames - 1) / a.tile_frames);
+    if (a.tile_frames == 1 || (smem <= optin && tiles >= sms)) break;
+  }
+  if (smem > optin) return (int)cudaErrorInvalidConfiguration;
+  int fit;
+  rc = blocks_per_sm(fn, smem, optin, device, &fit);
+  if (rc) return rc;
+  if (fit < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long items =
+      (long long)a.B * ((a.F + a.tile_frames - 1) / a.tile_frames);
+  const long long grid = std::min<long long>(items, (long long)sms * std::min(fit, per_sm));
+  kernel<<<(int)grid, kThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int kMode>
+int launch(Args a, int n_fft, int rounds, int per_sm, void* stream,
+           int device) {
+  if (n_fft < 2 << kMinLog2H || n_fft > 2 << kMaxLog2H ||
+      (n_fft & (n_fft - 1)) || a.hop < 1 || n_fft % a.hop || rounds < 1 ||
+      per_sm < 1 || a.B < 1 || a.F < 1)
     return (int)cudaErrorInvalidValue;
-  *log2h = 0;
-  while ((2 << *log2h) < n_fft) ++*log2h;   // H = n_fft / 2 = 1 << log2h
-  *tile = tile_frames(n_fft);
-  *smem = smem_bytes(n_fft, hop);
+  const uintptr_t outs = reinterpret_cast<uintptr_t>(a.out0) |
+                         reinterpret_cast<uintptr_t>(a.out1) |
+                         reinterpret_cast<uintptr_t>(a.mag) |
+                         reinterpret_cast<uintptr_t>(a.logmag) |
+                         reinterpret_cast<uintptr_t>(a.logmel);
+  if (outs & 15) return (int)cudaErrorMisalignedAddress;   // float4 stores
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (*smem > 48 * 1024)   // above the default only by opting in
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               *smem);
-  return (int)err;
-}
-
-template <bool kSpecOnly>
-int launch(const void* x, const void* win, const void* tw, const void* tws,
-           const void* mel, void* spec, void* mag, void* logmag, void* logmel,
-           int B, int T, int F, int n_fft, int hop, int M, float eps,
-           void* stream, int device) {
-  int log2h, tile, smem;
-  const int rc = prepare((const void*)stft_features_kernel<kSpecOnly>, n_fft,
-                         hop, device, &log2h, &tile, &smem);
-  if (rc) return rc;
-  dim3 grid((F + tile - 1) / tile, B);
-  stft_features_kernel<kSpecOnly>
-      <<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-          (const float*)x, (const float*)win, (const float2*)tw,
-          (const float2*)tws, (const float*)mel, (float*)spec, (float*)mag,
-          (float*)logmag, (float*)logmel, T, F, n_fft, log2h, hop, tile, M,
-          eps);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (n_fft) {
+    case 64: return launch_l<5, kMode>(a, rounds, per_sm, device, s);
+    case 128: return launch_l<6, kMode>(a, rounds, per_sm, device, s);
+    case 256: return launch_l<7, kMode>(a, rounds, per_sm, device, s);
+    case 512: return launch_l<8, kMode>(a, rounds, per_sm, device, s);
+    case 1024: return launch_l<9, kMode>(a, rounds, per_sm, device, s);
+    case 2048: return launch_l<10, kMode>(a, rounds, per_sm, device, s);
+    default: return launch_l<11, kMode>(a, rounds, per_sm, device, s);
+  }
 }
 
 }  // namespace
 
-// Each launcher returns cudaGetLastError() after the launch (0 = launched);
-// win, tw and tws are the tables of ops/stft_features.py::fft_tables.
+// Each launcher returns cudaGetLastError() after its one launch (0 =
+// launched).  win, tw and tws are the tables of
+// ops/stft_features.py::fft_tables, ptw its pass_twiddles, bands the
+// mel matrix's mel_bands; rounds (frames a tile, in rounds of
+// kThreads/(n_fft/32) frames) and per_sm (resident blocks an SM at most)
+// are the wrapper's block shape.  Every output pointer must be 16-byte
+// aligned.
 extern "C" int stft_features_launch(
     const void* x, const void* win, const void* tw, const void* tws,
-    const void* mel, void* spec, void* mag, void* logmag, void* logmel,
-    int B, int T, int F, int n_fft, int hop, int M, float eps, void* stream,
+    const void* ptw, const void* mel, const void* bands, void* spec,
+    void* mag, void* logmag, void* logmel, int B, int T, int F, int n_fft,
+    int hop, int M, float eps, int rounds, int per_sm, void* stream,
     int device) {
-  return launch<false>(x, win, tw, tws, mel, spec, mag, logmag, logmel, B, T,
-                       F, n_fft, hop, M, eps, stream, device);
+  Args a{(const float*)x, nullptr, (const float*)win, (const float2*)tw,
+         (const float2*)tws, (const float2*)ptw, (const float*)mel,
+         (const int*)bands, (float*)spec, nullptr, (float*)mag,
+         (float*)logmag, (float*)logmel, B, T, F, hop, M, 0, eps};
+  if (logmel && (mel == nullptr || bands == nullptr || M < 1))
+    return (int)cudaErrorInvalidValue;
+  return launch<kFeatures>(a, n_fft, rounds, per_sm, stream, device);
 }
 
 // The complex STFT alone: spec (B, F, K, 2) f32, interleaved re/im.
-extern "C" int stft_launch(
-    const void* x, const void* win, const void* tw, const void* tws,
-    void* spec, int B, int T, int F, int n_fft, int hop, void* stream,
-    int device) {
-  return launch<true>(x, win, tw, tws, nullptr, spec, nullptr, nullptr,
-                      nullptr, B, T, F, n_fft, hop, 0, 0.f, stream, device);
+extern "C" int stft_launch(const void* x, const void* win, const void* tw,
+                           const void* tws, const void* ptw, void* spec, int B,
+                           int T, int F, int n_fft, int hop, int rounds,
+                           int per_sm, void* stream, int device) {
+  Args a{(const float*)x, nullptr, (const float*)win, (const float2*)tw,
+         (const float2*)tws, (const float2*)ptw, nullptr, nullptr,
+         (float*)spec, nullptr, nullptr, nullptr, nullptr, B, T, F, hop, 0, 0,
+         0.f};
+  return launch<kSpec>(a, n_fft, rounds, per_sm, stream, device);
 }
 
 // K3's backward: the (B, T) cotangent, T = (F - 1)·hop + n_fft, and the
 // (T,) inverse envelope -> dre, dim, two (B, F, K) f32 planes.
 extern "C" int istft_adjoint_launch(
     const void* dy, const void* inv_env, const void* win, const void* tw,
-    const void* tws, void* dre, void* dim, int B, int T, int F, int n_fft,
-    int hop, void* stream, int device) {
-  int log2h, tile, smem;
-  const int rc = prepare((const void*)istft_adjoint_kernel, n_fft, hop,
-                         device, &log2h, &tile, &smem);
-  if (rc) return rc;
-  dim3 grid((F + tile - 1) / tile, B);
-  istft_adjoint_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)dy, (const float*)inv_env, (const float*)win,
-      (const float2*)tw, (const float2*)tws, (float*)dre, (float*)dim, T, F,
-      n_fft, log2h, hop, tile);
-  return (int)cudaGetLastError();
+    const void* tws, const void* ptw, void* dre, void* dim, int B, int T,
+    int F, int n_fft, int hop, int rounds, int per_sm, void* stream,
+    int device) {
+  Args a{(const float*)dy, (const float*)inv_env, (const float*)win,
+         (const float2*)tw, (const float2*)tws, (const float2*)ptw, nullptr,
+         nullptr, (float*)dre, (float*)dim, nullptr, nullptr, nullptr, B, T,
+         F, hop, 0, 0, 0.f};
+  return launch<kAdjoint>(a, n_fft, rounds, per_sm, stream, device);
 }

@@ -37,8 +37,10 @@ import torch
 
 from gan_sass_tf_tpu_torch.dsp.stft import istft as _istft
 from gan_sass_tf_tpu_torch.ops.masked_istft import _inv_env, synthesis_block
+from gan_sass_tf_tpu_torch.ops import stft_features as _k1
 from gan_sass_tf_tpu_torch.ops.stft_features import (
     _device_tables,
+    analysis_tables,
     check_n_fft,
     stft_features_reference,
 )
@@ -116,13 +118,14 @@ def istft_adjoint(dy: torch.Tensor, n_fft: int, hop: int, window: str,
              f"frames (expected {inv.shape[0]})")
     lib = build.load_library()
     dev = dy.device
-    win, tw, tws = _device_tables(n_fft, window, dev)
+    win, tw, tws, ptw = analysis_tables(n_fft, window, dev)
     dre = torch.empty((b, n_frames, n_fft // 2 + 1), dtype=torch.float32, device=dev)
     dim = torch.empty_like(dre)
     rc = lib.istft_adjoint_launch(
         dy.data_ptr(), inv.data_ptr(), win.data_ptr(), tw.data_ptr(),
-        tws.data_ptr(), dre.data_ptr(), dim.data_ptr(), b, t, n_frames, n_fft,
-        hop, torch.cuda.current_stream(dev).cuda_stream, dev.index)
+        tws.data_ptr(), ptw.data_ptr(), dre.data_ptr(), dim.data_ptr(), b, t,
+        n_frames, n_fft, hop, _k1.TILE_ROUNDS, _k1.BLOCKS_PER_SM,
+        torch.cuda.current_stream(dev).cuda_stream, dev.index)
     build.check_launch(rc, "istft_adjoint")
     bwd_launches += 1
     return dre, dim

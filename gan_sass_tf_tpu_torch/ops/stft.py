@@ -15,7 +15,8 @@ from __future__ import annotations
 import torch
 
 from gan_sass_tf_tpu_torch.dsp.stft import stft as stft_reference  # noqa: F401
-from gan_sass_tf_tpu_torch.ops.stft_features import _device_tables, check_waveform
+from gan_sass_tf_tpu_torch.ops import stft_features as _k1
+from gan_sass_tf_tpu_torch.ops.stft_features import analysis_tables, check_waveform
 
 launches = 0   # kernel launches since the last reset (chip_smoke reads it)
 
@@ -35,11 +36,12 @@ def stft_kernel(x: torch.Tensor, n_fft: int, hop: int,
     lead, b, t, f, k = check_waveform(x, n_fft, hop, _require)
     lib = build.load_library()
     dev = x.device
-    win, tw, tws = _device_tables(n_fft, window, dev)
+    win, tw, tws, ptw = analysis_tables(n_fft, window, dev)
     out = torch.empty((b, f, k), dtype=torch.complex64, device=dev)
     rc = lib.stft_launch(
         x.data_ptr(), win.data_ptr(), tw.data_ptr(), tws.data_ptr(),
-        torch.view_as_real(out).data_ptr(), b, t, f, n_fft, hop,
+        ptw.data_ptr(), torch.view_as_real(out).data_ptr(), b, t, f, n_fft,
+        hop, _k1.TILE_ROUNDS, _k1.BLOCKS_PER_SM,
         torch.cuda.current_stream(dev).cuda_stream, dev.index)
     build.check_launch(rc, "stft")
     launches += 1

@@ -386,18 +386,76 @@ def _stockham(src, tw, inverse=False):
     return src
 
 
+def _neg_i(a):
+    """-i·a, exact (a swap and a sign), as the kernel's mul_neg_i."""
+    return (a.imag - 1j * a.real).astype(np.complex64)
+
+
+def _dft4(a, b, c, d):
+    a0, a1, a2, a3 = a + c, a - c, b + d, _neg_i(b - d)
+    return [a0 + a2, a1 + a3, a0 - a2, a1 - a3]
+
+
+def _dft_r(u, roots):
+    """The kernel's in-register R-point DFT (R = 2, 4, 8, 16) of the list u:
+    R = 8 and 16 as a DFT over n1 (n = 4·n1 + n2), the twiddles
+    e^{-2πi·n2·r1/R} (roots[e] = e^{-2πie/16} from the stage table; e = 4
+    is -i, exact), then 4-point DFTs over n2."""
+    if len(u) == 2:
+        return [u[0] + u[1], u[0] - u[1]]
+    if len(u) == 4:
+        return _dft4(*u)
+    if len(u) == 8:
+        a = [None] * 8
+        for n2 in range(4):
+            a[n2], a[4 + n2] = u[n2] + u[4 + n2], u[n2] - u[4 + n2]
+        a[5], a[6], a[7] = a[5] * roots[2], _neg_i(a[6]), a[7] * roots[6]
+        y = [None] * 8
+        for r1 in range(2):
+            y[r1::2] = _dft4(*a[4 * r1:4 * r1 + 4])
+        return y
+    a = []
+    for n2 in range(4):
+        a += _dft4(u[n2], u[4 + n2], u[8 + n2], u[12 + n2])   # a[4·n2 + r1]
+    for i, e in ((5, 1), (6, 2), (7, 3), (9, 2), (11, 6), (13, 3), (14, 6), (15, 9)):
+        a[i] = a[i] * roots[e]
+    a[10] = _neg_i(a[10])
+    y = [None] * 16
+    for r1 in range(4):
+        y[r1::4] = _dft4(a[r1], a[4 + r1], a[8 + r1], a[12 + r1])
+    return y
+
+
 def _fft_schedule(x, n_fft, hop, window):
-    """The CUDA kernel's schedule in numpy f32: frames packed as
-    z[m] = w[2m]·x[2m] + i·w[2m+1]·x[2m+1], Stockham stages (one radix-2
-    stage first where log2(n_fft/2) is odd, then radix 4) reading the
-    port's host-built tables, and the split into the n_fft/2 + 1 bins."""
+    """The K1/K4 kernel body of csrc/stft_features.cu in numpy f32: frames
+    packed as z[m] = w[2m]·x[2m] + i·w[2m+1]·x[2m+1]; the Stockham passes
+    of ops/stft_features.py::fft_passes (radix 16, then one radix 2, 4 or
+    8), each butterfly an in-register DFT (_dft_r) after the twiddles of
+    the pass table (pass_twiddles); then the split into the n_fft/2 + 1
+    bins with the split twiddles.  The kernel's thread layout (16 points a
+    thread, TF = n_fft/32 threads a frame) moves no arithmetic."""
     win, tw, tws = k1.fft_tables(n_fft, window)
+    ptw = k1.pass_twiddles(n_fft, tw)
     h = n_fft // 2
+    roots = {e: tw[e * h // 16] for e in (1, 2, 3, 6, 9)}
     f = 1 + (x.shape[-1] - n_fft) // hop
     frames = x[..., np.arange(f)[:, None] * hop + np.arange(n_fft)]
     src = (frames[..., 0::2] * win[0::2]
            + 1j * (frames[..., 1::2] * win[1::2])).astype(np.complex64)
-    src = _stockham(src, tw)
+    off = 0
+    for r, ns in k1.fft_passes(n_fft):
+        q = h // r
+        j = np.arange(q)
+        k = j % ns
+        u = [src[..., j + i * q] for i in range(r)]
+        if ns > 1:
+            u = [u[0]] + [u[i] * ptw[off + (i - 1) * ns + k] for i in range(1, r)]
+            off += (r - 1) * ns
+        dst = np.empty_like(src)
+        for i, y in enumerate(_dft_r(u, roots)):
+            dst[..., (j - k) * r + k + i * ns] = y
+        src = dst
+    assert off == ptw.size
     kk = np.arange(h + 1)
     a, c = src[..., kk % h], np.conj(src[..., (h - kk) % h])
     e, dd = np.float32(0.5) * (a + c), np.float32(0.5) * (a - c)
@@ -461,6 +519,11 @@ def _assert(cond, msg):
     (512, 128, 5000, "hann"),
     (512, 128, 5000, "hann@400"),
     (2048, 512, 10752, "hann"),
+    # every other power of two the kernel takes: its own split into passes
+    (64, 16, 1001, "hann"),
+    (128, 32, 1500, "hann"),
+    (1024, 256, 5376, "hann"),
+    (4096, 1024, 8192, "hann"),
 ])
 def test_fft_schedule_matches_rfft_and_stft_pallas(rng, interpret, n_fft, hop,
                                                    t, window):
@@ -503,6 +566,27 @@ def test_fft_schedule_near_silent_frames(n_fft, hop, sr):
     exact = np.fft.rfft(frames * get_window("hann", n_fft, np.float64), axis=-1)
     np.testing.assert_allclose(ours, np.log(np.abs(exact) + 1e-8), rtol=0, atol=1e-3)
     assert (np.abs(exact[:, -5:]) == 0).all()
+
+
+@pytest.mark.parametrize("n_fft,hop,sr", [(64, 16, 8000), (128, 32, 8000),
+                                          (256, 64, 8000), (1024, 256, 16000),
+                                          (4096, 1024, 44100)])
+def test_fft_schedule_near_silent_frames_every_n_fft(n_fft, hop, sr):
+    """The near-silent signal at the kernel's other powers of two: log|X|
+    within 1e-3 of float64 at every bin whose |X| reaches 1e-3 of its own
+    frame's RMS |X| (chip_smoke's LOGMAG_FLOOR), in every frame, the
+    -120 dB frames and digital silence among them.  Below that floor in a
+    loud frame the f32 windowed input alone moves log|X| by more: at
+    n_fft 64 one DC bin at 6e-6 of its frame's peak is off by 3.7e-3 here
+    and in torch.fft.rfft in f32 alike."""
+    x = _near_silent(sr, 2 * sr)
+    f = 1 + (x.shape[-1] - n_fft) // hop
+    frames = x.astype(np.float64)[..., np.arange(f)[:, None] * hop + np.arange(n_fft)]
+    exact = np.abs(np.fft.rfft(frames * get_window("hann", n_fft, np.float64), axis=-1))
+    keep = exact >= 1e-3 * np.sqrt((exact ** 2).mean(-1, keepdims=True))
+    assert keep.all(-1).sum() > f // 2 and (exact[:, -5:] == 0).all()
+    ours = np.log(np.abs(_fft_schedule(x, n_fft, hop, "hann")) + 1e-8)
+    np.testing.assert_allclose(ours[keep], np.log(exact + 1e-8)[keep], rtol=0, atol=1e-3)
 
 
 SYNTH_GEOMETRIES = [(256, 64, "hann"), (512, 128, "hann"), (512, 128, "hann@400"),
@@ -608,6 +692,10 @@ def _adjoint_schedule(dy, n_fft, hop, window, n_frames):
     (512, 128, "hann", 40),
     (512, 128, "hann@400", k2.ROWS + 1),
     (2048, 512, "hann", 1),
+    (64, 16, "hann", 5),
+    (128, 32, "hann", 4),
+    (1024, 256, "hann", 3),
+    (4096, 1024, "hann", 2),
 ])
 def test_adjoint_schedule_matches_istft_pallas_vjp(rng, interpret, n_fft, hop,
                                                    window, n_frames):
@@ -635,6 +723,123 @@ def test_adjoint_schedule_matches_istft_pallas_vjp(rng, interpret, n_fft, hop,
         assert ours.shape == want.shape == (2, n_frames, k)
         np.testing.assert_allclose(ours, want, atol=5e-4 * scale, rtol=1e-3)
         np.testing.assert_allclose(ours, ex, atol=1e-5 * scale, rtol=0)
+
+
+@pytest.mark.parametrize("n_fft", [64, 128, 256, 512, 1024, 2048, 4096])
+def test_fft_passes_and_pass_twiddles(n_fft):
+    """The analysis body's passes (radix 16 while 16 divides what is left,
+    then one radix 2, 4 or 8) multiply to H = n_fft/2, and the pass table
+    holds, for each pass after the first, the stage table's own f32
+    entries e^{-2πi·r·k/(R·ns)} in the [pass][r - 1][k] order the kernel
+    reads, as many as csrc/stft_features.cu's pass_twiddle_count."""
+    h = n_fft // 2
+    log2h = h.bit_length() - 1
+    passes = k1.fft_passes(n_fft)
+    assert [r for r, _ in passes] == [16] * (log2h // 4) + (
+        [1 << (log2h % 4)] if log2h % 4 else [])
+    assert int(np.prod([r for r, _ in passes])) == h
+    assert [ns for _, ns in passes] == [int(np.prod([r for r, _ in passes[:i]]))
+                                        for i in range(len(passes))]
+    stage = k1.fft_tables(n_fft, "hann")[1]
+    ptw = k1.pass_twiddles(n_fft, stage)
+    count = (240 if log2h // 4 >= 2 else 0) + (
+        ((1 << (log2h % 4)) - 1) << (4 * (log2h // 4)) if log2h % 4 else 0)
+    assert ptw.dtype == np.complex64 and ptw.size == count
+    off = 0
+    for r, ns in passes[1:]:
+        block = ptw[off:off + (r - 1) * ns].reshape(r - 1, ns)
+        rk = np.outer(np.arange(1, r), np.arange(ns))
+        np.testing.assert_array_equal(block, stage[rk * (h // (r * ns))])
+        np.testing.assert_allclose(block, np.exp(-2j * np.pi * rk / (r * ns)),
+                                   rtol=0, atol=1e-7)
+        off += (r - 1) * ns
+
+
+def _sequential_mel(mag, mel, lo=None, hi=None):
+    """(F, M) f32 sums over k of mag[f, k]·mel[k, m], one term at a time in
+    order of k; each band over [lo[m], hi[m]] only when given."""
+    k_all, m_all = mel.shape
+    out = np.zeros((mag.shape[0], m_all), np.float32)
+    for m in range(m_all):
+        ks = range(k_all) if lo is None else range(int(lo[m]), int(hi[m]) + 1)
+        acc = np.zeros(mag.shape[0], np.float32)
+        for k in ks:
+            acc = (acc + mag[:, k] * mel[k, m]).astype(np.float32)
+        out[:, m] = acc
+    return out
+
+
+@pytest.mark.parametrize("preset", config.list_configs())
+def test_banded_logmel_equals_dense_bit_for_bit(rng, preset):
+    """The log-mel epilogue's band rule: a sequential f32 sum over each
+    band's first to last non-zero bin (ops.stft_features.mel_bands) equals
+    the sequential sum over all K bins bit for bit, since every skipped
+    term is an exact zero; a band of zeros gives log(eps)."""
+    d = config.get_config(preset).dsp
+    mel = mel_filterbank(d.n_mels, d.n_bins, d.sample_rate).copy()
+    mel[:, d.n_mels // 2] = 0.0
+    mag = np.abs(_rand(rng, 12, d.n_bins) * np.logspace(-6, 2, 12)[:, None]
+                 ).astype(np.float32)
+    table = k1.mel_bands(torch.from_numpy(mel)).numpy()
+    m = d.n_mels
+    lo, hi, off = table[:m], table[m:2 * m], table[2 * m:]
+    nz = mel != 0
+    assert (lo[d.n_mels // 2], hi[d.n_mels // 2]) == (d.n_bins, -1)
+    for b in range(m):
+        if nz[:, b].any():
+            rows = np.flatnonzero(nz[:, b])
+            assert (lo[b], hi[b]) == (rows[0], rows[-1])
+    np.testing.assert_array_equal(np.diff(off), np.maximum(hi - lo + 1, 0))
+    banded = _sequential_mel(mag, mel, lo, hi)
+    dense = _sequential_mel(mag, mel)
+    np.testing.assert_array_equal(banded.view(np.uint32), dense.view(np.uint32))
+    eps = np.float32(d.eps)
+    logmel = np.log(banded + eps)
+    assert (logmel[:, d.n_mels // 2] == np.log(eps)).all()
+    ref = k1.stft_features_reference(torch.zeros(1, d.n_fft), d.n_fft, d.hop_length,
+                                     emit=("logmel",), mel_matrix=torch.from_numpy(mel),
+                                     eps=d.eps)["logmel"]
+    assert float(ref[0, 0, d.n_mels // 2]) == float(np.log(eps))
+
+
+def test_mel_bands_is_kept_per_matrix_and_rebuilt_on_change():
+    """mel_bands builds its table once for a matrix, keeps it while the
+    matrix is unchanged (an inference tensor, which has no version counter,
+    counts as unchanged), and rebuilds it after an in-place change."""
+    mel = torch.from_numpy(mel_filterbank(16, 129, 8000))
+    first = k1.mel_bands(mel)
+    assert first.dtype == torch.int32 and first.shape == (3 * 16 + 1,)
+    assert k1.mel_bands(mel) is first
+    mel[:, 3] = 0.0
+    again = k1.mel_bands(mel)
+    assert again is not first
+    assert (int(again[3]), int(again[16 + 3])) == (129, -1)
+    with torch.inference_mode():
+        frozen = torch.from_numpy(mel_filterbank(16, 129, 8000)).clone()
+        assert k1.mel_bands(frozen) is k1.mel_bands(frozen)
+    torch.testing.assert_close(k1.mel_bands(frozen), first)
+
+
+def test_time_analysis_imports_and_needs_cuda(capsys):
+    """scripts/time_analysis.py imports here and refuses to run without a
+    CUDA device (this process sees none), as time_synthesis does; each of
+    its ablations edits text that the kernel source holds once."""
+    from gan_sass_tf_tpu_torch.scripts import time_analysis
+
+    assert not torch.cuda.is_available()
+    assert time_analysis.main([]) == 1
+    assert time_analysis.main(["--sweep"]) == 1
+    assert time_analysis.main(["--ablate"]) == 1
+    assert "needs a CUDA device" in capsys.readouterr().err
+    from gan_sass_tf_tpu_torch.ops import build
+
+    src = (build.CSRC / "stft_features.cu").read_text()
+    for what, edits in time_analysis.ABLATIONS.items():   # still the source's text
+        assert all(src.count(old) == 1 for old, _ in edits), what
+    names = [name for name, *_ in time_analysis.SHAPES]
+    assert len(set(names)) == len(names)
+    assert {"stft_features wsj0_logmel step mixtures",
+            "stft_features wsj0_logmel step targets"} <= set(names)
 
 
 @pytest.mark.parametrize("n_fft,hop", [(500, 125), (8192, 2048), (32, 8)])
