@@ -9,19 +9,24 @@ Phases, one JSON line each:
   3 k1        stft_features kernel vs its plain version at the shapes of
               the wsj0_logmel path, a 60 s input, two other geometries, the
               music_complex_44k step's two launches (8 mixtures: spec, mag,
-              logmag; 16 targets: logmag, spec) and a near-silent signal
+              logmag; 16 targets: logmag, spec) and a near-silent signal;
+              K1's, K4's and K3's adjoint's outputs at
+              scripts/time_analysis.py's shapes against ANALYSIS_DIGESTS
   4 k2        masked_istft kernel vs its plain version (magnitude and
               complex masks, 60 s input, STFT -> iSTFT round trip, the
-              music_complex_44k bound batch at n_fft 2048, and one frame
-              and ROWS + 1 frames, the block's edges)
+              music_complex_44k bound batch at n_fft 2048, and one frame,
+              two (fewer than n_fft/hop) and nine, past a tile's edge); the
+              output bit-equal at three segment lengths and on a repeat call
   5 main_path the CLI `separate` on a 3 s and a 60 s wav and `separate()`
               on 16 x 3 s mixtures, with seeded-random weights at the full
               wsj0_logmel width; both kernels must have launched, and the
               same call on the plain DSP path must agree (SI-SDR >= 40 dB)
-  6 k3        the differentiable iSTFT (forward kernel, backward on the
-              adjoint kernel) vs its plain version and autograd, at the
-              stream_v5e8 train shape, two other geometries and the edges
-              of k2
+  6 k3        the differentiable iSTFT through ops.dispatch.istft (forward
+              kernel on the interleaved spectrum, backward on the adjoint
+              kernel) vs its plain version and autograd, at the stream_v5e8
+              train shape, two other geometries and the edges of k2; the
+              forward bit-equal at three segment lengths and on a repeat
+              call
   7 train     Experiment(stream_v5e8).train() at full width, batch 32: the
               losses finite, G and D moved, the three kernels of the step
               launched; one step from one state on the kernel and the plain
@@ -108,7 +113,8 @@ Phases, one JSON line each:
               ms by kernel family and peak device memory
  11 timing    median per-call time of each kernel's wrapper beside its plain
               version and, where one PyTorch call computes the same function
-              (torch.stft for the STFT kernels), that call (CUDA events
+              (torch.stft for the STFT kernels, the mask product and
+              torch.istft for K2, torch.istft for K3), that call (CUDA events
               around back-to-back calls), and the kernels' device ms (CUDA
               events around a replayed CUDA graph of back-to-back calls;
               torch.profiler's reading beside it); K1 at the separation,
@@ -249,6 +255,7 @@ S_MUSIC = 2                          # its sources: the step's K1 targets are 16
 SEED_MUSIC = 44100                   # the K1 music-shape cases' own generator
 SEED_SYNTH = 5                       # the K2/K3 music-shape and edge cases' own
 LOGMAG_FLOOR = 1e-3                  # -60 dB re the frame's RMS |X| (k1_case)
+SEGMENTS = (1, 5, 10 ** 6)           # segment rows the k2/k3 bit checks also run
 # The H100 SXM's published peaks (NVIDIA's data sheet): HBM bytes/s and
 # f32 flops/s outside the tensor cores.  A kernel's bound is the larger of
 # its bytes and its flops over these.
@@ -307,6 +314,27 @@ KERNEL_FAMILIES = (
     ("copies, cat, gather", ("copy", "cat", "gather", "index", "scatter")),
     ("elementwise", ("elementwise",)),
 )
+# sha256 digests (16 hex digits, scripts/time_analysis.py's digest) of the
+# outputs of K1, K4 and K3's adjoint (its (dre, dim) planes) at
+# time_analysis.py's shapes and seeded inputs, as the analysis body gave
+# them on an NVIDIA H100 80GB HBM3 before its passes moved to csrc/fft.cuh
+# to be shared with the synthesis body (PERF.md §6): the move keeps its bits.
+ANALYSIS_DIGESTS = {
+    "stft_features wsj0_logmel step mixtures": "0af115b9addd8222",
+    "stft_features wsj0_logmel step targets": "203d3f6fd0da74a8",
+    "stft_features wsj0_logmel separate()": "f858816a3c1a50b6",
+    "stft_features stream_v5e8 step": "b243ebcccda4e7ca",
+    "stft_features music_complex_44k step mixtures": "b4b0473717ef5b8e",
+    "stft_features music_complex_44k step targets": "65cf48271cffe5fb",
+    "stft stream_v5e8 sources": "e1030d044a1334f7",
+    "stft music_complex_44k sources": "cce4279ca02e42da",
+    "istft_adjoint stream_v5e8 step": "e0dab3253e214990",
+    "stft_features stream_v5e8 streaming group": "5f7a35d35f2d6a6b",
+    "stft_features stream_v5e8 one chunk": "6f49ceb143040b65",
+    "stft_features 3src_pit step mixtures": "af4466b4fe596038",
+    "stft_features 3src_pit step targets": "976d43e5739c9c87",
+    "stft_features 3src_pit separation": "f5cffd60dfe4c728",
+}
 # The keys of scripts/quality_protocol.py's JSON line (tests/test_torch_oracle.py
 # holds the port's key set equal to the JAX script's).
 QUALITY_KEYS = {
@@ -533,7 +561,38 @@ def phase_k1(rng, dev):
                  f"{LOGMAG_FLOOR} * frame RMS |X|, against "
                  f"{'float64' if vs_f64 else 'the plain version'}")
     phase_k1_geometry(rng, dev)
+    got = analysis_digests(dev)
+    differ = sorted(name for name, d in ANALYSIS_DIGESTS.items() if got.get(name) != d)
+    check(not differ, f"analysis body's bits changed at {differ}")
+    emit("k1", case="digests at scripts/time_analysis.py's shapes", digests=got,
+         equal_to_recorded=not differ)
     return x, ker["spec"], main_errs["spec"], music, bench
+
+
+def analysis_digests(dev) -> dict:
+    """{shape: digest} of K1's, K4's and K3's adjoint's outputs (the
+    adjoint's as its two planes) at scripts/time_analysis.py's shapes."""
+    from gan_sass_tf_tpu_torch.scripts import time_analysis
+
+    return {name: time_analysis.digest(kernel())
+            for name, (kernel, *_) in time_analysis.cases(dev).items()}
+
+
+def segment_bits(call) -> dict:
+    """Whether `call` (a synthesis kernel's) gives its output at the
+    wrapper's segment bit for bit at each of SEGMENTS output hop-rows a
+    work item, and on a repeat call."""
+    base = call()
+    same = {}
+    try:
+        for seg in SEGMENTS:
+            k2.SEGMENT_ROWS = seg
+            same[f"segment {seg}"] = torch.equal(call(), base)
+    finally:
+        k2.SEGMENT_ROWS = 0
+    same["repeat"] = torch.equal(call(), base)
+    check(all(same.values()), f"synthesis bits changed with the segment: {same}")
+    return same
 
 
 def phase_k1_geometry(rng, dev):
@@ -555,13 +614,13 @@ def phase_k1_geometry(rng, dev):
         again = k1.stft_features_kernel(x, n_fft, hop, emit=emits, mel_matrix=m)
         s4 = k4.stft_kernel(x, n_fft, hop)
         k4_err = k4_check(s4, k4.stft_reference(x, n_fft, hop), f"n_fft {n_fft}")
-        k3_errs, (re, im, y, ref, dy) = k3_case(rng, dev, 3, t, n_fft, hop)
-        f = re.shape[-2]
+        k3_errs, (spec, y, ref, dy) = k3_case(rng, dev, 3, t, n_fft, hop)
+        f = spec.shape[-2]
         adj = k3.istft_adjoint(dy, n_fft, hop, "hann", f)
         adj2 = k3.istft_adjoint(dy, n_fft, hop, "hann", f)
         same = {"k1": all(torch.equal(ker[e], again[e]) for e in emits),
                 "k4": torch.equal(s4, k4.stft_kernel(x, n_fft, hop)),
-                "adjoint": all(torch.equal(a, b) for a, b in zip(adj, adj2))}
+                "adjoint": torch.equal(adj, adj2)}
         check(all(same.values()), f"n_fft {n_fft}: two calls gave different bits {same}")
         emit("k1", case="every n_fft: rows off 16-byte boundaries", n_fft=n_fft,
              hop=hop, shape=[3, t], frames=f, max_abs_err=errs, k4_max_abs_err=k4_err,
@@ -601,9 +660,11 @@ def phase_k2(rng, dev, x, spec):
         masks = torch.from_numpy(rng.uniform(lo, 1, shape).astype(np.float32)).to(dev)
         interior, full = k2_case(spec, masks, N_FFT, HOP, mask_type)
         errs[mask_type] = full
+        same = segment_bits(lambda: k2.masked_istft_kernel(spec, masks, N_FFT, HOP,
+                                                           mask_type=mask_type))
         emit("k2", mask_type=mask_type, masks=list(shape),
              max_abs_err_interior=interior, max_abs_err_full=full,
-             tol="interior atol 3e-4 rtol 1e-3; full 1e-3*max|y|")
+             bit_equal=same, tol="interior atol 3e-4 rtol 1e-3; full 1e-3*max|y|")
     xl = torch.from_numpy(rng.standard_normal((1, T_LONG), np.float32)).to(dev)
     sl = k1.stft_features_reference(xl, N_FFT, HOP)["spec"]
     ml = torch.from_numpy(rng.uniform(0, 1, (1, 2) + tuple(sl.shape[-2:]))
@@ -626,8 +687,9 @@ def phase_k2(rng, dev, x, spec):
     rt = max_err(y[:, HOP:t_grid - HOP], x[:, HOP:t_grid - HOP])
     check(rt <= 2e-4, f"k1 -> k2 round trip: max err {rt} > 2e-4")
     emit("k2", round_trip_max_abs_err=rt, tol=2e-4)
-    # The music_complex_44k bound batch, then one frame and ROWS + 1
-    # frames (a second, partial block), on a generator of their own.
+    # The music_complex_44k bound batch, then one frame, two (fewer than
+    # n_fft/hop) and nine (past the edge of a tile), on a generator of
+    # their own.
     rs = np.random.default_rng(SEED_SYNTH)
 
     def spectrum_and_masks(b, t, n_fft, hop, mask_type):
@@ -639,12 +701,14 @@ def phase_k2(rng, dev, x, spec):
 
     music = spectrum_and_masks(B_MUSIC, T_MUSIC, MUSIC_N_FFT, MUSIC_HOP, "complex")
     interior, full = k2_case(*music, MUSIC_N_FFT, MUSIC_HOP, "complex")
+    same = segment_bits(lambda: k2.masked_istft_kernel(*music, MUSIC_N_FFT, MUSIC_HOP,
+                                                       mask_type="complex"))
     emit("k2", case="music_complex_44k bound batch", mask_type="complex",
          masks=list(music[1].shape), n_fft=MUSIC_N_FFT, hop=MUSIC_HOP,
-         max_abs_err_interior=interior, max_abs_err_full=full)
+         max_abs_err_interior=interior, max_abs_err_full=full, bit_equal=same)
     for n_fft, hop, mask_type in ((N_FFT, HOP, "magnitude"),
                                   (MUSIC_N_FFT, MUSIC_HOP, "complex")):
-        for frames in (1, k2.ROWS + 1):
+        for frames in (1, 2, 9):
             ss, ms = spectrum_and_masks(3, (frames - 1) * hop + n_fft, n_fft, hop,
                                         mask_type)
             check(ss.shape[-2] == frames, f"k2 edge: {ss.shape}")
@@ -706,16 +770,16 @@ def phase_main_path(rng, dev, tmp: Path):
 
 
 def k3_case(rng, dev, b, t, n_fft, hop):
-    """Forward and gradient of the kernel path against the plain path on the
-    STFT planes of noise; returns the errors and the tensors for timing."""
+    """Forward and gradient of ops.dispatch.istft on the kernel path (K3 on
+    the interleaved spectrum, the adjoint's gradient) against the plain path
+    on the STFT of noise; returns the errors and the tensors for timing."""
     x = torch.from_numpy(rng.standard_normal((b, t), np.float32)).to(dev)
-    spec = k1.stft_features_reference(x, n_fft, hop)["spec"]
-    re = spec.real.contiguous().requires_grad_()
-    im = spec.imag.contiguous().requires_grad_()
-    y = k3.istft_kernel(re, im, n_fft, hop)
-    ref = k3.istft_reference(re, im, n_fft, hop)
+    spec = k1.stft_features_reference(x, n_fft, hop)["spec"].requires_grad_()
+    y = dispatch.istft(spec, n_fft, hop)
+    with dispatch.force_backend("reference"):
+        ref = dispatch.istft(spec, n_fft, hop)
     dy = torch.randn_like(ref)
-    return k3_check(y, ref, (re, im), dy, hop, f"at n_fft {n_fft}"), (re, im, y, ref, dy)
+    return k3_check(y, ref, (spec,), dy, hop, f"at n_fft {n_fft}"), (spec, y, ref, dy)
 
 
 def k3_check(y, ref, leaves, dy, hop, what):
@@ -734,6 +798,8 @@ def k3_check(y, ref, leaves, dy, hop, what):
           f"{float(inner.max())} over atol 2e-4 rtol 1e-3")
     check(full <= tol_full, f"k3 forward full length {what}: {full} > {tol_full}")
     grad_errs = []
+    if len(leaves) == 1:   # a complex spectrum: its real and imaginary parts
+        g_ker, g_ref = (torch.view_as_real(g[0]).unbind(-1) for g in (g_ker, g_ref))
     for a, r in zip(g_ker, g_ref):
         scale = float(r.abs().max())
         ok = bool(((a - r).abs() <= 5e-4 * scale + 1e-3 * r.abs()).all())
@@ -747,7 +813,11 @@ def k3_check(y, ref, leaves, dy, hop, what):
 def phase_k3(rng, dev):
     errs, tensors = k3_case(rng, dev, B_TRAIN, T_TRAIN, N_FFT, HOP)
     f = tensors[0].shape[-2]
+    ri = torch.view_as_real(tensors[0].detach())
+    with torch.no_grad():
+        same = segment_bits(lambda: k3.istft_ri_kernel(ri, N_FFT, HOP))
     emit("k3", signals=B_TRAIN, frames=f, bins=N_FFT // 2 + 1, max_abs_err=errs,
+         bit_equal=same,
          tol="forward interior atol 2e-4 rtol 1e-3, full 1e-3*max|y|; "
              "grad atol 5e-4*max|grad| rtol 1e-3")
     for n_fft, hop in ((256, 64), (2048, 512)):
@@ -755,9 +825,9 @@ def phase_k3(rng, dev):
         emit("k3", n_fft=n_fft, hop=hop, signals=3, max_abs_err=e)
     rs = np.random.default_rng(SEED_SYNTH + 1)
     for n_fft, hop in ((N_FFT, HOP), (MUSIC_N_FFT, MUSIC_HOP)):
-        for frames in (1, k2.ROWS + 1):
-            e, (re, *_) = k3_case(rs, dev, 3, (frames - 1) * hop + n_fft, n_fft, hop)
-            check(re.shape[-2] == frames, f"k3 edge: {re.shape}")
+        for frames in (1, 2, 9):
+            e, (spec, *_) = k3_case(rs, dev, 3, (frames - 1) * hop + n_fft, n_fft, hop)
+            check(spec.shape[-2] == frames, f"k3 edge: {spec.shape}")
             emit("k3", case=f"edge: {frames} frames", n_fft=n_fft, hop=hop,
                  signals=3, max_abs_err=e)
     return errs, tensors
@@ -965,7 +1035,8 @@ def phase_pit3(rng, dev, tmp: Path):
         lambda: k2.masked_istft_kernel(spec, masks, N_FFT, HOP),
         lambda: k2.masked_istft_reference(spec, masks, N_FFT, HOP),
         istft_bound(spec.numel() * 8, B_PIT3, S_PIT3, spec.shape[-2], N_FFT, HOP,
-                    masks.numel() * 4, 2 * masks.numel()))
+                    masks.numel() * 4, 2 * masks.numel()),
+        **library_masked_istft(spec, masks, N_FFT, HOP))
     mix_s = cfg.train.batch_size * cfg.segment_samples / cfg.dsp.sample_rate
     emit("pit3", config="3src_pit", batch=cfg.train.batch_size,
          segment_samples=cfg.segment_samples, frames=spec.shape[-2],
@@ -1198,7 +1269,8 @@ def phase_stream(rng, dev, tmp: Path, wd: Path):
             lambda: k2.masked_istft_kernel(spec, masks, n_fft, hop),
             lambda: k2.masked_istft_reference(spec, masks, n_fft, hop),
             istft_bound(spec.numel() * 8, b, 2, spec.shape[-2], n_fft, hop,
-                        masks.numel() * 4, 2 * masks.numel()))
+                        masks.numel() * 4, 2 * masks.numel()),
+            **library_masked_istft(spec, masks, n_fft, hop))
         shapes[b] = {"stft_features": k1_t, "masked_istft": k2_t,
                      "stft_features_max_abs_err": k1_errs,
                      "masked_istft_max_abs_err": full,
@@ -2557,13 +2629,53 @@ def time_stft(kernel, plain, x, n_fft, hop, emits=("spec",), n_mels=0):
             "bound": ms, "bound_by": by}
 
 
-def time_kernel(kernel, plain, bound_ms_by, graph=True):
-    """A kernel call timed beside its plain version, through the wrapper
-    and on the device, with its bound; no one PyTorch call computes it."""
-    t = time_fns(plain=plain, kernel=kernel)
-    return {"kernel": t["kernel"], "plain": t["plain"],
-            "device": {"kernel": launch_ms(kernel, graph), "plain": device_ms(plain)},
-            "bound": bound_ms_by[0], "bound_by": bound_ms_by[1]}
+def time_kernel(kernel, plain, bound_ms_by, graph=True, library=None,
+                library_istft_only=None):
+    """A kernel call timed beside its plain version and, where one is given,
+    the PyTorch calls that compute the same function (`library`; for K2
+    also torch.istft alone on the masked spectra, `library_istft_only`),
+    through the wrapper and on the device (a library call's by
+    torch.profiler: torch.istft reads its envelope check back to the host,
+    so no CUDA graph can hold it), with its bound."""
+    fns = {"plain": plain, "kernel": kernel, **({"library": library} if library else {})}
+    t = time_fns(**fns)
+    out = {"kernel": t["kernel"], "plain": t["plain"],
+           "device": {"kernel": launch_ms(kernel, graph), "plain": device_ms(plain)},
+           "bound": bound_ms_by[0], "bound_by": bound_ms_by[1]}
+    if library:
+        out["library"] = t["library"]
+        out["device"]["library"] = device_ms(library)
+    if library_istft_only:
+        out["device"]["library_istft_only"] = device_ms(library_istft_only)
+    return out
+
+
+def library_istft(est, n_fft, hop):
+    """torch.istft of a (..., F, K) spectrum, center=True (it drops n_fft/2
+    samples at each end and has no edge clamp; center=False raises, the
+    periodic Hann envelope being 0 at sample 0): the one PyTorch call that
+    computes the same overlap-added, envelope-normalised inverse as K3 (its
+    layout is (K, F)), timed beside it and used nowhere in the port."""
+    w = torch.from_numpy(get_window("hann", n_fft)).to(est.device)
+    flat = est.reshape(-1, *est.shape[-2:]).transpose(-1, -2)
+    return lambda: torch.istft(flat, n_fft, hop, window=w, center=True)
+
+
+def library_masked_istft(spec, masks, n_fft, hop, mask_type="magnitude"):
+    """The mask product and torch.istft (library_istft): K2's function in
+    PyTorch calls, and torch.istft alone on the product made once."""
+    w = torch.from_numpy(get_window("hann", n_fft)).to(spec.device)
+
+    def product():
+        m = torch.view_as_complex(masks) if mask_type == "complex" else masks
+        return spec.unsqueeze(-3) * m
+
+    def both():
+        est = product()
+        return torch.istft(est.reshape(-1, *est.shape[-2:]).transpose(-1, -2), n_fft,
+                           hop, window=w, center=True)
+
+    return {"library": both, "library_istft_only": library_istft(product(), n_fft, hop)}
 
 
 def k1_timing(x, n_fft, hop, emits, mel=None):
@@ -2588,14 +2700,16 @@ def phase_timing(rng, dev, x, spec, cfg, g, batch, k3_tensors, exp, k4_inputs,
         lambda: k2.masked_istft_kernel(spec, masks, N_FFT, HOP),
         lambda: k2.masked_istft_reference(spec, masks, N_FFT, HOP),
         istft_bound(spec.numel() * 8, B_MAIN, 2, spec.shape[-2], N_FFT, HOP,
-                    masks.numel() * 4, 2 * masks.numel()))
+                    masks.numel() * 4, 2 * masks.numel()),
+        **library_masked_istft(spec, masks, N_FFT, HOP))
     sm, mm = k2_music     # complex masks: 6 flops a (source, bin)
     k2_mus = time_kernel(
         lambda: k2.masked_istft_kernel(sm, mm, MUSIC_N_FFT, MUSIC_HOP, mask_type="complex"),
         lambda: k2.masked_istft_reference(sm, mm, MUSIC_N_FFT, MUSIC_HOP,
                                           mask_type="complex"),
         istft_bound(sm.numel() * 8, B_MUSIC, 2, sm.shape[-2], MUSIC_N_FFT, MUSIC_HOP,
-                    mm.numel() * 4, 3 * mm.numel()))
+                    mm.numel() * 4, 3 * mm.numel()),
+        **library_masked_istft(sm, mm, MUSIC_N_FFT, MUSIC_HOP, "complex"))
 
     def run_sep(path):
         def go():
@@ -2605,18 +2719,20 @@ def phase_timing(rng, dev, x, spec, cfg, g, batch, k3_tensors, exp, k4_inputs,
 
     sep_plain, sep_kernel = time_pair(run_sep("reference"), run_sep(None))
     audio_s = batch.shape[0] * batch.shape[1] / SR
-    re, im, y, ref, dy = k3_tensors
-    f = re.shape[-2]
-    with torch.no_grad():
-        k3_t = time_kernel(lambda: k3.istft_kernel(re, im, N_FFT, HOP),
-                           lambda: k3.istft_reference(re, im, N_FFT, HOP),
-                           istft_bound(re.numel() * 8, re.shape[0], 1, f, N_FFT, HOP))
-    # The backward reads the cotangent once and writes both planes once,
-    # with an FFT a frame: the bytes and flops of a spec-only STFT of it.
+    spec_k3, y, ref, dy = k3_tensors
+    f = spec_k3.shape[-2]
+    sk = spec_k3.detach()
+    with torch.no_grad():   # the train step's route: ops.dispatch.istft
+        k3_t = time_kernel(lambda: dispatch.istft(sk, N_FFT, HOP),
+                           lambda: k3.istft_reference(sk.real, sk.imag, N_FFT, HOP),
+                           istft_bound(sk.numel() * 8, sk.shape[0], 1, f, N_FFT, HOP),
+                           library=library_istft(sk, N_FFT, HOP))
+    # The backward reads the cotangent once and writes the interleaved
+    # gradient once, with an FFT a frame: a spec-only STFT's bytes and flops.
     bwd_bound = stft_bound(ref, N_FFT, HOP)
     bwd_t = time_kernel(
-        lambda: torch.autograd.grad(y, (re, im), dy, retain_graph=True),
-        lambda: torch.autograd.grad(ref, (re, im), dy, retain_graph=True), bwd_bound,
+        lambda: torch.autograd.grad(y, spec_k3, dy, retain_graph=True),
+        lambda: torch.autograd.grad(ref, spec_k3, dy, retain_graph=True), bwd_bound,
         graph=False)
     # Its one launch alone, on a cotangent of the same shape, beside the
     # plain adjoint (the STFT of dy·inv_env scaled per bin).
@@ -2650,7 +2766,7 @@ def phase_timing(rng, dev, x, spec, cfg, g, batch, k3_tensors, exp, k4_inputs,
          separate_ms={"kernel": sep_kernel, "plain": sep_plain},
          separate_mix_sec_per_sec={"kernel": audio_s / sep_kernel * 1e3,
                                    "plain": audio_s / sep_plain * 1e3},
-         istft_shape=list(re.shape),
+         istft_shape=list(sk.shape),
          istft_ms=k3_t, istft_bwd_ms=bwd_t, istft_adjoint_launch_ms=adjoint,
          train_step_samples=STEP_SAMPLES,
          train_step_ms={"kernel": step_kernel, "plain": step_plain},
@@ -2680,6 +2796,9 @@ def row(t) -> dict:
             "plain_ms": t["plain"], "plain_device_ms": t["device"]["plain"],
             "bound_ms": t["bound"], "bound_by": t["bound_by"],
             "library_ms": t.get("library"),
+            "library_device_ms": t["device"].get("library"),
+            **({"library_istft_only_device_ms": t["device"]["library_istft_only"]}
+               if "library_istft_only" in t["device"] else {}),
             **({"shape": t["shape"]} if "shape" in t else {})}
 
 

@@ -39,15 +39,15 @@ _SIGNATURES = {
     # x, win, tw, tws, ptw, spec, B, T, F, n_fft, hop, rounds, per_sm,
     # stream, device
     "stft_launch": [_P] * 6 + [_I] * 7 + [_P, _I],
-    # dy, inv_env, win, tw, tws, ptw, dre, dim, B, T, F, n_fft, hop, rounds,
+    # dy, inv_env, win, tw, tws, ptw, dspec, B, T, F, n_fft, hop, rounds,
     # per_sm, stream, device
-    "istft_adjoint_launch": [_P] * 8 + [_I] * 7 + [_P, _I],
-    # spec, masks, win, tw, tws, inv_env, out, B, S, F, n_fft, hop,
-    # complex_mask, rows, tile, stream, device
-    "masked_istft_launch": [_P] * 7 + [_I] * 8 + [_P, _I],
-    # re, im, win, tw, tws, inv_env, out, B, F, n_fft, hop, rows, tile,
-    # stream, device
-    "istft_launch": [_P] * 7 + [_I] * 6 + [_P, _I],
+    "istft_adjoint_launch": [_P] * 7 + [_I] * 7 + [_P, _I],
+    # plan (ops/masked_istft.py::_Plan, filled in)
+    "synthesis_prepare": [_P],
+    # plan, spec, masks, out, stream
+    "masked_istft_launch": [_P] * 5,
+    # plan, spec, out, stream
+    "istft_launch": [_P] * 4,
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -12,7 +12,8 @@
 // _istft_ri_bwd): the cotangent times the inverse envelope is transformed
 // like any waveform, and the epilogue writes a_k·Re X and a_k·Im X (a_k =
 // 1/N at DC and Nyquist, 2/N elsewhere; Im X there is 0, the adjoint of the
-// synthesis side dropping those imaginary parts) into two (B, F, K) planes.
+// synthesis side dropping those imaginary parts) interleaved, (B, F, K, 2),
+// the layout K3's forward reads.
 // Both Pallas kernels run the DFT as a matmul on the MXU; on Hopper the f32
 // tensor-core route is closed (TF32 breaks the 3e-4·max|X| tolerance, split
 // bf16 blew up log|X| at near-silent bins), so this is an FFT in f32 on the
@@ -32,20 +33,17 @@
 // the FFT each take longer than the stores, at 2 blocks of 8 warps an SM
 // (PERF.md; scripts/time_analysis.py --ablate times each part).
 //
-// - Register-resident radix passes.  Each frame of n_fft real samples is
-//   packed as z[m] = w[2m]·x[2m] + i·w[2m+1]·x[2m+1], a complex FFT of
-//   H = n_fft/2 points.  TF = H/16 threads own a frame, 16 points each, and
-//   run Stockham passes of radix 16 in registers (a 4×4 decomposition),
-//   then one pass of radix 2, 4 or 8 where log2(H) is not a multiple of 4
-//   (H = 256: 16·16; H = 1024: 16·16·4).  Points cross threads only
-//   between passes, through a shared buffer padded one float2 in 16 so
-//   that the transposes are free of bank conflicts, behind a __syncwarp
-//   (TF ≤ 32: a frame within a warp) or a named barrier over the frame's
-//   warps (bar.sync 1 + group, TF threads).  A pass's twiddles come from a
-//   shared copy of the pass table (ops/stft_features.py::pass_twiddles,
-//   entries of the stage table laid out [pass][r][k] so that neighbouring
-//   threads read neighbouring words); the radix-16 roots come from the
-//   stage table.  The split step gives the K = H + 1 bins,
+// - Register-resident radix passes (fft.cuh, shared with the synthesis
+//   body).  Each frame of n_fft real samples is packed as
+//   z[m] = w[2m]·x[2m] + i·w[2m+1]·x[2m+1], a complex FFT of H = n_fft/2
+//   points.  TF = H/16 threads own a frame, 16 points each, and run
+//   Stockham passes of radix 16 in registers, then one pass of radix 2, 4
+//   or 8 where log2(H) is not a multiple of 4 (H = 256: 16·16; H = 1024:
+//   16·16·4), exchanging through padded shared memory behind warp or named
+//   barriers.  A pass's twiddles come from a shared copy of the pass table
+//   (ops/stft_features.py::pass_twiddles, entries of the stage table laid
+//   out [pass][r][k] so that neighbouring threads read neighbouring
+//   words).  The split step gives the K = H + 1 bins,
 //     X[k] = ½(Z[k] + conj Z[H-k]) - ½·i·e^{-2πik/N}·(Z[k] - conj Z[H-k]),
 //   with Z[H] = Z[0] and the split twiddles from a shared copy.
 // - Persistent blocks fed ahead by asynchronous copies.  About (SMs ×
@@ -68,8 +66,8 @@
 //   instead of 20 560 for the presets' 80-band filterbanks.
 // - Wide stores.  A round's outputs are contiguous rows of (B, F, ·), and
 //   the epilogue walks them flat in groups of four, each group aligned in
-//   the output: float4 stores of |X|, log|X| and the adjoint's planes,
-//   two float4 stores of the complex spectrum, and float4 stores of
+//   the output: float4 stores of |X| and log|X|, two float4 stores of the
+//   complex spectrum (and of the adjoint's scaled one), and float4 stores of
 //   log-mel gathered from eight lanes by shuffles; scalar stores only at
 //   a round's two ends.  Nothing that was not requested is written.
 
@@ -93,7 +91,6 @@ namespace {
 // H100 by gan_sass_tf_tpu_torch/scripts/time_analysis.py --sweep, which
 // rebuilds this file with -DSTFT_THREADS= to sweep this one.
 constexpr int kThreads = STFT_THREADS;
-constexpr int kPoints = 16;       // points of a frame a thread holds
 constexpr int kMinLog2H = 5, kMaxLog2H = 11;   // n_fft 64 ... 4096
 constexpr int kMelStage = 2048;   // banded mel weights staged (floats)
 static_assert(kThreads % 128 == 0 && kThreads <= 1024,
@@ -108,24 +105,11 @@ enum Mode : int {
 
 __host__ __device__ constexpr int align4(int n) { return (n + 3) & ~3; }
 
-// Entries of the pass table for H = 1 << L: (R - 1)·ns for each pass after
-// the first (passes of radix 16, then the last radix 2^(L mod 4)).
-__host__ __device__ constexpr int pass_twiddle_count(int L) {
-  return (L / 4 >= 2 ? 15 * 16 : 0) +
-         (L % 4 ? ((1 << (L % 4)) - 1) << (4 * (L / 4)) : 0);
-}
-
-// The geometry of one H = 1 << L.
+// The geometry of one H = 1 << L in a block of kThreads.
 template <int L>
-struct Geo {
-  static constexpr int H = 1 << L, K = H + 1;
-  static constexpr int TF = H / kPoints;          // threads a frame
-  static constexpr int G = kThreads / TF;          // frames a round
-  static constexpr int ZS = H + H / 16;            // padded frame in zbuf
-  static constexpr int P16 = L / 4;                // radix-16 passes
-  static constexpr int RLAST = 1 << (L % 4);       // last radix (1: none)
-  static constexpr int PTW = pass_twiddle_count(L);
-  static_assert(G >= 1 && (TF <= 32 || G <= 15), "named barriers 1..15");
+struct Geo : Frame<L> {
+  static constexpr int G = kThreads / Frame<L>::TF;   // frames a round
+  static_assert(G >= 1 && (Frame<L>::TF <= 32 || G <= 15), "named barriers 1..15");
 };
 
 // The dynamic shared memory, in floats from a 16-byte-aligned base: two
@@ -161,8 +145,11 @@ struct Args {
   const float2* ptw;      // pass twiddles (pass_twiddles)
   const float* mel;       // (K, M) or null
   const int* bands;       // mel_bands(mel): (3M + 1,) or null
-  float* out0;            // spectrum (B, F, K, 2), or kAdjoint's re plane
-  float* out1;            // kAdjoint's im plane
+  float* out0;            // spectrum (B, F, K, 2), or kAdjoint's scaled one
+  // Unused.  It keeps the parameter block's layout, which ptxas's code
+  // follows: without it the int fields move and K1 and K4 run 1-9 %
+  // slower on an H100 (PERF.md §6), with the same outputs.
+  float* reserved;
   float* mag;             // (B, F, K) or null
   float* logmag;          // (B, F, K) or null
   float* logmel;          // (B, F, M) or null
@@ -170,230 +157,21 @@ struct Args {
   float eps;
 };
 
-// Exchange layout: one float2 of padding in 16.  The transform's result
-// is laid out with bits 4-5 of the bin xored into bits 0-1 (zout), so that
-// the epilogue's threads, each reading four neighbouring bins, hit
-// distinct banks.
-__device__ __forceinline__ int zpad(int i) { return i + (i >> 4); }
+// The transform's result is laid out with bits 4-5 of the bin xored into
+// bits 0-1 (zout), so that the epilogue's threads, each reading four
+// neighbouring bins, hit distinct banks.
 __device__ __forceinline__ int zout(int k) { return k ^ ((k >> 4) & 3); }
 
-__device__ __forceinline__ float2 mul_neg_i(float2 a) {   // -i·a, exact
-  return make_float2(a.y, -a.x);
-}
-
-// Every product of this file is an explicit __fmul_rn or __fmaf_rn, so the
-// compiler fuses none differently from one build (or block shape) to the
-// next, and the kernel's bits depend on the source alone.
-__device__ __forceinline__ float2 cmul_rn(float2 a, float2 b) {
-  return make_float2(__fmaf_rn(a.x, b.x, __fmul_rn(-a.y, b.y)),
-                     __fmaf_rn(a.x, b.y, __fmul_rn(a.y, b.x)));
-}
-
-// The radix-16 roots e^{-2πie/16} the in-register DFTs use (e = 4: -i, exact).
-struct Roots {
-  float2 w1, w2, w3, w6, w9;
-};
-
-__device__ __forceinline__ void dft2(float2& a, float2& b) {
-  const float2 s = cadd(a, b), d = csub(a, b);
-  a = s;
-  b = d;
-}
-
-// y[r] = Σ_n u[n]·e^{-2πinr/4}.
-__device__ __forceinline__ void dft4(float2& u0, float2& u1, float2& u2,
-                                     float2& u3) {
-  const float2 a0 = cadd(u0, u2), a1 = csub(u0, u2), a2 = cadd(u1, u3);
-  const float2 a3 = mul_neg_i(csub(u1, u3));
-  u0 = cadd(a0, a2);
-  u1 = cadd(a1, a3);
-  u2 = csub(a0, a2);
-  u3 = csub(a1, a3);
-}
-
-// An R-point DFT in registers, R = 2, 4, 8 or 16.  R = 8 and 16 split
-// n = 4·n1 + n2, r = r1 + (R/4)·r2: a DFT over n1 for each n2, the twiddle
-// e^{-2πi·n2·r1/R}, a 4-point DFT over n2 for each r1.
-template <int R>
-__device__ __forceinline__ void dft(float2 (&u)[R], const Roots& w) {
-  if constexpr (R == 2) {
-    dft2(u[0], u[1]);
-  } else if constexpr (R == 4) {
-    dft4(u[0], u[1], u[2], u[3]);
-  } else if constexpr (R == 8) {
-#pragma unroll
-    for (int n2 = 0; n2 < 4; ++n2) dft2(u[n2], u[4 + n2]);   // r1 = 0, 1
-    u[5] = cmul_rn(u[5], w.w2);            // n2 = 1: e^{-2πi/8}
-    u[6] = mul_neg_i(u[6]);             // n2 = 2: -i
-    u[7] = cmul_rn(u[7], w.w6);            // n2 = 3: e^{-2πi·3/8}
-    float2 y[8];
-#pragma unroll
-    for (int r1 = 0; r1 < 2; ++r1) {
-      float2 a = u[4 * r1], b = u[4 * r1 + 1], c = u[4 * r1 + 2],
-             d = u[4 * r1 + 3];
-      dft4(a, b, c, d);
-      y[r1] = a;
-      y[r1 + 2] = b;
-      y[r1 + 4] = c;
-      y[r1 + 6] = d;
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) u[i] = y[i];
-  } else {
-    static_assert(R == 16, "radix 2, 4, 8 or 16");
-    float2 a[16];   // a[4·n2 + r1]
-#pragma unroll
-    for (int n2 = 0; n2 < 4; ++n2) {
-      float2 p = u[n2], q = u[4 + n2], r = u[8 + n2], s = u[12 + n2];
-      dft4(p, q, r, s);
-      a[4 * n2] = p;
-      a[4 * n2 + 1] = q;
-      a[4 * n2 + 2] = r;
-      a[4 * n2 + 3] = s;
-    }
-    a[5] = cmul_rn(a[5], w.w1);        // n2 = 1, r1 = 1: e^{-2πi/16}
-    a[6] = cmul_rn(a[6], w.w2);        // (1, 2): ^2
-    a[7] = cmul_rn(a[7], w.w3);        // (1, 3): ^3
-    a[9] = cmul_rn(a[9], w.w2);        // (2, 1): ^2
-    a[10] = mul_neg_i(a[10]);       // (2, 2): ^4 = -i
-    a[11] = cmul_rn(a[11], w.w6);      // (2, 3): ^6
-    a[13] = cmul_rn(a[13], w.w3);      // (3, 1): ^3
-    a[14] = cmul_rn(a[14], w.w6);      // (3, 2): ^6
-    a[15] = cmul_rn(a[15], w.w9);      // (3, 3): ^9
-#pragma unroll
-    for (int r1 = 0; r1 < 4; ++r1) {
-      float2 p = a[r1], q = a[4 + r1], r = a[8 + r1], s = a[12 + r1];
-      dft4(p, q, r, s);
-      u[r1] = p;
-      u[r1 + 4] = q;
-      u[r1 + 8] = r;
-      u[r1 + 12] = s;
-    }
-  }
-}
-
-// Syncs the threads of one frame: a warp, or the frame's warps.
-template <int L>
-__device__ __forceinline__ void frame_sync(int group) {
-  if constexpr (Geo<L>::TF <= 32) {
-    __syncwarp();
-  } else {
-    asm volatile("bar.sync %0, %1;" ::"r"(1 + group), "n"(Geo<L>::TF)
-                 : "memory");
-  }
-}
-
-// One Stockham pass of radix R after `ns` points per sub-transform, on the
-// 16 points v[s] = src[t + TF·s] that thread t of its frame holds: 16/R
-// butterflies j = t + q·TF, with inputs s = q + r·(16/R).  A pass that is
-// not the last writes its outputs to z at (j - k)·R + k + r·ns (k = j mod
-// ns), padded; the last leaves them in v, where v[s] is then Z[t + TF·s].
-template <int L, int R, int NS, int OFF, bool kLast>
-__device__ __forceinline__ void fft_pass(float2 (&v)[kPoints],
-                                         float2* __restrict__ z, int t,
-                                         const float2* __restrict__ ptw,
-                                         const Roots& w) {
-  constexpr int Q = kPoints / R;
-#pragma unroll
-  for (int q = 0; q < Q; ++q) {
-    const int j = t + q * Geo<L>::TF;
-    const int k = j & (NS - 1);
-    float2 u[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      u[r] = v[q + r * Q];
-      if (NS > 1 && r > 0) u[r] = cmul_rn(u[r], ptw[OFF + (r - 1) * NS + k]);
-    }
-    dft<R>(u, w);
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if constexpr (kLast)
-        v[q + r * Q] = u[r];
-      else
-        z[zpad((j - k) * R + k + r * NS)] = u[r];
-    }
-  }
-}
-
-// Reads a frame's points back after an exchange: v[s] = z[t + TF·s].
-template <int L>
-__device__ __forceinline__ void gather(float2 (&v)[kPoints],
-                                       const float2* __restrict__ z, int t) {
-#pragma unroll
-  for (int s = 0; s < kPoints; ++s) v[s] = z[zpad(t + Geo<L>::TF * s)];
-}
-
-// The whole transform of the frame in v (packed, natural order in): the
-// radix-16 passes, then the last radix; Z[k] ends in z at zout(k).
+// The whole transform of the frame in v (packed, natural order in); Z[k]
+// ends in z at zout(k).
 template <int L>
 __device__ __forceinline__ void fft_frame(float2 (&v)[kPoints], float2* z,
                                           int t, int group,
                                           const float2* __restrict__ ptw,
                                           const Roots& w) {
-  using G = Geo<L>;
-  if constexpr (G::P16 == 1 && G::RLAST == 1) {
-    fft_pass<L, 16, 1, 0, true>(v, z, t, ptw, w);
-  } else {
-    fft_pass<L, 16, 1, 0, false>(v, z, t, ptw, w);
-    frame_sync<L>(group);
-    gather<L>(v, z, t);
-    frame_sync<L>(group);
-    if constexpr (G::P16 == 2) {
-      constexpr bool kLast2 = G::RLAST == 1;
-      fft_pass<L, 16, 16, 0, kLast2>(v, z, t, ptw, w);
-      if constexpr (!kLast2) {
-        frame_sync<L>(group);
-        gather<L>(v, z, t);
-        frame_sync<L>(group);
-        fft_pass<L, G::RLAST, 256, 240, true>(v, z, t, ptw, w);
-      }
-    } else {
-      fft_pass<L, G::RLAST, 16, 0, true>(v, z, t, ptw, w);
-    }
-  }
+  fft_passes<L>(v, z, t, group, ptw, w);
 #pragma unroll
-  for (int s = 0; s < kPoints; ++s) z[zout(t + G::TF * s)] = v[s];
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_older() {   // all but the newest
-  asm volatile("cp.async.wait_group 1;" ::: "memory");
-}
-
-// Where element 0 of a span starting at src sits in its stage: the span is
-// placed so that 16-byte boundaries of device memory fall on 16-byte
-// boundaries of the stage.
-__device__ __forceinline__ int span_head(const float* src) {
-  return (int)((reinterpret_cast<uintptr_t>(src) >> 2) & 3);
-}
-
-// Starts the copy of span floats at src into stage (every thread takes a
-// share; the caller commits the group).
-__device__ __forceinline__ void prefetch(float* stage, const float* src,
-                                         int span) {
-  const int head = span_head(src);
-  const int first = (4 - head) & 3;   // floats before the first boundary
-  const int nvec = (span - first) >> 2;
-  const int rest = first + 4 * nvec;
-  float* dst = stage + head;
-  for (int i = threadIdx.x; i < first; i += kThreads)
-    cp_async4(dst + i, src + i);
-  for (int c = threadIdx.x; c < nvec; c += kThreads)
-    cp_async16(dst + first + 4 * c, src + first + 4 * c);
-  for (int i = rest + threadIdx.x; i < span; i += kThreads)
-    cp_async4(dst + i, src + i);
+  for (int s = 0; s < kPoints; ++s) z[zout(t + Frame<L>::TF * s)] = v[s];
 }
 
 // Copies the band table of the (K, M) mel matrix (ops/stft_features.py::
@@ -461,14 +239,13 @@ __device__ __forceinline__ void analysis_body(const Args p) {
     const float* src;
     int nf;
     const int span = span_of(item, &src, &nf);
-    prefetch(sm, src, span);
+    prefetch<kThreads>(sm, src, span);
     cp_async_commit();
   }
   for (int i = tid; i < 2 * H; i += kThreads) sm[lay.win + i] = __ldg(p.win + i);
   for (int i = tid; i < K; i += kThreads) tws[i] = p.tws[i];
   for (int i = tid; i < G::PTW; i += kThreads) ptw[i] = p.ptw[i];
-  const Roots w = {p.tw[H / 16], p.tw[2 * H / 16], p.tw[3 * H / 16],
-                   p.tw[6 * H / 16], p.tw[9 * H / 16]};
+  const Roots w = roots_of(p.tw, H);
   int* lo = reinterpret_cast<int*>(sm + lay.bands);   // then hi, off
   const int *hi = lo + p.M, *off = lo + 2 * p.M;
   float* wts = sm + lay.wts;
@@ -481,7 +258,7 @@ __device__ __forceinline__ void analysis_body(const Args p) {
       const float* src;
       int nf;
       const int span = span_of(next, &src, &nf);
-      prefetch(sm + (s ^ 1) * lay.stage, src, span);
+      prefetch<kThreads>(sm + (s ^ 1) * lay.stage, src, span);
     }
     cp_async_commit();
     cp_async_wait_older();
@@ -540,19 +317,23 @@ __device__ __forceinline__ void analysis_body(const Args p) {
       };
       const int n = nfr * K;
       const size_t g0 = row0 * K;
-      const int a = (int)(g0 & 3);
-      const int groups = (n + a + 3) >> 2;
+      // Values a thread takes at a time: 4, stored as float4s of each
+      // output; 2 for the adjoint, whose one interleaved output a warp then
+      // stores as whole 512-byte runs, one float4 a lane.
+      constexpr int kLog2W = kMode == kAdjoint ? 1 : 2, kW = 1 << kLog2W;
+      const int a = (int)(g0 & (kW - 1));
+      const int groups = (n + a + kW - 1) >> kLog2W;
       for (int u = tid; u < groups; u += kThreads) {
-        const int i0 = 4 * u - a;
-        const bool whole = i0 >= 0 && i0 + 4 <= n;
-        float re[4], im[4];
-        int kb[4];
+        const int i0 = kW * u - a;
+        const bool whole = i0 >= 0 && i0 + kW <= n;
+        float re[kW], im[kW];
+        int kb[kW];
         // (frame, bin) of the group's first value in the round, then one
         // step a value; lanes outside the round repeat a bin, not stored.
         const int ib = max(i0, 0);
         int f = ib / K, k = ib - f * K;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
+        for (int e = 0; e < kW; ++e) {
           const float2 x = bin(min(f, nfr - 1), k);
           re[e] = x.x;
           im[e] = x.y;
@@ -562,7 +343,7 @@ __device__ __forceinline__ void analysis_body(const Args p) {
             ++f;
           }
         }
-        const size_t gb = g0 - a + 4 * (size_t)u;   // a multiple of 4
+        const size_t gb = g0 - a + kW * (size_t)u;   // a multiple of kW
         auto put = [&](float* out, float (&val)[4]) {
           if (whole) {
             *reinterpret_cast<float4*>(out + gb) =
@@ -573,25 +354,23 @@ __device__ __forceinline__ void analysis_body(const Args p) {
           }
         };
         if constexpr (kMode == kAdjoint) {
-          float dre[4], dim[4];
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
+          for (int e = 0; e < kW; ++e) {
             const bool edge = kb[e] == 0 || kb[e] == H;
             const float ak = edge ? inv_n : 2.f * inv_n;
-            dre[e] = __fmul_rn(ak, re[e]);
-            dim[e] = edge ? 0.f : __fmul_rn(ak, im[e]);
+            re[e] = __fmul_rn(ak, re[e]);
+            im[e] = edge ? 0.f : __fmul_rn(ak, im[e]);
           }
-          put(p.out0, dre);
-          put(p.out1, dim);
-        } else {
-          if (kMode == kSpec || p.out0) {
+        }
+        {
+          if (kMode != kFeatures || p.out0) {
             float2* spec = reinterpret_cast<float2*>(p.out0);
             if (whole) {
               float4* s4 = reinterpret_cast<float4*>(spec + gb);
               s4[0] = make_float4(re[0], im[0], re[1], im[1]);
-              s4[1] = make_float4(re[2], im[2], re[3], im[3]);
+              if constexpr (kW == 4) s4[1] = make_float4(re[2], im[2], re[3], im[3]);
             } else {
-              for (int e = 0; e < 4; ++e)
+              for (int e = 0; e < kW; ++e)
                 if (i0 + e >= 0 && i0 + e < n)
                   spec[gb + e] = make_float2(re[e], im[e]);
             }
@@ -814,7 +593,6 @@ int launch(Args a, int n_fft, int rounds, int per_sm, void* stream,
       per_sm < 1 || a.B < 1 || a.F < 1)
     return (int)cudaErrorInvalidValue;
   const uintptr_t outs = reinterpret_cast<uintptr_t>(a.out0) |
-                         reinterpret_cast<uintptr_t>(a.out1) |
                          reinterpret_cast<uintptr_t>(a.mag) |
                          reinterpret_cast<uintptr_t>(a.logmag) |
                          reinterpret_cast<uintptr_t>(a.logmel);
@@ -870,15 +648,15 @@ extern "C" int stft_launch(const void* x, const void* win, const void* tw,
 }
 
 // K3's backward: the (B, T) cotangent, T = (F - 1)·hop + n_fft, and the
-// (T,) inverse envelope -> dre, dim, two (B, F, K) f32 planes.
+// (T,) inverse envelope -> its gradient w.r.t. K3's input, (B, F, K, 2) f32
+// interleaved (a_k·Re, a_k·Im).
 extern "C" int istft_adjoint_launch(
     const void* dy, const void* inv_env, const void* win, const void* tw,
-    const void* tws, const void* ptw, void* dre, void* dim, int B, int T,
-    int F, int n_fft, int hop, int rounds, int per_sm, void* stream,
-    int device) {
+    const void* tws, const void* ptw, void* dspec, int B, int T, int F,
+    int n_fft, int hop, int rounds, int per_sm, void* stream, int device) {
   Args a{(const float*)dy, (const float*)inv_env, (const float*)win,
          (const float2*)tw, (const float2*)tws, (const float2*)ptw, nullptr,
-         nullptr, (float*)dre, (float*)dim, nullptr, nullptr, nullptr, B, T,
-         F, hop, 0, 0, 0.f};
+         nullptr, (float*)dspec, nullptr, nullptr, nullptr, nullptr, B, T, F,
+         hop, 0, 0, 0.f};
   return launch<kAdjoint>(a, n_fft, rounds, per_sm, stream, device);
 }

@@ -156,9 +156,11 @@ def check_n_fft(n_fft: int, hop: int, require) -> None:
     """The geometry every FFT kernel takes (analysis and synthesis), checked
     before a wrapper loads the library: n_fft a power of two in [MIN_FFT,
     MAX_FFT] and hop | n_fft."""
-    require(MIN_FFT <= n_fft <= MAX_FFT and n_fft & (n_fft - 1) == 0,
-            f"needs n_fft a power of two in [{MIN_FFT}, {MAX_FFT}], got {n_fft}")
-    require(n_fft % hop == 0, f"needs hop | n_fft, got {n_fft}/{hop}")
+    if not (MIN_FFT <= n_fft <= MAX_FFT and n_fft & (n_fft - 1) == 0):
+        require(False, f"needs n_fft a power of two in [{MIN_FFT}, {MAX_FFT}], "
+                f"got {n_fft}")
+    if n_fft % hop:
+        require(False, f"needs hop | n_fft, got {n_fft}/{hop}")
 
 
 def check_waveform(x: torch.Tensor, n_fft: int, hop: int, require

@@ -13,8 +13,8 @@ replayed CUDA graph of back-to-back calls), the wrapper's ms (CUDA events
 around back-to-back calls: host time included), `torch.stft`'s on the same
 frames and window, the plain version's (torch.profiler), the bound
 (bytes at 3.35 TB/s against FFT flops at 67 TFLOP/s f32) and its share,
-and a sha256 of the kernel's outputs.  It also prints the digests of the
-synthesis kernels' (K2, K3) outputs at `time_synthesis`'s shapes.  It uses
+and a sha256 of the kernel's outputs (time_synthesis.py prints those of
+the synthesis kernels, K2 and K3).  It uses
 only the wrappers' public functions, so it also times another checkout's
 kernels: run it by path with PYTHONPATH at that checkout,
 
@@ -106,8 +106,8 @@ ABLATIONS = {
     "no log-mel band sums": [(
         "const int k0 = lo[mb], k1 = hi[mb];", "const int k0 = lo[mb], k1 = k0 - 1;")],
     "no epilogue outputs": [(
-        "const size_t gb = g0 - a + 4 * (size_t)u;   // a multiple of 4",
-        "const size_t gb = g0 - a + 4 * (size_t)u;\n        "
+        "const size_t gb = g0 - a + kW * (size_t)u;   // a multiple of kW",
+        "const size_t gb = g0 - a + kW * (size_t)u;\n        "
         "if (re[0] != 1234.5f) continue;")],
 }
 
@@ -137,6 +137,13 @@ def digest(out) -> str:
     return h.hexdigest()[:16]
 
 
+def planes(d):
+    """The adjoint's (dre, dim) planes, from its interleaved (..., 2) output
+    (or from an older checkout's pair of planes), so that digests compare
+    the same bytes in the same order."""
+    return d if isinstance(d, tuple) else tuple(d.unbind(-1))
+
+
 def cases(dev) -> dict:
     """{name: (kernel call, plain call, torch.stft call, bound)} on seeded
     inputs."""
@@ -156,7 +163,7 @@ def cases(dev) -> dict:
             inv = synth.k2._inv_env(n_fft, hop, "hann", f, dev)
             a_k = k3._bin_weights(n_fft, dev)
             out[name] = (
-                lambda x=x, n=n_fft, h=hop, f=f: k3.istft_adjoint(x, n, h, "hann", f),
+                lambda x=x, n=n_fft, h=hop, f=f: planes(k3.istft_adjoint(x, n, h, "hann", f)),
                 lambda x=x, n=n_fft, h=hop, i=inv, a=a_k: torch.view_as_real(
                     k1.stft_features_reference(x * i, n, h)["spec"]) * a,
                 library, stft_bound(b, t, n_fft, hop, ("spec",)))
@@ -172,15 +179,6 @@ def cases(dev) -> dict:
     return out
 
 
-def synthesis_digests(dev) -> dict:
-    """Digests of K2's and K3's outputs at time_synthesis's shapes."""
-    x = synth.inputs(dev)
-    with torch.no_grad():
-        return {name: digest(kernel()) for name, (kernel, _, one_call)
-                in synth.cases(x).items() if one_call and "adjoint" not in name
-                and "stft_features" not in name}
-
-
 def run(dev) -> dict:
     out = {}
     for name, (kernel, plain, library, (bound, by)) in cases(dev).items():
@@ -192,7 +190,6 @@ def run(dev) -> dict:
                      "bound_ms": bound, "bound_by": by, "share": bound / ms,
                      "repeat_bit_equal": digest(first) == digest(again),
                      "digest": digest(first)}
-    out["synthesis digests"] = synthesis_digests(dev)
     return out
 
 

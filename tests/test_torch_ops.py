@@ -158,8 +158,10 @@ def test_istft_kernel_rejects_bad_input():
         (lambda: k3.istft_kernel(re, re, 256, 64), "bins"),
         (lambda: k3.istft_kernel(re.transpose(1, 2).contiguous().transpose(1, 2),
                                  re, 512, 128), "contiguous"),
-        (lambda: k3._launch_forward(torch.zeros(0, 10, 257), re, 512, 128,
+        (lambda: k3._launch_forward(torch.zeros(0, 10, 257, 2), 512, 128,
                                     "hann"), "batch"),
+        (lambda: k3.istft_ri_kernel(re, 512, 128), r"\(\.\.\., F, K, 2\)"),
+        (lambda: k3.istft_ri_kernel(torch.zeros(1, 10, 129, 2), 512, 128), "bins"),
     ]
     for fn, match in k3_cases:
         with pytest.raises(ValueError, match=match):
@@ -206,7 +208,8 @@ def test_kernel_modules_import_without_toolchain():
                                                    "stft_features.cu"]
     assert [p.name for p in build._headers()] == ["fft.cuh"]
     assert {"istft_launch", "istft_adjoint_launch", "masked_istft_launch",
-            "stft_launch", "stft_features_launch"} == set(build._SIGNATURES)
+            "stft_launch", "stft_features_launch",
+            "synthesis_prepare"} == set(build._SIGNATURES)
     assert build.library_path().parent == build.build_dir()
 
 
@@ -274,7 +277,9 @@ def test_k1_form_adjoint_equals_autograd_through_plain_istft(rng):
     y = plain_istft(torch.complex(re, im), n_fft, hop, norm="global")
     dy = torch.from_numpy(_rand(rng, *y.shape))
     y.backward(dy)
-    dre, dim = k3.istft_adjoint(dy, n_fft, hop, "hann", re.shape[-2])
+    dspec = k3.istft_adjoint(dy, n_fft, hop, "hann", re.shape[-2])
+    assert dspec.shape == re.shape + (2,)
+    dre, dim = dspec[..., 0], dspec[..., 1]
     for ours, want in ((dre, re.grad), (dim, im.grad)):
         scale = float(want.abs().max())
         torch.testing.assert_close(ours, want, atol=1e-6 * scale, rtol=1e-5)
@@ -356,36 +361,6 @@ def test_stft_kernel_rejects_bad_input(rng):
     assert k4.launches == 0
 
 
-def _stockham(src, tw, inverse=False):
-    """csrc/fft.cuh in numpy f32: Stockham stages over the last axis of
-    H points, one radix-2 stage first where log2(H) is odd, then radix 4,
-    reading the stage twiddles e^{-2πim/H} (conjugated, and +i for the
-    radix-4 constant -i, when inverse: the unscaled inverse)."""
-    h = src.shape[-1]
-    q = h // 4
-    ns = 1
-    if int(np.log2(h)) % 2:
-        a, c = src[..., :h // 2], src[..., h // 2:]
-        src = np.stack([a + c, a - c], axis=-1).reshape(src.shape)
-        ns = 2
-    j = np.arange(q)
-    while ns < h:
-        k = j % ns
-        t = np.conj(tw) if inverse else tw
-        v = [src[..., j + r * q] * (t[r * k * (h // (4 * ns))] if r else 1)
-             for r in range(4)]
-        a0, a1, a2, d = v[0] + v[2], v[0] - v[2], v[1] + v[3], v[1] - v[3]
-        if inverse:
-            a3 = (-d.imag + 1j * d.real).astype(np.complex64)   # +i·(v1 - v3)
-        else:
-            a3 = (d.imag - 1j * d.real).astype(np.complex64)    # -i·(v1 - v3)
-        dst = np.empty_like(src)
-        for r, out in enumerate((a0 + a2, a1 + a3, a0 - a2, a1 - a3)):
-            dst[..., (j - k) * 4 + k + r * ns] = out
-        src, ns = dst, ns * 4
-    return src
-
-
 def _neg_i(a):
     """-i·a, exact (a swap and a sign), as the kernel's mul_neg_i."""
     return (a.imag - 1j * a.real).astype(np.complex64)
@@ -426,22 +401,17 @@ def _dft_r(u, roots):
     return y
 
 
-def _fft_schedule(x, n_fft, hop, window):
-    """The K1/K4 kernel body of csrc/stft_features.cu in numpy f32: frames
-    packed as z[m] = w[2m]·x[2m] + i·w[2m+1]·x[2m+1]; the Stockham passes
-    of ops/stft_features.py::fft_passes (radix 16, then one radix 2, 4 or
-    8), each butterfly an in-register DFT (_dft_r) after the twiddles of
-    the pass table (pass_twiddles); then the split into the n_fft/2 + 1
-    bins with the split twiddles.  The kernel's thread layout (16 points a
+def _fft_passes(src, n_fft):
+    """The register-resident forward passes of csrc/fft.cuh in numpy f32
+    over the last axis of H = n_fft/2 points: the Stockham passes of
+    ops/stft_features.py::fft_passes (radix 16, then one radix 2, 4 or 8),
+    each butterfly an in-register DFT (_dft_r) after the twiddles of the
+    pass table (pass_twiddles).  The kernels' thread layout (16 points a
     thread, TF = n_fft/32 threads a frame) moves no arithmetic."""
-    win, tw, tws = k1.fft_tables(n_fft, window)
+    tw = k1.fft_tables(n_fft, "hann")[1]
     ptw = k1.pass_twiddles(n_fft, tw)
     h = n_fft // 2
     roots = {e: tw[e * h // 16] for e in (1, 2, 3, 6, 9)}
-    f = 1 + (x.shape[-1] - n_fft) // hop
-    frames = x[..., np.arange(f)[:, None] * hop + np.arange(n_fft)]
-    src = (frames[..., 0::2] * win[0::2]
-           + 1j * (frames[..., 1::2] * win[1::2])).astype(np.complex64)
     off = 0
     for r, ns in k1.fft_passes(n_fft):
         q = h // r
@@ -456,6 +426,27 @@ def _fft_schedule(x, n_fft, hop, window):
             dst[..., (j - k) * r + k + i * ns] = y
         src = dst
     assert off == ptw.size
+    return src
+
+
+def _cplx(re, im):
+    """complex64 from two f32 arrays, with no rounding."""
+    out = np.empty(np.broadcast(re, im).shape, np.complex64)
+    out.real, out.imag = re, im
+    return out
+
+
+def _fft_schedule(x, n_fft, hop, window):
+    """The K1/K4 kernel body of csrc/stft_features.cu in numpy f32: frames
+    packed as z[m] = w[2m]·x[2m] + i·w[2m+1]·x[2m+1]; the passes
+    (_fft_passes); then the split into the n_fft/2 + 1 bins with the split
+    twiddles."""
+    win, tw, tws = k1.fft_tables(n_fft, window)
+    h = n_fft // 2
+    f = 1 + (x.shape[-1] - n_fft) // hop
+    frames = x[..., np.arange(f)[:, None] * hop + np.arange(n_fft)]
+    src = _fft_passes(_cplx(frames[..., 0::2] * win[0::2],
+                            frames[..., 1::2] * win[1::2]), n_fft)
     kk = np.arange(h + 1)
     a, c = src[..., kk % h], np.conj(src[..., (h - kk) % h])
     e, dd = np.float32(0.5) * (a + c), np.float32(0.5) * (a - c)
@@ -463,48 +454,107 @@ def _fft_schedule(x, n_fft, hop, window):
     return ((e.real + wd.imag) + 1j * (e.imag - wd.real)).astype(np.complex64)
 
 
-def _ifft_schedule(spec, n_fft, hop, window, env=True):
-    """The synthesis body of csrc/masked_istft.cu (K2, K3) in numpy f32, on
-    a (B, F, K) complex spectrum with any masks applied: Im X[0] and
-    Im X[H] set to 0; the inverse split scaled by 1/N,
+def _ifft_frames(spec, n_fft, window):
+    """The synthesis body's per-frame work (csrc/masked_istft.cu) in numpy
+    f32, on a (..., F, K) complex spectrum with any masks applied: Im X[0]
+    and Im X[H] set to 0; the inverse split scaled by 1/N,
       Z[k] = (X[k] + conj X[H-k])/N + i·e^{+2πik/N}·(X[k] - conj X[H-k])/N;
-    the inverse Stockham stages, after which Z read as floats is the frame;
-    then the block-tiled overlap-add with ROWS and tile of the wrapper
-    (ops/masked_istft.py::synthesis_block): per block of output hop-rows,
-    the frames that touch it a tile at a time, each chunk adding into the
-    rows its frames touch, frames in increasing order; and the inverse
-    envelope (env=True)."""
-    win, tw, tws = k1.fft_tables(n_fft, window)
-    h, r = n_fft // 2, n_fft // hop
+    the forward passes of conj Z, conjugated (the inverse FFT), read as
+    floats; the window product.  -> (..., F, n_fft) windowed frames."""
+    win, _, tws = k1.fft_tables(n_fft, window)
+    h = n_fft // 2
     x = spec.astype(np.complex64)
     x[..., 0] = x[..., 0].real
     x[..., h] = x[..., h].real
     s = np.float32(1.0 / n_fft)
     k = np.arange(h)
-    a, c = x[..., k], np.conj(x[..., h - k])
-    e, d = (a + c) * s, (a - c) * s
-    wd = np.conj(tws[k]) * d
-    z = ((e.real - wd.imag) + 1j * (e.imag + wd.real)).astype(np.complex64)
-    frames = np.ascontiguousarray(_stockham(z, tw, inverse=True)).view(np.float32)
-    rows, tile = k2.synthesis_block(n_fft, hop, _assert)
-    b, f = frames.shape[:2]
+    a, c, t = x[..., k], x[..., h - k], tws[k]
+    e = _cplx(s * (a.real + c.real), s * (a.imag - c.imag))
+    d = _cplx(s * (a.real - c.real), s * (a.imag + c.imag))
+    wd = _cplx(t.real * d.real + t.imag * d.imag, t.real * d.imag - t.imag * d.real)
+    z = _fft_passes(_cplx(e.real - wd.imag, -(e.imag + wd.real)), n_fft)
+    out = np.empty(z.shape[:-1] + (n_fft,), np.float32)
+    out[..., 0::2] = win[0::2] * z.real
+    out[..., 1::2] = -(win[1::2] * z.imag)
+    return out
+
+
+def _ring_rows(tile, r):
+    """Rows of the kernel's ring accumulator: a power of two >= tile + r - 1."""
+    return 1 << (tile + r - 2).bit_length()
+
+
+def _overlap_add_schedule(frames, hop, seg, tile):
+    """The synthesis body's overlap-add in numpy f32, on (B, F, n_fft)
+    windowed frames: work items of `seg` output hop-rows [q0, q1), each
+    taking frames q0 - r + 1 .. q1 - 1 in increasing order, `tile` at a
+    time; a row starts from 0 at its first frame, adds its frames in
+    increasing order, waits in the ring between tiles and is written when
+    its last frame is added (each row once).  -> (B, (F + r - 1)·hop)."""
+    b, f, n = frames.shape
+    r = n // hop
     nrows = f + r - 1
-    out = np.zeros((b, nrows * hop), np.float32)
-    i = np.arange(rows * hop)
-    q, o = i // hop, i % hop
-    for q0 in range(0, nrows, rows):
-        fbase = q0 - r + 1
-        acc = np.zeros((b, rows * hop), np.float32)
-        lo, hi = max(0, -fbase), min(rows + r - 1, f - fbase)
-        for c0 in range(lo, hi, tile):
-            c1 = min(c0 + tile, hi)
-            touched = (max(0, c0 - r + 1) <= q) & (q < c1)
-            for l in range(c0, c1):
-                sel = touched & (q <= l) & (l < q + r)
-                n = (q[sel] + r - 1 - l) * hop + o[sel]
-                acc[:, sel] += win[n] * frames[:, fbase + l, n]
-        keep = q0 + q < nrows
-        out[:, q0 * hop + i[keep]] = acc[:, keep]
+    out = np.full((b, nrows, hop), np.nan, np.float32)
+    for q0 in range(0, nrows, seg):
+        q1 = min(q0 + seg, nrows)
+        ring = {}
+        for f0 in range(max(0, q0 - r + 1), min(f, q1), tile):
+            f1 = min(f0 + tile, f, q1)
+            qa, qb = max(f0, q0), min(f1 + r - 1, q1)
+            assert qb - qa <= _ring_rows(tile, r)      # distinct ring slots
+            for q in range(qa, qb):
+                acc = (np.zeros((b, hop), np.float32) if max(0, q - r + 1) >= f0
+                       else ring.pop(q))
+                for l in range(max(f0, q - r + 1), min(f1, q + 1)):
+                    acc = acc + frames[:, l, (q - l) * hop:(q - l + 1) * hop]
+                if min(f - 1, q) < f1:
+                    assert np.isnan(out[:, q]).all()
+                    out[:, q] = acc
+                else:
+                    ring[q] = acc
+            assert len(ring) <= r - 1
+        assert not ring
+    assert not np.isnan(out).any()
+    return out.reshape(b, -1)
+
+
+# The wrapper's block shape on an H100: 132 SMs, BLOCKS_PER_SM blocks each.
+H100_SMS = 132
+
+
+def _synthesis_tile(n_fft, s, threads):
+    """(sources a work item takes, frames a tile) as csrc/masked_istft.cu's
+    synthesis_prepare picks them where shared memory holds a round: one
+    round of threads/(n_fft/32) frame slots shared by min(S, slots)
+    sources."""
+    slots = threads // (n_fft // 32)
+    sources = min(s, slots)
+    return sources, max(1, slots // sources)
+
+
+def _synthesis_params(n_fft, hop, b, s, f, threads=256):
+    """(tile, seg) the wrapper picks for b mixtures of s sources and f
+    frames on an H100 at a block of `threads` (where shared memory holds a
+    round's frames)."""
+    sources, tile = _synthesis_tile(n_fft, s, threads)
+    r = n_fft // hop
+    groups = -(-s // sources)
+    seg = k2.synthesis_segment(b * groups, f + r - 1, r, tile,
+                               H100_SMS * k2.BLOCKS_PER_SM)
+    return tile, seg
+
+
+def _ifft_schedule(spec, n_fft, hop, window, env=True, sources=1, seg=None,
+                   tile=None):
+    """The synthesis body of csrc/masked_istft.cu (K2, K3) in numpy f32 on a
+    (B, F, K) complex spectrum with any masks applied (B signals of
+    `sources` each for K2): _ifft_frames, then the segment-and-ring
+    overlap-add (_overlap_add_schedule) with the wrapper's tile and segment
+    unless given, and the inverse envelope (env=True)."""
+    frames = _ifft_frames(spec, n_fft, window)
+    b, f = frames.shape[:2]
+    dtile, dseg = _synthesis_params(n_fft, hop, b // sources, sources, f)
+    out = _overlap_add_schedule(frames, hop, seg or dseg, tile or dtile)
     if env:
         out *= k2._inv_env(n_fft, hop, window, f, torch.device("cpu")).numpy()
     return out
@@ -612,12 +662,12 @@ def _irfft_ola(spec, n_fft, hop, window):
     return y * k2._inv_env(n_fft, hop, window, f, torch.device("cpu")).numpy()
 
 
-@pytest.mark.parametrize("n_frames", [1, 3, k2.ROWS + 1, 2 * k2.ROWS + 5])
+@pytest.mark.parametrize("n_frames", [1, 3, 9, 21])
 @pytest.mark.parametrize("n_fft,hop,window", SYNTH_GEOMETRIES)
 def test_ifft_schedule_matches_irfft_ola(rng, n_fft, hop, window, n_frames):
     """The K2/K3 synthesis body on the CPU within 1e-5·max|y| of float64,
-    at one frame, fewer frames than n_fft/hop, ROWS + 1 frames (a second,
-    partial block) and several blocks."""
+    at one frame, fewer frames than n_fft/hop, and frames over one and over
+    several tiles and segments."""
     spec = _spectrum(rng, 2, n_frames, n_fft // 2 + 1)
     ours = _ifft_schedule(spec, n_fft, hop, window)
     exact = _irfft_ola(spec, n_fft, hop, window)
@@ -635,7 +685,7 @@ def _hold_istft(ours, ref, hop, atol):
 
 
 @pytest.mark.parametrize("n_fft,hop,window,n_frames", [
-    (256, 64, "hann", k2.ROWS + 1),
+    (256, 64, "hann", 9),
     (512, 128, "hann", 40),
     (512, 128, "hann@400", 3),
     (2048, 512, "hann", 1),
@@ -650,10 +700,10 @@ def test_ifft_schedule_matches_istft_pallas(rng, interpret, n_fft, hop, window,
 
 
 @pytest.mark.parametrize("mask_type,n_fft,hop,n_frames", [
-    ("magnitude", 512, 128, k2.ROWS + 1),
+    ("magnitude", 512, 128, 9),
     ("magnitude", 256, 64, 1),
     ("complex", 512, 128, 3),
-    ("complex", 2048, 512, k2.ROWS + 1),
+    ("complex", 2048, 512, 9),
 ])
 def test_ifft_schedule_matches_masked_istft_pallas(rng, interpret, mask_type,
                                                   n_fft, hop, n_frames):
@@ -669,8 +719,137 @@ def test_ifft_schedule_matches_masked_istft_pallas(rng, interpret, mask_type,
                                          n_fft, hop, mask_type=mask_type))
     m = masks if mask_type == "magnitude" else masks[..., 0] + 1j * masks[..., 1]
     est = (m * spec[:, None]).astype(np.complex64).reshape(b * s, n_frames, k)
-    ours = _ifft_schedule(est, n_fft, hop, "hann").reshape(b, s, -1)
+    ours = _ifft_schedule(est, n_fft, hop, "hann", sources=s).reshape(b, s, -1)
     _hold_istft(ours, ref, hop, 3e-4)
+
+
+@pytest.mark.parametrize("n_fft,hop,n_frames,sources", [
+    (512, 128, 40, 2),     # a K2 call: one mixture's two sources
+    (512, 128, 2, 1),      # F < n_fft/hop
+    (2048, 512, 1, 2),     # one frame
+    (256, 64, 13, 3),
+    (64, 16, 29, 1),       # the most frame slots a round (128)
+    (1024, 128, 11, 1),    # r = 8
+])
+def test_ifft_schedule_bits_do_not_depend_on_segment_or_tile(rng, n_fft, hop,
+                                                              n_frames, sources):
+    """The synthesis body gives the same output bit for bit for every
+    segment length and tile size: segments of one row, of fewer rows than
+    n_fft/hop frames, of the wrapper's picks at 1 to 512 mixtures and of
+    the whole signal; tiles of one frame up to a whole round of the block's
+    slots.  Each sample adds its frames in increasing order from 0."""
+    spec = _spectrum(rng, 2 * sources, n_frames, n_fft // 2 + 1)
+    frames = _ifft_frames(spec, n_fft, "hann")
+    r = n_fft // hop
+    nrows = n_frames + r - 1
+    rounds = {_synthesis_tile(n_fft, sources, n)[1] for n in k2.THREAD_CHOICES}
+    round_tile = min(rounds)
+    picks = {_synthesis_params(n_fft, hop, b, sources, n_frames, n)[1]
+             for b in (1, 8, 64, 512) for n in k2.THREAD_CHOICES}
+    segs = sorted({1, max(1, r - 2), r, nrows, *picks})
+    tiles = sorted({1, 2, 3, max(1, round_tile // 2), *rounds})
+    base = _overlap_add_schedule(frames, hop, nrows, round_tile)
+    for seg in segs:
+        for tile in tiles:
+            got = _overlap_add_schedule(frames, hop, seg, tile)
+            np.testing.assert_array_equal(got.view(np.uint32), base.view(np.uint32),
+                                          err_msg=f"segment {seg}, tile {tile}")
+    exact = _irfft_ola(spec, n_fft, hop, "hann")
+    ours = base * k2._inv_env(n_fft, hop, "hann", n_frames, torch.device("cpu")).numpy()
+    np.testing.assert_allclose(ours, exact, rtol=0, atol=1e-5 * np.abs(exact).max())
+
+
+@pytest.mark.parametrize("signals,nrows,r,tile", [
+    (64, 250, 4, 16),      # K3 at the stream_v5e8 step
+    (16, 187, 4, 8),       # K2 at separate(): 16 mixtures, 2 sources a tile
+    (8, 258, 4, 2),        # K2 at the music bound: n_fft 2048
+    (1, 125, 4, 8),        # one streaming chunk
+    (512, 30, 4, 16),      # more signals than blocks
+    (3, 2, 8, 5),
+])
+def test_synthesis_segment_fills_the_blocks_once(signals, nrows, r, tile):
+    """The wrapper's segment: at most one work item a resident block where
+    the signals allow it (one a signal otherwise), each segment's frames a
+    whole number of tiles unless it is the whole signal, and long segments
+    (halo frames at most a tenth) wherever the signals fill the blocks
+    four times or less."""
+    blocks = H100_SMS * k2.BLOCKS_PER_SM
+    seg = k2.synthesis_segment(signals, nrows, r, tile, blocks)
+    assert 1 <= seg <= nrows
+    items = signals * -(-nrows // seg)
+    assert items <= max(blocks, signals)
+    assert seg == nrows or (seg + r - 1) % tile == 0
+    if signals * 4 >= blocks and seg < nrows:
+        assert (r - 1) / seg <= 0.1
+
+
+@pytest.mark.parametrize("b,s,f,n_fft,hop,fit,threads", [
+    (64, 1, 247, 512, 128, {256: 2, 512: 1}, 512),    # K3 at the stream_v5e8 step
+    (1, 2, 122, 512, 128, {256: 2, 512: 1}, 256),     # K2, one streaming chunk
+    (16, 2, 184, 512, 128, {256: 2, 512: 1}, 512),    # K2 at separate(): a tie
+    (8, 2, 255, 2048, 512, {256: 1, 512: 1}, 256),    # K2 at the music bound
+])
+def test_synthesis_threads_loads_the_sms_evenly(b, s, f, n_fft, hop, fit, threads):
+    """The wrapper's block size: of 256 and 512 threads, the one whose work
+    items load the busiest of an H100's SMs with the fewest frame slots
+    (`fit`: blocks an SM at each size, as the card's occupancy gives them
+    for these plans; at n_fft 2048 a 512-thread round keeps 4 of its 8
+    slots, shared memory halving its tile), ties to the larger."""
+    loads = {}
+    for n in (256, 512):
+        sources, tile = _synthesis_tile(n_fft, s, n)
+        slots = n // (n_fft // 32)
+        if n_fft == 2048 and n == 512:
+            tile //= 2
+        r, nrows = n_fft // hop, f + n_fft // hop - 1
+        signals = b * -(-s // sources)
+        blocks = H100_SMS * min(fit[n], k2.BLOCKS_PER_SM)
+        seg = k2.synthesis_segment(signals, nrows, r, tile, blocks)
+        grid = min(signals * -(-nrows // seg), blocks)
+        loads[n] = k2.synthesis_load(signals, nrows, r, tile, slots, seg, grid, H100_SMS)
+        assert loads[n] >= -(-signals * (f + r - 1) * slots // (tile * H100_SMS))
+    assert k2.synthesis_threads(loads) == threads
+
+
+@pytest.mark.parametrize("n_fft,hop,t", [(256, 64, 2048), (512, 128, 5000)])
+def test_dispatch_istft_interleaved_route_matches_pallas(rng, interpret, n_fft,
+                                                         hop, t):
+    """K3's route on the interleaved spectrum: ops.dispatch.istft under
+    force_backend("kernel") (the wrapper's CPU path: the same forward and
+    the adjoint's interleaved gradient) against istft_pallas and jax.grad
+    through its custom VJP (atol 5e-4·max|g|, rtol 1e-3); autograd reaches
+    the complex spectrum through view_as_real alone, with no split into
+    planes and no merge of two."""
+    re, im = _planes(rng, 2, t, n_fft, hop)
+    f = re.shape[-2]
+    tgt = _rand(rng, 2, (f - 1) * hop + n_fft - 37)
+
+    def jloss(a, b):
+        y = istft_pallas(jax.lax.complex(a, b), n_fft, hop, length=tgt.shape[-1])
+        return jnp.mean((y - tgt) ** 2)
+
+    ref_y = np.asarray(istft_pallas(jax.lax.complex(jnp.asarray(re), jnp.asarray(im)),
+                                    n_fft, hop))
+    ref_g = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(re), jnp.asarray(im))
+    spec = torch.complex(torch.from_numpy(re), torch.from_numpy(im)).requires_grad_()
+    with dispatch.force_backend("kernel"):
+        y = dispatch.istft(spec, n_fft, hop)
+    names, todo = set(), [y.grad_fn]
+    while todo:
+        fn = todo.pop()
+        if fn is not None:
+            names.add(type(fn).__name__)
+            todo.extend(nxt for nxt, _ in fn.next_functions)
+    assert {"_IstftRIBackward", "ViewAsRealBackward0"} <= names
+    assert not names & {"RealBackward0", "ImagBackward0", "ComplexBackward0",
+                        "StackBackward0", "CloneBackward0"}
+    _hold_istft(y.detach().numpy(), ref_y, hop, 2e-4)
+    ((y[..., :tgt.shape[-1]] - torch.from_numpy(tgt)) ** 2).mean().backward()
+    for ours, want in zip((spec.grad.real, spec.grad.imag), ref_g):
+        want = np.asarray(want)
+        np.testing.assert_allclose(ours.numpy(), want,
+                                   atol=5e-4 * np.abs(want).max(), rtol=1e-3)
+    assert (k3.launches, k3.bwd_launches) == (0, 0)
 
 
 def _adjoint_schedule(dy, n_fft, hop, window, n_frames):
@@ -690,7 +869,7 @@ def _adjoint_schedule(dy, n_fft, hop, window, n_frames):
 @pytest.mark.parametrize("n_fft,hop,window,n_frames", [
     (256, 64, "hann", 3),
     (512, 128, "hann", 40),
-    (512, 128, "hann@400", k2.ROWS + 1),
+    (512, 128, "hann@400", 9),
     (2048, 512, "hann", 1),
     (64, 16, "hann", 5),
     (128, 32, "hann", 4),
@@ -842,6 +1021,26 @@ def test_time_analysis_imports_and_needs_cuda(capsys):
             "stft_features wsj0_logmel step targets"} <= set(names)
 
 
+def test_time_synthesis_imports_and_needs_cuda(capsys):
+    """scripts/time_synthesis.py imports here and refuses to run without a
+    CUDA device in each of its modes; each of its ablations edits text that
+    the synthesis source holds once, and its shapes are the K2 rows of the
+    main path."""
+    from gan_sass_tf_tpu_torch.ops import build
+    from gan_sass_tf_tpu_torch.scripts import time_synthesis
+
+    assert not torch.cuda.is_available()
+    for argv in ([], ["--sweep"], ["--ablate"]):
+        assert time_synthesis.main(argv) == 1
+    assert "needs a CUDA device" in capsys.readouterr().err
+    src = (build.CSRC / "masked_istft.cu").read_text()
+    for what, edits in time_synthesis.ABLATIONS.items():
+        assert all(src.count(old) == 1 for old, _ in edits), what
+    names = [name for name, *_ in time_synthesis.K2_SHAPES]
+    assert len(set(names)) == len(names) == 5
+    assert {m for *_, m in time_synthesis.K2_SHAPES} == {"magnitude", "complex"}
+
+
 @pytest.mark.parametrize("n_fft,hop", [(500, 125), (8192, 2048), (32, 8)])
 def test_stft_kernels_reject_n_fft_before_the_library(monkeypatch, n_fft, hop):
     """Every wrapper of the FFT bodies (K1, K4, K2, and K3's autograd
@@ -862,7 +1061,9 @@ def test_stft_kernels_reject_n_fft_before_the_library(monkeypatch, n_fft, hop):
                lambda: k4.stft_kernel(x, n_fft, hop),
                lambda: k2.masked_istft_kernel(spec, masks, n_fft, hop),
                lambda: k3.istft_kernel(re, re, n_fft, hop),
-               lambda: k3._launch_forward(re, re, n_fft, hop, "hann")):
+               lambda: k3.istft_ri_kernel(torch.view_as_real(spec), n_fft, hop),
+               lambda: k3._launch_forward(torch.view_as_real(spec), n_fft, hop,
+                                          "hann")):
         with pytest.raises(ValueError, match="power of two"):
             fn()
     assert (k1.launches, k4.launches, k2.launches, k3.launches) == (0, 0, 0, 0)
