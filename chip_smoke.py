@@ -32,6 +32,22 @@ Phases, one JSON line each:
               launched; one step from one state on the kernel and the plain
               DSP path agrees; the step's device ms by kernel family
               (torch.profiler); evaluate(); the CLI trains wsj0_logmel
+    graph     the train step captured as a CUDA graph (train/graphed.py)
+              for the five presets, the every-option stream_v5e8 and the
+              bench's wsj0_logmel at batch 128: from one checkpoint,
+              replays and eager steps reach the same bits (after the
+              warm-up and capture, the first replay is the eager run's
+              next step; then 4 more), or, where two eager runs differ
+              too (cuDNN backward algorithms with atomics), the same bits
+              with torch.backends.cudnn.deterministic; wall ms a step
+              both ways, device ms and the device-busy share both ways
+              (the union of kernel intervals), launches a replay; a
+              dispatch of 4 replays and a short one of 2 run exactly 6
+              steps; a reseed captures anew; a checkpoint loaded into
+              the captured state is what the next replay trains on
+    bench     `python -m gan_sass_tf_tpu_torch.bench` as a process at 30
+              timed steps: one JSON line with the root bench.py's four
+              keys, value > 0, printed again on a line of its own
     workdir   `cli train --config stream_v5e8 --workdir W` for 4 steps
               (checkpoints and evals every 2) then 2 more that resume at
               step 4: config.json, the checkpoints, best/, best.json and
@@ -144,7 +160,10 @@ Phases, one JSON line each:
               train_wavdir_fixture at its 500 steps (finite, SI-SDRi > 0)
  13 install   the port as a user installs it: `pip wheel` of a copy of
               the checkout (the wheel holds every ops/csrc source and
-              header, no library, the gan-sass-torch console script),
+              header, no library, the gan-sass-torch console script, and
+              no requirement of jax, flax, optax or orbax in the torch
+              extra; the base requirements that name them are reported,
+              an open fault),
               `pip install --target T/site`, the package made read-only;
               each process below runs from T with `python -P`,
               PYTHONPATH=T/site and XDG_CACHE_HOME=T/cache, nothing of the
@@ -159,7 +178,10 @@ Phases, one JSON line each:
               recompute_bounds runs stream_v5e8's bound (K4)
 Then a `kernels` summary line (each kernel's launches, summed over the
 paths that drive it and by path, each path's counts set to 0 just before
-it and read just after, a dp_* path's summed over its ranks; its error; its time beside its plain version's,
+it and read just after, a dp_* path's summed over its ranks; a path that
+trains on the card in bank mode replays a captured step, whose launches
+count as the launches a capture recorded times its replays
+(`launch_counts()`); its error; its time beside its plain version's,
 the library call's and its bound from the shapes; K1 and K2 also at the
 streaming chunk shapes) and, last, the result line.  Any failed check
 exits non-zero before the result line, and so does a failed NCCL init or
@@ -178,6 +200,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import gc
 import importlib
 import io
 import json
@@ -198,9 +221,10 @@ import numpy as np
 import torch
 
 from gan_sass_tf_tpu_torch import cli, config
+from gan_sass_tf_tpu_torch.bench import bench_config
 from gan_sass_tf_tpu_torch import entry as port_entry
 from gan_sass_tf_tpu_torch.examples import quickstart
-from gan_sass_tf_tpu_torch.data import mix_sources, sample_bank
+from gan_sass_tf_tpu_torch.data import mix_sources, sample_bank, step_key
 from gan_sass_tf_tpu_torch.data.fixtures import write_fixture_corpus
 from gan_sass_tf_tpu_torch.dsp.features import mel_filterbank
 from gan_sass_tf_tpu_torch.dsp.windows import get_window
@@ -231,7 +255,7 @@ from gan_sass_tf_tpu_torch.scripts import (
     train_wavdir_fixture,
 )
 from gan_sass_tf_tpu_torch.losses.pit import permutations_for
-from gan_sass_tf_tpu_torch.train import Experiment, build_train_step
+from gan_sass_tf_tpu_torch.train import Experiment, build_train_step, graphed
 from gan_sass_tf_tpu_torch.utils import profiler, tb_events
 from gan_sass_tf_tpu_torch.utils.wav_io import read_wav, write_wav
 
@@ -280,6 +304,8 @@ FILL_LAUNCHES = 4000                 # small kernels after the calls (profiler c
 SR_STREAM = 16000                    # stream_v5e8
 B_PIT3, S_PIT3 = 16, 3               # 3src_pit: 16 x 3 s at 8 kHz (F = 184), 3 sources
 PIT3_STEPS, PIT3_QUALITY_STEPS = 5, 4
+GRAPH_STEPS, GRAPH_TIMED, GRAPH_SPD = 4, 4, 4   # the graph phase, each config
+BENCH_STEPS_SMOKE, BENCH_TIMEOUT_S = 30, 300     # the bench phase
 SEP_SAMPLES, SEP_CALLS = 5, 2        # separate() timing: samples of calls per path
 T_STREAM = 60 * SR_STREAM            # the streamed mixture: 62 chunks of 16 000
 STREAM_SAMPLES = 3                   # timed streams per mode and DSP path
@@ -298,6 +324,12 @@ WAVDIR_STEPS = 500                   # train_wavdir_fixture's own default
 SEED_INSTALL = 13                    # the install phase's own generator
 INSTALL_TIMEOUT_S = 300              # one pip call or process of the install phase
 INSTALL_STEPS = 2                    # the installed console script's train
+# The kernels by the names a trace knows them, and the launch counters
+# (ops.dispatch.launch_counts) whose launches run each: K1 and K4 share
+# stft_features_kernel, K2 and K3 istft_ola_kernel.
+TRACE_KERNELS = {"stft_features_kernel": ("stft_features", "stft"),
+                 "istft_ola_kernel": ("istft", "masked_istft"),
+                 "istft_adjoint_kernel": ("istft_bwd",)}
 # A train step's device time by kernel family: substrings of the lower-cased
 # kernel name, first match wins.  cuDNN's layout transposes are
 # nchwToNhwc/nhwcToNchw kernels; its conv kernels carry "nhwc" too.
@@ -838,13 +870,13 @@ def phase_train(dev):
     exp = Experiment(cfg, device=dev)
     g0 = [p.detach().clone() for p in exp.state.g.parameters()]
     d0 = [p.detach().clone() for p in exp.state.d.parameters()]
-    k1.launches = k3.launches = k3.bwd_launches = 0
+    reset_launch_counts()
     t0 = time.perf_counter()
     last = exp.train(num_steps=TRAIN_STEPS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {"stft_features": k1.launches, "istft": k3.launches,
-              "istft_bwd": k3.bwd_launches}
+    counts = {k: v for k, v in launch_counts().items()
+              if k in ("stft_features", "istft", "istft_bwd")}
     check(min(counts.values()) > 0, f"a kernel of the train step never "
           f"launched: {counts}")
     check(all(np.isfinite(v) for v in last.values()), f"non-finite: {last}")
@@ -881,6 +913,236 @@ def phase_train(dev):
          gap=gaps, tol="|kernel - plain| <= 1e-2 * max(|plain|, 1)",
          step_profile=profile, eval=ev, cli_wsj0_logmel_rc=rc)
     return exp, counts
+
+
+def graph_configs() -> list:
+    """(name, config) of each train step the graph phase captures: the five
+    presets at their own batch, the every-option stream_v5e8 of the
+    options phase and the bench's wsj0_logmel at batch B_BENCH; a dispatch
+    of GRAPH_SPD steps, no log, eval or checkpoint of their own."""
+    out = [(n, config.get_config(n)) for n in ("2src_toy_cpu",) + PRESETS]
+    opts = config.get_config("stream_v5e8")
+    out.append(("stream_v5e8 every option",
+                cli._apply_overrides(opts, list(STREAM_OPTIONS))))
+    out.append((f"wsj0_logmel b{B_BENCH} (bench)", bench_config(B_BENCH, 1)))
+    quiet = {"steps_per_dispatch": GRAPH_SPD, "log_every": 10 ** 9,
+             "eval_every": 10 ** 9, "ckpt_every": 10 ** 9}
+    return [(n, c.replace(data=dataclasses.replace(c.data, dataset="synthetic"),
+                          mesh=dataclasses.replace(c.mesh, data_axis_size=-1),
+                          train=dataclasses.replace(c.train, **quiet)))
+            for n, c in out]
+
+
+def state_gap(a: dict, b: dict) -> dict:
+    """Whether two flat_tensors() of a train state hold the same bits, the
+    largest |a - b| and the tensor it is in."""
+    gaps = {k: float((v.double() - b[k].double()).abs().max()) if v.numel() else 0.0
+            for k, v in a.items()}
+    worst = max(gaps, key=gaps.get)
+    return {"same_bits": all(torch.equal(v, b[k]) for k, v in a.items()),
+            "max_abs": gaps[worst], "in": worst}
+
+
+def device_spans(fn, calls=PROFILE_STEPS) -> dict:
+    """torch.profiler's Chrome trace of `calls` calls of `fn` (after one
+    untimed): a call's device ms summed over its kernels, copies and fills,
+    the ms a call the device was busy (the union of their intervals, so
+    work a CUDA graph runs side by side counts once), the device events a
+    call and the launches of each of TRACE_KERNELS a call, as the trace
+    saw them."""
+    fn()
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiler.profile_trace(tmp):
+            for _ in range(calls):
+                fn()
+        events = profiler.device_events(profiler.load_trace(profiler.trace_files(tmp)[-1]))
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in events):
+        if b > end:
+            busy, end = busy + b - max(a, end), b
+    return {"sum_ms": sum(e["dur"] for e in events) / calls / 1e3,
+            "busy_ms": busy / calls / 1e3, "events": len(events) / calls,
+            "kernels": {n: sum(n in e["name"] for e in events) / calls
+                        for n in TRACE_KERNELS}}
+
+
+def eager_steps(exp, n: int) -> dict:
+    """n eager steps of exp: the last metrics, the state, the step."""
+    for _ in range(n):
+        m = exp._step(exp._bank)
+    return {"metrics": {k: float(v) for k, v in m.items()},
+            "state": flat_tensors(exp.state), "step": int(exp.state.step)}
+
+
+def replays_vs_eager(name: str, exp, tmp: Path) -> dict:
+    """(1) A checkpoint of the fresh state; WARMUP_STEPS + 1 steps through
+    run_steps (the eager warm-up, the capture, one replay), then the
+    checkpoint loaded into the captured state and as many eager steps: the
+    capture moved nothing and its first replay is the eager run's next
+    step when the two states hold the same bits.  (2) A checkpoint,
+    GRAPH_STEPS replays, the checkpoint loaded again, GRAPH_STEPS eager
+    steps: the states and the metrics after them."""
+    w = graphed.WARMUP_STEPS
+    exp._write(str(tmp / "a"), 0, 1)
+    exp.run_steps(w + 1)
+    torch.cuda.synchronize()
+    g = exp._graphed
+    check(g is not None and g.graph is not None and g.replays == 1
+          and int(exp.state.step) == w + 1,
+          f"graph {name}: after {w + 1} steps: captured {g and g.graph is not None}, "
+          f"replays {g and g.replays}, step {int(exp.state.step)}")
+    first = flat_tensors(exp.state)
+    exp._read(str(tmp / "a"), 0)
+    check(exp._graphed is g and int(exp.state.step) == 0,
+          f"graph {name}: loading a checkpoint replaced the capture")
+    first_gap = state_gap(first, eager_steps(exp, w + 1)["state"])
+    exp._write(str(tmp / "b"), w + 1, 1)
+    m = exp.run_steps(GRAPH_STEPS)
+    got = {"metrics": {k: float(v) for k, v in m.items()},
+           "state": flat_tensors(exp.state), "step": int(exp.state.step)}
+    exp._read(str(tmp / "b"), w + 1)
+    want = eager_steps(exp, GRAPH_STEPS)
+    check(got["step"] == want["step"] == w + 1 + GRAPH_STEPS,
+          f"graph {name}: steps {got['step']} graphed, {want['step']} eager")
+    check(all(np.isfinite(v) for v in got["metrics"].values()),
+          f"graph {name}: non-finite {got['metrics']}")
+    return {"first_replay_vs_eager": first_gap,
+            "replays_vs_eager": state_gap(got["state"], want["state"]),
+            "metrics": {"graphed": got["metrics"], "eager": want["metrics"]}}
+
+
+def graph_case(name: str, cfg, dev, tmp: Path) -> dict:
+    """One train step captured and replayed, held against the eager step
+    (replays_vs_eager): the same bits.  Where they differ, two eager runs
+    of GRAPH_STEPS from one checkpoint must differ too (an algorithm that
+    is not deterministic run to run: cuDNN picks such backward algorithms
+    for some shapes), and a fresh capture with
+    torch.backends.cudnn.deterministic must hold the same bits.  Then
+    (3) wall ms a step both ways (synchronized, in turns) and the device
+    ms and busy ms a step both ways (device_spans), and the kernel
+    launches that the trace of replays shows a step held to those the
+    capture recorded, from which the launch counts of replays are
+    inferred (graphed.launch_correction); (4) train() of
+    GRAPH_SPD + 2 steps: a dispatch of GRAPH_SPD replays and a short one
+    of 2, exactly that many steps, no new capture; (5) reseed, then
+    WARMUP_STEPS + 1 steps: a new capture on the new state, finite."""
+    w = graphed.WARMUP_STEPS
+    exp = Experiment(cfg, device=dev)
+    check(exp.graphed, f"graph {name}: Experiment.graphed is False")
+    out = {"config": name, "batch": cfg.train.batch_size,
+           **replays_vs_eager(name, exp, tmp)}
+    g = exp._graphed
+    if not (out["first_replay_vs_eager"]["same_bits"]
+            and out["replays_vs_eager"]["same_bits"]):
+        exp._read(str(tmp / "b"), w + 1)
+        once = eager_steps(exp, GRAPH_STEPS)["state"]
+        exp._read(str(tmp / "b"), w + 1)
+        out["eager_vs_eager"] = state_gap(once, eager_steps(exp, GRAPH_STEPS)["state"])
+        check(not out["eager_vs_eager"]["same_bits"],
+              f"graph {name}: replays differ from eager steps that agree with "
+              f"each other: {out}")
+        torch.backends.cudnn.deterministic = True
+        try:
+            (tmp / "det").mkdir()
+            det = replays_vs_eager(name, Experiment(cfg, device=dev), tmp / "det")
+        finally:
+            torch.backends.cudnn.deterministic = False
+        out["cudnn_deterministic"] = {k: det[k] for k in ("first_replay_vs_eager",
+                                                          "replays_vs_eager")}
+        check(all(v["same_bits"] for v in out["cudnn_deterministic"].values()),
+              f"graph {name}: with cudnn.deterministic: {out['cudnn_deterministic']}")
+
+    walls = {"graphed": [], "eager": []}
+    for i in range(2 * GRAPH_TIMED):
+        mode = ("graphed", "eager", "eager", "graphed")[i % 4]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exp.run_steps(1) if mode == "graphed" else exp._step(exp._bank)
+        torch.cuda.synchronize()
+        walls[mode].append((time.perf_counter() - t0) * 1e3)
+    wall = {k: statistics.median(v) for k, v in walls.items()}
+    device = {"eager": device_spans(lambda: exp._step(exp._bank)),
+              "graphed": device_spans(lambda: exp.run_steps(1))}
+    recorded = {n: sum(g.per_replay[k] for k in keys)
+                for n, keys in TRACE_KERNELS.items()}
+    check(device["graphed"]["kernels"] == device["eager"]["kernels"] == recorded,
+          f"graph {name}: kernel launches a step, traced replays "
+          f"{device['graphed']['kernels']}, traced eager steps "
+          f"{device['eager']['kernels']}, recorded by the capture {recorded}")
+
+    step0, replays0 = int(exp.state.step), g.replays
+    exp.train(num_steps=GRAPH_SPD + 2)
+    dispatched = {"steps": int(exp.state.step) - step0,
+                  "replays": g.replays - replays0}
+    check(exp._graphed is g and dispatched == {"steps": GRAPH_SPD + 2,
+                                               "replays": GRAPH_SPD + 2},
+          f"graph {name}: train({GRAPH_SPD + 2}) at {GRAPH_SPD} a dispatch: "
+          f"{dispatched}, recaptured {exp._graphed is not g}")
+
+    exp.reseed(cfg.train.seed + 1)
+    m = exp.run_steps(w + 1)
+    g2 = exp._graphed
+    check(g2 is not g and g2.state is exp.state and g2.replays == 1
+          and all(np.isfinite(float(v)) for v in m.values()),
+          f"graph {name}: no new capture after reseed")
+    out.update(wall_ms=wall, device_ms=device,
+               busy={k: device[k]["busy_ms"] / wall[k] for k in wall},
+               wall_ratio_eager_over_graphed=wall["eager"] / wall["graphed"],
+               launches_per_replay=g.per_replay,
+               launches_per_replay_traced=device["graphed"]["kernels"],
+               replays=g.replays,
+               dispatch=dispatched)
+    del exp, g, g2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_graph(dev, tmp: Path) -> dict:
+    """Each train step of graph_configs() as a captured CUDA graph against
+    the eager step (graph_case), and the launches the replays made."""
+    cases = []
+    reset_launch_counts()
+    for i, (name, cfg) in enumerate(graph_configs()):
+        (tmp / str(i)).mkdir()
+        cases.append(graph_case(name, cfg, dev, tmp / str(i)))
+        emit("graph", **cases[-1])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    emit("graph", warmup_steps=graphed.WARMUP_STEPS, steps=GRAPH_STEPS,
+         timed=GRAPH_TIMED, configs=[c["config"] for c in cases], launches=counts,
+         note="launches: the wrappers' counts plus launches per capture x replays "
+              "(graphed.launch_correction), each config's per capture held to "
+              "its traced replays (launches_per_replay_traced); busy: the union "
+              "of the device's "
+              "kernel, copy and fill intervals a step (torch.profiler) over the "
+              "median synchronized wall ms a step")
+    return counts
+
+
+def phase_bench(dev) -> dict:
+    """`python -m gan_sass_tf_tpu_torch.bench` as a process at
+    BENCH_STEPS_SMOKE timed steps: one JSON line with the four keys and a
+    value > 0, printed again on a line of its own."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    env = {**os.environ, "BENCH_STEPS": str(BENCH_STEPS_SMOKE)}
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "gan_sass_tf_tpu_torch.bench",
+                          "--device", str(dev)], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    check(res.returncode == 0, f"bench exited {res.returncode}: {res.stderr[-3000:]}")
+    lines = [ln for ln in res.stdout.splitlines() if ln.strip()]
+    check(len(lines) == 1, f"bench printed {lines}")
+    row = json.loads(lines[0])
+    check(set(row) == {"metric", "value", "unit", "vs_baseline"} and row["value"] > 0
+          and row["vs_baseline"] > 0, f"bench row {row}")
+    print(f"bench: {row['value']} {row['unit']}", flush=True)
+    emit("bench", row=row, steps=BENCH_STEPS_SMOKE, wall_s=wall,
+         stderr=[ln for ln in res.stderr.splitlines() if ln.startswith("bench:")])
+    return row
 
 
 def best_perm_agreement(ker: np.ndarray, ref: np.ndarray) -> float:
@@ -926,12 +1188,13 @@ def phase_pit3(rng, dev, tmp: Path):
     g0 = [p.detach().clone() for p in exp.state.g.parameters()]
     d0 = [p.detach().clone() for p in exp.state.d.parameters()]
     profile = step_profile(exp)       # early in the phase: fewer dropped records
-    k1.launches = k2.launches = 0
+    reset_launch_counts()
     t0 = time.perf_counter()
     last = exp.train(num_steps=PIT3_STEPS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    train_counts = {"stft_features": k1.launches, "masked_istft": k2.launches}
+    train_counts = {k: v for k, v in launch_counts().items()
+                    if k in ("stft_features", "masked_istft")}
     check(train_counts == {"stft_features": 2 * PIT3_STEPS, "masked_istft": 0},
           f"3src_pit train launches {train_counts}, expected K1 2 a step")
     check(all(np.isfinite(v) for v in last.values()), f"3src_pit non-finite: {last}")
@@ -1002,12 +1265,12 @@ def phase_pit3(rng, dev, tmp: Path):
     # The entry points: cli train and the quality protocol.
     rc = cli.main(["train", "--config", "3src_pit", "--steps", "2"])
     check(rc == 0, f"cli train 3src_pit exited {rc}")
-    k1.launches = k2.launches = k4.launches = 0
+    reset_launch_counts()
     quality = captured_json(quality_protocol.main, [
         "3src_pit", str(PIT3_QUALITY_STEPS), "--hard", "--seeds", "0",
         "--device", str(dev)])
-    q_counts = {"stft_features": k1.launches, "masked_istft": k2.launches,
-                "stft": k4.launches}
+    q_counts = {k: v for k, v in launch_counts().items()
+                if k in ("stft_features", "masked_istft", "stft")}
     check(set(quality) == QUALITY_KEYS, f"3src_pit quality keys {sorted(quality)}")
     check(all(finite(v) for v in quality.values()), f"3src_pit quality: {quality}")
     check(min(q_counts.values()) > 0, f"3src_pit quality launches {q_counts}")
@@ -1015,8 +1278,9 @@ def phase_pit3(rng, dev, tmp: Path):
     # K1 at the train step's two launches and the separation launch, on the
     # step's own mixtures and targets; K2 on the trained G's masks.
     with torch.no_grad():
-        picked = sample_bank(exp._bank, exp._train_seed, 0, B_PIT3)
-        mixture, scaled = mix_sources(picked, exp._train_seed, 0, cfg.data)
+        key = step_key(exp._train_seed, 0)
+        picked = sample_bank(exp._bank, key, B_PIT3)
+        mixture, scaled = mix_sources(picked, key, cfg.data)
     k1_shapes = {"mixtures": (mixture, ("mag", "logmag")),
                  "targets": (scaled.reshape(-1, scaled.shape[-1]), ("logmag",)),
                  "separation": (mixture, ("spec", "logmag"))}
@@ -1083,10 +1347,10 @@ def phase_workdir(dev, tmp: Path):
     common = ["--config", "stream_v5e8", "--workdir", str(wd), "--device", str(dev)]
     sets = ["--set", "train.ckpt_every=2", "--set", "train.eval_every=2",
             "--set", "train.eval_batches=1"]
-    k1.launches = k3.launches = k3.bwd_launches = 0
+    reset_launch_counts()
     out = captured(cli.main, ["train", *common, "--steps", "4", *sets])
-    counts = {"stft_features": k1.launches, "istft": k3.launches,
-              "istft_bwd": k3.bwd_launches}
+    counts = {k: v for k, v in launch_counts().items()
+              if k in ("stft_features", "istft", "istft_bwd")}
     check(counts["istft"] == 4 and counts["istft_bwd"] == 4
           and counts["stft_features"] >= 8, f"workdir train launches {counts}")
     losses = {4: cli_losses(out, 4)}
@@ -1293,12 +1557,16 @@ def phase_stream(rng, dev, tmp: Path, wd: Path):
 
 
 def launch_counts() -> dict:
-    return {"stft_features": k1.launches, "masked_istft": k2.launches,
-            "istft": k3.launches, "istft_bwd": k3.bwd_launches}
+    """Each kernel's launches since reset_launch_counts(): its wrapper's
+    count, plus the launches that replays of a captured train step made,
+    less the calls counted while capturing (train/graphed.py)."""
+    fix = graphed.launch_correction()
+    return {k: v + fix[k] for k, v in dispatch.launch_counts().items()}
 
 
 def reset_launch_counts() -> None:
-    k1.launches = k2.launches = k3.launches = k3.bwd_launches = 0
+    k1.launches = k2.launches = k3.launches = k3.bwd_launches = k4.launches = 0
+    graphed.reset_launch_correction()
 
 
 def flat_tensors(state) -> dict:
@@ -1774,10 +2042,9 @@ def counted(fn):
     """(fn(), the launches of every kernel it made), each count set to 0
     just before and read just after (the device synchronized)."""
     reset_launch_counts()
-    k4.launches = 0
     out = fn()
     torch.cuda.synchronize()
-    return out, {**launch_counts(), "stft": k4.launches}
+    return out, launch_counts()
 
 
 def both_paths(exp, keys=("g_loss", "g_recon", "d_loss")):
@@ -1981,14 +2248,7 @@ def phase_options(dev, tmp: Path):
 def phase_quality(dev):
     """The quality protocol through its main() at full width, then the
     music train step's wall time on both DSP paths and its peak memory."""
-    def reset():
-        k1.launches = k2.launches = k3.launches = k3.bwd_launches = 0
-        k4.launches = 0
-
-    def counts():
-        return {"stft_features": k1.launches, "masked_istft": k2.launches,
-                "istft": k3.launches, "istft_bwd": k3.bwd_launches,
-                "stft": k4.launches}
+    reset, counts = reset_launch_counts, launch_counts
 
     runs = {}
     for name, argv, need in (
@@ -2042,7 +2302,6 @@ def tool_worker(out: str, module: str, *argv) -> int:
     import gan_sass_tf_tpu_torch
 
     reset_launch_counts()
-    k4.launches = 0
     if os.path.isfile(module):
         sys.argv = [module, *argv]
         try:
@@ -2052,8 +2311,7 @@ def tool_worker(out: str, module: str, *argv) -> int:
             rc = e.code if isinstance(e.code, int) else int(e.code is not None)
     else:
         rc = importlib.import_module(module).main(list(argv))
-    Path(out).write_text(json.dumps({"rc": rc, "launches": {
-        **launch_counts(), "stft": k4.launches},
+    Path(out).write_text(json.dumps({"rc": rc, "launches": launch_counts(),
         "package": gan_sass_tf_tpu_torch.__file__,
         "library": str(build.library_path()) if build._lib else None}))
     return rc
@@ -2106,6 +2364,16 @@ def pip(*argv) -> None:
     check(res.returncode == 0, f"install: pip {argv[0]} exited {res.returncode}")
 
 
+def requires_jax(metadata: str, extra=None) -> list:
+    """The Requires-Dist lines of a wheel's METADATA that name the JAX
+    package's frameworks: the base list's (extra None) or one extra's."""
+    reqs = re.findall(r"^Requires-Dist: (.*)$", metadata, re.M)
+    return [r for r in reqs
+            if re.match(r"(jax|flax|optax|orbax)\b", r.strip(), re.I)
+            and (re.search(f"extra == .{extra}.", r) if extra
+                 else "extra ==" not in r)]
+
+
 def install_port(tmp: Path) -> dict:
     """Build a wheel of this checkout and install it under tmp/site, the
     port's package made read-only.  The wheel is built from a copy of the
@@ -2123,6 +2391,8 @@ def install_port(tmp: Path) -> dict:
         names = z.namelist()
         scripts = z.read(next(n for n in names if n.endswith(
             ".dist-info/entry_points.txt"))).decode()
+        metadata = z.read(next(n for n in names if n.endswith(
+            ".dist-info/METADATA"))).decode()
     csrc = sorted(n.rsplit("/", 1)[1] for n in names
                   if n.startswith("gan_sass_tf_tpu_torch/ops/csrc/"))
     want = sorted(p.name for p in build._sources() + build._headers())
@@ -2131,10 +2401,14 @@ def install_port(tmp: Path) -> dict:
     check(not libs, f"install: the wheel ships built files {libs}")
     check(re.search(r"^gan-sass-torch = gan_sass_tf_tpu_torch\.cli:main$", scripts,
                     re.M) is not None, f"install: console scripts {scripts!r}")
+    check(not requires_jax(metadata, "torch"), f"install: the torch extra "
+          f"names the JAX stack: {requires_jax(metadata, 'torch')}")
     pip("install", "--no-deps", "--target", str(site), str(wheel))
     subprocess.run(["chmod", "-R", "a-w", str(site / "gan_sass_tf_tpu_torch")],
                    check=True)
     return {"wheel": wheel.name, "files": len(names), "csrc": csrc,
+            "requires": re.findall(r"^Requires-Dist: (.*)$", metadata, re.M),
+            "base_requires_jax": requires_jax(metadata),
             "source_held_library": any((src / "gan_sass_tf_tpu_torch" / "ops" / "_build")
                                        .glob("*.so")),
             "seconds": time.perf_counter() - t0}
@@ -2162,7 +2436,6 @@ def install_worker(out: str, site: str, cache: str) -> int:
     report = {"package": str(pkg), "library": str(build.library_path()),
               "build_s": time.perf_counter() - t0, "nvcc_s": build.build_seconds}
     reset_launch_counts()
-    k4.launches = 0
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(SEED_INSTALL)
     dsp = config.get_config("wsj0_logmel").dsp
@@ -2193,7 +2466,7 @@ def install_worker(out: str, site: str, cache: str) -> int:
     errs["k3"] = k3_check(y, ref, (re_, im_), torch.randn_like(ref), hop, "install")
     errs["k4"] = k4_check(*both(lambda: dispatch.stft(x, n_fft, hop)), "install")
     report.update(max_abs_err=errs, compare_launches={
-        **launch_counts(), "stft": k4.launches},
+        **launch_counts()},
         tol="k1 spec 3e-4*max|X|, logmel 1e-3; k2, k3, k4 as their phases")
     print(json.dumps(report), flush=True)
     Path(out).write_text(json.dumps(report))
@@ -2815,6 +3088,9 @@ def main() -> int:
     k4_err, *k4_inputs = phase_k4(rng, dev)
     exp, train_counts = phase_train(dev)
     with tempfile.TemporaryDirectory() as tmp:
+        graph_counts = phase_graph(dev, Path(tmp))
+    phase_bench(dev)
+    with tempfile.TemporaryDirectory() as tmp:
         pit3_counts, pit3_rows = phase_pit3(rng, dev, Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
         opt = phase_options(dev, Path(tmp))
@@ -2844,7 +3120,7 @@ def main() -> int:
         {"name": "stft_features", "route": "cuda",
          "source": "gan_sass_tf_tpu_torch/ops/csrc/stft_features.cu",
          "replaces": "gan_sass_tf_tpu/ops/pallas_stft.py:63",
-         **by_path("stft_features", main_path=counts,
+         **by_path("stft_features", main_path=counts, graph=graph_counts,
                    stream_batch=stream_launches["batch"],
                    stream_scan=stream_launches["scan"],
                    pit3_train=pit3_counts["train"], pit3_eval=pit3_counts["eval"],
@@ -2873,7 +3149,8 @@ def main() -> int:
         {"name": "istft", "route": "cuda",
          "source": "gan_sass_tf_tpu_torch/ops/csrc/masked_istft.cu",
          "replaces": "gan_sass_tf_tpu/ops/pallas_istft.py:71",
-         **by_path("istft", train=train_counts, workdir=workdir_counts,
+         **by_path("istft", train=train_counts, graph=graph_counts,
+                   workdir=workdir_counts,
                    dp_train=dp_counts["dp_train"],
                    options_stream_train=opt["options_stream_train"], **tools,
                    install=install),
@@ -2881,7 +3158,8 @@ def main() -> int:
         {"name": "istft_bwd", "route": "cuda",
          "source": "gan_sass_tf_tpu_torch/ops/csrc/stft_features.cu",
          "replaces": "gan_sass_tf_tpu/ops/pallas_istft.py:151",
-         **by_path("istft_bwd", train=train_counts, workdir=workdir_counts,
+         **by_path("istft_bwd", train=train_counts, graph=graph_counts,
+                   workdir=workdir_counts,
                    dp_train=dp_counts["dp_train"],
                    options_stream_train=opt["options_stream_train"], **tools,
                    install=install),

@@ -4,7 +4,8 @@ The port trains and runs the GAN source separator of the JAX package on
 H100s: the alternating G/D step with PIT and the waveform loss, the
 workdir (checkpoints, best, resume), one-shot and streaming separation,
 data parallelism over a torch.distributed process group, the quality
-protocol and the oracle bounds.  Four hand-written CUDA kernels (sm_90a,
+protocol and the oracle bounds.  On the GPU the train step is captured
+once as a CUDA graph and replayed (`train/graphed.py`).  Four hand-written CUDA kernels (sm_90a,
 `ops/csrc/`) run the DSP hot ops -- the fused STFT features, the masked
 and the differentiable iSTFT, the complex STFT -- beside their plain
 PyTorch versions (`ops.dispatch`: a CUDA tensor takes the kernel, a CPU
@@ -24,6 +25,7 @@ Entry points:
     wavs = infer.separate(exp.eval_generator(), cfg, mixture, device="cuda")
     python -m gan_sass_tf_tpu_torch.scripts.<tool> ... # quality_protocol,
                                                       # recompute_bounds, ...
+    python -m gan_sass_tf_tpu_torch.bench              # one JSON line
 
 Models are built by name through the registry (`models.build_generator`,
 `models.build_discriminator`); `models.register_generator(name)` and

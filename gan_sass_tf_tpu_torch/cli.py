@@ -244,7 +244,7 @@ def _run(args, device) -> int:
                          resume=not args.no_resume, debug_nans=args.debug_nans,
                          debug_leaks=args.debug_leaks, tensorboard=args.tensorboard)
         if exp.state.step:
-            say(f"resumed from step {exp.state.step}", flush=True)
+            say(f"resumed from step {int(exp.state.step)}", flush=True)
 
         def log(step, m):
             say(f"step {step}: g={m['g_loss']:.4f} d={m['d_loss']:.4f} "

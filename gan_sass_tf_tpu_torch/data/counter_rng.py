@@ -2,6 +2,13 @@
 
 Each draw is a pure function of (seed, step, global example index, stream,
 element index): an integer hash (Wellons' "lowbias32") of those counters.
+A draw takes the (seed, step) pair hashed once, `step_key(seed, step)`,
+which a train step computes once and hands to each of its draws, so a
+draw hashes only its stream on top.  The seed and the step are Python ints
+or 0-d int64 tensors on the ids' device: the same int64 arithmetic gives
+the same bits either way, and a key built from tensors is read by the
+device when it is computed, so a captured CUDA graph that replays the step
+hashes the step it finds there (`train/graphed.py`).
 So the numbers an example gets do not depend on how a batch is split
 across devices, which is the contract of the JAX package's per-global-
 example `fold_in` (`gan_sass_tf_tpu/data/mixer.py:31-32`), and nothing
@@ -12,10 +19,12 @@ threefry streams: tests that compare the two inject the random numbers.
 from __future__ import annotations
 
 import math
+from typing import Union
 
 import torch
 
 _M32 = 0xFFFFFFFF
+Counter = Union[int, torch.Tensor]      # a Python int or a 0-d int64 tensor
 
 
 def _mul32(x, c: int):
@@ -33,27 +42,34 @@ def _mix32(x):
     return x ^ (x >> 16)
 
 
-def counter_bits(seed: int, step: int, ids: torch.Tensor, stream: int,
+def step_key(seed: Counter, step: Counter) -> Counter:
+    """The (seed, step) part of every draw's key, hashed once: an int for
+    int counters, else a 0-d int64 tensor on their device."""
+    return _mix32(_mix32(seed & _M32) ^ (step & _M32))
+
+
+def counter_bits(key: Counter, ids: torch.Tensor, stream: int,
                  n: int) -> torch.Tensor:
     """(len(ids), n) int64 hashes in [0, 2^32) for examples `ids` (int64,
-    global indices) at (seed, step), one independent column per element."""
-    key = _mix32(_mix32(_mix32(seed & _M32) ^ (step & _M32)) ^ (stream & _M32))
+    global indices) under `key` (`step_key`), one independent column per
+    element."""
+    key = _mix32(key ^ (stream & _M32))
     per_example = _mix32((ids.long() & _M32) ^ key)
     j = torch.arange(n, device=ids.device, dtype=torch.int64)
     return _mix32(_mix32(per_example[:, None] ^ _mix32(j + 0x9E3779B9 & _M32)) ^ key)
 
 
-def counter_uniform(seed: int, step: int, ids: torch.Tensor, stream: int,
+def counter_uniform(key: Counter, ids: torch.Tensor, stream: int,
                     n: int) -> torch.Tensor:
     """(len(ids), n) float32 uniforms in [0, 1), 24 random bits each."""
-    bits = counter_bits(seed, step, ids, stream, n)
+    bits = counter_bits(key, ids, stream, n)
     return (bits >> 8).float() * (1.0 / (1 << 24))
 
 
-def counter_normal(seed: int, step: int, ids: torch.Tensor, stream: int,
+def counter_normal(key: Counter, ids: torch.Tensor, stream: int,
                    n: int) -> torch.Tensor:
     """(len(ids), n) float32 standard normals (Box-Muller on two uniform
     streams, `stream` and `stream + 1`)."""
-    u1 = 1.0 - counter_uniform(seed, step, ids, stream, n)       # (0, 1]
-    u2 = counter_uniform(seed, step, ids, stream + 1, n)
+    u1 = 1.0 - counter_uniform(key, ids, stream, n)       # (0, 1]
+    u2 = counter_uniform(key, ids, stream + 1, n)
     return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(2.0 * math.pi * u2)

@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gan_sass_tf_tpu_torch.data.counter_rng import counter_bits
+from gan_sass_tf_tpu_torch.data.counter_rng import Counter, counter_bits
 
 STREAM_PICK, STREAM_SHIFT = 11, 12
 
@@ -45,12 +45,13 @@ def take_rows(bank: torch.Tensor, picks: torch.Tensor,
     return torch.gather(rows, -1, idx)
 
 
-def sample_bank(bank: torch.Tensor, seed: int, step: int, local_batch: int,
+def sample_bank(bank: torch.Tensor, key: Counter, local_batch: int,
                 example_offset: int = 0) -> torch.Tensor:
     """(S, N_bank, T) bank -> (B_local, S, T) sources, drawn on the bank's
-    device for global examples example_offset + [0, B_local)."""
+    device for global examples example_offset + [0, B_local) under the
+    step's key (`counter_rng.step_key`)."""
     s, nb, t = bank.shape
     ids = example_offset + torch.arange(local_batch, device=bank.device)
-    picks = counter_bits(seed, step, ids, STREAM_PICK, s) % nb
-    shifts = counter_bits(seed, step, ids, STREAM_SHIFT, s) % t
+    picks = counter_bits(key, ids, STREAM_PICK, s) % nb
+    shifts = counter_bits(key, ids, STREAM_SHIFT, s) % t
     return take_rows(bank, picks, shifts)

@@ -8,6 +8,7 @@ centering, n_frames = 1 + (T - n_fft)//hop.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -57,9 +58,27 @@ def stft(x: torch.Tensor, n_fft: int, hop: int, window: str = "hann",
     x = x.float()
     if pad:
         x = F.pad(x, (0, pad))
-    w = torch.from_numpy(get_window(window, n_fft)).to(x.device)
-    frames = frame_signal(x, n_fft, hop) * w
+    frames = frame_signal(x, n_fft, hop) * _window(window, n_fft, x.device)
     return torch.fft.rfft(frames, n=n_fft, dim=-1)
+
+
+@functools.lru_cache(maxsize=32)
+def _window(window: str, n_fft: int, device: torch.device) -> torch.Tensor:
+    """The window on `device`, made once (a captured step holds no copy
+    from the host), as a normal tensor even when first asked for under
+    inference mode (autograd saves it)."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(get_window(window, n_fft)).to(device)
+
+
+@functools.lru_cache(maxsize=32)
+def _inv_env(window: str, n_fft: int, hop: int, n_frames: int,
+             device: torch.device) -> torch.Tensor:
+    """safe_inv_env(cola_norm(w, hop, F)) on `device`, made once, as
+    `_window`."""
+    w = get_window(window, n_fft)
+    with torch.inference_mode(False):
+        return torch.from_numpy(safe_inv_env(cola_norm(w, hop, n_frames))).to(device)
 
 
 def irfft(spec: torch.Tensor, n_fft: int) -> torch.Tensor:
@@ -70,11 +89,12 @@ def irfft(spec: torch.Tensor, n_fft: int) -> torch.Tensor:
     batch shapes (seen on an H100 at 16 x 255 frames of 1025 bins, not at
     6 x 12), where a complex mask or a generator's estimate makes them
     non-zero."""
-    keep = torch.ones(spec.shape[-1], dtype=spec.real.dtype, device=spec.device)
-    keep[0] = 0
-    if spec.shape[-1] == n_fft // 2 + 1 and n_fft % 2 == 0:
-        keep[-1] = 0
-    spec = torch.complex(spec.real, spec.imag * keep)
+    k = spec.shape[-1]
+    # Built by device ops (an index assignment would copy the 0 from the
+    # host, which a captured step cannot hold).
+    bins = torch.arange(k, device=spec.device)
+    drop = (bins == 0) | ((bins == k - 1) & (k == n_fft // 2 + 1) & (n_fft % 2 == 0))
+    spec = torch.complex(spec.real, spec.imag * (~drop).to(spec.real.dtype))
     return torch.fft.irfft(spec, n=n_fft, dim=-1).float()
 
 
@@ -110,8 +130,8 @@ def istft(
         w_syn = (w64 / np.where(d_full <= 1e-30, 1.0, d_full)).astype(np.float32)
         y = overlap_add(frames_t * torch.from_numpy(w_syn).to(dev), hop)
     elif norm == "global":
-        inv_env = torch.from_numpy(safe_inv_env(cola_norm(w, hop, f))).to(dev)
-        y = overlap_add(frames_t * torch.from_numpy(w).to(dev), hop) * inv_env
+        y = overlap_add(frames_t * _window(window, n_fft, dev), hop) \
+            * _inv_env(window, n_fft, hop, f, dev)
     else:
         raise ValueError(f"unknown istft norm {norm!r}")
     if length is not None:

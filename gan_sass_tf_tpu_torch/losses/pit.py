@@ -7,6 +7,7 @@ so at most 6).
 
 from __future__ import annotations
 
+import functools
 import itertools
 from typing import Optional, Tuple
 
@@ -21,6 +22,18 @@ def permutations_for(num_sources: int) -> np.ndarray:
     return np.asarray(list(itertools.permutations(range(num_sources))), np.int32)
 
 
+@functools.lru_cache(maxsize=16)
+def _perm_indices(num_sources: int, device: torch.device):
+    """(source index, one index tensor a permutation, the (S!, S) table) on
+    `device`, made once: no copy from the host in the step, so a captured
+    step can hold the matching.  Normal tensors even when first asked for
+    under inference mode (autograd may save them)."""
+    with torch.inference_mode(False):
+        src = torch.arange(num_sources, device=device)
+        table = torch.as_tensor(permutations_for(num_sources), device=device).long()
+    return src, list(table), table
+
+
 def pairwise_losses(est: torch.Tensor, tgt: torch.Tensor, kind: str) -> torch.Tensor:
     """est, tgt: (B, S, ...) -> (B, S_est, S_tgt) mean loss per pair."""
     return elem_loss(est[:, :, None], tgt[:, None, :], kind, batch_dims=3)
@@ -32,14 +45,11 @@ def pit_loss(est: torch.Tensor, tgt: torch.Tensor, kind: str = "l1",
     """-> (loss (B,), perm (B, S)): perm[b, s] is the target index matched
     to estimate s under the best permutation (the first on ties, as
     argmin)."""
-    s = est.shape[1]
     pl = pairwise_losses(est, tgt, kind) if pair_loss is None else pair_loss
-    perms = permutations_for(s)
-    src = np.arange(s)
+    src, perms, table = _perm_indices(est.shape[1], pl.device)
     per_perm = torch.stack([pl[:, src, p].mean(dim=-1) for p in perms], dim=-1)
     loss, best = per_perm.min(dim=-1)
-    perm = torch.as_tensor(perms, device=best.device).long()[best]
-    return loss, perm
+    return loss, table[best]
 
 
 def pool4(x: torch.Tensor) -> torch.Tensor:

@@ -134,7 +134,8 @@ def _position_encoding(n: int, dtype: torch.dtype, device) -> torch.Tensor:
     to `dtype` before the product (in bf16 a Python-float 2π would move
     the sines by up to 0.18)."""
     k_pos = torch.linspace(0.0, 1.0, n, device=device).to(dtype)
-    two_pi = torch.tensor(2.0 * math.pi, dtype=dtype, device=device)
+    # A fill, not a copy from the host: a captured step can hold it.
+    two_pi = torch.full((), 2.0 * math.pi, dtype=dtype, device=device)
     return torch.stack([k_pos] + [torch.sin(two_pi * k_pos * q)
                                   for q in (1.0, 2.0, 4.0, 8.0)], dim=-1)
 

@@ -15,6 +15,7 @@ assembled from it on every call.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -63,6 +64,17 @@ def _tap_index(kt: int, kf: int, st: int, sf: int):
     return idx, ((-dt_lo, jt - 1 + dt_lo), (-df_lo, jf - 1 + df_lo))
 
 
+@functools.lru_cache(maxsize=32)
+def _device_tap_index(kt: int, kf: int, st: int, sf: int, device: torch.device):
+    """_tap_index with its index on `device`, made once: the train step
+    holds no copy from the host (a captured step could not).  A normal
+    tensor even when first asked for under inference mode: autograd saves
+    it."""
+    idx, pads = _tap_index(kt, kf, st, sf)
+    with torch.inference_mode(False):
+        return idx.to(device, copy=True), pads
+
+
 def phase_conv_transpose(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                          strides, dtype: torch.dtype) -> torch.Tensor:
     """x (B, cin, T, F) -> (B, cout, T·st, F·sf): flax's "SAME"
@@ -70,10 +82,10 @@ def phase_conv_transpose(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tens
     kf) and bias, computed in `dtype`."""
     cin, cout, kt, kf = weight.shape
     st, sf = strides
-    idx, ((pt0, pt1), (pf0, pf1)) = _tap_index(kt, kf, st, sf)
+    idx, ((pt0, pt1), (pf0, pf1)) = _device_tap_index(kt, kf, st, sf, weight.device)
     taps = weight.flip(2, 3).permute(2, 3, 1, 0).reshape(kt * kf, cout, cin)
     taps = torch.cat([taps, taps.new_zeros(1, cout, cin)])
-    big = taps[idx.to(weight.device)]                    # (st, sf, jt, jf, cout, cin)
+    big = taps[idx]                                      # (st, sf, jt, jf, cout, cin)
     big = big.permute(0, 1, 4, 5, 2, 3).reshape(st * sf * cout, cin, *idx.shape[2:])
     y = F.conv2d(F.pad(x.to(dtype), (pf0, pf1, pt0, pt1)), big.to(dtype))
     b, _, t, f = y.shape

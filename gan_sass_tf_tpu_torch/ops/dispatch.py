@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -24,6 +24,10 @@ import torch.nn.functional as F
 from gan_sass_tf_tpu_torch.dsp.features import mel_filterbank
 from gan_sass_tf_tpu_torch.dsp.stft import istft as _plain_istft
 from gan_sass_tf_tpu_torch.dsp.windows import encode_win_length
+from gan_sass_tf_tpu_torch.ops import istft as _k3
+from gan_sass_tf_tpu_torch.ops import masked_istft as _k2
+from gan_sass_tf_tpu_torch.ops import stft as _k4
+from gan_sass_tf_tpu_torch.ops import stft_features as _k1
 from gan_sass_tf_tpu_torch.ops.istft import istft_ri_kernel
 from gan_sass_tf_tpu_torch.ops.masked_istft import (
     masked_istft_kernel,
@@ -49,6 +53,17 @@ def force_backend(name: Optional[str]):
         yield
     finally:
         _FORCED = prev
+
+
+def launch_counts() -> Dict[str, int]:
+    """Each kernel wrapper's count of its launches since the count was last
+    set to 0: K1 `stft_features`, K2 `masked_istft`, K3 `istft` and its
+    backward `istft_bwd`, K4 `stft`.  A wrapper called while a CUDA graph
+    is captured counts the launch it records; `train/graphed.py` counts
+    the launches its replays make."""
+    return {"stft_features": _k1.launches, "masked_istft": _k2.launches,
+            "istft": _k3.launches, "istft_bwd": _k3.bwd_launches,
+            "stft": _k4.launches}
 
 
 def _use_kernel(x: torch.Tensor) -> bool:

@@ -58,7 +58,8 @@ def _rank(rank: int, world: int, device: str, store: str) -> None:
         exp = Experiment(tiny_config(world), device=dev)
         metrics = exp.train(num_steps=1)
         if exp.state.step != 1:
-            raise RuntimeError(f"rank {rank}: step {exp.state.step} after one step")
+            raise RuntimeError(f"rank {rank}: step {int(exp.state.step)} after "
+                               "one step")
         bad = [k for k, v in metrics.items() if not math.isfinite(v)]
         if bad:
             raise RuntimeError(f"rank {rank}: non-finite {bad}: {metrics}")

@@ -5,6 +5,7 @@
     python -m gan_sass_tf_tpu_torch.scripts.stream_quality [STEPS] ...
     python -m gan_sass_tf_tpu_torch.scripts.profile_step [PRESET] [BATCH] ...
     python -m gan_sass_tf_tpu_torch.scripts.bench_presets [PRESET ...] ...
+    python -m gan_sass_tf_tpu_torch.scripts.bench_spd [PRESET] [BATCH] [STEPS]
     python -m gan_sass_tf_tpu_torch.scripts.bench_streaming_compute [SECONDS] [REPS]
     python -m gan_sass_tf_tpu_torch.scripts.train_wavdir_fixture [STEPS]
     python -m gan_sass_tf_tpu_torch.scripts.run_queue [ROUND]

@@ -45,9 +45,10 @@ def profile_steps(exp, steps: int):
     """(device µs by bucket, device µs by kernel name) summed over `steps`
     traced train steps of `exp`."""
     with tempfile.TemporaryDirectory() as tmp:
+        first = int(exp.state.step)
         with profiler.profile_trace(tmp):
-            for _ in range(steps):
-                with profiler.step_range(exp.state.step):
+            for i in range(steps):
+                with profiler.step_range(first + i):
                     exp._train_step(exp.state, exp._bank, exp._train_seed)
         events = profiler.load_trace(profiler.trace_files(tmp)[-1])
     within = profiler.annotations(events, profiler.STEP_PREFIX)

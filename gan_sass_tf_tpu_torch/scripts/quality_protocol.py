@@ -44,7 +44,7 @@ import torch.distributed as dist
 
 from gan_sass_tf_tpu_torch import config as config_lib
 from gan_sass_tf_tpu_torch.cli import _apply_overrides, _quiet
-from gan_sass_tf_tpu_torch.data import make_dataset, mix_sources
+from gan_sass_tf_tpu_torch.data import make_dataset, mix_sources, step_key
 from gan_sass_tf_tpu_torch.losses import oracle_bound_si_sdr
 from gan_sass_tf_tpu_torch.parallel import DataParallel, run_in_group
 
@@ -91,7 +91,8 @@ def mean_oracle_bound(cfg, dataset, device, num_batches: int,
         batch = dataset.batch()
         if i % dp.world == dp.rank:
             sources = torch.from_numpy(batch).to(device)
-            mixture, scaled = mix_sources(sources, BOUND_SEED + i, 0, cfg.data)
+            mixture, scaled = mix_sources(sources, step_key(BOUND_SEED + i, 0),
+                                          cfg.data)
             values[i] = float(oracle_bound_si_sdr(mixture, scaled, cfg.dsp)
                               ["si_sdr_improvement"])
     if dp.group is not None:

@@ -30,7 +30,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from gan_sass_tf_tpu_torch.data import mix_sources
+from gan_sass_tf_tpu_torch.data import mix_sources, step_key
 from gan_sass_tf_tpu_torch.losses import pit_si_sdr
 from gan_sass_tf_tpu_torch.scripts.quality_protocol import device_or_exit, protocol_config
 
@@ -60,7 +60,8 @@ def stream_parts(exp, n: int = N_SEGMENTS):
     parts = []
     for i in range(n):
         sources = torch.from_numpy(exp.eval_dataset.batch()[:1])    # (1, S, T)
-        mixture, scaled = mix_sources(sources, SEGMENT_SEED + i, 0, exp.cfg.data)
+        mixture, scaled = mix_sources(sources, step_key(SEGMENT_SEED + i, 0),
+                                      exp.cfg.data)
         parts.append((mixture[0].numpy(), scaled[0].numpy()))
     return parts
 

@@ -24,6 +24,15 @@ A workdir holds
 The checkpoint format is the port's own; orbax checkpoints of the JAX
 package are refused (their G weights load through `--params`,
 models/convert.py).
+
+Where the steps run.  On a CUDA device in device-bank mode each train step
+is one replay of the step captured as a CUDA graph (`train/graphed.py`),
+after `graphed.WARMUP_STEPS` eager steps, and a dispatch replays it
+train.steps_per_dispatch times: the counterpart of the JAX package's
+scanned dispatch, which it runs in bank mode only.  The eager step runs
+instead on the CPU, in host-batch mode, under the debug tripwires (anomaly
+mode and the grad_fn checks cannot run inside a replay) and for the steps
+that `train(profile_steps=)` traces.
 """
 
 from __future__ import annotations
@@ -41,7 +50,12 @@ import torch
 from gan_sass_tf_tpu_torch.data import build_bank, make_dataset
 from gan_sass_tf_tpu_torch.models import build_generator
 from gan_sass_tf_tpu_torch.parallel.mesh import data_parallel
-from gan_sass_tf_tpu_torch.train.state import TrainState, create_train_state
+from gan_sass_tf_tpu_torch.train.graphed import GraphedStep
+from gan_sass_tf_tpu_torch.train.state import (
+    TrainState,
+    counter,
+    create_train_state,
+)
 from gan_sass_tf_tpu_torch.train.step import build_eval_step, build_train_step
 from gan_sass_tf_tpu_torch.utils.metrics_writer import MetricsWriter
 from gan_sass_tf_tpu_torch.utils.profiler import profile_trace, step_range
@@ -52,6 +66,13 @@ KEEP_CHECKPOINTS = 3
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def dispatch_lengths(total: int, per_dispatch: int) -> List[int]:
+    """The dispatches of `total` steps, `per_dispatch` steps each and a
+    shorter last one where it does not divide `total`."""
+    n_full, rem = divmod(total, per_dispatch)
+    return [per_dispatch] * n_full + ([rem] if rem else [])
 
 
 def checkpoint_steps(directory: str) -> List[int]:
@@ -161,7 +182,8 @@ class Experiment:
         the best eval metric seen."""
         cfg = self.cfg
         self.state: TrainState = create_train_state(cfg, self.device, seed)
-        self._train_seed = seed + 1
+        self._train_seed = counter(self.device, seed + 1)
+        self._graphed: Optional[GraphedStep] = None   # captured at first use
         self.dataset = None if self._use_bank else make_dataset(cfg, seed=seed)
         self.eval_dataset = make_dataset(cfg, seed=seed + 9999,
                                          split=cfg.data.eval_split)
@@ -172,7 +194,7 @@ class Experiment:
         self._best_metric = float("-inf")
         # Rank 0's parameters, optimizer moments, spectral-norm buffers and
         # EMA into every rank's; the step, the update counts and the train
-        # seed are plain ints that every rank already shares.
+        # seed are counters that every rank already holds equal.
         self.dp.broadcast_(_tensors(self.state.state_dict()))
 
     def _main_writes(self, write: Callable[[], None]) -> None:
@@ -230,24 +252,25 @@ class Experiment:
         os.makedirs(directory, exist_ok=True)
         path = os.path.join(directory, f"{step}.pt")
         torch.save({"state": self.state.state_dict(),
-                    "train_seed": self._train_seed}, path + ".tmp")
+                    "train_seed": int(self._train_seed)}, path + ".tmp")
         os.replace(path + ".tmp", path)
         others = [s for s in checkpoint_steps(directory) if s != step]
         for old in others[:len(others) - (keep - 1)]:
             os.remove(os.path.join(directory, f"{old}.pt"))
 
     def _read(self, directory: str, step: int) -> None:
-        """Load directory/<step>.pt (every rank reads the same file)."""
+        """Load directory/<step>.pt (every rank reads the same file) into
+        the live tensors."""
         payload = torch.load(os.path.join(directory, f"{step}.pt"),
                              map_location=self.device, weights_only=True)
         self.state.load_state_dict(payload["state"])
-        self._train_seed = int(payload["train_seed"])
+        self._train_seed.fill_(int(payload["train_seed"]))
 
     def save(self) -> None:
         """Write checkpoints/<step>.pt (no-op without a workdir)."""
         if self.workdir:
             self._main_writes(lambda: self._write(
-                os.path.join(self.workdir, "checkpoints"), self.state.step,
+                os.path.join(self.workdir, "checkpoints"), int(self.state.step),
                 KEEP_CHECKPOINTS))
 
     def restore(self, step: Optional[int] = None) -> None:
@@ -288,9 +311,36 @@ class Experiment:
             x = x.pin_memory().to(self.device, non_blocking=True)
         return x
 
+    @property
+    def graphed(self) -> bool:
+        """Whether train steps replay a captured CUDA graph: on CUDA in
+        device-bank mode without the debug tripwires."""
+        return (self.device.type == "cuda" and self._use_bank
+                and not (self.debug_nans or self.debug_leaks))
+
+    def run_steps(self, n: int) -> Dict[str, torch.Tensor]:
+        """`n` train steps with no log, eval or checkpoint (one dispatch):
+        replays of the captured step where `graphed`, else eager steps.
+        Returns the last step's metrics (0-d device tensors)."""
+        if self.graphed:
+            g = self._graphed
+            if g is None or not g.holds(self.state, self._bank, self._train_seed):
+                g = self._graphed = GraphedStep(self._train_step, self.state,
+                                                self._bank, self._train_seed,
+                                                world=self.dp.world)
+            return g.run(n)
+        for _ in range(n):
+            data = (self._bank if self._use_bank else
+                    self._to_device(self.dataset.batch()[self._rows]))
+            metrics = self._step(data)
+        return metrics
+
     def _step(self, data: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """One train step on `data`, under the debug tripwires asked for."""
-        step = self.state.step
+        """One eager train step on `data`, under the debug tripwires asked
+        for."""
+        if not (self.debug_nans or self.debug_leaks):
+            return self._train_step(self.state, data, self._train_seed)[1]
+        step = int(self.state.step)
         if not self.debug_nans:
             self.state, metrics = self._train_step(self.state, data, self._train_seed)
         else:
@@ -319,23 +369,25 @@ class Experiment:
         `mixture_sec_per_sec`: mixture seconds per wall second from the end
         of the first step group on.
 
-        Steps run one at a time.  train.steps_per_dispatch only groups them
-        (in bank mode) for the cadence: metrics are read (which
-        synchronizes the device), logged and evaluated at group ends, every
-        train.log_every steps, and the throughput clock starts after the
-        first group.  (On the TPU it also scanned the group into one
-        dispatch.)  The log, checkpoint and eval boundaries are multiples
-        of their periods counted from step 0, so a resumed run meets them
-        where the continuous run did.  With a workdir the state is saved
-        every train.ckpt_every steps and at the end.
+        In bank mode the steps go in dispatches of
+        train.steps_per_dispatch (the last one shorter when it does not
+        divide `num_steps`, so exactly `num_steps` run): on CUDA each
+        dispatch replays the captured step that many times (`graphed`,
+        `run_steps`), elsewhere it runs them eagerly.  Metrics are read
+        (which synchronizes the device), logged and evaluated at dispatch
+        ends, every train.log_every steps, and the throughput clock starts
+        after the first dispatch.  The log, checkpoint and eval boundaries
+        are multiples of their periods counted from step 0, so a resumed
+        run meets them where the continuous run did.  With a workdir the
+        state is saved every train.ckpt_every steps and at the end.
 
         profile_steps=(A, B) with a workdir traces steps A to B - 1 into
         <workdir>/profile (rank 0; utils/profiler.py), each step in a
-        "ProfilerStep#<step>" range."""
+        "ProfilerStep#<step>" range; the dispatches that hold them run
+        eagerly."""
         cfg = self.cfg
         total = num_steps if num_steps is not None else cfg.train.total_steps
-        n_full, rem = divmod(total, self._spd)
-        lengths = [self._spd] * n_full + ([rem] if rem else [])
+        lengths = dispatch_lengths(total, self._spd)
         samples_per_step = cfg.train.batch_size * cfg.segment_samples
 
         def crossed(completed: int, every: int, length: int) -> bool:
@@ -381,24 +433,28 @@ class Experiment:
         tracing, profiling = contextlib.ExitStack(), False
         last: Dict[str, float] = {}
         t_start, steps_timed = time.perf_counter(), 0
-        step_now = saved = self.state.step
+        step_now = saved = int(self.state.step)
         try:
             for i, length in enumerate(lengths):
                 if i == 1:                 # the clock leaves out the first group
                     _sync(self.device)
                     t_start, steps_timed = time.perf_counter(), 0
-                for _ in range(length):
-                    s = self.state.step
-                    traced = profile is not None and profile[0] <= s < profile[1]
-                    if traced and not profiling:
-                        tracing.enter_context(profile_trace(
-                            os.path.join(self.workdir, "profile")))
-                        profiling = True
-                    with step_range(s) if traced else contextlib.nullcontext():
-                        metrics = self._step(next_data())
-                    if profiling and s + 1 >= profile[1]:
-                        tracing.close()
-                        profiling = False
+                traces = (profile is not None and profile[0] < step_now + length
+                          and step_now < profile[1])
+                if self.graphed and not traces:
+                    metrics = self.run_steps(length)
+                else:
+                    for s in range(step_now, step_now + length):
+                        traced = profile is not None and profile[0] <= s < profile[1]
+                        if traced and not profiling:
+                            tracing.enter_context(profile_trace(
+                                os.path.join(self.workdir, "profile")))
+                            profiling = True
+                        with step_range(s) if traced else contextlib.nullcontext():
+                            metrics = self._step(next_data())
+                        if profiling and s + 1 >= profile[1]:
+                            tracing.close()
+                            profiling = False
                 steps_timed += length
                 completed = step_now + length
                 if crossed(completed, cfg.train.log_every, length) \
@@ -429,7 +485,7 @@ class Experiment:
             stop.set()
             if thread is not None:
                 thread.join(timeout=5)
-        if self.workdir and saved != self.state.step:
+        if self.workdir and saved != step_now:
             self.save()
         return last
 

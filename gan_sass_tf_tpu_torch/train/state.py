@@ -8,16 +8,23 @@ above it, and `torch.optim.Adam` is not the place to read a per-optimizer
 schedule count from.  The lr schedules are optax's `cosine_decay_schedule`
 and `linear_schedule`, evaluated at the optimizer's own update count.
 
+The step and the update counts are 0-d int64 tensors on the state's device,
+advanced in place by the step, and the schedules and Adam's bias
+corrections are computed from them on that device in float32, as optax
+computes them.  So no number of the step is read on the host, and a CUDA
+graph that captured one step replays the next (`train/graphed.py`); the
+CPU runs the same computation.
+
 `state_dict()` of the optimizers and of `TrainState` holds tensors, dicts,
-ints and None only, so a checkpoint loads with `torch.load(...,
-weights_only=True)`.
+ints and None only (the counters as ints), so a checkpoint loads with
+`torch.load(..., weights_only=True)`; loading copies into the live tensors.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import torch
 
@@ -28,28 +35,36 @@ from gan_sass_tf_tpu_torch.models import (
     load_generator,
 )
 
+Schedule = Callable[[Union[int, torch.Tensor]], Union[float, torch.Tensor]]
 
-def lr_schedule(cfg, base_lr: float, kind: str) -> Callable[[int], float]:
-    """Update count -> learning rate (TrainConfig.{g,d}_lr_schedule): the
+
+def counter(device, value: int = 0) -> torch.Tensor:
+    """A 0-d int64 counter on `device`."""
+    return torch.full((), value, dtype=torch.int64, device=device)
+
+
+def lr_schedule(cfg, base_lr: float, kind: str) -> Schedule:
+    """Update count (an int or a 0-d tensor) -> learning rate, a 0-d f32
+    tensor on the count's device (TrainConfig.{g,d}_lr_schedule): the
     decayed schedules run over train.lr_decay_steps down to
     base_lr * train.lr_end_factor and hold there."""
     n, alpha = cfg.train.lr_decay_steps, cfg.train.lr_end_factor
-    if kind == "constant":
-        return lambda count: base_lr
-    if kind == "cosine":           # optax.cosine_decay_schedule(base, n, alpha)
-        def cosine(count: int) -> float:
-            c = min(count, n)
-            return base_lr * ((1 - alpha) * 0.5 * (1 + math.cos(math.pi * c / n))
-                              + alpha)
-        return cosine
-    if kind == "linear":           # optax.linear_schedule(base, base·alpha, n)
-        end = base_lr * alpha
+    if kind not in ("constant", "cosine", "linear"):
+        raise ValueError(f"unknown lr schedule {kind!r}")
 
-        def linear(count: int) -> float:
-            frac = 1 - min(max(count, 0), n) / n
-            return (base_lr - end) * frac + end
-        return linear
-    raise ValueError(f"unknown lr schedule {kind!r}")
+    def schedule(count):
+        c = torch.as_tensor(count).float()
+        if kind == "constant":
+            return torch.full_like(c, base_lr)
+        if kind == "cosine":       # optax.cosine_decay_schedule(base, n, alpha)
+            c = c.clamp(max=n)
+            cosine = 0.5 * (1 + torch.cos(math.pi * c / n))
+            return base_lr * ((1 - alpha) * cosine + alpha)
+        # optax.linear_schedule(base, base·alpha, n)
+        end = base_lr * alpha
+        frac = 1 - c.clamp(0, n) / n
+        return (base_lr - end) * frac + end
+    return schedule
 
 
 def clip_by_global_norm(grads: List[torch.Tensor],
@@ -77,10 +92,12 @@ def _copy_into(dst: Dict[str, torch.Tensor], src: Dict[str, torch.Tensor],
 class ClippedAdam:
     """optax.chain(clip_by_global_norm(max_norm), adam(lr, b1, b2, eps)) over
     a fixed list of parameters.  `step(grads)` updates them in place and
-    never synchronizes with the device.  `names` key the moments in
-    `state_dict()` (default: the parameters' positions)."""
+    never synchronizes with the device.  `lr` maps the update count (a 0-d
+    int64 tensor on the parameters' device) to a float or a 0-d tensor.
+    `names` key the moments in `state_dict()` (default: the parameters'
+    positions)."""
 
-    def __init__(self, params: List[torch.Tensor], lr: Callable[[int], float],
+    def __init__(self, params: List[torch.Tensor], lr: Schedule,
                  max_norm: float, b1: float, b2: float, eps: float = 1e-8,
                  names: Optional[Sequence[str]] = None):
         self.params = list(params)
@@ -92,39 +109,42 @@ class ClippedAdam:
         self.lr, self.max_norm, self.b1, self.b2, self.eps = lr, max_norm, b1, b2, eps
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
-        self.count = 0
+        self.count = counter(self.params[0].device)
 
     def state_dict(self) -> dict:
         """{"count", "mu", "nu"}: the update count (which drives the lr
         schedule) and both moments by parameter name."""
-        return {"count": self.count,
+        return {"count": int(self.count),
                 "mu": dict(zip(self.names, self.mu)),
                 "nu": dict(zip(self.names, self.nu))}
 
     def load_state_dict(self, sd: dict) -> None:
         _copy_into(dict(zip(self.names, self.mu)), sd["mu"], "optimizer mu")
         _copy_into(dict(zip(self.names, self.nu)), sd["nu"], "optimizer nu")
-        self.count = int(sd["count"])
+        self.count.fill_(int(sd["count"]))
 
     @torch.no_grad()
     def step(self, grads: List[torch.Tensor]) -> None:
         grads = clip_by_global_norm([g.float() for g in grads], self.max_norm)
         lr = self.lr(self.count)
-        self.count += 1
+        self.count.add_(1)
         b1, b2 = self.b1, self.b2
         torch._foreach_mul_(self.mu, b1)
         torch._foreach_add_(self.mu, grads, alpha=1 - b1)
         torch._foreach_mul_(self.nu, b2)
         torch._foreach_addcmul_(self.nu, grads, grads, value=1 - b2)
-        # Bias corrections in float32, as optax computes them.
-        bc1 = float(1 - torch.tensor(b1, dtype=torch.float32) ** self.count)
-        bc2 = float(1 - torch.tensor(b2, dtype=torch.float32) ** self.count)
+        # Bias corrections in float32 from the new count, as optax.
+        count = self.count.float()
+        bc1 = 1 - torch.pow(b1, count)
+        bc2 = 1 - torch.pow(b2, count)
         denom = torch._foreach_div(self.nu, bc2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
         upd = torch._foreach_div(self.mu, bc1)
         torch._foreach_div_(upd, denom)
-        torch._foreach_add_(self.params, upd, alpha=-lr)
+        # optax scales the update by -lr, then adds it.
+        torch._foreach_mul_(upd, -lr)
+        torch._foreach_add_(self.params, upd)
 
 
 def make_optimizers(cfg, g: torch.nn.Module, d: torch.nn.Module):
@@ -141,11 +161,12 @@ def make_optimizers(cfg, g: torch.nn.Module, d: torch.nn.Module):
 
 @dataclasses.dataclass
 class TrainState:
-    """Everything that evolves during training.  G and D are modules (D's
-    spectral-norm state lives in its buffers); `g_ema` is the EMA shadow of
-    G's parameters by name when train.g_ema > 0."""
+    """Everything that evolves during training.  `step` is a 0-d int64
+    tensor on the state's device, advanced in place by the step; G and D
+    are modules (D's spectral-norm state lives in its buffers); `g_ema` is
+    the EMA shadow of G's parameters by name when train.g_ema > 0."""
 
-    step: int
+    step: torch.Tensor
     g: torch.nn.Module
     d: torch.nn.Module
     g_opt: ClippedAdam
@@ -153,18 +174,21 @@ class TrainState:
     g_ema: Optional[Dict[str, torch.Tensor]] = None
 
     def state_dict(self, keep_vars: bool = False) -> dict:
-        """The step, G's and D's state_dicts (D's spectral-norm u and sigma
-        buffers included), both optimizers and the EMA shadow (or None).
+        """The step (an int), G's and D's state_dicts (D's spectral-norm u
+        and sigma buffers included), both optimizers and the EMA shadow (or
+        None).
         The tensors are the live ones, as Module.state_dict gives them
         (with `keep_vars`, the modules' tensors themselves, not detached)."""
-        return {"step": self.step, "g": self.g.state_dict(keep_vars=keep_vars),
+        return {"step": int(self.step),
+                "g": self.g.state_dict(keep_vars=keep_vars),
                 "d": self.d.state_dict(keep_vars=keep_vars),
                 "g_opt": self.g_opt.state_dict(),
                 "d_opt": self.d_opt.state_dict(), "g_ema": self.g_ema}
 
     def load_state_dict(self, sd: dict) -> None:
-        """Load `state_dict()`'s payload in place: the modules, optimizers
-        and EMA keep their tensors, now holding the saved values."""
+        """Load `state_dict()`'s payload in place: the modules, optimizers,
+        EMA and counters keep their tensors, now holding the saved values
+        (so a CUDA graph captured on this state stays valid)."""
         if (sd["g_ema"] is None) != (self.g_ema is None):
             raise ValueError("the saved state and this one disagree on the "
                              "G EMA (train.g_ema)")
@@ -174,7 +198,7 @@ class TrainState:
         self.d_opt.load_state_dict(sd["d_opt"])
         if self.g_ema is not None:
             _copy_into(self.g_ema, sd["g_ema"], "G EMA")
-        self.step = int(sd["step"])
+        self.step.fill_(int(sd["step"]))
 
 
 def _state_for(cfg, g, d) -> TrainState:
@@ -182,7 +206,8 @@ def _state_for(cfg, g, d) -> TrainState:
     ema = None
     if cfg.train.g_ema > 0.0:     # starts at the init point, as the reference
         ema = {k: p.detach().clone() for k, p in g.named_parameters()}
-    return TrainState(step=0, g=g, d=d, g_opt=g_opt, d_opt=d_opt, g_ema=ema)
+    return TrainState(step=counter(next(g.parameters()).device), g=g, d=d,
+                      g_opt=g_opt, d_opt=d_opt, g_ema=ema)
 
 
 def create_train_state(cfg, device, seed: int = 0) -> TrainState:

@@ -2,8 +2,9 @@
 
 Port of `gan_sass_tf_tpu/train/step.py` (`build_train_step`,
 `build_separate_fn`, `build_eval_step`).  PyTorch runs eagerly, so the step
-is a sequence of launches rather than one compiled program; its semantics
-are the reference's:
+is a sequence of launches rather than one compiled program (on the card,
+`train/graphed.py` captures that sequence once as a CUDA graph); its
+semantics are the reference's:
 
   * sample the bank (or take the given sources) and mix;
   * the fused STFT-features kernel emits what the step needs for the
@@ -42,8 +43,14 @@ are the reference's:
 
 Random numbers (bank picks, gains, noise) come from `data.counter_rng`,
 keyed by (seed, step, global example), and not from the JAX package's
-threefry streams.  Instance noise and dropout's keep-masks are keyed by
-global example or pair row too, each call site its own stream, so R ranks
+threefry streams; the step hashes (seed, step) once (`step_key`) and
+every draw hashes its stream on top.  The step number is `state.step`, a
+0-d tensor on the device that the step reads there and advances in place,
+and the seed may be one too; the lr schedules, the bias corrections and
+the EMA decay are computed from them on the device.  So a step reads no
+number on the host, and `train/graphed.py` captures it once as a CUDA
+graph and replays it.  Instance noise and dropout's keep-masks are keyed
+by global example or pair row too, each call site its own stream, so R ranks
 of B/R examples draw exactly the noise and masks of one rank of B (the
 reference folds the shard index into its keys instead).
 """
@@ -57,7 +64,7 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
-from gan_sass_tf_tpu_torch.data.counter_rng import counter_normal
+from gan_sass_tf_tpu_torch.data.counter_rng import Counter, counter_normal, step_key
 from gan_sass_tf_tpu_torch.data.device_bank import sample_bank
 from gan_sass_tf_tpu_torch.data.mixer import mix_sources
 from gan_sass_tf_tpu_torch.dsp.masks import apply_mask
@@ -82,29 +89,30 @@ STREAM_G_DROP, STREAM_G_ADV_DROP = 1000, 4000
 STREAM_D_DROP, STREAM_R1_DROP = 2000, 3000
 
 
-def instance_noise(x: torch.Tensor, std: float, seed: int, step: int,
-                   stream: int, rows: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x + std·N(0, 1), the noise drawn per row of x from the counters (row
-    i keyed by rows[i], default i) and rounded to x's dtype, as the
+def instance_noise(x: torch.Tensor, std: float, key: Counter, stream: int,
+                   rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x + std·N(0, 1), the noise drawn per row of x from the counters
+    under the step's key (row i keyed by rows[i], default i) and rounded to x's dtype, as the
     reference adds it."""
     if std <= 0.0:
         return x
     if rows is None:
         rows = torch.arange(x.shape[0], device=x.device)
-    noise = counter_normal(seed, step, rows, stream, x[0].numel())
+    noise = counter_normal(key, rows, stream, x[0].numel())
     return x + std * noise.reshape(x.shape).to(x.dtype)
 
 
 def build_train_step(cfg, from_bank: bool = False, local_batch: int = 0,
                      dp: Optional[DataParallel] = None
-                     ) -> Callable[[TrainState, torch.Tensor, int],
+                     ) -> Callable[[TrainState, torch.Tensor, Counter],
                                    Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """Returns train_step(state, data, seed) -> (state, metrics).  `data` is
     the (B, S, T) f32 sources of this rank or, with from_bank=True, the
-    (S, N_bank, T) bank on the device, sampled for `local_batch` examples.
-    With `dp` the rank's examples start at global index dp.rank·B_local.
-    The state is updated in place and returned; the metrics are 0-d
-    tensors on the device (reading them synchronizes)."""
+    (S, N_bank, T) bank on the device, sampled for `local_batch` examples;
+    `seed` is an int or a 0-d int64 tensor on the device.  With `dp` the
+    rank's examples start at global index dp.rank·B_local.  The state is
+    updated in place (`state.step` advanced by one) and returned; the
+    metrics are 0-d tensors on the device (reading them synchronizes)."""
     dp = dp or DataParallel()
     dcfg, lcfg, tcfg = cfg.dsp, cfg.loss, cfg.train
     n_fft, hop = dcfg.n_fft, dcfg.hop_length
@@ -148,12 +156,12 @@ def build_train_step(cfg, from_bank: bool = False, local_batch: int = 0,
             x = x.reshape(n, t2, k, d_fold * c)
         return x
 
-    def d_update(state: TrainState, x_d, rows, seed, step, di):
+    def d_update(state: TrainState, x_d, rows, key, di):
         """One D step on the detached pair batch (global pair rows `rows`):
         loss, grads averaged over the ranks, optimizer, and the new
         spectral-norm state stored."""
         d = state.d
-        x = instance_noise(x_d, d_noise, seed, step, STREAM_D_NOISE + 2 * di, rows)
+        x = instance_noise(x_d, d_noise, key, STREAM_D_NOISE + 2 * di, rows)
         loss = 0.0
         if r1_gamma > 0.0:
             # Zero-centred R1 on the real half, from the stored (pre-update)
@@ -162,11 +170,11 @@ def build_train_step(cfg, from_bank: bool = False, local_batch: int = 0,
             half = x.shape[0] // 2
             x_real = x[:half].float().requires_grad_()
             lg = d(x_real.to(x.dtype), train=True, dropout=DropoutKey(
-                seed, step, STREAM_R1_DROP + 32 * di, rows[:half]))
+                key, STREAM_R1_DROP + 32 * di, rows[:half]))
             (gx,) = torch.autograd.grad(lg.float().sum(), x_real, create_graph=True)
             loss = 0.5 * r1_gamma * gx.square().sum(dim=tuple(range(1, gx.dim()))).mean()
         real, fake = d(x, update_stats=True, train=True, dropout=DropoutKey(
-            seed, step, STREAM_D_DROP + 32 * di, rows)).chunk(2)
+            key, STREAM_D_DROP + 32 * di, rows)).chunk(2)
         loss = gan_d_loss(real, fake, lcfg.gan_loss) + loss
         grads = torch.autograd.grad(loss, state.d_opt.params)
         dp.all_reduce_mean(grads)                 # before d_opt's clip
@@ -174,14 +182,15 @@ def build_train_step(cfg, from_bank: bool = False, local_batch: int = 0,
             state.d_opt.step(grads)
         return loss.detach(), real.detach().mean(), fake.detach().mean()
 
-    def train_step(state: TrainState, data: torch.Tensor, seed: int):
-        step = state.step
+    def train_step(state: TrainState, data: torch.Tensor, seed: Counter):
+        step = state.step.clone()        # this step's number, whatever moves it
+        key = step_key(seed, step)       # every draw's (seed, step), hashed once
         b = local_batch if from_bank else data.shape[0]
         offset = dp.rank * b                      # this rank's first global example
         with record_function("dsp"):
-            sources = (sample_bank(data, seed, step, b, example_offset=offset)
+            sources = (sample_bank(data, key, b, example_offset=offset)
                        if from_bank else data)
-            mixture, scaled = mix_sources(sources, seed, step, cfg.data,
+            mixture, scaled = mix_sources(sources, key, cfg.data,
                                           example_offset=offset)
             mix_out = ops.stft_features(mixture, dcfg, emit=mix_emit)
             tgt_out = ops.stft_features(scaled, dcfg, emit=tgt_emit)
@@ -193,14 +202,17 @@ def build_train_step(cfg, from_bank: bool = False, local_batch: int = 0,
 
         # The one G forward of the step (recomputed in the backward with
         # g_remat; the keyed dropout masks come out the same).
-        g_key = DropoutKey(seed, step, STREAM_G_DROP,
+        g_key = DropoutKey(key, STREAM_G_DROP,
                            offset + torch.arange(b, device=feats.device))
 
         def g_forward(f):
             return state.g(f, train=True, dropout=g_key)
 
         with record_function("g_fwd"):
-            masks = (checkpoint(g_forward, feats, use_reentrant=False) if g_remat
+            # G draws no torch random number (its dropout is keyed), so
+            # the recompute needs no saved RNG state.
+            masks = (checkpoint(g_forward, feats, use_reentrant=False,
+                                preserve_rng_state=False) if g_remat
                      else g_forward(feats))
             if need_est_spec:
                 est_spec = apply_mask(spec_mix, masks, dcfg.mask_type)
@@ -233,7 +245,7 @@ def build_train_step(cfg, from_bank: bool = False, local_batch: int = 0,
             fake_rows = dp.world * b * s + real_rows
             for di in range(tcfg.d_steps):
                 d_loss, real_m, fake_m = d_update(
-                    state, x_d, torch.cat([real_rows, fake_rows]), seed, step, di)
+                    state, x_d, torch.cat([real_rows, fake_rows]), key, di)
             # BN running statistics, from each rank's own pairs, averaged.
             dp.all_reduce_mean([t for n in state.d.norms if n.kind == "batch"
                                 for t in (n.mean, n.var)])
@@ -258,9 +270,9 @@ def build_train_step(cfg, from_bank: bool = False, local_batch: int = 0,
             rec = sum(w * domain_rec(dn) for w, dn in zip(dweights, domains))
             # Adversarial term against the just-updated D, fresh noise.
             fake_logits = state.d(
-                instance_noise(d_input(mix_logmag, est_logmag), d_noise, seed,
-                               step, STREAM_G_NOISE, real_rows),
-                train=True, dropout=DropoutKey(seed, step, STREAM_G_ADV_DROP, real_rows))
+                instance_noise(d_input(mix_logmag, est_logmag), d_noise, key,
+                               STREAM_G_NOISE, real_rows),
+                train=True, dropout=DropoutKey(key, STREAM_G_ADV_DROP, real_rows))
             adv = gan_g_loss(fake_logits, lcfg.gan_loss)
             g_loss = lcfg.adv_weight * adv + lcfg.recon_weight * rec
         with record_function("g_bwd"):
@@ -269,14 +281,16 @@ def build_train_step(cfg, from_bank: bool = False, local_batch: int = 0,
         with record_function("optimizer"):
             state.g_opt.step(g_grads)
             if state.g_ema is not None:
-                # Warm-up ramp min(decay, (1+t)/(10+t)), t the post-update count.
-                t = float(step + 1)
-                decay = min(tcfg.g_ema, (1.0 + t) / (10.0 + t))
+                # Warm-up ramp min(decay, (1+t)/(10+t)), t the post-update
+                # count, in float32 as the reference.
+                t = (step + 1).float()
+                decay = ((1.0 + t) / (10.0 + t)).clamp(max=tcfg.g_ema)
+                keep = 1.0 - decay
                 with torch.no_grad():
                     for name, p in state.g.named_parameters():
                         e = state.g_ema[name]
-                        e.copy_(e * decay + p * (1.0 - decay))
-        state.step = step + 1
+                        e.copy_(e * decay + p * keep)
+        state.step.add_(1)
         metrics = {"d_loss": d_loss, "g_loss": g_loss.detach(),
                    "g_adv": adv.detach(), "g_recon": rec.detach(),
                    "d_real_logit": real_m, "d_fake_logit": fake_m}
@@ -322,7 +336,7 @@ def build_eval_step(cfg, g: torch.nn.Module, dp: Optional[DataParallel] = None
 
     @torch.inference_mode()
     def eval_step(sources: torch.Tensor, seed: int) -> Dict[str, torch.Tensor]:
-        mixture, scaled = mix_sources(sources, seed, 0, cfg.data,
+        mixture, scaled = mix_sources(sources, step_key(seed, 0), cfg.data,
                                       example_offset=dp.rank * sources.shape[0])
         est = separate(mixture)
         t = est.shape[-1]

@@ -19,6 +19,7 @@ from gan_sass_tf_tpu.data.synthetic import SyntheticDataset as JSynthetic
 from gan_sass_tf_tpu_torch import config
 from gan_sass_tf_tpu_torch import data as tdata
 from gan_sass_tf_tpu_torch.data.counter_rng import (
+    step_key,
     counter_bits,
     counter_normal,
     counter_uniform,
@@ -99,10 +100,11 @@ def test_take_rows_matches_sample_bank_on_injected_picks(rng):
 
 def test_sample_bank_is_per_global_example(rng):
     bank = torch.from_numpy(rng.standard_normal((2, 7, 100)).astype(np.float32))
-    whole = tdata.sample_bank(bank, 5, 3, 8)
-    halves = [tdata.sample_bank(bank, 5, 3, 4, example_offset=o) for o in (0, 4)]
+    whole = tdata.sample_bank(bank, step_key(5, 3), 8)
+    halves = [tdata.sample_bank(bank, step_key(5, 3), 4, example_offset=o)
+              for o in (0, 4)]
     torch.testing.assert_close(torch.cat(halves), whole, atol=0, rtol=0)
-    assert not torch.equal(tdata.sample_bank(bank, 5, 4, 8), whole)
+    assert not torch.equal(tdata.sample_bank(bank, step_key(5, 4), 8), whole)
     # Every row is a rolled bank utterance of its own slot.
     for b in range(8):
         for s in range(2):
@@ -137,30 +139,32 @@ def test_apply_mix_matches_mix_sources_on_injected_draws(rng, num_noise):
 def test_mix_sources_gains_and_noise(rng):
     cfg = _cfg(gain_jitter_db=3.0, num_noise=1, snr_db=10.0)
     src = torch.from_numpy(rng.standard_normal((64, 2, 2000)).astype(np.float32))
-    mix, scaled = tdata.mix_sources(src, 1, 2, cfg.data)
+    mix, scaled = tdata.mix_sources(src, step_key(1, 2), cfg.data)
     gains_db = 20 * torch.log10((scaled / src)[..., 0])
     assert float(gains_db.abs().max()) <= 3.0 + 1e-4
     assert float(gains_db.std()) > 1.0                     # spread over ±3 dB
     noise = mix - scaled.sum(1)
     snr = 10 * torch.log10((scaled.sum(1) ** 2).mean(-1) / (noise ** 2).mean(-1))
     assert abs(float(snr.mean()) - 10.0) < 0.5
-    again = tdata.mix_sources(src[4:8], 1, 2, cfg.data, example_offset=4)
+    again = tdata.mix_sources(src[4:8], step_key(1, 2), cfg.data, example_offset=4)
     torch.testing.assert_close(again[0], mix[4:8], atol=0, rtol=0)
-    plain = tdata.mix_sources(src, 1, 2, _cfg(gain_jitter_db=0.0).data)
+    plain = tdata.mix_sources(src, step_key(1, 2), _cfg(gain_jitter_db=0.0).data)
     torch.testing.assert_close(plain[1], src, atol=0, rtol=0)
 
 
 def test_counter_rng_distributions_and_independence():
     ids = torch.arange(4096)
-    u = counter_uniform(0, 0, ids, 1, 16)
+    u = counter_uniform(step_key(0, 0), ids, 1, 16)
     assert 0.0 <= float(u.min()) and float(u.max()) < 1.0
     assert abs(float(u.mean()) - 0.5) < 5e-3 and abs(float(u.std()) - 12 ** -0.5) < 5e-3
-    n = counter_normal(0, 0, ids, 2, 16)
+    n = counter_normal(step_key(0, 0), ids, 2, 16)
     assert abs(float(n.mean())) < 0.02 and abs(float(n.std()) - 1.0) < 0.02
-    bits = counter_bits(0, 0, ids, 1, 16)
+    bits = counter_bits(step_key(0, 0), ids, 1, 16)
     assert int(bits.min()) >= 0 and int(bits.max()) < 2 ** 32
-    others = [counter_bits(1, 0, ids, 1, 16), counter_bits(0, 1, ids, 1, 16),
-              counter_bits(0, 0, ids, 2, 16), counter_bits(0, 0, ids + 1, 1, 16)]
+    others = [counter_bits(step_key(1, 0), ids, 1, 16),
+              counter_bits(step_key(0, 1), ids, 1, 16),
+              counter_bits(step_key(0, 0), ids, 2, 16),
+              counter_bits(step_key(0, 0), ids + 1, 1, 16)]
     for o in others:
         assert float((o == bits).float().mean()) < 1e-3
     corr = np.corrcoef(u[:, 0].numpy(), u[:, 1].numpy())[0, 1]

@@ -13,6 +13,7 @@ from gan_sass_tf_tpu import config as j_config
 from gan_sass_tf_tpu import models as jmodels
 from gan_sass_tf_tpu_torch import config
 from gan_sass_tf_tpu_torch import models as tmodels
+from gan_sass_tf_tpu_torch.data import step_key
 from gan_sass_tf_tpu_torch.models.dropout import DropoutKey
 
 
@@ -387,7 +388,7 @@ def test_bilstm_dense_head_on_the_mel_grid_and_unknown_generator():
         assert g(torch.zeros(1, 5, 20)).shape == (1, 3, 5, 257)
     # Dropout runs at train time: keyed masks, kept values scaled by 1/(1-p).
     g = tmodels.build_generator(_bilstm(dropout=0.5), "cpu")
-    key = DropoutKey(0, 0, 1000, torch.arange(2))
+    key = DropoutKey(step_key(0, 0), 1000, torch.arange(2))
     x = torch.randn(2, 5, 33)
     with torch.no_grad():
         a, b = g(x, train=True, dropout=key), g(x, train=True, dropout=key)

@@ -26,6 +26,7 @@ from gan_sass_tf_tpu.models.phase_ct import _phase_plan as j_phase_plan
 from gan_sass_tf_tpu.models.phase_ct import _same_pad_a as j_same_pad_a
 from gan_sass_tf_tpu_torch import config
 from gan_sass_tf_tpu_torch import models as tmodels
+from gan_sass_tf_tpu_torch.data import step_key
 from gan_sass_tf_tpu_torch.models.dropout import DropoutKey
 from gan_sass_tf_tpu_torch.models.generator import _ct_padding
 from gan_sass_tf_tpu_torch.models.phase_ct import (
@@ -332,7 +333,7 @@ def test_dropout_masks_keep_1_minus_p_scaled_and_keyed():
     what the whole batch drops."""
     p = 0.3
     x = torch.randn(4, 3, 50, 40)
-    key = DropoutKey(5, 2, 1000, torch.arange(4))
+    key = DropoutKey(step_key(5, 2), 1000, torch.arange(4))
     y = key.apply(x, p, site=1)
     kept = y != 0
     n = x.numel()
@@ -340,9 +341,10 @@ def test_dropout_masks_keep_1_minus_p_scaled_and_keyed():
     assert abs(share - (1 - p)) <= 5 * (p * (1 - p) / n) ** 0.5, share
     assert torch.equal(y[kept], x[kept] / (1 - p))
     assert torch.equal(key.apply(x, p, 1), y)
-    assert not torch.equal(DropoutKey(5, 3, 1000, torch.arange(4)).apply(x, p, 1), y)
+    assert not torch.equal(
+        DropoutKey(step_key(5, 3), 1000, torch.arange(4)).apply(x, p, 1), y)
     assert not torch.equal(key.apply(x, p, 2), y)              # another site
-    halves = [DropoutKey(5, 2, 1000, torch.arange(2 * r, 2 * r + 2)).apply(
+    halves = [DropoutKey(step_key(5, 2), 1000, torch.arange(2 * r, 2 * r + 2)).apply(
         x[2 * r: 2 * r + 2], p, 1) for r in range(2)]
     assert torch.equal(torch.cat(halves), y)
 
@@ -354,7 +356,7 @@ def test_generators_drop_at_train_time_only(generator):
     cfg = _cfg(preset, generator=generator, dropout=0.5, **model)
     g = tmodels.build_generator(cfg, "cpu")
     feats = torch.randn(2, 10, cfg.dsp.feature_dim)
-    key = DropoutKey(0, 1, 1000, torch.arange(2))
+    key = DropoutKey(step_key(0, 1), 1000, torch.arange(2))
     with torch.no_grad():
         train = g(feats, train=True, dropout=key)
         assert torch.equal(train, g(feats, train=True, dropout=key))

@@ -36,6 +36,7 @@ from gan_sass_tf_tpu_torch.parallel import (
     mesh_shape,
 )
 from gan_sass_tf_tpu_torch.train import Experiment
+from gan_sass_tf_tpu_torch.data import step_key
 from gan_sass_tf_tpu_torch.train.step import build_train_step, instance_noise
 from test_torch_train import _cfg as train_cfg
 from test_torch_train import _check_run
@@ -293,11 +294,12 @@ def test_instance_noise_keyed_by_global_rows():
     rows at offset·S + i, fake rows after the global batch's B·S."""
     b, s = 4, 2
     x = torch.zeros(2 * b * s, 5, 3, 2)
-    ref = instance_noise(x, 0.3, 9, 4, 31)
+    ref = instance_noise(x, 0.3, step_key(9, 4), 31)
     for rank in range(2):
         own = rank * (b // 2) * s + torch.arange(b // 2 * s)
         rows = torch.cat([own, b * s + own])
-        got = instance_noise(torch.zeros(b * s, 5, 3, 2), 0.3, 9, 4, 31, rows)
+        got = instance_noise(torch.zeros(b * s, 5, 3, 2), 0.3, step_key(9, 4), 31,
+                             rows)
         assert torch.equal(got, ref[rows])
 
 

@@ -9,6 +9,7 @@ import dataclasses
 import fnmatch
 import importlib
 import importlib.util
+import re
 import shutil
 import subprocess
 import sys
@@ -72,6 +73,22 @@ def test_package_data_ships_kernel_sources():
     assert "gan_sass_tf_tpu_torch*" in meta["tool"]["setuptools"]["packages"]["find"]["include"]
     assert meta["project"]["scripts"]["gan-sass-torch"] == "gan_sass_tf_tpu_torch.cli:main"
     assert meta["project"]["optional-dependencies"]["torch"]
+
+
+def _requirement_names(reqs):
+    return {re.match(r"[A-Za-z0-9_.-]+", r).group(0).lower() for r in reqs}
+
+
+def test_torch_extra_names_no_jax():
+    """The torch extra adds no package of the JAX stack.  The base list
+    still names it (the JAX package's own requirements, which the port's
+    packaging edits may not move), so `pip install .[torch]` installs JAX
+    too: an open fault (ROADMAP.md §3), held here as it stands."""
+    meta = _pyproject()["project"]
+    torch_extra = _requirement_names(meta["optional-dependencies"]["torch"])
+    assert torch_extra == {"torch"}, torch_extra
+    assert _requirement_names(meta["dependencies"]) >= {
+        "jax", "flax", "optax", "orbax-checkpoint"}
 
 
 def test_wheel_holds_sources_and_no_library(tmp_path):
