@@ -27,8 +27,17 @@ Phases, one JSON line each:
               train shape, two other geometries and the edges of k2; the
               forward bit-equal at three segment lengths and on a repeat
               call
+    rng       the threefry kernels (ops/csrc/threefry.cu) against their
+              plain versions at the stream_v5e8 --hard b32 and wsj0_logmel b128
+              steps' shapes: per-example keys from the device step, bank
+              picks and shifts, gains, bits bit for bit, the noise's
+              normals within NORMAL_ULP; the step's draws keyed from the
+              device step inside a captured CUDA graph against eager
+              draws over 3 replays; device ms of the noise draw, the keys
+              launch and a step's five launches at the stream_v5e8 step
   7 train     Experiment(stream_v5e8).train() at full width, batch 32: the
-              losses finite, G and D moved, the three kernels of the step
+              losses finite, G and D moved, the five kernels of the step
+              (K1, K3, its backward, the threefry keys and sampler)
               launched; one step from one state on the kernel and the plain
               DSP path agrees; the step's device ms by kernel family
               (torch.profiler); evaluate(); the CLI trains wsj0_logmel
@@ -41,7 +50,9 @@ Phases, one JSON line each:
               too (cuDNN backward algorithms with atomics), the same bits
               with torch.backends.cudnn.deterministic; wall ms a step
               both ways, device ms and the device-busy share both ways
-              (the union of kernel intervals), launches a replay; a
+              (the union of kernel intervals), the launches of K1-K4's
+              and the threefry kernels a traced step held to those the
+              capture recorded; a
               dispatch of 4 replays and a short one of 2 run exactly 6
               steps; a reseed captures anew; a checkpoint loaded into
               the captured state is what the next replay trains on
@@ -157,7 +168,9 @@ Phases, one JSON line each:
               (finite); bench_presets over the five presets and streaming
               at 1 warm-up and 3 timed steps (every value > 0);
               bench_streaming_compute at 10 s; the quickstart at 4 steps;
-              train_wavdir_fixture at its 500 steps (finite, SI-SDRi > 0)
+              train_wavdir_fixture at its 500 steps, held to its `ok`
+              (finite, SI-SDRi >= 10 dB on the training speakers; the
+              held-out speakers' reported)
  13 install   the port as a user installs it: `pip wheel` of a copy of
               the checkout (the wheel holds every ops/csrc source and
               header, no library, the gan-sass-torch console script, and
@@ -224,7 +237,7 @@ from gan_sass_tf_tpu_torch import cli, config
 from gan_sass_tf_tpu_torch.bench import bench_config
 from gan_sass_tf_tpu_torch import entry as port_entry
 from gan_sass_tf_tpu_torch.examples import quickstart
-from gan_sass_tf_tpu_torch.data import mix_sources, sample_bank, step_key
+from gan_sass_tf_tpu_torch.data import mix_sources, prng_key, sample_bank
 from gan_sass_tf_tpu_torch.data.fixtures import write_fixture_corpus
 from gan_sass_tf_tpu_torch.dsp.features import mel_filterbank
 from gan_sass_tf_tpu_torch.dsp.windows import get_window
@@ -246,6 +259,7 @@ from gan_sass_tf_tpu_torch.ops import istft as k3
 from gan_sass_tf_tpu_torch.ops import masked_istft as k2
 from gan_sass_tf_tpu_torch.ops import stft as k4
 from gan_sass_tf_tpu_torch.ops import stft_features as k1
+from gan_sass_tf_tpu_torch.ops import threefry as rng_ops
 from gan_sass_tf_tpu_torch.scripts import (
     bench_presets,
     bench_streaming_compute,
@@ -284,6 +298,16 @@ SEGMENTS = (1, 5, 10 ** 6)           # segment rows the k2/k3 bit checks also ru
 # f32 flops/s outside the tensor cores.  A kernel's bound is the larger of
 # its bytes and its flops over these.
 HBM_BYTES_PER_S, F32_FLOPS_PER_S = 3.35e12, 67e12
+# 32-bit integer issue: 132 SMs x 64 INT32 lanes x 1.98 GHz (the H100 SXM's
+# SM in NVIDIA's Hopper white paper).
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# threefry2x32 hashing a counter (0, j): 20 rounds x (IADD, SHF rotate,
+# LOP xor); 5 key injections x 2 (IADD3 folds the round constant into the
+# second word's add); the key's third word (one LOP3) and the counter's
+# add to the second key word (the first word's add is a move from 0).
+CIPHER_INT_OPS = 20 * 3 + 5 * 2 + 1 + 1
+NORMAL_ULP = 4               # a threefry normal, kernel vs plain (log1pf's bit)
+RNG_REPLAYS = 3
 PRESETS = ("stream_v5e8", "wsj0_logmel", "3src_pit", "music_complex_44k")
 # The JAX package's oracle bounds (dB) on the CPU, from
 #   JAX_PLATFORMS=cpu python scripts/recompute_bounds.py PRESET [--hard] --cpu
@@ -301,6 +325,7 @@ QUALITY_STREAM_STEPS, QUALITY_MUSIC_STEPS = 10, 4
 PROFILE_STEPS = 5                    # train steps traced for the step profile
 PROFILE_PAD_S = 0.05                 # idle seconds at each end of a profile window
 FILL_LAUNCHES = 4000                 # small kernels after the calls (profiler check)
+TRACE_OPEN_FILLS = 8                 # small kernels opening a device_spans trace
 SR_STREAM = 16000                    # stream_v5e8
 B_PIT3, S_PIT3 = 16, 3               # 3src_pit: 16 x 3 s at 8 kHz (F = 184), 3 sources
 PIT3_STEPS, PIT3_QUALITY_STEPS = 5, 4
@@ -329,7 +354,10 @@ INSTALL_STEPS = 2                    # the installed console script's train
 # stft_features_kernel, K2 and K3 istft_ola_kernel.
 TRACE_KERNELS = {"stft_features_kernel": ("stft_features", "stft"),
                  "istft_ola_kernel": ("istft", "masked_istft"),
-                 "istft_adjoint_kernel": ("istft_bwd",)}
+                 "istft_adjoint_kernel": ("istft_bwd",),
+                 "threefry_keys_kernel": ("threefry_keys",),
+                 "threefry_sample_kernel": ("threefry_sample",)}
+TRACE_SPAN = "chip_smoke.traced_calls"   # the calls device_spans counts
 # A train step's device time by kernel family: substrings of the lower-cased
 # kernel name, first match wins.  cuDNN's layout transposes are
 # nchwToNhwc/nhwcToNchw kernels; its conv kernels carry "nhwc" too.
@@ -876,7 +904,8 @@ def phase_train(dev):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {k: v for k, v in launch_counts().items()
-              if k in ("stft_features", "istft", "istft_bwd")}
+              if k in ("stft_features", "istft", "istft_bwd", "threefry_keys",
+                       "threefry_sample")}
     check(min(counts.values()) > 0, f"a kernel of the train step never "
           f"launched: {counts}")
     check(all(np.isfinite(v) for v in last.values()), f"non-finite: {last}")
@@ -890,7 +919,7 @@ def phase_train(dev):
     for path in (None, "reference"):
         state = copy.deepcopy(exp.state)
         with dispatch.force_backend(path):
-            _, m = step(state, exp._bank, exp._train_seed)
+            _, m = step(state, exp._bank, exp._train_key)
         out[path or "kernel"] = {k: float(v) for k, v in m.items()}
     gaps = {}
     for key in ("g_recon", "d_loss"):
@@ -949,14 +978,30 @@ def device_spans(fn, calls=PROFILE_STEPS) -> dict:
     the ms a call the device was busy (the union of their intervals, so
     work a CUDA graph runs side by side counts once), the device events a
     call and the launches of each of TRACE_KERNELS a call, as the trace
-    saw them."""
+    saw them.  The trace may drop the device records of the first kernels
+    it sees, and a kernel's device start may read up to a millisecond
+    before its host launch: TRACE_OPEN_FILLS fills, a synchronize and
+    PROFILE_PAD_S idle open the trace ahead of the calls, and what the
+    device started from half that pad before the calls' span on is
+    counted (by its own start: a replay's kernels run past the span's
+    host window).  "kernels_in_trace" counts TRACE_KERNELS over the
+    whole trace."""
     fn()
     torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
         with profiler.profile_trace(tmp):
-            for _ in range(calls):
-                fn()
-        events = profiler.device_events(profiler.load_trace(profiler.trace_files(tmp)[-1]))
+            fill = torch.zeros(1, device="cuda")
+            for _ in range(TRACE_OPEN_FILLS):
+                fill.add_(1.0)
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+            with torch.profiler.record_function(TRACE_SPAN):
+                for _ in range(calls):
+                    fn()
+        trace = profiler.load_trace(profiler.trace_files(tmp)[-1])
+    (span,) = [e for e in profiler.annotations(trace) if e["name"] == TRACE_SPAN]
+    every = profiler.device_events(trace)
+    events = [e for e in every if e["ts"] >= span["ts"] - PROFILE_PAD_S * 0.5e6]
     busy, end = 0.0, float("-inf")
     for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in events):
         if b > end:
@@ -964,7 +1009,9 @@ def device_spans(fn, calls=PROFILE_STEPS) -> dict:
     return {"sum_ms": sum(e["dur"] for e in events) / calls / 1e3,
             "busy_ms": busy / calls / 1e3, "events": len(events) / calls,
             "kernels": {n: sum(n in e["name"] for e in events) / calls
-                        for n in TRACE_KERNELS}}
+                        for n in TRACE_KERNELS},
+            "kernels_in_trace": {n: sum(n in e["name"] for e in every)
+                                 for n in TRACE_KERNELS}}
 
 
 def eager_steps(exp, n: int) -> dict:
@@ -1069,7 +1116,10 @@ def graph_case(name: str, cfg, dev, tmp: Path) -> dict:
     check(device["graphed"]["kernels"] == device["eager"]["kernels"] == recorded,
           f"graph {name}: kernel launches a step, traced replays "
           f"{device['graphed']['kernels']}, traced eager steps "
-          f"{device['eager']['kernels']}, recorded by the capture {recorded}")
+          f"{device['eager']['kernels']}, recorded by the capture {recorded}; "
+          f"in the whole traces (fill and {PROFILE_STEPS} calls): replays "
+          f"{device['graphed']['kernels_in_trace']}, eager "
+          f"{device['eager']['kernels_in_trace']}")
 
     step0, replays0 = int(exp.state.step), g.replays
     exp.train(num_steps=GRAPH_SPD + 2)
@@ -1205,7 +1255,7 @@ def phase_pit3(rng, dev, tmp: Path):
     for path in (None, "reference"):
         state = copy.deepcopy(exp.state)
         with dispatch.force_backend(path):
-            _, m = exp._train_step(state, exp._bank, exp._train_seed)
+            _, m = exp._train_step(state, exp._bank, exp._train_key)
         out[path or "kernel"] = {k: float(v) for k, v in m.items()}
     gaps = {}
     for key in ("g_recon", "d_loss"):
@@ -1278,9 +1328,8 @@ def phase_pit3(rng, dev, tmp: Path):
     # K1 at the train step's two launches and the separation launch, on the
     # step's own mixtures and targets; K2 on the trained G's masks.
     with torch.no_grad():
-        key = step_key(exp._train_seed, 0)
-        picked = sample_bank(exp._bank, key, B_PIT3)
-        mixture, scaled = mix_sources(picked, key, cfg.data)
+        picked = sample_bank(exp._bank, exp._train_key, B_PIT3)
+        mixture, scaled = mix_sources(picked, exp._train_key, cfg.data)
     k1_shapes = {"mixtures": (mixture, ("mag", "logmag")),
                  "targets": (scaled.reshape(-1, scaled.shape[-1]), ("logmag",)),
                  "separation": (mixture, ("spec", "logmag"))}
@@ -1350,7 +1399,8 @@ def phase_workdir(dev, tmp: Path):
     reset_launch_counts()
     out = captured(cli.main, ["train", *common, "--steps", "4", *sets])
     counts = {k: v for k, v in launch_counts().items()
-              if k in ("stft_features", "istft", "istft_bwd")}
+              if k in ("stft_features", "istft", "istft_bwd", "threefry_keys",
+                       "threefry_sample")}
     check(counts["istft"] == 4 and counts["istft_bwd"] == 4
           and counts["stft_features"] >= 8, f"workdir train launches {counts}")
     losses = {4: cli_losses(out, 4)}
@@ -1566,6 +1616,7 @@ def launch_counts() -> dict:
 
 def reset_launch_counts() -> None:
     k1.launches = k2.launches = k3.launches = k3.bwd_launches = k4.launches = 0
+    rng_ops.keys_launches = rng_ops.sample_launches = 0
     graphed.reset_launch_correction()
 
 
@@ -1593,14 +1644,14 @@ def dp_step_report(exp) -> dict:
     steps = {"group": exp._train_step, "solo": solo}
 
     def run(name):
-        steps[name](exp.state, exp._bank, exp._train_seed)
+        steps[name](exp.state, exp._bank, exp._train_key)
 
     def sync():
         if exp.device.type == "cuda":
             torch.cuda.synchronize()
 
     reset_launch_counts()
-    _, m = exp._train_step(exp.state, exp._bank, exp._train_seed)
+    _, m = exp._train_step(exp.state, exp._bank, exp._train_key)
     out = {"metrics": {k: float(v) for k, v in m.items()},
            "step_launches": launch_counts()}
     params = flat_tensors(exp.state)
@@ -1915,6 +1966,133 @@ def phase_k4(rng, dev):
     return max(errs.values()), stream_srcs, music_srcs
 
 
+def int_bound(nbytes: float, int_ops: float):
+    """(ms, "bytes" or "operations"): the least time for `nbytes` of
+    traffic and `int_ops` 32-bit integer instructions."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, int_ops / INT32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest distance of two float32 tensors in units in the last place."""
+    return int((a.view(torch.int32).long() - b.view(torch.int32).long()).abs().max())
+
+
+def step_draws(key, step, b, s, nb, t, g, noise=True) -> list:
+    """The train step's data draws (`train/step.py`): the per-example
+    keys from the device step, then picks, shifts, gains and noise."""
+    keys = dispatch.example_keys(key, 0, b, step)
+    out = [dispatch.draw(keys[0][0], s, "randint", 0, nb),
+           dispatch.draw(keys[0][1], s, "randint", 0, t),
+           dispatch.draw(keys[1][0], s, "uniform", -g, g)]
+    return out + ([dispatch.draw(keys[1][1], t, "normal")] if noise else [])
+
+
+def phase_rng(dev):
+    """The threefry kernels against their plain versions at the
+    stream_v5e8 --hard b32 and wsj0_logmel b128 steps' shapes (keys, bits,
+    uniforms and randints bit for bit, normals within NORMAL_ULP), draws
+    keyed from the device step inside a captured CUDA graph against eager
+    draws over RNG_REPLAYS replays, and their times at the stream_v5e8
+    --hard b32 step."""
+    cases, rows = {}, {}
+    hard = quality_protocol.protocol_config("stream_v5e8", True)
+    for name, cfg in (("stream_v5e8 --hard b32", hard),
+                      (f"wsj0_logmel b{B_BENCH} (bench)", bench_config(B_BENCH, 1))):
+        b, s, t = cfg.train.batch_size, cfg.data.num_sources, cfg.segment_samples
+        nb, g = cfg.data.bank_utterances, cfg.data.gain_jitter_db
+        key = prng_key(cfg.train.seed + 1, dev)
+        step = torch.tensor(41, dtype=torch.int64, device=dev)
+        errs = {}
+        for what, stepped in (("keys_step", step), ("keys_plain", None)):
+            ker = rng_ops.example_keys_kernel(key, 3, b, stepped)
+            ref = rng_ops.example_keys_reference(key, 3, b, stepped)
+            check(torch.equal(ker, ref), f"rng {name} {what}: kernel keys != plain")
+            errs[what] = 0
+        keys = rng_ops.example_keys_reference(key, 0, b, step)
+        draws = {"picks": (keys[0][0], s, "randint", 0, nb),
+                 "shifts": (keys[0][1], s, "randint", 0, t),
+                 "gains": (keys[1][0], s, "uniform", -g, g),
+                 "noise": (keys[1][1], t, "normal"),
+                 "bits": (keys[1][1], t, "bits")}
+        for what, args in draws.items():
+            ker, ref = rng_ops.sample_kernel(*args), rng_ops.sample_reference(*args)
+            check(ker.shape == ref.shape and ker.dtype == ref.dtype,
+                  f"rng {name} {what}: {ker.shape} {ker.dtype} vs {ref.shape} {ref.dtype}")
+            if args[2] == "normal":
+                errs[what] = {"max_abs_err": max_err(ker, ref), "max_ulp": ulps(ker, ref)}
+                check(errs[what]["max_ulp"] <= NORMAL_ULP,
+                      f"rng {name} normal: {errs[what]} over {NORMAL_ULP} ulp")
+            else:
+                check(torch.equal(ker, ref), f"rng {name} {what}: kernel != plain")
+                errs[what] = 0
+        # Captured: keyed from the device step, as the captured train step.
+        step = torch.zeros((), dtype=torch.int64, device=dev)
+        draw = lambda: step_draws(key, step, b, s, nb, t, g,   # noqa: E731
+                                  cfg.data.num_noise > 0)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            draw()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            static = draw()
+        replays = []
+        for r in range(RNG_REPLAYS):
+            step.fill_(1000 * r + 7)
+            graph.replay()
+            eager = draw()
+            same = all(torch.equal(a, e) for a, e in zip(static, eager))
+            check(same, f"rng {name}: replay {r} at step {1000 * r + 7} != eager draws")
+            replays.append(same)
+        cases[name] = {"batch": b, "sources": s, "samples": t, "bank": nb,
+                       "noise": cfg.data.num_noise > 0, "kernel_vs_plain": errs,
+                       "replays_equal_eager": replays}
+    # Times at the stream_v5e8 --hard b32 step (the quality protocol's).
+    cfg = hard
+    b, s, t = cfg.train.batch_size, cfg.data.num_sources, cfg.segment_samples
+    nb, g = cfg.data.bank_utterances, cfg.data.gain_jitter_db
+    key = prng_key(cfg.train.seed + 1, dev)
+    step = torch.tensor(41, dtype=torch.int64, device=dev)
+    keys = rng_ops.example_keys_kernel(key, 0, b, step)
+    k_noise = keys[1][1]
+    plain_ms = lambda fn: time_fns(calls=2, plain=fn)["plain"]   # noqa: E731
+    noise_args = (k_noise, t, "normal")
+    noise_err = max_err(rng_ops.sample_kernel(*noise_args),
+                        rng_ops.sample_reference(*noise_args))
+    sample_bound = int_bound(16 * b + 4 * b * t, CIPHER_INT_OPS * b * t)
+    keys_bound = int_bound(24 + 2 * b * 32, CIPHER_INT_OPS * (3 + 6 * b))
+    step_ms = graph_ms(lambda: step_draws(key, step, b, s, nb, t, g))
+    keys_args = (key, 0, b, step)
+    keys_err = max_err(rng_ops.example_keys_kernel(*keys_args),
+                       rng_ops.example_keys_reference(*keys_args))
+    rows["threefry_sample"] = {
+        "ms": graph_ms(lambda: rng_ops.sample_kernel(*noise_args)),
+        "plain_ms": plain_ms(lambda: rng_ops.sample_reference(*noise_args)),
+        "bound_ms": sample_bound[0], "bound_by": sample_bound[1], "library_ms": None,
+        "max_abs_err": noise_err, "shape": f"{b} x {t} normals (the step's noise)"}
+    rows["threefry_keys"] = {
+        "ms": graph_ms(lambda: rng_ops.example_keys_kernel(*keys_args)),
+        "plain_ms": plain_ms(lambda: rng_ops.example_keys_reference(*keys_args)),
+        "bound_ms": keys_bound[0], "bound_by": keys_bound[1], "library_ms": None,
+        "max_abs_err": keys_err, "shape": f"{b} examples x 2 bases from the device step"}
+    plain_step_ms = plain_ms(lambda: [rng_ops.example_keys_reference(*keys_args)]
+                             + [rng_ops.sample_reference(*a) for a in (
+                                 (keys[0][0], s, "randint", 0, nb),
+                                 (keys[0][1], s, "randint", 0, t),
+                                 (keys[1][0], s, "uniform", -g, g), noise_args)])
+    emit("rng", cases=cases, stream_v5e8_step={
+        "draws_ms": step_ms, "plain_draws_ms": plain_step_ms,
+        "launches_a_step": {"threefry_keys": 1, "threefry_sample": 4},
+        "config": "stream_v5e8 --hard b32 (picks, shifts, gains, noise)"},
+         rows=rows, tol=f"keys, bits, uniforms, randints bit-equal; normals "
+                        f"within {NORMAL_ULP} ulp; replays bit-equal to eager",
+         int32_ops_per_s=INT32_OPS_PER_S, cipher_int_ops=CIPHER_INT_OPS,
+         library="none: PyTorch has no threefry sampler")
+    return rows
+
+
 def captured(fn, argv) -> str:
     """Run an entry point's main(argv), check that it returns 0, and return
     what it printed on stdout."""
@@ -2054,7 +2232,7 @@ def both_paths(exp, keys=("g_loss", "g_recon", "d_loss")):
     for path in (None, "reference"):
         states[path or "kernel"] = state = copy.deepcopy(exp.state)
         with dispatch.force_backend(path):
-            _, m = exp._train_step(state, exp._bank, exp._train_seed)
+            _, m = exp._train_step(state, exp._bank, exp._train_key)
         out[path or "kernel"] = {k: float(v) for k, v in m.items()}
     gaps = {}
     for key in keys:
@@ -2073,7 +2251,7 @@ def g_grads(step, exp) -> list:
     inner = state.g_opt.step
     state.g_opt.step = lambda grads: (got.append([g.detach().clone() for g in grads]),
                                       inner(grads))
-    step(state, exp._bank, exp._train_seed)
+    step(state, exp._bank, exp._train_key)
     return got[0]
 
 
@@ -2083,12 +2261,12 @@ def paired_walls(exps: dict) -> dict:
     names = list(exps)
     walls = {n: [] for n in names}
     for n in names:
-        exps[n]._train_step(exps[n].state, exps[n]._bank, exps[n]._train_seed)
+        exps[n]._train_step(exps[n].state, exps[n]._bank, exps[n]._train_key)
     for i in range(2 * OPTIONS_STEP_SAMPLES):
         n = (names + names[::-1])[i % (2 * len(names))]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        exps[n]._train_step(exps[n].state, exps[n]._bank, exps[n]._train_seed)
+        exps[n]._train_step(exps[n].state, exps[n]._bank, exps[n]._train_key)
         torch.cuda.synchronize()
         walls[n].append((time.perf_counter() - t0) * 1e3)
     return {n: statistics.median(w) for n, w in walls.items()}
@@ -2128,7 +2306,7 @@ def phase_options(dev, tmp: Path):
     peaks = {}
     for name, e in (("fold_head", exp), ("default", default)):
         torch.cuda.reset_peak_memory_stats()
-        e._train_step(e.state, e._bank, e._train_seed)
+        e._train_step(e.state, e._bank, e._train_key)
         torch.cuda.synchronize()
         peaks[name] = torch.cuda.max_memory_allocated() / 2**20
     g_params = {n: sum(p.numel() for p in e.state.g.parameters())
@@ -2277,7 +2455,7 @@ def phase_quality(dev):
     step_kernel, step_plain = time_steps(exp)
     profile = step_profile(exp)
     torch.cuda.reset_peak_memory_stats()
-    exp._train_step(exp.state, exp._bank, exp._train_seed)
+    exp._train_step(exp.state, exp._bank, exp._train_key)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() / 2**20
     mix_s = cfg.train.batch_size * cfg.segment_samples / cfg.dsp.sample_rate
@@ -2723,7 +2901,7 @@ def time_steps(exp):
     def one(path):
         with dispatch.force_backend(path):
             t0 = time.perf_counter()
-            exp._train_step(exp.state, exp._bank, exp._train_seed)
+            exp._train_step(exp.state, exp._bank, exp._train_key)
             torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3
 
@@ -2877,7 +3055,7 @@ def step_profile(exp) -> dict:
     PROFILE_STEPS steps on the kernel path, and the busy total."""
     fams = {}
     for name, (ms, n) in device_kernels(
-            lambda: exp._train_step(exp.state, exp._bank, exp._train_seed),
+            lambda: exp._train_step(exp.state, exp._bank, exp._train_key),
             PROFILE_STEPS).items():
         low = name.lower()
         fam = next((f for f, keys in KERNEL_FAMILIES if any(k in low for k in keys)),
@@ -3086,6 +3264,7 @@ def main() -> int:
         cfg, g, batch, counts = phase_main_path(rng, dev, Path(tmp))
     k3_errs, k3_tensors = phase_k3(rng, dev)
     k4_err, *k4_inputs = phase_k4(rng, dev)
+    rng_rows = phase_rng(dev)
     exp, train_counts = phase_train(dev)
     with tempfile.TemporaryDirectory() as tmp:
         graph_counts = phase_graph(dev, Path(tmp))
@@ -3173,6 +3352,18 @@ def main() -> int:
                    options_music_quality=opt["options_music_quality"],
                    install=install),
          "max_abs_err": k4_err, **times["stft"]},
+        *({"name": name, "route": "cuda",
+           "source": "gan_sass_tf_tpu_torch/ops/csrc/threefry.cu",
+           "replaces": replaces,
+           **by_path(name, train=train_counts, graph=graph_counts,
+                     workdir=workdir_counts, dp_train=dp_counts["dp_train"],
+                     options_stream_train=opt["options_stream_train"]),
+           **rng_rows[name]}
+          for name, replaces in (
+              ("threefry_keys", "none: jax.random keys at "
+                                "gan_sass_tf_tpu/train/step.py:213-214"),
+              ("threefry_sample", "none: jax.random draws at "
+                                  "gan_sass_tf_tpu/data/mixer.py:31-51"))),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,14 @@ in PyTorch."""
 
 from gan_sass_tf_tpu_torch.data.corpus import WavDirDataset
 from gan_sass_tf_tpu_torch.data.counter_rng import step_key
-from gan_sass_tf_tpu_torch.data.device_bank import build_bank, sample_bank, take_rows
-from gan_sass_tf_tpu_torch.data.mixer import apply_mix, mix_sources
+from gan_sass_tf_tpu_torch.data.device_bank import (
+    build_bank,
+    draw_rows,
+    sample_bank,
+    take_rows,
+)
+from gan_sass_tf_tpu_torch.data.mixer import apply_mix, mix_keyed, mix_sources
+from gan_sass_tf_tpu_torch.data.threefry import prng_key
 from gan_sass_tf_tpu_torch.data.synthetic import SyntheticDataset
 
 
@@ -22,4 +28,5 @@ def make_dataset(cfg, seed: int = 0, split: str = "train"):
 
 
 __all__ = ["SyntheticDataset", "WavDirDataset", "build_bank", "sample_bank",
-           "take_rows", "apply_mix", "mix_sources", "make_dataset", "step_key"]
+           "draw_rows", "take_rows", "apply_mix", "mix_keyed", "mix_sources",
+           "make_dataset", "prng_key", "step_key"]

@@ -1,4 +1,6 @@
-"""Counter-based random numbers, computed on the tensor's device.
+"""Counter-based random numbers, computed on the tensor's device: the
+train step's dropout keep-masks and D instance noise (the step's data
+draws are the JAX package's threefry streams, `data/threefry.py`).
 
 Each draw is a pure function of (seed, step, global example index, stream,
 element index): an integer hash (Wellons' "lowbias32") of those counters.
@@ -13,7 +15,8 @@ So the numbers an example gets do not depend on how a batch is split
 across devices, which is the contract of the JAX package's per-global-
 example `fold_in` (`gan_sass_tf_tpu/data/mixer.py:31-32`), and nothing
 carries state from one call to the next.  The bits differ from JAX's
-threefry streams: tests that compare the two inject the random numbers.
+threefry streams (the JAX step folds the shard index into its dropout and
+noise keys instead), and no test compares the two.
 """
 
 from __future__ import annotations

@@ -3,8 +3,9 @@
 Port of `gan_sass_tf_tpu/data/device_bank.py`: the (S, N_bank, T) bank is
 built on the host once, uploaded to the card once, and every train step
 samples its (B, S, T) sources there (an utterance per source slot and a
-circular shift), so no batch crosses from the host.  Picks and shifts come
-from `counter_rng` per global example index.
+circular shift), so no batch crosses from the host.  Picks and shifts are
+the JAX package's: `jax.random.randint` under split(fold_in(key, i)) for
+global example i (`ops.dispatch.example_keys` / `draw`, threefry).
 """
 
 from __future__ import annotations
@@ -12,9 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gan_sass_tf_tpu_torch.data.counter_rng import Counter, counter_bits
-
-STREAM_PICK, STREAM_SHIFT = 11, 12
+from gan_sass_tf_tpu_torch.ops import dispatch
 
 
 def build_bank(cfg, seed: int = 0) -> np.ndarray:
@@ -45,13 +44,20 @@ def take_rows(bank: torch.Tensor, picks: torch.Tensor,
     return torch.gather(rows, -1, idx)
 
 
-def sample_bank(bank: torch.Tensor, key: Counter, local_batch: int,
+def draw_rows(bank: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
+    """(S, N_bank, T) bank, (2, B, 2) per-example keys (k_pick, k_shift) ->
+    (B, S, T) sources: randint(k_pick, (S,), 0, N_bank) utterances, each
+    rolled back by randint(k_shift, (S,), 0, T)."""
+    s, nb, t = bank.shape
+    picks = dispatch.draw(keys[0], s, "randint", 0, nb)
+    shifts = dispatch.draw(keys[1], s, "randint", 0, t)
+    return take_rows(bank, picks, shifts)
+
+
+def sample_bank(bank: torch.Tensor, key: torch.Tensor, local_batch: int,
                 example_offset: int = 0) -> torch.Tensor:
     """(S, N_bank, T) bank -> (B_local, S, T) sources, drawn on the bank's
     device for global examples example_offset + [0, B_local) under the
-    step's key (`counter_rng.step_key`)."""
-    s, nb, t = bank.shape
-    ids = example_offset + torch.arange(local_batch, device=bank.device)
-    picks = counter_bits(key, ids, STREAM_PICK, s) % nb
-    shifts = counter_bits(key, ids, STREAM_SHIFT, s) % t
-    return take_rows(bank, picks, shifts)
+    threefry `key` (the JAX package's `sample_bank` under the same key)."""
+    keys = dispatch.example_keys(key.to(bank.device), example_offset, local_batch)
+    return draw_rows(bank, keys[0])

@@ -18,16 +18,22 @@ the spectral-norm D keeps {SpectralNorm_i: {"<layer>/kernel/u",
 (the head last), which is the port's buffer pair (u{i}, sigma{i}); the BN D
 keeps {BatchNorm_j: {mean, var}}, the port's norms.j buffers.  Group- and
 un-normalized Ds have no "batch_stats".
+
+`flax_init_generator_` / `flax_init_discriminator_` draw a module's
+initial weights as flax's `Module.init` does, in this layout, and move them
+in through the converters.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict
 
 import numpy as np
 import torch
 
-from gan_sass_tf_tpu_torch.models.registry import build_discriminator, build_generator
+from gan_sass_tf_tpu_torch.data import threefry
+from gan_sass_tf_tpu_torch.models.discriminator import spectral_normalize
 
 _GATES = "ifgo"          # flax's gate names, in torch.lstm's packing order
 _LSTM = "OptimizedLSTMCell_"
@@ -141,21 +147,28 @@ def save_flax_npz(path: str, state_dict) -> None:
     np.savez(path, **generator_params_to_flax(state_dict))
 
 
+def _nest(flat) -> dict:
+    """Flat "/"-keyed leaves -> nested dicts."""
+    tree: dict = {}
+    for key, leaf in flat.items():
+        node = tree
+        *parents, name = key.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[name] = leaf
+    return tree
+
+
 def load_flax_npz(path: str) -> dict:
     """Flat "/"-keyed `.npz` -> nested dict of numpy arrays."""
-    tree: dict = {}
     with np.load(path) as z:
-        for key in z.files:
-            node = tree
-            *parents, leaf = key.split("/")
-            for p in parents:
-                node = node.setdefault(p, {})
-            node[leaf] = z[key]
-    return tree
+        return _nest({key: z[key] for key in z.files})
 
 
 def load_generator(cfg, tree, device) -> torch.nn.Module:
     """Generator for `cfg` carrying the flax params `tree`, on `device`."""
+    from gan_sass_tf_tpu_torch.models.registry import build_generator
+
     g = build_generator(cfg, device)
     g.load_state_dict(convert_generator_params(tree))
     return g
@@ -233,6 +246,95 @@ def discriminator_variables_to_flax(state_dict) -> Dict[str, dict]:
 def load_discriminator(cfg, variables, device) -> torch.nn.Module:
     """Discriminator for `cfg` carrying the flax variables (params and
     spectral-norm state), on `device`."""
+    from gan_sass_tf_tpu_torch.models.registry import build_discriminator
+
     d = build_discriminator(cfg, device)
     d.load_state_dict(convert_discriminator_variables(variables))
+    return d
+
+
+# ---------------------------------------------------------------------------
+# Initial weights as flax draws them.
+# ---------------------------------------------------------------------------
+
+def lecun_normals(draws) -> list:
+    """flax's default kernel init, `variance_scaling(1, "fan_in",
+    "truncated_normal")`, for each (key, shape) of `draws`: a normal
+    truncated at ±2, times the float32 sqrt(1/fan_in) / 0.8796 (the
+    truncated normal's std), fan_in the product of all but the last axis
+    (HWIO or (in, out))."""
+    out = []
+    for (_, shape), z in zip(draws, threefry.normals(draws, -2.0, 2.0)):
+        var = torch.tensor(1.0 / math.prod(shape[:-1]), dtype=torch.float32)
+        out.append(z * (var.sqrt() / torch.tensor(0.87962566103423978,
+                                                  dtype=torch.float32)))
+    return out
+
+
+def orthogonal(key: torch.Tensor, shape) -> torch.Tensor:
+    """`jax.nn.initializers.orthogonal()` (an LSTM's recurrent kernels): Q
+    of the QR of a normal (rows >= columns), its columns' signs those of
+    diag(R), transposed back where the kernel is wide."""
+    n_cols = shape[-1]
+    n_rows = math.prod(shape) // n_cols
+    z = threefry.normal(key, (max(n_rows, n_cols), min(n_rows, n_cols)))
+    q, r = torch.linalg.qr(z)
+    q = q * torch.sign(torch.diagonal(r))[None, :]
+    return (q.T if n_rows < n_cols else q).reshape(shape)
+
+
+def _param_key(key: torch.Tensor, path) -> torch.Tensor:
+    """The key flax's init hands the first parameter a module makes (its
+    kernel, or a norm's scale): the module path's names and the counter 1."""
+    return threefry.fold_in_static(key, (*path, 1))
+
+
+def flax_init_generator_(g: torch.nn.Module, key: torch.Tensor) -> torch.nn.Module:
+    """G's weights in place as `g.init(key, ...)` of the flax G draws them
+    (`key` the (2,) rng_g on the CPU): each kernel lecun-normal under its
+    module's key, an LSTM cell's recurrent (h*) kernels orthogonal, every
+    bias zero."""
+    flat = generator_params_to_flax(g.state_dict())
+    lecun = {}
+    for name, a in flat.items():
+        *path, leaf = name.split("/")
+        if leaf == "bias":
+            flat[name] = np.zeros_like(a)
+        elif path[0].startswith(_LSTM) and path[-1][0] == "h":
+            flat[name] = orthogonal(_param_key(key, path), a.shape).numpy()
+        elif leaf == "kernel":
+            lecun[name] = (_param_key(key, path), a.shape)
+    for name, w in zip(lecun, lecun_normals(list(lecun.values()))):
+        flat[name] = w.numpy()
+    with torch.no_grad():
+        g.load_state_dict(convert_generator_params(_nest(flat)))
+    return g
+
+
+def flax_init_discriminator_(d: torch.nn.Module, key: torch.Tensor) -> torch.nn.Module:
+    """D's weights and state in place as `d.init(key, ...)` of the flax D
+    makes them (`key` the (2,) rng_d on the CPU): lecun-normal kernels, zero
+    biases, norms at scale 1 (BN: mean 0, var 1), and each SpectralNorm_i's
+    u a standard normal under its own module key, sigma 1.  flax's init
+    stores a spectral-normalized layer's kernel as it comes out of the
+    wrapper: divided by the sigma of one power iteration from that u."""
+    v = discriminator_variables_to_flax(d.state_dict())
+    params, stats = v["params"], v.get("batch_stats", {})
+    for leaf in list(params.values()) + list(stats.values()):
+        for k, a in leaf.items():
+            kind = k.rpartition("/")[2]
+            leaf[k] = np.full_like(a, 1.0 if kind in ("scale", "var", "sigma") else 0.0)
+    kernels = [n for n in params if "kernel" in params[n]]
+    for n, w in zip(kernels, lecun_normals(
+            [(_param_key(key, (n,)), params[n]["kernel"].shape) for n in kernels])):
+        params[n]["kernel"] = w
+    us = [(sn, k) for sn, leaf in stats.items() for k in leaf if k.endswith("/u")]
+    for (sn, k), u in zip(us, threefry.normals(
+            [(_param_key(key, (sn,)), stats[sn][k].shape) for sn, k in us])):
+        layer = params[k.partition("/")[0]]
+        stats[sn][k] = u
+        w = layer["kernel"]
+        layer["kernel"] = spectral_normalize(w.reshape(-1, w.shape[-1]), u)[0].reshape(w.shape)
+    with torch.no_grad():
+        d.load_state_dict(convert_discriminator_variables(v))
     return d

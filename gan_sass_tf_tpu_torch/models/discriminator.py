@@ -41,7 +41,6 @@ flax's BatchNorm_{i-1} / GroupNorm_{i-1}.
 
 from __future__ import annotations
 
-import math
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -221,17 +220,3 @@ class PatchDiscriminator(ConvDiscriminator):
     def __init__(self, channels: Sequence[int] = (32, 64, 128), **kwargs):
         super().__init__(channels, patch=True, **kwargs)
 
-
-def init_params_(d: ConvDiscriminator, generator: torch.Generator) -> ConvDiscriminator:
-    """Seeded init in place: kernels normal with std 1/sqrt(fan_in), zero
-    biases, u standard normal, sigma 1 (flax's SpectralNorm init); norms
-    at scale 1, bias 0, running mean 0 and var 1 (flax's)."""
-    with torch.no_grad():
-        for m in list(d.convs) + [d.head]:
-            fan_in = math.prod(m.weight.shape[1:])
-            nn.init.normal_(m.weight, 0.0, fan_in ** -0.5, generator=generator)
-            nn.init.zeros_(m.bias)
-        for u, s in d.sn_state():
-            u.normal_(generator=generator)
-            s.fill_(1.0)
-    return d

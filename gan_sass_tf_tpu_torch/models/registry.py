@@ -16,7 +16,9 @@ package:
         return MyGenerator(cfg.data.num_sources, cfg.dsp.n_bins)
 
 `build_generator` / `build_discriminator` then give the module a seeded
-init and move it to the device (see their docstrings for the init rules).
+init and move it to the device: the port's own modules as flax draws the
+JAX package's (`models/convert.py`), any other the generic rule (see
+their docstrings).
 """
 
 from __future__ import annotations
@@ -25,7 +27,12 @@ from typing import Callable, Dict
 
 import torch
 
+from gan_sass_tf_tpu_torch.data import threefry
 from gan_sass_tf_tpu_torch.models import discriminator as _d
+from gan_sass_tf_tpu_torch.models.convert import (
+    flax_init_discriminator_,
+    flax_init_generator_,
+)
 from gan_sass_tf_tpu_torch.models.generator import (
     BiLSTMGenerator,
     ConvUNetGenerator,
@@ -178,30 +185,44 @@ def _patch_discriminator(cfg) -> _d.PatchDiscriminator:
     return _discriminator(_d.PatchDiscriminator, cfg)
 
 
+def init_keys(seed: int) -> torch.Tensor:
+    """(rng_g, rng_d) = split(PRNGKey(seed)) on the CPU: the keys the JAX
+    package's `create_train_state` initializes G and D from."""
+    return threefry.split(threefry.prng_key(seed))
+
+
 def build_generator(cfg, device, seed: int = 0) -> torch.nn.Module:
-    """cfg: full Config.  The generator `cfg.model.generator` names, with
-    the seeded init of `models.generator.init_params_` (lecun-normal
-    kernels, orthogonal recurrent kernels, zero biases), on `device`, in
-    eval mode."""
+    """cfg: full Config.  The generator `cfg.model.generator` names, on
+    `device`, in eval mode.  The port's generators (conv, BiLSTM, toy)
+    start from the weights flax draws for the JAX G from rng_g of
+    `init_keys(seed)` (`models.convert.flax_init_generator_`); any other
+    registered G from `models.generator.init_params_` (lecun-normal
+    kernels, orthogonal recurrent kernels, zero biases) seeded by `seed`."""
     name = cfg.model.generator
     if name not in _GENERATORS:
         raise KeyError(f"unknown generator {name!r}; have {sorted(_GENERATORS)}")
     g = _GENERATORS[name](cfg)
-    init_params_(g, torch.Generator().manual_seed(seed))
+    if isinstance(g, (ConvUNetGenerator, BiLSTMGenerator, ToyMLPGenerator)):
+        flax_init_generator_(g, init_keys(seed)[0])
+    else:
+        init_params_(g, torch.Generator().manual_seed(seed))
     return g.to(device).eval()
 
 
-def build_discriminator(cfg, device, seed: int = 1) -> torch.nn.Module:
-    """cfg: full Config.  The discriminator `cfg.model.discriminator` names,
-    with a seeded init, on `device`.  A `ConvDiscriminator` (the `conv` and
-    `patch` builders') gets `models.discriminator.init_params_`; any other
-    registered D the generators' rule, `models.generator.init_params_`
-    (lecun-normal kernels, zero biases)."""
+def build_discriminator(cfg, device, seed: int = 0) -> torch.nn.Module:
+    """cfg: full Config.  The discriminator `cfg.model.discriminator`
+    names, on `device`.  A `ConvDiscriminator` (the `conv` and `patch`
+    builders') starts from what flax draws for the JAX D from rng_d of
+    `init_keys(seed)` (`models.convert.flax_init_discriminator_`); any
+    other registered D from the generators' rule,
+    `models.generator.init_params_`, seeded by `seed`."""
     name = cfg.model.discriminator
     if name not in _DISCRIMINATORS:
         raise KeyError(f"unknown discriminator {name!r}; "
                        f"have {sorted(_DISCRIMINATORS)}")
     d = _DISCRIMINATORS[name](cfg)
-    init = _d.init_params_ if isinstance(d, _d.ConvDiscriminator) else init_params_
-    init(d, torch.Generator().manual_seed(seed))
+    if isinstance(d, _d.ConvDiscriminator):
+        flax_init_discriminator_(d, init_keys(seed)[1])
+    else:
+        init_params_(d, torch.Generator().manual_seed(seed))
     return d.to(device)

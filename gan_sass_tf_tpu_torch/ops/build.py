@@ -32,6 +32,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # x, win, tw, tws, ptw, mel, bands, spec, mag, logmag, logmel, B, T, F,
     # n_fft, hop, M, eps, rounds, per_sm, stream, device
@@ -48,6 +49,11 @@ _SIGNATURES = {
     "masked_istft_launch": [_P] * 5,
     # plan, spec, out, stream
     "istft_launch": [_P] * 4,
+    # key, step, offset, B, out, stream
+    "threefry_keys_launch": [_P, _P, _L, _I, _P, _P],
+    # keys, R, n, kind, lo, hi, span, mult, minval, out, stream
+    "threefry_sample_launch": [_P, _I, _I, _I, ctypes.c_float, ctypes.c_float,
+                               _L, _L, _L, _P, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -28,6 +28,7 @@ from gan_sass_tf_tpu_torch.ops import istft as _k3
 from gan_sass_tf_tpu_torch.ops import masked_istft as _k2
 from gan_sass_tf_tpu_torch.ops import stft as _k4
 from gan_sass_tf_tpu_torch.ops import stft_features as _k1
+from gan_sass_tf_tpu_torch.ops import threefry as _rng
 from gan_sass_tf_tpu_torch.ops.istft import istft_ri_kernel
 from gan_sass_tf_tpu_torch.ops.masked_istft import (
     masked_istft_kernel,
@@ -58,12 +59,14 @@ def force_backend(name: Optional[str]):
 def launch_counts() -> Dict[str, int]:
     """Each kernel wrapper's count of its launches since the count was last
     set to 0: K1 `stft_features`, K2 `masked_istft`, K3 `istft` and its
-    backward `istft_bwd`, K4 `stft`.  A wrapper called while a CUDA graph
+    backward `istft_bwd`, K4 `stft`, and the threefry launches
+    `threefry_keys` and `threefry_sample`.  A wrapper called while a CUDA graph
     is captured counts the launch it records; `train/graphed.py` counts
     the launches its replays make."""
     return {"stft_features": _k1.launches, "masked_istft": _k2.launches,
             "istft": _k3.launches, "istft_bwd": _k3.bwd_launches,
-            "stft": _k4.launches}
+            "stft": _k4.launches, "threefry_keys": _rng.keys_launches,
+            "threefry_sample": _rng.sample_launches}
 
 
 def _use_kernel(x: torch.Tensor) -> bool:
@@ -143,3 +146,22 @@ def istft(spec: torch.Tensor, n_fft: int, hop: int, window: str = "hann",
         ri = torch.view_as_real(spec.to(torch.complex64).contiguous())
         return istft_ri_kernel(ri, n_fft, hop, window, length)
     return _plain_istft(spec, n_fft, hop, window, length, norm="global")
+
+
+def example_keys(key: torch.Tensor, offset: int, b: int,
+                 step: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-example threefry keys (`ops/threefry.py`): (bases, 2, b, 2)
+    int64, examples offset + [0, b); with the train step's 0-d `step`,
+    rng_data's (k_pick, k_shift) then rng_mix's (k_gain, k_noise), as the
+    JAX step derives them; else split(fold_in(key, i)).  [base][j] holds
+    the examples' j-th keys.  On a CUDA key one kernel launch."""
+    fn = _rng.example_keys_kernel if _use_kernel(key) else _rng.example_keys_reference
+    return fn(key, offset, b, step)
+
+
+def draw(keys: torch.Tensor, n: int, kind: str, lo=0.0, hi=1.0) -> torch.Tensor:
+    """(R, 2) threefry keys -> (R, n) values of `kind` ("bits", "uniform",
+    "randint", "normal"), row r as jax.random draws it under keys[r].  On
+    CUDA keys one kernel launch."""
+    fn = _rng.sample_kernel if _use_kernel(keys) else _rng.sample_reference
+    return fn(keys, n, kind, lo, hi)

@@ -65,13 +65,13 @@ def bench_preset(name: str, device, set_overrides=(), steps=None) -> dict:
     exp = Experiment(cfg, workdir=None, device=device)
     if not exp._use_bank:
         raise SystemExit(f"error: {name}: the presets bench takes device-bank mode")
-    state, bank, seed = exp.state, exp._bank, exp._train_seed
+    state, bank, key = exp.state, exp._bank, exp._train_key
     for _ in range(warmup):
-        exp._train_step(state, bank, seed)
+        exp._train_step(state, bank, key)
     _sync(device)
     t0 = time.perf_counter()
     for _ in range(timed):
-        exp._train_step(state, bank, seed)
+        exp._train_step(state, bank, key)
     _sync(device)
     dt = time.perf_counter() - t0
     mix_sec = timed * cfg.train.batch_size * cfg.segment_samples / cfg.dsp.sample_rate

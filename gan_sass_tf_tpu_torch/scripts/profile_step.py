@@ -49,7 +49,7 @@ def profile_steps(exp, steps: int):
         with profiler.profile_trace(tmp):
             for i in range(steps):
                 with profiler.step_range(first + i):
-                    exp._train_step(exp.state, exp._bank, exp._train_seed)
+                    exp._train_step(exp.state, exp._bank, exp._train_key)
         events = profiler.load_trace(profiler.trace_files(tmp)[-1])
     within = profiler.annotations(events, profiler.STEP_PREFIX)
     buckets = profiler.attribute(events, profiler.STEP_RANGES, within)
@@ -79,7 +79,7 @@ def main(argv=None) -> int:
     if not exp._use_bank:
         raise SystemExit("error: profile_step takes a device-bank preset")
     for _ in range(WARMUP):
-        exp._train_step(exp.state, exp._bank, exp._train_seed)
+        exp._train_step(exp.state, exp._bank, exp._train_key)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     agg, top = profile_steps(exp, STEPS)

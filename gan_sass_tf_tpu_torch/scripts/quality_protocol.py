@@ -18,11 +18,9 @@ Under torchrun it joins the process group (`parallel.
 initialize_distributed`), as the JAX script fits every device into one
 data mesh: training and the evals run data parallel over every rank
 (`Experiment`), the bound's batches are dealt out to the ranks and their
-values summed, and rank 0 alone prints.  One difference from the JAX
-script: the bound's i-th batch is mixed with the counter RNG at seed
-20 000 + i (`data.mix_sources`) where the JAX script used
-jax.random.PRNGKey(20 000 + i): on the same sources the two packages draw
-other gains and noise.
+values summed, and rank 0 alone prints.  Every draw is the JAX script's:
+the initial weights and the train key from the seed, the eval batch i
+mixed under PRNGKey(10 000 + i) and the bound's under PRNGKey(20 000 + i).
 
 Prints one JSON line:
   {"preset":..., "hard":..., "steps":..., "seeds":[...],
@@ -44,11 +42,11 @@ import torch.distributed as dist
 
 from gan_sass_tf_tpu_torch import config as config_lib
 from gan_sass_tf_tpu_torch.cli import _apply_overrides, _quiet
-from gan_sass_tf_tpu_torch.data import make_dataset, mix_sources, step_key
+from gan_sass_tf_tpu_torch.data import make_dataset, mix_sources, prng_key
 from gan_sass_tf_tpu_torch.losses import oracle_bound_si_sdr
 from gan_sass_tf_tpu_torch.parallel import DataParallel, run_in_group
 
-BOUND_SEED = 20_000      # the bound's batch i is mixed at seed BOUND_SEED + i
+BOUND_SEED = 20_000      # the bound's batch i is mixed under PRNGKey(BOUND_SEED + i)
 
 
 def protocol_config(name: str, hard: bool, overrides=()):
@@ -81,7 +79,7 @@ def device_or_exit(name: str) -> torch.device:
 def mean_oracle_bound(cfg, dataset, device, num_batches: int,
                       dp: Optional[DataParallel] = None) -> float:
     """Mean oracle SI-SDR improvement over `num_batches` fresh batches of
-    `dataset`, batch i mixed at seed BOUND_SEED + i.  Data parallel, every
+    `dataset`, batch i mixed under PRNGKey(BOUND_SEED + i).  Data parallel, every
     rank draws every batch (the dataset's stream stays in step) and scores
     those with i % world == rank; the per-batch values are summed over the
     ranks, so every rank returns what one rank would, bit for bit."""
@@ -91,8 +89,8 @@ def mean_oracle_bound(cfg, dataset, device, num_batches: int,
         batch = dataset.batch()
         if i % dp.world == dp.rank:
             sources = torch.from_numpy(batch).to(device)
-            mixture, scaled = mix_sources(sources, step_key(BOUND_SEED + i, 0),
-                                          cfg.data)
+            mixture, scaled = mix_sources(
+                sources, prng_key(BOUND_SEED + i, device), cfg.data)
             values[i] = float(oracle_bound_si_sdr(mixture, scaled, cfg.dsp)
                               ["si_sdr_improvement"])
     if dp.group is not None:

@@ -10,9 +10,8 @@ Port of `scripts/stream_quality.py`, with its arguments (and --device,
 default cuda, which fails when no GPU is visible) and its JSON keys.  A
 mid-stream source flip destroys the stream-global PIT SI-SDR, so the
 streaming-vs-one-shot delta is the chaining health check (the JAX
-verdict's bar: < 0.5 dB).  Segment i is mixed with the counter RNG at
-seed 7000 + i (`data.mix_sources`), where the JAX script used
-jax.random.PRNGKey(7000 + i).
+verdict's bar: < 0.5 dB).  Segment i is mixed under PRNGKey(7000 + i)
+(`data.mix_sources`), as in the JAX script.
 
 Prints one JSON line:
   {"preset", "hard", "steps", "seed", "stream_seconds",
@@ -30,13 +29,13 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from gan_sass_tf_tpu_torch.data import mix_sources, step_key
+from gan_sass_tf_tpu_torch.data import mix_sources, prng_key
 from gan_sass_tf_tpu_torch.losses import pit_si_sdr
 from gan_sass_tf_tpu_torch.scripts.quality_protocol import device_or_exit, protocol_config
 
 N_SEGMENTS = 8
 GAP_SECONDS = 0.25       # silent pause between utterances: no matching evidence
-SEGMENT_SEED = 7_000     # segment i is mixed at seed SEGMENT_SEED + i
+SEGMENT_SEED = 7_000     # segment i is mixed under PRNGKey(SEGMENT_SEED + i)
 
 
 def long_stream(parts: List[Tuple[np.ndarray, np.ndarray]], gap: int):
@@ -55,12 +54,12 @@ def long_stream(parts: List[Tuple[np.ndarray, np.ndarray]], gap: int):
 
 
 def stream_parts(exp, n: int = N_SEGMENTS):
-    """n held-out segments of `exp`'s eval dataset, segment i mixed at seed
-    SEGMENT_SEED + i: [(mixture (T,), scaled sources (S, T)), ...]."""
+    """n held-out segments of `exp`'s eval dataset, segment i mixed under
+    PRNGKey(SEGMENT_SEED + i): [(mixture (T,), scaled sources (S, T)), ...]."""
     parts = []
     for i in range(n):
         sources = torch.from_numpy(exp.eval_dataset.batch()[:1])    # (1, S, T)
-        mixture, scaled = mix_sources(sources, step_key(SEGMENT_SEED + i, 0),
+        mixture, scaled = mix_sources(sources, prng_key(SEGMENT_SEED + i),
                                       exp.cfg.data)
         parts.append((mixture[0].numpy(), scaled[0].numpy()))
     return parts

@@ -47,13 +47,12 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from gan_sass_tf_tpu_torch.data import build_bank, make_dataset
+from gan_sass_tf_tpu_torch.data import build_bank, make_dataset, prng_key
 from gan_sass_tf_tpu_torch.models import build_generator
 from gan_sass_tf_tpu_torch.parallel.mesh import data_parallel
 from gan_sass_tf_tpu_torch.train.graphed import GraphedStep
 from gan_sass_tf_tpu_torch.train.state import (
     TrainState,
-    counter,
     create_train_state,
 )
 from gan_sass_tf_tpu_torch.train.step import build_eval_step, build_train_step
@@ -121,6 +120,12 @@ def check_no_graph(step: int, named) -> None:
                 f"({t.grad_fn.name()}) out of step {step}")
 
 
+def _seed_of(key: torch.Tensor) -> int:
+    """The seed whose PRNGKey is `key` (its words, high then low)."""
+    hi, lo = key.tolist()
+    return hi << 32 | lo
+
+
 class Experiment:
     """Train and evaluate one preset on one device, or data parallel.
 
@@ -177,12 +182,13 @@ class Experiment:
             os.path.join(workdir, "tb") if writes and tensorboard else None)
 
     def reseed(self, seed: int) -> None:
-        """Re-initialize everything seed-dependent: G, D, both optimizers,
-        the train seed, the device bank or host dataset, the eval data and
-        the best eval metric seen."""
+        """Re-initialize everything seed-dependent: G and D as the JAX
+        package draws them from PRNGKey(seed), both optimizers, the train
+        key PRNGKey(seed + 1), the device bank or host dataset, the eval
+        data and the best eval metric seen."""
         cfg = self.cfg
         self.state: TrainState = create_train_state(cfg, self.device, seed)
-        self._train_seed = counter(self.device, seed + 1)
+        self._train_key = prng_key(seed + 1, self.device)
         self._graphed: Optional[GraphedStep] = None   # captured at first use
         self.dataset = None if self._use_bank else make_dataset(cfg, seed=seed)
         self.eval_dataset = make_dataset(cfg, seed=seed + 9999,
@@ -194,7 +200,7 @@ class Experiment:
         self._best_metric = float("-inf")
         # Rank 0's parameters, optimizer moments, spectral-norm buffers and
         # EMA into every rank's; the step, the update counts and the train
-        # seed are counters that every rank already holds equal.
+        # key are device tensors that every rank already holds equal.
         self.dp.broadcast_(_tensors(self.state.state_dict()))
 
     def _main_writes(self, write: Callable[[], None]) -> None:
@@ -246,13 +252,13 @@ class Experiment:
             self.restore()
 
     def _write(self, directory: str, step: int, keep: int) -> None:
-        """torch.save the train state and the train seed to
+        """torch.save the train state and the train key's seed to
         directory/<step>.pt through a temporary name, then keep it and the
         newest `keep` - 1 others there."""
         os.makedirs(directory, exist_ok=True)
         path = os.path.join(directory, f"{step}.pt")
         torch.save({"state": self.state.state_dict(),
-                    "train_seed": int(self._train_seed)}, path + ".tmp")
+                    "train_seed": _seed_of(self._train_key)}, path + ".tmp")
         os.replace(path + ".tmp", path)
         others = [s for s in checkpoint_steps(directory) if s != step]
         for old in others[:len(others) - (keep - 1)]:
@@ -264,7 +270,7 @@ class Experiment:
         payload = torch.load(os.path.join(directory, f"{step}.pt"),
                              map_location=self.device, weights_only=True)
         self.state.load_state_dict(payload["state"])
-        self._train_seed.fill_(int(payload["train_seed"]))
+        self._train_key.copy_(prng_key(int(payload["train_seed"])))
 
     def save(self) -> None:
         """Write checkpoints/<step>.pt (no-op without a workdir)."""
@@ -324,9 +330,9 @@ class Experiment:
         Returns the last step's metrics (0-d device tensors)."""
         if self.graphed:
             g = self._graphed
-            if g is None or not g.holds(self.state, self._bank, self._train_seed):
+            if g is None or not g.holds(self.state, self._bank, self._train_key):
                 g = self._graphed = GraphedStep(self._train_step, self.state,
-                                                self._bank, self._train_seed,
+                                                self._bank, self._train_key,
                                                 world=self.dp.world)
             return g.run(n)
         for _ in range(n):
@@ -339,15 +345,15 @@ class Experiment:
         """One eager train step on `data`, under the debug tripwires asked
         for."""
         if not (self.debug_nans or self.debug_leaks):
-            return self._train_step(self.state, data, self._train_seed)[1]
+            return self._train_step(self.state, data, self._train_key)[1]
         step = int(self.state.step)
         if not self.debug_nans:
-            self.state, metrics = self._train_step(self.state, data, self._train_seed)
+            self.state, metrics = self._train_step(self.state, data, self._train_key)
         else:
             try:
                 with torch.autograd.set_detect_anomaly(True, check_nan=True):
                     self.state, metrics = self._train_step(
-                        self.state, data, self._train_seed)
+                        self.state, data, self._train_key)
             except RuntimeError as exc:
                 if "nan values" not in str(exc):
                     raise

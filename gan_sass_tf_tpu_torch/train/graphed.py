@@ -7,7 +7,7 @@ the eager step's launches (about 1 000 to 5 000 a step, each with its host
 time) are recorded once into a `torch.cuda.CUDAGraph`, and every later step
 is one replay of it, with no host work in between.
 
-    graphed = GraphedStep(train_step, state, bank, seed)
+    graphed = GraphedStep(train_step, state, bank, key)
     metrics = graphed.run(k)            # k train steps
 
   * The first `WARMUP_STEPS` steps run eagerly on a side stream: they
@@ -17,17 +17,18 @@ is one replay of it, with no host work in between.
   * Then one step is captured.  A capture runs none of the kernels it
     records, so it moves neither the state nor its counters: the step
     after it is the first replay.
-  * Each replay reads the bank, the seed and the state's tensors where they
+  * Each replay reads the bank, the key and the state's tensors where they
     were at capture and updates the state in place; its metrics land in
     the same six tensors every time (`run` returns them).
   * A replay runs the kernels the eager step runs, in the same order, so
     K replays and K eager steps from one state give the same bits.
 
-The step may read no number on the host: its step number, update counts
-and seed are 0-d device tensors (`train/state.py`, `data/counter_rng.py`),
+The step may read no number on the host: its step number and update
+counts are 0-d device tensors and its train key a (2,) one
+(`train/state.py`, `data/threefry.py`),
 and whatever it builds from the host on a first call is memoised by the
 warm-up.  What a capture cannot hold raises with its cause; there is no
-quiet return to eager steps.  A state, bank or seed replaced (rather than
+quiet return to eager steps.  A state, bank or key replaced (rather than
 copied into) needs a new GraphedStep: `Experiment` makes one when they are
 not the ones it captured.  Under a process group of two or more ranks the
 capture holds the step's NCCL all-reduces too; no run on more than one
@@ -68,16 +69,16 @@ def reset_launch_correction() -> None:
 
 
 class GraphedStep:
-    """`train_step(state, data, seed)` on CUDA tensors, eager for the first
+    """`train_step(state, data, key)` on CUDA tensors, eager for the first
     `warmup` steps, then captured once and replayed one step at a time."""
 
     def __init__(self, train_step: Callable, state, data: torch.Tensor,
-                 seed: torch.Tensor, warmup: int = WARMUP_STEPS, world: int = 1):
+                 key: torch.Tensor, warmup: int = WARMUP_STEPS, world: int = 1):
         if not data.is_cuda:
             raise ValueError(f"a CUDA graph needs CUDA tensors, got the data "
                              f"on {data.device}")
-        self.train_step, self.state, self.data, self.seed = (
-            train_step, state, data, seed)
+        self.train_step, self.state, self.data, self.key = (
+            train_step, state, data, key)
         self.warmup, self.warm, self.world = warmup, 0, world
         self.graph = None
         self.metrics: Dict[str, torch.Tensor] = {}
@@ -85,9 +86,9 @@ class GraphedStep:
         self.per_replay: Dict[str, int] = {}    # kernel launches in one step
         self._side = torch.cuda.Stream(data.device)
 
-    def holds(self, state, data: torch.Tensor, seed: torch.Tensor) -> bool:
+    def holds(self, state, data: torch.Tensor, key: torch.Tensor) -> bool:
         """Whether this graph was captured on these very objects."""
-        return self.state is state and self.data is data and self.seed is seed
+        return self.state is state and self.data is data and self.key is key
 
     def run(self, n: int) -> Dict[str, torch.Tensor]:
         """Run `n` train steps; returns the last one's metrics (the graph's
@@ -113,7 +114,7 @@ class GraphedStep:
         main = torch.cuda.current_stream(self.data.device)
         self._side.wait_stream(main)
         with torch.cuda.stream(self._side):
-            _, metrics = self.train_step(self.state, self.data, self.seed)
+            _, metrics = self.train_step(self.state, self.data, self.key)
         main.wait_stream(self._side)
         return metrics
 
@@ -123,7 +124,7 @@ class GraphedStep:
         graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(graph):
-                _, metrics = self.train_step(self.state, self.data, self.seed)
+                _, metrics = self.train_step(self.state, self.data, self.key)
         except Exception as exc:
             where = (f" (under a process group of {self.world} ranks, which "
                      f"captures the NCCL all-reduces: a path not yet run on "

@@ -211,9 +211,11 @@ def _state_for(cfg, g, d) -> TrainState:
 
 
 def create_train_state(cfg, device, seed: int = 0) -> TrainState:
-    """Seeded G and D (independent draws from `seed`) and fresh optimizers."""
-    g = build_generator(cfg, device, seed=2 * seed)
-    d = build_discriminator(cfg, device, seed=2 * seed + 1)
+    """G and D as the JAX package's `create_train_state` initializes them
+    from jax.random.PRNGKey(seed) (G from its first split, D from its
+    second; `models.build_generator`), and fresh optimizers."""
+    g = build_generator(cfg, device, seed=seed)
+    d = build_discriminator(cfg, device, seed=seed)
     return _state_for(cfg, g, d)
 
 

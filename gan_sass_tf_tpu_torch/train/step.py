@@ -41,18 +41,21 @@ semantics are the reference's:
     only D's weights and the stored u, which every rank holds equal, so
     every rank computes the same u and sigma.
 
-Random numbers (bank picks, gains, noise) come from `data.counter_rng`,
-keyed by (seed, step, global example), and not from the JAX package's
-threefry streams; the step hashes (seed, step) once (`step_key`) and
-every draw hashes its stream on top.  The step number is `state.step`, a
-0-d tensor on the device that the step reads there and advances in place,
-and the seed may be one too; the lr schedules, the bias corrections and
-the EMA decay are computed from them on the device.  So a step reads no
+Random numbers: the bank picks and shifts, the gains and the noise are
+the JAX step's, drawn from its keys (threefry, `ops/threefry.py`): the
+train key folded with the step number, split in 5, rng_data and rng_mix
+folded with each global example and split again
+(`gan_sass_tf_tpu/train/step.py:213-214`), all in one launch on the card,
+then one launch a draw.  The key is a (2,) int64 tensor on the device and
+the step number is `state.step`, a 0-d tensor on the device that the step
+reads there and advances in place; the lr schedules, the bias corrections
+and the EMA decay are computed from it on the device.  So a step reads no
 number on the host, and `train/graphed.py` captures it once as a CUDA
-graph and replays it.  Instance noise and dropout's keep-masks are keyed
-by global example or pair row too, each call site its own stream, so R ranks
-of B/R examples draw exactly the noise and masks of one rank of B (the
-reference folds the shard index into its keys instead).
+graph and replays it.  Instance noise and dropout's keep-masks stay on
+`data.counter_rng`, seeded by the key's low word and keyed by global
+example or pair row, each call site its own stream, so R ranks of B/R
+examples draw exactly the noise and masks of one rank of B (the reference
+folds the shard index into its keys instead).
 """
 
 from __future__ import annotations
@@ -65,8 +68,9 @@ from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from gan_sass_tf_tpu_torch.data.counter_rng import Counter, counter_normal, step_key
-from gan_sass_tf_tpu_torch.data.device_bank import sample_bank
-from gan_sass_tf_tpu_torch.data.mixer import mix_sources
+from gan_sass_tf_tpu_torch.data.device_bank import draw_rows
+from gan_sass_tf_tpu_torch.data.mixer import mix_keyed, mix_sources
+from gan_sass_tf_tpu_torch.data.threefry import prng_key
 from gan_sass_tf_tpu_torch.dsp.masks import apply_mask
 from gan_sass_tf_tpu_torch.models.dropout import DropoutKey
 from gan_sass_tf_tpu_torch.losses import (
@@ -106,10 +110,11 @@ def build_train_step(cfg, from_bank: bool = False, local_batch: int = 0,
                      dp: Optional[DataParallel] = None
                      ) -> Callable[[TrainState, torch.Tensor, Counter],
                                    Tuple[TrainState, Dict[str, torch.Tensor]]]:
-    """Returns train_step(state, data, seed) -> (state, metrics).  `data` is
+    """Returns train_step(state, data, key) -> (state, metrics).  `data` is
     the (B, S, T) f32 sources of this rank or, with from_bank=True, the
     (S, N_bank, T) bank on the device, sampled for `local_batch` examples;
-    `seed` is an int or a 0-d int64 tensor on the device.  With `dp` the
+    `key` is the train key, a (2,) int64 threefry key on the device (the
+    JAX step's `rng`; `data.prng_key(seed)`).  With `dp` the
     rank's examples start at global index dp.rank·B_local.  The state is
     updated in place (`state.step` advanced by one) and returned; the
     metrics are 0-d tensors on the device (reading them synchronizes)."""
@@ -182,16 +187,18 @@ def build_train_step(cfg, from_bank: bool = False, local_batch: int = 0,
             state.d_opt.step(grads)
         return loss.detach(), real.detach().mean(), fake.detach().mean()
 
-    def train_step(state: TrainState, data: torch.Tensor, seed: Counter):
+    counter_draws = d_noise > 0.0 or cfg.model.dropout > 0.0
+
+    def train_step(state: TrainState, data: torch.Tensor, key):
         step = state.step.clone()        # this step's number, whatever moves it
-        key = step_key(seed, step)       # every draw's (seed, step), hashed once
+        # Dropout's and instance noise's (seed, step), hashed once.
+        ckey = step_key(key[1], step) if counter_draws else None
         b = local_batch if from_bank else data.shape[0]
         offset = dp.rank * b                      # this rank's first global example
         with record_function("dsp"):
-            sources = (sample_bank(data, key, b, example_offset=offset)
-                       if from_bank else data)
-            mixture, scaled = mix_sources(sources, key, cfg.data,
-                                          example_offset=offset)
+            keys = ops.example_keys(key, offset, b, step=step)
+            sources = draw_rows(data, keys[0]) if from_bank else data
+            mixture, scaled = mix_keyed(sources, keys[1], cfg.data)
             mix_out = ops.stft_features(mixture, dcfg, emit=mix_emit)
             tgt_out = ops.stft_features(scaled, dcfg, emit=tgt_emit)
         spec_mix, mag_mix = mix_out.get("spec"), mix_out["mag"]
@@ -202,7 +209,7 @@ def build_train_step(cfg, from_bank: bool = False, local_batch: int = 0,
 
         # The one G forward of the step (recomputed in the backward with
         # g_remat; the keyed dropout masks come out the same).
-        g_key = DropoutKey(key, STREAM_G_DROP,
+        g_key = DropoutKey(ckey, STREAM_G_DROP,
                            offset + torch.arange(b, device=feats.device))
 
         def g_forward(f):
@@ -245,7 +252,7 @@ def build_train_step(cfg, from_bank: bool = False, local_batch: int = 0,
             fake_rows = dp.world * b * s + real_rows
             for di in range(tcfg.d_steps):
                 d_loss, real_m, fake_m = d_update(
-                    state, x_d, torch.cat([real_rows, fake_rows]), key, di)
+                    state, x_d, torch.cat([real_rows, fake_rows]), ckey, di)
             # BN running statistics, from each rank's own pairs, averaged.
             dp.all_reduce_mean([t for n in state.d.norms if n.kind == "batch"
                                 for t in (n.mean, n.var)])
@@ -270,9 +277,9 @@ def build_train_step(cfg, from_bank: bool = False, local_batch: int = 0,
             rec = sum(w * domain_rec(dn) for w, dn in zip(dweights, domains))
             # Adversarial term against the just-updated D, fresh noise.
             fake_logits = state.d(
-                instance_noise(d_input(mix_logmag, est_logmag), d_noise, key,
+                instance_noise(d_input(mix_logmag, est_logmag), d_noise, ckey,
                                STREAM_G_NOISE, real_rows),
-                train=True, dropout=DropoutKey(key, STREAM_G_ADV_DROP, real_rows))
+                train=True, dropout=DropoutKey(ckey, STREAM_G_ADV_DROP, real_rows))
             adv = gan_g_loss(fake_logits, lcfg.gan_loss)
             g_loss = lcfg.adv_weight * adv + lcfg.recon_weight * rec
         with record_function("g_bwd"):
@@ -329,14 +336,15 @@ def build_eval_step(cfg, g: torch.nn.Module, dp: Optional[DataParallel] = None
                     ) -> Callable[[torch.Tensor, int], Dict[str, torch.Tensor]]:
     """eval_step(sources (B, S, T), seed) -> best-permutation SI-SDR of the
     separated estimates, the mixture's own, and the improvement (batch
-    means, 0-d tensors).  With `dp`, `sources` are this rank's rows of the
+    means, 0-d tensors); the mixtures drawn under PRNGKey(seed), as the JAX
+    eval step under the key it is given.  With `dp`, `sources` are this rank's rows of the
     global batch and the means are taken over all ranks."""
     separate = build_separate_fn(cfg, g)
     dp = dp or DataParallel()
 
     @torch.inference_mode()
     def eval_step(sources: torch.Tensor, seed: int) -> Dict[str, torch.Tensor]:
-        mixture, scaled = mix_sources(sources, step_key(seed, 0), cfg.data,
+        mixture, scaled = mix_sources(sources, prng_key(seed, sources.device), cfg.data,
                                       example_offset=dp.rank * sources.shape[0])
         est = separate(mixture)
         t = est.shape[-1]

@@ -22,6 +22,7 @@ import torch.distributed as dist
 
 from gan_sass_tf_tpu_torch import config
 from gan_sass_tf_tpu_torch import models as tmodels
+from gan_sass_tf_tpu_torch.data import prng_key
 from gan_sass_tf_tpu_torch.infer import streaming
 from gan_sass_tf_tpu_torch.parallel import data_parallel
 from gan_sass_tf_tpu_torch.scripts import quality_protocol, recompute_bounds
@@ -138,7 +139,7 @@ def _jax_case(tmp: str, rank: int, name: str = "c") -> dict:
     rows = dp.batch_rows(cfg.train.batch_size)
     out = {"metrics": [], "rank": rank}
     for i, src in enumerate(inp["sources"]):
-        state, m = step(state, torch.from_numpy(src[rows]), 7)
+        state, m = step(state, torch.from_numpy(src[rows]), prng_key(7))
         out["metrics"].append({k: float(v) for k, v in m.items()})
         if i == 0:
             out["tstate1"] = (

@@ -133,7 +133,7 @@ def test_host_batch_step_equals_a_direct_step(corpus):
     state = create_train_state(cfg, "cpu", cfg.train.seed)
     batch = tdata.make_dataset(cfg, seed=cfg.train.seed).batch()
     state, _ = build_train_step(cfg)(state, torch.from_numpy(batch),
-                                     cfg.train.seed + 1)
+                                     tdata.prng_key(cfg.train.seed + 1))
     for a, b in ((exp.state.g, state.g), (exp.state.d, state.d)):
         for (k, x), y in zip(a.state_dict().items(), b.state_dict().values()):
             assert torch.equal(x, y), k

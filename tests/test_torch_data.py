@@ -1,6 +1,7 @@
 """The port's data layer against the JAX package's: the copied synthetic
-generator bit for bit, bank sampling and mixing on injected draws, and the
-counter-based random numbers that replace threefry."""
+generator bit for bit, bank sampling and mixing on injected draws and under
+threefry keys, and the counter-based random numbers of dropout and
+instance noise."""
 
 import dataclasses
 
@@ -24,6 +25,12 @@ from gan_sass_tf_tpu_torch.data.counter_rng import (
     counter_normal,
     counter_uniform,
 )
+from gan_sass_tf_tpu_torch.data.threefry import fold_in
+
+
+def _key(seed, step):
+    """A threefry key per (seed, step): fold_in(PRNGKey(seed), step)."""
+    return fold_in(tdata.prng_key(seed), step)
 
 
 def _cfg(name="stream_v5e8", **data):
@@ -100,11 +107,11 @@ def test_take_rows_matches_sample_bank_on_injected_picks(rng):
 
 def test_sample_bank_is_per_global_example(rng):
     bank = torch.from_numpy(rng.standard_normal((2, 7, 100)).astype(np.float32))
-    whole = tdata.sample_bank(bank, step_key(5, 3), 8)
-    halves = [tdata.sample_bank(bank, step_key(5, 3), 4, example_offset=o)
+    whole = tdata.sample_bank(bank, _key(5, 3), 8)
+    halves = [tdata.sample_bank(bank, _key(5, 3), 4, example_offset=o)
               for o in (0, 4)]
     torch.testing.assert_close(torch.cat(halves), whole, atol=0, rtol=0)
-    assert not torch.equal(tdata.sample_bank(bank, step_key(5, 4), 8), whole)
+    assert not torch.equal(tdata.sample_bank(bank, _key(5, 4), 8), whole)
     # Every row is a rolled bank utterance of its own slot.
     for b in range(8):
         for s in range(2):
@@ -139,16 +146,16 @@ def test_apply_mix_matches_mix_sources_on_injected_draws(rng, num_noise):
 def test_mix_sources_gains_and_noise(rng):
     cfg = _cfg(gain_jitter_db=3.0, num_noise=1, snr_db=10.0)
     src = torch.from_numpy(rng.standard_normal((64, 2, 2000)).astype(np.float32))
-    mix, scaled = tdata.mix_sources(src, step_key(1, 2), cfg.data)
+    mix, scaled = tdata.mix_sources(src, _key(1, 2), cfg.data)
     gains_db = 20 * torch.log10((scaled / src)[..., 0])
     assert float(gains_db.abs().max()) <= 3.0 + 1e-4
     assert float(gains_db.std()) > 1.0                     # spread over ±3 dB
     noise = mix - scaled.sum(1)
     snr = 10 * torch.log10((scaled.sum(1) ** 2).mean(-1) / (noise ** 2).mean(-1))
     assert abs(float(snr.mean()) - 10.0) < 0.5
-    again = tdata.mix_sources(src[4:8], step_key(1, 2), cfg.data, example_offset=4)
+    again = tdata.mix_sources(src[4:8], _key(1, 2), cfg.data, example_offset=4)
     torch.testing.assert_close(again[0], mix[4:8], atol=0, rtol=0)
-    plain = tdata.mix_sources(src, step_key(1, 2), _cfg(gain_jitter_db=0.0).data)
+    plain = tdata.mix_sources(src, _key(1, 2), _cfg(gain_jitter_db=0.0).data)
     torch.testing.assert_close(plain[1], src, atol=0, rtol=0)
 
 

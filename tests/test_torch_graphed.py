@@ -27,12 +27,13 @@ import torch
 from gan_sass_tf_tpu import config as j_config
 from gan_sass_tf_tpu.train.state import _lr_schedule as j_lr_schedule
 from gan_sass_tf_tpu_torch import config
-from gan_sass_tf_tpu_torch.data import mix_sources, sample_bank
+from gan_sass_tf_tpu_torch.data import mix_sources, prng_key, sample_bank
 from gan_sass_tf_tpu_torch.data.counter_rng import (
     counter_bits,
     counter_normal,
     step_key,
 )
+from gan_sass_tf_tpu_torch.data.threefry import fold_in
 from gan_sass_tf_tpu_torch.models.dropout import DropoutKey
 from gan_sass_tf_tpu_torch.scripts import bench_spd
 from gan_sass_tf_tpu_torch.train import ClippedAdam, Experiment
@@ -45,7 +46,14 @@ ROOT = Path(__file__).resolve().parents[1]
 SEEDS = [(123457, 41), (2 ** 32 + 5, 0), (-1, 2 ** 31 + 3)]
 
 
-def _keys(seed, step):
+def _keys(seed, step, threefry=False):
+    """The draw's key from ints and from 0-d int64 tensors: the counter
+    RNG's `step_key(seed, step)`, or the threefry key
+    fold_in(PRNGKey(seed), step)."""
+    if threefry:
+        return {"int": fold_in(prng_key(seed), step),
+                "tensor": fold_in(prng_key(torch.tensor(seed, dtype=torch.int64)),
+                                  torch.tensor(step, dtype=torch.int64))}
     return {"int": step_key(seed, step),
             "tensor": step_key(torch.tensor(seed, dtype=torch.int64),
                                torch.tensor(step, dtype=torch.int64))}
@@ -55,17 +63,17 @@ def _keys(seed, step):
 @pytest.mark.parametrize("draw", ["bits", "picks_shifts", "gains_noise",
                                   "instance_noise", "dropout"])
 def test_counter_rng_tensor_keys_draw_int_key_bits(draw, seed, step):
-    """Every draw of the step (the bank's picks and shifts, the mixer's
-    gains and noise, instance noise, dropout's keep-masks) from 0-d int64
-    tensors (the step's key hashed from them by `step_key`) equals the
-    draw from Python ints, bit for bit, also for a seed past 2^32 and a
-    negative one (both keys take the low 32 bits)."""
+    """Every draw of the step (the bank's picks and shifts and the mixer's
+    gains and noise under a threefry key, instance noise and dropout's
+    keep-masks under the counter RNG's `step_key`) from 0-d int64 tensors
+    equals the draw from Python ints, bit for bit, also for a seed past
+    2^32 and a negative one."""
     cfg = config.get_config("stream_v5e8").data
     cfg = dataclasses.replace(cfg, num_noise=1, gain_jitter_db=5.0)
     bank = torch.from_numpy(np.random.default_rng(0).standard_normal(
         (2, 8, 64)).astype(np.float32))
     out = {}
-    for kind, key in _keys(seed, step).items():
+    for kind, key in _keys(seed, step, draw in ("picks_shifts", "gains_noise")).items():
         if draw == "bits":
             out[kind] = counter_bits(key, torch.arange(3, 9), 7, 5)
         elif draw == "picks_shifts":
@@ -209,8 +217,8 @@ def _tiny(**train):
 def test_counters_round_trip_checkpoints_as_ints(tmp_path):
     """state_dict() writes the step, the update counts and the train seed
     as ints; a checkpoint dict written when they were Python ints (ints for
-    all three) loads into the live counters, which stay the same
-    tensors."""
+    all three) loads into the live counters and the train key
+    (PRNGKey(train_seed)), which stay the same tensors."""
     exp = Experiment(_tiny(), device="cpu")
     exp.train(num_steps=3)
     exp._write(str(tmp_path), 3, 1)
@@ -220,16 +228,18 @@ def test_counters_round_trip_checkpoints_as_ints(tmp_path):
     assert type(sd["g_opt"]["count"]) is int and sd["d_opt"]["count"] == 3
     assert type(saved["train_seed"]) is int
     live = (exp.state.step, exp.state.g_opt.count, exp.state.d_opt.count,
-            exp._train_seed)
+            exp._train_key)
     old = {"state": {**sd, "step": 7, "g_opt": {**sd["g_opt"], "count": 7},
                      "d_opt": {**sd["d_opt"], "count": 6}}, "train_seed": 42}
     torch.save(old, tmp_path / "7.pt")
     exp._read(str(tmp_path), 7)
     now = (exp.state.step, exp.state.g_opt.count, exp.state.d_opt.count,
-           exp._train_seed)
+           exp._train_key)
     assert all(a is b for a, b in zip(live, now))
-    assert [int(t) for t in now] == [7, 7, 6, 42]
-    assert all(t.dtype == torch.int64 and t.dim() == 0 for t in now)
+    assert [int(t) for t in now[:3]] == [7, 7, 6]
+    assert now[3].tolist() == [0, 42]
+    assert all(t.dtype == torch.int64 and t.dim() == 0 for t in now[:3])
+    assert now[3].dtype == torch.int64 and now[3].shape == (2,)
 
 
 @pytest.mark.parametrize("n,logged", [(1, [1]), (6, [4, 6]), (9, [4, 8, 9])])
@@ -273,7 +283,7 @@ def test_eager_step_only_off_the_card():
     exp = Experiment(_tiny(), device="cpu")
     assert not exp.graphed
     with pytest.raises(ValueError, match="CUDA"):
-        GraphedStep(exp._train_step, exp.state, exp._bank, exp._train_seed)
+        GraphedStep(exp._train_step, exp.state, exp._bank, exp._train_key)
 
 
 def test_bench_json_contract():

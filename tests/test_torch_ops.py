@@ -205,11 +205,12 @@ def test_kernel_modules_import_without_toolchain():
     assert "triton" not in sys.modules
     assert build._lib is None
     assert [p.name for p in build._sources()] == ["masked_istft.cu",
-                                                   "stft_features.cu"]
+                                                   "stft_features.cu",
+                                                   "threefry.cu"]
     assert [p.name for p in build._headers()] == ["fft.cuh"]
     assert {"istft_launch", "istft_adjoint_launch", "masked_istft_launch",
-            "stft_launch", "stft_features_launch",
-            "synthesis_prepare"} == set(build._SIGNATURES)
+            "stft_launch", "stft_features_launch", "synthesis_prepare",
+            "threefry_keys_launch", "threefry_sample_launch"} == set(build._SIGNATURES)
     assert build.library_path().parent == build.build_dir()
 
 

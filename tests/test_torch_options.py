@@ -26,7 +26,7 @@ from gan_sass_tf_tpu.models.phase_ct import _phase_plan as j_phase_plan
 from gan_sass_tf_tpu.models.phase_ct import _same_pad_a as j_same_pad_a
 from gan_sass_tf_tpu_torch import config
 from gan_sass_tf_tpu_torch import models as tmodels
-from gan_sass_tf_tpu_torch.data import step_key
+from gan_sass_tf_tpu_torch.data import prng_key, step_key
 from gan_sass_tf_tpu_torch.models.dropout import DropoutKey
 from gan_sass_tf_tpu_torch.models.generator import _ct_padding
 from gan_sass_tf_tpu_torch.models.phase_ct import (
@@ -375,7 +375,7 @@ def _g_grads(cfg, remat):
     state.g_opt.step = lambda grads: (got.append([g.clone() for g in grads]), inner(grads))
     src = torch.from_numpy(np.random.default_rng(4).standard_normal(
         (2, 2, int(cfg.data.segment_seconds * cfg.dsp.sample_rate))).astype(np.float32))
-    build_train_step(cfg)(state, src, 3)
+    build_train_step(cfg)(state, src, prng_key(3))
     return got[0]
 
 

@@ -51,9 +51,9 @@ def _jax(cfg):
 
 
 def _bound(cfg, seed=0):
-    """The port's bound on 4 examples, mixed by the port's counter RNG."""
+    """The port's bound on 4 examples, mixed under PRNGKey(0)."""
     src = torch.from_numpy(tdata.make_dataset(cfg, seed=seed).batch(4))
-    mix, scaled = tdata.mix_sources(src, tdata.step_key(0, 0), cfg.data)
+    mix, scaled = tdata.mix_sources(src, tdata.prng_key(0), cfg.data)
     return float(oracle_bound_si_sdr(mix, scaled, cfg.dsp)["si_sdr_improvement"])
 
 

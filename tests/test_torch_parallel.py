@@ -172,7 +172,7 @@ def test_step_all_reduces_gradients_and_metrics(monkeypatch):
     monkeypatch.setattr(dist, "all_reduce", all_reduce)
     dp = DataParallel(1, 0, exp.cfg.train.batch_size, group=object())
     step = build_train_step(exp.cfg, from_bank=True, local_batch=dp.local_batch, dp=dp)
-    step(exp.state, exp._bank, exp._train_seed)
+    step(exp.state, exp._bank, exp._train_key)
     numel = lambda ts: sum(t.numel() for t in ts)   # noqa: E731
     assert sizes == [numel(exp.state.d_opt.params)] * 2 + [numel(exp.state.g_opt.params), 6]
     assert numel(exp.state.d.buffers()) not in sizes

@@ -31,6 +31,7 @@ from gan_sass_tf_tpu.train.step import build_train_step as j_build_train_step
 from gan_sass_tf_tpu_torch import config, infer
 from gan_sass_tf_tpu_torch.infer import streaming
 from gan_sass_tf_tpu_torch import models as tmodels
+from gan_sass_tf_tpu_torch.data import prng_key
 from gan_sass_tf_tpu_torch.losses import si_sdr
 from gan_sass_tf_tpu_torch.losses.pit import pairwise_losses, permutations_for, pool4
 from gan_sass_tf_tpu_torch.train import build_train_step, create_train_state as t_state
@@ -85,7 +86,7 @@ def pit3_run():
         src = ds.batch() * LEVELS
         out["sources"].append(src)
         jstate, jm = jstep(jstate, jnp.asarray(src), jax.random.PRNGKey(7))
-        tstate, tm = tstep(tstate, torch.from_numpy(src), 7)
+        tstate, tm = tstep(tstate, torch.from_numpy(src), prng_key(7))
         out["jax"].append({k: float(v) for k, v in jm.items()})
         out["torch"].append({k: float(v) for k, v in tm.items()})
         if i == 0:

@@ -28,6 +28,7 @@ from gan_sass_tf_tpu_torch import config
 from gan_sass_tf_tpu_torch import models as tmodels
 from gan_sass_tf_tpu_torch.models import discriminator as tdisc
 from gan_sass_tf_tpu_torch.models import registry
+from gan_sass_tf_tpu_torch.models.convert import flax_init_discriminator_
 from gan_sass_tf_tpu_torch.models.generator import init_params_
 from gan_sass_tf_tpu_torch.ops import build
 
@@ -262,7 +263,8 @@ def test_registry_key_error_matches_jax(field, build):
 @pytest.mark.parametrize("norm", ["spectral", "batch"])
 def test_patch_discriminator_seeded_init(norm):
     """The patch builder's PatchDiscriminator carries the seeded init of
-    a ConvDiscriminator(patch=True), draw for draw."""
+    a ConvDiscriminator(patch=True) (flax's draws from the seed's rng_d),
+    draw for draw."""
     cfg = config.get_config("stream_v5e8")
     cfg = cfg.replace(model=dataclasses.replace(cfg.model, discriminator="patch",
                                                 d_norm=norm))
@@ -273,7 +275,7 @@ def test_patch_discriminator_seeded_init(norm):
         channels=tuple(m.d_channels), norm=m.d_norm, leak=m.leak, dropout=m.dropout,
         stem_stride=tuple(m.d_stem_stride), input_fold=m.d_input_fold, patch=True,
         dtype=getattr(torch, m.compute_dtype))
-    tdisc.init_params_(ref, torch.Generator().manual_seed(1))
+    flax_init_discriminator_(ref, registry.init_keys(0)[1])
     assert list(d.state_dict()) == list(ref.state_dict())
     for k, v in ref.state_dict().items():
         assert torch.equal(d.state_dict()[k], v), k

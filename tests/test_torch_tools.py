@@ -468,10 +468,14 @@ def test_train_wavdir_fixture_run(capsys):
         2, "cpu", ["model.g_channels=8,16", "model.d_channels=8,16",
                    "train.batch_size=2", "data.segment_seconds=0.5",
                    "train.steps_per_dispatch=1"])
+    train_dist = "si_sdr_improvement_train_dist_db"
     assert set(out) == {"run", "steps", "si_sdr_improvement_before_db",
                         "si_sdr_improvement_after_db", "final_g_loss",
-                        "final_d_loss", "ok"}
-    assert _jax_script_keys([out], "train_wavdir_fixture.py")
+                        "final_d_loss", "ok", train_dist}
+    assert _jax_script_keys([{k: v for k, v in out.items() if k != train_dist}],
+                            "train_wavdir_fixture.py")
+    assert math.isfinite(out[train_dist])
+    assert out["ok"] == (out[train_dist] >= train_wavdir_fixture.TRAIN_DIST_FLOOR_DB)
     assert math.isfinite(out["final_g_loss"]) and math.isfinite(out["final_d_loss"])
     assert "step 2:" in capsys.readouterr().out
 

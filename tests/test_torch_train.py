@@ -31,7 +31,7 @@ from gan_sass_tf_tpu_torch.train import (
     load_train_state,
 )
 from gan_sass_tf_tpu_torch.train.state import clip_by_global_norm, lr_schedule
-from gan_sass_tf_tpu_torch.data import step_key
+from gan_sass_tf_tpu_torch.data import prng_key, step_key
 from gan_sass_tf_tpu_torch.train.step import instance_noise
 
 METRICS = ("d_loss", "g_loss", "g_adv", "g_recon", "d_real_logit",
@@ -67,10 +67,11 @@ def _jax(cfg):
     return j_config.Config.from_json(cfg.to_json())
 
 
-def _run_both(cfg, n_steps=2, seed=7):
+def _run_both(cfg, n_steps=2, key=None):
     """`n_steps` steps of each package from one init on the same sources
-    (the port's seed an int or a 0-d tensor): the per-step metrics of
-    both, the states after step 1 and after the last step."""
+    under PRNGKey(7) (the port's `key`, by default made from the int): the
+    per-step metrics of both, the states after step 1 and after the last
+    step."""
     jcfg = _jax(cfg)
     g, d = jmodels.build_generator(jcfg), jmodels.build_discriminator(jcfg)
     jstate = create_train_state(jcfg, g, d, jax.random.PRNGKey(0))
@@ -79,14 +80,14 @@ def _run_both(cfg, n_steps=2, seed=7):
         cfg, jax.tree.map(np.asarray, jstate.g_params),
         {"params": jax.tree.map(np.asarray, jstate.d_params),
          "batch_stats": jax.tree.map(np.asarray, jstate.d_batch_stats)}, "cpu")
-    tstep = build_train_step(cfg)
+    tstep, tkey = build_train_step(cfg), prng_key(7) if key is None else key
     ds = SyntheticDataset(jcfg, seed=3)
     out = {"jax": [], "torch": [], "cfg": cfg,
            "jstate0": jax.tree.map(np.asarray, jstate)}
     for i in range(n_steps):
         src = ds.batch()
         jstate, jm = jstep(jstate, jnp.asarray(src), jax.random.PRNGKey(7))
-        tstate, tm = tstep(tstate, torch.from_numpy(src), seed)
+        tstate, tm = tstep(tstate, torch.from_numpy(src), tkey)
         out["jax"].append({k: float(v) for k, v in jm.items()})
         out["torch"].append({k: float(v) for k, v in tm.items()})
         if i == 0:
@@ -231,10 +232,10 @@ TRAJECTORY_STEPS = 12
 @pytest.fixture(scope="module")
 def trajectory_run():
     """stream_v5e8's step (−SI-SDR through the iSTFT, PIT, spectral-norm D)
-    for TRAJECTORY_STEPS steps, the port's seed and step 0-d tensors as
-    the captured step reads them."""
+    for TRAJECTORY_STEPS steps, the port's key made from a 0-d seed tensor
+    and its step a 0-d tensor, as the captured step reads them."""
     return _run_both(_cfg("wav"), n_steps=TRAJECTORY_STEPS,
-                     seed=torch.tensor(7, dtype=torch.int64))
+                     key=prng_key(torch.tensor(7, dtype=torch.int64)))
 
 
 def test_train_trajectory_matches_jax_over_12_steps(trajectory_run):
