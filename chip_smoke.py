@@ -34,7 +34,17 @@ Phases, one JSON line each:
               normals within NORMAL_ULP; the step's draws keyed from the
               device step inside a captured CUDA graph against eager
               draws over 3 replays; device ms of the noise draw, the keys
-              launch and a step's five launches at the stream_v5e8 step
+              launch and a step's five launches at the stream_v5e8 step.
+              Then the step's dropout and noise keys, flax's dropout
+              (forward and backward) at every dropout site of the
+              every-option stream_v5e8 step and its instance noise at the
+              D inputs, in bf16 (the step's dtype) and f32: keys, masks,
+              gradients and bf16 noise bit-equal to the plain versions,
+              f32 noise within NORMAL_ULP of the normal; a captured graph
+              of keys, dropout, its backward and noise keyed from the
+              device step against eager launches over 3 replays; device
+              ms at the largest site and the D input beside the plain
+              versions and torch.nn.functional.dropout
   7 train     Experiment(stream_v5e8).train() at full width, batch 32: the
               losses finite, G and D moved, the five kernels of the step
               (K1, K3, its backward, the threefry keys and sampler)
@@ -116,9 +126,11 @@ Phases, one JSON line each:
               of a 30 s 44.1 kHz wav, kernel vs plain >= 40 dB after the
               best permutation; the quality protocol, K1, K2 and K4
               launched); stream_v5e8 with the patch BN D on the
-              frame-folded input, dropout 0.1, the conv stem (1, 2), the
-              packed film head, subpixel dec_l0, PhaseConvTranspose and
-              g_remat (2 steps, K3 and its backward once a step, one step
+              frame-folded input, dropout 0.1, instance noise 0.1, the
+              conv stem (1, 2), the packed film head, subpixel dec_l0,
+              PhaseConvTranspose and g_remat (2 steps, K3 and its backward
+              once a step, the step keys once a step, dropout forward and
+              backward and the noise launched, one step
               on each DSP path, its step profile and wall ms beside the
               default stream_v5e8 step's, BN statistics finite and moved, G's
               gradients with and without remat within 1e-2 max|g|) and
@@ -164,7 +176,8 @@ Phases, one JSON line each:
               turns, reported); entry(): (4, 2, T) finite, the kernel path
               against the plain one >= 40 dB; `profile_step stream_v5e8
               32` in a process of its own: the step's ranges hold >= 95 %
-              of the profiled device time; stream_quality at 20 steps
+              of the profiled device time, its graphed and eager wall,
+              device and busy ms finite; stream_quality at 20 steps
               (finite); bench_presets over the five presets and streaming
               at 1 warm-up and 3 timed steps (every value > 0);
               bench_streaming_compute at 10 s; the quickstart at 4 steps;
@@ -254,6 +267,7 @@ from gan_sass_tf_tpu_torch.models import (
     load_generator,
     save_flax_npz,
 )
+from gan_sass_tf_tpu_torch.models.dropout import DropoutKey
 from gan_sass_tf_tpu_torch.ops import build, dispatch
 from gan_sass_tf_tpu_torch.ops import istft as k3
 from gan_sass_tf_tpu_torch.ops import masked_istft as k2
@@ -308,12 +322,13 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 CIPHER_INT_OPS = 20 * 3 + 5 * 2 + 1 + 1
 NORMAL_ULP = 4               # a threefry normal, kernel vs plain (log1pf's bit)
 RNG_REPLAYS = 3
+SEED_RNG_DROPOUT = 16                # the dropout and noise checks' own generator
 PRESETS = ("stream_v5e8", "wsj0_logmel", "3src_pit", "music_complex_44k")
 # The JAX package's oracle bounds (dB) on the CPU, from
 #   JAX_PLATFORMS=cpu python scripts/recompute_bounds.py PRESET [--hard] --cpu
-# keyed (preset, hard).  The port mixes with its counter RNG, not
-# jax.random, so its bounds differ by that sampling alone (0.09 dB at
-# most, both on the CPU).
+# keyed (preset, hard).  The port mixes with jax.random's draws under the
+# JAX script's keys, so on the card its bounds differ from these by float
+# rounding alone.
 JAX_CPU_BOUNDS = {
     ("stream_v5e8", False): 24.06, ("stream_v5e8", True): 13.29,
     ("wsj0_logmel", False): 25.11, ("wsj0_logmel", True): 14.79,
@@ -356,7 +371,10 @@ TRACE_KERNELS = {"stft_features_kernel": ("stft_features", "stft"),
                  "istft_ola_kernel": ("istft", "masked_istft"),
                  "istft_adjoint_kernel": ("istft_bwd",),
                  "threefry_keys_kernel": ("threefry_keys",),
-                 "threefry_sample_kernel": ("threefry_sample",)}
+                 "threefry_sample_kernel": ("threefry_sample",),
+                 "threefry_train_keys_kernel": ("threefry_train_keys",),
+                 "threefry_dropout_kernel": ("threefry_dropout", "threefry_dropout_bwd"),
+                 "threefry_noise_kernel": ("threefry_noise",)}
 TRACE_SPAN = "chip_smoke.traced_calls"   # the calls device_spans counts
 # A train step's device time by kernel family: substrings of the lower-cased
 # kernel name, first match wins.  cuDNN's layout transposes are
@@ -366,6 +384,7 @@ KERNEL_FAMILIES = (
     ("K3 backward istft_adjoint", ("istft_adjoint_kernel",)),
     ("K1 stft_features", ("stft_features_kernel",)),
     ("K2/K3 istft_ola", ("istft_ola_kernel",)),
+    ("threefry keys, draws, dropout, noise", ("threefry",)),
     ("layout transposes", ("nchwtonhwc", "nhwctonchw")),
     ("convs and GEMMs", ("conv", "gemm", "xmma", "cutlass", "wgrad", "dgrad")),
     ("cuFFT", ("fft",)),
@@ -1615,8 +1634,7 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
-    k1.launches = k2.launches = k3.launches = k3.bwd_launches = k4.launches = 0
-    rng_ops.keys_launches = rng_ops.sample_launches = 0
+    dispatch.reset_launch_counts()
     graphed.reset_launch_correction()
 
 
@@ -2090,6 +2108,188 @@ def phase_rng(dev):
                         f"within {NORMAL_ULP} ulp; replays bit-equal to eager",
          int32_ops_per_s=INT32_OPS_PER_S, cipher_int_ops=CIPHER_INT_OPS,
          library="none: PyTorch has no threefry sampler")
+    rows.update(phase_rng_dropout(dev))
+    return rows
+
+
+def every_option_config():
+    """stream_v5e8 with STREAM_OPTIONS (the options phase's step)."""
+    return cli._apply_overrides(config.get_config("stream_v5e8"), list(STREAM_OPTIONS))
+
+
+def step_sites(cfg, dev) -> tuple:
+    """The dropout sites and noise inputs of one eager train step of `cfg`:
+    each dispatch call's (shape, dtype, dims, p) and (shape, dtype, std),
+    in order, each once."""
+    sites, noises = [], []
+    inner_drop, inner_noise = dispatch.dropout, dispatch.instance_noise
+
+    def drop(x, key, fold, p, dims):
+        sites.append((tuple(x.shape), x.dtype, tuple(dims), p))
+        return inner_drop(x, key, fold, p, dims)
+
+    def noise(x, key, std):
+        noises.append((tuple(x.shape), x.dtype, std))
+        return inner_noise(x, key, std)
+
+    dispatch.dropout, dispatch.instance_noise = drop, noise
+    try:
+        exp = Experiment(cfg, device=dev)
+        exp._train_step(exp.state, exp._bank, exp._train_key)
+        torch.cuda.synchronize()
+    finally:
+        dispatch.dropout, dispatch.instance_noise = inner_drop, inner_noise
+    del exp
+    return list(dict.fromkeys(sites)), list(dict.fromkeys(noises))
+
+
+def noise_tol(ref: torch.Tensor, std: float) -> float:
+    """f32 noise, kernel vs plain: NORMAL_ULP ulps of erf⁻¹ (below 4 in
+    magnitude, so an ulp of at most 2^-22) times std·√2, and one rounding
+    of the sum."""
+    return std * math.sqrt(2.0) * NORMAL_ULP * 2.0 ** -22 \
+        + float(torch.finfo(torch.float32).eps) * float(ref.abs().max())
+
+
+def dropout_pair(x, key, fold, p, dims, dy):
+    """(forward, backward) of Dropout through the kernel and through the
+    plain version: [(y, dx) kernel, (y, dx) plain]."""
+    out = []
+    for kernel in (True, False):
+        xg = x.detach().clone().requires_grad_()
+        y = rng_ops.Dropout.apply(xg, key, fold, p, dims, kernel)
+        (dx,) = torch.autograd.grad(y, xg, dy)
+        out.append((y.detach(), dx))
+    return out
+
+
+def phase_rng_dropout(dev) -> dict:
+    """The step's dropout and noise keys, flax's dropout and the instance
+    noise (`ops/threefry.py`) at the every-option stream_v5e8 step's sites,
+    in the step's dtype and in f32, against their plain versions; a
+    captured graph of them keyed from the device step against eager
+    launches; their device ms."""
+    gen = torch.Generator(device=dev).manual_seed(SEED_RNG_DROPOUT)
+    cfg = every_option_config()
+    d_steps = cfg.train.d_steps
+    sites, noises = step_sites(cfg, dev)
+    check(sites and noises, f"every-option step: dropout sites {sites}, noise {noises}")
+    key = prng_key(cfg.train.seed + 1, dev)
+    step = torch.tensor(41, dtype=torch.int64, device=dev)
+    ker_keys = rng_ops.train_keys_kernel(key, step, 0, d_steps)
+    ref_keys = rng_ops.train_keys_reference(key, step, 0, d_steps)
+    keys_err = max_err(ker_keys, ref_keys)
+    check(torch.equal(ker_keys, ref_keys), "rng step keys: kernel != plain")
+    g_row, d_rows, adv_rows = rng_ops.train_key_rows(d_steps)
+    fold = DropoutKey(key).fold(1)
+    cases = []
+    for shape, dtype, dims, p in sites:
+        for dt in dict.fromkeys((dtype, torch.float32)):
+            x = torch.randn(shape, device=dev, generator=gen).to(dt)
+            dy = torch.randn(shape, device=dev, generator=gen).to(dt)
+            (yk, dxk), (yr, dxr) = dropout_pair(x, ker_keys[g_row], fold, p, dims, dy)
+            same = torch.equal(yk, yr) and torch.equal(dxk, dxr)
+            check(same, f"rng dropout {shape} {dt}: kernel != plain")
+            cases.append({"shape": list(shape), "dtype": str(dt), "dims": list(dims),
+                          "p": p, "kept": float((yk != 0).float().mean()),
+                          "forward_max_abs_err": max_err(yk, yr),
+                          "backward_max_abs_err": max_err(dxk, dxr),
+                          "forward_backward_bit_equal": same})
+    noise_cases = []
+    for shape, dtype, std in noises:
+        for dt in dict.fromkeys((dtype, torch.float32)):
+            x = torch.randn(shape, device=dev, generator=gen).to(dt)
+            k = ker_keys[d_rows[0][1]]
+            ker, ref = rng_ops.noise_kernel(x, k, std), rng_ops.noise_reference(x, k, std)
+            err = max_err(ker, ref)
+            if dt == torch.bfloat16:
+                check(torch.equal(ker, ref), f"rng noise {shape} bf16: kernel != plain")
+            else:
+                check(err <= noise_tol(ref, std), f"rng noise {shape} f32: {err}")
+            noise_cases.append({"shape": list(shape), "dtype": str(dt), "std": std,
+                                "max_abs_err": err,
+                                "bit_equal": bool(torch.equal(ker, ref))})
+
+    # Captured: keys from the device step, dropout forward and backward at
+    # the largest site, the noise at the largest D input.
+    shape, dtype, dims, p = max(sites, key=lambda c: math.prod(c[0]))
+    n_shape, n_dtype, std = max(noises, key=lambda c: math.prod(c[0]))
+    x = torch.randn(shape, device=dev, generator=gen).to(dtype).requires_grad_()
+    dy = torch.randn(shape, device=dev, generator=gen).to(dtype)
+    xn = torch.randn(n_shape, device=dev, generator=gen).to(n_dtype)
+    gstep = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def draw():
+        keys = rng_ops.train_keys_kernel(key, gstep, 0, d_steps)
+        y = rng_ops.Dropout.apply(x, keys[g_row], fold, p, dims, True)
+        (dx,) = torch.autograd.grad(y, x, dy)
+        return [keys, y.detach(), dx, rng_ops.noise_kernel(xn, keys[adv_rows[1]], std)]
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        draw()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = draw()
+    replays = []
+    for r in range(RNG_REPLAYS):
+        gstep.fill_(1000 * r + 7)
+        graph.replay()
+        eager = draw()
+        same = all(torch.equal(a, e) for a, e in zip(static, eager))
+        ((yr, dxr),) = dropout_pair(x, eager[0][g_row], fold, p, dims, dy)[1:]
+        same = same and torch.equal(eager[1], yr) and torch.equal(eager[2], dxr)
+        check(same, f"rng dropout/noise: replay {r} at step {1000 * r + 7} != eager")
+        replays.append(same)
+
+    # Times: the largest site and D input, as the step has them.
+    xd = x.detach()
+    n, item = xd.numel(), xd.element_size()
+    drop_bound = int_bound(2 * n * item + 16, CIPHER_INT_OPS * n)
+    nn_, n_item = xn.numel(), xn.element_size()
+    noise_bound = int_bound(2 * nn_ * n_item + 16, CIPHER_INT_OPS * nn_)
+    keys_bound = int_bound(24 + 16 * (3 + 3 * d_steps), CIPHER_INT_OPS * 5 * (3 + 3 * d_steps))
+    k_g, k_n = ker_keys[g_row], ker_keys[adv_rows[1]]
+    plain_ms = lambda fn: time_fns(calls=2, plain=fn)["plain"]   # noqa: E731
+    rows = {
+        "threefry_dropout": {
+            "ms": graph_ms(lambda: rng_ops.dropout_kernel(xd, k_g, fold, p, dims)),
+            "plain_ms": plain_ms(lambda: rng_ops.dropout_reference(xd, k_g, fold, p, dims)),
+            "bound_ms": drop_bound[0], "bound_by": drop_bound[1],
+            "library_ms": graph_ms(lambda: torch.nn.functional.dropout(xd, p, True)),
+            "library": "torch.nn.functional.dropout: the same work with Philox bits",
+            "max_abs_err": max(c["forward_max_abs_err"] for c in cases),
+            "shape": f"{list(shape)} {dtype} (the largest site)"},
+        "threefry_dropout_bwd": {
+            "ms": graph_ms(lambda: rng_ops.dropout_kernel(dy, k_g, fold, p, dims, True)),
+            "plain_ms": plain_ms(lambda: rng_ops.dropout_reference(dy, k_g, fold, p, dims)),
+            "bound_ms": drop_bound[0], "bound_by": drop_bound[1],
+            "library_ms": graph_ms(lambda: torch.nn.functional.dropout(dy, p, True)),
+            "library": "torch.nn.functional.dropout on dy: the same work with Philox bits",
+            "max_abs_err": max(c["backward_max_abs_err"] for c in cases),
+            "shape": f"{list(shape)} {dtype}: the gradient, the mask drawn again"},
+        "threefry_noise": {
+            "ms": graph_ms(lambda: rng_ops.noise_kernel(xn, k_n, std)),
+            "plain_ms": plain_ms(lambda: rng_ops.noise_reference(xn, k_n, std)),
+            "bound_ms": noise_bound[0], "bound_by": noise_bound[1],
+            "library_ms": graph_ms(lambda: torch.normal(xn, std)),
+            "library": "torch.normal(x, std): x + std·N(0, 1) with Philox bits",
+            "max_abs_err": max(c["max_abs_err"] for c in noise_cases),
+            "shape": f"{list(n_shape)} {n_dtype} (the largest D input)"},
+        "threefry_train_keys": {
+            "ms": graph_ms(lambda: rng_ops.train_keys_kernel(key, step, 0, d_steps)),
+            "plain_ms": plain_ms(lambda: rng_ops.train_keys_reference(key, step, 0, d_steps)),
+            "bound_ms": keys_bound[0], "bound_by": keys_bound[1], "library_ms": None,
+            "max_abs_err": keys_err, "shape": f"{3 + 3 * d_steps} keys at d_steps {d_steps}"},
+    }
+    emit("rng", case="dropout and noise at the every-option stream_v5e8 step",
+         sets=list(STREAM_OPTIONS), dropout_sites=cases, noise_inputs=noise_cases,
+         train_keys_bit_equal=True, replays_equal_eager=replays, rows=rows,
+         tol=f"keys, masks, dropout gradients, bf16 noise bit-equal; f32 noise "
+             f"within NORMAL_ULP ({NORMAL_ULP}) ulp of erf⁻¹ times std·√2 plus "
+             f"one rounding")
     return rows
 
 
@@ -2204,6 +2404,7 @@ MUSIC_FOLD = ("model.g_stem_mode=fold", "model.g_stem_stride=1,2",
               "model.g_head_mode=fold")
 STREAM_OPTIONS = ("model.discriminator=patch", "model.d_norm=batch",
                   "model.d_input_fold=2", "model.dropout=0.1",
+                  "train.d_instance_noise=0.1",
                   "model.g_stem_mode=conv", "model.g_stem_stride=1,2",
                   "model.g_head_mode=film", "model.g_dec_l0=subpixel",
                   "model.g_phase_ct=true", "model.g_remat=true")
@@ -2369,7 +2570,7 @@ def phase_options(dev, tmp: Path):
          launches={k: v for k, v in counts.items() if k.startswith("options_music")})
 
     # (b) stream_v5e8, every other option.
-    cfg = cli._apply_overrides(config.get_config("stream_v5e8"), list(STREAM_OPTIONS))
+    cfg = every_option_config()
     exp = Experiment(cfg, device=dev)
     d, g = exp.state.d, exp.state.g
     check(d.patch and d.norm == "batch" and g.phase_ct and g.dec_l0 == "subpixel"
@@ -2377,7 +2578,9 @@ def phase_options(dev, tmp: Path):
     bn0 = [t.detach().clone() for n in d.norms for t in (n.mean, n.var)]
     last, counts["options_stream_train"] = counted(lambda: exp.train(num_steps=2))
     c = counts["options_stream_train"]
-    check(c["istft"] == 2 and c["istft_bwd"] == 2 and c["stft_features"] == 4,
+    check(c["istft"] == 2 and c["istft_bwd"] == 2 and c["stft_features"] == 4
+          and c["threefry_train_keys"] == 2 and c["threefry_dropout"] > 0
+          and c["threefry_dropout_bwd"] > 0 and c["threefry_noise"] > 0,
           f"stream options train launches {c}")
     check(all(np.isfinite(v) for v in last.values()), f"stream options: {last}")
     bn = [t.detach() for n in d.norms for t in (n.mean, n.var)]
@@ -2833,13 +3036,18 @@ def phase_tools(dev, tmp: Path):
         tmp, "profile_step", "gan_sass_tf_tpu_torch.scripts.profile_step",
         "stream_v5e8", "32", "--device", str(dev))
     paths["tools_profile_step"] = rep["launches"]
-    line = json.loads(out.strip().splitlines()[-1])
+    graphed, line = (json.loads(ln) for ln in out.strip().splitlines()[-2:])
     buckets = line["buckets_us_per_step"]
     named = sum(v for k, v in buckets.items() if k != "other")
     total = line["device_ms_per_step"] * 1e3
     check(named >= 0.95 * total, f"tools profile_step: the step's ranges hold "
           f"{named} of {total} device us")
-    report["profile_step"] = {"wall_s": wall, "line": line, "ranges_share": named / total,
+    check(all(finite(graphed[k][m]) and graphed[k][m] > 0
+              for k in ("wall_ms", "device_ms", "busy_ms") for m in ("graphed", "eager"))
+          and graphed["launches_per_replay"]["stft_features"] > 0,
+          f"tools profile_step: graphed timing {graphed}")
+    report["profile_step"] = {"wall_s": wall, "line": line, "graphed": graphed,
+                              "ranges_share": named / total,
                               "launches": paths["tools_profile_step"]}
 
     line, paths["tools_stream_quality"] = counted(lambda: captured_json(
@@ -3364,6 +3572,21 @@ def main() -> int:
                                 "gan_sass_tf_tpu/train/step.py:213-214"),
               ("threefry_sample", "none: jax.random draws at "
                                   "gan_sass_tf_tpu/data/mixer.py:31-51"))),
+        *({"name": name, "route": "cuda",
+           "source": "gan_sass_tf_tpu_torch/ops/csrc/threefry.cu",
+           "replaces": replaces,
+           **by_path(name, graph=graph_counts,
+                     options_stream_train=opt["options_stream_train"]),
+           **rng_rows[name]}
+          for name, replaces in (
+              ("threefry_train_keys", "none: jax.random dropout and noise keys at "
+                                     "gan_sass_tf_tpu/train/step.py:213-228"),
+              ("threefry_dropout", "none: flax nn.Dropout at "
+                                   "gan_sass_tf_tpu/models/generator.py:440"),
+              ("threefry_dropout_bwd", "none: the VJP of flax nn.Dropout at "
+                                       "gan_sass_tf_tpu/models/generator.py:440"),
+              ("threefry_noise", "none: instance noise at "
+                                 "gan_sass_tf_tpu/train/step.py:169"))),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,6 @@ generator and wav-corpus reader), the device bank, bank sampling and mixing
 in PyTorch."""
 
 from gan_sass_tf_tpu_torch.data.corpus import WavDirDataset
-from gan_sass_tf_tpu_torch.data.counter_rng import step_key
 from gan_sass_tf_tpu_torch.data.device_bank import (
     build_bank,
     draw_rows,
@@ -29,4 +28,4 @@ def make_dataset(cfg, seed: int = 0, split: str = "train"):
 
 __all__ = ["SyntheticDataset", "WavDirDataset", "build_bank", "sample_bank",
            "draw_rows", "take_rows", "apply_mix", "mix_keyed", "mix_sources",
-           "make_dataset", "prng_key", "step_key"]
+           "make_dataset", "prng_key"]

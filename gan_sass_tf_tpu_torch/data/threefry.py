@@ -12,15 +12,18 @@ partitionable` on, the `threefry2x32` implementation):
     `_threefry_split_foldlike`);
   * `random_bits(key, shape)` hashes (0, i) for each flat index i and
     xors the two output words (`_threefry_random_bits_partitionable`);
-  * `uniform`, `randint`, `normal` and `truncated_normal` (`normals`
-    for many keys at once) follow
-    `jax/_src/random.py` op for op in float32 (uniform's mantissa trick,
-    randint's two bit arrays and its span arithmetic, √2·erf⁻¹ of a
-    uniform); `erf_inv` is XLA's float32 polynomial (M. Giles), not
+  * `uniform`, `randint`, `bernoulli`, `normal` and `truncated_normal`
+    (`normals` for many keys at once) follow `jax/_src/random.py` op for
+    op in float32 (uniform's mantissa trick, randint's two bit arrays and
+    its span arithmetic, bernoulli's float32 uniform below p, √2·erf⁻¹ of
+    a uniform); `erf_inv` is XLA's float32 polynomial (M. Giles), not
     `torch.special.erfinv`, so that its rounding follows JAX's;
+  * `normal(key, shape, torch.bfloat16)` follows `_uniform`'s rule for a
+    dtype of fewer than 8 mantissa bits: 8-bit words, the low byte of
+    the two output words xored, so 128 values in all (`bf16_uniform`);
   * `fold_in_static` is flax's `_fold_in_static`: the SHA-1 of a module
     path's names and a counter folded in (how `Module.init` keys each
-    parameter).
+    parameter and `Scope.make_rng` each dropout site).
 
 A key is an int64 tensor of shape (..., 2) holding two uint32 words, on
 the caller's device; a leading batch of keys draws a batch of rows, as
@@ -134,6 +137,13 @@ def uniform(key: torch.Tensor, shape: Sequence[int], minval=0.0,
     return uniform_from_bits(random_bits(key, shape), minval, maxval)
 
 
+def bernoulli(key: torch.Tensor, p: float, shape: Sequence[int]) -> torch.Tensor:
+    """`jax.random.bernoulli(key, p, shape)` for a Python float p: a float32
+    uniform on [0, 1) below float32(p), whatever dtype the caller then
+    masks (flax's `Dropout`)."""
+    return uniform(key, shape) < float(np.float32(p))
+
+
 def randint_span(minval: int, maxval: int) -> Tuple[int, int]:
     """randint's span (1 where maxval <= minval) and its multiplier, 2^32
     mod span as jax computes it: ((2^16 mod span)² in uint32) mod span."""
@@ -192,6 +202,7 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
 
 
 SQRT2 = float(np.float32(np.sqrt(2.0)))
+SQRT2_BF16 = float(torch.tensor(np.sqrt(2.0)).bfloat16())        # 1.4140625
 NORMAL_LOW = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))   # > -1
 
 
@@ -199,9 +210,26 @@ def normal_from_uniform(u: torch.Tensor) -> torch.Tensor:
     return SQRT2 * erf_inv(u)
 
 
-def normal(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
-    """`jax.random.normal(key, shape)` (float32): √2·erf⁻¹ of a uniform on
-    (nextafter(-1, 0), 1)."""
+def bf16_uniform(bits: torch.Tensor) -> torch.Tensor:
+    """`_uniform`'s bfloat16 arithmetic on (nextafter(-1, 0), 1), as float32:
+    bf16 has 7 mantissa bits, fewer than 8, so jax draws 8-bit words (the
+    low byte of the two words xored), takes m = byte >> 1 as the mantissa
+    of [1, 2), subtracts 1, scales by bf16(1 - lo) = 2 and adds lo =
+    -255/256.  Each of those bf16 ops is exact: u = (4m - 255) / 256."""
+    m = (bits & 0xFF) >> 1
+    return (4 * m - 255).float() / 256.0
+
+
+def normal(key: torch.Tensor, shape: Sequence[int],
+           dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """`jax.random.normal(key, shape, dtype)` for float32 or bfloat16:
+    √2·erf⁻¹ of a uniform on (nextafter(-1, 0), 1) of that dtype; in
+    bfloat16 XLA's float32 erf⁻¹ of the bf16 uniform, rounded to bf16,
+    times bf16(√2) in bf16."""
+    if dtype == torch.bfloat16:
+        return erf_inv(bf16_uniform(random_bits(key, shape))).bfloat16() * SQRT2_BF16
+    if dtype != torch.float32:
+        raise ValueError(f"normal: float32 or bfloat16, not {dtype}")
     return normal_from_uniform(uniform(key, shape, NORMAL_LOW, 1.0))
 
 
@@ -235,16 +263,20 @@ def normals(draws: Sequence[Tuple[torch.Tensor, Sequence[int]]],
     return [p.reshape(tuple(shape)) for p, (_, shape) in zip(z.split(sizes), draws)]
 
 
-def fold_in_static(key: torch.Tensor, data: Sequence[Union[str, int]]) -> torch.Tensor:
-    """flax's `_fold_in_static` (`flax/core/scope.py`): the first 4 bytes
+def static_hash(data: Sequence[Union[str, int]]) -> int:
+    """What flax's `_fold_in_static` folds in: the first 4 bytes
     (big-endian) of the SHA-1 of the strings (UTF-8) and ints (big-endian,
-    minimal bytes) folded into the key."""
-    if not data:
-        return key
+    minimal bytes).  A number of the host, computed from names alone."""
     m = hashlib.sha1()
     for x in data:
         if isinstance(x, str):
             m.update(x.encode("utf-8"))
         else:
             m.update(x.to_bytes((x.bit_length() + 7) // 8, byteorder="big"))
-    return fold_in(key, int.from_bytes(m.digest()[:4], byteorder="big"))
+    return int.from_bytes(m.digest()[:4], byteorder="big")
+
+
+def fold_in_static(key: torch.Tensor, data: Sequence[Union[str, int]]) -> torch.Tensor:
+    """flax's `_fold_in_static` (`flax/core/scope.py`): `static_hash(data)`
+    folded into the key (the key itself for no data)."""
+    return fold_in(key, static_hash(data)) if data else key

@@ -47,7 +47,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from gan_sass_tf_tpu_torch.models.dropout import DropoutKey, dropout_fn
+from gan_sass_tf_tpu_torch.models.dropout import NCHW, DropoutKey, dropout_fn
 from gan_sass_tf_tpu_torch.models.generator import _same_pad
 
 SN_EPS = 1e-12
@@ -197,7 +197,7 @@ class ConvDiscriminator(nn.Module):
             x = F.conv2d(x, w.to(dt), conv.bias.to(dt), stride)
             if i > 0 and self.norms:
                 x = self.norms[i - 1](x, train, update_stats)
-            x = drop(F.leaky_relu(x, self.leak), i)
+            x = drop(F.leaky_relu(x, self.leak), i, NCHW)
         x = x.float()                   # logits in f32
         if self.patch:
             w = weight(self.head, len(self.convs), (2, 3, 1, 0))

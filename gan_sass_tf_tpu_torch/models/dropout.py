@@ -1,48 +1,59 @@
-"""Train-time dropout with keep-masks drawn from the counter RNG.
+"""Train-time dropout as flax draws it.
 
-`flax.linen.Dropout` keeps each element with probability 1 - p and scales
-the kept ones by 1 / (1 - p); so does `DropoutKey.apply`.  Its masks come
-from `data.counter_rng.counter_uniform`, keyed by (the step's key, the call
-site's stream, the GLOBAL row of each batch element), so R ranks of B/R
-rows drop exactly what one rank of B rows drops, and a recomputed forward
-(`g_remat`) draws the masks it drew the first time.  The reference folds
-the shard index into its dropout keys instead, so its bits cannot be
-matched (ROADMAP.md §3).
+`flax.linen.Dropout(p)` at train time keeps an element where a float32
+uniform under its `make_rng('dropout')` key is below 1 - p, and scales the
+kept ones by 1 / (1 - p) in the input's dtype
+(`ops.dispatch.dropout`).  `Scope.make_rng` keys a site by folding
+its module path and its call counter into the `dropout` rng that `apply`
+was given (`flax/core/scope.py`: `LazyRng.as_jax_rng`, the SHA-1 of the
+names and the counter): a module's i-th `nn.Dropout`, called once, draws
+under fold_in_static(rng, (*path, f"Dropout_{i}", 1)).  The port's modules
+call the same sites in the same order, so a site draws the reference's
+bits; the fold is a host constant, and the key a device tensor, so a
+captured step draws what its step's key says.  A recomputed forward
+(`g_remat`) draws the masks it drew the first time.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence, Tuple
 
 import torch
 
-from gan_sass_tf_tpu_torch.data.counter_rng import Counter, counter_uniform
+from gan_sass_tf_tpu_torch.data.threefry import static_hash
+from gan_sass_tf_tpu_torch.ops import dispatch
+
+NCHW = (0, 2, 3, 1)      # flax's (B, T, F, C) from the port's (B, C, T, F)
 
 
 @dataclasses.dataclass(frozen=True)
 class DropoutKey:
-    """Where one module call draws its masks: dropout site `site` of the
-    call draws stream `stream + site`; row i of the batch is keyed by
-    `rows[i]`, its global index.  `key` is the step's
-    `data.counter_rng.step_key(seed, step)`, an int or a 0-d int64 tensor."""
+    """A module call's `dropout` rng: `key`, a (2,) int64 threefry key on
+    the device, and `path`, the names of the module's scope below the
+    module `apply` was called on (() for a G or a D applied directly)."""
 
-    key: Counter
-    stream: int
-    rows: torch.Tensor
+    key: torch.Tensor
+    path: Tuple[str, ...] = ()
 
-    def apply(self, x: torch.Tensor, p: float, site: int) -> torch.Tensor:
-        keep = 1.0 - p
-        u = counter_uniform(self.key, self.rows.to(x.device),
-                            self.stream + site, x[0].numel())
-        return torch.where((u < keep).reshape(x.shape), x / keep, torch.zeros_like(x))
+    def fold(self, site: int) -> int:
+        """What `make_rng` folds in at the module's `Dropout_{site}`."""
+        return static_hash((*self.path, f"Dropout_{site}", 1))
+
+    def apply(self, x: torch.Tensor, p: float, site: int,
+              dims: Sequence[int] = None) -> torch.Tensor:
+        """Dropout site `site` on x, whose dims in the flax tensor's order
+        are `dims` (x's own order by default)."""
+        dims = tuple(range(x.dim())) if dims is None else dims
+        return dispatch.dropout(x, self.key, self.fold(site), p, dims)
 
 
 def dropout_fn(p: float, train: bool, key: DropoutKey | None):
-    """(x, site) -> x with dropout at rate p when training, else x as is.
-    Training with p > 0 needs a key: there is no unkeyed draw."""
+    """(x, site[, dims]) -> x with dropout at rate p when training, else x
+    as is.  Training with p > 0 needs a key: there is no unkeyed draw."""
     if not (train and p > 0.0):
-        return lambda x, site: x
+        return lambda x, site, dims=None: x
     if key is None:
         raise ValueError("dropout at train time needs a DropoutKey (the train "
                          "step passes one)")
-    return lambda x, site: key.apply(x, p, site)
+    return lambda x, site, dims=None: key.apply(x, p, site, dims)

@@ -48,7 +48,7 @@ import torch.nn.functional as F
 
 from gan_sass_tf_tpu_torch.dsp.features import mel_interp_matrix
 from gan_sass_tf_tpu_torch.dsp.masks import mask_channels
-from gan_sass_tf_tpu_torch.models.dropout import DropoutKey, dropout_fn
+from gan_sass_tf_tpu_torch.models.dropout import NCHW, DropoutKey, dropout_fn
 from gan_sass_tf_tpu_torch.models.phase_ct import phase_conv_transpose
 
 
@@ -384,7 +384,7 @@ class ConvUNetGenerator(nn.Module):
             skips.append(x)
             x = act(_conv(self.convs[ci + 1], x, dt, self.down))
             ci += 2
-        x = drop(act(_conv(self.convs[ci], x, dt)), 0)
+        x = drop(act(_conv(self.convs[ci], x, dt)), 0, NCHW)
         ci += 1
         for lvl, skip in enumerate(reversed(skips)):
             crop_to = (slice(None), slice(None), slice(0, skip.shape[2]),
@@ -397,7 +397,7 @@ class ConvUNetGenerator(nn.Module):
                 ci += 1
                 continue
             x = torch.cat([act(self._up(lvl, x)[crop_to]), skip], dim=1)
-            x = drop(act(_conv(self.convs[ci], x, dt)), 1 + lvl)
+            x = drop(act(_conv(self.convs[ci], x, dt)), 1 + lvl, NCHW)
             ci += 1
         if self.fold_head:
             # Masks from the folded grid: the folded input skip, a 1x1 conv,

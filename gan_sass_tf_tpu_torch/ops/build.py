@@ -33,6 +33,8 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_LP = ctypes.POINTER(ctypes.c_longlong)
+_F = ctypes.c_float
 _SIGNATURES = {
     # x, win, tw, tws, ptw, mel, bands, spec, mag, logmag, logmel, B, T, F,
     # n_fft, hop, M, eps, rounds, per_sm, stream, device
@@ -52,8 +54,13 @@ _SIGNATURES = {
     # key, step, offset, B, out, stream
     "threefry_keys_launch": [_P, _P, _L, _I, _P, _P],
     # keys, R, n, kind, lo, hi, span, mult, minval, out, stream
-    "threefry_sample_launch": [_P, _I, _I, _I, ctypes.c_float, ctypes.c_float,
-                               _L, _L, _L, _P, _P],
+    "threefry_sample_launch": [_P, _I, _I, _I, _F, _F, _L, _L, _L, _P, _P],
+    # key, step, shard, d_steps, out, stream
+    "threefry_train_keys_launch": [_P, _P, _L, _I, _P, _P],
+    # x, y, key, fold, keep, scale, n, size, jstride, bf16, stream
+    "threefry_dropout_launch": [_P, _P, _P, _L, _F, _F, _L, _LP, _LP, _I, _P],
+    # x, y, key, coef, n, bf16, stream
+    "threefry_noise_launch": [_P, _P, _P, _F, _L, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,6 +1,7 @@
 // jax.random's threefry-2x32 draws for Hopper (sm_90a): the train step's
 // per-example keys, and bits, uniforms, randints and normals from a key a
-// row.
+// row; the step's dropout and instance-noise keys, flax's dropout and the
+// D's instance noise, fused.
 //
 // Replaces no TPU kernel.  The JAX package draws its bank picks and
 // shifts (gan_sass_tf_tpu/data/device_bank.py:49-53), its gains and noise
@@ -26,6 +27,36 @@
 //    of split(key)[0] and [1]), 3 normal (float32, √2·erf⁻¹ of a uniform
 //    on (nextafter(-1, 0), 1), XLA's float32 polynomial).
 //
+//  - threefry_train_keys_launch: the step's dropout and noise keys, one
+//    thread a key, as the JAX step derives them
+//    (gan_sass_tf_tpu/train/step.py:213-228, :317, :178, :372): r =
+//    fold_in(key, step); rng_g, rng_dl, rng_ga = split(r, 5)[2:5], each
+//    folded with the shard index; out[0] = rng_g; out[1 + 3 di + j] =
+//    split(fold_in(rng_dl, di), 3)[j] (D dropout, noise, R1 dropout); out[1
+//    + 3 D + j] = split(rng_ga)[j] (the adversarial call's dropout, noise).
+//  - threefry_dropout_launch: flax's nn.Dropout at one site,
+//    select(uniform(k, shape) < keep, x * scale, 0) in x's dtype (float32
+//    or bfloat16), k = fold_in(base, fold) the site's make_rng key (fold
+//    the SHA-1 of its module path and counter, a host constant, folded in
+//    by each thread) and the uniform the float32 one of bernoulli, 32-bit
+//    words whatever x's dtype.  scale = float32(1 / keep rounded to x's
+//    dtype): jit rewrites flax's division by the constant into that product,
+//    and in bfloat16 the two round alike.  The value j of the draw is the
+//    element's row-major position in the flax tensor (B, T, F, C) or (B,
+//    T, H); the port's tensor is contiguous in its own order (NCHW at the
+//    conv sites), so each thread walks the port's memory in order and
+//    computes j from its coordinates and the flax strides (`jstride`).
+//    The backward is the same launch on dy (the mask drawn again): dx =
+//    select(mask, dy * scale, 0).
+//  - threefry_noise_launch: x + std * normal(key, x.shape, x.dtype), x
+//    contiguous in the flax layout.  float32: XLA folds std * sqrt2 into
+//    one constant and contracts the add, fmaf(f32(std * sqrt2),
+//    erf_inv(u), x).  bfloat16 (jax/_src/random.py::_uniform for nmant < 8):
+//    8-bit words (the low byte of the two words xored), u = (4 (byte >> 1)
+//    - 255) / 256 exactly, erf_inv in float32 rounded to bf16, times
+//    bf16(sqrt2) rounded, times bf16(std) rounded, plus x rounded: each op
+//    in bf16, as XLA's CPU code rounds them.
+//
 // Every float op is an explicit round-to-nearest intrinsic, so nvcc
 // contracts nothing: the scale-and-shift of a uniform and each Horner step
 // of erf⁻¹ are one __fmaf_rn each, as XLA's CPU code contracts them (the
@@ -43,14 +74,30 @@
 // 1.98 GHz, against 1.2 µs for its 4 MB at 3.35 TB/s.
 // A simple kernel: one thread a value, keys read from device memory (L1
 // serves a row's threads), no shared memory.
+// Dropout and noise are bound the same way: a cipher an element against 8
+// bytes (f32: 4 read, 4 written) or 4 (bf16), so integer issue, about 4x
+// the bytes' time.  They run a grid-stride loop of at most kMaxBlocks
+// blocks, so the site key's cipher (dropout) is paid once a thread, not
+// once an element; the flax index costs three 32-bit divisions by the
+// port's dims a dropout element on top.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kMaxBlocks = 4096;
+constexpr int kDims = 4;
 enum Kind { kBits = 0, kUniform = 1, kRandint = 2, kNormal = 3 };
+
+// The port tensor's dims (outermost first, 1-padded at the front) and, for
+// each, the stride of that coordinate in the flax tensor's flat index.
+struct Layout {
+  uint32_t size[kDims];
+  uint32_t jstride[kDims];
+};
 
 __device__ __forceinline__ uint2 threefry(uint2 key, uint2 x) {
   constexpr int kRot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
@@ -118,6 +165,24 @@ __device__ __forceinline__ float erf_inv(float x) {
   return fabsf(x) == 1.0f ? __fmul_rn(x, __int_as_float(0x7F800000)) : __fmul_rn(p, x);
 }
 
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T>
+__device__ __forceinline__ T from_float(float v);
+template <>
+__device__ __forceinline__ float from_float<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
 __global__ void __launch_bounds__(kThreads)
     threefry_keys_kernel(const long long* __restrict__ key,
                          const long long* __restrict__ step, long long offset,
@@ -166,6 +231,75 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+__global__ void threefry_train_keys_kernel(const long long* __restrict__ key,
+                                          const long long* __restrict__ step,
+                                          uint32_t shard, int d_steps,
+                                          long long* __restrict__ out) {
+  const int i = threadIdx.x;
+  if (i >= 3 + 3 * d_steps) return;
+  const uint2 r = child(load_key(key), uint32_t(*step));
+  uint2 k;
+  if (i == 0) {
+    k = child(child(r, 2u), shard);                       // rng_g
+  } else if (i <= 3 * d_steps) {                          // rng_dl's
+    const uint2 dl = child(child(r, 3u), shard);
+    k = child(child(dl, uint32_t((i - 1) / 3)), uint32_t((i - 1) % 3));
+  } else {                                                // rng_ga's
+    k = child(child(child(r, 4u), shard), uint32_t(i - 1 - 3 * d_steps));
+  }
+  store_key(out + 2 * i, k);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    threefry_dropout_kernel(const T* __restrict__ x, T* __restrict__ y,
+                            const long long* __restrict__ key, uint32_t fold,
+                            float keep, float scale, uint32_t n, Layout lay) {
+  const uint2 site = child(load_key(key), fold);
+  const uint32_t stride = gridDim.x * kThreads;
+  for (uint32_t m = blockIdx.x * kThreads + threadIdx.x; m < n; m += stride) {
+    uint32_t rest = m, j = 0;
+#pragma unroll
+    for (int d = kDims - 1; d >= 0; --d) {
+      const uint32_t s = lay.size[d];
+      const uint32_t q = rest / s;
+      j += (rest - q * s) * lay.jstride[d];
+      rest = q;
+    }
+    const uint32_t b = bits(site, j);
+    const float u = __fsub_rn(__uint_as_float((b >> 9) | 0x3F800000u), 1.0f);
+    y[m] = from_float<T>(u < keep ? __fmul_rn(to_float(x[m]), scale) : 0.0f);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    threefry_noise_kernel(const T* __restrict__ x, T* __restrict__ y,
+                          const long long* __restrict__ key, float coef,
+                          uint32_t n) {
+  const uint2 k = load_key(key);
+  const uint32_t stride = gridDim.x * kThreads;
+  for (uint32_t j = blockIdx.x * kThreads + threadIdx.x; j < n; j += stride) {
+    const uint32_t b = bits(k, j);
+    if constexpr (sizeof(T) == 4) {
+      // coef = float32(float32(std) * float32(sqrt2)), one rounding.
+      const float lo = __int_as_float(0xBF7FFFFF);          // nextafter(-1, 0)
+      const float u = uniform(b, lo, __fsub_rn(1.0f, lo));
+      y[j] = from_float<T>(__fmaf_rn(coef, erf_inv(u), to_float(x[j])));
+    } else {
+      // coef = bf16(std); bf16 u = (4 m - 255) / 256, m the byte's top 7 bits.
+      const float u = __fmul_rn(float(int((b & 0xFFu) >> 1) * 4 - 255), 0.00390625f);
+      const float z = round_bf16(__fmul_rn(round_bf16(erf_inv(u)), 1.4140625f));
+      y[j] = from_float<T>(__fadd_rn(to_float(x[j]), round_bf16(__fmul_rn(coef, z))));
+    }
+  }
+}
+
+unsigned grid_blocks(uint32_t n) {
+  const unsigned blocks = (n + kThreads - 1) / kThreads;
+  return blocks < kMaxBlocks ? blocks : kMaxBlocks;
+}
+
 }  // namespace
 
 // key: int64 (2,); step: int64 0-d or null; out: int64 (bases, 2, B, 2),
@@ -198,5 +332,66 @@ extern "C" int threefry_sample_launch(const void* keys, int R, int n, int kind,
                            (cudaStream_t)stream>>>(
       (const long long*)keys, total, n, kind, lo, hi, uint32_t(span),
       uint32_t(mult), minval, out);
+  return (int)cudaGetLastError();
+}
+
+// key: int64 (2,); step: int64 0-d; out: int64 (3 + 3 d_steps, 2): rng_g,
+// then (D dropout, noise, R1 dropout) per D step, then the adversarial
+// call's (dropout, noise); the shard folded in, as the JAX step does.
+extern "C" int threefry_train_keys_launch(const void* key, const void* step,
+                                         long long shard, int d_steps,
+                                         void* out, void* stream) {
+  if (d_steps < 1 || d_steps > 64 || shard < 0 || shard > 0xFFFFFFFFLL)
+    return (int)cudaErrorInvalidValue;
+  threefry_train_keys_kernel<<<1, 3 + 3 * d_steps, 0, (cudaStream_t)stream>>>(
+      (const long long*)key, (const long long*)step, uint32_t(shard), d_steps,
+      (long long*)out);
+  return (int)cudaGetLastError();
+}
+
+// x, y: n elements, float32 (bf16 = 0) or bfloat16 (bf16 = 1), contiguous in
+// the port's order; key: int64 (2,), the site's base key; size/jstride:
+// kDims each (the port's dims, outermost first, and their flax strides).
+extern "C" int threefry_dropout_launch(const void* x, void* y, const void* key,
+                                       long long fold, float keep, float scale,
+                                       long long n, const long long* size,
+                                       const long long* jstride, int bf16,
+                                       void* stream) {
+  if (n < 1 || n > 0xFFFFFFFFLL || fold < 0 || fold > 0xFFFFFFFFLL)
+    return (int)cudaErrorInvalidValue;
+  Layout lay;
+  for (int d = 0; d < kDims; ++d) {
+    if (size[d] < 1 || size[d] > 0xFFFFFFFFLL || jstride[d] < 0 ||
+        jstride[d] > 0xFFFFFFFFLL)
+      return (int)cudaErrorInvalidValue;
+    lay.size[d] = uint32_t(size[d]);
+    lay.jstride[d] = uint32_t(jstride[d]);
+  }
+  const unsigned blocks = grid_blocks(uint32_t(n));
+  if (bf16)
+    threefry_dropout_kernel<__nv_bfloat16><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        (const __nv_bfloat16*)x, (__nv_bfloat16*)y, (const long long*)key,
+        uint32_t(fold), keep, scale, uint32_t(n), lay);
+  else
+    threefry_dropout_kernel<float><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        (const float*)x, (float*)y, (const long long*)key, uint32_t(fold), keep,
+        scale, uint32_t(n), lay);
+  return (int)cudaGetLastError();
+}
+
+// x, y: n elements, float32 or bfloat16, contiguous in the flax layout;
+// key: int64 (2,); coef: float32(std) * sqrt2 in float32, or bf16(std).
+extern "C" int threefry_noise_launch(const void* x, void* y, const void* key,
+                                     float coef, long long n, int bf16,
+                                     void* stream) {
+  if (n < 1 || n > 0xFFFFFFFFLL) return (int)cudaErrorInvalidValue;
+  const unsigned blocks = grid_blocks(uint32_t(n));
+  if (bf16)
+    threefry_noise_kernel<__nv_bfloat16><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        (const __nv_bfloat16*)x, (__nv_bfloat16*)y, (const long long*)key, coef,
+        uint32_t(n));
+  else
+    threefry_noise_kernel<float><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        (const float*)x, (float*)y, (const long long*)key, coef, uint32_t(n));
   return (int)cudaGetLastError();
 }

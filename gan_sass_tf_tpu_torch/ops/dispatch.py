@@ -60,13 +60,27 @@ def launch_counts() -> Dict[str, int]:
     """Each kernel wrapper's count of its launches since the count was last
     set to 0: K1 `stft_features`, K2 `masked_istft`, K3 `istft` and its
     backward `istft_bwd`, K4 `stft`, and the threefry launches
-    `threefry_keys` and `threefry_sample`.  A wrapper called while a CUDA graph
+    `threefry_keys`, `threefry_sample`, `threefry_train_keys`,
+    `threefry_dropout` (forward), `threefry_dropout_bwd` and
+    `threefry_noise`.  A wrapper called while a CUDA graph
     is captured counts the launch it records; `train/graphed.py` counts
     the launches its replays make."""
     return {"stft_features": _k1.launches, "masked_istft": _k2.launches,
             "istft": _k3.launches, "istft_bwd": _k3.bwd_launches,
             "stft": _k4.launches, "threefry_keys": _rng.keys_launches,
-            "threefry_sample": _rng.sample_launches}
+            "threefry_sample": _rng.sample_launches,
+            "threefry_train_keys": _rng.train_keys_launches,
+            "threefry_dropout": _rng.dropout_launches,
+            "threefry_dropout_bwd": _rng.dropout_bwd_launches,
+            "threefry_noise": _rng.noise_launches}
+
+
+def reset_launch_counts() -> None:
+    """Set every count of `launch_counts` to 0."""
+    _k1.launches = _k2.launches = _k3.launches = _k3.bwd_launches = 0
+    _k4.launches = _rng.keys_launches = _rng.sample_launches = 0
+    _rng.train_keys_launches = _rng.dropout_launches = 0
+    _rng.dropout_bwd_launches = _rng.noise_launches = 0
 
 
 def _use_kernel(x: torch.Tensor) -> bool:
@@ -165,3 +179,29 @@ def draw(keys: torch.Tensor, n: int, kind: str, lo=0.0, hi=1.0) -> torch.Tensor:
     CUDA keys one kernel launch."""
     fn = _rng.sample_kernel if _use_kernel(keys) else _rng.sample_reference
     return fn(keys, n, kind, lo, hi)
+
+
+def train_keys(key: torch.Tensor, step: torch.Tensor, shard: int,
+              d_steps: int) -> torch.Tensor:
+    """The train step's dropout and instance-noise keys (`ops/threefry.py`
+    `train_keys`): (3 + 3·d_steps, 2) int64, rows as
+    `threefry.train_key_rows(d_steps)` names them.  On a CUDA key one kernel
+    launch."""
+    fn = _rng.train_keys_kernel if _use_kernel(key) else _rng.train_keys_reference
+    return fn(key, step, shard, d_steps)
+
+
+def dropout(x: torch.Tensor, key: torch.Tensor, fold: int, p: float,
+            dims) -> torch.Tensor:
+    """flax's train-time `nn.Dropout(p)` of x at the site keyed by
+    fold_in(key, fold), `dims` x's dims in the flax tensor's order;
+    differentiable.  On a CUDA tensor one kernel launch forward and one
+    backward."""
+    return _rng.Dropout.apply(x, key, fold, p, tuple(dims), _use_kernel(x))
+
+
+def instance_noise(x: torch.Tensor, key: torch.Tensor, std: float) -> torch.Tensor:
+    """x + std·N(0, 1) under `key`, as `jax.random.normal(key, x.shape,
+    x.dtype)` draws it for x in the flax layout; the gradient passes as it
+    is.  On a CUDA tensor one kernel launch."""
+    return _rng.Noise.apply(x, key, std, _use_kernel(x))

@@ -1,5 +1,6 @@
-"""The threefry launches: per-example keys and keyed samplers — the CUDA
-kernels' wrappers and their plain PyTorch versions.
+"""The threefry launches: per-example keys, keyed samplers, the step's
+dropout and noise keys, flax's dropout and the D's instance noise — the
+CUDA kernels' wrappers and their plain PyTorch versions.
 
 Not a port of a TPU kernel: the JAX package draws its bank picks and
 shifts, gains, noise and eval mixtures with `jax.random`, which XLA
@@ -18,16 +19,39 @@ kinds of launch (`data/threefry.py` is the plain version, the bits of
         row r drawn under keys[r]: "bits" (int64 in [0, 2^32)),
         "uniform" (float32 on [lo, hi)), "randint" (int64 in [lo, hi)),
         "normal" (float32).
+    train_keys(key, step, shard, d_steps)  ->  (3 + 3 d_steps, 2) int64
+        the step's dropout and instance-noise keys as the JAX step derives
+        them (gan_sass_tf_tpu/train/step.py:213-228, :317, :178, :372):
+        rng_g; per D step its dropout, noise and R1-dropout keys; the
+        adversarial call's dropout and noise keys (`train_key_rows`).
+    dropout(x, key, fold, p, dims)  ->  x's shape and dtype
+        flax's `nn.Dropout(p)` at train time under the `dropout` rng
+        `key`, at the site whose `make_rng` folds `fold` (`models/
+        dropout.py`): select(bernoulli(fold_in(key, fold), 1 - p, flax
+        shape), x * scale, 0); `dims` lists x's dims in the flax tensor's
+        order, whose flat index keys each element.  Its backward is the same
+        launch on the gradient.
+    noise(x, key, std)  ->  x + std * normal(key, x.shape, x.dtype), x in
+        the flax layout; the gradient passes as it is.
 
-`ops.dispatch.example_keys` / `draw` take the kernel for CUDA tensors and
-the plain version for CPU tensors.  Nothing here reads a number on the
-host from the device: a step's keys are drawn inside its captured graph.
+In float32 a dropout multiplies by float32(1 / keep) and the noise adds
+fmaf(std·√2, erf⁻¹(u), x): that is what XLA compiles the reference's
+`x / keep` and `x + std * normal` into (a division by a constant becomes a
+product, the constants fold, the add contracts).  In bfloat16 every op
+rounds to bf16, as XLA's CPU code does, with keep and std rounded to bf16
+first (jnp rounds a Python scalar to the array's dtype).
+
+`ops.dispatch` takes the kernel for CUDA tensors and the plain version for
+CPU tensors.  Nothing here reads a number on the host from the device: a
+step's keys are drawn inside its captured graph.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from gan_sass_tf_tpu_torch.data import threefry as tf
@@ -36,6 +60,12 @@ KINDS = {"bits": 0, "uniform": 1, "randint": 2, "normal": 3}
 
 keys_launches = 0      # kernel launches since the last reset (chip_smoke reads them)
 sample_launches = 0
+train_keys_launches = 0
+dropout_launches = 0         # forward calls
+dropout_bwd_launches = 0     # backward calls (the same kernel on the gradient)
+noise_launches = 0
+DROPOUT_DIMS = 4             # the kernel's most dims
+DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _check_key(key: torch.Tensor, what: str) -> None:
@@ -130,3 +160,188 @@ def sample_kernel(keys: torch.Tensor, n: int, kind: str, lo=0.0,
     build.check_launch(rc, "threefry_sample")
     sample_launches += 1
     return out
+
+
+def train_key_rows(d_steps: int):
+    """(rng_g's row, [per D step (dropout, noise, R1 dropout) rows],
+    (adversarial dropout, noise) rows) of train_keys()."""
+    return (0, [tuple(1 + 3 * di + j for j in range(3)) for di in range(d_steps)],
+            (1 + 3 * d_steps, 2 + 3 * d_steps))
+
+
+def _check_step(key: torch.Tensor, step: torch.Tensor, shard: int, d_steps: int,
+                what: str) -> None:
+    _check_key(key, what)
+    if key.shape != (2,) or step.dim() != 0 or step.dtype != torch.int64 \
+            or step.device != key.device:
+        raise ValueError(f"{what}: a (2,) key and a 0-d int64 step on its device, "
+                         f"got {tuple(key.shape)} and {step.dtype} "
+                         f"{tuple(step.shape)} on {step.device}")
+    if not (0 <= shard < 1 << 32 and 1 <= d_steps <= 64):
+        raise ValueError(f"{what}: shard {shard}, d_steps {d_steps}")
+
+
+def train_keys_reference(key: torch.Tensor, step: torch.Tensor, shard: int,
+                        d_steps: int) -> torch.Tensor:
+    _check_step(key, step, shard, d_steps, "train_keys")
+    r = tf.split(tf.fold_in(key, step), 5)
+    g, dl, ga = (tf.fold_in(r[j], shard) for j in (2, 3, 4))
+    per_d = tf.split(tf.fold_in(dl, torch.arange(d_steps, device=key.device)), 3)
+    return torch.cat([g[None], per_d.reshape(-1, 2), tf.split(ga, 2)])
+
+
+def train_keys_kernel(key: torch.Tensor, step: torch.Tensor, shard: int,
+                     d_steps: int) -> torch.Tensor:
+    """One launch of `threefry_train_keys_launch`."""
+    global train_keys_launches
+    from gan_sass_tf_tpu_torch.ops import build
+
+    _check_step(key, step, shard, d_steps, "train_keys kernel")
+    if not key.is_cuda:
+        raise ValueError(f"train_keys kernel: a CUDA key, got one on {key.device}")
+    key = key.contiguous()
+    out = torch.empty((3 + 3 * d_steps, 2), dtype=torch.int64, device=key.device)
+    rc = build.load_library().threefry_train_keys_launch(
+        key.data_ptr(), step.data_ptr(), shard, d_steps, out.data_ptr(),
+        torch.cuda.current_stream(key.device).cuda_stream)
+    build.check_launch(rc, "threefry_train_keys")
+    train_keys_launches += 1
+    return out
+
+
+def dropout_constants(dtype: torch.dtype, p: float) -> Tuple[float, float]:
+    """(keep, scale): the float32 bound bernoulli draws below, 1 - p, and
+    float32(1 / keep rounded to `dtype`), the factor of a kept value."""
+    if dtype not in DTYPES or not 0.0 < p < 1.0:
+        raise ValueError(f"dropout: float32 or bfloat16 and 0 < p < 1, got {dtype}, {p}")
+    keep_x = np.float32(torch.tensor(1.0 - p, dtype=dtype).item())
+    return float(np.float32(1.0 - p)), float(np.float32(1.0) / keep_x)
+
+
+def flax_layout(shape: Sequence[int], dims: Sequence[int]) -> Tuple[list, list]:
+    """The kernel's view of a contiguous port tensor of `shape` whose dims,
+    in the flax tensor's order, are `dims`: its sizes and, for each, its
+    coordinate's stride in the flax flat index, 1-padded at the front to
+    DROPOUT_DIMS."""
+    if sorted(dims) != list(range(len(shape))) or len(shape) > DROPOUT_DIMS:
+        raise ValueError(f"dropout: dims {tuple(dims)} for a tensor of shape "
+                         f"{tuple(shape)} (at most {DROPOUT_DIMS} dims)")
+    jstride, acc = [0] * len(shape), 1
+    for d in reversed(dims):
+        jstride[d], acc = acc, acc * shape[d]
+    pad = DROPOUT_DIMS - len(shape)
+    return [1] * pad + list(shape), [0] * pad + jstride
+
+
+def dropout_reference(x: torch.Tensor, key: torch.Tensor, fold: int, p: float,
+                      dims: Sequence[int]) -> torch.Tensor:
+    _check_key(key, "dropout")
+    keep, scale = dropout_constants(x.dtype, p)
+    flax_layout(x.shape, dims)
+    kept = tf.bernoulli(tf.fold_in(key, fold), 1.0 - p, [x.shape[d] for d in dims])
+    kept = kept.permute(*np.argsort(dims).tolist())
+    return torch.where(kept, (x.float() * scale).to(x.dtype), 0.0)
+
+
+def dropout_kernel(x: torch.Tensor, key: torch.Tensor, fold: int, p: float,
+                   dims: Sequence[int], backward: bool = False) -> torch.Tensor:
+    """One launch of `threefry_dropout_launch`; `backward` counts it as a
+    backward launch."""
+    global dropout_launches, dropout_bwd_launches
+    from gan_sass_tf_tpu_torch.ops import build
+
+    _check_key(key, "dropout kernel")
+    keep, scale = dropout_constants(x.dtype, p)
+    size, jstride = flax_layout(x.shape, dims)
+    if not (x.is_cuda and key.device == x.device and key.shape == (2,)):
+        raise ValueError(f"dropout kernel: a CUDA tensor and a (2,) key on its "
+                         f"device, got {x.device} and {tuple(key.shape)} on {key.device}")
+    if not (1 <= x.numel() < 1 << 32 and 0 <= fold < 1 << 32):
+        raise ValueError(f"dropout kernel: {x.numel()} elements, fold {fold}")
+    x, key = x.contiguous(), key.contiguous()
+    y = torch.empty_like(x)
+    rc = build.load_library().threefry_dropout_launch(
+        x.data_ptr(), y.data_ptr(), key.data_ptr(), fold, keep, scale, x.numel(),
+        (ctypes.c_longlong * DROPOUT_DIMS)(*size),
+        (ctypes.c_longlong * DROPOUT_DIMS)(*jstride), int(x.dtype == torch.bfloat16),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check_launch(rc, "threefry_dropout")
+    if backward:
+        dropout_bwd_launches += 1
+    else:
+        dropout_launches += 1
+    return y
+
+
+class Dropout(torch.autograd.Function):
+    """dropout(x) with its gradient, select(mask, dy * scale, 0): the same
+    launch (or plain version) on dy, the mask drawn again from the key;
+    differentiable again, for R1's double backward."""
+
+    @staticmethod
+    def forward(ctx, x, key, fold, p, dims, kernel, backward=False):
+        ctx.save_for_backward(key)
+        ctx.args = (fold, p, dims, kernel)
+        if kernel:
+            return dropout_kernel(x, key, fold, p, dims, backward)
+        return dropout_reference(x, key, fold, p, dims)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (key,) = ctx.saved_tensors
+        fold, p, dims, kernel = ctx.args
+        return (Dropout.apply(dy, key, fold, p, dims, kernel, True),
+                None, None, None, None, None, None)
+
+
+def noise_coef(dtype: torch.dtype, std: float) -> float:
+    """The noise's factor: float32(std)·float32(√2) rounded once (float32,
+    XLA's folded constant), or bf16(std) (bfloat16)."""
+    if dtype == torch.float32:
+        return float(np.float32(std) * np.float32(tf.SQRT2))
+    if dtype == torch.bfloat16:
+        return torch.tensor(std, dtype=torch.bfloat16).item()
+    raise ValueError(f"noise: float32 or bfloat16, not {dtype}")
+
+
+def noise_reference(x: torch.Tensor, key: torch.Tensor, std: float) -> torch.Tensor:
+    _check_key(key, "noise")
+    coef = noise_coef(x.dtype, std)
+    if x.dtype == torch.float32:
+        e = tf.erf_inv(tf.uniform(key, x.shape, tf.NORMAL_LOW, 1.0))
+        return tf.fma32(e, coef, x)
+    return x + tf.normal(key, x.shape, torch.bfloat16) * coef
+
+
+def noise_kernel(x: torch.Tensor, key: torch.Tensor, std: float) -> torch.Tensor:
+    """One launch of `threefry_noise_launch`."""
+    global noise_launches
+    from gan_sass_tf_tpu_torch.ops import build
+
+    _check_key(key, "noise kernel")
+    coef = noise_coef(x.dtype, std)
+    if not (x.is_cuda and key.device == x.device and key.shape == (2,)):
+        raise ValueError(f"noise kernel: a CUDA tensor and a (2,) key on its "
+                         f"device, got {x.device} and {tuple(key.shape)} on {key.device}")
+    if not 1 <= x.numel() < 1 << 32:
+        raise ValueError(f"noise kernel: {x.numel()} elements")
+    x, key = x.contiguous(), key.contiguous()
+    y = torch.empty_like(x)
+    rc = build.load_library().threefry_noise_launch(
+        x.data_ptr(), y.data_ptr(), key.data_ptr(), coef, x.numel(),
+        int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream)
+    build.check_launch(rc, "threefry_noise")
+    noise_launches += 1
+    return y
+
+
+class Noise(torch.autograd.Function):
+    """noise(x) with the identity gradient: the noise is a constant."""
+
+    @staticmethod
+    def forward(ctx, x, key, std, kernel):
+        return noise_kernel(x, key, std) if kernel else noise_reference(x, key, std)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy, None, None, None

@@ -20,14 +20,30 @@ the JAX script's keys:
    "top_ops_us_per_step"}
 On the CPU (--device cpu) the host's outermost operators stand in for
 kernels.
+
+On CUDA the step is then captured (`train/graphed.py`) and timed both
+ways, and one more JSON line comes before the last, the values unrounded:
+  {"nvidia_smi",
+   "wall_ms": {"graphed", "eager"},    medians of SAMPLES synchronized
+                                       steps each way, in turns
+   "device_ms": {"graphed", "eager"},  kernel, copy and fill time summed,
+   "busy_ms": {"graphed", "eager"},    and their union, a step (a trace
+                                       of STEPS steps each way)
+   "launches_per_replay"}              the capture's kernel launches
+The file runs on an older checkout of the package too (`PYTHONPATH=that
+tree python path/to/profile_step.py ...`), so two versions are timed in
+one call.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import statistics
+import subprocess
 import sys
 import tempfile
+import time
 from collections import Counter
 
 import torch
@@ -38,7 +54,7 @@ from gan_sass_tf_tpu_torch.scripts import split_args
 from gan_sass_tf_tpu_torch.scripts.quality_protocol import device_or_exit
 from gan_sass_tf_tpu_torch.utils import profiler
 
-STEPS, WARMUP = 10, 3
+STEPS, WARMUP, SAMPLES = 10, 3, 8
 
 
 def profile_steps(exp, steps: int):
@@ -58,6 +74,58 @@ def profile_steps(exp, steps: int):
         if any(r["ts"] <= e["launch_ts"] <= r["ts"] + r["dur"] for r in within):
             top[e["name"]] += e["dur"]
     return buckets, top
+
+
+def nvidia_smi() -> str:
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30).stdout.strip()
+    except (OSError, subprocess.SubprocessError) as exc:
+        return f"unavailable: {exc}"
+
+
+def traced(fn, calls: int = STEPS):
+    """(kernel ms summed, busy ms) a call of `fn` over `calls` traced calls
+    (one untimed call first)."""
+    fn()
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiler.profile_trace(tmp):
+            torch.cuda.synchronize()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = profiler.device_events(profiler.load_trace(profiler.trace_files(tmp)[-1]))
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in events):
+        if b > end:
+            busy, end = busy + b - max(a, end), b
+    return sum(e["dur"] for e in events) / calls / 1e3, busy / calls / 1e3
+
+
+def time_graphed(exp) -> dict:
+    """Wall, device and busy ms of `exp`'s captured step against its eager
+    step (the capture made here)."""
+    from gan_sass_tf_tpu_torch.train.graphed import WARMUP_STEPS
+
+    exp.run_steps(WARMUP_STEPS + 1)            # the eager warm-up, the capture
+    steps = {"graphed": lambda: exp.run_steps(1), "eager": lambda: exp._step(exp._bank)}
+    walls = {k: [] for k in steps}
+    for i in range(2 * SAMPLES):
+        mode = ("graphed", "eager", "eager", "graphed")[i % 4]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps[mode]()
+        torch.cuda.synchronize()
+        walls[mode].append((time.perf_counter() - t0) * 1e3)
+    device, busy = {}, {}
+    for mode, fn in steps.items():
+        device[mode], busy[mode] = traced(fn)
+    return {"nvidia_smi": nvidia_smi(),
+            "wall_ms": {k: statistics.median(v) for k, v in walls.items()},
+            "device_ms": device, "busy_ms": busy,
+            "launches_per_replay": exp._graphed.per_replay}
 
 
 def main(argv=None) -> int:
@@ -91,6 +159,8 @@ def main(argv=None) -> int:
     print("top kernels:")
     for op, v in top.most_common(20):
         print(f"  {v / STEPS:8.1f} us  {op[:100]}")
+    if exp.graphed:
+        print(json.dumps(time_graphed(exp)), flush=True)
     print(json.dumps({
         "preset": preset, "batch": batch,
         "device_ms_per_step": total / STEPS / 1e3,

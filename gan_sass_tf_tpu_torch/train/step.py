@@ -41,21 +41,24 @@ semantics are the reference's:
     only D's weights and the stored u, which every rank holds equal, so
     every rank computes the same u and sigma.
 
-Random numbers: the bank picks and shifts, the gains and the noise are
-the JAX step's, drawn from its keys (threefry, `ops/threefry.py`): the
-train key folded with the step number, split in 5, rng_data and rng_mix
-folded with each global example and split again
+Random numbers: every draw is the JAX step's, from its keys (threefry,
+`ops/threefry.py`).  The bank picks and shifts, the gains and the noise:
+the train key folded with the step number, split in 5, rng_data and
+rng_mix folded with each global example and split again
 (`gan_sass_tf_tpu/train/step.py:213-214`), all in one launch on the card,
-then one launch a draw.  The key is a (2,) int64 tensor on the device and
-the step number is `state.step`, a 0-d tensor on the device that the step
+then one launch a draw.  Dropout's keep-masks and D's instance noise, when
+either is on: rng_g, rng_dl and rng_ga (entries 2-4 of that split) folded
+with the rank's shard index, rng_dl folded with each D step and split in
+3, rng_ga split in 2 (`:215-228`, `:317`, `:178`, `:372`), in one launch
+a step (`ops.dispatch.train_keys`); each module call draws its masks under
+flax's `make_rng` keys (`models/dropout.py`), the noise under its own
+key, one fused launch each.  So R ranks draw what JAX's shard_map step
+draws at R shards.  The key is a (2,) int64 tensor on the device and the
+step number is `state.step`, a 0-d tensor on the device that the step
 reads there and advances in place; the lr schedules, the bias corrections
 and the EMA decay are computed from it on the device.  So a step reads no
 number on the host, and `train/graphed.py` captures it once as a CUDA
-graph and replays it.  Instance noise and dropout's keep-masks stay on
-`data.counter_rng`, seeded by the key's low word and keyed by global
-example or pair row, each call site its own stream, so R ranks of B/R
-examples draw exactly the noise and masks of one rank of B (the reference
-folds the shard index into its keys instead).
+graph and replays it.
 """
 
 from __future__ import annotations
@@ -67,7 +70,6 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
-from gan_sass_tf_tpu_torch.data.counter_rng import Counter, counter_normal, step_key
 from gan_sass_tf_tpu_torch.data.device_bank import draw_rows
 from gan_sass_tf_tpu_torch.data.mixer import mix_keyed, mix_sources
 from gan_sass_tf_tpu_torch.data.threefry import prng_key
@@ -83,39 +85,29 @@ from gan_sass_tf_tpu_torch.losses import (
     si_sdr,
 )
 from gan_sass_tf_tpu_torch.ops import dispatch as ops
+from gan_sass_tf_tpu_torch.ops.threefry import train_key_rows
 from gan_sass_tf_tpu_torch.parallel.mesh import DataParallel
 from gan_sass_tf_tpu_torch.train.state import TrainState
 
-STREAM_D_NOISE, STREAM_G_NOISE = 31, 61   # + 2·d_step; each uses two streams
-# Dropout: the G forward, the G loss's D call, and per D step (+ 32·d_step)
-# its update and its R1 call; a module's dropout site i adds i.
-STREAM_G_DROP, STREAM_G_ADV_DROP = 1000, 4000
-STREAM_D_DROP, STREAM_R1_DROP = 2000, 3000
-
-
-def instance_noise(x: torch.Tensor, std: float, key: Counter, stream: int,
-                   rows: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x + std·N(0, 1), the noise drawn per row of x from the counters
-    under the step's key (row i keyed by rows[i], default i) and rounded to x's dtype, as the
-    reference adds it."""
+def instance_noise(x: torch.Tensor, std: float, key: torch.Tensor) -> torch.Tensor:
+    """x + std·N(0, 1) drawn under the threefry `key` for x in the flax
+    layout, in x's dtype, as the reference adds it (x itself at std 0)."""
     if std <= 0.0:
         return x
-    if rows is None:
-        rows = torch.arange(x.shape[0], device=x.device)
-    noise = counter_normal(key, rows, stream, x[0].numel())
-    return x + std * noise.reshape(x.shape).to(x.dtype)
+    return ops.instance_noise(x, key, std)
 
 
 def build_train_step(cfg, from_bank: bool = False, local_batch: int = 0,
                      dp: Optional[DataParallel] = None
-                     ) -> Callable[[TrainState, torch.Tensor, Counter],
+                     ) -> Callable[[TrainState, torch.Tensor, torch.Tensor],
                                    Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """Returns train_step(state, data, key) -> (state, metrics).  `data` is
     the (B, S, T) f32 sources of this rank or, with from_bank=True, the
     (S, N_bank, T) bank on the device, sampled for `local_batch` examples;
     `key` is the train key, a (2,) int64 threefry key on the device (the
-    JAX step's `rng`; `data.prng_key(seed)`).  With `dp` the
-    rank's examples start at global index dp.rank·B_local.  The state is
+    JAX step's `rng`; `data.prng_key(seed)`).  With `dp` the rank's
+    examples start at global index dp.rank·B_local, and its dropout and
+    noise keys fold in dp.rank, the reference's shard index.  The state is
     updated in place (`state.step` advanced by one) and returned; the
     metrics are 0-d tensors on the device (reading them synchronizes)."""
     dp = dp or DataParallel()
@@ -161,12 +153,14 @@ def build_train_step(cfg, from_bank: bool = False, local_batch: int = 0,
             x = x.reshape(n, t2, k, d_fold * c)
         return x
 
-    def d_update(state: TrainState, x_d, rows, key, di):
-        """One D step on the detached pair batch (global pair rows `rows`):
-        loss, grads averaged over the ranks, optimizer, and the new
-        spectral-norm state stored."""
+    def d_update(state: TrainState, x_d, keys):
+        """One D step on the detached pair batch: loss, grads averaged over
+        the ranks, optimizer, and the new spectral-norm state stored.
+        `keys` are the D step's (dropout, noise, R1 dropout) keys (Nones
+        when neither dropout nor noise is on)."""
         d = state.d
-        x = instance_noise(x_d, d_noise, key, STREAM_D_NOISE + 2 * di, rows)
+        drop_key, noise_key, r1_key = keys
+        x = instance_noise(x_d, d_noise, noise_key)
         loss = 0.0
         if r1_gamma > 0.0:
             # Zero-centred R1 on the real half, from the stored (pre-update)
@@ -174,12 +168,11 @@ def build_train_step(cfg, from_bank: bool = False, local_batch: int = 0,
             # gradient (create_graph).
             half = x.shape[0] // 2
             x_real = x[:half].float().requires_grad_()
-            lg = d(x_real.to(x.dtype), train=True, dropout=DropoutKey(
-                key, STREAM_R1_DROP + 32 * di, rows[:half]))
+            lg = d(x_real.to(x.dtype), train=True, dropout=dropout_key(r1_key))
             (gx,) = torch.autograd.grad(lg.float().sum(), x_real, create_graph=True)
             loss = 0.5 * r1_gamma * gx.square().sum(dim=tuple(range(1, gx.dim()))).mean()
-        real, fake = d(x, update_stats=True, train=True, dropout=DropoutKey(
-            key, STREAM_D_DROP + 32 * di, rows)).chunk(2)
+        real, fake = d(x, update_stats=True, train=True,
+                       dropout=dropout_key(drop_key)).chunk(2)
         loss = gan_d_loss(real, fake, lcfg.gan_loss) + loss
         grads = torch.autograd.grad(loss, state.d_opt.params)
         dp.all_reduce_mean(grads)                 # before d_opt's clip
@@ -187,15 +180,23 @@ def build_train_step(cfg, from_bank: bool = False, local_batch: int = 0,
             state.d_opt.step(grads)
         return loss.detach(), real.detach().mean(), fake.detach().mean()
 
-    counter_draws = d_noise > 0.0 or cfg.model.dropout > 0.0
+    step_draws = d_noise > 0.0 or cfg.model.dropout > 0.0
+    g_row, d_rows, adv_rows = train_key_rows(tcfg.d_steps)
+
+    def dropout_key(key):
+        return None if key is None else DropoutKey(key)
 
     def train_step(state: TrainState, data: torch.Tensor, key):
         step = state.step.clone()        # this step's number, whatever moves it
-        # Dropout's and instance noise's (seed, step), hashed once.
-        ckey = step_key(key[1], step) if counter_draws else None
         b = local_batch if from_bank else data.shape[0]
         offset = dp.rank * b                      # this rank's first global example
         with record_function("dsp"):
+            # Dropout's and instance noise's keys, the shard folded in.
+            rk = (ops.train_keys(key, step, dp.rank, tcfg.d_steps) if step_draws
+                  else None)
+
+            def key_at(row):
+                return None if rk is None else rk[row]
             keys = ops.example_keys(key, offset, b, step=step)
             sources = draw_rows(data, keys[0]) if from_bank else data
             mixture, scaled = mix_keyed(sources, keys[1], cfg.data)
@@ -209,8 +210,7 @@ def build_train_step(cfg, from_bank: bool = False, local_batch: int = 0,
 
         # The one G forward of the step (recomputed in the backward with
         # g_remat; the keyed dropout masks come out the same).
-        g_key = DropoutKey(ckey, STREAM_G_DROP,
-                           offset + torch.arange(b, device=feats.device))
+        g_key = dropout_key(key_at(g_row))
 
         def g_forward(f):
             return state.g(f, train=True, dropout=g_key)
@@ -245,14 +245,9 @@ def build_train_step(cfg, from_bank: bool = False, local_batch: int = 0,
             # D updates on the pair batch built once, detached.
             x_d = torch.cat([d_input(mix_logmag, tgt_logmag),
                              d_input(mix_logmag, est_logmag_sg)])
-            # Global pair rows: the real half's at offset·S + i, the fake
-            # half's after all B·S real rows of the global batch.
-            s = tgt_logmag.shape[1]
-            real_rows = offset * s + torch.arange(b * s, device=x_d.device)
-            fake_rows = dp.world * b * s + real_rows
             for di in range(tcfg.d_steps):
                 d_loss, real_m, fake_m = d_update(
-                    state, x_d, torch.cat([real_rows, fake_rows]), ckey, di)
+                    state, x_d, [key_at(r) for r in d_rows[di]])
             # BN running statistics, from each rank's own pairs, averaged.
             dp.all_reduce_mean([t for n in state.d.norms if n.kind == "batch"
                                 for t in (n.mean, n.var)])
@@ -276,10 +271,10 @@ def build_train_step(cfg, from_bank: bool = False, local_batch: int = 0,
         with record_function("g_fwd"):
             rec = sum(w * domain_rec(dn) for w, dn in zip(dweights, domains))
             # Adversarial term against the just-updated D, fresh noise.
+            adv_drop, adv_noise = (key_at(r) for r in adv_rows)
             fake_logits = state.d(
-                instance_noise(d_input(mix_logmag, est_logmag), d_noise, ckey,
-                               STREAM_G_NOISE, real_rows),
-                train=True, dropout=DropoutKey(ckey, STREAM_G_ADV_DROP, real_rows))
+                instance_noise(d_input(mix_logmag, est_logmag), d_noise, adv_noise),
+                train=True, dropout=dropout_key(adv_drop))
             adv = gan_g_loss(fake_logits, lcfg.gan_loss)
             g_loss = lcfg.adv_weight * adv + lcfg.recon_weight * rec
         with record_function("g_bwd"):

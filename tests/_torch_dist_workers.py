@@ -34,14 +34,17 @@ TIMEOUT = datetime.timedelta(seconds=120)    # a hung collective fails the test
 
 def dp_cfg(device_bank: bool = True, **train):
     """A small stream_v5e8 (G and D two conv levels of width 8, 0.25 s, f32)
-    with everything random on: gain jitter, a noise source, instance noise,
-    R1 and the G EMA; global batch 4."""
+    with gain jitter, a noise source, R1 and the G EMA on; global batch 4.
+    Instance noise is off by default: each rank draws it under its own
+    shard's key, as the reference's shard_map step does, so R ranks do not
+    draw one rank's noise (tests/test_torch_options_dist.py holds two ranks
+    with noise and dropout to the JAX shard_map step)."""
     cfg = config.get_config("stream_v5e8")
     return cfg.replace(
         model=dataclasses.replace(cfg.model, g_channels=(8, 8), d_channels=(8, 8),
                                   compute_dtype="float32"),
         train=dataclasses.replace(cfg.train, **{
-            "batch_size": 4, "d_instance_noise": 0.1, "r1_gamma": 1.0,
+            "batch_size": 4, "d_instance_noise": 0.0, "r1_gamma": 1.0,
             "g_ema": 0.9, "log_every": 1, **train}),
         data=dataclasses.replace(cfg.data, segment_seconds=0.25, num_noise=1,
                                  bank_utterances=8, device_bank=device_bank),
@@ -174,7 +177,8 @@ def suite(rank: int, world: int, tmp: str) -> None:
             pickle.dump(_jax_case(tmp, rank), f)
         # (f) the workdir: 2 steps, then a new Experiment resumes for a 3rd;
         # beside 3 steps in one go.
-        wd_cfg = dp_cfg(ckpt_every=1, eval_every=2, eval_batches=1)
+        wd_cfg = dp_cfg(ckpt_every=1, eval_every=2, eval_batches=1,
+                        d_instance_noise=0.1)
         for wd, runs in (("wd_resumed", (2, 1)), ("wd_straight", (3,))):
             for n in runs:
                 e = Experiment(wd_cfg, workdir=os.path.join(tmp, wd), device="cpu")
@@ -212,9 +216,9 @@ def printed(main, argv) -> str:
 
 
 def options_suite(rank: int, world: int, tmp: str) -> None:
-    """The model options' cases at `world` ranks: the BN D against the JAX
-    shard_map step (bn_rank<r>.pkl), dropout against one rank
-    (dropout_rank<r>.npz), and what the quality scripts print on each rank
+    """The model options' cases at `world` ranks: the BN D and dropout with
+    instance noise against the JAX shard_map step (bn_rank<r>.pkl,
+    dropout_rank<r>.pkl), and what the quality scripts print on each rank
     (quality_rank<r>.json)."""
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{tmp}/store", rank=rank,
@@ -222,8 +226,8 @@ def options_suite(rank: int, world: int, tmp: str) -> None:
     try:
         with open(os.path.join(tmp, f"bn_rank{rank}.pkl"), "wb") as f:
             pickle.dump(_jax_case(tmp, rank, "bn"), f)
-        np.savez(os.path.join(tmp, f"dropout_rank{rank}.npz"),
-                 **run_steps(Experiment(dropout_cfg(), device="cpu")))
+        with open(os.path.join(tmp, f"dropout_rank{rank}.pkl"), "wb") as f:
+            pickle.dump(_jax_case(tmp, rank, "dropout"), f)
         with open(os.path.join(tmp, f"quality_rank{rank}.json"), "w") as f:
             json.dump({"quality": printed(quality_protocol.main, QUALITY_ARGV),
                        "bounds": printed(recompute_bounds.main, BOUNDS_ARGV)}, f)

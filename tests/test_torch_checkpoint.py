@@ -3,6 +3,8 @@ fingerprint guard, the metrics file, and the CLI lifecycle from
 `train --workdir` to `separate --workdir --streaming` (the cases of
 tests/test_checkpoint.py and tests/test_infer.py:185 on the port)."""
 
+import _torch_threads  # noqa: F401  (first: the CPU thread budget)
+
 import dataclasses
 import json
 import os

@@ -2,6 +2,8 @@
 the JAX package's gan_sass_tf_tpu.config: every preset field for field, the
 `--set` overrides of both CLIs, the JSON form and the fingerprint."""
 
+import _torch_threads  # noqa: F401  (first: the CPU thread budget)
+
 import dataclasses
 
 import pytest

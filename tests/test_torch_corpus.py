@@ -3,6 +3,8 @@ fixture corpus (the copied fixture writer, `WavDirDataset` with its
 held-out speaker split and `build_bank`), and host-batch training: the
 prefetch thread feeds the step the dataset's batches in order."""
 
+import _torch_threads  # noqa: F401  (first: the CPU thread budget)
+
 import dataclasses
 import os
 import threading

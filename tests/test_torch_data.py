@@ -1,7 +1,9 @@
 """The port's data layer against the JAX package's: the copied synthetic
 generator bit for bit, bank sampling and mixing on injected draws and under
-threefry keys, and the counter-based random numbers of dropout and
-instance noise."""
+threefry keys, and the distributions of the threefry draws that dropout
+and instance noise take."""
+
+import _torch_threads  # noqa: F401  (first: the CPU thread budget)
 
 import dataclasses
 
@@ -19,12 +21,7 @@ from gan_sass_tf_tpu.data.mixer import mix_sources as j_mix_sources
 from gan_sass_tf_tpu.data.synthetic import SyntheticDataset as JSynthetic
 from gan_sass_tf_tpu_torch import config
 from gan_sass_tf_tpu_torch import data as tdata
-from gan_sass_tf_tpu_torch.data.counter_rng import (
-    step_key,
-    counter_bits,
-    counter_normal,
-    counter_uniform,
-)
+from gan_sass_tf_tpu_torch.data import threefry as tf
 from gan_sass_tf_tpu_torch.data.threefry import fold_in
 
 
@@ -159,19 +156,23 @@ def test_mix_sources_gains_and_noise(rng):
     torch.testing.assert_close(plain[1], src, atol=0, rtol=0)
 
 
-def test_counter_rng_distributions_and_independence():
-    ids = torch.arange(4096)
-    u = counter_uniform(step_key(0, 0), ids, 1, 16)
+def test_threefry_draws_distributions_and_independence():
+    """The uniforms, the f32 and bf16 normals and the bernoulli masks that
+    dropout and instance noise draw: their moments, and bits under other
+    keys (another seed, step or fold) that agree by chance only."""
+    shape = (4096, 16)
+    u = tf.uniform(_key(0, 0), shape)
     assert 0.0 <= float(u.min()) and float(u.max()) < 1.0
     assert abs(float(u.mean()) - 0.5) < 5e-3 and abs(float(u.std()) - 12 ** -0.5) < 5e-3
-    n = counter_normal(step_key(0, 0), ids, 2, 16)
-    assert abs(float(n.mean())) < 0.02 and abs(float(n.std()) - 1.0) < 0.02
-    bits = counter_bits(step_key(0, 0), ids, 1, 16)
+    for dtype, tol in ((torch.float32, 0.02), (torch.bfloat16, 0.03)):
+        n = tf.normal(_key(0, 1), shape, dtype).float()
+        assert abs(float(n.mean())) < tol and abs(float(n.std()) - 1.0) < tol, dtype
+    kept = tf.bernoulli(_key(0, 2), 0.9, shape).float().mean()
+    assert abs(float(kept) - 0.9) <= 5 * (0.9 * 0.1 / u.numel()) ** 0.5
+    bits = tf.random_bits(_key(0, 0), shape)
     assert int(bits.min()) >= 0 and int(bits.max()) < 2 ** 32
-    others = [counter_bits(step_key(1, 0), ids, 1, 16),
-              counter_bits(step_key(0, 1), ids, 1, 16),
-              counter_bits(step_key(0, 0), ids, 2, 16),
-              counter_bits(step_key(0, 0), ids + 1, 1, 16)]
+    others = [tf.random_bits(_key(1, 0), shape), tf.random_bits(_key(0, 1), shape),
+              tf.random_bits(fold_in(_key(0, 0), 1), shape)]
     for o in others:
         assert float((o == bits).float().mean()) < 1e-3
     corr = np.corrcoef(u[:, 0].numpy(), u[:, 1].numpy())[0, 1]

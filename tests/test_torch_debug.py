@@ -7,6 +7,8 @@ recurses through shard_map's output reshaping until RecursionError in
 this JAX version.  It also checks only a call that compiles, so each JAX
 case jits afresh."""
 
+import _torch_threads  # noqa: F401  (first: the CPU thread budget)
+
 import dataclasses
 
 import jax

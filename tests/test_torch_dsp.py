@@ -2,6 +2,8 @@
 package's on the same seeded inputs, at the JAX package's own tolerances
 (tests/test_pallas.py, tests/test_dsp.py)."""
 
+import _torch_threads  # noqa: F401  (first: the CPU thread budget)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

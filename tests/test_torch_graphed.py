@@ -3,11 +3,13 @@ dispatch and the port's bench, on the CPU.
 
 A CUDA graph runs only on the card (`chip_smoke.py`'s graph phase holds
 replays to the eager step there, bit for bit).  What it needs is tested
-here: the counter RNG keyed by 0-d tensors draws the int-keyed bits, the
+here: the threefry draws keyed by 0-d tensors equal the int-keyed ones, the
 optimizer with device counters is optax's over 30 updates, the counters
 round-trip a checkpoint as ints, `train(N)` runs exactly N steps in
 dispatches of train.steps_per_dispatch, and the bench's and bench_spd's
 output contracts."""
+
+import _torch_threads  # noqa: F401  (first: the CPU thread budget)
 
 import dataclasses
 import importlib
@@ -28,13 +30,9 @@ from gan_sass_tf_tpu import config as j_config
 from gan_sass_tf_tpu.train.state import _lr_schedule as j_lr_schedule
 from gan_sass_tf_tpu_torch import config
 from gan_sass_tf_tpu_torch.data import mix_sources, prng_key, sample_bank
-from gan_sass_tf_tpu_torch.data.counter_rng import (
-    counter_bits,
-    counter_normal,
-    step_key,
-)
 from gan_sass_tf_tpu_torch.data.threefry import fold_in
 from gan_sass_tf_tpu_torch.models.dropout import DropoutKey
+from gan_sass_tf_tpu_torch.ops import dispatch
 from gan_sass_tf_tpu_torch.scripts import bench_spd
 from gan_sass_tf_tpu_torch.train import ClippedAdam, Experiment
 from gan_sass_tf_tpu_torch.train.experiment import dispatch_lengths
@@ -46,79 +44,54 @@ ROOT = Path(__file__).resolve().parents[1]
 SEEDS = [(123457, 41), (2 ** 32 + 5, 0), (-1, 2 ** 31 + 3)]
 
 
-def _keys(seed, step, threefry=False):
-    """The draw's key from ints and from 0-d int64 tensors: the counter
-    RNG's `step_key(seed, step)`, or the threefry key
-    fold_in(PRNGKey(seed), step)."""
-    if threefry:
-        return {"int": fold_in(prng_key(seed), step),
-                "tensor": fold_in(prng_key(torch.tensor(seed, dtype=torch.int64)),
-                                  torch.tensor(step, dtype=torch.int64))}
-    return {"int": step_key(seed, step),
-            "tensor": step_key(torch.tensor(seed, dtype=torch.int64),
-                               torch.tensor(step, dtype=torch.int64))}
+def _keys(seed, step):
+    """The threefry key fold_in(PRNGKey(seed), step) from ints and from 0-d
+    int64 tensors."""
+    return {"int": fold_in(prng_key(seed), step),
+            "tensor": fold_in(prng_key(torch.tensor(seed, dtype=torch.int64)),
+                              torch.tensor(step, dtype=torch.int64))}
 
 
 @pytest.mark.parametrize("seed,step", SEEDS)
-@pytest.mark.parametrize("draw", ["bits", "picks_shifts", "gains_noise",
-                                  "instance_noise", "dropout"])
-def test_counter_rng_tensor_keys_draw_int_key_bits(draw, seed, step):
-    """Every draw of the step (the bank's picks and shifts and the mixer's
-    gains and noise under a threefry key, instance noise and dropout's
-    keep-masks under the counter RNG's `step_key`) from 0-d int64 tensors
-    equals the draw from Python ints, bit for bit, also for a seed past
-    2^32 and a negative one."""
+@pytest.mark.parametrize("draw", ["picks_shifts", "gains_noise", "instance_noise",
+                                  "dropout"])
+def test_tensor_keys_draw_int_key_bits(draw, seed, step):
+    """Every draw of the step (the bank's picks and shifts, the mixer's
+    gains and noise, instance noise and dropout's keep-masks) under a
+    threefry key built from 0-d int64 tensors equals the draw under the key
+    built from Python ints, bit for bit, also for a seed past 2^32 and a
+    negative one."""
     cfg = config.get_config("stream_v5e8").data
     cfg = dataclasses.replace(cfg, num_noise=1, gain_jitter_db=5.0)
     bank = torch.from_numpy(np.random.default_rng(0).standard_normal(
         (2, 8, 64)).astype(np.float32))
     out = {}
-    for kind, key in _keys(seed, step, draw in ("picks_shifts", "gains_noise")).items():
-        if draw == "bits":
-            out[kind] = counter_bits(key, torch.arange(3, 9), 7, 5)
-        elif draw == "picks_shifts":
+    for kind, key in _keys(seed, step).items():
+        if draw == "picks_shifts":
             out[kind] = sample_bank(bank, key, 5, example_offset=3)
         elif draw == "gains_noise":
             out[kind] = torch.cat([x.flatten() for x in mix_sources(
                 bank[:, :4].transpose(0, 1).contiguous(), key, cfg, example_offset=2)])
         elif draw == "instance_noise":
-            out[kind] = instance_noise(torch.zeros(6, 4, 3, 2), 0.5, key, 31,
-                                       torch.arange(10, 16))
+            out[kind] = instance_noise(torch.zeros(6, 4, 3, 2), 0.5, key)
         else:
-            x = torch.ones(4, 3, 5)
-            out[kind] = DropoutKey(key, 2000, torch.arange(4)).apply(x, 0.3, 1)
+            out[kind] = DropoutKey(key).apply(torch.ones(4, 3, 5), 0.3, 1)
     assert torch.equal(out["int"], out["tensor"])
 
 
-@pytest.mark.parametrize("seed,step", SEEDS)
-def test_step_key_keeps_the_one_pass_key_hash(seed, step):
-    """A draw under `step_key(seed, step)` hashes the key a draw hashed
-    from (seed, step, stream) in one pass, mix(mix(mix(seed) ^ step) ^
-    stream): the same numbers for every example as before the key was
-    split."""
-    from gan_sass_tf_tpu_torch.data.counter_rng import _M32, _mix32
+def test_train_keys_follow_the_in_place_step():
+    """The step's dropout and noise keys read the step tensor when they
+    are computed, as a replayed step computes them: the same ops after the
+    step moved in place draw the next step's noise."""
+    key, step = prng_key(5), torch.tensor(3)
+    x = torch.zeros(4, 8)
 
-    ids, stream, n = torch.arange(5, 12), 2003, 6
-    key = _mix32(_mix32(_mix32(seed & _M32) ^ (step & _M32)) ^ stream)
-    per_example = _mix32(ids ^ key)
-    cols = _mix32(torch.arange(n) + 0x9E3779B9 & _M32)
-    want = _mix32(_mix32(per_example[:, None] ^ cols) ^ key)
-    assert torch.equal(counter_bits(step_key(seed, step), ids, stream, n), want)
-
-
-def test_counter_normal_tensor_key_follows_in_place_step():
-    """A key hashed from tensors reads them when it is computed, as a
-    replayed step computes it: the same ops after the step moved in place
-    draw the next step's numbers."""
-    seed, step = torch.tensor(5), torch.tensor(3)
-    ids = torch.arange(4)
-
-    def draw():
-        return counter_normal(step_key(seed, step), ids, 21, 8)
+    def draw(at=step):
+        return instance_noise(x, 1.0, dispatch.train_keys(key, at, 0, 1)[2])
 
     before = draw()
     step.add_(1)
-    assert torch.equal(draw(), counter_normal(step_key(5, 4), ids, 21, 8))
+    assert torch.equal(draw(), draw(torch.tensor(4)))
     assert not torch.equal(before, draw())
 
 

@@ -2,6 +2,8 @@
 inputs: reconstruction, adversarial, and PIT matching (f32 at rtol 1e-6;
 the bf16 matching decides the same permutations)."""
 
+import _torch_threads  # noqa: F401  (first: the CPU thread budget)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

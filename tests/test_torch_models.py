@@ -1,6 +1,8 @@
 """The port's generator and discriminator against the flax modules on the
 same converted weights and seeded inputs, in f32 and bf16."""
 
+import _torch_threads  # noqa: F401  (first: the CPU thread budget)
+
 import dataclasses
 
 import jax
@@ -13,7 +15,7 @@ from gan_sass_tf_tpu import config as j_config
 from gan_sass_tf_tpu import models as jmodels
 from gan_sass_tf_tpu_torch import config
 from gan_sass_tf_tpu_torch import models as tmodels
-from gan_sass_tf_tpu_torch.data import step_key
+from gan_sass_tf_tpu_torch.data import prng_key
 from gan_sass_tf_tpu_torch.models.dropout import DropoutKey
 
 
@@ -388,7 +390,7 @@ def test_bilstm_dense_head_on_the_mel_grid_and_unknown_generator():
         assert g(torch.zeros(1, 5, 20)).shape == (1, 3, 5, 257)
     # Dropout runs at train time: keyed masks, kept values scaled by 1/(1-p).
     g = tmodels.build_generator(_bilstm(dropout=0.5), "cpu")
-    key = DropoutKey(step_key(0, 0), 1000, torch.arange(2))
+    key = DropoutKey(prng_key(0))
     x = torch.randn(2, 5, 33)
     with torch.no_grad():
         a, b = g(x, train=True, dropout=key), g(x, train=True, dropout=key)

@@ -4,6 +4,8 @@ tests/test_pallas.py runs them, plus the dispatch guards.  The CUDA kernels
 themselves are compared with these plain versions on the card by
 chip_smoke.py (this process has no GPU)."""
 
+import _torch_threads  # noqa: F401  (first: the CPU thread budget)
+
 import sys
 
 import jax
@@ -210,7 +212,8 @@ def test_kernel_modules_import_without_toolchain():
     assert [p.name for p in build._headers()] == ["fft.cuh"]
     assert {"istft_launch", "istft_adjoint_launch", "masked_istft_launch",
             "stft_launch", "stft_features_launch", "synthesis_prepare",
-            "threefry_keys_launch", "threefry_sample_launch"} == set(build._SIGNATURES)
+            "threefry_keys_launch", "threefry_sample_launch", "threefry_train_keys_launch",
+            "threefry_dropout_launch", "threefry_noise_launch"} == set(build._SIGNATURES)
     assert build.library_path().parent == build.build_dir()
 
 

@@ -10,6 +10,8 @@ Each side is built from the port's config handed to the JAX package as
 with its biases (and norm scales) moved off their init values so that
 every parameter reaches the output."""
 
+import _torch_threads  # noqa: F401  (first: the CPU thread budget)
+
 import dataclasses
 import itertools
 
@@ -26,7 +28,8 @@ from gan_sass_tf_tpu.models.phase_ct import _phase_plan as j_phase_plan
 from gan_sass_tf_tpu.models.phase_ct import _same_pad_a as j_same_pad_a
 from gan_sass_tf_tpu_torch import config
 from gan_sass_tf_tpu_torch import models as tmodels
-from gan_sass_tf_tpu_torch.data import prng_key, step_key
+from gan_sass_tf_tpu_torch.data import prng_key
+from gan_sass_tf_tpu_torch.data.threefry import fold_in
 from gan_sass_tf_tpu_torch.models.dropout import DropoutKey
 from gan_sass_tf_tpu_torch.models.generator import _ct_padding
 from gan_sass_tf_tpu_torch.models.phase_ct import (
@@ -327,26 +330,25 @@ def test_discriminator_builders_accept_and_reject_as_jax():
 
 
 def test_dropout_masks_keep_1_minus_p_scaled_and_keyed():
-    """Kept share within binomial bounds of 1 - p, kept values x/(1 - p)
-    exactly, the same masks for the same (seed, step) and other masks for
-    another step; rows keyed globally, so two halves of the batch drop
-    what the whole batch drops."""
+    """Kept share within binomial bounds of 1 - p, kept values x·(1/(1 - p))
+    in float32 exactly, the same masks under the same key and other masks
+    under another key, at another site or another module path; a batch's
+    halves draw other masks than the whole batch (the flat index keys
+    them, as flax's)."""
     p = 0.3
     x = torch.randn(4, 3, 50, 40)
-    key = DropoutKey(step_key(5, 2), 1000, torch.arange(4))
+    key = DropoutKey(fold_in(prng_key(5), 2))
     y = key.apply(x, p, site=1)
     kept = y != 0
     n = x.numel()
     share = float(kept.float().mean())
     assert abs(share - (1 - p)) <= 5 * (p * (1 - p) / n) ** 0.5, share
-    assert torch.equal(y[kept], x[kept] / (1 - p))
+    assert torch.equal(y[kept], x[kept] * float(np.float32(1) / np.float32(1 - p)))
     assert torch.equal(key.apply(x, p, 1), y)
-    assert not torch.equal(
-        DropoutKey(step_key(5, 3), 1000, torch.arange(4)).apply(x, p, 1), y)
+    assert not torch.equal(DropoutKey(fold_in(prng_key(5), 3)).apply(x, p, 1), y)
     assert not torch.equal(key.apply(x, p, 2), y)              # another site
-    halves = [DropoutKey(step_key(5, 2), 1000, torch.arange(2 * r, 2 * r + 2)).apply(
-        x[2 * r: 2 * r + 2], p, 1) for r in range(2)]
-    assert torch.equal(torch.cat(halves), y)
+    assert not torch.equal(DropoutKey(key.key, ("G",)).apply(x, p, 1), y)
+    assert not torch.equal(key.apply(x[2:], p, 1), y[2:])
 
 
 @pytest.mark.parametrize("generator", ["conv", "toy", "bilstm"])
@@ -356,7 +358,7 @@ def test_generators_drop_at_train_time_only(generator):
     cfg = _cfg(preset, generator=generator, dropout=0.5, **model)
     g = tmodels.build_generator(cfg, "cpu")
     feats = torch.randn(2, 10, cfg.dsp.feature_dim)
-    key = DropoutKey(step_key(0, 1), 1000, torch.arange(2))
+    key = DropoutKey(fold_in(prng_key(0), 1))
     with torch.no_grad():
         train = g(feats, train=True, dropout=key)
         assert torch.equal(train, g(feats, train=True, dropout=key))

@@ -1,11 +1,15 @@
 """The port's model options data parallel on the CPU, at two gloo ranks: the
 BN discriminator against the JAX package's shard_map step (each shard
 normalizes with its own batch, then the running statistics are averaged,
-so two ranks do not equal one rank there), dropout against one rank, and
-the quality scripts (one line, from rank 0, equal to one rank's).
+so two ranks do not equal one rank there), dropout and instance noise
+against that step too (each shard draws its masks and noise under its own
+shard-folded keys), and the quality scripts (one line, from rank 0, equal
+to one rank's).
 
 The ranks run `tests/_torch_dist_workers.py::options_suite` (torch only),
 spawned once for the module; the references run in the test process."""
+
+import _torch_threads  # noqa: F401  (first: the CPU thread budget)
 
 import dataclasses
 import json
@@ -29,26 +33,36 @@ from test_torch_train import _check_moves, _flat
 
 
 def _bn_cfg():
-    """train_cfg("wav") with the BN D on the frame-folded input, host
-    batches, the mesh over every rank."""
-    base = train_cfg("wav")
+    """train_cfg("wav") with the BN D on the frame-folded input, instance
+    noise 0.1, host batches, the mesh over every rank."""
+    base = train_cfg("wav", d_instance_noise=0.1)
     return base.replace(
         model=dataclasses.replace(base.model, d_norm="batch", d_input_fold=2),
         data=dataclasses.replace(base.data, device_bank=False),
         mesh=dataclasses.replace(base.mesh, data_axis_size=-1))
 
 
-def _jax_bn_run(tmp) -> dict:
+def _dropout_cfg():
+    """train_cfg("wav") with dropout 0.2 in G and the spectral-norm D,
+    instance noise 0.1, host batches, the mesh over every rank."""
+    base = train_cfg("wav", d_instance_noise=0.1)
+    return base.replace(
+        model=dataclasses.replace(base.model, dropout=0.2),
+        data=dataclasses.replace(base.data, device_bank=False),
+        mesh=dataclasses.replace(base.mesh, data_axis_size=-1))
+
+
+def _jax_run(tmp, name, cfg) -> dict:
     """The JAX Experiment on a 2-device mesh, STEPS steps from its seeded
-    init; the init, the sources and the config go to the ranks."""
-    cfg = _bn_cfg()
+    init; the init, the sources and the config go to the ranks
+    (<name>_input.pkl)."""
     jcfg = j_config.Config.from_json(cfg.to_json())
     mesh = make_mesh(MeshConfig(data_axis_size=WORLD), devices=jax.devices()[:WORLD])
     exp = JExperiment(jcfg, workdir=None, mesh=mesh)
     state0 = jax.tree.map(np.asarray, exp.state)
     ds = SyntheticDataset(jcfg, seed=3)
     sources = [ds.batch() for _ in range(workers.STEPS)]
-    with open(tmp / "bn_input.pkl", "wb") as f:
+    with open(tmp / f"{name}_input.pkl", "wb") as f:
         pickle.dump({"cfg": cfg.to_json(), "sources": sources,
                      "g_params": _plain(state0.g_params),
                      "d_variables": {"params": _plain(state0.d_params),
@@ -66,9 +80,10 @@ def _jax_bn_run(tmp) -> dict:
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("options_dp")
-    jax_run = _jax_bn_run(tmp)
+    runs = {"bn": _jax_run(tmp, "bn", _bn_cfg()),
+            "dropout": _jax_run(tmp, "dropout", _dropout_cfg())}
     _spawn(workers.options_suite, WORLD, str(tmp))
-    return tmp, jax_run
+    return tmp, runs
 
 
 def test_bn_discriminator_two_ranks_match_jax_shard_map(ranks):
@@ -76,7 +91,7 @@ def test_bn_discriminator_two_ranks_match_jax_shard_map(ranks):
     parameters (the biases of the convs feeding a BN, whose gradient is
     zero, only within Adam's bound) and the averaged running statistics
     within 1e-6; both ranks alike."""
-    tmp, run = ranks
+    tmp, run = ranks[0], ranks[1]["bn"]
     r0, r1 = (pickle.loads((tmp / f"bn_rank{r}.pkl").read_bytes()) for r in range(WORLD))
     assert r0["metrics"] == r1["metrics"]
     for step, (j, t) in enumerate(zip(run["jax"], r0["metrics"]), 1):
@@ -97,18 +112,24 @@ def test_bn_discriminator_two_ranks_match_jax_shard_map(ranks):
         np.testing.assert_array_equal(v, dict(_flat(r1["tstate1"][1]["batch_stats"]))[k])
 
 
-def test_dropout_two_ranks_match_one_rank(ranks):
-    """Dropout 0.2 in G and the spectral-norm D: the keep-masks are keyed by
-    global row, so two ranks of 2 examples drop what one rank of 4 drops;
-    metrics and every state tensor at the tolerances of
-    tests/test_torch_parallel.py."""
-    ref = workers.run_steps(Experiment(workers.dropout_cfg(), device="cpu"))
-    for rank in range(WORLD):
-        got = dict(np.load(ranks[0] / f"dropout_rank{rank}.npz"))
-        assert got.keys() == ref.keys()
-        for k, v in ref.items():
-            tol = (2e-4, 1e-5) if k.startswith("m") else (2e-4, 2e-5)
-            np.testing.assert_allclose(got[k], v, rtol=tol[0], atol=tol[1], err_msg=k)
+def test_dropout_two_ranks_match_jax_shard_map(ranks):
+    """Dropout 0.2 in G and the spectral-norm D with instance noise 0.1: each
+    rank draws under its shard-folded keys, as each shard of the JAX step;
+    metrics within 1e-4 relative over two steps and the parameters after
+    step 1 at the BN test's tolerances; both ranks alike."""
+    tmp, run = ranks[0], ranks[1]["dropout"]
+    r0, r1 = (pickle.loads((tmp / f"dropout_rank{r}.pkl").read_bytes())
+              for r in range(WORLD))
+    assert r0["metrics"] == r1["metrics"]
+    for step, (j, t) in enumerate(zip(run["jax"], r0["metrics"]), 1):
+        for k in METRICS:
+            np.testing.assert_allclose(t[k], j[k], rtol=1e-4, err_msg=f"{k} {step}")
+    cfg, js, j0 = run["cfg"], run["jstate1"], run["jstate0"]
+    tg, td, _ = r0["tstate1"]
+    _check_moves(_flat(tg), dict(_flat(js.g_params)), dict(_flat(j0.g_params)),
+                 cfg.train.g_lr, "G")
+    _check_moves(_flat(td["params"]), dict(_flat(js.d_params)),
+                 dict(_flat(j0.d_params)), cfg.train.d_lr, "D")
 
 
 def test_dropout_changes_the_step():

@@ -3,6 +3,8 @@ against the JAX package's on the same inputs, the behavioural checks of
 tests/test_oracle.py on the port, and the port's quality-protocol and
 recompute-bounds scripts against the JAX scripts' configs and JSON keys."""
 
+import _torch_threads  # noqa: F401  (first: the CPU thread budget)
+
 import ast
 import dataclasses
 import importlib.util

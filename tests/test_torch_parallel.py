@@ -7,6 +7,8 @@ the whole module through a file store (no TCP port); they hand their
 results back as files.  The one-rank references run here, in the test
 process, with no process group."""
 
+import _torch_threads  # noqa: F401  (first: the CPU thread budget)
+
 import dataclasses
 import json
 import os
@@ -36,7 +38,9 @@ from gan_sass_tf_tpu_torch.parallel import (
     mesh_shape,
 )
 from gan_sass_tf_tpu_torch.train import Experiment
-from gan_sass_tf_tpu_torch.data import step_key
+from gan_sass_tf_tpu_torch.data import prng_key
+from gan_sass_tf_tpu_torch.ops import dispatch
+from gan_sass_tf_tpu_torch.ops.threefry import train_key_rows
 from gan_sass_tf_tpu_torch.train.step import build_train_step, instance_noise
 from test_torch_train import _cfg as train_cfg
 from test_torch_train import _check_run
@@ -125,8 +129,9 @@ def _load(tmp, name, rank):
 @pytest.mark.parametrize("mode", ["bank", "host"])
 def test_two_ranks_metrics_match_one_rank(ranks, one_rank, mode):
     """Each step's six metrics, 2 ranks x B/2 against 1 rank x B: gains,
-    a noise source, instance noise, R1 and the EMA on; host batches with
-    every gradient clipped."""
+    a noise source, R1 and the EMA on; host batches with every gradient
+    clipped.  (Instance noise is drawn per shard, as the reference's, and
+    held to its shard_map step in tests/test_torch_options_dist.py.)"""
     got, ref = _load(ranks[0], mode, 0), one_rank[mode]
     for step in range(1, workers.STEPS + 1):
         for k in METRICS:
@@ -289,18 +294,23 @@ def test_no_group_runs_on_one_device(capsys):
     assert DataParallel(4, 3, 2).batch_rows(8) == slice(6, 8)
 
 
-def test_instance_noise_keyed_by_global_rows():
-    """Two ranks' halves of the pair batch draw the one-rank noise: real
-    rows at offset·S + i, fake rows after the global batch's B·S."""
-    b, s = 4, 2
-    x = torch.zeros(2 * b * s, 5, 3, 2)
-    ref = instance_noise(x, 0.3, step_key(9, 4), 31)
-    for rank in range(2):
-        own = rank * (b // 2) * s + torch.arange(b // 2 * s)
-        rows = torch.cat([own, b * s + own])
-        got = instance_noise(torch.zeros(b * s, 5, 3, 2), 0.3, step_key(9, 4), 31,
-                             rows)
-        assert torch.equal(got, ref[rows])
+def test_instance_noise_folds_in_the_shard():
+    """Rank r draws its D noise under the step's key with r folded in, as
+    shard r of the reference's step (rng_dl folded with the shard, then
+    with the D step, split in 3): jax.random's noise under that key, and
+    another noise on each rank."""
+    key, step, std = prng_key(9), torch.tensor(4), 0.3
+    x = torch.zeros(8, 5, 3, 2)
+    _, d_rows, _ = train_key_rows(1)
+    rng_dl = jax.random.split(jax.random.fold_in(jax.random.PRNGKey(9), 4), 5)[3]
+    got = []
+    for rank in range(WORLD):
+        ours = instance_noise(x, std, dispatch.train_keys(key, step, rank, 1)[d_rows[0][1]])
+        k = jax.random.split(jax.random.fold_in(jax.random.fold_in(rng_dl, rank), 0), 3)[1]
+        np.testing.assert_allclose(ours.numpy(), np.asarray(std * jax.random.normal(k, x.shape)),
+                                   rtol=0, atol=1e-6)
+        got.append(ours)
+    assert not torch.equal(got[0], got[1])
 
 
 def test_initialize_distributed_without_torchrun_env(monkeypatch):

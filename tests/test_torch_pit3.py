@@ -11,6 +11,8 @@ Small sizes: n_fft 64 (K = 33), G hidden 16, film head width 8, D (8, 16),
 bf16 matching picks it in both packages (and streaming chains the same
 permutations)."""
 
+import _torch_threads  # noqa: F401  (first: the CPU thread budget)
+
 import dataclasses
 
 import jax

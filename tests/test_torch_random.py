@@ -11,6 +11,8 @@ both packages compute √2·erf⁻¹(u) from the same float32 uniform with XLA's
 polynomial, but the port's log1p (torch's) and XLA's own differ in the
 last bit (3 ulp measured at most over 10^5 draws)."""
 
+import _torch_threads  # noqa: F401  (first: the CPU thread budget)
+
 import dataclasses
 import importlib.util
 import pathlib

@@ -2,6 +2,8 @@
 package's build_separate_fn, plus the scores, the wav/CLI entry points and
 the rule that the port imports nothing of JAX."""
 
+import _torch_threads  # noqa: F401  (first: the CPU thread budget)
+
 import ast
 import dataclasses
 import pathlib

@@ -6,6 +6,8 @@ The parity cases use `2src_toy_cpu` with G (8, 16) in f32 and pure tones,
 whose chunks have a clear best source permutation; the chunk geometry and
 the permutation chaining are held equal exactly."""
 
+import _torch_threads  # noqa: F401  (first: the CPU thread budget)
+
 import dataclasses
 
 import jax

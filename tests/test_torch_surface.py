@@ -4,6 +4,8 @@ library), where the kernels are built (`ops.build.build_dir`), the model
 registry's extension API, and every name the JAX package's `__init__`
 files export."""
 
+import _torch_threads  # noqa: F401  (first: the CPU thread budget)
+
 import ast
 import dataclasses
 import fnmatch
@@ -298,6 +300,24 @@ def _jax_exports(sub: str):
         elif isinstance(node, ast.Import):
             names += [a.asname or a.name.split(".")[0] for a in node.names]
     return names
+
+
+# The data package's exports beyond the JAX package's: the device bank and
+# the keyed mixing the train step runs, and jax.random's PRNGKey.  Every
+# draw is the JAX package's (`data/threefry.py`); no other generator is
+# exported.
+DATA_PORT_ONLY = {"apply_mix", "build_bank", "draw_rows", "mix_keyed", "prng_key",
+                  "sample_bank", "take_rows"}
+
+
+def test_data_exports_the_jax_names_and_the_device_draws_only():
+    import gan_sass_tf_tpu.data as jdata
+    import gan_sass_tf_tpu_torch.data as tdata
+
+    assert set(tdata.__all__) == set(jdata.__all__) | DATA_PORT_ONLY
+    assert not any(p.stem not in {"__init__", "corpus", "device_bank", "fixtures",
+                                  "mixer", "synthetic", "threefry"}
+                   for p in Path(tdata.__file__).parent.glob("*.py"))
 
 
 @pytest.mark.parametrize("sub", SUBPACKAGES)

@@ -4,6 +4,8 @@ row tools (bench_presets, bench_streaming_compute, profile_step), the
 queue runner, train_wavdir_fixture and the quickstart, each at a tiny
 size on the CPU."""
 
+import _torch_threads  # noqa: F401  (first: the CPU thread budget)
+
 import dataclasses
 import importlib.util
 import json

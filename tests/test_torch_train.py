@@ -7,6 +7,8 @@ noise sources and no instance noise, so the JAX step draws no random number
 that matters and nothing random has to match across the two frameworks.
 Each JAX step is compiled once per module (module-scoped fixtures)."""
 
+import _torch_threads  # noqa: F401  (first: the CPU thread budget)
+
 import dataclasses
 
 import jax
@@ -31,7 +33,8 @@ from gan_sass_tf_tpu_torch.train import (
     load_train_state,
 )
 from gan_sass_tf_tpu_torch.train.state import clip_by_global_norm, lr_schedule
-from gan_sass_tf_tpu_torch.data import prng_key, step_key
+from gan_sass_tf_tpu_torch.data import prng_key
+from gan_sass_tf_tpu_torch.data.threefry import fold_in
 from gan_sass_tf_tpu_torch.train.step import instance_noise
 
 METRICS = ("d_loss", "g_loss", "g_adv", "g_recon", "d_real_logit",
@@ -313,12 +316,12 @@ def test_clip_by_global_norm_is_optax_rule(rng, norm):
 
 def test_instance_noise_std_and_determinism():
     x = torch.zeros(64, 10, 9, 2)
-    a = instance_noise(x, 0.5, step_key(3, 2), 31)
-    b = instance_noise(x, 0.5, step_key(3, 2), 31)
-    c = instance_noise(x, 0.5, step_key(3, 3), 31)
+    a = instance_noise(x, 0.5, fold_in(prng_key(3), 2))
+    b = instance_noise(x, 0.5, fold_in(prng_key(3), 2))
+    c = instance_noise(x, 0.5, fold_in(prng_key(3), 3))
     assert torch.equal(a, b) and not torch.equal(a, c)
     assert abs(float(a.std()) - 0.5) < 0.02 and abs(float(a.mean())) < 0.02
-    assert instance_noise(x, 0.0, step_key(3, 2), 31) is x
+    assert instance_noise(x, 0.0, fold_in(prng_key(3), 2)) is x
 
 
 def _tiny(**train):
