@@ -337,6 +337,7 @@ JAX_CPU_BOUNDS = {
 }
 BOUND_TOL_DB, JAX_BOUND_TOL_DB = 0.01, 1.0
 QUALITY_STREAM_STEPS, QUALITY_MUSIC_STEPS = 10, 4
+QUALITY_WSJ0_STEPS = 10              # the main path's preset, --hard, seeds 0 and 7
 PROFILE_STEPS = 5                    # train steps traced for the step profile
 PROFILE_PAD_S = 0.05                 # idle seconds at each end of a profile window
 FILL_LAUNCHES = 4000                 # small kernels after the calls (profiler check)
@@ -2627,12 +2628,16 @@ def phase_options(dev, tmp: Path):
 
 
 def phase_quality(dev):
-    """The quality protocol through its main() at full width, then the
-    music train step's wall time on both DSP paths and its peak memory."""
+    """The quality protocol through its main() at full width (the main
+    path's preset first), then the music train step's wall time on both DSP
+    paths and its peak memory."""
     reset, counts = reset_launch_counts, launch_counts
 
     runs = {}
     for name, argv, need in (
+        ("wsj0_logmel --hard", ["wsj0_logmel", str(QUALITY_WSJ0_STEPS),
+                                "--hard", "--seeds", "0,7", "--device", str(dev)],
+         ("stft_features", "masked_istft", "stft")),
         ("stream_v5e8 --hard", ["stream_v5e8", str(QUALITY_STREAM_STEPS),
                                 "--hard", "--seeds", "0,7", "--device", str(dev)],
          ("stft_features", "masked_istft", "istft", "istft_bwd", "stft")),

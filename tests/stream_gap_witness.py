@@ -1,9 +1,11 @@
-"""stream_v5e8 --hard trained by both packages on the CPU from one seed, in
-f32 at narrow widths: do their trajectories part, and where?
+"""A preset of the quality protocol (by default `stream_v5e8 --hard`)
+trained by both packages on the CPU from one seed, in f32 at narrow widths:
+do their trajectories part, and where?
 
-Each package builds the quality protocol's `stream_v5e8 --hard`
-configuration (the port's `scripts/quality_protocol.protocol_config`, the
-JAX side from its JSON), then the overrides below and the `--set` ones,
+Each package builds the quality protocol's configuration of the preset,
+hard unless `--easy` (the port's `scripts/quality_protocol.protocol_config`,
+the JAX side from its JSON), then the preset's narrow overrides below and
+the `--set` ones,
 and trains it from its own init and train key of the seed, logging every
 step.  The two draw the same numbers and start from the same weights
 (`tests/test_torch_random.py`), so their losses agree until float
@@ -22,7 +24,8 @@ relative, the first from which it does so for 10 steps running, the
 largest relative gap in each tenth of the run, and the SI-SDR
 improvements.
 
-    python tests/stream_gap_witness.py [steps] [--seed N] [--set sec.key=val ...]
+    python tests/stream_gap_witness.py [steps] [--preset NAME] [--easy]
+        [--seed N] [--set sec.key=val ...]
 
 Not a tier-1 test: a few hundred steps of both packages take minutes.
 """
@@ -50,11 +53,18 @@ REL_TOL = 1e-4
 LOSS_FLOOR = 1e-2        # losses are compared relative to at least this
 SUSTAIN = 10
 # Narrow and short enough for the CPU; f32 so that float rounding is all
-# that may part the two.
-NARROW = ("model.compute_dtype=float32", "model.g_channels=8,16",
-          "model.d_channels=8,16", "train.batch_size=4", "data.segment_seconds=0.5",
+# that may part the two.  The widths are each preset's: its G and D levels
+# kept, each 8 or 16 channels wide (the BiLSTM G 16 hidden units).
+NARROW = ("model.compute_dtype=float32", "train.batch_size=4", "data.segment_seconds=0.5",
           "train.log_every=1", "train.steps_per_dispatch=1", "train.eval_every=1000000",
           "train.ckpt_every=1000000", "mesh.data_axis_size=-1")
+WIDTHS = {
+    "stream_v5e8": ("model.g_channels=8,16", "model.d_channels=8,16"),
+    "wsj0_logmel": ("model.g_channels=8,16", "model.d_channels=8,16"),
+    "3src_pit": ("model.g_hidden=16", "model.g_film_channels=8",
+                 "model.d_channels=8,16"),
+    "music_complex_44k": ("model.g_channels=8,8,16,16", "model.d_channels=8,8,16,16"),
+}
 
 
 def run(exp, steps: int) -> dict:
@@ -97,11 +107,16 @@ def main(argv) -> int:
     from gan_sass_tf_tpu_torch.scripts.quality_protocol import protocol_config
     from gan_sass_tf_tpu_torch.train import Experiment as TorchExperiment
 
-    pos, opts = split_args(argv, ("--set", "--seed"))
+    pos, opts = split_args(argv, ("--set", "--seed", "--preset"))
+    hard = "--easy" not in pos
+    pos = [a for a in pos if a != "--easy"]
     steps = int(pos[0]) if pos else 300
     seed = int((opts["--seed"] or ["0"])[-1])
-    overrides = list(NARROW) + opts["--set"]
-    cfg = protocol_config("stream_v5e8", True, overrides)
+    preset = (opts["--preset"] or ["stream_v5e8"])[-1]
+    if preset not in WIDTHS:
+        raise SystemExit(f"error: --preset {preset}: one of {sorted(WIDTHS)}")
+    overrides = list(NARROW) + list(WIDTHS[preset]) + opts["--set"]
+    cfg = protocol_config(preset, hard, overrides)
     jcfg = j_config.Config.from_json(cfg.to_json())
     out = {}
     for name in ("jax", "torch", "torch_g_ulp"):
@@ -116,11 +131,13 @@ def main(argv) -> int:
                     for p in exp.state.g.parameters():
                         p.copy_(torch.nextafter(p, torch.full_like(p, math.inf)))
         out[name] = run(exp, steps)
-        print(json.dumps({"run": name, "steps": steps, "seed": seed,
-                          "overrides": overrides, **out[name]}), flush=True)
-    print(json.dumps({"compare": "torch vs jax", "steps": steps, "seed": seed,
+        print(json.dumps({"run": name, "preset": preset, "hard": hard, "steps": steps,
+                          "seed": seed, "overrides": overrides, **out[name]}), flush=True)
+    print(json.dumps({"compare": "torch vs jax", "preset": preset, "hard": hard,
+                      "steps": steps, "seed": seed,
                       **compare(out["torch"], out["jax"])}), flush=True)
-    print(json.dumps({"compare": "torch_g_ulp vs torch", "steps": steps, "seed": seed,
+    print(json.dumps({"compare": "torch_g_ulp vs torch", "preset": preset, "hard": hard,
+                      "steps": steps, "seed": seed,
                       **compare(out["torch_g_ulp"], out["torch"]),
                       "si_sdr_improvement": {k: v["si_sdr_improvement"]
                                              for k, v in out.items()}}), flush=True)

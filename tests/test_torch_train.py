@@ -2,7 +2,8 @@
 the same converted init on the same injected sources, plus the optimizer,
 the Experiment and CLI entry points.
 
-The configs are small `stream_v5e8` variants in f32 with no gain jitter, no
+The configs are small `stream_v5e8` variants, and the `wsj0_logmel` and
+`music_complex_44k` presets at narrow widths, in f32 with no gain jitter, no
 noise sources and no instance noise, so the JAX step draws no random number
 that matters and nothing random has to match across the two frameworks.
 Each JAX step is compiled once per module (module-scoped fixtures)."""
@@ -122,19 +123,26 @@ def cspec_run():
     return _run_both(_cfg("cspec"))
 
 
-def _music_cfg():
-    """music_complex_44k at its own DSP geometry (44.1 kHz, n_fft 2048, hop
-    512, complex masks, cspec L1, no PIT) and its (4, 8) D stem, four G and
-    D levels at narrow widths, f32; 0.25 s leaves F = 18 frames."""
-    cfg = config.get_config("music_complex_44k")
+def _narrow_preset(name, channels):
+    """A preset itself at narrow widths: its G and D levels `channels` wide,
+    f32, batch 2, 0.25 s, no dropout, gain jitter, noise sources or
+    instance noise."""
+    cfg = config.get_config(name)
     return cfg.replace(
-        model=dataclasses.replace(cfg.model, g_channels=(8, 8, 16, 16),
-                                  d_channels=(8, 8, 16, 16),
-                                  compute_dtype="float32", dropout=0.0),
+        model=dataclasses.replace(cfg.model, g_channels=channels,
+                                  d_channels=channels, compute_dtype="float32",
+                                  dropout=0.0),
         train=dataclasses.replace(cfg.train, batch_size=2, d_instance_noise=0.0),
         data=dataclasses.replace(cfg.data, segment_seconds=0.25,
                                  gain_jitter_db=0.0, num_noise=0,
                                  bank_utterances=4))
+
+
+def _music_cfg():
+    """music_complex_44k at its own DSP geometry (44.1 kHz, n_fft 2048, hop
+    512, complex masks, cspec L1, no PIT) and its (4, 8) D stem, four G and
+    D levels at narrow widths; 0.25 s leaves F = 18 frames."""
+    return _narrow_preset("music_complex_44k", (8, 8, 16, 16))
 
 
 @pytest.fixture(scope="module")
@@ -232,12 +240,24 @@ def test_train_step_r1_ema_and_lr_schedules_match_jax(extras_run):
 TRAJECTORY_STEPS = 12
 
 
-@pytest.fixture(scope="module")
-def trajectory_run():
-    """stream_v5e8's step (−SI-SDR through the iSTFT, PIT, spectral-norm D)
-    for TRAJECTORY_STEPS steps, the port's key made from a 0-d seed tensor
-    and its step a 0-d tensor, as the captured step reads them."""
-    return _run_both(_cfg("wav"), n_steps=TRAJECTORY_STEPS,
+def _wsj0_cfg():
+    """The main path's preset, wsj0_logmel: log-mel features, the `interp`
+    head, n_fft 512 at 8 kHz, linear-magnitude L1, PIT and the
+    spectral-norm D with its own stem, G and D channels (8, 16)."""
+    return _narrow_preset("wsj0_logmel", (8, 16))
+
+
+_TRAJECTORY_CFGS = {"stream_v5e8": lambda: _cfg("wav"), "wsj0_logmel": _wsj0_cfg}
+
+
+@pytest.fixture(scope="module", params=sorted(_TRAJECTORY_CFGS))
+def trajectory_run(request):
+    """TRAJECTORY_STEPS steps of stream_v5e8's step (−SI-SDR through the
+    iSTFT, PIT, spectral-norm D) and of wsj0_logmel's (log-mel G input, the
+    interp head, linear-magnitude L1, PIT, spectral-norm D), the port's key
+    made from a 0-d seed tensor and its step a 0-d tensor, as the captured
+    step reads them."""
+    return _run_both(_TRAJECTORY_CFGS[request.param](), n_steps=TRAJECTORY_STEPS,
                      key=prng_key(torch.tensor(7, dtype=torch.int64)))
 
 
@@ -251,11 +271,17 @@ def test_train_trajectory_matches_jax_over_12_steps(trajectory_run):
     noise) would move by up to lr the other way and break this bound."""
     run = trajectory_run
     assert run["tstep_last"] == TRAJECTORY_STEPS
+    cfg = run["cfg"]
+    if cfg.name == "wsj0_logmel":
+        assert (cfg.dsp.sample_rate, cfg.dsp.n_fft, cfg.dsp.feature,
+                cfg.model.g_head_mode, cfg.loss.recon_domain, cfg.loss.use_pit,
+                cfg.model.d_norm) == (8000, 512, "logmel", "interp", "mag",
+                                      True, "spectral")
     for step, (j, t) in enumerate(zip(run["jax"], run["torch"]), 1):
         for k in ("g_loss", "d_loss", "g_recon"):
             np.testing.assert_allclose(t[k], j[k], rtol=1e-4,
                                        err_msg=f"{k} after step {step}")
-    cfg, js = run["cfg"], run["jstate_last"]
+    js = run["jstate_last"]
     tg, td = run["tstate_last"]
     for ours, ref, lr, what in ((tg, js.g_params, cfg.train.g_lr, "G"),
                                 (td["params"], js.d_params, cfg.train.d_lr, "D")):
