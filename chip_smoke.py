@@ -69,6 +69,14 @@ Phases, one JSON line each:
     bench     `python -m gan_sass_tf_tpu_torch.bench` as a process at 30
               timed steps: one JSON line with the root bench.py's four
               keys, value > 0, printed again on a line of its own
+    roofline  the bytes ledger (scripts/bytes_ledger.py): the narrow
+              wsj0_logmel and stream_v5e8 f32 steps of
+              tests/test_torch_train.py counted on the CPU and on the card,
+              equal in FLOPs and bytes; in each counted step the kernels'
+              charged launches equal the launch counters'; then
+              scripts/roofline.py's line for wsj0_logmel at the bench's b128
+              and stream_v5e8 at b32, full width, each on a line of its
+              own, every share in (0, 1]
     workdir   `cli train --config stream_v5e8 --workdir W` for 4 steps
               (checkpoints and evals every 2) then 2 more that resume at
               step 4: config.json, the checkpoints, best/, best.json and
@@ -268,7 +276,7 @@ from gan_sass_tf_tpu_torch.models import (
     save_flax_npz,
 )
 from gan_sass_tf_tpu_torch.models.dropout import DropoutKey
-from gan_sass_tf_tpu_torch.ops import build, dispatch
+from gan_sass_tf_tpu_torch.ops import build, cost, dispatch
 from gan_sass_tf_tpu_torch.ops import istft as k3
 from gan_sass_tf_tpu_torch.ops import masked_istft as k2
 from gan_sass_tf_tpu_torch.ops import stft as k4
@@ -277,8 +285,10 @@ from gan_sass_tf_tpu_torch.ops import threefry as rng_ops
 from gan_sass_tf_tpu_torch.scripts import (
     bench_presets,
     bench_streaming_compute,
+    bytes_ledger,
     quality_protocol,
     recompute_bounds,
+    roofline,
     stream_quality,
     train_wavdir_fixture,
 )
@@ -308,18 +318,6 @@ SEED_MUSIC = 44100                   # the K1 music-shape cases' own generator
 SEED_SYNTH = 5                       # the K2/K3 music-shape and edge cases' own
 LOGMAG_FLOOR = 1e-3                  # -60 dB re the frame's RMS |X| (k1_case)
 SEGMENTS = (1, 5, 10 ** 6)           # segment rows the k2/k3 bit checks also run
-# The H100 SXM's published peaks (NVIDIA's data sheet): HBM bytes/s and
-# f32 flops/s outside the tensor cores.  A kernel's bound is the larger of
-# its bytes and its flops over these.
-HBM_BYTES_PER_S, F32_FLOPS_PER_S = 3.35e12, 67e12
-# 32-bit integer issue: 132 SMs x 64 INT32 lanes x 1.98 GHz (the H100 SXM's
-# SM in NVIDIA's Hopper white paper).
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
-# threefry2x32 hashing a counter (0, j): 20 rounds x (IADD, SHF rotate,
-# LOP xor); 5 key injections x 2 (IADD3 folds the round constant into the
-# second word's add); the key's third word (one LOP3) and the counter's
-# add to the second key word (the first word's add is a move from 0).
-CIPHER_INT_OPS = 20 * 3 + 5 * 2 + 1 + 1
 NORMAL_ULP = 4               # a threefry normal, kernel vs plain (log1pf's bit)
 RNG_REPLAYS = 3
 SEED_RNG_DROPOUT = 16                # the dropout and noise checks' own generator
@@ -347,6 +345,8 @@ B_PIT3, S_PIT3 = 16, 3               # 3src_pit: 16 x 3 s at 8 kHz (F = 184), 3 
 PIT3_STEPS, PIT3_QUALITY_STEPS = 5, 4
 GRAPH_STEPS, GRAPH_TIMED, GRAPH_SPD = 4, 4, 4   # the graph phase, each config
 BENCH_STEPS_SMOKE, BENCH_TIMEOUT_S = 30, 300     # the bench phase
+# The roofline phase: wsj0_logmel at the bench's batch, stream_v5e8 at its own.
+ROOFLINE_RUNS, ROOFLINE_STEPS = (("wsj0_logmel", B_BENCH), ("stream_v5e8", 32)), 30
 SEP_SAMPLES, SEP_CALLS = 5, 2        # separate() timing: samples of calls per path
 T_STREAM = 60 * SR_STREAM            # the streamed mixture: 62 chunks of 16 000
 STREAM_SAMPLES = 3                   # timed streams per mode and DSP path
@@ -464,41 +464,6 @@ def near_silent(sr: int, t: int, seed: int = 1) -> np.ndarray:
     x = (np.sin(2 * np.pi * 440.3 * n / sr) + 0.1 * r.standard_normal(t)) * (n < 0.4 * t)
     x += 1e-6 * r.standard_normal(t) * (n >= 0.4 * t) * (n < 0.8 * t)
     return x.astype(np.float32)[None]
-
-
-def bound(nbytes: float, flops: float):
-    """(ms, "bytes" or "operations"): the least time the card could take to
-    move `nbytes` and do `flops` f32 operations."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
-
-
-def fft_flops(frames: int, n_fft: int) -> float:
-    return frames * 2.5 * n_fft * math.log2(n_fft)
-
-
-def stft_bound(x, n_fft, hop, emits=("spec",), n_mels=0):
-    """The bound of an STFT of x (..., T) emitting `emits`: the input read
-    once, each output written once, the mel matrix; an FFT a frame, plus
-    2·K·M flops a frame for log-mel."""
-    t = x.shape[-1]
-    b, f, k = x.numel() // t, 1 + (t - n_fft) // hop, n_fft // 2 + 1
-    width = {"spec": 8 * k, "mag": 4 * k, "logmag": 4 * k, "logmel": 4 * n_mels}
-    nbytes = 4 * b * t + b * f * sum(width[e] for e in emits)
-    flops = fft_flops(b * f, n_fft)
-    if "logmel" in emits:
-        nbytes += 4 * k * n_mels
-        flops += 2 * b * f * k * n_mels
-    return bound(nbytes, flops)
-
-
-def istft_bound(spec_bytes, b, s, f, n_fft, hop, mask_bytes=0, mask_flops=0):
-    """The bound of an overlap-added inverse STFT of b·s signals of f frames
-    from `spec_bytes` of spectrum (and `mask_bytes` of masks): an inverse
-    FFT a frame, the f32 output written once."""
-    out = 4 * b * s * ((f - 1) * hop + n_fft)
-    return bound(spec_bytes + mask_bytes + out,
-                 fft_flops(b * s * f, n_fft) + mask_flops)
 
 
 def phase_device() -> str:
@@ -1215,6 +1180,75 @@ def phase_bench(dev) -> dict:
     return row
 
 
+def counted_step(cfg, dev):
+    """(Experiment, its second train step counted by the bytes ledger, the
+    kernel launches that step made): the first step is the warm-up."""
+    exp = Experiment(cfg, workdir=None, device=dev)
+    exp._train_step(exp.state, bytes_ledger.step_data(exp), exp._train_key)
+    reset_launch_counts()
+    ledger = bytes_ledger.step_ledger(exp, warm=False)
+    return exp, ledger, {k: v for k, v in launch_counts().items() if v}
+
+
+def ledger_gap(a, b) -> dict:
+    """The (range, op) entries whose bytes or flops differ between two
+    ledgers (the first 20)."""
+    keys = set(a.op_bytes) | set(b.op_bytes)
+    gap = {f"{r} {op}": [(a.op_bytes[(r, op)], a.op_flops[(r, op)]),
+                         (b.op_bytes[(r, op)], b.op_flops[(r, op)])]
+           for r, op in sorted(keys)
+           if (a.op_bytes[(r, op)], a.op_flops[(r, op)]) != (b.op_bytes[(r, op)],
+                                                              b.op_flops[(r, op)])}
+    return dict(list(gap.items())[:20])
+
+
+def phase_roofline(dev) -> dict:
+    """The bytes ledger and the roofline (scripts/bytes_ledger.py,
+    scripts/roofline.py): the narrow wsj0_logmel and stream_v5e8 steps of
+    tests/test_torch_train.py counted on the CPU and on the card, equal in
+    FLOPs and bytes; in every counted step each hand-written kernel launch
+    charged once (the ledger's launches equal the launch counters'); the
+    roofline line of wsj0_logmel at the bench's b128 and stream_v5e8 at b32
+    at full width, printed on lines of their own, every share in (0, 1]."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    narrow = {}
+    for preset, overrides in bytes_ledger.NARROW.items():
+        cfg = bytes_ledger.experiment_config(preset, None, overrides)
+        cpu = bytes_ledger.step_ledger(Experiment(cfg, workdir=None, device="cpu"))
+        _, card, launched = counted_step(cfg, dev)
+        check(card.launches() == launched,
+              f"roofline {preset} narrow: charged {card.launches()}, launched {launched}")
+        same = (cpu.total_flops(), cpu.total_bytes()) == (card.total_flops(),
+                                                          card.total_bytes())
+        check(same, f"roofline {preset} narrow: CPU {cpu.total_flops()} flops "
+              f"{cpu.total_bytes()} bytes, card {card.total_flops()} flops "
+              f"{card.total_bytes()} bytes; (range op): [CPU, card] "
+              f"{ledger_gap(cpu, card)}")
+        narrow[preset] = {"flops": card.total_flops(), "bytes": card.total_bytes(),
+                          "launches": launched, "cpu_equals_card": same}
+    lines = {}
+    for preset, batch in ROOFLINE_RUNS:
+        exp, ledger, launched = counted_step(bytes_ledger.experiment_config(preset, batch),
+                                             dev)
+        check(ledger.launches() == launched,
+              f"roofline {preset} b{batch}: charged {ledger.launches()}, "
+              f"launched {launched}")
+        line = roofline.report(exp, ledger, ROOFLINE_STEPS)
+        print(json.dumps(line), flush=True)
+        shares = {k: line[k] for k in roofline.SHARE_KEYS}
+        check(all(v is not None and 0 < v <= 1 for v in shares.values()),
+              f"roofline {preset} b{batch}: shares {shares} not in (0, 1]")
+        lines[f"{preset} b{batch}"] = line
+        del exp
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit("roofline", narrow=narrow, lines=lines, steps=ROOFLINE_STEPS,
+         note="narrow: one f32 step of each configuration counted on the CPU "
+              "and on the card, equal; lines: scripts/roofline.py's at full width")
+    return lines
+
+
 def best_perm_agreement(ker: np.ndarray, ref: np.ndarray) -> float:
     """Min SI-SDR (dB) of (B, S, T) kernel-path outputs against the plain
     path's, each example after its best source permutation."""
@@ -1367,8 +1401,7 @@ def phase_pit3(rng, dev, tmp: Path):
     k2_row = time_kernel(
         lambda: k2.masked_istft_kernel(spec, masks, N_FFT, HOP),
         lambda: k2.masked_istft_reference(spec, masks, N_FFT, HOP),
-        istft_bound(spec.numel() * 8, B_PIT3, S_PIT3, spec.shape[-2], N_FFT, HOP,
-                    masks.numel() * 4, 2 * masks.numel()),
+        cost.masked_istft(B_PIT3, S_PIT3, spec.shape[-2], N_FFT, HOP).bound(),
         **library_masked_istft(spec, masks, N_FFT, HOP))
     mix_s = cfg.train.batch_size * cfg.segment_samples / cfg.dsp.sample_rate
     emit("pit3", config="3src_pit", batch=cfg.train.batch_size,
@@ -1602,8 +1635,7 @@ def phase_stream(rng, dev, tmp: Path, wd: Path):
         k2_t = time_kernel(
             lambda: k2.masked_istft_kernel(spec, masks, n_fft, hop),
             lambda: k2.masked_istft_reference(spec, masks, n_fft, hop),
-            istft_bound(spec.numel() * 8, b, 2, spec.shape[-2], n_fft, hop,
-                        masks.numel() * 4, 2 * masks.numel()),
+            cost.masked_istft(b, 2, spec.shape[-2], n_fft, hop).bound(),
             **library_masked_istft(spec, masks, n_fft, hop))
         shapes[b] = {"stft_features": k1_t, "masked_istft": k2_t,
                      "stft_features_max_abs_err": k1_errs,
@@ -1985,13 +2017,6 @@ def phase_k4(rng, dev):
     return max(errs.values()), stream_srcs, music_srcs
 
 
-def int_bound(nbytes: float, int_ops: float):
-    """(ms, "bytes" or "operations"): the least time for `nbytes` of
-    traffic and `int_ops` 32-bit integer instructions."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, int_ops / INT32_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
-
-
 def ulps(a: torch.Tensor, b: torch.Tensor) -> int:
     """Largest distance of two float32 tensors in units in the last place."""
     return int((a.view(torch.int32).long() - b.view(torch.int32).long()).abs().max())
@@ -2080,8 +2105,8 @@ def phase_rng(dev):
     noise_args = (k_noise, t, "normal")
     noise_err = max_err(rng_ops.sample_kernel(*noise_args),
                         rng_ops.sample_reference(*noise_args))
-    sample_bound = int_bound(16 * b + 4 * b * t, CIPHER_INT_OPS * b * t)
-    keys_bound = int_bound(24 + 2 * b * 32, CIPHER_INT_OPS * (3 + 6 * b))
+    sample_bound = cost.sample(b, t, "normal").bound()
+    keys_bound = cost.example_keys(b, step=True).bound()
     step_ms = graph_ms(lambda: step_draws(key, step, b, s, nb, t, g))
     keys_args = (key, 0, b, step)
     keys_err = max_err(rng_ops.example_keys_kernel(*keys_args),
@@ -2107,7 +2132,7 @@ def phase_rng(dev):
         "config": "stream_v5e8 --hard b32 (picks, shifts, gains, noise)"},
          rows=rows, tol=f"keys, bits, uniforms, randints bit-equal; normals "
                         f"within {NORMAL_ULP} ulp; replays bit-equal to eager",
-         int32_ops_per_s=INT32_OPS_PER_S, cipher_int_ops=CIPHER_INT_OPS,
+         int32_ops_per_s=cost.INT32_OPS_PER_S, cipher_int_ops=cost.CIPHER_INT_OPS,
          library="none: PyTorch has no threefry sampler")
     rows.update(phase_rng_dropout(dev))
     return rows
@@ -2248,10 +2273,10 @@ def phase_rng_dropout(dev) -> dict:
     # Times: the largest site and D input, as the step has them.
     xd = x.detach()
     n, item = xd.numel(), xd.element_size()
-    drop_bound = int_bound(2 * n * item + 16, CIPHER_INT_OPS * n)
+    drop_bound = cost.dropout(n, item).bound()
     nn_, n_item = xn.numel(), xn.element_size()
-    noise_bound = int_bound(2 * nn_ * n_item + 16, CIPHER_INT_OPS * nn_)
-    keys_bound = int_bound(24 + 16 * (3 + 3 * d_steps), CIPHER_INT_OPS * 5 * (3 + 3 * d_steps))
+    noise_bound = cost.noise(nn_, n_item).bound()
+    keys_bound = cost.train_keys(d_steps).bound()
     k_g, k_n = ker_keys[g_row], ker_keys[adv_rows[1]]
     plain_ms = lambda fn: time_fns(calls=2, plain=fn)["plain"]   # noqa: E731
     rows = {
@@ -3285,7 +3310,8 @@ def time_stft(kernel, plain, x, n_fft, hop, emits=("spec",), n_mels=0):
     its bound; the dict the timing line and the kernels line read."""
     fns = {"plain": plain, "kernel": kernel, "library": library_stft(x, n_fft, hop)}
     t = time_fns(**fns)
-    ms, by = stft_bound(x, n_fft, hop, emits, n_mels)
+    t_in = x.shape[-1]
+    ms, by = cost.stft_features(x.numel() // t_in, t_in, n_fft, hop, emits, n_mels).bound()
     return {"shape": list(x.shape), "n_fft": n_fft, "emit": list(emits),
             "kernel": t["kernel"], "plain": t["plain"], "library": t["library"],
             "device": {"kernel": launch_ms(kernel), "plain": device_ms(plain),
@@ -3363,16 +3389,15 @@ def phase_timing(rng, dev, x, spec, cfg, g, batch, k3_tensors, exp, k4_inputs,
     k2_sep = time_kernel(
         lambda: k2.masked_istft_kernel(spec, masks, N_FFT, HOP),
         lambda: k2.masked_istft_reference(spec, masks, N_FFT, HOP),
-        istft_bound(spec.numel() * 8, B_MAIN, 2, spec.shape[-2], N_FFT, HOP,
-                    masks.numel() * 4, 2 * masks.numel()),
+        cost.masked_istft(B_MAIN, 2, spec.shape[-2], N_FFT, HOP).bound(),
         **library_masked_istft(spec, masks, N_FFT, HOP))
     sm, mm = k2_music     # complex masks: 6 flops a (source, bin)
     k2_mus = time_kernel(
         lambda: k2.masked_istft_kernel(sm, mm, MUSIC_N_FFT, MUSIC_HOP, mask_type="complex"),
         lambda: k2.masked_istft_reference(sm, mm, MUSIC_N_FFT, MUSIC_HOP,
                                           mask_type="complex"),
-        istft_bound(sm.numel() * 8, B_MUSIC, 2, sm.shape[-2], MUSIC_N_FFT, MUSIC_HOP,
-                    mm.numel() * 4, 3 * mm.numel()),
+        cost.masked_istft(B_MUSIC, 2, sm.shape[-2], MUSIC_N_FFT, MUSIC_HOP,
+                          "complex").bound(),
         **library_masked_istft(sm, mm, MUSIC_N_FFT, MUSIC_HOP, "complex"))
 
     def run_sep(path):
@@ -3389,11 +3414,11 @@ def phase_timing(rng, dev, x, spec, cfg, g, batch, k3_tensors, exp, k4_inputs,
     with torch.no_grad():   # the train step's route: ops.dispatch.istft
         k3_t = time_kernel(lambda: dispatch.istft(sk, N_FFT, HOP),
                            lambda: k3.istft_reference(sk.real, sk.imag, N_FFT, HOP),
-                           istft_bound(sk.numel() * 8, sk.shape[0], 1, f, N_FFT, HOP),
+                           cost.istft(sk.shape[0], f, N_FFT, HOP).bound(),
                            library=library_istft(sk, N_FFT, HOP))
     # The backward reads the cotangent once and writes the interleaved
     # gradient once, with an FFT a frame: a spec-only STFT's bytes and flops.
-    bwd_bound = stft_bound(ref, N_FFT, HOP)
+    bwd_bound = cost.stft(ref.shape[0], ref.shape[-1], N_FFT, HOP).bound()
     bwd_t = time_kernel(
         lambda: torch.autograd.grad(y, spec_k3, dy, retain_graph=True),
         lambda: torch.autograd.grad(ref, spec_k3, dy, retain_graph=True), bwd_bound,
@@ -3482,6 +3507,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         graph_counts = phase_graph(dev, Path(tmp))
     phase_bench(dev)
+    phase_roofline(dev)
     with tempfile.TemporaryDirectory() as tmp:
         pit3_counts, pit3_rows = phase_pit3(rng, dev, Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:

@@ -1,0 +1,155 @@
+"""What each hand-written kernel moves and computes, from its shapes, and the
+card's peaks that bound it.
+
+One place for the reckoning that `chip_smoke.py`'s `kernels` line, the
+timing scripts (`scripts/time_analysis.py`, `scripts/time_synthesis.py`)
+and the bytes ledger (`scripts/bytes_ledger.py`) read.  A kernel's cost is
+its inputs read once and its outputs written once, and the operations its
+algorithm needs: an FFT of n points 2.5·n·log2(n) f32 flops, a log-mel
+band sum 2·K·M a frame, a mask product 2 flops a (source, bin) for a
+magnitude mask and 6 for a complex one, and a threefry2x32 cipher
+`CIPHER_INT_OPS` 32-bit integer instructions.  Its bound is the larger of
+its bytes over the card's memory rate and its operations over the peak
+rate of their type.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Sequence, Tuple
+
+# The H100 SXM's published peaks (NVIDIA's data sheet, dense rates): HBM3
+# bytes/s, f32 flops/s outside the tensor cores, and the tensor cores' bf16
+# and TF32 rates.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+BF16_TC_FLOPS_PER_S = 989e12
+TF32_TC_FLOPS_PER_S = 495e12
+# 32-bit integer issue: 132 SMs x 64 INT32 lanes x 1.98 GHz (the H100 SXM's
+# SM in NVIDIA's Hopper white paper).
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# threefry2x32 hashing a counter (0, j): 20 rounds x (IADD, SHF rotate,
+# LOP xor); 5 key injections x 2 (IADD3 folds the round constant into the
+# second word's add); the key's third word (one LOP3) and the counter's
+# add to the second key word (the first word's add is a move from 0).
+CIPHER_INT_OPS = 20 * 3 + 5 * 2 + 1 + 1
+# Bytes a value of each of the sampler's kinds is written in.
+SAMPLE_BYTES = {"bits": 8, "uniform": 4, "randint": 8, "normal": 4}
+# Ciphers a value of each kind costs (a randint: its key's two splits and
+# its two bit arrays, csrc/threefry.cu).
+SAMPLE_CIPHERS = {"bits": 1, "uniform": 1, "randint": 4, "normal": 1}
+
+
+@dataclasses.dataclass(frozen=True)
+class Cost:
+    """Bytes moved, f32 flops and 32-bit integer instructions."""
+
+    bytes: float = 0.0
+    flops: float = 0.0
+    int_ops: float = 0.0
+
+    def __add__(self, other: "Cost") -> "Cost":
+        return Cost(self.bytes + other.bytes, self.flops + other.flops,
+                    self.int_ops + other.int_ops)
+
+    def bound(self) -> Tuple[float, str]:
+        """(ms, "bytes" or "operations"): the least time the card could take
+        to move the bytes and do the operations."""
+        t_bytes = self.bytes / HBM_BYTES_PER_S
+        t_ops = self.flops / F32_FLOPS_PER_S + self.int_ops / INT32_OPS_PER_S
+        return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def frames(t: int, n_fft: int, hop: int) -> int:
+    """Frames of a T-sample signal, tf.signal's count 1 + (T - n_fft)//hop."""
+    return 1 + (t - n_fft) // hop
+
+
+def fft_flops(n_frames: int, n_fft: int) -> float:
+    return n_frames * 2.5 * n_fft * math.log2(n_fft)
+
+
+def stft_features(rows: int, t: int, n_fft: int, hop: int,
+                  emit: Sequence[str] = ("spec",), n_mels: int = 0) -> Cost:
+    """K1 (`csrc/stft_features.cu`) on `rows` signals of t samples emitting
+    `emit`: the input read once, each output written once, the mel matrix
+    read; an FFT a frame, plus the band sums for log-mel."""
+    f, k = frames(t, n_fft, hop), n_fft // 2 + 1
+    width = {"spec": 8 * k, "mag": 4 * k, "logmag": 4 * k, "logmel": 4 * n_mels}
+    nbytes = 4 * rows * t + rows * f * sum(width[e] for e in emit)
+    flops = fft_flops(rows * f, n_fft)
+    if "logmel" in emit:
+        nbytes += 4 * k * n_mels
+        flops += 2 * rows * f * k * n_mels
+    return Cost(nbytes, flops)
+
+
+def stft(rows: int, t: int, n_fft: int, hop: int) -> Cost:
+    """K4 (`stft_launch`): K1's spectrum alone."""
+    return stft_features(rows, t, n_fft, hop, ("spec",))
+
+
+def masked_istft(b: int, s: int, f: int, n_fft: int, hop: int,
+                 mask_type: str = "magnitude") -> Cost:
+    """K2 (`csrc/masked_istft.cu`): a (b, F, K) complex64 spectrum and
+    (b, S, F, K[, 2]) f32 masks read once, b·S signals of (F-1)·hop + n_fft
+    f32 samples written once; an inverse FFT a (signal, frame) and the
+    mask product."""
+    k = n_fft // 2 + 1
+    mask = b * s * f * k
+    per = 8 if mask_type == "complex" else 4
+    out = 4 * b * s * ((f - 1) * hop + n_fft)
+    return Cost(8 * b * f * k + per * mask + out,
+                fft_flops(b * s * f, n_fft) + (6 if mask_type == "complex" else 2) * mask)
+
+
+def istft(rows: int, f: int, n_fft: int, hop: int) -> Cost:
+    """K3 (the spectrum-only `istft_launch`): K2 with one source and no
+    mask."""
+    k = n_fft // 2 + 1
+    return Cost(8 * rows * f * k + 4 * rows * ((f - 1) * hop + n_fft),
+                fft_flops(rows * f, n_fft))
+
+
+def istft_adjoint(rows: int, f: int, n_fft: int, hop: int) -> Cost:
+    """K3's backward (`istft_adjoint_kernel`): the cotangent of (F-1)·hop +
+    n_fft samples read once, the interleaved (F, K, 2) gradient written
+    once, an FFT a frame: a spec-only STFT's bytes and flops."""
+    return stft(rows, (f - 1) * hop + n_fft, n_fft, hop)
+
+
+def example_keys(b: int, step: bool) -> Cost:
+    """`threefry_keys_kernel`: the key (and the step) read, (bases, 2, b, 2)
+    int64 keys written; with the step the key's fold and split (3 ciphers)
+    and 6 an example (two bases, a fold and two children each), else 3 an
+    example."""
+    if step:
+        return Cost(24 + 2 * b * 32, int_ops=CIPHER_INT_OPS * (3 + 6 * b))
+    return Cost(16 + b * 32, int_ops=CIPHER_INT_OPS * 3 * b)
+
+
+def sample(rows: int, n: int, kind: str) -> Cost:
+    """`threefry_sample_kernel`: `rows` keys read, rows·n values of `kind`
+    written, a cipher a value (a randint four)."""
+    return Cost(16 * rows + SAMPLE_BYTES[kind] * rows * n,
+                int_ops=CIPHER_INT_OPS * SAMPLE_CIPHERS[kind] * rows * n)
+
+
+def train_keys(d_steps: int) -> Cost:
+    """`threefry_train_keys_kernel`: the key and the step read, 3 + 3·d_steps
+    keys written, about five ciphers a key."""
+    n = 3 + 3 * d_steps
+    return Cost(24 + 16 * n, int_ops=CIPHER_INT_OPS * 5 * n)
+
+
+def dropout(numel: int, itemsize: int) -> Cost:
+    """`threefry_dropout_kernel` (forward, or backward on the gradient): x
+    read and y written once, the key read, a cipher an element."""
+    return Cost(2 * numel * itemsize + 16, int_ops=CIPHER_INT_OPS * numel)
+
+
+def noise(numel: int, itemsize: int) -> Cost:
+    """`threefry_noise_kernel`: x read and x + noise written, a cipher an
+    element."""
+    return Cost(2 * numel * itemsize + 16, int_ops=CIPHER_INT_OPS * numel)

@@ -9,6 +9,8 @@
     python -m gan_sass_tf_tpu_torch.scripts.bench_streaming_compute [SECONDS] [REPS]
     python -m gan_sass_tf_tpu_torch.scripts.train_wavdir_fixture [STEPS]
     python -m gan_sass_tf_tpu_torch.scripts.run_queue [ROUND]
+    python -m gan_sass_tf_tpu_torch.scripts.bytes_ledger [PRESET ...] ...
+    python -m gan_sass_tf_tpu_torch.scripts.roofline [PRESET ...] ...
 """
 
 from typing import Dict, List, Sequence, Tuple

@@ -15,8 +15,9 @@ frames and window, the plain version's (torch.profiler), the bound
 (bytes at 3.35 TB/s against FFT flops at 67 TFLOP/s f32) and its share,
 and a sha256 of the kernel's outputs (time_synthesis.py prints those of
 the synthesis kernels, K2 and K3).  It uses
-only the wrappers' public functions, so it also times another checkout's
-kernels: run it by path with PYTHONPATH at that checkout,
+only the wrappers' public functions and `ops/cost.py`, so it also times
+another checkout's kernels (one that has `ops/cost.py`): run it by path
+with PYTHONPATH at that checkout,
 
     PYTHONPATH=/path/to/other python gan_sass_tf_tpu_torch/scripts/time_analysis.py
 
@@ -40,7 +41,6 @@ from __future__ import annotations
 import concurrent.futures
 import hashlib
 import json
-import math
 import shutil
 import subprocess
 import sys
@@ -53,14 +53,12 @@ import torch
 import gan_sass_tf_tpu_torch
 from gan_sass_tf_tpu_torch.dsp.features import mel_filterbank
 from gan_sass_tf_tpu_torch.dsp.windows import get_window
-from gan_sass_tf_tpu_torch.ops import build
+from gan_sass_tf_tpu_torch.ops import build, cost
 from gan_sass_tf_tpu_torch.ops import istft as k3
 from gan_sass_tf_tpu_torch.ops import stft as k4
 from gan_sass_tf_tpu_torch.ops import stft_features as k1
 from gan_sass_tf_tpu_torch.scripts import time_synthesis as synth
 
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS_PER_S = 67e12
 SWEEP_THREADS = (128, 256, 512)
 SWEEP_ROUNDS = (1, 2, 4)
 SWEEP_BLOCKS_PER_SM = (1, 2, 3, 4)
@@ -112,21 +110,6 @@ ABLATIONS = {
 }
 
 
-def stft_bound(b, t, n_fft, hop, emits, n_mels=0):
-    """(ms, "bytes" or "operations"): the waveform read once, each output
-    written once (and the mel matrix read), against an FFT a frame (and
-    2·K·M flops a frame for log-mel)."""
-    f, k = 1 + (t - n_fft) // hop, n_fft // 2 + 1
-    width = {"spec": 8 * k, "mag": 4 * k, "logmag": 4 * k, "logmel": 4 * n_mels}
-    nbytes = 4 * b * t + b * f * sum(width[e] for e in emits)
-    flops = b * f * 2.5 * n_fft * math.log2(n_fft)
-    if "logmel" in emits:
-        nbytes += 4 * k * n_mels
-        flops += 2 * b * f * k * n_mels
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
-
-
 def digest(out) -> str:
     """sha256 of a tensor's, a tuple's or a dict's bytes, in order."""
     h = hashlib.sha256()
@@ -157,7 +140,7 @@ def cases(dev) -> dict:
         if what == "stft":
             out[name] = (lambda x=x, n=n_fft, h=hop: k4.stft_kernel(x, n, h),
                          lambda x=x, n=n_fft, h=hop: k4.stft_reference(x, n, h),
-                         library, stft_bound(b, t, n_fft, hop, ("spec",)))
+                         library, cost.stft(b, t, n_fft, hop).bound())
         elif what == "adjoint":
             f = 1 + (t - n_fft) // hop
             inv = synth.k2._inv_env(n_fft, hop, "hann", f, dev)
@@ -166,7 +149,7 @@ def cases(dev) -> dict:
                 lambda x=x, n=n_fft, h=hop, f=f: planes(k3.istft_adjoint(x, n, h, "hann", f)),
                 lambda x=x, n=n_fft, h=hop, i=inv, a=a_k: torch.view_as_real(
                     k1.stft_features_reference(x * i, n, h)["spec"]) * a,
-                library, stft_bound(b, t, n_fft, hop, ("spec",)))
+                library, cost.stft(b, t, n_fft, hop).bound())
         else:
             mel = (torch.from_numpy(mel_filterbank(N_MELS, n_fft // 2 + 1, sr)).to(dev)
                    if "logmel" in what else None)
@@ -175,7 +158,8 @@ def cases(dev) -> dict:
                     x, n, h, emit=e, mel_matrix=m),
                 lambda x=x, n=n_fft, h=hop, e=what, m=mel: k1.stft_features_reference(
                     x, n, h, emit=e, mel_matrix=m),
-                library, stft_bound(b, t, n_fft, hop, what, N_MELS if mel is not None else 0))
+                library, cost.stft_features(b, t, n_fft, hop, what,
+                                             N_MELS if mel is not None else 0).bound())
     return out
 
 

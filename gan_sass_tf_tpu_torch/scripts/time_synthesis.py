@@ -21,8 +21,9 @@ so no CUDA graph can hold it), the bound (bytes at
 3.35 TB/s against FFT flops at 67 TFLOP/s f32) and its share, the largest
 error against the plain version and against float64 irfft + overlap-add
 (the plain version's beside it), and a sha256 of the output.  It uses only
-the wrappers' public functions, so it also times another checkout's
-kernels: run it by path with PYTHONPATH at that checkout,
+the wrappers' public functions and `ops/cost.py`, so it also times another
+checkout's kernels (one that has `ops/cost.py`): run it by path with
+PYTHONPATH at that checkout,
 
     PYTHONPATH=/path/to/other python gan_sass_tf_tpu_torch/scripts/time_synthesis.py
 
@@ -47,7 +48,6 @@ from __future__ import annotations
 import concurrent.futures
 import hashlib
 import json
-import math
 import shutil
 import statistics
 import subprocess
@@ -61,15 +61,13 @@ import torch
 import gan_sass_tf_tpu_torch
 from gan_sass_tf_tpu_torch.dsp.stft import overlap_add
 from gan_sass_tf_tpu_torch.dsp.windows import get_window
-from gan_sass_tf_tpu_torch.ops import dispatch
+from gan_sass_tf_tpu_torch.ops import cost, dispatch
 from gan_sass_tf_tpu_torch.ops import istft as k3
 from gan_sass_tf_tpu_torch.ops import masked_istft as k2
 from gan_sass_tf_tpu_torch.ops import stft_features as k1
 from gan_sass_tf_tpu_torch.utils import profiler
 
 SAMPLES, CALLS = 20, 10
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS_PER_S = 67e12
 SWEEP_THREADS = (0, 128, 256, 512)    # THREADS; 0: synthesis_threads' pick
 SWEEP_TILES = (0, 1, 2, 4)            # TILE_FRAMES; 0: a round's worth
 SWEEP_BLOCKS_PER_SM = (1, 2, 3, 4)
@@ -175,14 +173,6 @@ def wrapper_ms(**fns) -> dict:
     return {name: statistics.median(t) for name, t in times.items()}
 
 
-def bound(nbytes: float, frames: int, n_fft: int, mask_flops: float = 0.0):
-    """(ms, "bytes" or "operations"): `nbytes` moved once against an FFT a
-    frame and the mask's flops."""
-    flops = frames * 2.5 * n_fft * math.log2(n_fft) + mask_flops
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
-
-
 def digest(out) -> str:
     """sha256 of a tensor's or a tuple's bytes, in order."""
     h = hashlib.sha256()
@@ -273,10 +263,7 @@ def k2_row(spec, masks, n_fft, hop, mask_type) -> dict:
     plain = lambda: k2.masked_istft_reference(spec, masks, n_fft, hop, mask_type=mask_type)
     est = masked(spec, masks, mask_type)
     library = torch_istft(n_fft, hop, spec.device)
-    nbytes = spec.numel() * 8 + masks.numel() * 4 + 4 * b * s * ((f - 1) * hop + n_fft)
-    # 2 flops a (source, bin) for a magnitude mask, 6 for a complex one.
-    ms_bound, by = bound(nbytes, b * s * f, n_fft,
-                         (3 if mask_type == "complex" else 2) * masks.numel())
+    ms_bound, by = cost.masked_istft(b, s, f, n_fft, hop, mask_type).bound()
     y, ref, exact = kernel(), plain(), f64_synthesis(est, n_fft, hop)
     ms = graph_ms(kernel)
     return {"device_ms": ms, "wrapper_ms": wrapper_ms(kernel=kernel)["kernel"],
@@ -292,12 +279,11 @@ def k2_row(spec, masks, n_fft, hop, mask_type) -> dict:
 
 
 def k3_rows(x: dict) -> dict:
-    _, t, n_fft, hop = K3_SHAPE
+    _, _, n_fft, hop = K3_SHAPE
     b, f = x["spec"].shape[:2]
     kernel = k3_kernel(x, n_fft, hop)
     plain = lambda: k3.istft_reference(x["re"], x["im"], n_fft, hop)
-    nbytes = x["spec"].numel() * 8 + 4 * b * t
-    ms_bound, by = bound(nbytes, b * f, n_fft)
+    ms_bound, by = cost.istft(b, f, n_fft, hop).bound()
     library = torch_istft(n_fft, hop, x["spec"].device)
     with torch.no_grad():
         y, ref = kernel(), plain()
