@@ -113,6 +113,25 @@ Phases, one JSON line each:
               against this process's (>= 40 dB a segment after the best
               permutation, the same chained permutations).  At W = 1 the
               line names what only two or more GPUs would run
+    serve_graph  serving and eval as replays of CUDA graphs captured after
+              WARMUP_CALLS eager calls of a shape and memoised per (cfg, G)
+              and shape (train/graphed.py GraphedCall, GeneratorMemo):
+              wsj0_logmel separate() on 16 x 3 s and 60 s, stream_v5e8 batch
+              and scan streaming of two 60 s streams and a 30 s one,
+              3src_pit separate() on 16 x 3 s (cuDNN's LSTM in the capture)
+              and Experiment.evaluate() on wsj0_logmel, each on a new G with
+              seeded weights and cudnn.deterministic: each against the same
+              entry point with the eager function (the same bits, else
+              >= 40 dB a row, eval scores within 1e-3 dB); K1 and K2
+              launched once a call, group or chunk, eager or replayed, and
+              a replay's traced launches equal to the capture's and to the
+              eager call's; one capture, which later streams and calls
+              reuse; weights loaded into G in place are what the next replay
+              uses; wall ms graphed and eager in turns, mixture-s/s, ms a
+              chunk in scan mode and the device-busy share; the phase's
+              generators gone after it (the memos hold them weakly) and the
+              device memory allocated before and after.  Separation, streaming and evaluate() in
+              every phase go through such memos
     pit3     3src_pit at full width (the BiLSTM G 2 x 300 with the film head,
               S = 3 softmax masks, batch 16 x 3 s): whether cuDNN takes the
               LSTM in bf16 and the kernels it runs; the step's device ms by
@@ -213,8 +232,9 @@ Phases, one JSON line each:
 Then a `kernels` summary line (each kernel's launches, summed over the
 paths that drive it and by path, each path's counts set to 0 just before
 it and read just after, a dp_* path's summed over its ranks; a path that
-trains on the card in bank mode replays a captured step, whose launches
-count as the launches a capture recorded times its replays
+trains on the card in bank mode, separates, streams or evaluates replays
+captured graphs, whose launches count as the launches a capture recorded
+times its replays, beside the eager warm-up calls before each capture
 (`launch_counts()`); its error; its time beside its plain version's,
 the library call's and its bound from the shapes; K1 and K2 also at the
 streaming chunk shapes) and, last, the result line.  Any failed check
@@ -248,6 +268,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import weakref
 import zipfile
 from pathlib import Path
 
@@ -258,7 +279,7 @@ from gan_sass_tf_tpu_torch import cli, config
 from gan_sass_tf_tpu_torch.bench import bench_config
 from gan_sass_tf_tpu_torch import entry as port_entry
 from gan_sass_tf_tpu_torch.examples import quickstart
-from gan_sass_tf_tpu_torch.data import mix_sources, prng_key, sample_bank
+from gan_sass_tf_tpu_torch.data import make_dataset, mix_sources, prng_key, sample_bank
 from gan_sass_tf_tpu_torch.data.fixtures import write_fixture_corpus
 from gan_sass_tf_tpu_torch.dsp.features import mel_filterbank
 from gan_sass_tf_tpu_torch.dsp.windows import get_window
@@ -294,6 +315,7 @@ from gan_sass_tf_tpu_torch.scripts import (
 )
 from gan_sass_tf_tpu_torch.losses.pit import permutations_for
 from gan_sass_tf_tpu_torch.train import Experiment, build_train_step, graphed
+from gan_sass_tf_tpu_torch.train import step as train_step
 from gan_sass_tf_tpu_torch.utils import profiler, tb_events
 from gan_sass_tf_tpu_torch.utils.wav_io import read_wav, write_wav
 
@@ -350,6 +372,10 @@ ROOFLINE_RUNS, ROOFLINE_STEPS = (("wsj0_logmel", B_BENCH), ("stream_v5e8", 32)),
 SEP_SAMPLES, SEP_CALLS = 5, 2        # separate() timing: samples of calls per path
 T_STREAM = 60 * SR_STREAM            # the streamed mixture: 62 chunks of 16 000
 STREAM_SAMPLES = 3                   # timed streams per mode and DSP path
+SEED_SERVE = 19                      # the serve_graph phase's own generator
+SERVE_SAMPLES = 3                    # timed calls a side and path, in turns
+SERVE_EVAL_BATCHES = 2
+SERVE_EVAL_TOL_DB = 1e-3             # graphed vs eager eval scores, where not bit-equal
 DP_STEP_SAMPLES = 12                 # timed train steps, dp phase, each side
 DP_REDUCE_SAMPLES = 20               # timed all-reduces of G's gradients
 DP_TIMEOUT_S = 400                   # one torchrun call of the dp phase
@@ -776,16 +802,22 @@ def phase_main_path(rng, dev, tmp: Path):
     batch = mixtures(rng, B_MAIN, 3 * SR)
     g = load_generator(cfg, load_flax_npz(str(params)), dev)
 
-    k1.launches = k2.launches = 0
+    cap = graphed.captures()
+    reset_launch_counts()
+    cli_ms = {}
     for wav in (wav3, wav60):
+        t0 = time.perf_counter()
         rc = cli.main(["separate", "--config", "wsj0_logmel", "--params",
                        str(params), "--input", str(wav), "--output-dir",
                        str(tmp / "out")])
+        cli_ms[wav.stem] = (time.perf_counter() - t0) * 1e3
         check(rc == 0, f"cli separate {wav.name} exited {rc}")
     out = separate(g, cfg, batch, dev)
     torch.cuda.synchronize()
-    counts = {"stft_features": k1.launches, "masked_istft": k2.launches}
-    check(min(counts.values()) > 0, f"a kernel never launched: {counts}")
+    counts = k12_since()
+    captures = graphed.captures() - cap
+    check(counts == served(3),
+          f"main path: launches {counts}, expected {served(3)} ({captures} captures)")
 
     for wav in (wav3, wav60):
         t = read_wav(str(wav))[1].shape[0]
@@ -805,7 +837,8 @@ def phase_main_path(rng, dev, tmp: Path):
     agree_long = si_sdr(torch.from_numpy(out_long), torch.from_numpy(ref_long))
     worst = min(float(agree.min()), float(agree_long.min()))
     check(worst >= 40.0, f"kernel vs plain DSP path: SI-SDR {worst} dB < 40")
-    emit("main_path", params=n_params, launches=counts,
+    emit("main_path", params=n_params, launches=counts, captures=captures,
+         cli_separate_wall_ms=cli_ms,
          outputs={"cli_3s": [2, 3 * SR], "cli_60s": [2, 60 * SR],
                   "batch": list(out.shape)},
          si_sdr_kernel_vs_plain_db={"batch_min": float(agree.min()),
@@ -957,7 +990,7 @@ def state_gap(a: dict, b: dict) -> dict:
             "max_abs": gaps[worst], "in": worst}
 
 
-def device_spans(fn, calls=PROFILE_STEPS) -> dict:
+def device_spans(fn, calls=PROFILE_STEPS, open_calls=0) -> dict:
     """torch.profiler's Chrome trace of `calls` calls of `fn` (after one
     untimed): a call's device ms summed over its kernels, copies and fills,
     the ms a call the device was busy (the union of their intervals, so
@@ -970,7 +1003,10 @@ def device_spans(fn, calls=PROFILE_STEPS) -> dict:
     device started from half that pad before the calls' span on is
     counted (by its own start: a replay's kernels run past the span's
     host window).  "kernels_in_trace" counts TRACE_KERNELS over the
-    whole trace."""
+    whole trace; "span_ms" the host's ms a call over the traced calls.
+    `open_calls` calls of `fn` follow the fills, before the pad and out of
+    the count: a trace may drop the records of a kernel the first time it
+    sees it."""
     fn()
     torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
@@ -978,6 +1014,8 @@ def device_spans(fn, calls=PROFILE_STEPS) -> dict:
             fill = torch.zeros(1, device="cuda")
             for _ in range(TRACE_OPEN_FILLS):
                 fill.add_(1.0)
+            for _ in range(open_calls):
+                fn()
             torch.cuda.synchronize()
             time.sleep(PROFILE_PAD_S)
             with torch.profiler.record_function(TRACE_SPAN):
@@ -992,7 +1030,8 @@ def device_spans(fn, calls=PROFILE_STEPS) -> dict:
         if b > end:
             busy, end = busy + b - max(a, end), b
     return {"sum_ms": sum(e["dur"] for e in events) / calls / 1e3,
-            "busy_ms": busy / calls / 1e3, "events": len(events) / calls,
+            "busy_ms": busy / calls / 1e3, "span_ms": span["dur"] / calls / 1e3,
+            "events": len(events) / calls,
             "kernels": {n: sum(n in e["name"] for e in events) / calls
                         for n in TRACE_KERNELS},
             "kernels_in_trace": {n: sum(n in e["name"] for e in every)
@@ -1317,12 +1356,13 @@ def phase_pit3(rng, dev, tmp: Path):
         gaps[key] = abs(a - b) / max(abs(b), 1.0)
         check(gaps[key] <= 1e-2, f"3src_pit step {key}: kernel {a} vs plain {b}")
     step_kernel, step_plain = time_steps(exp)
-    k1.launches = k2.launches = 0
+    cap = graphed.captures()
+    reset_launch_counts()
     ev = exp.evaluate(num_batches=2)
-    eval_counts = {"stft_features": k1.launches, "masked_istft": k2.launches}
+    eval_counts = k12_since()
     check(all(np.isfinite(v) for v in ev.values()), f"3src_pit eval: {ev}")
-    check(eval_counts == {"stft_features": 2, "masked_istft": 2},
-          f"3src_pit eval launches {eval_counts}")
+    check(eval_counts == served(2),
+          f"3src_pit eval launches {eval_counts}, captures {graphed.captures() - cap}")
 
     # Separation: separate() on 16 x 3 s and `cli separate` on 60 s, with
     # the trained G, then each on the plain DSP path.
@@ -1334,14 +1374,16 @@ def phase_pit3(rng, dev, tmp: Path):
     batch = sources.sum(dim=1).numpy()
     write_wav(str(wav60), SR, mixtures(rng, 1, T_LONG)[0])
     long_mix = read_wav(str(wav60))[1]
-    k1.launches = k2.launches = 0
+    cap = graphed.captures()
+    reset_launch_counts()
     est = separate(g, cfg, batch, dev)
     captured(cli.main, ["separate", "--config", "3src_pit", "--params", str(params),
                         "--input", str(wav60), "--output-dir", str(tmp / "out3")])
     torch.cuda.synchronize()
-    sep_counts = {"stft_features": k1.launches, "masked_istft": k2.launches}
-    check(sep_counts == {"stft_features": 2, "masked_istft": 2},
-          f"3src_pit separation launches {sep_counts}")
+    sep_counts = k12_since()
+    check(sep_counts == served(2),
+          f"3src_pit separation launches {sep_counts}, captures "
+          f"{graphed.captures() - cap}")
     srcs = np.stack([read_wav(str(tmp / "out3" / f"{wav60.stem}_src{i}.wav"))[1]
                      for i in range(S_PIT3)])
     check(srcs.shape == (S_PIT3, T_LONG) and np.isfinite(srcs).all(),
@@ -1546,15 +1588,17 @@ def phase_stream(rng, dev, tmp: Path, wd: Path):
     launches = {}
     for mode in ("batch", "scan"):
         out_dir = tmp / f"stream_{mode}"
-        k1.launches = k2.launches = 0
+        cap = graphed.captures()
+        reset_launch_counts()
         captured(cli.main, [
             "separate", "--config", "stream_v5e8", "--workdir", str(wd), "--device",
             str(dev), "--input", str(wav), "--output-dir", str(out_dir),
             "--streaming", "--streaming-mode", mode])
-        launches[mode] = {"stft_features": k1.launches, "masked_istft": k2.launches}
-        check(launches[mode] == {"stft_features": expect[mode],
-                                 "masked_istft": expect[mode]},
-              f"stream {mode}: launches {launches[mode]}, expected {expect[mode]} each")
+        launches[mode] = k12_since()
+        want = served(expect[mode])
+        check(launches[mode] == want and graphed.captures() - cap == 1,
+              f"stream {mode}: launches {launches[mode]}, captures "
+              f"{graphed.captures() - cap}, expected {want} and one capture")
         srcs = np.stack([read_wav(str(out_dir / f"stream60s_src{i}.wav"))[1]
                          for i in range(cfg.data.num_sources)])
         check(srcs.shape == (2, T_STREAM) and np.isfinite(srcs).all(),
@@ -1656,6 +1700,283 @@ def phase_stream(rng, dev, tmp: Path, wd: Path):
          note="wall: host array in, host array out; busy: torch.profiler "
               "device ms of one stream over the median kernel-path wall")
     return launches, shapes
+
+
+def k12(counts: dict) -> dict:
+    """K1's and K2's entries of a launch count."""
+    return {k: counts[k] for k in ("stft_features", "masked_istft")}
+
+
+def k12_since(before: dict = None) -> dict:
+    """K1's and K2's launches since launch_counts() read `before` (since
+    reset_launch_counts() without it)."""
+    now, before = launch_counts(), before or {}
+    return {k: now[k] - before.get(k, 0) for k in ("stft_features", "masked_istft")}
+
+
+def served(calls: int) -> dict:
+    """K1's and K2's launches for `calls` separations: once each a call,
+    whether it ran eagerly (a shape's first WARMUP_CALLS calls) or replayed
+    a capture."""
+    return {"stft_features": calls, "masked_istft": calls}
+
+
+@contextlib.contextmanager
+def eager_serving():
+    """The public serving and eval entry points with the eager functions
+    (`build_separate_fn`, `build_streaming_scan_fn`, `build_eval_scores`)
+    in place of their memoised graphs: the same host code around them."""
+    sep = importlib.import_module("gan_sass_tf_tpu_torch.infer.separate")
+    exp = importlib.import_module("gan_sass_tf_tpu_torch.train.experiment")
+    saved = (sep.separate_fn_for, streaming.separate_fn_for,
+             streaming.streaming_scan_fn_for, exp.eval_fn_for)
+    sep.separate_fn_for = streaming.separate_fn_for = train_step.build_separate_fn
+    streaming.streaming_scan_fn_for = streaming.build_streaming_scan_fn
+    exp.eval_fn_for = train_step.build_eval_scores
+    try:
+        yield
+    finally:
+        (sep.separate_fn_for, streaming.separate_fn_for,
+         streaming.streaming_scan_fn_for, exp.eval_fn_for) = saved
+
+
+def serve_agreement(got, want) -> dict:
+    """A graphed result against the eager one: the same bits, or else
+    SI-SDR >= 40 dB a row (waveforms) or within SERVE_EVAL_TOL_DB (eval
+    scores)."""
+    if isinstance(got, dict):
+        gap = max(abs(got[k] - want[k]) for k in want)
+        same = all(got[k] == want[k] for k in want)
+        return {"same_bits": same, "max_abs_db": gap,
+                "ok": same or gap <= SERVE_EVAL_TOL_DB}
+    same = bool(np.array_equal(got, want))
+    out = {"same_bits": same, "max_abs": float(np.abs(got - want).max())}
+    if not same:
+        rows = [torch.from_numpy(np.ascontiguousarray(a.reshape(-1, a.shape[-1])))
+                for a in (got, want)]
+        out["min_si_sdr_db"] = float(si_sdr(*rows).min())
+    out["ok"] = same or out["min_si_sdr_db"] >= 40.0
+    return out
+
+
+def serve_walls(fns: dict, samples=SERVE_SAMPLES) -> dict:
+    """Median wall ms of a call of each of {"eager", "graphed"}, host array
+    in and out, in turns (eager, graphed, graphed, eager, ...), each
+    synchronized."""
+    times = {"eager": [], "graphed": []}
+    for i in range(2 * samples):
+        side = ("eager", "graphed", "graphed", "eager")[i % 4]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fns[side]()
+        torch.cuda.synchronize()
+        times[side].append((time.perf_counter() - t0) * 1e3)
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def serve_path(name, run, inputs, calls_of, load_weights, captured_calls, seconds_of):
+    """One serving or eval path, `run(x)` its public entry point on input
+    x (host arrays in and out), on a G that no earlier call has seen:
+    (1) the first call on inputs[0], K1 and K2 launched calls_of(x) times
+    each (a one-shot call runs eagerly, a stream captures after its first
+    WARMUP_CALLS groups or chunks), against the same entry point with the
+    eager function; (2) calls on
+    inputs[0] until the path has captured, at most WARMUP_CALLS + 1, one
+    capture in all; (3) the other inputs and inputs[0] replay that
+    capture, K1 and K2 launched calls_of(x) times each, no capture made;
+    (4) new weights loaded into G in place: the replay follows them, again
+    against eager; (5) the walls graphed and eager in turns, mixture-s/s
+    and the device-busy share (the device's busy ms in a trace of one
+    call, over that call's host ms), and each TRACE_KERNELS kernel's launches in that
+    trace held to the capture's per-replay launches times the replays the
+    traced call made and to the traced eager call's.  `captured_calls()`
+    the path's GraphedCalls."""
+    def eager(x):
+        with eager_serving():
+            return run(x)
+
+    def graphs():
+        return [c for c in captured_calls() if c.graph is not None]
+
+    x0 = inputs[0]
+    cap, before = graphed.captures(), launch_counts()
+    got = run(x0)
+    first = {"captures": graphed.captures() - cap, "launches": k12_since(before)}
+    check(first["launches"] == served(calls_of(x0)),
+          f"serve_graph {name}: first call {first}, expected {served(calls_of(x0))}")
+    agree = serve_agreement(got, eager(x0))
+    check(agree["ok"], f"serve_graph {name}: graphed vs eager {agree}")
+
+    warm_calls = 0
+    while not graphs() and warm_calls <= graphed.WARMUP_CALLS:
+        run(x0)
+        warm_calls += 1
+    made = graphed.captures() - cap
+    check(len(graphs()) == 1 and made == 1,
+          f"serve_graph {name}: {made} captures after {warm_calls} more calls, "
+          f"expected one within {graphed.WARMUP_CALLS + 1}")
+
+    cap, before = graphed.captures(), launch_counts()
+    for x in inputs[1:] + [x0]:
+        run(x)
+    reuse = {"calls": len(inputs), "captures": graphed.captures() - cap,
+             "launches": k12_since(before)}
+    want = served(sum(calls_of(x) for x in inputs))
+    check(reuse["captures"] == 0 and reuse["launches"] == want,
+          f"serve_graph {name}: later calls {reuse}, expected {want} and no capture")
+
+    cap = graphed.captures()
+    load_weights()
+    after = run(x0)
+    follow = serve_agreement(after, eager(x0))
+    moved = not serve_agreement(after, got)["same_bits"]
+    check(follow["ok"] and moved and graphed.captures() == cap,
+          f"serve_graph {name}: after a load_state_dict: graphed vs eager "
+          f"{follow}, output moved {moved}, captures {graphed.captures() - cap}")
+
+    walls = serve_walls({"eager": lambda: eager(x0), "graphed": lambda: run(x0)})
+    (call,) = graphs()
+    replays = call.replays
+    run(x0)
+    per_call = call.replays - replays
+    spans = {"graphed": device_spans(lambda: run(x0), calls=1, open_calls=1),
+             "eager": device_spans(lambda: eager(x0), calls=1, open_calls=1)}
+    recorded = {n: sum(call.per_replay[k] for k in keys) * per_call
+                for n, keys in TRACE_KERNELS.items()}
+    check(spans["graphed"]["kernels"] == spans["eager"]["kernels"] == recorded,
+          f"serve_graph {name}: kernel launches a call, traced replays "
+          f"{spans['graphed']['kernels']}, traced eager call "
+          f"{spans['eager']['kernels']}, recorded by the capture ({per_call} "
+          f"replays) {recorded}; in the whole traces: replays "
+          f"{spans['graphed']['kernels_in_trace']}, eager "
+          f"{spans['eager']['kernels_in_trace']}")
+    busy = {side: {"busy_ms": sp["busy_ms"], "traced_call_ms": sp["span_ms"],
+                   "share": sp["busy_ms"] / sp["span_ms"], "kernel_sum_ms": sp["sum_ms"]}
+            for side, sp in spans.items()}
+    return {"first_call": first, "graphed_vs_eager": agree,
+            "calls_to_capture": 1 + warm_calls, "later_calls": reuse,
+            "weights_loaded_in_place": {"graphed_vs_eager": follow, "output_moved": moved},
+            "per_replay_launches": {k: v for k, v in call.per_replay.items() if v},
+            "replays_a_call": per_call,
+            "traced_launches_a_call": {k: v for k, v in recorded.items() if v},
+            "wall_ms": walls,
+            "mixture_sec_per_sec": {k: seconds_of(x0) / w * 1e3 for k, w in walls.items()},
+            "device_busy_share": busy}
+
+
+def serve_graph_paths(dev, gen) -> tuple:
+    """The serve_graph phase's paths: (their rows, weak references to the
+    generators they served)."""
+    sep_mod = importlib.import_module("gan_sass_tf_tpu_torch.infer.separate")
+    paths, gs = {}, []
+
+    def reload(g, cfg, seed):
+        return lambda: g.load_state_dict(build_generator(cfg, dev, seed=seed).state_dict())
+
+    def last_graph(fn):         # the GraphedCall used last
+        return lambda: list(fn.graphs.values())[-1:]
+
+    for preset, b, t in (("wsj0_logmel", B_MAIN, 3 * SR), ("wsj0_logmel", 1, T_LONG),
+                         ("3src_pit", B_PIT3, T_MAIN)):
+        cfg = config.get_config(preset)
+        g = build_generator(cfg, dev, seed=SEED)
+        gs.append(weakref.ref(g))
+        inputs = [mixtures(gen, b, t) for _ in range(2)]
+        paths[f"{preset} separate() {b} x {t / SR:g} s"] = serve_path(
+            preset, lambda x, g=g, cfg=cfg: separate(g, cfg, x, dev), inputs,
+            lambda x: 1, reload(g, cfg, SEED + 1),
+            last_graph(sep_mod.separate_fn_for(cfg, g)),
+            lambda x: x.size / SR)
+
+    cfg = config.get_config("stream_v5e8")
+    streams = [mixtures(gen, 1, n, SR_STREAM)[0]
+               for n in (T_STREAM, T_STREAM, T_STREAM // 2)]
+    chunks = {x.size: streaming._chunk_geometry(cfg, x.size)[3] for x in streams}
+    bc = cfg.stream.batch_chunks
+    for mode in ("batch", "scan"):
+        g = build_generator(cfg, dev, seed=SEED)    # a G of its own: the first call is its first
+        gs.append(weakref.ref(g))
+        if mode == "batch":
+            fn, calls_of = separate_streaming, lambda x: -(-chunks[x.size] // bc)
+            calls = last_graph(sep_mod.separate_fn_for(cfg, g))
+        else:
+            fn, calls_of = separate_streaming_scan, lambda x: chunks[x.size]
+            calls = last_graph(streaming.streaming_scan_fn_for(cfg, g).body)
+        row = serve_path(f"stream {mode}", lambda x, fn=fn, g=g: fn(g, cfg, x, dev),
+                         streams, calls_of, reload(g, cfg, SEED + 2 + (mode == "scan")),
+                         calls, lambda x: x.size / SR_STREAM)
+        row["chunks"] = chunks[T_STREAM]
+        row["ms_per_chunk"] = {k: w / chunks[T_STREAM] for k, w in row["wall_ms"].items()}
+        paths[f"stream_v5e8 {mode} 60 s"] = row
+
+    cfg = config.get_config("wsj0_logmel")
+    exp = Experiment(cfg, device=dev)
+    g = exp.eval_generator()
+    gs.append(weakref.ref(g))
+    segment = cfg.train.batch_size * cfg.segment_samples / cfg.dsp.sample_rate
+    row = paths["wsj0_logmel Experiment.evaluate()"] = serve_path(
+        "evaluate", lambda seed: exp.evaluate(SERVE_EVAL_BATCHES, dataset=make_dataset(
+            cfg, seed=seed, split=cfg.data.eval_split)),
+        [SEED_SERVE, SEED_SERVE + 1], lambda seed: SERVE_EVAL_BATCHES,
+        reload(g, cfg, SEED + 4), last_graph(train_step.eval_fn_for(cfg, g, 0)),
+        lambda seed: SERVE_EVAL_BATCHES * segment)
+    # The scores alone, on one batch already on the device: the replay
+    # against build_eval_scores, without the host's batch.
+    batch = torch.from_numpy(make_dataset(cfg, seed=SEED_SERVE, split=cfg.data.eval_split)
+                             .batch()).to(dev)
+    seed = torch.tensor(10_000, dtype=torch.int64, device=dev)
+    scores = train_step.eval_fn_for(cfg, g, 0)
+    eager_scores = train_step.build_eval_scores(cfg, g, 0)
+    row["scores_wall_ms"] = serve_walls({"eager": lambda: eager_scores(batch, seed),
+                                         "graphed": lambda: scores(batch, seed)})
+    exp.close()
+    return paths, gs
+
+
+def phase_serve_graph(dev) -> dict:
+    """Serving and eval as replays of captured CUDA graphs (train/graphed.py
+    GraphedCall, memoised per (cfg, G) and shape) against the same entry
+    points with the eager functions, at full width with seeded weights and
+    cudnn.deterministic: wsj0_logmel separate() on B_MAIN x 3 s and on
+    60 s, stream_v5e8 batch and scan streaming of two 60 s streams and a
+    30 s one (one capture serves them all), 3src_pit separate() on 16 x
+    3 s (cuDNN's LSTM inside the capture) and Experiment.evaluate() on
+    wsj0_logmel.  Then the phase's generators are dropped: the memos hold
+    them weakly, so they go with their graphs, and the device memory
+    allocated returns to what it was before the phase.  Returns the launch
+    counts of the whole phase."""
+    gen = np.random.default_rng(SEED_SERVE)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    gc.collect()
+    torch.cuda.synchronize()
+    mib_before = torch.cuda.memory_allocated() / 2**20
+    reset_launch_counts()
+    try:
+        paths, gs = serve_graph_paths(dev, gen)
+        counts = launch_counts()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    gc.collect()
+    torch.cuda.synchronize()
+    held = {"generators_alive": sum(r() is not None for r in gs),
+            "allocated_mib_before": mib_before,
+            "allocated_mib_after": torch.cuda.memory_allocated() / 2**20}
+    check(held["generators_alive"] == 0,
+          f"serve_graph: the memos kept a generator alive after the phase: {held}")
+    emit("serve_graph", cudnn_deterministic=True, warmup_calls=graphed.WARMUP_CALLS,
+         tolerance="same bits, else SI-SDR >= 40 dB a row (waveforms) or "
+                   f"{SERVE_EVAL_TOL_DB} dB (eval scores)",
+         samples=SERVE_SAMPLES, paths=paths, memory_after_the_phase=held,
+         note="wall: host array in, host array out, synchronized, median of "
+              "SERVE_SAMPLES a side in turns; eager: the same entry point with "
+              "build_separate_fn / build_streaming_scan_fn / build_eval_scores; "
+              "busy: the union of the device's kernel, copy and fill intervals "
+              "of one call in a torch.profiler trace over that call's host ms "
+              "(traced_call_ms); the evaluate() walls include drawing the host "
+              "batches, its "
+              "scores_wall_ms one batch's scores on the device")
+    return counts
 
 
 def launch_counts() -> dict:
@@ -2551,18 +2872,21 @@ def phase_options(dev, tmp: Path):
     losses[OPTIONS_STEPS + 2] = cli_losses(out, OPTIONS_STEPS + 2)
     check(all(math.isfinite(v) for m in losses.values() for v in m.values()),
           f"music options losses {losses}")
+    cap = graphed.captures()
     ev, counts["options_music_eval"] = counted(lambda: captured(
         cli.main, ["eval", *common, "--batches", "1"]))
-    check("si_sdr_improvement" in ev and counts["options_music_eval"]["masked_istft"] == 1
-          and counts["options_music_eval"]["stft_features"] == 1,
-          f"music options eval: {ev} {counts['options_music_eval']}")
+    check("si_sdr_improvement" in ev
+          and k12(counts["options_music_eval"]) == served(1),
+          f"music options eval: {ev} {counts['options_music_eval']}, captures "
+          f"{graphed.captures() - cap}")
     wav = tmp / "music30s.wav"
     write_wav(str(wav), SR_MUSIC, mixtures(rng, 1, T_MUSIC_SEP, SR_MUSIC)[0])
+    cap = graphed.captures()
     _, counts["options_music_separation"] = counted(lambda: captured(cli.main, [
         "separate", *common, "--input", str(wav), "--output-dir", str(tmp / "music_out")]))
-    check(counts["options_music_separation"]["stft_features"] == 1
-          and counts["options_music_separation"]["masked_istft"] == 1,
-          f"music options separation launches {counts['options_music_separation']}")
+    check(k12(counts["options_music_separation"]) == served(1),
+          f"music options separation launches {counts['options_music_separation']}, "
+          f"captures {graphed.captures() - cap}")
     srcs = np.stack([read_wav(str(tmp / "music_out" / f"{wav.stem}_src{i}.wav"))[1]
                      for i in range(S_MUSIC)])
     check(srcs.shape == (S_MUSIC, T_MUSIC_SEP) and np.isfinite(srcs).all(),
@@ -2723,6 +3047,7 @@ def tool_worker(out: str, module: str, *argv) -> int:
     else:
         rc = importlib.import_module(module).main(list(argv))
     Path(out).write_text(json.dumps({"rc": rc, "launches": launch_counts(),
+        "captures": graphed.captures(),
         "package": gan_sass_tf_tpu_torch.__file__,
         "library": str(build.library_path()) if build._lib else None}))
     return rc
@@ -2924,14 +3249,15 @@ def phase_install(tmp: Path) -> dict:
                   f"install {name}: the port came from {rep['package']}, its "
                   f"library from {rep['library']}")
             runs[name] = {"wall_s": w, "launches": rep["launches"],
+                          "captures": rep["captures"],
                           "tail": stdout.strip().splitlines()[-1:]}
         got = runs["train"]["launches"]
         check((got["stft_features"], got["istft"], got["istft_bwd"])
               == (2 * INSTALL_STEPS, INSTALL_STEPS, INSTALL_STEPS),
               f"install train launches {got}")
-        got = runs["separate"]["launches"]
-        check((got["stft_features"], got["masked_istft"]) == (1, 1),
-              f"install separate launches {got}")
+        got, made = runs["separate"]["launches"], runs["separate"]["captures"]
+        check(k12(got) == served(1),
+              f"install separate launches {got}, captures {made}")
         check(runs["bounds"]["launches"]["stft"] > 0,
               f"install bounds launches {runs['bounds']['launches']}")
         wavs = sorted(outdir.glob("*.wav"))
@@ -3516,6 +3842,7 @@ def main() -> int:
         wd, workdir_counts = phase_workdir(dev, Path(tmp))
         stream_launches, stream_shapes = phase_stream(rng, dev, Path(tmp), wd)
         dp_counts = phase_dp(dev, Path(tmp))
+    serve_counts = phase_serve_graph(dev)
     bound_launches, bound_walls = phase_bounds(dev)
     quality_runs = phase_quality(dev)
     times = phase_timing(rng, dev, x, spec, cfg, g, batch, k3_tensors, exp,
@@ -3540,7 +3867,7 @@ def main() -> int:
          "replaces": "gan_sass_tf_tpu/ops/pallas_stft.py:63",
          **by_path("stft_features", main_path=counts, graph=graph_counts,
                    stream_batch=stream_launches["batch"],
-                   stream_scan=stream_launches["scan"],
+                   stream_scan=stream_launches["scan"], serve_graph=serve_counts,
                    pit3_train=pit3_counts["train"], pit3_eval=pit3_counts["eval"],
                    pit3_separation=pit3_counts["separation"],
                    pit3_quality=pit3_counts["quality"], **dp_counts, **opt,
@@ -3553,7 +3880,7 @@ def main() -> int:
          "replaces": "gan_sass_tf_tpu/ops/pallas_istft.py:175",
          **by_path("masked_istft", main_path=counts,
                    stream_batch=stream_launches["batch"],
-                   stream_scan=stream_launches["scan"],
+                   stream_scan=stream_launches["scan"], serve_graph=serve_counts,
                    pit3_eval=pit3_counts["eval"],
                    pit3_separation=pit3_counts["separation"],
                    pit3_quality=pit3_counts["quality"], **dp_counts,
@@ -3596,7 +3923,8 @@ def main() -> int:
            "replaces": replaces,
            **by_path(name, train=train_counts, graph=graph_counts,
                      workdir=workdir_counts, dp_train=dp_counts["dp_train"],
-                     options_stream_train=opt["options_stream_train"]),
+                     options_stream_train=opt["options_stream_train"],
+                     serve_graph=serve_counts),
            **rng_rows[name]}
           for name, replaces in (
               ("threefry_keys", "none: jax.random keys at "

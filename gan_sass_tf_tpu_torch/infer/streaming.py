@@ -10,7 +10,10 @@ each chunk group over the ranks of a process group, as the reference's
   2. Each chunk goes through the one-shot separation graph (K1, G, K2):
      `separate_streaming` in groups of stream.batch_chunks chunks (one
      launch of each kernel a group), `separate_streaming_scan` one chunk at
-     a time, carrying the previous chunk's overlap tail.
+     a time, carrying the previous chunk's overlap tail.  On CUDA both
+     replay captured CUDA graphs (`train/graphed.py`): the batched path one
+     group's separation (`infer.separate.separate_fn_for`), the scan path
+     one chunk's body with its carry (`streaming_scan_fn_for`).
   3. A PIT net has no canonical source order, so each chunk's sources are
      permuted to match the previous chunk's on the overlap (L2 over all S!
      permutations), keeping the previous assignment unless another one
@@ -25,6 +28,8 @@ the device and fetches once at the end.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import itertools
 from typing import Callable, Optional
 
@@ -32,8 +37,10 @@ import numpy as np
 import torch
 
 from gan_sass_tf_tpu_torch.dsp.stft import overlap_add
-from gan_sass_tf_tpu_torch.losses.pit import permutations_for
+from gan_sass_tf_tpu_torch.infer.separate import separate_fn_for
+from gan_sass_tf_tpu_torch.losses.pit import _perm_indices
 from gan_sass_tf_tpu_torch.parallel.mesh import data_parallel
+from gan_sass_tf_tpu_torch.train.graphed import GeneratorMemo, GraphedFn
 from gan_sass_tf_tpu_torch.train.step import build_separate_fn
 
 
@@ -114,6 +121,14 @@ def _fade_ramp(overlap: int, device) -> torch.Tensor:
                         device=device) / (overlap + 1)
 
 
+@functools.lru_cache(maxsize=16)
+def _cached_ramp(overlap: int, device: torch.device) -> torch.Tensor:
+    """`_fade_ramp` on `device`, made once: a captured chunk body holds no
+    copy from the host."""
+    with torch.inference_mode(False):
+        return _fade_ramp(overlap, device)
+
+
 def _finalize_stream(est: torch.Tensor, perm: torch.Tensor, stride: int,
                      overlap: int) -> torch.Tensor:
     """(N, S, T_c) chunk outputs + (N, S) source permutations -> (S, T)
@@ -156,15 +171,19 @@ def separate_streaming(g: Optional[torch.nn.Module], cfg, mixture: np.ndarray,
                        separate_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
                        ) -> np.ndarray:
     """Long mixture (T,) float32 -> (S, T) separated sources, in groups of
-    stream.batch_chunks chunks on `device`.  `separate_fn` (default
-    `build_separate_fn(cfg, g)`) maps a (B, T_c) chunk batch on the device
-    to (B, S, T_c) waveforms.  Inside a process group each rank separates
-    its batch_chunks / world chunks of a group and gathers the others';
-    every rank returns the whole result."""
+    stream.batch_chunks chunks on `device`.  `separate_fn` maps a (B, T_c)
+    chunk batch on the device to (B, S, T_c) waveforms.  Inside a process
+    group each rank separates its batch_chunks / world chunks of a group
+    and gathers the others'; every rank returns the whole result.
+    `separate_fn` defaults to
+    `separate_fn_for(cfg, g)`: on CUDA every group is one replay of the
+    graph captured for the group's shape, (batch_chunks / world, chunk +
+    ext) whatever the stream (the last group is padded), so one capture
+    serves every stream; the gather over ranks runs outside it."""
     t_in = np.asarray(mixture).shape[-1]
     chunks, (chunk, stride, overlap, n_chunks, _, _) = _chunk_matrix(cfg, mixture)
     if separate_fn is None:
-        separate_fn = build_separate_fn(cfg, g)
+        separate_fn = separate_fn_for(cfg, g)
     bc = cfg.stream.batch_chunks
     dp = data_parallel(cfg.mesh, bc, what="stream.batch_chunks")
     mine = dp.batch_rows(bc)
@@ -192,8 +211,10 @@ def separate_streaming(g: Optional[torch.nn.Module], cfg, mixture: np.ndarray,
 def separate_streaming_scan(g: Optional[torch.nn.Module], cfg,
                             mixture: np.ndarray, device) -> np.ndarray:
     """Long mixture (T,) float32 -> (S, T) separated sources, one chunk at a
-    time on `device` (`build_streaming_scan_fn`), each chunk's output final
-    once the next chunk's head has been faded against its tail.
+    time on `device` (`streaming_scan_fn_for`: on CUDA one replay of the
+    captured chunk body a chunk, on the CPU `build_streaming_scan_fn`),
+    each chunk's output final once the next chunk's head has been faded
+    against its tail.
 
     The loop carries the previous chunk's overlap tail, its permutation
     index and the stream's loudness so far (the running max of each
@@ -206,30 +227,86 @@ def separate_streaming_scan(g: Optional[torch.nn.Module], cfg,
     its float rounding may break either way at hysteresis 0.)"""
     t_in = np.asarray(mixture).shape[-1]
     chunks, _ = _chunk_matrix(cfg, mixture)
-    full = scan_chunks(build_streaming_scan_fn(cfg, g),
+    full = scan_chunks(streaming_scan_fn_for(cfg, g),
                        torch.from_numpy(chunks).to(device))
     return full.cpu().numpy()[..., :t_in]
 
 
 def scan_chunks(scan_separate, chunks_dev: torch.Tensor) -> torch.Tensor:
-    """`scan_separate` (build_streaming_scan_fn) over (N, chunk + ext)
-    chunks already on the device, joined: the (S, T_full) stream on the
-    device, the loop never waiting for it."""
+    """`scan_separate` (build_streaming_scan_fn or streaming_scan_fn_for)
+    over (N, chunk + ext) chunks already on the device, joined: the (S,
+    T_full) stream on the device, the loop never waiting for it."""
     segs, tail = scan_separate(chunks_dev)
     return torch.cat([segs.transpose(0, 1).reshape(segs.shape[1], -1), tail], dim=-1)
 
 
 def build_streaming_scan_fn(cfg, g: Optional[torch.nn.Module]):
-    """The scan of `separate_streaming_scan`: port of the JAX package's
-    `build_streaming_scan_fn`.
+    """The scan of `separate_streaming_scan`, eagerly: port of the JAX
+    package's `build_streaming_scan_fn`.
 
     Returns scan_separate(chunks (N, chunk + ext), on a device) -> (segs
     (N, S, stride) stride-aligned output segments, final_tail (S, overlap)),
     on the chunks' device.  Concatenated along time, the segments and the
     tail are the stream.  Unlike the JAX function it takes no `g_params`:
-    the port's G carries its weights.  The JAX package's jit-cache memo
-    `streaming_scan_fn_for` has no counterpart (there is no jit to
-    cache).  What the loop carries: `separate_streaming_scan`."""
+    the port's G carries its weights.  The loop runs `build_scan_step`'s
+    body a chunk from a fresh carry; the memoised, captured counterpart of
+    the JAX `streaming_scan_fn_for` is `streaming_scan_fn_for`, which
+    replays that body.  What the loop carries: `separate_streaming_scan`."""
+    step = build_scan_step(cfg, g)
+    s, overlap = cfg.data.num_sources, cfg.stream.overlap_frames * cfg.dsp.hop_length
+
+    @torch.inference_mode()
+    def scan_separate(chunks: torch.Tensor):
+        carry = ScanCarry.zeros(s, overlap, chunks.device)
+        return _scan(functools.partial(step, carry=carry), carry, chunks)
+
+    return scan_separate
+
+
+def _scan(body: Callable[[torch.Tensor], torch.Tensor], carry: "ScanCarry",
+          chunks: torch.Tensor):
+    """`body(chunk)` a chunk from `carry` reset: (the (N, S, stride)
+    segments, the final tail)."""
+    carry.reset()
+    segs = torch.stack([body(chunk) for chunk in chunks])
+    return segs, carry.tail.clone()
+
+
+@dataclasses.dataclass
+class ScanCarry:
+    """What the scan carries from one chunk to the next, as device tensors
+    that the chunk body updates in place (the `lax.scan` carry of the JAX
+    streamer, plus whether a chunk has been seen)."""
+
+    tail: torch.Tensor     # (S, overlap) f32: the previous chunk's aligned tail
+    prev: torch.Tensor     # () int64: its permutation index
+    loud: torch.Tensor     # () f32: the stream's loudness so far
+    first: torch.Tensor    # () bool: the next chunk is chunk 0
+
+    @classmethod
+    def zeros(cls, s: int, overlap: int, device) -> "ScanCarry":
+        with torch.inference_mode(False):   # updatable outside inference mode
+            return cls(torch.zeros((s, overlap), dtype=torch.float32, device=device),
+                       torch.zeros((), dtype=torch.long, device=device),
+                       torch.zeros((), dtype=torch.float32, device=device),
+                       torch.ones((), dtype=torch.bool, device=device))
+
+    def reset(self) -> None:
+        """The carry before chunk 0: a zero tail, the identity permutation,
+        no loudness."""
+        self.tail.zero_()
+        self.prev.zero_()
+        self.loud.zero_()
+        self.first.fill_(True)
+
+
+def build_scan_step(cfg, g: Optional[torch.nn.Module]):
+    """One chunk of `build_streaming_scan_fn`'s loop with its carry
+    explicit: step(chunk (chunk + ext,), carry) -> the chunk's (S, stride)
+    segment, `carry` updated in place.  Chunk 0's branch (full weight, its
+    own order) is chosen on the device from `carry.first`, and every index
+    is a device tensor, so the body reads no number on the host and one
+    capture of it serves every chunk."""
     separate = build_separate_fn(cfg, g)
     s = cfg.data.num_sources
     overlap = cfg.stream.overlap_frames * cfg.dsp.hop_length
@@ -237,30 +314,63 @@ def build_streaming_scan_fn(cfg, g: Optional[torch.nn.Module]):
     hyst = float(cfg.stream.perm_hysteresis)
 
     @torch.inference_mode()
-    def scan_separate(chunks: torch.Tensor):
-        dev = chunks.device
-        t_c = chunks.shape[-1] - ext            # overlap-add span of a chunk
+    def step(chunk: torch.Tensor, carry: ScanCarry) -> torch.Tensor:
+        t_c = chunk.shape[-1] - ext            # overlap-add span of a chunk
         stride = t_c - overlap
-        perms = torch.from_numpy(permutations_for(s)).long().to(dev)   # (P, S)
-        ramp = _fade_ramp(overlap, dev)
-        tail = torch.zeros((s, overlap), dtype=torch.float32, device=dev)
-        prev = torch.zeros((), dtype=torch.long, device=dev)     # identity
-        loud = torch.zeros((), dtype=torch.float32, device=dev)
-        segs = []
-        for i in range(chunks.shape[0]):
-            chunk = chunks[i]
-            wavs = separate(chunk[None])[0][:, :t_c]                # (S, T_c)
-            loud = torch.maximum(loud, chunk.square().mean())
-            if i:
-                errs = (wavs[:, :overlap][perms] - tail).square().sum(dim=(1, 2))
-                best = torch.argmin(errs)
-                margin = hyst * loud * (s * overlap)
-                prev = torch.where(errs[best] < errs[prev] - margin, best, prev)
-            wavs = wavs[perms[prev]]
-            head = wavs[:, :overlap]
-            faded = head if i == 0 else tail * (1.0 - ramp) + head * ramp
-            segs.append(torch.cat([faded, wavs[:, overlap:stride]], dim=-1))
-            tail = wavs[:, stride:]
-        return torch.stack(segs), tail
+        perms = _perm_indices(s, chunk.device)[2]                   # (S!, S)
+        ramp = _cached_ramp(overlap, chunk.device)
+        wavs = separate(chunk[None])[0][:, :t_c]                    # (S, T_c)
+        loud = torch.maximum(carry.loud, chunk.square().mean())
+        errs = (wavs[:, :overlap][perms] - carry.tail).square().sum(dim=(1, 2))
+        best = torch.argmin(errs)
+        margin = hyst * loud * (s * overlap)
+        keep = errs.gather(0, carry.prev.view(1))[0]
+        moved = torch.where(errs.gather(0, best.view(1))[0] < keep - margin,
+                            best, carry.prev)
+        sel = torch.where(carry.first, carry.prev, moved)
+        wavs = wavs.index_select(0, perms.index_select(0, sel.view(1))[0])
+        head = wavs[:, :overlap]
+        faded = torch.where(carry.first, head, carry.tail * (1.0 - ramp) + head * ramp)
+        seg = torch.cat([faded, wavs[:, overlap:stride]], dim=-1)
+        carry.tail.copy_(wavs[:, stride:])
+        carry.prev.copy_(sel)
+        carry.loud.copy_(loud)
+        carry.first.fill_(False)
+        return seg
 
-    return scan_separate
+    return step
+
+
+class ScanStreamer:
+    """scan_separate(chunks (N, chunk + ext)) -> (segs (N, S, stride),
+    final_tail (S, overlap)), as `build_streaming_scan_fn` returns them,
+    with `build_scan_step`'s body run through a GraphedFn (`body`) over one
+    carry a device: on CUDA chunks the body is captured once per (chunk
+    length, device, DSP backend), at most MEMO_SIZE such graphs, and a
+    stream resets the carry and replays the body once a chunk (after the
+    first capture's warm-up chunks), never waiting for the device; one
+    capture serves every later stream, whatever its N.  On CPU chunks the
+    eager loop."""
+
+    def __init__(self, cfg, g: Optional[torch.nn.Module]):
+        step = build_scan_step(cfg, g)
+        s, overlap = cfg.data.num_sources, cfg.stream.overlap_frames * cfg.dsp.hop_length
+        carries = {}
+
+        def carry(device: torch.device) -> ScanCarry:
+            if device not in carries:
+                carries[device] = ScanCarry.zeros(s, overlap, device)
+            return carries[device]
+
+        self.carry = carry
+        self.body = GraphedFn(lambda chunk: step(chunk, carry(chunk.device)))
+
+    def __call__(self, chunks: torch.Tensor):
+        return _scan(self.body, self.carry(chunks.device), chunks)
+
+
+@GeneratorMemo
+def streaming_scan_fn_for(cfg, g: Optional[torch.nn.Module]) -> ScanStreamer:
+    """The scan streamer of (cfg, G), memoised as the JAX package's
+    `streaming_scan_fn_for` memoises its jitted scan (`ScanStreamer`)."""
+    return ScanStreamer(cfg, g)

@@ -5,10 +5,9 @@ Port of `gan_sass_tf_tpu/losses/metrics.py`.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
-from gan_sass_tf_tpu_torch.losses.pit import permutations_for
+from gan_sass_tf_tpu_torch.losses.pit import _perm_indices
 
 
 def si_sdr(est: torch.Tensor, tgt: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
@@ -25,10 +24,10 @@ def si_sdr(est: torch.Tensor, tgt: torch.Tensor, eps: float = 1e-8) -> torch.Ten
 
 
 def pit_si_sdr(est: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
-    """(B, S, T) est/tgt -> (B,) best-permutation mean SI-SDR (dB)."""
-    s = est.shape[1]
+    """(B, S, T) est/tgt -> (B,) best-permutation mean SI-SDR (dB).  The
+    permutation indices are device tensors made once (`losses.pit`), so a
+    captured eval can hold it."""
     pw = si_sdr(est[:, :, None], tgt[:, None, :])           # (B, S, S)
-    src = np.arange(s)
-    per_perm = torch.stack(
-        [pw[:, src, p].mean(dim=-1) for p in permutations_for(s)], dim=-1)
+    src, perms, _ = _perm_indices(est.shape[1], pw.device)
+    per_perm = torch.stack([pw[:, src, p].mean(dim=-1) for p in perms], dim=-1)
     return per_perm.max(dim=-1).values

@@ -56,6 +56,12 @@ def force_backend(name: Optional[str]):
         _FORCED = prev
 
 
+def backend() -> Optional[str]:
+    """The backend `force_backend` forces now: 'kernel', 'reference' or
+    None (each tensor's device decides)."""
+    return _FORCED
+
+
 def launch_counts() -> Dict[str, int]:
     """Each kernel wrapper's count of its launches since the count was last
     set to 0: K1 `stft_features`, K2 `masked_istft`, K3 `istft` and its
@@ -64,7 +70,7 @@ def launch_counts() -> Dict[str, int]:
     `threefry_dropout` (forward), `threefry_dropout_bwd` and
     `threefry_noise`.  A wrapper called while a CUDA graph
     is captured counts the launch it records; `train/graphed.py` counts
-    the launches its replays make."""
+    the launches that replays of its graphs make."""
     return {"stft_features": _k1.launches, "masked_istft": _k2.launches,
             "istft": _k3.launches, "istft_bwd": _k3.bwd_launches,
             "stft": _k4.launches, "threefry_keys": _rng.keys_launches,

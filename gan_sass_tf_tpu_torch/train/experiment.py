@@ -32,7 +32,9 @@ train.steps_per_dispatch times: the counterpart of the JAX package's
 scanned dispatch, which it runs in bank mode only.  The eager step runs
 instead on the CPU, in host-batch mode, under the debug tripwires (anomaly
 mode and the grad_fn checks cannot run inside a replay) and for the steps
-that `train(profile_steps=)` traces.
+that `train(profile_steps=)` traces.  On CUDA, `evaluate` replays the eval
+captured for its G and batch shape (`train.step.eval_fn_for`) whatever
+the mode.
 """
 
 from __future__ import annotations
@@ -55,7 +57,7 @@ from gan_sass_tf_tpu_torch.train.state import (
     TrainState,
     create_train_state,
 )
-from gan_sass_tf_tpu_torch.train.step import build_eval_step, build_train_step
+from gan_sass_tf_tpu_torch.train.step import build_train_step, eval_fn_for
 from gan_sass_tf_tpu_torch.utils.metrics_writer import MetricsWriter
 from gan_sass_tf_tpu_torch.utils.profiler import profile_trace, step_range
 
@@ -512,18 +514,38 @@ class Experiment:
         self._eval_g.load_state_dict(self.state.g_ema)
         return self._eval_g
 
+    @property
+    def separate_fn(self):
+        """The separation graph of `eval_generator()` (loaded now), memoised
+        per (cfg, G) and on CUDA replayed per mixture shape
+        (`infer.separate_fn_for`): (B, T) mixtures on the device -> (B, S,
+        T) waveforms."""
+        # Imported here: the infer package imports this one.
+        from gan_sass_tf_tpu_torch.infer.separate import separate_fn_for
+
+        return separate_fn_for(self.cfg, self.eval_generator())
+
     def evaluate(self, num_batches: int = 4, dataset=None) -> Dict[str, float]:
         """PIT SI-SDR of the separated held-out mixtures (batch means over
         `num_batches` batches of `dataset`, default the eval split; data
-        parallel, each rank scores its rows of every batch)."""
+        parallel, each rank scores its rows of every batch).  On CUDA each
+        batch is one replay of the eval captured for `eval_generator()` and
+        the batch's shape (`train.step.eval_fn_for`; the first WARMUP_CALLS
+        batches of a shape run it eagerly), its seed 10 000 + i a device
+        tensor copied into the graph's seed buffer; the mean over ranks
+        follows the replay."""
         dataset = dataset if dataset is not None else self.eval_dataset
-        eval_step = build_eval_step(self.cfg, self.eval_generator(), self.dp)
+        scores = eval_fn_for(self.cfg, self.eval_generator(), self.dp.rank)
         acc: Dict[str, float] = {}
         for i in range(num_batches):
             batch = dataset.batch()
             sources = torch.from_numpy(
                 batch[self.dp.batch_rows(batch.shape[0])]).to(self.device)
-            for k, v in eval_step(sources, 10_000 + i).items():
+            seed = torch.tensor(10_000 + i, dtype=torch.int64, device=self.device)
+            with torch.inference_mode():        # the eager scores are inference tensors
+                out = scores(sources, seed)
+                self.dp.all_reduce_mean(list(out.values()))
+            for k, v in out.items():
                 acc[k] = acc.get(k, 0.0) + float(v) / num_batches
         return acc
 

@@ -34,25 +34,51 @@ not the ones it captured.  Under a process group of two or more ranks the
 capture holds the step's NCCL all-reduces too; no run on more than one
 GPU has checked that path yet, and a failed capture there says so.
 
+Serving and eval replay graphs too (`GraphedCall`, `GraphedFn`): the
+counterpart of the JAX package's jitted `separate_fn_for`, its batched
+streamer's chunk group, its scan streamer and `Experiment._eval_step`.
+`GraphedFn(fn)` runs `fn` as `jax.jit` runs it: on CUDA inputs one
+`GraphedCall` per (shapes, dtypes, device) of its inputs and the DSP
+backend forced (`ops.dispatch.force_backend`), at most MEMO_SIZE of them,
+the least recently used dropped first; on CPU inputs `fn` itself, eagerly.
+As GraphedStep, a GraphedCall runs its first WARMUP_CALLS calls eagerly and
+captures on the next, so a shape called once costs one eager call.
+`GeneratorMemo` memoises such callables per (cfg, G) without keeping G
+alive.  The eager functions stay what `build_separate_fn`,
+`build_streaming_scan_fn` and `build_eval_step` return.
+
 Launch counts: a kernel wrapper called during a capture counts the launch
 it records (`ops.dispatch.launch_counts`), and replays pass no wrapper.
 `launch_correction()` is what to add to those counts for the kernels that
 ran: the launches each capture recorded, times its replays, less the
-recorded calls themselves.
+recorded calls themselves.  The warm-up calls before a capture are eager
+launches and count as such.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+import collections
+import functools
+import weakref
+from typing import Callable, Dict, Optional
 
 import torch
 
 from gan_sass_tf_tpu_torch.ops import dispatch
 
 WARMUP_STEPS = 3
+WARMUP_CALLS = 2        # eager calls of a GraphedCall before its capture
+MEMO_SIZE = 8           # entries a memo keeps, as the JAX package's lru_caches
 
 _recorded: Dict[str, int] = {}     # wrapper calls made while capturing
 _replayed: Dict[str, int] = {}     # kernel launches made by replays
+_captures = 0                      # graphs captured by this process
+
+
+def captures() -> int:
+    """The CUDA graphs this process has captured (GraphedStep and
+    GraphedCall)."""
+    return _captures
 
 
 def launch_correction() -> Dict[str, int]:
@@ -68,7 +94,68 @@ def reset_launch_correction() -> None:
     _replayed.clear()
 
 
-class GraphedStep:
+@functools.lru_cache(maxsize=None)
+def _side_stream(device: torch.device) -> torch.cuda.Stream:
+    """One side stream a device for the eager steps before a capture: each
+    new stream costs cuBLAS a workspace that lives as long as the process."""
+    return torch.cuda.Stream(device)
+
+
+class _Captured:
+    """What GraphedStep and GraphedCall share: `fn` run eagerly for the
+    first `warmup` calls (on the device's side stream with `side`, else on
+    the current stream), then captured once (the launch counts it records,
+    RuntimeError with its cause if it fails) and replayed (the launches the
+    replays make)."""
+
+    def __init__(self, fn: Callable, device: torch.device, warmup: int, what: str,
+                 side: bool):
+        self.fn, self.what, self.device = fn, what, device
+        self.warmup, self.warm = warmup, 0
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.out = None                          # the graph's output tensors
+        self.replays = 0
+        self.per_replay: Dict[str, int] = {}     # kernel launches in one replay
+        self._side = _side_stream(device) if side else None
+
+    def _eager(self, *args):
+        self.warm += 1
+        if self._side is None:
+            return self.fn(*args)
+        main = torch.cuda.current_stream(self.device)
+        self._side.wait_stream(main)
+        with torch.cuda.stream(self._side):
+            out = self.fn(*args)
+        main.wait_stream(self._side)
+        return out
+
+    def _capture(self, *args) -> None:
+        global _captures
+        torch.cuda.synchronize(self.device)
+        before = dispatch.launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                out = self.fn(*args)
+        except Exception as exc:
+            raise RuntimeError(f"capturing {self.what} as a CUDA graph failed: "
+                               f"{exc}") from exc
+        after = dispatch.launch_counts()
+        self.per_replay = {k: after[k] - before[k] for k in after}
+        for k, v in self.per_replay.items():
+            _recorded[k] = _recorded.get(k, 0) + v
+        self.graph, self.out = graph, out
+        _captures += 1
+
+    def _replay(self, n: int = 1) -> None:
+        for _ in range(n):
+            self.graph.replay()
+        self.replays += n
+        for k, v in self.per_replay.items():
+            _replayed[k] = _replayed.get(k, 0) + v * n
+
+
+class GraphedStep(_Captured):
     """`train_step(state, data, key)` on CUDA tensors, eager for the first
     `warmup` steps, then captured once and replayed one step at a time."""
 
@@ -77,14 +164,13 @@ class GraphedStep:
         if not data.is_cuda:
             raise ValueError(f"a CUDA graph needs CUDA tensors, got the data "
                              f"on {data.device}")
-        self.train_step, self.state, self.data, self.key = (
-            train_step, state, data, key)
-        self.warmup, self.warm, self.world = warmup, 0, world
-        self.graph = None
+        where = (f" under a process group of {world} ranks, which captures the "
+                 f"NCCL all-reduces (a path not yet run on more than one GPU)"
+                 if world > 1 else "")
+        super().__init__(lambda: train_step(state, data, key), data.device, warmup,
+                         f"the train step{where}", side=True)
+        self.state, self.data, self.key = state, data, key
         self.metrics: Dict[str, torch.Tensor] = {}
-        self.replays = 0
-        self.per_replay: Dict[str, int] = {}    # kernel launches in one step
-        self._side = torch.cuda.Stream(data.device)
 
     def holds(self, state, data: torch.Tensor, key: torch.Tensor) -> bool:
         """Whether this graph was captured on these very objects."""
@@ -96,43 +182,157 @@ class GraphedStep:
         them)."""
         metrics = self.metrics
         while n and self.warm < self.warmup:
-            metrics = self._eager()
-            self.warm += 1
+            metrics = self._eager()[1]
             n -= 1
         if n:
             if self.graph is None:
                 self._capture()
-            for _ in range(n):
-                self.graph.replay()
-            self.replays += n
-            for k, v in self.per_replay.items():
-                _replayed[k] = _replayed.get(k, 0) + v * n
+                self.metrics = self.out[1]
+            self._replay(n)
             metrics = self.metrics
         return metrics
 
-    def _eager(self) -> Dict[str, torch.Tensor]:
-        main = torch.cuda.current_stream(self.data.device)
-        self._side.wait_stream(main)
-        with torch.cuda.stream(self._side):
-            _, metrics = self.train_step(self.state, self.data, self.key)
-        main.wait_stream(self._side)
-        return metrics
 
-    def _capture(self) -> None:
-        torch.cuda.synchronize(self.data.device)
-        before = dispatch.launch_counts()
-        graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(graph):
-                _, metrics = self.train_step(self.state, self.data, self.key)
-        except Exception as exc:
-            where = (f" (under a process group of {self.world} ranks, which "
-                     f"captures the NCCL all-reduces: a path not yet run on "
-                     f"more than one GPU)" if self.world > 1 else "")
-            raise RuntimeError(f"capturing the train step as a CUDA graph "
-                               f"failed{where}: {exc}") from exc
-        after = dispatch.launch_counts()
-        self.per_replay = {k: after[k] - before[k] for k in after}
-        for k, v in self.per_replay.items():
-            _recorded[k] = _recorded.get(k, 0) + v
-        self.graph, self.metrics = graph, metrics
+def _clone(out):
+    """A fresh copy of a graph's output: a tensor or a dict of tensors."""
+    if isinstance(out, dict):
+        return {k: v.clone() for k, v in out.items()}
+    return out.clone()
+
+
+class GraphedCall(_Captured):
+    """`fn(*args)` on CUDA tensors of static shapes: eager for the first
+    `warmup` calls, then captured once and replayed.
+
+    The warm-up calls are real calls on the current stream, each returning
+    its own result, so a shape called once costs what the eager function
+    costs; they build what `fn` memoises on its first calls (the
+    kernels' tables and synthesis plans, the mel matrix, cuDNN's and
+    cuBLAS's handles and workspaces).  The next call copies its inputs into
+    buffers this object owns, captures one call on them and replays it;
+    every later call copies and replays.  `__call__` returns fresh tensors
+    (one device copy of a replay's outputs), which the next replay cannot
+    overwrite; `run` returns a replay's own output tensors, valid until the
+    next replay.
+
+    The graph reads `fn`'s weights where they were at capture: a
+    `load_state_dict` copies into that storage and the next replay uses
+    the new weights (an EMA copy loaded into the eval G too); a parameter
+    replaced by another tensor is not seen.  `fn` may read no number on
+    the host that changes between calls.  A capture that fails raises
+    RuntimeError with its cause; there is no quiet return to eager calls.
+    """
+
+    def __init__(self, fn: Callable, *args: torch.Tensor, warmup: int = WARMUP_CALLS):
+        where = sorted({str(a.device) if isinstance(a, torch.Tensor) else type(a).__name__
+                        for a in args if not (isinstance(a, torch.Tensor) and a.is_cuda)})
+        if not args or where:
+            raise ValueError(f"a CUDA graph needs CUDA tensors, got "
+                             f"{', '.join(where) or 'no tensor'}")
+        inner = getattr(fn, "func", fn)           # a functools.partial's function
+        super().__init__(fn, args[0].device, warmup,
+                         getattr(inner, "__qualname__", type(inner).__name__), side=False)
+        with torch.inference_mode(False):     # loadable outside inference mode
+            self.static = [torch.empty_like(a) for a in args]
+
+    def load(self, *args: torch.Tensor) -> None:
+        """Copy `args` into the input buffers."""
+        if len(args) != len(self.static):
+            raise ValueError(f"{self.what}: {len(args)} arguments, captured "
+                             f"with {len(self.static)}")
+        with torch.no_grad():
+            for buf, a in zip(self.static, args):
+                if a.shape != buf.shape or a.dtype != buf.dtype:
+                    raise ValueError(f"{self.what}: an argument {tuple(a.shape)} "
+                                     f"{a.dtype}, captured at {tuple(buf.shape)} "
+                                     f"{buf.dtype}")
+                buf.copy_(a)
+
+    def run(self, *args: torch.Tensor):
+        """One call on `args`: a warm-up call's own result, else one replay
+        (the capture first, on the call after the warm-up) and the graph's
+        output tensors."""
+        if self.warm < self.warmup:
+            return self._eager(*args)
+        self.load(*args)
+        if self.graph is None:
+            self._capture(*self.static)
+        self._replay()
+        return self.out
+
+    def __call__(self, *args: torch.Tensor):
+        out = self.run(*args)
+        return _clone(out) if out is self.out else out
+
+
+def signature(*args: torch.Tensor) -> tuple:
+    """What a capture of a call on `args` is specific to: the DSP backend
+    forced (`ops.dispatch.force_backend`) and each argument's shape, dtype
+    and device."""
+    return (dispatch.backend(),) + tuple(
+        (tuple(a.shape), a.dtype, a.device) for a in args)
+
+
+class LRU(collections.OrderedDict):
+    """At most `maxsize` entries, the least recently used dropped first."""
+
+    def __init__(self, maxsize: int = MEMO_SIZE):
+        super().__init__()
+        self.maxsize = maxsize
+
+    def get_or_make(self, key, make: Callable):
+        value = self.pop(key) if key in self else make()
+        self[key] = value
+        while len(self) > self.maxsize:
+            self.popitem(last=False)
+        return value
+
+
+class GraphedFn:
+    """`fn(*args)` as `jax.jit` runs a function: on CUDA tensors one
+    GraphedCall per (shapes, dtypes, device) of `args` and the DSP backend
+    forced, at most `maxsize` of them (the least recently used is dropped
+    with its graph); on CPU tensors `fn` itself, eagerly."""
+
+    def __init__(self, fn: Callable, maxsize: int = MEMO_SIZE):
+        self.fn = fn
+        self.graphs = LRU(maxsize)
+
+    def graph_for(self, *args: torch.Tensor) -> GraphedCall:
+        """The GraphedCall of `args`' signature, made if there is none."""
+        return self.graphs.get_or_make(signature(*args),
+                                       lambda: GraphedCall(self.fn, *args))
+
+    def __call__(self, *args: torch.Tensor):
+        if not args[0].is_cuda:
+            return self.fn(*args)
+        return self.graph_for(*args)(*args)
+
+
+class GeneratorMemo:
+    """`make(cfg, g, *rest)` memoised per (cfg, G, *rest), at most
+    `maxsize` entries with the least recently used dropped first, as the
+    JAX package's `functools.lru_cache(maxsize=8)` memoises its jitted
+    functions, but holding G weakly: `make` is given a `weakref.proxy` of
+    G, and when G is gone so are its entries, with their graphs and memory
+    pools."""
+
+    def __init__(self, make: Callable, maxsize: int = MEMO_SIZE):
+        functools.update_wrapper(self, make)
+        self.make = make
+        self.entries = LRU(maxsize)
+
+    def __call__(self, cfg, g, *rest):
+        if g is None:                       # no G (a stubbed separation)
+            return self.entries.get_or_make((cfg, None, *rest),
+                                            lambda: self.make(cfg, None, *rest))
+        key = (cfg, weakref.ref(g, self._forget), *rest)
+        return self.entries.get_or_make(
+            key, lambda: self.make(cfg, weakref.proxy(g), *rest))
+
+    def _forget(self, ref: weakref.ref) -> None:
+        for key in [k for k in self.entries if k[1] is ref]:
+            del self.entries[key]
+
+    def cache_clear(self) -> None:
+        self.entries.clear()

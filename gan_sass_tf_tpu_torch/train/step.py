@@ -3,8 +3,8 @@
 Port of `gan_sass_tf_tpu/train/step.py` (`build_train_step`,
 `build_separate_fn`, `build_eval_step`).  PyTorch runs eagerly, so the step
 is a sequence of launches rather than one compiled program (on the card,
-`train/graphed.py` captures that sequence once as a CUDA graph); its
-semantics are the reference's:
+`train/graphed.py` captures that sequence once as a CUDA graph, and
+`eval_fn_for` the eval step's); its semantics are the reference's:
 
   * sample the bank (or take the given sources) and mix;
   * the fused STFT-features kernel emits what the step needs for the
@@ -63,7 +63,7 @@ graph and replays it.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -87,6 +87,7 @@ from gan_sass_tf_tpu_torch.losses import (
 from gan_sass_tf_tpu_torch.ops import dispatch as ops
 from gan_sass_tf_tpu_torch.ops.threefry import train_key_rows
 from gan_sass_tf_tpu_torch.parallel.mesh import DataParallel
+from gan_sass_tf_tpu_torch.train.graphed import GeneratorMemo, GraphedFn
 from gan_sass_tf_tpu_torch.train.state import TrainState
 
 def instance_noise(x: torch.Tensor, std: float, key: torch.Tensor) -> torch.Tensor:
@@ -327,28 +328,57 @@ def build_separate_fn(cfg, g: torch.nn.Module) -> Callable[[torch.Tensor], torch
     return separate
 
 
-def build_eval_step(cfg, g: torch.nn.Module, dp: Optional[DataParallel] = None
-                    ) -> Callable[[torch.Tensor, int], Dict[str, torch.Tensor]]:
-    """eval_step(sources (B, S, T), seed) -> best-permutation SI-SDR of the
-    separated estimates, the mixture's own, and the improvement (batch
-    means, 0-d tensors); the mixtures drawn under PRNGKey(seed), as the JAX
-    eval step under the key it is given.  With `dp`, `sources` are this rank's rows of the
-    global batch and the means are taken over all ranks."""
+def build_eval_scores(cfg, g: torch.nn.Module, rank: int = 0
+                      ) -> Callable[[torch.Tensor, Union[int, torch.Tensor]],
+                                    Dict[str, torch.Tensor]]:
+    """scores(sources (B, S, T), seed) -> this rank's batch means of the
+    best-permutation SI-SDR of the separated estimates, the mixture's own,
+    and the improvement (0-d tensors); the mixtures drawn under
+    PRNGKey(seed) for global examples rank·B + [0, B), as the JAX eval step
+    under the key it is given.  `seed` is an int or a 0-d int64 tensor on
+    the sources' device (what a captured eval reads)."""
     separate = build_separate_fn(cfg, g)
-    dp = dp or DataParallel()
 
     @torch.inference_mode()
-    def eval_step(sources: torch.Tensor, seed: int) -> Dict[str, torch.Tensor]:
+    def scores(sources: torch.Tensor, seed) -> Dict[str, torch.Tensor]:
         mixture, scaled = mix_sources(sources, prng_key(seed, sources.device), cfg.data,
-                                      example_offset=dp.rank * sources.shape[0])
+                                      example_offset=rank * sources.shape[0])
         est = separate(mixture)
         t = est.shape[-1]
         tgt = scaled[..., :t]
         sisdr = pit_si_sdr(est, tgt).mean()
         baseline = pit_si_sdr(mixture[:, None, :t].expand_as(tgt), tgt).mean()
-        out = {"si_sdr": sisdr, "si_sdr_mix": baseline,
-               "si_sdr_improvement": sisdr - baseline}
+        return {"si_sdr": sisdr, "si_sdr_mix": baseline,
+                "si_sdr_improvement": sisdr - baseline}
+
+    return scores
+
+
+def build_eval_step(cfg, g: torch.nn.Module, dp: Optional[DataParallel] = None
+                    ) -> Callable[[torch.Tensor, Union[int, torch.Tensor]],
+                                  Dict[str, torch.Tensor]]:
+    """eval_step(sources (B, S, T), seed) -> `build_eval_scores`' means,
+    eagerly.  With `dp`, `sources` are this rank's rows of the global batch
+    and the means are taken over all ranks."""
+    dp = dp or DataParallel()
+    scores = build_eval_scores(cfg, g, dp.rank)
+
+    @torch.inference_mode()
+    def eval_step(sources: torch.Tensor, seed) -> Dict[str, torch.Tensor]:
+        out = scores(sources, seed)
         dp.all_reduce_mean(list(out.values()))
         return out
 
     return eval_step
+
+
+@GeneratorMemo
+def eval_fn_for(cfg, g: torch.nn.Module, rank: int = 0) -> GraphedFn:
+    """`build_eval_scores(cfg, g, rank)` memoised per (cfg, G, rank) with G
+    held weakly, and on CUDA captured per sources shape (after
+    WARMUP_CALLS eager calls) and replayed (`GraphedFn`), its seed a 0-d
+    int64 device tensor: the counterpart of the JAX
+    `Experiment._eval_step`'s jit.  The mixing
+    draws, G, K1, K2 and the PIT SI-SDR are in the graph; the mean over
+    ranks is the caller's, after the replay (`Experiment.evaluate`)."""
+    return GraphedFn(build_eval_scores(cfg, g, rank))
