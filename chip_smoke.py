@@ -102,17 +102,35 @@ Phases, one JSON line each:
               itself: finite losses, the workdir written once by rank 0,
               K1, K3 and K3's backward launched; one step from one state
               over the group and in this process without one (metrics,
-              every state tensor and evaluate(2) within 1e-5 relative at
-              W = 1; the ranks' states bitwise equal at W >= 2), the step's
+              every state tensor and evaluate(4), whose last two batches
+              replay the eval graph, within 1e-5 relative at W = 1; at
+              W >= 2 the metrics and eval within DP_REL_TOL, Adam's first
+              move of every weight held as dp_state_gaps says, the moments
+              and buffers within DP_REL_TOL, and the ranks' states bitwise
+              equal), the step's
               profile over the group (one NCCL all-reduce a D step, one of
               G's gradients, one of the metrics; NCCL kernels at W >= 2,
               where at W = 1 NCCL completes an in-place SUM without one),
               both steps' wall and device ms, the host ms of the all-reduce
-              of G's gradients; `cli separate --streaming`
+              of G's gradients; at W >= 2 also, on every rank and for the
+              meshes (dcn 1 x data W) and (dcn 2 x data W/2): the first
+              group step from the seeded init bit-equal to that step,
+              graphed group replays bit-equal to eager group steps from
+              one checkpoint (the capture holds the NCCL all-reduces), the
+              wall ms of a replayed step, a traced replay's device ms and
+              NCCL kernels; on the first mesh the eval graph (its
+              all-reduce captured) against the eager group eval; `cli
+              separate --streaming`
               (batch mode) of the stream phase's 60 s wav over the group
               against this process's (>= 40 dB a segment after the best
-              permutation, the same chained permutations).  At W = 1 the
-              line names what only two or more GPUs would run
+              permutation, the same chained permutations); at W >= 2 also
+              one-shot and scan-mode `cli separate` under torchrun, which
+              rank 0 runs alone (each call within DP_SEPARATE_TIMEOUT_S,
+              rank 0's sources >= 40 dB a segment against this process's).
+              At W = 1 the line names what only two or more GPUs would
+              run.  `python3 chip_smoke.py --dp` (a shortcut for working on
+              this phase, not part of the smoke's contract) runs it alone
+              after the device and build lines
     serve_graph  serving and eval as replays of CUDA graphs captured after
               WARMUP_CALLS eager calls of a shape and memoised per (cfg, G)
               and shape (train/graphed.py GraphedCall, GeneratorMemo):
@@ -180,7 +198,8 @@ Phases, one JSON line each:
  11 timing    median per-call time of each kernel's wrapper beside its plain
               version and, where one PyTorch call computes the same function
               (torch.stft for the STFT kernels, the mask product and
-              torch.istft for K2, torch.istft for K3), that call (CUDA events
+              torch.istft for K2, torch.istft for K3 and the backward of one
+              torch.istft call for K3's backward), that call (CUDA events
               around back-to-back calls), and the kernels' device ms (CUDA
               events around a replayed CUDA graph of back-to-back calls;
               torch.profiler's reading beside it); K1 at the separation,
@@ -231,7 +250,8 @@ Phases, one JSON line each:
               recompute_bounds runs stream_v5e8's bound (K4)
 Then a `kernels` summary line (each kernel's launches, summed over the
 paths that drive it and by path, each path's counts set to 0 just before
-it and read just after, a dp_* path's summed over its ranks; a path that
+it and read just after, a dp_* path's summed over its ranks and, for K1,
+K2, K3 and K3's backward, by rank under `dp_launches_by_rank`; a path that
 trains on the card in bank mode, separates, streams or evaluates replays
 captured graphs, whose launches count as the launches a capture recorded
 times its replays, beside the eager warm-up calls before each capture
@@ -254,6 +274,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import faulthandler
 import gc
 import importlib
 import io
@@ -268,6 +289,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 import weakref
 import zipfile
 from pathlib import Path
@@ -379,6 +401,23 @@ SERVE_EVAL_TOL_DB = 1e-3             # graphed vs eager eval scores, where not b
 DP_STEP_SAMPLES = 12                 # timed train steps, dp phase, each side
 DP_REDUCE_SAMPLES = 20               # timed all-reduces of G's gradients
 DP_TIMEOUT_S = 400                   # one torchrun call of the dp phase
+DP_EVAL_BATCHES = 4                  # evaluate() in the dp step: 2 eager, 2 replays
+DP_SEPARATE_TIMEOUT_S = 120          # one torchrun call of rank 0's separation
+# A step over W >= 2 ranks against one process's on the same global batch
+# from the same seeded init (the ranks sum in another order; dp_state_gaps).
+# Read on four H100s (NVIDIA H100 80GB HBM3, 700 W), each limit above its
+# reading: metrics and eval scores relative, floor 1, 2.7e-5 and 1.5e-4;
+# the gradients, as the first moment and the root of the second, by
+# their optimizer's largest (`moments`), G 4.0e-3 and D 1.1e-3; buffers
+# (D's spectral-norm u and sigma) by each tensor's own largest, 0.
+# Adam's first move is lr g/(|g| + eps): every weight's group move within
+# lr (Adam's bound, plus the rounding of the weight), and where one
+# process moved a weight by >= 0.99 lr the group's move within 1e-2 lr,
+# unless the weight's gradient is under the `moments` limit of its
+# optimizer's largest: one within the summation's rounding of 0, whose
+# sign the order decides (315 of G's weights and 4 of D's moved +-lr
+# apart, each gradient under 2.6e-4 of the largest).
+DP_REL_TOL = {"metrics": 1e-4, "eval": 1e-3, "moments": 1e-2, "buffers": 1e-5}
 SEED_TOOLS = 12                      # the tools phase's own generator
 TOOLS_TIMEOUT_S = 300                # one subprocess of the tools phase
 TOOLS_STEPS, TOOLS_PROFILE = 6, (2, 4)          # cli train --profile-steps 2:4
@@ -1003,7 +1042,9 @@ def device_spans(fn, calls=PROFILE_STEPS, open_calls=0) -> dict:
     device started from half that pad before the calls' span on is
     counted (by its own start: a replay's kernels run past the span's
     host window).  "kernels_in_trace" counts TRACE_KERNELS over the
-    whole trace; "span_ms" the host's ms a call over the traced calls.
+    whole trace; "span_ms" the host's ms a call over the traced calls;
+    "nccl_kernels" and "nccl_ms" the NCCL kernels a call and their
+    device ms.
     `open_calls` calls of `fn` follow the fills, before the pad and out of
     the count: a trace may drop the records of a kernel the first time it
     sees it."""
@@ -1029,9 +1070,12 @@ def device_spans(fn, calls=PROFILE_STEPS, open_calls=0) -> dict:
     for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in events):
         if b > end:
             busy, end = busy + b - max(a, end), b
+    nccl = [e for e in events if "nccl" in e["name"].lower()]
     return {"sum_ms": sum(e["dur"] for e in events) / calls / 1e3,
             "busy_ms": busy / calls / 1e3, "span_ms": span["dur"] / calls / 1e3,
             "events": len(events) / calls,
+            "nccl_kernels": len(nccl) / calls,
+            "nccl_ms": sum(e["dur"] for e in nccl) / calls / 1e3,
             "kernels": {n: sum(n in e["name"] for e in events) / calls
                         for n in TRACE_KERNELS},
             "kernels_in_trace": {n: sum(n in e["name"] for e in every)
@@ -1724,7 +1768,7 @@ def served(calls: int) -> dict:
 @contextlib.contextmanager
 def eager_serving():
     """The public serving and eval entry points with the eager functions
-    (`build_separate_fn`, `build_streaming_scan_fn`, `build_eval_scores`)
+    (`build_separate_fn`, `build_streaming_scan_fn`, `build_eval_step`)
     in place of their memoised graphs: the same host code around them."""
     sep = importlib.import_module("gan_sass_tf_tpu_torch.infer.separate")
     exp = importlib.import_module("gan_sass_tf_tpu_torch.train.experiment")
@@ -1732,7 +1776,7 @@ def eager_serving():
              streaming.streaming_scan_fn_for, exp.eval_fn_for)
     sep.separate_fn_for = streaming.separate_fn_for = train_step.build_separate_fn
     streaming.streaming_scan_fn_for = streaming.build_streaming_scan_fn
-    exp.eval_fn_for = train_step.build_eval_scores
+    exp.eval_fn_for = train_step.build_eval_step
     try:
         yield
     finally:
@@ -1918,15 +1962,15 @@ def serve_graph_paths(dev, gen) -> tuple:
         "evaluate", lambda seed: exp.evaluate(SERVE_EVAL_BATCHES, dataset=make_dataset(
             cfg, seed=seed, split=cfg.data.eval_split)),
         [SEED_SERVE, SEED_SERVE + 1], lambda seed: SERVE_EVAL_BATCHES,
-        reload(g, cfg, SEED + 4), last_graph(train_step.eval_fn_for(cfg, g, 0)),
+        reload(g, cfg, SEED + 4), last_graph(train_step.eval_fn_for(cfg, g, exp.dp)),
         lambda seed: SERVE_EVAL_BATCHES * segment)
     # The scores alone, on one batch already on the device: the replay
-    # against build_eval_scores, without the host's batch.
+    # against build_eval_step, without the host's batch.
     batch = torch.from_numpy(make_dataset(cfg, seed=SEED_SERVE, split=cfg.data.eval_split)
                              .batch()).to(dev)
     seed = torch.tensor(10_000, dtype=torch.int64, device=dev)
-    scores = train_step.eval_fn_for(cfg, g, 0)
-    eager_scores = train_step.build_eval_scores(cfg, g, 0)
+    scores = train_step.eval_fn_for(cfg, g, exp.dp)
+    eager_scores = train_step.build_eval_step(cfg, g, exp.dp)
     row["scores_wall_ms"] = serve_walls({"eager": lambda: eager_scores(batch, seed),
                                          "graphed": lambda: scores(batch, seed)})
     exp.close()
@@ -1970,7 +2014,7 @@ def phase_serve_graph(dev) -> dict:
          samples=SERVE_SAMPLES, paths=paths, memory_after_the_phase=held,
          note="wall: host array in, host array out, synchronized, median of "
               "SERVE_SAMPLES a side in turns; eager: the same entry point with "
-              "build_separate_fn / build_streaming_scan_fn / build_eval_scores; "
+              "build_separate_fn / build_streaming_scan_fn / build_eval_step; "
               "busy: the union of the device's kernel, copy and fill intervals "
               "of one call in a torch.profiler trace over that call's host ms "
               "(traced_call_ms); the evaluate() walls include drawing the host "
@@ -2001,7 +2045,9 @@ def flat_tensors(state) -> dict:
 def dp_step_report(exp) -> dict:
     """The data-parallel phase's step on `exp`, run alike by this process
     (no process group) and by every torchrun rank: one step (metrics,
-    launches, the state it leaves), evaluate(2) and its launches; then,
+    launches, the state it leaves), evaluate(DP_EVAL_BATCHES) (eager for
+    the first WARMUP_CALLS batches, then replays of the eval graph) and
+    its launches; then,
     against the same step built without the group in the same process, a
     profiled step each (device ms; NCCL kernels and collectives) and the
     median wall ms of DP_STEP_SAMPLES synchronized steps each, in turns;
@@ -2028,7 +2074,7 @@ def dp_step_report(exp) -> dict:
            "step_launches": launch_counts()}
     params = flat_tensors(exp.state)
     reset_launch_counts()
-    out["eval"] = exp.evaluate(num_batches=2)
+    out["eval"] = exp.evaluate(num_batches=DP_EVAL_BATCHES)
     out["eval_launches"] = launch_counts()
     activities = [ProfilerActivity.CPU] + (
         [ProfilerActivity.CUDA] if exp.device.type == "cuda" else [])
@@ -2072,6 +2118,89 @@ def dp_step_report(exp) -> dict:
     return out, params
 
 
+def dp_graphs(world: int, device: str) -> bool:
+    """Whether the dp phase's ranks run dp_graph_report: on CUDA at W >= 2."""
+    return world > 1 and device == "cuda"
+
+
+def dp_eval_report(exp) -> dict:
+    """The eval graph of `exp`'s eval G over its group (`eval_fn_for`: the
+    all-reduce of the means captured with the scores) against the eager
+    group eval (`build_eval_step`) on this rank's rows of one held-out
+    batch, call by call under seeds 10 000 + i: WARMUP_CALLS eager calls,
+    then two replays, each the same bits as the eager step or within
+    SERVE_EVAL_TOL_DB (serve_agreement)."""
+    g = exp.eval_generator()
+    graph = train_step.eval_fn_for(exp.cfg, g, exp.dp)
+    eager = train_step.build_eval_step(exp.cfg, g, exp.dp)
+    batch = exp.eval_dataset.batch()
+    sources = torch.from_numpy(batch[exp.dp.batch_rows(batch.shape[0])]).to(exp.device)
+    calls = []
+    for i in range(graphed.WARMUP_CALLS + 2):
+        seed = torch.tensor(10_000 + i, dtype=torch.int64, device=exp.device)
+        with torch.inference_mode():
+            got, want = graph(sources, seed), eager(sources, seed)
+        calls.append(serve_agreement({k: float(v) for k, v in got.items()},
+                                     {k: float(v) for k, v in want.items()}))
+    call = graph.graph_for(sources, seed)
+    check(call.graph is not None and call.replays == 2
+          and all(c["ok"] for c in calls),
+          f"dp eval: the eval graph over the group against the eager group eval: "
+          f"captured {call.graph is not None}, replays {call.replays}, {calls}")
+    return {"replays": call.replays, "calls": calls}
+
+
+def dp_graph_report(cfg, dev, tmp: Path, stepped: dict) -> dict:
+    """At W >= 2, alike on every rank, for the meshes (dcn 1 x data W) and
+    (dcn 2 x data W/2): an Experiment over the group from the seeded init
+    (the state checkpoint 0 holds); its first eager step bit-equal to
+    dp_step_report's group step (`stepped`: the ranks flatten (dcn, data)
+    row-major, as the JAX `_shard_offset` does, so both meshes run that
+    step); graphed group replays against eager group steps from one
+    checkpoint, bit for bit (replays_vs_eager: the capture holds the NCCL
+    all-reduces); the median wall ms of DP_STEP_SAMPLES synchronized
+    replays; a traced replay's device ms and NCCL kernels (device_spans);
+    on the first mesh the eval graph against the eager group eval."""
+    world = torch.distributed.get_world_size()
+    out = {}
+    for dcn in (1, 2):
+        if world % dcn:
+            continue
+        name = f"dcn{dcn}xdata{world // dcn}"
+        exp = Experiment(cfg.replace(mesh=dataclasses.replace(
+            cfg.mesh, dcn_axis_size=dcn, data_axis_size=world // dcn)), device=dev)
+        (tmp / name).mkdir(parents=True)
+        exp._write(str(tmp / name / "init"), 0, 1)
+        first = state_gap(eager_steps(exp, 1)["state"], stepped)
+        check(first["same_bits"], f"dp {name}: the first group step from the seeded "
+                                  f"init differs from dp_step_report's: {first}")
+        exp._read(str(tmp / name / "init"), 0)
+        row = {"first_step_vs_group_step": first,
+               **replays_vs_eager(f"dp {name}", exp, tmp / name)}
+        check(row["first_replay_vs_eager"]["same_bits"]
+              and row["replays_vs_eager"]["same_bits"],
+              f"dp {name}: graphed group replays differ from eager group steps: {row}")
+        walls = []
+        for _ in range(DP_STEP_SAMPLES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            exp.run_steps(1)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        row["graphed_wall_ms"] = statistics.median(walls)
+        row["replay"] = device_spans(lambda: exp.run_steps(1))
+        check(row["replay"]["nccl_kernels"] > 0,
+              f"dp {name}: no NCCL kernel in a traced replay: {row['replay']}")
+        row["launches_per_replay"] = exp._graphed.per_replay
+        if dcn == 1:
+            row["eval"] = dp_eval_report(exp)
+        out[name] = row
+        del exp
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def dp_worker(spec_path: str) -> int:
     """One torchrun rank of the dp phase, from the JSON spec the phase
     wrote: join the group, then `cli.main(spec["train"])`, dp_step_report
@@ -2080,7 +2209,12 @@ def dp_worker(spec_path: str) -> int:
     gan_sass_tf_tpu_torch.cli` runs; it leaves a group it did not join
     alone), each with the kernels it launched on this rank.  Writes
     spec["out"].rank<r>.json and spec["out"].rank<r>.pt, the state after
-    the step."""
+    the step.  At W >= 2 on CUDA, dp_graph_report between the step and
+    the separation.  Each stage is noted on stderr.  A rank that fails
+    exits at once, leaving the group as it is (destroying it would wait on
+    the ranks still in a collective); one that is still running
+    spec["timeout_s"] - 60 s after it began prints every thread's stack
+    and exits, so torchrun ends the others."""
     from gan_sass_tf_tpu_torch.parallel import (
         initialize_distributed,
         rank_device,
@@ -2088,6 +2222,7 @@ def dp_worker(spec_path: str) -> int:
     )
 
     spec = json.loads(Path(spec_path).read_text())
+    faulthandler.dump_traceback_later(spec["timeout_s"] - 60, exit=True)
     torch.backends.cuda.matmul.allow_tf32 = False       # as phase_device
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True           # as phase_dp's reference
@@ -2095,17 +2230,28 @@ def dp_worker(spec_path: str) -> int:
     rank = torch.distributed.get_rank()
     res = {"rank": rank, "world": torch.distributed.get_world_size(),
            "backend": torch.distributed.get_backend()}
+
+    def note(stage: str) -> None:
+        print(f"dp rank {rank}: {stage} at {time.perf_counter() - T_START:.1f} s",
+              file=sys.stderr, flush=True)
+
     try:
+        note("cli train")
         reset_launch_counts()
         res["train_rc"] = cli.main(spec["train"])
         res["train_launches"] = launch_counts()
         cfg = config.Config.from_json((Path(spec["step_workdir"]) / "config.json").read_text())
         exp = Experiment(cfg, workdir=spec["step_workdir"],
                          device=rank_device(spec["device"]))
+        note("step report")
         report, params = dp_step_report(exp)
         exp.close()
         res.update(report)
         torch.save(params, f"{spec['out']}.rank{rank}.pt")
+        if dp_graphs(res["world"], spec["device"]):
+            note("graph report")
+            res["graph"] = dp_graph_report(cfg, rank_device(spec["device"]),
+                                           Path(f"{spec['out']}.graph{rank}"), params)
         chained, inner = [], streaming._chain_permutations
 
         def recording_chain(*a, **kw):
@@ -2113,30 +2259,142 @@ def dp_worker(spec_path: str) -> int:
             return chained[-1]
 
         streaming._chain_permutations = recording_chain
+        note("cli separate")
         reset_launch_counts()
         res["separate_rc"] = cli.main(spec["separate"])
         res["separate_launches"] = launch_counts()
         res["chained"] = [c.tolist() for c in chained]
-    finally:
-        shutdown_distributed()
+    except BaseException as exc:        # a failed check raises SystemExit
+        print(f"dp rank {rank}: failed: {exc!r}", file=sys.stderr, flush=True)
+        traceback.print_exc()
+        os._exit(1)
     Path(f"{spec['out']}.rank{rank}.json").write_text(json.dumps(res))
+    note("done")
+    shutdown_distributed()
+    faulthandler.cancel_dump_traceback_later()
     return res["train_rc"] or res["separate_rc"]
 
 
-def torchrun(world: int, *argv) -> tuple:
+def torchrun(world: int, *argv, timeout: float = DP_TIMEOUT_S) -> tuple:
     """`python -m torch.distributed.run --standalone --nproc_per_node world
     argv...` from the repo root: (wall ms, stdout); a non-zero exit (a
-    failed NCCL init, a failed rank) fails the run."""
+    failed NCCL init, a failed rank) or a call still running after
+    `timeout` s fails the run."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc_per_node", str(world), *argv]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                         timeout=DP_TIMEOUT_S, env={**os.environ, "PYTHONPATH": str(ROOT)})
+    try:
+        res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                             timeout=timeout,
+                             env={**os.environ, "PYTHONPATH": str(ROOT)})
+    except subprocess.TimeoutExpired as exc:
+        print(*((o.decode(errors="replace") if isinstance(o, bytes) else o or "")[-6000:]
+                for o in (exc.stdout, exc.stderr)), sep="\n", file=sys.stderr)
+        check(False, f"torchrun {' '.join(argv[:6])} still running after {timeout} s")
     wall = (time.perf_counter() - t0) * 1e3
     if res.returncode != 0:
         print(res.stdout[-3000:], res.stderr[-6000:], sep="\n", file=sys.stderr)
     check(res.returncode == 0, f"torchrun {' '.join(argv[:6])} exited {res.returncode}")
     return wall, res.stdout
+
+
+def dp_state_gaps(init: dict, one: dict, group: dict, opts: dict) -> dict:
+    """The group's state after one step against one process's, both from
+    `init` (flat_tensors).  For each optimizer of `opts` ({"g" | "d":
+    (parameter names, lr)}): `mu`, `nu`, the largest gap of the first
+    moment and of the root of the second (each a gradient, |g| scaled)
+    over the optimizer's largest value; Adam's first move of its weights,
+    lr g/(|g| + eps): `bound`, the largest group move over lr less the
+    weight's rounding (eps32 |w|; Adam's bound: <= 1); `flat_share`, the
+    weights one process moved by less than 0.99 lr (a gradient within a
+    few eps of 0), over the optimizer and in its worst tensor; `flips`,
+    the weights one process moved by >= 0.99 lr that the group moved more
+    than 1e-2 lr away, by tensor, with `flip_grad`, the largest such
+    weight's one-process gradient over the optimizer's largest (|mu|); and
+    `sharp_gap`, the largest gap over lr of the moved weights whose
+    gradient is at least DP_REL_TOL["moments"] of the largest (the check
+    holds it to 1e-2).  `buffers`: every other tensor's largest gap over
+    its own largest value (D's spectral-norm u and sigma), the worst three
+    by name."""
+    out, done = {}, set()
+    eps = torch.finfo(torch.float32).eps
+    for o, (names, lr) in opts.items():
+        mu1 = [one[f"{o}_opt/mu/{n}"].abs() for n in names]
+        top = max(float(m.max()) for m in mu1)
+        floor = DP_REL_TOL["moments"] * top
+        row = {"lr": lr, "bound": 0.0, "flips": 0, "flip_grad": 0.0, "sharp_gap": 0.0,
+               "flip_tensors": {}, "flat_worst": {}}
+        flat = total = 0
+        for n, m in zip(names, mu1):
+            k = f"{o}/{n}"
+            moved1, moved = one[k] - init[k], group[k] - init[k]
+            gap = (moved - moved1).abs() / lr
+            sharp = moved1.abs() >= 0.99 * lr
+            flip = sharp & (gap > 1e-2)
+            held = sharp & (m >= floor)
+            ulp = eps * torch.maximum(init[k].abs(), group[k].abs())
+            row["bound"] = max(row["bound"], float((moved.abs() - ulp).max()) / lr)
+            if held.any():
+                row["sharp_gap"] = max(row["sharp_gap"], float(gap[held].max()))
+            if flip.any():
+                row["flips"] += int(flip.sum())
+                row["flip_grad"] = max(row["flip_grad"], float(m[flip].max()) / top)
+                row["flip_tensors"][n] = int(flip.sum())
+            flat += int((~sharp).sum())
+            total += sharp.numel()
+            share = float((~sharp).float().mean())
+            if share > max(row["flat_worst"].values(), default=0.0):
+                row["flat_worst"] = {n: share}
+            done.add(k)
+        row["flat_share"] = flat / total
+        for kind, f in (("mu", torch.abs), ("nu", torch.sqrt)):
+            keys = [f"{o}_opt/{kind}/{n}" for n in names]
+            big = max(float(f(one[k]).max()) for k in keys)
+            row[kind] = max(float((f(group[k]) - f(one[k])).abs().max()) for k in keys) / big
+            done.update(keys)
+        out[o] = row
+    rest = {k: float((group[k] - v).abs().max()) / max(float(v.abs().max()), 1e-30)
+            for k, v in one.items() if k not in done}
+    out["buffers"] = max(rest.values(), default=0.0)
+    out["buffers_worst"] = {k: rest[k] for k in sorted(rest, key=rest.get)[-3:]}
+    return out
+
+
+def dp_state_ok(gaps: dict) -> bool:
+    """dp_state_gaps within the W >= 2 limits (DP_REL_TOL)."""
+    return gaps["buffers"] <= DP_REL_TOL["buffers"] and all(
+        gaps[o]["bound"] <= 1 + 1e-4 and gaps[o]["sharp_gap"] <= 1e-2
+        and gaps[o]["mu"] <= DP_REL_TOL["moments"] and gaps[o]["nu"] <= DP_REL_TOL["moments"]
+        for o in ("g", "d"))
+
+
+def dp_rank0_separation(world: int, dev, tmp: Path, wd: Path, wav: Path, stride: int) -> dict:
+    """At W >= 2: one-shot and scan-mode `cli separate` of `wav` through
+    `-m gan_sass_tf_tpu_torch.cli` under torchrun, as a user starts them.
+    Rank 0 separates alone; the other ranks return at once and leave the
+    group, so none may wait in a collective: each call ends within
+    DP_SEPARATE_TIMEOUT_S with rc 0, and rank 0's sources agree with this
+    process's run of the same command (>= 40 dB a segment after the best
+    permutation; the ranks keep torch's TF32 default for cuDNN)."""
+    out = {}
+    for mode, extra in (("one_shot", []), ("scan", ["--streaming", "--streaming-mode", "scan"])):
+        args = ["separate", "--config", "stream_v5e8", "--workdir", str(wd),
+                "--device", dev.type, "--input", str(wav), *extra]
+        t0 = time.perf_counter()
+        captured(cli.main, [*args, "--output-dir", str(tmp / f"dp_{mode}_1")])
+        one_ms = (time.perf_counter() - t0) * 1e3
+        wall, _ = torchrun(world, "-m", "gan_sass_tf_tpu_torch.cli", *args,
+                           "--output-dir", str(tmp / f"dp_{mode}_w"),
+                           timeout=DP_SEPARATE_TIMEOUT_S)
+        got, ref = (np.stack([read_wav(str(p))[1] for p in sorted(
+            (tmp / d).glob(f"{wav.stem}_src*.wav"))]) for d in (f"dp_{mode}_w", f"dp_{mode}_1"))
+        check(got.shape == ref.shape, f"dp {mode}: rank 0 wrote {got.shape}, not {ref.shape}")
+        worst, same, n = segment_agreement(got, ref, stride)
+        check(worst >= 40.0, f"dp {mode} under torchrun vs one process: {worst} dB < 40")
+        out[mode] = {"torchrun_wall_ms": wall, "one_process_ms": one_ms,
+                     "min_si_sdr_db": worst, "segments_same_permutation": same,
+                     "segments": n, "max_abs_diff": float(np.abs(got - ref).max())}
+    return out
 
 
 def summed(ranks: list, key: str) -> dict:
@@ -2177,6 +2435,9 @@ def phase_dp(dev, tmp: Path, sets=()):
     try:
         exp = Experiment(cfg, workdir=str(ref_wd), device=dev)
         exp.save()                                          # checkpoints/0.pt
+        init = flat_tensors(exp.state)
+        opts = {o: (opt.names, float(opt.lr(opt.count))) for o, opt in
+                (("g", exp.state.g_opt), ("d", exp.state.d_opt))}
         one, one_params = dp_step_report(exp)
         exp.close()
     finally:
@@ -2184,6 +2445,7 @@ def phase_dp(dev, tmp: Path, sets=()):
     spec = tmp / "dp_spec.json"
     spec.write_text(json.dumps({
         "device": dev.type, "out": str(out), "step_workdir": str(ref_wd),
+        "timeout_s": DP_TIMEOUT_S,
         "train": ["train", *common, "--steps", "4", *periods],
         "separate": [*separate_args, "--output-dir", str(tmp / "dp_stream_w")]}))
     walls = {}
@@ -2204,25 +2466,48 @@ def phase_dp(dev, tmp: Path, sets=()):
         check(not unequal, f"dp step: rank {r}'s state differs from rank 0's in {unequal[:5]}")
     step = ranks[0]
     # Relative differences (floor 1 for the metrics and the eval, in dB or
-    # O(1)); every parameter, moment, buffer and EMA tensor by its max |.|.
+    # O(1)); at W = 1 every state tensor by its max |.|, at W >= 2, where
+    # the ranks sum in another order than one process, dp_state_gaps.
     rel = {"metrics": max(abs(step["metrics"][k] - v) / max(abs(v), 1.0)
                           for k, v in one["metrics"].items()),
-           "params": max(float((dp_params[k] - v).abs().max()) / max(float(v.abs().max()), 1e-30)
-                         for k, v in one_params.items()),
            "eval": max(abs(step["eval"][k] - v) / max(abs(v), 1.0)
                        for k, v in one["eval"].items())}
-    # At W >= 2 the ranks sum in another order than one process: 1e-2 is a
-    # guess that no run with two or more GPUs has read yet.
-    tol = 1e-5 if world == 1 else 1e-2
-    check(max(rel.values()) <= tol, f"dp step at world {world} vs one process: {rel}")
+    if world == 1:
+        rel["params"] = max(float((dp_params[k] - v).abs().max())
+                            / max(float(v.abs().max()), 1e-30) for k, v in one_params.items())
+        tol, gaps = {k: 1e-5 for k in rel}, None
+    else:
+        tol = DP_REL_TOL
+        gaps = dp_state_gaps(init, one_params, dp_params, opts)
+    check(all(v <= tol[k] for k, v in rel.items()),
+          f"dp step at world {world} vs one process: {rel}, limits {tol}")
     reduces = sum(n for k, n in step["collectives"]["group"].items()
                   if k.startswith(("nccl:all_reduce", "gloo:all_reduce")))
     want = cfg.train.d_steps + 2               # D's grads a D step, G's grads, metrics
     check(reduces == want, f"dp step: {reduces} all-reduces, not {want}: "
                            f"{step['collectives']['group']}")
+    graphs = None
     if world > 1 and dev.type == "cuda":
         check(sum(step["nccl_kernels"]["group"].values()) > 0,
               f"no NCCL kernel in the profiled dp step: {step['nccl_kernels']}")
+    if dp_graphs(world, dev.type):
+        # Each rank held its replays, its eval graph and its traced replay's
+        # NCCL kernels to the eager group step itself (dp_graph_report).
+        meshes = list(step["graph"])
+        check(all(list(r["graph"]) == meshes for r in ranks) and len(meshes) == 2,
+              f"dp graph: meshes {[list(r['graph']) for r in ranks]}")
+        graphs = {m: {
+            "replays_vs_eager_same_bits": all(
+                r["graph"][m][k]["same_bits"] for r in ranks
+                for k in ("first_step_vs_group_step", "first_replay_vs_eager",
+                          "replays_vs_eager")),
+            "graphed_wall_ms_by_rank": [r["graph"][m]["graphed_wall_ms"] for r in ranks],
+            "replay_by_rank": [{k: r["graph"][m]["replay"][k] for k in (
+                "sum_ms", "busy_ms", "span_ms", "nccl_kernels", "nccl_ms")}
+                for r in ranks],
+            "launches_per_replay": step["graph"][m]["launches_per_replay"],
+            **({"eval_by_rank": [r["graph"][m]["eval"] for r in ranks]}
+               if "eval" in step["graph"][m] else {})} for m in meshes}
 
     # Batch-mode streaming over the group against this process's.
     chained, inner = [], streaming._chain_permutations
@@ -2249,6 +2534,8 @@ def phase_dp(dev, tmp: Path, sets=()):
     stream_counts = summed(ranks, "separate_launches")
     check(stream_counts["stft_features"] > 0 and stream_counts["masked_istft"] > 0,
           f"dp stream launches {stream_counts}")
+    rank0_only = (dp_rank0_separation(world, dev, tmp, wd, wav, stride)
+                  if world > 1 else None)
 
     # The resumed run through the module itself, as a user starts it.
     walls["resumed"], log = torchrun(
@@ -2267,6 +2554,9 @@ def phase_dp(dev, tmp: Path, sets=()):
         check(name in files, f"dp workdir: {name} missing from {files}")
     counts = {"dp_train": summed(ranks, "train_launches"),
               "dp_eval": summed(ranks, "eval_launches"), "dp_stream": stream_counts}
+    by_rank = {k: [{"dp_train": r["train_launches"][k], "dp_eval": r["eval_launches"][k],
+                    "dp_stream": r["separate_launches"][k]} for r in ranks]
+               for k in ("stft_features", "masked_istft", "istft", "istft_bwd")}
     keys = ("metrics", "eval", "wall_ms", "device_ms", "step_launches", "nccl_kernels",
             "collectives", "all_reduce_g")
     emit("dp", world=world, backend=step["backend"], config="stream_v5e8",
@@ -2276,8 +2566,9 @@ def phase_dp(dev, tmp: Path, sets=()):
          launches={**counts, "dp_train_by_rank": [r["train_launches"] for r in ranks]},
          step={"one_process": {k: one[k] for k in keys},
                "world": {k: step[k] for k in keys},
-               "max_rel_diff": rel, "tol": tol,
-               "tol_read_on_the_card": world == 1},
+               "max_rel_diff": rel, "tol": tol, "tol_read_on_the_card": True,
+               "state_gaps": gaps},
+         graph=graphs, rank0_separation=rank0_only,
          stream={"min_si_sdr_db": worst, "segments_same_permutation": same,
                  "segments": n, "max_abs_diff": float(np.abs(got - ref).max()),
                  "chained_permutations_equal": perm_equal},
@@ -2288,9 +2579,36 @@ def phase_dp(dev, tmp: Path, sets=()):
               "start, CUDA and NCCL init",
          not_run=None if world > 1 else
          "two or more ranks (one GPU visible): an all-reduce across cards, NCCL's "
-         "ring or tree kernels and a split batch; at world 1 NCCL completes each "
-         "in-place SUM all-reduce without a kernel")
-    return counts
+         "ring or tree kernels and a split batch (at world 1 NCCL completes each "
+         "in-place SUM all-reduce without a kernel); so too the graphed group "
+         "replays against eager group steps on the (dcn 1 x data W) and (dcn 2 x "
+         "data W/2) meshes, the eval graph's captured all-reduce against the eager "
+         "group eval, the NCCL kernels of a traced replay, the W >= 2 "
+         "limits on the state (dp_state_gaps: Adam's moves, the moments, the "
+         "buffers) and one-shot and scan `cli separate` under torchrun with "
+         "rank 0 alone")
+    # The state's limits are checked after the line, so that a run that
+    # fails them still prints every reading.
+    check(gaps is None or dp_state_ok(gaps),
+          f"dp step at world {world} vs one process: state {gaps}, limits {tol}")
+    return counts, by_rank
+
+
+def dp_alone() -> int:
+    """`python3 chip_smoke.py --dp`: the device and build lines, then the dp
+    phase alone at torch.cuda.device_count() ranks on a 60 s mixture of its
+    own (on a host with four cards, its W >= 2 checks), and the last
+    line."""
+    kind = phase_device()
+    phase_build()
+    with tempfile.TemporaryDirectory() as tmp:
+        write_wav(str(Path(tmp) / "stream60s.wav"), SR_STREAM,
+                  mixtures(np.random.default_rng(SEED), 1, T_STREAM, SR_STREAM)[0])
+        phase_dp(torch.device("cuda", 0), Path(tmp))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
+        flush=True)
+    return 0
 
 
 def k4_check(ker, ref, what):
@@ -3677,6 +3995,19 @@ def library_istft(est, n_fft, hop):
     return lambda: torch.istft(flat, n_fft, hop, window=w, center=True)
 
 
+def library_istft_bwd(est, n_fft, hop):
+    """The backward of library_istft's torch.istft on a leaf copy of `est`
+    (one torch.autograd.grad of one call, a seeded cotangent): the PyTorch
+    call beside K3's VJP, used nowhere in the port."""
+    w = torch.from_numpy(get_window("hann", n_fft)).to(est.device)
+    flat = est.detach().reshape(-1, *est.shape[-2:]).transpose(-1, -2).contiguous()
+    flat.requires_grad_()
+    y = torch.istft(flat, n_fft, hop, window=w, center=True)
+    dy = torch.randn(y.shape, generator=torch.Generator(y.device).manual_seed(SEED),
+                     device=y.device)
+    return lambda: torch.autograd.grad(y, flat, dy, retain_graph=True)
+
+
 def library_masked_istft(spec, masks, n_fft, hop, mask_type="magnitude"):
     """The mask product and torch.istft (library_istft): K2's function in
     PyTorch calls, and torch.istft alone on the product made once."""
@@ -3748,7 +4079,7 @@ def phase_timing(rng, dev, x, spec, cfg, g, batch, k3_tensors, exp, k4_inputs,
     bwd_t = time_kernel(
         lambda: torch.autograd.grad(y, spec_k3, dy, retain_graph=True),
         lambda: torch.autograd.grad(ref, spec_k3, dy, retain_graph=True), bwd_bound,
-        graph=False)
+        graph=False, library=library_istft_bwd(sk, N_FFT, HOP))
     # Its one launch alone, on a cotangent of the same shape, beside the
     # plain adjoint (the STFT of dy·inv_env scaled per bin).
     z = torch.randn_like(ref).contiguous()
@@ -3841,7 +4172,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         wd, workdir_counts = phase_workdir(dev, Path(tmp))
         stream_launches, stream_shapes = phase_stream(rng, dev, Path(tmp), wd)
-        dp_counts = phase_dp(dev, Path(tmp))
+        dp_counts, dp_by_rank = phase_dp(dev, Path(tmp))
     serve_counts = phase_serve_graph(dev)
     bound_launches, bound_walls = phase_bounds(dev)
     quality_runs = phase_quality(dev)
@@ -3873,6 +4204,7 @@ def main() -> int:
                    pit3_quality=pit3_counts["quality"], **dp_counts, **opt,
                    **tools, install=install),
          "max_abs_err": k1_err, **times["stft_features"],
+         "dp_launches_by_rank": dp_by_rank["stft_features"],
          "stream_shape": stream_rows("stft_features"),
          "pit3_shape": pit3_rows["stft_features"]},
         {"name": "masked_istft", "route": "cuda",
@@ -3889,6 +4221,7 @@ def main() -> int:
                                           "options_music_quality")}, **tools,
                    install=install),
          "max_abs_err": k2_err, **times["masked_istft"],
+         "dp_launches_by_rank": dp_by_rank["masked_istft"],
          "stream_shape": stream_rows("masked_istft"),
          "pit3_shape": pit3_rows["masked_istft"]},
         {"name": "istft", "route": "cuda",
@@ -3899,7 +4232,8 @@ def main() -> int:
                    dp_train=dp_counts["dp_train"],
                    options_stream_train=opt["options_stream_train"], **tools,
                    install=install),
-         "max_abs_err": k3_errs["forward_full"], **times["istft"]},
+         "max_abs_err": k3_errs["forward_full"], **times["istft"],
+         "dp_launches_by_rank": dp_by_rank["istft"]},
         {"name": "istft_bwd", "route": "cuda",
          "source": "gan_sass_tf_tpu_torch/ops/csrc/stft_features.cu",
          "replaces": "gan_sass_tf_tpu/ops/pallas_istft.py:151",
@@ -3909,7 +4243,7 @@ def main() -> int:
                    options_stream_train=opt["options_stream_train"], **tools,
                    install=install),
          "max_abs_err": max(k3_errs["grad_re"], k3_errs["grad_im"]),
-         **times["istft_bwd"]},
+         **times["istft_bwd"], "dp_launches_by_rank": dp_by_rank["istft_bwd"]},
         {"name": "stft", "route": "cuda",
          "source": "gan_sass_tf_tpu_torch/ops/csrc/stft_features.cu",
          "replaces": "gan_sass_tf_tpu/ops/pallas_stft.py:228",
@@ -3955,6 +4289,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--dp"]:
+        sys.exit(dp_alone())
     if sys.argv[1:2] == ["--dp-worker"]:
         sys.exit(dp_worker(sys.argv[2]))
     if sys.argv[1:2] == ["--tool-worker"]:

@@ -68,6 +68,19 @@ DROPOUT_DIMS = 4             # the kernel's most dims
 DTYPES = (torch.float32, torch.bfloat16)
 
 
+def _launch(name: str, device: torch.device, *args) -> None:
+    """`<name>_launch(*args, stream)` of the library on `device`'s current
+    stream, with `device` the thread's current one (a kernel goes to the
+    current device, which need not be the tensors'), its return code
+    checked."""
+    from gan_sass_tf_tpu_torch.ops import build
+
+    with torch.cuda.device(device):
+        rc = getattr(build.load_library(), f"{name}_launch")(
+            *args, torch.cuda.current_stream(device).cuda_stream)
+    build.check_launch(rc, name)
+
+
 def _check_key(key: torch.Tensor, what: str) -> None:
     if key.dtype != torch.int64 or key.shape[-1:] != (2,):
         raise ValueError(f"{what}: keys must be int64 (..., 2), got "
@@ -98,8 +111,6 @@ def example_keys_kernel(key: torch.Tensor, offset: int, b: int,
                         step: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One launch of `threefry_keys_launch`."""
     global keys_launches
-    from gan_sass_tf_tpu_torch.ops import build
-
     _check_key(key, "example_keys")
     if not key.is_cuda or key.shape != (2,):
         raise ValueError(f"example_keys kernel: a (2,) CUDA key, got "
@@ -113,10 +124,8 @@ def example_keys_kernel(key: torch.Tensor, offset: int, b: int,
     key = key.contiguous()
     out = torch.empty((1 if step is None else 2, 2, b, 2), dtype=torch.int64,
                       device=key.device)
-    rc = build.load_library().threefry_keys_launch(
-        key.data_ptr(), None if step is None else step.data_ptr(), offset, b,
-        out.data_ptr(), torch.cuda.current_stream(key.device).cuda_stream)
-    build.check_launch(rc, "threefry_keys")
+    _launch("threefry_keys", key.device, key.data_ptr(),
+            None if step is None else step.data_ptr(), offset, b, out.data_ptr())
     keys_launches += 1
     return out
 
@@ -137,8 +146,6 @@ def sample_kernel(keys: torch.Tensor, n: int, kind: str, lo=0.0,
                   hi=1.0) -> torch.Tensor:
     """One launch of `threefry_sample_launch`: (R, 2) keys -> (R, n)."""
     global sample_launches
-    from gan_sass_tf_tpu_torch.ops import build
-
     _check_key(keys, "sample")
     lo, hi = _bounds(kind, lo, hi)
     if not keys.is_cuda or keys.dim() != 2:
@@ -154,10 +161,8 @@ def sample_kernel(keys: torch.Tensor, n: int, kind: str, lo=0.0,
     dtype = torch.float32 if kind in ("uniform", "normal") else torch.int64
     out = torch.empty((r, n), dtype=dtype, device=keys.device)
     keys = keys.contiguous()
-    rc = build.load_library().threefry_sample_launch(
-        keys.data_ptr(), r, n, KINDS[kind], float(lo), float(hi), span, mult,
-        minval, out.data_ptr(), torch.cuda.current_stream(keys.device).cuda_stream)
-    build.check_launch(rc, "threefry_sample")
+    _launch("threefry_sample", keys.device, keys.data_ptr(), r, n, KINDS[kind],
+            float(lo), float(hi), span, mult, minval, out.data_ptr())
     sample_launches += 1
     return out
 
@@ -194,17 +199,13 @@ def train_keys_kernel(key: torch.Tensor, step: torch.Tensor, shard: int,
                      d_steps: int) -> torch.Tensor:
     """One launch of `threefry_train_keys_launch`."""
     global train_keys_launches
-    from gan_sass_tf_tpu_torch.ops import build
-
     _check_step(key, step, shard, d_steps, "train_keys kernel")
     if not key.is_cuda:
         raise ValueError(f"train_keys kernel: a CUDA key, got one on {key.device}")
     key = key.contiguous()
     out = torch.empty((3 + 3 * d_steps, 2), dtype=torch.int64, device=key.device)
-    rc = build.load_library().threefry_train_keys_launch(
-        key.data_ptr(), step.data_ptr(), shard, d_steps, out.data_ptr(),
-        torch.cuda.current_stream(key.device).cuda_stream)
-    build.check_launch(rc, "threefry_train_keys")
+    _launch("threefry_train_keys", key.device, key.data_ptr(), step.data_ptr(), shard,
+            d_steps, out.data_ptr())
     train_keys_launches += 1
     return out
 
@@ -248,8 +249,6 @@ def dropout_kernel(x: torch.Tensor, key: torch.Tensor, fold: int, p: float,
     """One launch of `threefry_dropout_launch`; `backward` counts it as a
     backward launch."""
     global dropout_launches, dropout_bwd_launches
-    from gan_sass_tf_tpu_torch.ops import build
-
     _check_key(key, "dropout kernel")
     keep, scale = dropout_constants(x.dtype, p)
     size, jstride = flax_layout(x.shape, dims)
@@ -260,12 +259,9 @@ def dropout_kernel(x: torch.Tensor, key: torch.Tensor, fold: int, p: float,
         raise ValueError(f"dropout kernel: {x.numel()} elements, fold {fold}")
     x, key = x.contiguous(), key.contiguous()
     y = torch.empty_like(x)
-    rc = build.load_library().threefry_dropout_launch(
-        x.data_ptr(), y.data_ptr(), key.data_ptr(), fold, keep, scale, x.numel(),
-        (ctypes.c_longlong * DROPOUT_DIMS)(*size),
-        (ctypes.c_longlong * DROPOUT_DIMS)(*jstride), int(x.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    build.check_launch(rc, "threefry_dropout")
+    _launch("threefry_dropout", x.device, x.data_ptr(), y.data_ptr(), key.data_ptr(),
+            fold, keep, scale, x.numel(), (ctypes.c_longlong * DROPOUT_DIMS)(*size),
+            (ctypes.c_longlong * DROPOUT_DIMS)(*jstride), int(x.dtype == torch.bfloat16))
     if backward:
         dropout_bwd_launches += 1
     else:
@@ -316,8 +312,6 @@ def noise_reference(x: torch.Tensor, key: torch.Tensor, std: float) -> torch.Ten
 def noise_kernel(x: torch.Tensor, key: torch.Tensor, std: float) -> torch.Tensor:
     """One launch of `threefry_noise_launch`."""
     global noise_launches
-    from gan_sass_tf_tpu_torch.ops import build
-
     _check_key(key, "noise kernel")
     coef = noise_coef(x.dtype, std)
     if not (x.is_cuda and key.device == x.device and key.shape == (2,)):
@@ -327,10 +321,8 @@ def noise_kernel(x: torch.Tensor, key: torch.Tensor, std: float) -> torch.Tensor
         raise ValueError(f"noise kernel: {x.numel()} elements")
     x, key = x.contiguous(), key.contiguous()
     y = torch.empty_like(x)
-    rc = build.load_library().threefry_noise_launch(
-        x.data_ptr(), y.data_ptr(), key.data_ptr(), coef, x.numel(),
-        int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream)
-    build.check_launch(rc, "threefry_noise")
+    _launch("threefry_noise", x.device, x.data_ptr(), y.data_ptr(), key.data_ptr(), coef,
+            x.numel(), int(x.dtype == torch.bfloat16))
     noise_launches += 1
     return y
 

@@ -16,11 +16,21 @@ back to another backend or device.
 from __future__ import annotations
 
 import os
+from typing import Callable, List
 
 import torch
 import torch.distributed as dist
 
 TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+_before_shutdown: List[Callable[[], object]] = []
+
+
+def before_shutdown(hook: Callable[[], object]) -> Callable[[], object]:
+    """Have shutdown_distributed call `hook()` before it destroys the group
+    (once, however often it is registered); returns `hook`."""
+    if hook not in _before_shutdown:
+        _before_shutdown.append(hook)
+    return hook
 
 
 def initialize_distributed(device="cuda") -> bool:
@@ -61,8 +71,13 @@ def rank_device(device) -> torch.device:
 
 
 def shutdown_distributed() -> None:
-    """Destroy the default process group, if one was joined."""
+    """Destroy the default process group, if one was joined, after the
+    `before_shutdown` hooks (`train.graphed` registers the release of the
+    CUDA graphs that captured one of the group's collectives: NCCL,
+    destroying a communicator, waits until every such graph is gone)."""
     if dist.is_initialized():
+        for hook in _before_shutdown:
+            hook()
         dist.destroy_process_group()
 
 

@@ -41,6 +41,7 @@ def tiny_config(batch_size: int):
 
 
 def _rank(rank: int, world: int, device: str, store: str) -> None:
+    from gan_sass_tf_tpu_torch.parallel.bootstrap import shutdown_distributed
     from gan_sass_tf_tpu_torch.train import Experiment
 
     dev = torch.device(device)
@@ -68,7 +69,7 @@ def _rank(rank: int, world: int, device: str, store: str) -> None:
                      if k != "mixture_sec_per_sec"}
             print(f"dryrun_multichip({world}): ok — metrics {shown}", flush=True)
     finally:
-        dist.destroy_process_group()
+        shutdown_distributed()
 
 
 def main(argv=None) -> int:

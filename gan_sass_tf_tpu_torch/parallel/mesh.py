@@ -27,6 +27,19 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+_issued = 0        # collectives this process has issued through a DataParallel
+
+
+def collectives_issued() -> int:
+    """How many collectives this process has issued through a DataParallel
+    (a CUDA graph capture that moves it holds one of the group's)."""
+    return _issued
+
+
+def _issue() -> None:
+    global _issued
+    _issued += 1
+
 
 def mesh_shape(mesh_cfg, world: int) -> Tuple[int, int]:
     """(dcn, data) of `mesh_cfg` over `world` ranks; data_axis_size -1 (or
@@ -76,6 +89,7 @@ class DataParallel:
         if self.group is None:
             return
         for flat, members in _buckets(tensors):
+            _issue()
             dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=self.group)
             flat.div_(self.world)
             _unflatten(flat, members)
@@ -86,6 +100,7 @@ class DataParallel:
         if self.group is None:
             return
         for flat, members in _buckets(tensors):
+            _issue()
             dist.broadcast(flat, src=src, group=self.group)
             _unflatten(flat, members)
 
@@ -95,11 +110,13 @@ class DataParallel:
             return x
         x = x.contiguous()
         parts = [torch.empty_like(x) for _ in range(self.world)]
+        _issue()
         dist.all_gather(parts, x, group=self.group)
         return torch.cat(parts)
 
     def barrier(self) -> None:
         if self.group is not None:
+            _issue()
             dist.barrier(group=self.group)
 
 

@@ -29,7 +29,14 @@ ways, and one more JSON line comes before the last, the values unrounded:
    "device_ms": {"graphed", "eager"},  kernel, copy and fill time summed,
    "busy_ms": {"graphed", "eager"},    and their union, a step (a trace
                                        of STEPS steps each way)
+   "nccl_ms": {"graphed", "eager"},    the NCCL kernels' part of device_ms
+   "world",                            the ranks
    "launches_per_replay"}              the capture's kernel launches
+Under torchrun it joins the process group, data parallel as `cli train`
+(`python -m torch.distributed.run --standalone --nproc_per_node N -m
+gan_sass_tf_tpu_torch.scripts.profile_step stream_v5e8 32`): `batch` is
+the global batch, each rank steps its rows and all-reduces over NCCL,
+every rank runs the same steps, and rank 0 prints its own figures.
 The file runs on an older checkout of the package too (`PYTHONPATH=that
 tree python path/to/profile_step.py ...`), so two versions are timed in
 one call.
@@ -50,6 +57,7 @@ import torch
 
 from gan_sass_tf_tpu_torch import config
 from gan_sass_tf_tpu_torch.cli import _apply_overrides
+from gan_sass_tf_tpu_torch.parallel import run_in_group
 from gan_sass_tf_tpu_torch.scripts import split_args
 from gan_sass_tf_tpu_torch.scripts.quality_protocol import device_or_exit
 from gan_sass_tf_tpu_torch.utils import profiler
@@ -86,8 +94,8 @@ def nvidia_smi() -> str:
 
 
 def traced(fn, calls: int = STEPS):
-    """(kernel ms summed, busy ms) a call of `fn` over `calls` traced calls
-    (one untimed call first)."""
+    """(kernel ms summed, busy ms, NCCL kernel ms) a call of `fn` over
+    `calls` traced calls (one untimed call first)."""
     fn()
     torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
@@ -101,7 +109,9 @@ def traced(fn, calls: int = STEPS):
     for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in events):
         if b > end:
             busy, end = busy + b - max(a, end), b
-    return sum(e["dur"] for e in events) / calls / 1e3, busy / calls / 1e3
+    nccl = sum(e["dur"] for e in events if "nccl" in e["name"].lower())
+    return (sum(e["dur"] for e in events) / calls / 1e3, busy / calls / 1e3,
+            nccl / calls / 1e3)
 
 
 def time_graphed(exp) -> dict:
@@ -119,13 +129,13 @@ def time_graphed(exp) -> dict:
         steps[mode]()
         torch.cuda.synchronize()
         walls[mode].append((time.perf_counter() - t0) * 1e3)
-    device, busy = {}, {}
+    device, busy, nccl = {}, {}, {}
     for mode, fn in steps.items():
-        device[mode], busy[mode] = traced(fn)
+        device[mode], busy[mode], nccl[mode] = traced(fn)
     return {"nvidia_smi": nvidia_smi(),
             "wall_ms": {k: statistics.median(v) for k, v in walls.items()},
-            "device_ms": device, "busy_ms": busy,
-            "launches_per_replay": exp._graphed.per_replay}
+            "device_ms": device, "busy_ms": busy, "nccl_ms": nccl,
+            "world": exp.dp.world, "launches_per_replay": exp._graphed.per_replay}
 
 
 def main(argv=None) -> int:
@@ -134,8 +144,12 @@ def main(argv=None) -> int:
     overrides, device = opts["--set"], (opts["--device"] or ["cuda"])[-1]
     preset = pos[0] if pos else "wsj0_logmel"
     batch = int(pos[1]) if len(pos) > 1 else 128
-    dev = device_or_exit(device)
+    device_or_exit(device)
+    return run_in_group(device, lambda dev: profile(preset, batch, overrides, dev))
 
+
+def profile(preset: str, batch: int, overrides, dev: torch.device) -> int:
+    """main's work on this rank's device; rank 0 prints."""
     from gan_sass_tf_tpu_torch.train import Experiment
 
     cfg = _apply_overrides(config.get_config(preset), overrides)
@@ -152,6 +166,9 @@ def main(argv=None) -> int:
         torch.cuda.synchronize(dev)
     agg, top = profile_steps(exp, STEPS)
     total = sum(agg.values())
+    timing = time_graphed(exp) if exp.graphed else None
+    if not exp.dp.is_main:
+        return 0
     print(f"{preset} batch={batch}: {total / STEPS / 1e3:.2f} ms/step "
           f"device time over {STEPS} steps ({dev.type})")
     for k, v in sorted(agg.items(), key=lambda kv: -kv[1]):
@@ -159,8 +176,8 @@ def main(argv=None) -> int:
     print("top kernels:")
     for op, v in top.most_common(20):
         print(f"  {v / STEPS:8.1f} us  {op[:100]}")
-    if exp.graphed:
-        print(json.dumps(time_graphed(exp)), flush=True)
+    if timing is not None:
+        print(json.dumps(timing), flush=True)
     print(json.dumps({
         "preset": preset, "batch": batch,
         "device_ms_per_step": total / STEPS / 1e3,

@@ -532,10 +532,10 @@ class Experiment:
         batch is one replay of the eval captured for `eval_generator()` and
         the batch's shape (`train.step.eval_fn_for`; the first WARMUP_CALLS
         batches of a shape run it eagerly), its seed 10 000 + i a device
-        tensor copied into the graph's seed buffer; the mean over ranks
-        follows the replay."""
+        tensor copied into the graph's seed buffer; the mean over ranks is
+        the graph's last step (its all-reduce captured with it)."""
         dataset = dataset if dataset is not None else self.eval_dataset
-        scores = eval_fn_for(self.cfg, self.eval_generator(), self.dp.rank)
+        scores = eval_fn_for(self.cfg, self.eval_generator(), self.dp)
         acc: Dict[str, float] = {}
         for i in range(num_batches):
             batch = dataset.batch()
@@ -544,7 +544,6 @@ class Experiment:
             seed = torch.tensor(10_000 + i, dtype=torch.int64, device=self.device)
             with torch.inference_mode():        # the eager scores are inference tensors
                 out = scores(sources, seed)
-                self.dp.all_reduce_mean(list(out.values()))
             for k, v in out.items():
                 acc[k] = acc.get(k, 0.0) + float(v) / num_batches
         return acc

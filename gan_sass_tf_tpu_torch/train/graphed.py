@@ -30,9 +30,14 @@ and whatever it builds from the host on a first call is memoised by the
 warm-up.  What a capture cannot hold raises with its cause; there is no
 quiet return to eager steps.  A state, bank or key replaced (rather than
 copied into) needs a new GraphedStep: `Experiment` makes one when they are
-not the ones it captured.  Under a process group of two or more ranks the
-capture holds the step's NCCL all-reduces too; no run on more than one
-GPU has checked that path yet, and a failed capture there says so.
+not the ones it captured.  Under a process group the capture holds the
+step's NCCL all-reduces too, and the eval's its mean over the ranks (on
+four H100s, replays give the eager group step's bits on every rank:
+`chip_smoke.py --dp`).  NCCL, destroying a communicator, waits until
+every graph that captured one of its collectives is gone, so
+`parallel.shutdown_distributed` first drops those graphs
+(`release_group_graphs`, its `before_shutdown` hook); graphs that hold no
+collective, such as serving's, stay.
 
 Serving and eval replay graphs too (`GraphedCall`, `GraphedFn`): the
 counterpart of the JAX package's jitted `separate_fn_for`, its batched
@@ -65,6 +70,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from gan_sass_tf_tpu_torch.ops import dispatch
+from gan_sass_tf_tpu_torch.parallel import bootstrap, mesh
 
 WARMUP_STEPS = 3
 WARMUP_CALLS = 2        # eager calls of a GraphedCall before its capture
@@ -73,6 +79,7 @@ MEMO_SIZE = 8           # entries a memo keeps, as the JAX package's lru_caches
 _recorded: Dict[str, int] = {}     # wrapper calls made while capturing
 _replayed: Dict[str, int] = {}     # kernel launches made by replays
 _captures = 0                      # graphs captured by this process
+_under_group: "weakref.WeakSet[_Captured]" = weakref.WeakSet()   # hold a collective
 
 
 def captures() -> int:
@@ -92,6 +99,24 @@ def launch_correction() -> Dict[str, int]:
 def reset_launch_correction() -> None:
     _recorded.clear()
     _replayed.clear()
+
+
+def release_group_graphs() -> int:
+    """Drop every CUDA graph that captured one of a process group's
+    collectives, and return how many.  NCCL, destroying a communicator,
+    waits until every such graph is gone, so `parallel.shutdown_distributed`
+    calls this first (a `before_shutdown` hook).  A released capture raises
+    if it is run again; graphs that hold no collective stay."""
+    held = [c for c in _under_group if c.graph is not None]
+    if held and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    for c in held:
+        c.graph, c.out, c.released = None, None, True
+    _under_group.clear()
+    return len(held)
+
+
+bootstrap.before_shutdown(release_group_graphs)
 
 
 @functools.lru_cache(maxsize=None)
@@ -116,6 +141,7 @@ class _Captured:
         self.out = None                          # the graph's output tensors
         self.replays = 0
         self.per_replay: Dict[str, int] = {}     # kernel launches in one replay
+        self.released = False                    # by release_group_graphs
         self._side = _side_stream(device) if side else None
 
     def _eager(self, *args):
@@ -131,8 +157,9 @@ class _Captured:
 
     def _capture(self, *args) -> None:
         global _captures
+        self._check_held()
         torch.cuda.synchronize(self.device)
-        before = dispatch.launch_counts()
+        before, issued = dispatch.launch_counts(), mesh.collectives_issued()
         graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(graph):
@@ -146,8 +173,16 @@ class _Captured:
             _recorded[k] = _recorded.get(k, 0) + v
         self.graph, self.out = graph, out
         _captures += 1
+        if mesh.collectives_issued() != issued:
+            _under_group.add(self)
+
+    def _check_held(self) -> None:
+        if self.released:
+            raise RuntimeError(f"{self.what}: its CUDA graph was released with the "
+                               "process group it was captured in")
 
     def _replay(self, n: int = 1) -> None:
+        self._check_held()
         for _ in range(n):
             self.graph.replay()
         self.replays += n
@@ -165,8 +200,7 @@ class GraphedStep(_Captured):
             raise ValueError(f"a CUDA graph needs CUDA tensors, got the data "
                              f"on {data.device}")
         where = (f" under a process group of {world} ranks, which captures the "
-                 f"NCCL all-reduces (a path not yet run on more than one GPU)"
-                 if world > 1 else "")
+                 f"NCCL all-reduces" if world > 1 else "")
         super().__init__(lambda: train_step(state, data, key), data.device, warmup,
                          f"the train step{where}", side=True)
         self.state, self.data, self.key = state, data, key

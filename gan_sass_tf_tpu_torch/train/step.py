@@ -373,12 +373,13 @@ def build_eval_step(cfg, g: torch.nn.Module, dp: Optional[DataParallel] = None
 
 
 @GeneratorMemo
-def eval_fn_for(cfg, g: torch.nn.Module, rank: int = 0) -> GraphedFn:
-    """`build_eval_scores(cfg, g, rank)` memoised per (cfg, G, rank) with G
-    held weakly, and on CUDA captured per sources shape (after
-    WARMUP_CALLS eager calls) and replayed (`GraphedFn`), its seed a 0-d
-    int64 device tensor: the counterpart of the JAX
-    `Experiment._eval_step`'s jit.  The mixing
-    draws, G, K1, K2 and the PIT SI-SDR are in the graph; the mean over
-    ranks is the caller's, after the replay (`Experiment.evaluate`)."""
-    return GraphedFn(build_eval_scores(cfg, g, rank))
+def eval_fn_for(cfg, g: torch.nn.Module, dp: Optional[DataParallel] = None) -> GraphedFn:
+    """`build_eval_step(cfg, g, dp)` memoised per (cfg, G, dp) with G held
+    weakly, and on CUDA captured per sources shape (after WARMUP_CALLS
+    eager calls) and replayed (`GraphedFn`), its seed a 0-d int64 device
+    tensor: the counterpart of the JAX `Experiment._eval_step`'s jit.  The
+    mixing draws, G, K1, K2, the PIT SI-SDR and, over a process group, the
+    all-reduce of the means are in the graph, as the reference's `pmean`
+    is in its jitted `shard_map`.  `dp`, its process group with it, is
+    part of the key: a new group gets a graph of its own."""
+    return GraphedFn(build_eval_step(cfg, g, dp))

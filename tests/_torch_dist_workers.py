@@ -233,3 +233,36 @@ def options_suite(rank: int, world: int, tmp: str) -> None:
                        "bounds": printed(recompute_bounds.main, BOUNDS_ARGV)}, f)
     finally:
         dist.destroy_process_group()
+
+
+# The four-rank meshes of tests/test_torch_parallel4.py: (dcn, data).
+MESHES4 = {"dcn1xdata4": (1, 4), "dcn2xdata2": (2, 2)}
+
+
+def stream4_cfg():
+    """dp_cfg() at global batch 8 (2 a rank at four ranks) with groups of 8
+    streaming chunks (2 a rank)."""
+    cfg = dp_cfg(batch_size=8)
+    return cfg.replace(stream=dataclasses.replace(cfg.stream, batch_chunks=8))
+
+
+def parallel4_suite(rank: int, world: int, tmp: str) -> None:
+    """The four-rank cases: the dropout-and-noise step on each mesh of
+    MESHES4 against the JAX shard_map step (<mesh>_rank<r>.pkl, from the
+    <mesh>_input.pkl the test wrote), evaluate(2) and the batched streamer
+    (eval4_rank<r>.npz, stream4_rank<r>.npz)."""
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store", rank=rank,
+                            world_size=world, timeout=TIMEOUT)
+    try:
+        for name in MESHES4:
+            with open(os.path.join(tmp, f"{name}_rank{rank}.pkl"), "wb") as f:
+                pickle.dump(_jax_case(tmp, rank, name), f)
+        exp = Experiment(stream4_cfg(), device="cpu")
+        np.savez(os.path.join(tmp, f"eval4_rank{rank}.npz"),
+                 **{k: np.float64(v) for k, v in exp.evaluate(num_batches=2).items()})
+        y, perm = recorded_streaming(exp.eval_generator(), exp.cfg,
+                                     stream_mixture(exp.cfg))
+        np.savez(os.path.join(tmp, f"stream4_rank{rank}.npz"), y=y, perm=perm)
+    finally:
+        dist.destroy_process_group()

@@ -53,8 +53,18 @@ METRICS = ("d_loss", "g_loss", "g_adv", "g_recon", "d_real_logit", "d_fake_logit
 def _spawn(fn, world, *args, timeout=240.0):
     """Run fn(rank, world, *args) in `world` spawned processes; fail on a
     rank's error or after `timeout` seconds."""
-    ctx = mp.start_processes(fn, args=(world, *args), nprocs=world, join=False,
-                             start_method="spawn")
+    _join(_start(fn, world, *args), timeout)
+
+
+def _start(fn, world, *args):
+    """fn(rank, world, *args) started in `world` spawned processes."""
+    return mp.start_processes(fn, args=(world, *args), nprocs=world, join=False,
+                              start_method="spawn")
+
+
+def _join(ctx, timeout=240.0):
+    """Wait for the processes of `_start`; fail on a rank's error or after
+    `timeout` seconds."""
     deadline = time.monotonic() + timeout
     while not ctx.join(timeout=1.0):
         if time.monotonic() > deadline:

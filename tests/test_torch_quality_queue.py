@@ -4,7 +4,9 @@ the reference's GAN quality table: every row parses as the runner's
 protocol (never a root `scripts/` file) and names one reference row with
 that row's preset, step count, protocol and seeds, at the preset's own
 batch and dtype.  The records the runner wrote, `results/r6pt_results.jsonl`,
-are held to the queue they came from."""
+are held to the queue they came from.  `results/r7pt_queue.txt` runs the
+`stream_v5e8` hard row's seeds 0 and 7 again under torchrun on four cards,
+held alike with `results/r7pt_results.jsonl`."""
 
 import _torch_threads  # noqa: F401  (first: the CPU thread budget)
 
@@ -21,6 +23,12 @@ QUEUE = RESULTS / "r6pt_queue.txt"
 RECORDS = RESULTS / "r6pt_results.jsonl"
 R5_RECORDS = RESULTS / "r5_results.jsonl"
 MODULE = "gan_sass_tf_tpu_torch.scripts.quality_protocol"
+QUEUE4 = RESULTS / "r7pt_queue.txt"
+RECORDS4 = RESULTS / "r7pt_results.jsonl"
+TORCHRUN4 = ["python3", "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", "4", "-m"]
+# The four-card rows: the reference's stream_v5e8 hard row (BASELINE.md:250).
+ROWS4 = {"pt4_stream_hard_s07": ("stream_v5e8", 10_000, True, (0, 7))}
 
 # The reference's rows (BASELINE.md, the "with-GAN" column of :678-685 and
 # the rows it cites): (preset, steps, hard, seeds) of each queued tag.
@@ -98,3 +106,36 @@ def test_records_hold_the_queue():
         assert (res["preset"], res["steps"], res["hard"], tuple(res["seeds"])) == (
             preset, steps, hard, seeds), r
         assert len(res["si_sdr_improvement_per_seed"]) == len(seeds)
+
+
+def test_four_card_queue_rows_run_the_protocol_under_torchrun():
+    """r7pt: each row a fresh tag (in no other round's records) and the
+    port's protocol on its reference row, launched by torchrun at four
+    ranks on one host, at the preset's own global batch (no override)."""
+    queue = run_queue.parse_queue(str(QUEUE4))
+    assert [t for t, _ in queue] == list(ROWS4)
+    other = {json.loads(ln)["tag"] for f in (R5_RECORDS, RECORDS)
+             for ln in f.read_text().splitlines() if ln.strip()}
+    for tag, cmd in queue:
+        assert tag.startswith("pt4_") and tag not in other and tag not in ROWS
+        argv = shlex.split(cmd)
+        assert argv[:len(TORCHRUN4)] == TORCHRUN4, cmd
+        module, preset, steps, hard, seeds, rest = _parse(
+            "python3 -m " + shlex.join(argv[len(TORCHRUN4):]))
+        assert module == MODULE and rest == []
+        assert (preset, steps, hard, seeds) == ROWS4[tag]
+
+
+def test_four_card_records_hold_the_queue():
+    """Every r7pt record names its queued row with the command as queued,
+    ran to rc 0 and reports the row's preset, steps, protocol and seeds."""
+    records = [json.loads(ln) for ln in RECORDS4.read_text().splitlines() if ln.strip()]
+    queue = dict(run_queue.parse_queue(str(QUEUE4)))
+    assert records and [r["tag"] for r in records] == list(
+        dict.fromkeys(r["tag"] for r in records))
+    for r in records:
+        assert r["cmd"] == queue[r["tag"]] and r["rc"] == 0, r
+        res = r["result"]
+        assert (res["preset"], res["steps"], res["hard"], tuple(res["seeds"])) == \
+            ROWS4[r["tag"]], r
+        assert len(res["si_sdr_improvement_per_seed"]) == len(ROWS4[r["tag"]][3])

@@ -32,6 +32,7 @@ from gan_sass_tf_tpu_torch import models as tmodels
 from gan_sass_tf_tpu_torch.infer import streaming
 from gan_sass_tf_tpu_torch.infer.separate import separate_fn_for
 from gan_sass_tf_tpu_torch.ops import dispatch
+from gan_sass_tf_tpu_torch.parallel import DataParallel
 from gan_sass_tf_tpu_torch.train import Experiment, graphed
 from gan_sass_tf_tpu_torch.train.step import (
     build_eval_step,
@@ -90,7 +91,7 @@ def test_memo_keyed_by_config_and_generator_bounded_at_eight(name):
     memo.cache_clear()
     cfg, other_cfg = _cfg(), _cfg(chunk_seconds=0.5)
     gs = [torch.nn.Module() for _ in range(graphed.MEMO_SIZE)]
-    args = [0] if name == "eval_fn_for" else []        # eval_fn_for's rank
+    args = [DataParallel()] if name == "eval_fn_for" else []   # eval_fn_for's dp
     first = memo(cfg, gs[0], *args)
     assert memo(cfg, gs[0], *args) is first
     oldest = memo(other_cfg, gs[0], *args)
@@ -115,7 +116,7 @@ def test_memo_holds_the_generator_weakly(name):
     memo = MEMOS[name]
     memo.cache_clear()
     cfg = _cfg()
-    args = [0] if name == "eval_fn_for" else []
+    args = [DataParallel()] if name == "eval_fn_for" else []
     g, kept = tmodels.build_generator(cfg, "cpu", seed=1), torch.nn.Module()
     memo(cfg, g, *args)
     memo(_cfg(chunk_seconds=0.5), g, *args)
@@ -262,7 +263,7 @@ def test_eval_step_with_a_tensor_seed_is_the_int_seed_and_jax_step():
     step = build_eval_step(cfg, g)
     by_int = step(src, 10_003)
     by_tensor = step(src, torch.tensor(10_003, dtype=torch.int64))
-    memo = eval_fn_for(cfg, g, 0)(src, torch.tensor(10_003, dtype=torch.int64))
+    memo = eval_fn_for(cfg, g)(src, torch.tensor(10_003, dtype=torch.int64))
     ref = jax.jit(j_build_eval_step(_jax(cfg), jmodels.build_generator(_jax(cfg))))(
         params, jnp.asarray(sources), jax.random.PRNGKey(10_003))
     assert set(by_int) == set(ref) == {"si_sdr", "si_sdr_mix", "si_sdr_improvement"}
@@ -273,7 +274,7 @@ def test_eval_step_with_a_tensor_seed_is_the_int_seed_and_jax_step():
 
 def test_experiment_separate_fn_and_evaluate_use_the_memos(monkeypatch):
     """Experiment.separate_fn is the memo of its eval G, and evaluate()
-    scores every batch through eval_fn_for(cfg, eval G, rank)."""
+    scores every batch through eval_fn_for(cfg, eval G, its DataParallel)."""
     from gan_sass_tf_tpu_torch.train import experiment
 
     cfg = _cfg()
@@ -283,9 +284,9 @@ def test_experiment_separate_fn_and_evaluate_use_the_memos(monkeypatch):
     assert exp.separate_fn is separate_fn_for(cfg, g)
     seeds = []
 
-    def recording(cfg_, g_, rank):
-        assert (cfg_, g_, rank) == (cfg, g, 0)
-        scores = eval_fn_for(cfg_, g_, rank)
+    def recording(cfg_, g_, dp):
+        assert (cfg_, g_, dp) == (cfg, g, exp.dp)
+        scores = eval_fn_for(cfg_, g_, dp)
 
         def call(sources, seed):
             seeds.append(int(seed))
