@@ -65,7 +65,16 @@ Phases, one JSON line each:
               capture recorded; a
               dispatch of 4 replays and a short one of 2 run exactly 6
               steps; a reseed captures anew; a checkpoint loaded into
-              the captured state is what the next replay trains on
+              the captured state is what the next replay trains on.
+              Then the same in host-batch mode (data.device_bank off) for
+              wsj0_logmel b16 and b128 (synthetic) and stream_v5e8 b32 on
+              a fixture wav corpus: every step copies a host batch into
+              the static batch the graph was captured on, replays and
+              eager steps from one checkpoint take the same batches;
+              train(6) is 6 dispatches of one replay, no new capture; a
+              batch of another shape or dtype raises; the producer's ms a
+              batch on the host alone; train()'s mixture-s/s against the
+              same config graphed in bank mode
     bench     `python -m gan_sass_tf_tpu_torch.bench` as a process at 30
               timed steps: one JSON line with the root bench.py's four
               keys, value > 0, printed again on a line of its own
@@ -119,7 +128,9 @@ Phases, one JSON line each:
               one checkpoint (the capture holds the NCCL all-reduces), the
               wall ms of a replayed step, a traced replay's device ms and
               NCCL kernels; on the first mesh the eval graph (its
-              all-reduce captured) against the eager group eval; `cli
+              all-reduce captured) against the eager group eval, and the
+              same replays against eager steps in host-batch mode, each
+              rank copying its rows of one global batch; `cli
               separate --streaming`
               (batch mode) of the stream phase's 60 s wav over the group
               against this process's (>= 40 dB a segment after the best
@@ -338,6 +349,7 @@ from gan_sass_tf_tpu_torch.scripts import (
 from gan_sass_tf_tpu_torch.losses.pit import permutations_for
 from gan_sass_tf_tpu_torch.train import Experiment, build_train_step, graphed
 from gan_sass_tf_tpu_torch.train import step as train_step
+from gan_sass_tf_tpu_torch.train.experiment import HostBatches
 from gan_sass_tf_tpu_torch.utils import profiler, tb_events
 from gan_sass_tf_tpu_torch.utils.wav_io import read_wav, write_wav
 
@@ -388,6 +400,8 @@ SR_STREAM = 16000                    # stream_v5e8
 B_PIT3, S_PIT3 = 16, 3               # 3src_pit: 16 x 3 s at 8 kHz (F = 184), 3 sources
 PIT3_STEPS, PIT3_QUALITY_STEPS = 5, 4
 GRAPH_STEPS, GRAPH_TIMED, GRAPH_SPD = 4, 4, 4   # the graph phase, each config
+HOST_RATE_STEPS = 24                 # train() steps timed, host-batch against bank
+PRODUCER_SAMPLES = 5                 # timed host_batch() calls, host-batch cases
 BENCH_STEPS_SMOKE, BENCH_TIMEOUT_S = 30, 300     # the bench phase
 # The roofline phase: wsj0_logmel at the bench's batch, stream_v5e8 at its own.
 ROOFLINE_RUNS, ROOFLINE_STEPS = (("wsj0_logmel", B_BENCH), ("stream_v5e8", 32)), 30
@@ -396,6 +410,7 @@ T_STREAM = 60 * SR_STREAM            # the streamed mixture: 62 chunks of 16 000
 STREAM_SAMPLES = 3                   # timed streams per mode and DSP path
 SEED_SERVE = 19                      # the serve_graph phase's own generator
 SERVE_SAMPLES = 3                    # timed calls a side and path, in turns
+SERVE_TRACE_CALLS = 3                # traced calls a side and path (device_spans)
 SERVE_EVAL_BATCHES = 2
 SERVE_EVAL_TOL_DB = 1e-3             # graphed vs eager eval scores, where not bit-equal
 DP_STEP_SAMPLES = 12                 # timed train steps, dp phase, each side
@@ -442,6 +457,7 @@ TRACE_KERNELS = {"stft_features_kernel": ("stft_features", "stft"),
                  "threefry_dropout_kernel": ("threefry_dropout", "threefry_dropout_bwd"),
                  "threefry_noise_kernel": ("threefry_noise",)}
 TRACE_SPAN = "chip_smoke.traced_calls"   # the calls device_spans counts
+TRACE_CLOSE = "chip_smoke.trace_close"   # the fills closing a device_spans trace
 # A train step's device time by kernel family: substrings of the lower-cased
 # kernel name, first match wins.  cuDNN's layout transposes are
 # nchwToNhwc/nhwcToNchw kernels; its conv kernels carry "nhwc" too.
@@ -1001,22 +1017,58 @@ def phase_train(dev):
     return exp, counts
 
 
+def graph_ready(c):
+    """A graph-phase config: `c` in dispatches of GRAPH_SPD steps, with no
+    log, eval or checkpoint of its own, on one device's mesh."""
+    quiet = {"steps_per_dispatch": GRAPH_SPD, "log_every": 10 ** 9,
+             "eval_every": 10 ** 9, "ckpt_every": 10 ** 9}
+    return c.replace(mesh=dataclasses.replace(c.mesh, data_axis_size=-1),
+                     train=dataclasses.replace(c.train, **quiet))
+
+
 def graph_configs() -> list:
-    """(name, config) of each train step the graph phase captures: the five
-    presets at their own batch, the every-option stream_v5e8 of the
-    options phase and the bench's wsj0_logmel at batch B_BENCH; a dispatch
-    of GRAPH_SPD steps, no log, eval or checkpoint of their own."""
+    """(name, config) of each train step the graph phase captures in
+    device-bank mode: the five presets at their own batch, the every-option
+    stream_v5e8 of the options phase and the bench's wsj0_logmel at batch
+    B_BENCH, on synthetic data (graph_ready)."""
     out = [(n, config.get_config(n)) for n in ("2src_toy_cpu",) + PRESETS]
     opts = config.get_config("stream_v5e8")
     out.append(("stream_v5e8 every option",
                 cli._apply_overrides(opts, list(STREAM_OPTIONS))))
     out.append((f"wsj0_logmel b{B_BENCH} (bench)", bench_config(B_BENCH, 1)))
-    quiet = {"steps_per_dispatch": GRAPH_SPD, "log_every": 10 ** 9,
-             "eval_every": 10 ** 9, "ckpt_every": 10 ** 9}
-    return [(n, c.replace(data=dataclasses.replace(c.data, dataset="synthetic"),
-                          mesh=dataclasses.replace(c.mesh, data_axis_size=-1),
-                          train=dataclasses.replace(c.train, **quiet)))
+    return [(n, graph_ready(c.replace(data=dataclasses.replace(c.data, dataset="synthetic"))))
             for n, c in out]
+
+
+def host_graph_configs(corpus: Path) -> list:
+    """(name, config) of each host-batch case of the graph phase
+    (data.device_bank off, full width, graph_ready): (a) the main path,
+    wsj0_logmel at its own batch 16 on synthetic data (K1, the threefry
+    draws); (b) the bench's workload, wsj0_logmel b128 of 3 s; (c) a wav
+    corpus, stream_v5e8 at its own batch 32 on the fixture corpus at
+    `corpus` (K1, K3, K3's backward, the threefry draws)."""
+    stream = config.get_config("stream_v5e8")
+    out = [("wsj0_logmel b16 host", config.get_config("wsj0_logmel")),
+           (f"wsj0_logmel b{B_BENCH} host (bench)", bench_config(B_BENCH, 1)),
+           ("stream_v5e8 b32 wav_dir host", stream.replace(data=dataclasses.replace(
+               stream.data, dataset="wav_dir", data_dir=str(corpus))))]
+    return [(n, graph_ready(c.replace(data=dataclasses.replace(c.data, device_bank=False))))
+            for n, c in out]
+
+
+def save_point(exp, where: Path, batches=None) -> None:
+    """A checkpoint of `exp` at `where` and, in host-batch mode, the place
+    in `batches` (a HostBatches) that its steps go on from."""
+    exp._write(str(where), int(exp.state.step), 1)
+    if batches is not None:
+        (where / "batches_at").write_text(str(batches.at))
+
+
+def load_point(exp, where: Path, step: int, batches=None) -> None:
+    """Back to a save_point: the state and the next host batch."""
+    exp._read(str(where), step)
+    if batches is not None:
+        batches.at = int((where / "batches_at").read_text())
 
 
 def state_gap(a: dict, b: dict) -> dict:
@@ -1036,12 +1088,13 @@ def device_spans(fn, calls=PROFILE_STEPS, open_calls=0) -> dict:
     work a CUDA graph runs side by side counts once), the device events a
     call and the launches of each of TRACE_KERNELS a call, as the trace
     saw them.  The trace may drop the device records of the first kernels
-    it sees, and a kernel's device start may read up to a millisecond
-    before its host launch: TRACE_OPEN_FILLS fills, a synchronize and
-    PROFILE_PAD_S idle open the trace ahead of the calls, and what the
-    device started from half that pad before the calls' span on is
-    counted (by its own start: a replay's kernels run past the span's
-    host window).  "kernels_in_trace" counts TRACE_KERNELS over the
+    it sees, and its last ones, and a kernel's device start may read up
+    to a millisecond before its host launch: TRACE_OPEN_FILLS fills, a
+    synchronize and PROFILE_PAD_S idle open the trace ahead of the calls,
+    a synchronize, that idle and as many fills (TRACE_CLOSE) close it
+    after them, and what the device started from half that pad before the
+    calls' span to half that pad before the closing fills is counted (by
+    its own start: a replay's kernels run past the span's host window).  "kernels_in_trace" counts TRACE_KERNELS over the
     whole trace; "span_ms" the host's ms a call over the traced calls;
     "nccl_kernels" and "nccl_ms" the NCCL kernels a call and their
     device ms.
@@ -1062,10 +1115,18 @@ def device_spans(fn, calls=PROFILE_STEPS, open_calls=0) -> dict:
             with torch.profiler.record_function(TRACE_SPAN):
                 for _ in range(calls):
                     fn()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+            with torch.profiler.record_function(TRACE_CLOSE):
+                for _ in range(TRACE_OPEN_FILLS):
+                    fill.add_(1.0)
         trace = profiler.load_trace(profiler.trace_files(tmp)[-1])
-    (span,) = [e for e in profiler.annotations(trace) if e["name"] == TRACE_SPAN]
+    marks = {e["name"]: e for e in profiler.annotations(trace)
+             if e["name"] in (TRACE_SPAN, TRACE_CLOSE)}
+    span, close = marks[TRACE_SPAN], marks[TRACE_CLOSE]
     every = profiler.device_events(trace)
-    events = [e for e in every if e["ts"] >= span["ts"] - PROFILE_PAD_S * 0.5e6]
+    events = [e for e in every if span["ts"] - PROFILE_PAD_S * 0.5e6 <= e["ts"]
+              < close["ts"] - PROFILE_PAD_S * 0.5e6]
     busy, end = 0.0, float("-inf")
     for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in events):
         if b > end:
@@ -1082,25 +1143,29 @@ def device_spans(fn, calls=PROFILE_STEPS, open_calls=0) -> dict:
                                  for n in TRACE_KERNELS}}
 
 
-def eager_steps(exp, n: int) -> dict:
-    """n eager steps of exp: the last metrics, the state, the step."""
+def eager_steps(exp, n: int, batches=None) -> dict:
+    """n eager steps of exp (in host-batch mode on the next host batches of
+    `batches`, each copied to the device): the last metrics, the state, the
+    step."""
     for _ in range(n):
-        m = exp._step(exp._bank)
+        m = exp._step(exp._step_data(batches))
     return {"metrics": {k: float(v) for k, v in m.items()},
             "state": flat_tensors(exp.state), "step": int(exp.state.step)}
 
 
-def replays_vs_eager(name: str, exp, tmp: Path) -> dict:
+def replays_vs_eager(name: str, exp, tmp: Path, batches=None) -> dict:
     """(1) A checkpoint of the fresh state; WARMUP_STEPS + 1 steps through
     run_steps (the eager warm-up, the capture, one replay), then the
     checkpoint loaded into the captured state and as many eager steps: the
     capture moved nothing and its first replay is the eager run's next
     step when the two states hold the same bits.  (2) A checkpoint,
     GRAPH_STEPS replays, the checkpoint loaded again, GRAPH_STEPS eager
-    steps: the states and the metrics after them."""
+    steps: the states and the metrics after them.  In host-batch mode
+    (`batches`, a HostBatches) both sides of (1) and of (2) take the same
+    host batches, the graphed side copied into the static batch."""
     w = graphed.WARMUP_STEPS
-    exp._write(str(tmp / "a"), 0, 1)
-    exp.run_steps(w + 1)
+    save_point(exp, tmp / "a", batches)
+    exp.run_steps(w + 1, batches)
     torch.cuda.synchronize()
     g = exp._graphed
     check(g is not None and g.graph is not None and g.replays == 1
@@ -1108,16 +1173,16 @@ def replays_vs_eager(name: str, exp, tmp: Path) -> dict:
           f"graph {name}: after {w + 1} steps: captured {g and g.graph is not None}, "
           f"replays {g and g.replays}, step {int(exp.state.step)}")
     first = flat_tensors(exp.state)
-    exp._read(str(tmp / "a"), 0)
+    load_point(exp, tmp / "a", 0, batches)
     check(exp._graphed is g and int(exp.state.step) == 0,
           f"graph {name}: loading a checkpoint replaced the capture")
-    first_gap = state_gap(first, eager_steps(exp, w + 1)["state"])
-    exp._write(str(tmp / "b"), w + 1, 1)
-    m = exp.run_steps(GRAPH_STEPS)
+    first_gap = state_gap(first, eager_steps(exp, w + 1, batches)["state"])
+    save_point(exp, tmp / "b", batches)
+    m = exp.run_steps(GRAPH_STEPS, batches)
     got = {"metrics": {k: float(v) for k, v in m.items()},
            "state": flat_tensors(exp.state), "step": int(exp.state.step)}
-    exp._read(str(tmp / "b"), w + 1)
-    want = eager_steps(exp, GRAPH_STEPS)
+    load_point(exp, tmp / "b", w + 1, batches)
+    want = eager_steps(exp, GRAPH_STEPS, batches)
     check(got["step"] == want["step"] == w + 1 + GRAPH_STEPS,
           f"graph {name}: steps {got['step']} graphed, {want['step']} eager")
     check(all(np.isfinite(v) for v in got["metrics"].values()),
@@ -1125,6 +1190,76 @@ def replays_vs_eager(name: str, exp, tmp: Path) -> dict:
     return {"first_replay_vs_eager": first_gap,
             "replays_vs_eager": state_gap(got["state"], want["state"]),
             "metrics": {"graphed": got["metrics"], "eager": want["metrics"]}}
+
+
+def synced_walls(fns: dict, samples: int) -> dict:
+    """The median wall ms of `samples` synchronized calls of each of `fns`,
+    in turns (a, b, b, a)."""
+    names = list(fns)
+    walls = {k: [] for k in names}
+    for i in range(len(names) * samples):
+        k = (names + names[::-1])[i % (2 * len(names))]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fns[k]()
+        torch.cuda.synchronize()
+        walls[k].append((time.perf_counter() - t0) * 1e3)
+    return {k: statistics.median(v) for k, v in walls.items()}
+
+
+def host_batch_report(name: str, exp, cfg, dev) -> dict:
+    """Host-batch mode's own checks and readings, after the capture: a
+    batch of another shape or dtype raises ValueError with no step, replay
+    or capture; the ms of the producer's work for one batch on the host
+    alone (PRODUCER_SAMPLES calls of host_batch: the dataset's draw and
+    the page-locked copy, and the draw alone); train()'s mixture-s/s over
+    HOST_RATE_STEPS steps against the same config in device-bank mode,
+    graphed and captured first, with its replay's wall ms, and the
+    launches of that bank-mode run ("bank_launches", which phase_graph
+    keeps out of the host-batch path's counts)."""
+    g = exp._graphed
+    shape = tuple(exp._batch.shape)
+    refused = {}
+    for kind, bad in (("shape", torch.zeros(shape[:-1] + (shape[-1] - 1,))),
+                      ("dtype", torch.zeros(shape, dtype=torch.float64))):
+        before = (int(exp.state.step), g.replays, graphed.captures())
+        try:
+            exp.run_steps(1, lambda: bad)
+            refused[kind] = "no error"
+        except ValueError as exc:
+            refused[kind] = str(exc)
+        check("captured on" in refused[kind]
+              and before == (int(exp.state.step), g.replays, graphed.captures()),
+              f"graph {name}: a host batch of another {kind}: {refused[kind]}, "
+              f"(step, replays, captures) {before} -> "
+              f"{(int(exp.state.step), g.replays, graphed.captures())}")
+    timed = {"host_batch": exp.host_batch, "draw": exp.dataset.batch}
+    producer = {}
+    for k, fn in timed.items():
+        ms = []
+        for _ in range(PRODUCER_SAMPLES):
+            t0 = time.perf_counter()
+            fn()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        producer[k] = statistics.median(ms)
+    rate = {"host": exp.train(num_steps=HOST_RATE_STEPS)["mixture_sec_per_sec"]}
+    check(exp._graphed is g, f"graph {name}: train({HOST_RATE_STEPS}) recaptured")
+    before = launch_counts()
+    bank = Experiment(cfg.replace(data=dataclasses.replace(cfg.data, device_bank=True)),
+                      device=dev)
+    bank.run_steps(graphed.WARMUP_STEPS + 1)
+    rate["bank"] = bank.train(num_steps=HOST_RATE_STEPS)["mixture_sec_per_sec"]
+    bank_wall = synced_walls({"bank": lambda: bank.run_steps(1)}, GRAPH_TIMED)["bank"]
+    check(all(math.isfinite(v) and v > 0 for v in rate.values()),
+          f"graph {name}: train() rates {rate}")
+    del bank
+    after = launch_counts()
+    return {"refused": refused, "producer_ms": producer,
+            "train_mixture_s_per_s": rate, "train_steps": HOST_RATE_STEPS,
+            "host_over_bank": rate["host"] / rate["bank"],
+            "bank_replay_wall_ms": bank_wall,
+            "bank_launches": {k: v - before[k] for k, v in after.items()},
+            "batch_mb": math.prod(shape) * 4 / 1e6}
 
 
 def graph_case(name: str, cfg, dev, tmp: Path) -> dict:
@@ -1139,28 +1274,42 @@ def graph_case(name: str, cfg, dev, tmp: Path) -> dict:
     launches that the trace of replays shows a step held to those the
     capture recorded, from which the launch counts of replays are
     inferred (graphed.launch_correction); (4) train() of
-    GRAPH_SPD + 2 steps: a dispatch of GRAPH_SPD replays and a short one
-    of 2, exactly that many steps, no new capture; (5) reseed, then
-    WARMUP_STEPS + 1 steps: a new capture on the new state, finite."""
+    GRAPH_SPD + 2 steps: exactly that many steps and replays, no new
+    capture (in bank mode a dispatch of GRAPH_SPD replays and a short one
+    of 2, in host-batch mode as many dispatches of one, each on a batch of
+    the prefetch thread); (5) in host-batch mode host_batch_report;
+    (6) reseed, then WARMUP_STEPS + 1 steps: a new capture on the new
+    state (and the same static batch), finite.
+
+    In host-batch mode every step takes a host batch of a HostBatches:
+    replays and eager steps from one checkpoint the same batches, the
+    timed steps (each with its batch's copy to the device) the kept ones
+    again."""
     w = graphed.WARMUP_STEPS
     exp = Experiment(cfg, device=dev)
     check(exp.graphed, f"graph {name}: Experiment.graphed is False")
+    host = not exp._use_bank
+    batches = HostBatches(exp, w + 1 + GRAPH_STEPS) if host else None
     out = {"config": name, "batch": cfg.train.batch_size,
-           **replays_vs_eager(name, exp, tmp)}
+           "data": "host" if host else "bank",
+           **replays_vs_eager(name, exp, tmp, batches)}
     g = exp._graphed
     if not (out["first_replay_vs_eager"]["same_bits"]
             and out["replays_vs_eager"]["same_bits"]):
-        exp._read(str(tmp / "b"), w + 1)
-        once = eager_steps(exp, GRAPH_STEPS)["state"]
-        exp._read(str(tmp / "b"), w + 1)
-        out["eager_vs_eager"] = state_gap(once, eager_steps(exp, GRAPH_STEPS)["state"])
+        load_point(exp, tmp / "b", w + 1, batches)
+        once = eager_steps(exp, GRAPH_STEPS, batches)["state"]
+        load_point(exp, tmp / "b", w + 1, batches)
+        out["eager_vs_eager"] = state_gap(once, eager_steps(exp, GRAPH_STEPS, batches)["state"])
         check(not out["eager_vs_eager"]["same_bits"],
               f"graph {name}: replays differ from eager steps that agree with "
               f"each other: {out}")
         torch.backends.cudnn.deterministic = True
         try:
             (tmp / "det").mkdir()
-            det = replays_vs_eager(name, Experiment(cfg, device=dev), tmp / "det")
+            det_exp = Experiment(cfg, device=dev)
+            det = replays_vs_eager(name, det_exp, tmp / "det", HostBatches(
+                det_exp, w + 1 + GRAPH_STEPS) if host else None)
+            del det_exp
         finally:
             torch.backends.cudnn.deterministic = False
         out["cudnn_deterministic"] = {k: det[k] for k in ("first_replay_vs_eager",
@@ -1168,17 +1317,11 @@ def graph_case(name: str, cfg, dev, tmp: Path) -> dict:
         check(all(v["same_bits"] for v in out["cudnn_deterministic"].values()),
               f"graph {name}: with cudnn.deterministic: {out['cudnn_deterministic']}")
 
-    walls = {"graphed": [], "eager": []}
-    for i in range(2 * GRAPH_TIMED):
-        mode = ("graphed", "eager", "eager", "graphed")[i % 4]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        exp.run_steps(1) if mode == "graphed" else exp._step(exp._bank)
-        torch.cuda.synchronize()
-        walls[mode].append((time.perf_counter() - t0) * 1e3)
-    wall = {k: statistics.median(v) for k, v in walls.items()}
-    device = {"eager": device_spans(lambda: exp._step(exp._bank)),
-              "graphed": device_spans(lambda: exp.run_steps(1))}
+    steps = {"graphed": lambda: exp.run_steps(1, batches),
+             "eager": lambda: exp._step(exp._step_data(batches))}
+    wall = synced_walls(steps, GRAPH_TIMED)
+    device = {"eager": device_spans(steps["eager"]),
+              "graphed": device_spans(steps["graphed"])}
     recorded = {n: sum(g.per_replay[k] for k in keys)
                 for n, keys in TRACE_KERNELS.items()}
     check(device["graphed"]["kernels"] == device["eager"]["kernels"] == recorded,
@@ -1189,19 +1332,24 @@ def graph_case(name: str, cfg, dev, tmp: Path) -> dict:
           f"{device['graphed']['kernels_in_trace']}, eager "
           f"{device['eager']['kernels_in_trace']}")
 
-    step0, replays0 = int(exp.state.step), g.replays
+    step0, replays0, captures0 = int(exp.state.step), g.replays, graphed.captures()
     exp.train(num_steps=GRAPH_SPD + 2)
     dispatched = {"steps": int(exp.state.step) - step0,
-                  "replays": g.replays - replays0}
+                  "replays": g.replays - replays0,
+                  "captures": graphed.captures() - captures0}
     check(exp._graphed is g and dispatched == {"steps": GRAPH_SPD + 2,
-                                               "replays": GRAPH_SPD + 2},
+                                               "replays": GRAPH_SPD + 2, "captures": 0},
           f"graph {name}: train({GRAPH_SPD + 2}) at {GRAPH_SPD} a dispatch: "
           f"{dispatched}, recaptured {exp._graphed is not g}")
+    if host:
+        out["host_batches"] = host_batch_report(name, exp, cfg, dev)
 
+    static = exp._batch
     exp.reseed(cfg.train.seed + 1)
     m = exp.run_steps(w + 1)
     g2 = exp._graphed
     check(g2 is not g and g2.state is exp.state and g2.replays == 1
+          and g2.data is (exp._bank if not host else static)
           and all(np.isfinite(float(v)) for v in m.values()),
           f"graph {name}: no new capture after reseed")
     out.update(wall_ms=wall, device_ms=device,
@@ -1211,32 +1359,59 @@ def graph_case(name: str, cfg, dev, tmp: Path) -> dict:
                launches_per_replay_traced=device["graphed"]["kernels"],
                replays=g.replays,
                dispatch=dispatched)
-    del exp, g, g2
+    del exp, g, g2, batches, steps
     gc.collect()
     torch.cuda.empty_cache()
     return out
 
 
-def phase_graph(dev, tmp: Path) -> dict:
-    """Each train step of graph_configs() as a captured CUDA graph against
-    the eager step (graph_case), and the launches the replays made."""
-    cases = []
-    reset_launch_counts()
-    for i, (name, cfg) in enumerate(graph_configs()):
-        (tmp / str(i)).mkdir()
-        cases.append(graph_case(name, cfg, dev, tmp / str(i)))
-        emit("graph", **cases[-1])
-    torch.cuda.synchronize()
-    counts = launch_counts()
-    emit("graph", warmup_steps=graphed.WARMUP_STEPS, steps=GRAPH_STEPS,
-         timed=GRAPH_TIMED, configs=[c["config"] for c in cases], launches=counts,
-         note="launches: the wrappers' counts plus launches per capture x replays "
-              "(graphed.launch_correction), each config's per capture held to "
-              "its traced replays (launches_per_replay_traced); busy: the union "
-              "of the device's "
-              "kernel, copy and fill intervals a step (torch.profiler) over the "
-              "median synchronized wall ms a step")
-    return counts
+def phase_graph(dev, tmp: Path) -> tuple:
+    """Each train step of graph_configs() (device bank) and of
+    host_graph_configs() (host batches, the wav corpus written under
+    `tmp`) as a captured CUDA graph against the eager step (graph_case);
+    returns the launches of the bank cases, those of the host-batch
+    cases' own runs, and those of the bank-mode runs that the host-batch
+    cases' train() rates are compared with (host_batch_report).  The
+    host-batch cases must record K1 twice a replay, (c) also K3 and its
+    backward once, and a threefry key launch."""
+    corpus = tmp / "corpus"
+    write_fixture_corpus(str(corpus), n_speakers=6, utts_per_speaker=4,
+                         seconds=3.0, sample_rate=SR_STREAM, seed=SEED)
+    counts = {}
+    for mode, configs in (("bank", graph_configs()), ("host", host_graph_configs(corpus))):
+        cases = []
+        reset_launch_counts()
+        for i, (name, cfg) in enumerate(configs):
+            (tmp / mode / str(i)).mkdir(parents=True)
+            cases.append(graph_case(name, cfg, dev, tmp / mode / str(i)))
+            emit("graph", **cases[-1])
+            if mode == "host":
+                per = cases[-1]["launches_per_replay"]
+                wav = cfg.loss.recon_domain == "wav"
+                check(per["stft_features"] == 2 and per["threefry_keys"] >= 1
+                      and per["istft"] == per["istft_bwd"] == int(wav),
+                      f"graph {name}: launches a replay {per}")
+        torch.cuda.synchronize()
+        counts[mode] = launch_counts()
+        if mode == "host":
+            counts["host_bank_rate"] = {k: sum(c["host_batches"]["bank_launches"][k]
+                                               for c in cases) for k in counts[mode]}
+            counts[mode] = {k: v - counts["host_bank_rate"][k]
+                            for k, v in counts[mode].items()}
+        emit("graph", data=mode, warmup_steps=graphed.WARMUP_STEPS, steps=GRAPH_STEPS,
+             timed=GRAPH_TIMED, configs=[c["config"] for c in cases],
+             launches=counts[mode],
+             **({"bank_rate_launches": counts["host_bank_rate"]} if mode == "host" else {}),
+             note="launches: the wrappers' counts plus launches per capture x replays "
+                  "(graphed.launch_correction), each config's per capture held to "
+                  "its traced replays (launches_per_replay_traced); busy: the union "
+                  "of the device's "
+                  "kernel, copy and fill intervals a step (torch.profiler) over the "
+                  "median synchronized wall ms a step; host-batch steps, graphed and "
+                  "eager, each copy a page-locked host batch drawn ahead; host "
+                  "launches leave out the bank-mode runs of the train() rate "
+                  "comparison (bank_rate_launches)")
+    return counts["bank"], counts["host"], counts["host_bank_rate"]
 
 
 def phase_bench(dev) -> dict:
@@ -1267,7 +1442,7 @@ def counted_step(cfg, dev):
     """(Experiment, its second train step counted by the bytes ledger, the
     kernel launches that step made): the first step is the warm-up."""
     exp = Experiment(cfg, workdir=None, device=dev)
-    exp._train_step(exp.state, bytes_ledger.step_data(exp), exp._train_key)
+    exp._train_step(exp.state, exp._step_data(), exp._train_key)
     reset_launch_counts()
     ledger = bytes_ledger.step_ledger(exp, warm=False)
     return exp, ledger, {k: v for k, v in launch_counts().items() if v}
@@ -1830,10 +2005,11 @@ def serve_path(name, run, inputs, calls_of, load_weights, captured_calls, second
     capture, K1 and K2 launched calls_of(x) times each, no capture made;
     (4) new weights loaded into G in place: the replay follows them, again
     against eager; (5) the walls graphed and eager in turns, mixture-s/s
-    and the device-busy share (the device's busy ms in a trace of one
-    call, over that call's host ms), and each TRACE_KERNELS kernel's launches in that
-    trace held to the capture's per-replay launches times the replays the
-    traced call made and to the traced eager call's.  `captured_calls()`
+    and the device-busy share (the device's busy ms a call in a trace of
+    SERVE_TRACE_CALLS calls, over a call's host ms there), and each
+    TRACE_KERNELS kernel's launches a call in that trace held to the
+    capture's per-replay launches times the replays a call makes and to
+    the traced eager calls'.  `captured_calls()`
     the path's GraphedCalls."""
     def eager(x):
         with eager_serving():
@@ -1883,8 +2059,8 @@ def serve_path(name, run, inputs, calls_of, load_weights, captured_calls, second
     replays = call.replays
     run(x0)
     per_call = call.replays - replays
-    spans = {"graphed": device_spans(lambda: run(x0), calls=1, open_calls=1),
-             "eager": device_spans(lambda: eager(x0), calls=1, open_calls=1)}
+    spans = {"graphed": device_spans(lambda: run(x0), SERVE_TRACE_CALLS, open_calls=1),
+             "eager": device_spans(lambda: eager(x0), SERVE_TRACE_CALLS, open_calls=1)}
     recorded = {n: sum(call.per_replay[k] for k in keys) * per_call
                 for n, keys in TRACE_KERNELS.items()}
     check(spans["graphed"]["kernels"] == spans["eager"]["kernels"] == recorded,
@@ -2180,14 +2356,8 @@ def dp_graph_report(cfg, dev, tmp: Path, stepped: dict) -> dict:
         check(row["first_replay_vs_eager"]["same_bits"]
               and row["replays_vs_eager"]["same_bits"],
               f"dp {name}: graphed group replays differ from eager group steps: {row}")
-        walls = []
-        for _ in range(DP_STEP_SAMPLES):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            exp.run_steps(1)
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e3)
-        row["graphed_wall_ms"] = statistics.median(walls)
+        row["graphed_wall_ms"] = synced_walls({"graphed": lambda: exp.run_steps(1)},
+                                              DP_STEP_SAMPLES)["graphed"]
         row["replay"] = device_spans(lambda: exp.run_steps(1))
         check(row["replay"]["nccl_kernels"] > 0,
               f"dp {name}: no NCCL kernel in a traced replay: {row['replay']}")
@@ -2199,6 +2369,32 @@ def dp_graph_report(cfg, dev, tmp: Path, stepped: dict) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     return out
+
+
+def dp_host_graph_report(cfg, dev, tmp: Path) -> dict:
+    """At W >= 2, alike on every rank: `cfg` in host-batch mode over the
+    (dcn 1 x data W) mesh, each rank copying its rows of one global batch
+    (every rank's dataset draws the same batches) into its static batch;
+    graphed group replays against eager group steps from one checkpoint on
+    the same batches, bit for bit (replays_vs_eager), and the median wall
+    ms of DP_STEP_SAMPLES synchronized replays, each with its copy."""
+    world = torch.distributed.get_world_size()
+    exp = Experiment(cfg.replace(
+        data=dataclasses.replace(cfg.data, device_bank=False),
+        mesh=dataclasses.replace(cfg.mesh, dcn_axis_size=1, data_axis_size=world)),
+        device=dev)
+    tmp.mkdir(parents=True)
+    batches = HostBatches(exp, graphed.WARMUP_STEPS + 1 + GRAPH_STEPS)
+    row = {"rows": [exp._rows.start, exp._rows.stop],
+           **replays_vs_eager("dp host batches", exp, tmp, batches)}
+    check(row["first_replay_vs_eager"]["same_bits"] and row["replays_vs_eager"]["same_bits"],
+          f"dp host batches: graphed group replays differ from eager group steps: {row}")
+    row["graphed_wall_ms"] = synced_walls(
+        {"graphed": lambda: exp.run_steps(1, batches)}, DP_STEP_SAMPLES)["graphed"]
+    del exp, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
 
 
 def dp_worker(spec_path: str) -> int:
@@ -2252,6 +2448,9 @@ def dp_worker(spec_path: str) -> int:
             note("graph report")
             res["graph"] = dp_graph_report(cfg, rank_device(spec["device"]),
                                            Path(f"{spec['out']}.graph{rank}"), params)
+            note("host-batch graph report")
+            res["graph_host"] = dp_host_graph_report(
+                cfg, rank_device(spec["device"]), Path(f"{spec['out']}.host{rank}"))
         chained, inner = [], streaming._chain_permutations
 
         def recording_chain(*a, **kw):
@@ -2508,6 +2707,14 @@ def phase_dp(dev, tmp: Path, sets=()):
             "launches_per_replay": step["graph"][m]["launches_per_replay"],
             **({"eval_by_rank": [r["graph"][m]["eval"] for r in ranks]}
                if "eval" in step["graph"][m] else {})} for m in meshes}
+        graphs["host_batches"] = {
+            "replays_vs_eager_same_bits": all(
+                r["graph_host"][k]["same_bits"] for r in ranks
+                for k in ("first_replay_vs_eager", "replays_vs_eager")),
+            "rows_by_rank": [r["graph_host"]["rows"] for r in ranks],
+            "graphed_wall_ms_by_rank": [r["graph_host"]["graphed_wall_ms"] for r in ranks]}
+        check(graphs["host_batches"]["replays_vs_eager_same_bits"],
+              f"dp host batches: {[r['graph_host'] for r in ranks]}")
 
     # Batch-mode streaming over the group against this process's.
     chained, inner = [], streaming._chain_permutations
@@ -2582,7 +2789,7 @@ def phase_dp(dev, tmp: Path, sets=()):
          "ring or tree kernels and a split batch (at world 1 NCCL completes each "
          "in-place SUM all-reduce without a kernel); so too the graphed group "
          "replays against eager group steps on the (dcn 1 x data W) and (dcn 2 x "
-         "data W/2) meshes, the eval graph's captured all-reduce against the eager "
+         "data W/2) meshes and in host-batch mode, the eval graph's captured all-reduce against the eager "
          "group eval, the NCCL kernels of a traced replay, the W >= 2 "
          "limits on the state (dp_state_gaps: Adam's moves, the moments, the "
          "buffers) and one-shot and scan `cli separate` under torchrun with "
@@ -4162,7 +4369,8 @@ def main() -> int:
     rng_rows = phase_rng(dev)
     exp, train_counts = phase_train(dev)
     with tempfile.TemporaryDirectory() as tmp:
-        graph_counts = phase_graph(dev, Path(tmp))
+        graph_counts, graph_host_counts, graph_host_bank_counts = phase_graph(
+            dev, Path(tmp))
     phase_bench(dev)
     phase_roofline(dev)
     with tempfile.TemporaryDirectory() as tmp:
@@ -4197,6 +4405,8 @@ def main() -> int:
          "source": "gan_sass_tf_tpu_torch/ops/csrc/stft_features.cu",
          "replaces": "gan_sass_tf_tpu/ops/pallas_stft.py:63",
          **by_path("stft_features", main_path=counts, graph=graph_counts,
+                   graph_host=graph_host_counts,
+                   graph_host_bank_rate=graph_host_bank_counts,
                    stream_batch=stream_launches["batch"],
                    stream_scan=stream_launches["scan"], serve_graph=serve_counts,
                    pit3_train=pit3_counts["train"], pit3_eval=pit3_counts["eval"],
@@ -4228,7 +4438,8 @@ def main() -> int:
          "source": "gan_sass_tf_tpu_torch/ops/csrc/masked_istft.cu",
          "replaces": "gan_sass_tf_tpu/ops/pallas_istft.py:71",
          **by_path("istft", train=train_counts, graph=graph_counts,
-                   workdir=workdir_counts,
+                   graph_host=graph_host_counts,
+                   graph_host_bank_rate=graph_host_bank_counts, workdir=workdir_counts,
                    dp_train=dp_counts["dp_train"],
                    options_stream_train=opt["options_stream_train"], **tools,
                    install=install),
@@ -4238,7 +4449,8 @@ def main() -> int:
          "source": "gan_sass_tf_tpu_torch/ops/csrc/stft_features.cu",
          "replaces": "gan_sass_tf_tpu/ops/pallas_istft.py:151",
          **by_path("istft_bwd", train=train_counts, graph=graph_counts,
-                   workdir=workdir_counts,
+                   graph_host=graph_host_counts,
+                   graph_host_bank_rate=graph_host_bank_counts, workdir=workdir_counts,
                    dp_train=dp_counts["dp_train"],
                    options_stream_train=opt["options_stream_train"], **tools,
                    install=install),
@@ -4256,7 +4468,9 @@ def main() -> int:
            "source": "gan_sass_tf_tpu_torch/ops/csrc/threefry.cu",
            "replaces": replaces,
            **by_path(name, train=train_counts, graph=graph_counts,
-                     workdir=workdir_counts, dp_train=dp_counts["dp_train"],
+                     graph_host=graph_host_counts,
+                     graph_host_bank_rate=graph_host_bank_counts, workdir=workdir_counts,
+                     dp_train=dp_counts["dp_train"],
                      options_stream_train=opt["options_stream_train"],
                      serve_graph=serve_counts),
            **rng_rows[name]}
@@ -4268,7 +4482,8 @@ def main() -> int:
         *({"name": name, "route": "cuda",
            "source": "gan_sass_tf_tpu_torch/ops/csrc/threefry.cu",
            "replaces": replaces,
-           **by_path(name, graph=graph_counts,
+           **by_path(name, graph=graph_counts, graph_host=graph_host_counts,
+                     graph_host_bank_rate=graph_host_bank_counts,
                      options_stream_train=opt["options_stream_train"]),
            **rng_rows[name]}
           for name, replaces in (

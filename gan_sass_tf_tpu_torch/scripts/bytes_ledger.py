@@ -555,20 +555,12 @@ def experiment_config(preset: str, batch: Optional[int] = None,
     return _apply_overrides(cfg, list(overrides))
 
 
-def step_data(exp) -> torch.Tensor:
-    """What the Experiment's next train step reads: its bank, or a host batch
-    on the device."""
-    if exp._use_bank:
-        return exp._bank
-    return exp._to_device(exp.dataset.batch()[exp._rows])
-
-
 def step_ledger(exp, warm: bool = True) -> Ledger:
     """One eager train step of `exp` counted, after one uncounted step where
     `warm` (the step's per-device tables are built at its first call)."""
     if warm:
-        exp._train_step(exp.state, step_data(exp), exp._train_key)
-    data = step_data(exp)
+        exp._train_step(exp.state, exp._step_data(), exp._train_key)
+    data = exp._step_data()
     ledger, _ = count(exp._train_step, exp.state, data, exp._train_key)
     if exp.device.type == "cuda":
         torch.cuda.synchronize(exp.device)

@@ -19,7 +19,11 @@ the JAX script's keys:
   {"preset", "batch", "device_ms_per_step", "buckets_us_per_step",
    "top_ops_us_per_step"}
 On the CPU (--device cpu) the host's outermost operators stand in for
-kernels.
+kernels.  With `--set data.device_bank=false` the steps run in host-batch
+mode: each takes one of POOL host batches drawn and page-locked ahead
+(`train.experiment.HostBatches`), copied to the device within the step's
+time, eager or graphed, as `Experiment.train` copies the prefetch
+thread's batches.
 
 On CUDA the step is then captured (`train/graphed.py`) and timed both
 ways, and one more JSON line comes before the last, the values unrounded:
@@ -31,7 +35,11 @@ ways, and one more JSON line comes before the last, the values unrounded:
                                        of STEPS steps each way)
    "nccl_ms": {"graphed", "eager"},    the NCCL kernels' part of device_ms
    "world",                            the ranks
-   "launches_per_replay"}              the capture's kernel launches
+   "launches_per_replay",              the capture's kernel launches
+   "host_batch_ms"}                    host-batch mode: the median ms of
+                                       SAMPLES host_batch() calls (drawing
+                                       one batch and page-locking it);
+                                       null with the device bank
 Under torchrun it joins the process group, data parallel as `cli train`
 (`python -m torch.distributed.run --standalone --nproc_per_node N -m
 gan_sass_tf_tpu_torch.scripts.profile_step stream_v5e8 32`): `batch` is
@@ -63,9 +71,10 @@ from gan_sass_tf_tpu_torch.scripts.quality_protocol import device_or_exit
 from gan_sass_tf_tpu_torch.utils import profiler
 
 STEPS, WARMUP, SAMPLES = 10, 3, 8
+POOL = 4                     # host batches drawn ahead in host-batch mode
 
 
-def profile_steps(exp, steps: int):
+def profile_steps(exp, steps: int, batches=None):
     """(device µs by bucket, device µs by kernel name) summed over `steps`
     traced train steps of `exp`."""
     with tempfile.TemporaryDirectory() as tmp:
@@ -73,7 +82,7 @@ def profile_steps(exp, steps: int):
         with profiler.profile_trace(tmp):
             for i in range(steps):
                 with profiler.step_range(first + i):
-                    exp._train_step(exp.state, exp._bank, exp._train_key)
+                    exp._train_step(exp.state, exp._step_data(batches), exp._train_key)
         events = profiler.load_trace(profiler.trace_files(tmp)[-1])
     within = profiler.annotations(events, profiler.STEP_PREFIX)
     buckets = profiler.attribute(events, profiler.STEP_RANGES, within)
@@ -114,13 +123,15 @@ def traced(fn, calls: int = STEPS):
             nccl / calls / 1e3)
 
 
-def time_graphed(exp) -> dict:
+def time_graphed(exp, batches=None) -> dict:
     """Wall, device and busy ms of `exp`'s captured step against its eager
-    step (the capture made here)."""
+    step (the capture made here), in host-batch mode each with the copy of
+    its batch."""
     from gan_sass_tf_tpu_torch.train.graphed import WARMUP_STEPS
 
-    exp.run_steps(WARMUP_STEPS + 1)            # the eager warm-up, the capture
-    steps = {"graphed": lambda: exp.run_steps(1), "eager": lambda: exp._step(exp._bank)}
+    exp.run_steps(WARMUP_STEPS + 1, batches)   # the eager warm-up, the capture
+    steps = {"graphed": lambda: exp.run_steps(1, batches),
+             "eager": lambda: exp._step(exp._step_data(batches))}
     walls = {k: [] for k in steps}
     for i in range(2 * SAMPLES):
         mode = ("graphed", "eager", "eager", "graphed")[i % 4]
@@ -132,10 +143,18 @@ def time_graphed(exp) -> dict:
     device, busy, nccl = {}, {}, {}
     for mode, fn in steps.items():
         device[mode], busy[mode], nccl[mode] = traced(fn)
+    host = None
+    if batches is not None:
+        host = []
+        for _ in range(SAMPLES):
+            t0 = time.perf_counter()
+            exp.host_batch()
+            host.append((time.perf_counter() - t0) * 1e3)
     return {"nvidia_smi": nvidia_smi(),
             "wall_ms": {k: statistics.median(v) for k, v in walls.items()},
             "device_ms": device, "busy_ms": busy, "nccl_ms": nccl,
-            "world": exp.dp.world, "launches_per_replay": exp._graphed.per_replay}
+            "world": exp.dp.world, "launches_per_replay": exp._graphed.per_replay,
+            "host_batch_ms": host and statistics.median(host)}
 
 
 def main(argv=None) -> int:
@@ -150,7 +169,7 @@ def main(argv=None) -> int:
 
 def profile(preset: str, batch: int, overrides, dev: torch.device) -> int:
     """main's work on this rank's device; rank 0 prints."""
-    from gan_sass_tf_tpu_torch.train import Experiment
+    from gan_sass_tf_tpu_torch.train.experiment import Experiment, HostBatches
 
     cfg = _apply_overrides(config.get_config(preset), overrides)
     cfg = cfg.replace(
@@ -158,15 +177,14 @@ def profile(preset: str, batch: int, overrides, dev: torch.device) -> int:
         train=dataclasses.replace(cfg.train, batch_size=batch),
         mesh=dataclasses.replace(cfg.mesh, data_axis_size=-1))
     exp = Experiment(cfg, workdir=None, device=dev)
-    if not exp._use_bank:
-        raise SystemExit("error: profile_step takes a device-bank preset")
+    batches = None if exp._use_bank else HostBatches(exp, POOL)
     for _ in range(WARMUP):
-        exp._train_step(exp.state, exp._bank, exp._train_key)
+        exp._train_step(exp.state, exp._step_data(batches), exp._train_key)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    agg, top = profile_steps(exp, STEPS)
+    agg, top = profile_steps(exp, STEPS, batches)
     total = sum(agg.values())
-    timing = time_graphed(exp) if exp.graphed else None
+    timing = time_graphed(exp, batches) if exp.graphed else None
     if not exp.dp.is_main:
         return 0
     print(f"{preset} batch={batch}: {total / STEPS / 1e3:.2f} ms/step "

@@ -64,7 +64,6 @@ from gan_sass_tf_tpu_torch.ops import cost
 from gan_sass_tf_tpu_torch.scripts import split_args
 from gan_sass_tf_tpu_torch.scripts.bytes_ledger import (
     experiment_config,
-    step_data,
     step_ledger,
 )
 from gan_sass_tf_tpu_torch.scripts.profile_step import nvidia_smi
@@ -98,7 +97,7 @@ def _events_ms(fn, n: int) -> float:
 def time_steps(exp, steps: int) -> dict:
     """ms a step: graphed (`run_steps(steps)`, after the warm-up and the
     capture) and eager, on the card; the eager step's wall ms on the CPU."""
-    eager = lambda: exp._step(step_data(exp))          # noqa: E731
+    eager = lambda: exp._step(exp._step_data())          # noqa: E731
     if exp.device.type != "cuda":
         t0 = time.perf_counter()
         for _ in range(steps):
@@ -117,11 +116,11 @@ def time_steps(exp, steps: int) -> dict:
 def unseen(exp, steps: int = PROFILE_STEPS) -> dict:
     """Device ms a step of all kernels and of the UNSEEN families' (by
     family and kernel), from torch.profiler over `steps` eager steps."""
-    exp._step(step_data(exp))
+    exp._step(exp._step_data())
     with tempfile.TemporaryDirectory() as tmp:
         with profiler.profile_trace(tmp):
             for _ in range(steps):
-                exp._step(step_data(exp))
+                exp._step(exp._step_data())
         events = profiler.device_events(profiler.load_trace(profiler.trace_files(tmp)[-1]))
     total = sum(e["dur"] for e in events) / steps / 1e3
     fams, kernels = {}, {}

@@ -25,16 +25,19 @@ The checkpoint format is the port's own; orbax checkpoints of the JAX
 package are refused (their G weights load through `--params`,
 models/convert.py).
 
-Where the steps run.  On a CUDA device in device-bank mode each train step
-is one replay of the step captured as a CUDA graph (`train/graphed.py`),
-after `graphed.WARMUP_STEPS` eager steps, and a dispatch replays it
-train.steps_per_dispatch times: the counterpart of the JAX package's
-scanned dispatch, which it runs in bank mode only.  The eager step runs
-instead on the CPU, in host-batch mode, under the debug tripwires (anomaly
-mode and the grad_fn checks cannot run inside a replay) and for the steps
-that `train(profile_steps=)` traces.  On CUDA, `evaluate` replays the eval
-captured for its G and batch shape (`train.step.eval_fn_for`) whatever
-the mode.
+Where the steps run.  On a CUDA device each train step is one replay of
+the step captured as a CUDA graph (`train/graphed.py`), after
+`graphed.WARMUP_STEPS` eager steps: the counterpart of the JAX package's
+jitted step.  In device-bank mode a dispatch replays it
+train.steps_per_dispatch times (the JAX package's scanned dispatch).  In
+host-batch mode a dispatch is one step, as in JAX: the prefetch thread
+draws and pins the next batch, and before each step the main thread copies
+it, asynchronously on the current stream, into one static device batch
+that the graph was captured on.  The eager step runs instead on the CPU,
+under the debug tripwires (anomaly mode and the grad_fn checks cannot run
+inside a replay) and for the steps that `train(profile_steps=)` traces.
+On CUDA, `evaluate` replays the eval captured for its G and batch shape
+(`train.step.eval_fn_for`) whatever the mode.
 """
 
 from __future__ import annotations
@@ -52,7 +55,7 @@ import torch
 from gan_sass_tf_tpu_torch.data import build_bank, make_dataset, prng_key
 from gan_sass_tf_tpu_torch.models import build_generator
 from gan_sass_tf_tpu_torch.parallel.mesh import data_parallel
-from gan_sass_tf_tpu_torch.train.graphed import GraphedStep
+from gan_sass_tf_tpu_torch.train.graphed import GraphedStep, capture_lock, pin
 from gan_sass_tf_tpu_torch.train.state import (
     TrainState,
     create_train_state,
@@ -168,6 +171,9 @@ class Experiment:
         self._use_bank = cfg.data.device_bank
         self._spd = cfg.train.steps_per_dispatch if self._use_bank else 1
         self._rows = self.dp.batch_rows(cfg.train.batch_size)
+        # Host-batch mode's static batch, this rank's rows on the device:
+        # made at the first step and never replaced (a capture holds it).
+        self._batch: Optional[torch.Tensor] = None
         self._train_step = build_train_step(
             cfg, from_bank=self._use_bank, local_batch=self.dp.local_batch,
             dp=self.dp)
@@ -313,34 +319,69 @@ class Experiment:
     # Train and eval loops
     # ------------------------------------------------------------------
 
-    def _to_device(self, batch) -> torch.Tensor:
-        x = torch.from_numpy(batch)
-        if self.device.type == "cuda":
-            x = x.pin_memory().to(self.device, non_blocking=True)
-        return x
+    def host_batch(self) -> torch.Tensor:
+        """This rank's rows of the host dataset's next batch, a CPU tensor,
+        page-locked when the device is CUDA (what the prefetch thread
+        makes, and `run_steps`' default batch source)."""
+        x = torch.from_numpy(self.dataset.batch()[self._rows])
+        return pin(x) if self.device.type == "cuda" else x
+
+    def _load_batch(self, batch) -> torch.Tensor:
+        """Copy a host batch (numpy or a CPU tensor, best page-locked) into
+        the static batch and return that, the one tensor every host-batch
+        step reads, eager or replayed.  On CUDA the copy is asynchronous on
+        the current stream, which the steps run on: after the previous
+        step's reads and before the next step's.  ValueError when its shape
+        or dtype is not the static batch's."""
+        x = batch if torch.is_tensor(batch) else torch.from_numpy(batch)
+        if self._batch is None:
+            self._batch = torch.empty(
+                (self.dp.local_batch, self.cfg.data.num_sources, self.cfg.segment_samples),
+                dtype=torch.float32, device=self.device)
+        buf = self._batch
+        if x.shape != buf.shape or x.dtype != buf.dtype:
+            raise ValueError(f"a host batch {tuple(x.shape)} {x.dtype}: the train "
+                             f"step is captured on {tuple(buf.shape)} {buf.dtype}")
+        return buf.copy_(x, non_blocking=True)
+
+    def _step_data(self, batches: Optional[Callable[[], torch.Tensor]] = None
+                   ) -> torch.Tensor:
+        """What the next train step reads: the device bank, or the next
+        batch of `batches()` (default `host_batch`) in the static batch."""
+        if self._use_bank:
+            return self._bank
+        return self._load_batch((batches or self.host_batch)())
 
     @property
     def graphed(self) -> bool:
-        """Whether train steps replay a captured CUDA graph: on CUDA in
-        device-bank mode without the debug tripwires."""
-        return (self.device.type == "cuda" and self._use_bank
-                and not (self.debug_nans or self.debug_leaks))
+        """Whether train steps replay a captured CUDA graph: on CUDA without
+        the debug tripwires."""
+        return self.device.type == "cuda" and not (self.debug_nans or self.debug_leaks)
 
-    def run_steps(self, n: int) -> Dict[str, torch.Tensor]:
+    def run_steps(self, n: int, batches: Optional[Callable[[], torch.Tensor]] = None
+                  ) -> Dict[str, torch.Tensor]:
         """`n` train steps with no log, eval or checkpoint (one dispatch):
-        replays of the captured step where `graphed`, else eager steps.
+        replays of the captured step where `graphed`, else eager steps.  In
+        host-batch mode each step takes the next batch of `batches()` (this
+        rank's rows, numpy or a CPU tensor, best page-locked; default
+        `host_batch`), copied into the static batch before its step.
         Returns the last step's metrics (0-d device tensors)."""
         if self.graphed:
+            data = self._step_data(batches)    # host batches: the first one loaded
             g = self._graphed
-            if g is None or not g.holds(self.state, self._bank, self._train_key):
+            if g is None or not g.holds(self.state, data, self._train_key):
                 g = self._graphed = GraphedStep(self._train_step, self.state,
-                                                self._bank, self._train_key,
+                                                data, self._train_key,
                                                 world=self.dp.world)
-            return g.run(n)
+            if self._use_bank:
+                return g.run(n)
+            metrics = g.run(1)
+            for _ in range(n - 1):
+                self._step_data(batches)
+                metrics = g.run(1)
+            return metrics
         for _ in range(n):
-            data = (self._bank if self._use_bank else
-                    self._to_device(self.dataset.batch()[self._rows]))
-            metrics = self._step(data)
+            metrics = self._step(self._step_data(batches))
         return metrics
 
     def _step(self, data: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -379,9 +420,10 @@ class Experiment:
 
         In bank mode the steps go in dispatches of
         train.steps_per_dispatch (the last one shorter when it does not
-        divide `num_steps`, so exactly `num_steps` run): on CUDA each
-        dispatch replays the captured step that many times (`graphed`,
-        `run_steps`), elsewhere it runs them eagerly.  Metrics are read
+        divide `num_steps`, so exactly `num_steps` run); in host-batch mode
+        each dispatch is one step on the next batch of the prefetch thread.
+        On CUDA each dispatch replays the captured step (`graphed`,
+        `run_steps`), elsewhere it runs eagerly.  Metrics are read
         (which synchronizes the device), logged and evaluated at dispatch
         ends, every train.log_every steps, and the throughput clock starts
         after the first dispatch.  The log, checkpoint and eval boundaries
@@ -401,18 +443,16 @@ class Experiment:
         def crossed(completed: int, every: int, length: int) -> bool:
             return (completed // every) > ((completed - length) // every)
 
-        # Host-batch mode: a producer thread decodes the next batches while
-        # the device runs the current step.
+        # Host-batch mode: a producer thread draws (or decodes) and pins the
+        # next batches while the device runs the current step.
         q: "queue.Queue" = queue.Queue(maxsize=2)
         stop = threading.Event()
         thread = None
         if not self._use_bank:
-            dataset, rows = self.dataset, self._rows
-
             def producer():
                 while not stop.is_set():
                     try:
-                        item = dataset.batch()[rows]
+                        item = self.host_batch()
                     except Exception as exc:      # handed to the train loop
                         item = exc
                     while not stop.is_set():
@@ -423,18 +463,18 @@ class Experiment:
                             continue
                     if isinstance(item, Exception):
                         return
+                    with capture_lock:    # may free a batch the loop has copied
+                        item = None
 
             thread = threading.Thread(target=producer, name="host-batch-prefetch",
                                       daemon=True)
             thread.start()
 
-        def next_data():
-            if self._use_bank:
-                return self._bank
+        def next_batch() -> torch.Tensor:
             item = q.get()
             if isinstance(item, Exception):
                 raise item
-            return self._to_device(item)
+            return item
 
         profile = (profile_steps if profile_steps and self.workdir and self.dp.is_main
                    else None)
@@ -450,7 +490,7 @@ class Experiment:
                 traces = (profile is not None and profile[0] < step_now + length
                           and step_now < profile[1])
                 if self.graphed and not traces:
-                    metrics = self.run_steps(length)
+                    metrics = self.run_steps(length, next_batch)
                 else:
                     for s in range(step_now, step_now + length):
                         traced = profile is not None and profile[0] <= s < profile[1]
@@ -459,7 +499,7 @@ class Experiment:
                                 os.path.join(self.workdir, "profile")))
                             profiling = True
                         with step_range(s) if traced else contextlib.nullcontext():
-                            metrics = self._step(next_data())
+                            metrics = self._step(self._step_data(next_batch))
                         if profiling and s + 1 >= profile[1]:
                             tracing.close()
                             profiling = False
@@ -551,3 +591,20 @@ class Experiment:
     def close(self) -> None:
         """Close the metrics file."""
         self.metrics.close()
+
+
+class HostBatches:
+    """A batch source for `Experiment.run_steps` and `_step_data` in
+    host-batch mode that can go back: `keep` batches drawn now
+    (`exp.host_batch`: this rank's rows, page-locked on CUDA), handed out
+    in turn and then again from the first.  `at` counts the batches handed
+    out; set back, it hands out the same batches again.  Steps timed on it
+    leave the host's draw out."""
+
+    def __init__(self, exp: Experiment, keep: int):
+        self.kept = [exp.host_batch() for _ in range(keep)]
+        self.at = 0
+
+    def __call__(self) -> torch.Tensor:
+        self.at += 1
+        return self.kept[(self.at - 1) % len(self.kept)]

@@ -7,7 +7,7 @@ the eager step's launches (about 1 000 to 5 000 a step, each with its host
 time) are recorded once into a `torch.cuda.CUDAGraph`, and every later step
 is one replay of it, with no host work in between.
 
-    graphed = GraphedStep(train_step, state, bank, key)
+    graphed = GraphedStep(train_step, state, data, key)
     metrics = graphed.run(k)            # k train steps
 
   * The first `WARMUP_STEPS` steps run eagerly on a side stream: they
@@ -17,9 +17,11 @@ is one replay of it, with no host work in between.
   * Then one step is captured.  A capture runs none of the kernels it
     records, so it moves neither the state nor its counters: the step
     after it is the first replay.
-  * Each replay reads the bank, the key and the state's tensors where they
+  * Each replay reads the data, the key and the state's tensors where they
     were at capture and updates the state in place; its metrics land in
-    the same six tensors every time (`run` returns them).
+    the same six tensors every time (`run` returns them).  The data is the
+    device bank, or in host-batch mode one static device batch that each
+    host batch is copied into before its step (`Experiment.run_steps`).
   * A replay runs the kernels the eager step runs, in the same order, so
     K replays and K eager steps from one state give the same bits.
 
@@ -28,7 +30,7 @@ counts are 0-d device tensors and its train key a (2,) one
 (`train/state.py`, `data/threefry.py`),
 and whatever it builds from the host on a first call is memoised by the
 warm-up.  What a capture cannot hold raises with its cause; there is no
-quiet return to eager steps.  A state, bank or key replaced (rather than
+quiet return to eager steps.  A state, data or key replaced (rather than
 copied into) needs a new GraphedStep: `Experiment` makes one when they are
 not the ones it captured.  Under a process group the capture holds the
 step's NCCL all-reduces too, and the eval's its mean over the ranks (on
@@ -52,6 +54,12 @@ captures on the next, so a shape called once costs one eager call.
 alive.  The eager functions stay what `build_separate_fn`,
 `build_streaming_scan_fn` and `build_eval_step` return.
 
+Host memory is pinned through `pin`, never while this process captures: a
+capture (global mode) makes CUDA refuse unsafe calls from every thread, such
+as the host allocations and event queries of page-locking, and the
+host-batch producer pins in a thread of its own.  A thread that may free a
+page-locked batch (its last reference) holds `capture_lock` to do so.
+
 Launch counts: a kernel wrapper called during a capture counts the launch
 it records (`ops.dispatch.launch_counts`), and replays pass no wrapper.
 `launch_correction()` is what to add to those counts for the kernels that
@@ -64,6 +72,7 @@ from __future__ import annotations
 
 import collections
 import functools
+import threading
 import weakref
 from typing import Callable, Dict, Optional
 
@@ -80,6 +89,7 @@ _recorded: Dict[str, int] = {}     # wrapper calls made while capturing
 _replayed: Dict[str, int] = {}     # kernel launches made by replays
 _captures = 0                      # graphs captured by this process
 _under_group: "weakref.WeakSet[_Captured]" = weakref.WeakSet()   # hold a collective
+capture_lock = threading.Lock()    # held by a capture, and by `pin`
 
 
 def captures() -> int:
@@ -117,6 +127,13 @@ def release_group_graphs() -> int:
 
 
 bootstrap.before_shutdown(release_group_graphs)
+
+
+def pin(x: torch.Tensor) -> torch.Tensor:
+    """A copy of the CPU tensor `x` in page-locked memory, made while no
+    graph is being captured: safe from any thread."""
+    with capture_lock:
+        return x.pin_memory()
 
 
 @functools.lru_cache(maxsize=None)
@@ -162,7 +179,7 @@ class _Captured:
         before, issued = dispatch.launch_counts(), mesh.collectives_issued()
         graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(graph):
+            with capture_lock, torch.cuda.graph(graph):
                 out = self.fn(*args)
         except Exception as exc:
             raise RuntimeError(f"capturing {self.what} as a CUDA graph failed: "
@@ -192,7 +209,9 @@ class _Captured:
 
 class GraphedStep(_Captured):
     """`train_step(state, data, key)` on CUDA tensors, eager for the first
-    `warmup` steps, then captured once and replayed one step at a time."""
+    `warmup` steps, then captured once and replayed one step at a time.
+    `data` is the device bank or the static host batch: what is copied into
+    it before `run` (on the current stream) is what the next step reads."""
 
     def __init__(self, train_step: Callable, state, data: torch.Tensor,
                  key: torch.Tensor, warmup: int = WARMUP_STEPS, world: int = 1):

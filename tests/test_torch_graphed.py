@@ -34,6 +34,7 @@ from gan_sass_tf_tpu_torch.data.threefry import fold_in
 from gan_sass_tf_tpu_torch.models.dropout import DropoutKey
 from gan_sass_tf_tpu_torch.ops import dispatch
 from gan_sass_tf_tpu_torch.scripts import bench_spd
+from gan_sass_tf_tpu_torch.scripts.profile_step import POOL
 from gan_sass_tf_tpu_torch.train import ClippedAdam, Experiment
 from gan_sass_tf_tpu_torch.train.experiment import dispatch_lengths
 from gan_sass_tf_tpu_torch.train.graphed import GraphedStep
@@ -286,7 +287,21 @@ def test_bench_json_contract():
 def test_bench_spd_rows(capsys):
     """bench_spd prints a row for each K in (1, 4, 16) and one for the
     eager step, each with its keys and a positive throughput."""
-    assert bench_spd.main(["2src_toy_cpu", "2", "8", "--device", "cpu"]) == 0
+    _bench_spd_rows(capsys)
+
+
+def test_bench_spd_rows_host_batches(capsys, monkeypatch):
+    """The same rows in host-batch mode (`--set data.device_bank=false`):
+    the steps take the POOL host batches drawn ahead."""
+    drawn, host_batch = [], Experiment.host_batch
+    monkeypatch.setattr(Experiment, "host_batch",
+                        lambda self: drawn.append(1) or host_batch(self))
+    _bench_spd_rows(capsys, "--set", "data.device_bank=false")
+    assert len(drawn) == POOL
+
+
+def _bench_spd_rows(capsys, *sets):
+    assert bench_spd.main(["2src_toy_cpu", "2", "8", "--device", "cpu", *sets]) == 0
     rows = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
     assert [(r["spd"], r["mode"]) for r in rows] == [
         (1, "eager"), (4, "eager"), (16, "eager"), (1, "eager")]

@@ -412,9 +412,23 @@ def test_bench_streaming_compute_rows(capsys):
 
 
 def test_profile_step_rows(capsys, monkeypatch):
+    _profile_step_rows(capsys, monkeypatch)
+
+
+def test_profile_step_rows_host_batches(capsys, monkeypatch):
+    """profile_step in host-batch mode (`--set data.device_bank=false`):
+    the steps take the POOL host batches drawn ahead; the same line."""
+    drawn, host_batch = [], Experiment.host_batch
+    monkeypatch.setattr(Experiment, "host_batch",
+                        lambda self: drawn.append(1) or host_batch(self))
+    _profile_step_rows(capsys, monkeypatch, "--set", "data.device_bank=false")
+    assert len(drawn) == profile_step.POOL
+
+
+def _profile_step_rows(capsys, monkeypatch, *sets):
     monkeypatch.setattr(profile_step, "WARMUP", 1)             # 3 and 10 on the card
     monkeypatch.setattr(profile_step, "STEPS", 2)
-    assert profile_step.main(["stream_v5e8", "2", "--device", "cpu", *TINY]) == 0
+    assert profile_step.main(["stream_v5e8", "2", "--device", "cpu", *TINY, *sets]) == 0
     rows = _json_lines(capsys.readouterr().out)
     assert len(rows) == 1 and _jax_script_keys(rows, "profile_step.py")
     row = rows[0]
