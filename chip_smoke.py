@@ -36,15 +36,18 @@ Phases, one JSON line each:
               draws over 3 replays; device ms of the noise draw, the keys
               launch and a step's five launches at the stream_v5e8 step.
               Then the step's dropout and noise keys, flax's dropout
-              (forward and backward) at every dropout site of the
+              (forward, its packed mask, the backward that reads it and
+              the double backward) at every dropout site of the
               every-option stream_v5e8 step and its instance noise at the
-              D inputs, in bf16 (the step's dtype) and f32: keys, masks,
-              gradients and bf16 noise bit-equal to the plain versions,
-              f32 noise within NORMAL_ULP of the normal; a captured graph
+              D inputs, in bf16 (the step's dtype) and f32: keys, outputs,
+              masks, gradients and bf16 noise bit-equal to the plain
+              versions, f32 noise within NORMAL_ULP of the normal; the
+              largest site the same bits at three grids; a captured graph
               of keys, dropout, its backward and noise keyed from the
               device step against eager launches over 3 replays; device
               ms at the largest site and the D input beside the plain
-              versions and torch.nn.functional.dropout
+              versions, torch.nn.functional.dropout and aten's dropout
+              backward; the step's dropout launches' device ms summed
   7 train     Experiment(stream_v5e8).train() at full width, batch 32: the
               losses finite, G and D moved, the five kernels of the step
               (K1, K3, its backward, the threefry keys and sampler)
@@ -282,6 +285,7 @@ protocol at 10 000 steps).
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import dataclasses
@@ -344,6 +348,7 @@ from gan_sass_tf_tpu_torch.scripts import (
     recompute_bounds,
     roofline,
     stream_quality,
+    time_dropout,
     train_wavdir_fixture,
 )
 from gan_sass_tf_tpu_torch.losses.pit import permutations_for
@@ -454,7 +459,8 @@ TRACE_KERNELS = {"stft_features_kernel": ("stft_features", "stft"),
                  "threefry_keys_kernel": ("threefry_keys",),
                  "threefry_sample_kernel": ("threefry_sample",),
                  "threefry_train_keys_kernel": ("threefry_train_keys",),
-                 "threefry_dropout_kernel": ("threefry_dropout", "threefry_dropout_bwd"),
+                 "threefry_dropout_kernel": ("threefry_dropout",),
+                 "dropout_mask_kernel": ("threefry_dropout_bwd",),
                  "threefry_noise_kernel": ("threefry_noise",)}
 TRACE_SPAN = "chip_smoke.traced_calls"   # the calls device_spans counts
 TRACE_CLOSE = "chip_smoke.trace_close"   # the fills closing a device_spans trace
@@ -466,7 +472,7 @@ KERNEL_FAMILIES = (
     ("K3 backward istft_adjoint", ("istft_adjoint_kernel",)),
     ("K1 stft_features", ("stft_features_kernel",)),
     ("K2/K3 istft_ola", ("istft_ola_kernel",)),
-    ("threefry keys, draws, dropout, noise", ("threefry",)),
+    ("threefry keys, draws, dropout, noise", ("threefry", "dropout_mask")),
     ("layout transposes", ("nchwtonhwc", "nhwctonchw")),
     ("convs and GEMMs", ("conv", "gemm", "xmma", "cutlass", "wgrad", "dgrad")),
     ("cuFFT", ("fft",)),
@@ -2992,9 +2998,12 @@ def every_option_config():
 def step_sites(cfg, dev) -> tuple:
     """The dropout sites and noise inputs of one eager train step of `cfg`:
     each dispatch call's (shape, dtype, dims, p) and (shape, dtype, std),
-    in order, each once."""
-    sites, noises = [], []
+    in order, each once; and the step's dropout launches, the forward's a
+    Counter of sites (g_remat's recomputed forward included) and the
+    backward's (the mask kernel) a Counter of (shape, dtype)."""
+    sites, noises, backward = [], [], []
     inner_drop, inner_noise = dispatch.dropout, dispatch.instance_noise
+    inner_mask = rng_ops.dropout_mask_kernel
 
     def drop(x, key, fold, p, dims):
         sites.append((tuple(x.shape), x.dtype, tuple(dims), p))
@@ -3004,15 +3013,22 @@ def step_sites(cfg, dev) -> tuple:
         noises.append((tuple(x.shape), x.dtype, std))
         return inner_noise(x, key, std)
 
+    def mask(dy, words, scale, blocks=None):
+        backward.append((tuple(dy.shape), dy.dtype))
+        return inner_mask(dy, words, scale, blocks)
+
     dispatch.dropout, dispatch.instance_noise = drop, noise
+    rng_ops.dropout_mask_kernel = mask
     try:
         exp = Experiment(cfg, device=dev)
         exp._train_step(exp.state, exp._bank, exp._train_key)
         torch.cuda.synchronize()
     finally:
         dispatch.dropout, dispatch.instance_noise = inner_drop, inner_noise
+        rng_ops.dropout_mask_kernel = inner_mask
     del exp
-    return list(dict.fromkeys(sites)), list(dict.fromkeys(noises))
+    return (list(dict.fromkeys(sites)), list(dict.fromkeys(noises)),
+            collections.Counter(sites), collections.Counter(backward))
 
 
 def noise_tol(ref: torch.Tensor, std: float) -> float:
@@ -3023,28 +3039,42 @@ def noise_tol(ref: torch.Tensor, std: float) -> float:
         + float(torch.finfo(torch.float32).eps) * float(ref.abs().max())
 
 
-def dropout_pair(x, key, fold, p, dims, dy):
-    """(forward, backward) of Dropout through the kernel and through the
-    plain version: [(y, dx) kernel, (y, dx) plain]."""
+def dropout_paths(x, key, fold, p, dims, dy, w):
+    """Dropout through the kernels and through the plain versions:
+    [(y, words, dx, ddy) kernel, the same plain]; dx the backward on dy,
+    ddy the double backward's on w (R1's)."""
     out = []
     for kernel in (True, False):
         xg = x.detach().clone().requires_grad_()
-        y = rng_ops.Dropout.apply(xg, key, fold, p, dims, kernel)
-        (dx,) = torch.autograd.grad(y, xg, dy)
-        out.append((y.detach(), dx))
+        dyg = dy.detach().clone().requires_grad_()
+        y, words = rng_ops.Dropout.apply(xg, key, fold, p, dims, kernel)
+        (dx,) = torch.autograd.grad(y, xg, dyg, create_graph=True)
+        (ddy,) = torch.autograd.grad(dx, dyg, w)
+        out.append((y.detach(), words, dx.detach(), ddy))
     return out
+
+
+def library_dropout_bwd(dy, words, scale):
+    """torch's dropout backward from a saved mask (aten's
+    native_dropout_backward on the mask unpacked to bool, a byte an
+    element): the PyTorch call beside the mask kernel, used nowhere in the
+    port."""
+    kept = rng_ops.unpack_mask(words, dy.shape)
+    return lambda: torch.ops.aten.native_dropout_backward(dy, kept, scale)
 
 
 def phase_rng_dropout(dev) -> dict:
     """The step's dropout and noise keys, flax's dropout and the instance
     noise (`ops/threefry.py`) at the every-option stream_v5e8 step's sites,
-    in the step's dtype and in f32, against their plain versions; a
-    captured graph of them keyed from the device step against eager
-    launches; their device ms."""
+    in the step's dtype and in f32, against their plain versions: the
+    dropout's output, packed mask, backward and double backward bit for
+    bit, at the largest site also at other block counts; a captured graph
+    of them keyed from the device step against eager launches; their
+    device ms, and the step's dropout launches' summed."""
     gen = torch.Generator(device=dev).manual_seed(SEED_RNG_DROPOUT)
     cfg = every_option_config()
     d_steps = cfg.train.d_steps
-    sites, noises = step_sites(cfg, dev)
+    sites, noises, fwd_launches, bwd_launches = step_sites(cfg, dev)
     check(sites and noises, f"every-option step: dropout sites {sites}, noise {noises}")
     key = prng_key(cfg.train.seed + 1, dev)
     step = torch.tensor(41, dtype=torch.int64, device=dev)
@@ -3054,19 +3084,23 @@ def phase_rng_dropout(dev) -> dict:
     check(torch.equal(ker_keys, ref_keys), "rng step keys: kernel != plain")
     g_row, d_rows, adv_rows = rng_ops.train_key_rows(d_steps)
     fold = DropoutKey(key).fold(1)
+    k_g = ker_keys[g_row]
     cases = []
     for shape, dtype, dims, p in sites:
         for dt in dict.fromkeys((dtype, torch.float32)):
-            x = torch.randn(shape, device=dev, generator=gen).to(dt)
-            dy = torch.randn(shape, device=dev, generator=gen).to(dt)
-            (yk, dxk), (yr, dxr) = dropout_pair(x, ker_keys[g_row], fold, p, dims, dy)
-            same = torch.equal(yk, yr) and torch.equal(dxk, dxr)
-            check(same, f"rng dropout {shape} {dt}: kernel != plain")
+            x, dy, w = (torch.randn(shape, device=dev, generator=gen).to(dt)
+                        for _ in range(3))
+            ker, ref = dropout_paths(x, k_g, fold, p, dims, dy, w)
+            same = [torch.equal(a, b) for a, b in zip(ker, ref)]
+            check(all(same), f"rng dropout {shape} {dt}: kernel != plain "
+                             f"(y, words, dx, ddy bit-equal: {same})")
             cases.append({"shape": list(shape), "dtype": str(dt), "dims": list(dims),
-                          "p": p, "kept": float((yk != 0).float().mean()),
-                          "forward_max_abs_err": max_err(yk, yr),
-                          "backward_max_abs_err": max_err(dxk, dxr),
-                          "forward_backward_bit_equal": same})
+                          "p": p, "kept": float(rng_ops.unpack_mask(
+                              ker[1], shape).float().mean()),
+                          "forward_max_abs_err": max_err(ker[0], ref[0]),
+                          "backward_max_abs_err": max_err(ker[2], ref[2]),
+                          "double_backward_max_abs_err": max_err(ker[3], ref[3]),
+                          "y_words_dx_ddy_bit_equal": same})
     noise_cases = []
     for shape, dtype, std in noises:
         for dt in dict.fromkeys((dtype, torch.float32)):
@@ -3082,20 +3116,38 @@ def phase_rng_dropout(dev) -> dict:
                                 "max_abs_err": err,
                                 "bit_equal": bool(torch.equal(ker, ref))})
 
+    # The largest site at other grids: the same y, words and dx.
+    shape, dtype, dims, p = max(sites, key=lambda c: math.prod(c[0]))
+    scale = rng_ops.dropout_constants(dtype, p)[1]
+    xd = torch.randn(shape, device=dev, generator=gen).to(dtype)
+    dyd = torch.randn(shape, device=dev, generator=gen).to(dtype)
+    n_words = rng_ops.mask_words(xd.numel())
+    grids = {"default": None, "seven": 7,
+             "a_word_a_thread": -(-n_words // rng_ops.THREADS)}
+    by_grid = {}
+    for name, blocks in grids.items():
+        y, words = rng_ops.dropout_kernel(xd, k_g, fold, p, dims, blocks)
+        by_grid[name] = (y, words, rng_ops.dropout_mask_kernel(dyd, words, scale, blocks))
+    grids_equal = {name: [torch.equal(a, b) for a, b in zip(got, by_grid["default"])]
+                   for name, got in by_grid.items()}
+    check(all(all(v) for v in grids_equal.values()),
+          f"rng dropout {shape}: y, words, dx differ by grid: {grids_equal}")
+    default_blocks = rng_ops.dropout_blocks(n_words, xd.device)
+
     # Captured: keys from the device step, dropout forward and backward at
     # the largest site, the noise at the largest D input.
-    shape, dtype, dims, p = max(sites, key=lambda c: math.prod(c[0]))
     n_shape, n_dtype, std = max(noises, key=lambda c: math.prod(c[0]))
-    x = torch.randn(shape, device=dev, generator=gen).to(dtype).requires_grad_()
-    dy = torch.randn(shape, device=dev, generator=gen).to(dtype)
+    x = xd.clone().requires_grad_()
+    dy = dyd
     xn = torch.randn(n_shape, device=dev, generator=gen).to(n_dtype)
     gstep = torch.zeros((), dtype=torch.int64, device=dev)
 
     def draw():
         keys = rng_ops.train_keys_kernel(key, gstep, 0, d_steps)
-        y = rng_ops.Dropout.apply(x, keys[g_row], fold, p, dims, True)
+        y, words = rng_ops.Dropout.apply(x, keys[g_row], fold, p, dims, True)
         (dx,) = torch.autograd.grad(y, x, dy)
-        return [keys, y.detach(), dx, rng_ops.noise_kernel(xn, keys[adv_rows[1]], std)]
+        return [keys, y.detach(), words, dx, rng_ops.noise_kernel(xn, keys[adv_rows[1]],
+                                                                   std)]
 
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -3111,20 +3163,24 @@ def phase_rng_dropout(dev) -> dict:
         graph.replay()
         eager = draw()
         same = all(torch.equal(a, e) for a, e in zip(static, eager))
-        ((yr, dxr),) = dropout_pair(x, eager[0][g_row], fold, p, dims, dy)[1:]
-        same = same and torch.equal(eager[1], yr) and torch.equal(eager[2], dxr)
+        plain = dropout_paths(x, eager[0][g_row], fold, p, dims, dy, dy)[1]
+        same = same and all(torch.equal(a, b) for a, b in zip(eager[1:4], plain[:3]))
         check(same, f"rng dropout/noise: replay {r} at step {1000 * r + 7} != eager")
         replays.append(same)
 
-    # Times: the largest site and D input, as the step has them.
-    xd = x.detach()
+    # Times: the largest site and D input, as the step has them; every
+    # dropout launch of the step, each site timed alone, summed.
+    words = by_grid["default"][1]
     n, item = xd.numel(), xd.element_size()
     drop_bound = cost.dropout(n, item).bound()
+    mask_bound = cost.dropout_mask(n, item).bound()
     nn_, n_item = xn.numel(), xn.element_size()
     noise_bound = cost.noise(nn_, n_item).bound()
     keys_bound = cost.train_keys(d_steps).bound()
-    k_g, k_n = ker_keys[g_row], ker_keys[adv_rows[1]]
+    k_n = ker_keys[adv_rows[1]]
     plain_ms = lambda fn: time_fns(calls=2, plain=fn)["plain"]   # noqa: E731
+    step_ms, by_site = step_dropout_ms(sites, fwd_launches, bwd_launches, k_g, fold, gen,
+                                       dev)
     rows = {
         "threefry_dropout": {
             "ms": graph_ms(lambda: rng_ops.dropout_kernel(xd, k_g, fold, p, dims)),
@@ -3133,15 +3189,19 @@ def phase_rng_dropout(dev) -> dict:
             "library_ms": graph_ms(lambda: torch.nn.functional.dropout(xd, p, True)),
             "library": "torch.nn.functional.dropout: the same work with Philox bits",
             "max_abs_err": max(c["forward_max_abs_err"] for c in cases),
-            "shape": f"{list(shape)} {dtype} (the largest site)"},
+            "blocks": default_blocks,
+            "shape": f"{list(shape)} {dtype} (the largest site): y and its packed mask"},
         "threefry_dropout_bwd": {
-            "ms": graph_ms(lambda: rng_ops.dropout_kernel(dy, k_g, fold, p, dims, True)),
-            "plain_ms": plain_ms(lambda: rng_ops.dropout_reference(dy, k_g, fold, p, dims)),
-            "bound_ms": drop_bound[0], "bound_by": drop_bound[1],
-            "library_ms": graph_ms(lambda: torch.nn.functional.dropout(dy, p, True)),
-            "library": "torch.nn.functional.dropout on dy: the same work with Philox bits",
+            "ms": graph_ms(lambda: rng_ops.dropout_mask_kernel(dyd, words, scale)),
+            "plain_ms": plain_ms(lambda: rng_ops.dropout_mask_reference(dyd, words, scale)),
+            "bound_ms": mask_bound[0], "bound_by": mask_bound[1],
+            "library_ms": graph_ms(library_dropout_bwd(dyd, words, scale)),
+            "library": "aten native_dropout_backward(dy, bool mask, scale): the same "
+                       "function from a byte-a-element mask",
+            "f_dropout_on_dy_ms": graph_ms(lambda: torch.nn.functional.dropout(dyd, p, True)),
             "max_abs_err": max(c["backward_max_abs_err"] for c in cases),
-            "shape": f"{list(shape)} {dtype}: the gradient, the mask drawn again"},
+            "shape": f"{list(shape)} {dtype}: the gradient from the forward's packed "
+                     f"mask (dropout_mask_kernel, no draw)"},
         "threefry_noise": {
             "ms": graph_ms(lambda: rng_ops.noise_kernel(xn, k_n, std)),
             "plain_ms": plain_ms(lambda: rng_ops.noise_reference(xn, k_n, std)),
@@ -3158,11 +3218,42 @@ def phase_rng_dropout(dev) -> dict:
     }
     emit("rng", case="dropout and noise at the every-option stream_v5e8 step",
          sets=list(STREAM_OPTIONS), dropout_sites=cases, noise_inputs=noise_cases,
-         train_keys_bit_equal=True, replays_equal_eager=replays, rows=rows,
-         tol=f"keys, masks, dropout gradients, bf16 noise bit-equal; f32 noise "
-             f"within NORMAL_ULP ({NORMAL_ULP}) ulp of erf⁻¹ times std·√2 plus "
-             f"one rounding")
+         train_keys_bit_equal=True, replays_equal_eager=replays,
+         largest_site_grids={"blocks": {k: v or default_blocks for k, v in grids.items()},
+                             "y_words_dx_equal_default": grids_equal},
+         step_dropout_ms=step_ms, step_dropout_by_site=by_site,
+         pr16_largest_site_ms={"forward": 0.184, "backward": 0.185,
+                               "source": "PERF.md §6: PR 16's kernel, its chip run 6"},
+         rows=rows,
+         tol=f"keys, dropout outputs, masks, gradients, double backward, bf16 noise "
+             f"bit-equal; f32 noise within NORMAL_ULP ({NORMAL_ULP}) ulp of erf⁻¹ "
+             f"times std·√2 plus one rounding")
     return rows
+
+
+def step_dropout_ms(sites, fwd_launches, bwd_launches, key, fold, gen, dev) -> tuple:
+    """The device ms of one step's dropout launches: each site's forward
+    and each backward shape's mask kernel timed alone (graph_ms) on seeded
+    inputs, times its launches a step, summed; and the rows."""
+    rows = []
+    for shape, dtype, dims, p in sites:
+        x = torch.randn(shape, device=dev, generator=gen).to(dtype)
+        rows.append({"kernel": "threefry_dropout", "shape": list(shape), "dtype": str(dtype),
+                     "p": p, "launches": fwd_launches[(shape, dtype, dims, p)],
+                     "ms": graph_ms(lambda: rng_ops.dropout_kernel(x, key, fold, p, dims))})
+    for (shape, dtype), launches in bwd_launches.items():
+        _, _, dims, p = next(s for s in sites if s[:2] == (shape, dtype))
+        dy = torch.randn(shape, device=dev, generator=gen).to(dtype)
+        _, words = rng_ops.dropout_kernel(dy, key, fold, p, dims)
+        scale = rng_ops.dropout_constants(dtype, p)[1]
+        rows.append({"kernel": "dropout_mask", "shape": list(shape), "dtype": str(dtype),
+                     "launches": launches,
+                     "ms": graph_ms(lambda: rng_ops.dropout_mask_kernel(dy, words, scale))})
+    total = {k: sum(r["ms"] * r["launches"] for r in rows if r["kernel"] == name)
+             for k, name in (("forward", "threefry_dropout"), ("backward", "dropout_mask"))}
+    return {**total, "sum": total["forward"] + total["backward"],
+            "launches": {"forward": sum(fwd_launches.values()),
+                         "backward": sum(bwd_launches.values())}}, rows
 
 
 def captured(fn, argv) -> str:
@@ -3274,12 +3365,7 @@ def finite(value) -> bool:
 # and stream_v5e8 with every other model option on.
 MUSIC_FOLD = ("model.g_stem_mode=fold", "model.g_stem_stride=1,2",
               "model.g_head_mode=fold")
-STREAM_OPTIONS = ("model.discriminator=patch", "model.d_norm=batch",
-                  "model.d_input_fold=2", "model.dropout=0.1",
-                  "train.d_instance_noise=0.1",
-                  "model.g_stem_mode=conv", "model.g_stem_stride=1,2",
-                  "model.g_head_mode=film", "model.g_dec_l0=subpixel",
-                  "model.g_phase_ct=true", "model.g_remat=true")
+STREAM_OPTIONS = time_dropout.EVERY_OPTION
 OPTIONS_STEPS, OPTIONS_STEP_SAMPLES = 4, 8
 SEED_OPTIONS = 9                     # the options phase's own generator
 SR_MUSIC, T_MUSIC_SEP = 44100, 30 * 44100      # the separated music wav: 30 s
@@ -4071,17 +4157,19 @@ def device_ms(fn, calls=CALLS_PER_SAMPLE):
     return sum(ms for ms, _ in dk.values())
 
 
-def graph_ms(fn, calls=CALLS_PER_SAMPLE) -> float:
+def graph_ms(fn, calls=CALLS_PER_SAMPLE, stream=None) -> float:
     """Median device ms a call of `fn`: CUDA events around a replayed CUDA
     graph of `calls` back-to-back calls, so every launch is timed and no
-    host time falls between them (as scripts/time_synthesis.py)."""
-    side = torch.cuda.Stream()
+    host time falls between them (as scripts/time_synthesis.py).  The
+    capture runs on `stream` where given (a backward runs on its forward's
+    stream, so one captured alone needs the stream its forward ran on)."""
+    side = stream or torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(calls):
             fn()
     graph.replay()
@@ -4202,14 +4290,21 @@ def library_istft(est, n_fft, hop):
     return lambda: torch.istft(flat, n_fft, hop, window=w, center=True)
 
 
-def library_istft_bwd(est, n_fft, hop):
+def library_istft_bwd(est, n_fft, hop, stream=None):
     """The backward of library_istft's torch.istft on a leaf copy of `est`
     (one torch.autograd.grad of one call, a seeded cotangent): the PyTorch
-    call beside K3's VJP, used nowhere in the port."""
+    call beside K3's VJP, used nowhere in the port.  The forward runs on
+    `stream` where given, so that graph_ms can capture the backward alone
+    there (the forward reads its envelope check back to the host)."""
     w = torch.from_numpy(get_window("hann", n_fft)).to(est.device)
     flat = est.detach().reshape(-1, *est.shape[-2:]).transpose(-1, -2).contiguous()
     flat.requires_grad_()
-    y = torch.istft(flat, n_fft, hop, window=w, center=True)
+    if stream is not None:
+        stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        y = torch.istft(flat, n_fft, hop, window=w, center=True)
+    if stream is not None:
+        torch.cuda.current_stream().wait_stream(stream)
     dy = torch.randn(y.shape, generator=torch.Generator(y.device).manual_seed(SEED),
                      device=y.device)
     return lambda: torch.autograd.grad(y, flat, dy, retain_graph=True)
@@ -4287,6 +4382,9 @@ def phase_timing(rng, dev, x, spec, cfg, g, batch, k3_tensors, exp, k4_inputs,
         lambda: torch.autograd.grad(y, spec_k3, dy, retain_graph=True),
         lambda: torch.autograd.grad(ref, spec_k3, dy, retain_graph=True), bwd_bound,
         graph=False, library=library_istft_bwd(sk, N_FFT, HOP))
+    lib_stream = torch.cuda.Stream()
+    bwd_t["library_graph_ms"] = graph_ms(library_istft_bwd(sk, N_FFT, HOP, lib_stream),
+                                         stream=lib_stream)
     # Its one launch alone, on a cotangent of the same shape, beside the
     # plain adjoint (the STFT of dy·inv_env scaled per bin).
     z = torch.randn_like(ref).contiguous()
@@ -4339,7 +4437,8 @@ def phase_timing(rng, dev, x, spec, cfg, g, batch, k3_tensors, exp, k4_inputs,
                                                    in k1_bench_t.items()}},
             "masked_istft": {**row(k2_sep), "music_shape": row(k2_mus)},
             "istft": row(k3_t),
-            "istft_bwd": {**row(bwd_t), "adjoint_launch": row(adjoint)},
+            "istft_bwd": {**row(bwd_t), "adjoint_launch": row(adjoint),
+                          "library_graph_ms": bwd_t["library_graph_ms"]},
             "stft": row(k4_times["stream"])}
 
 

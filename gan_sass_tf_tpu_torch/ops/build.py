@@ -57,8 +57,12 @@ _SIGNATURES = {
     "threefry_sample_launch": [_P, _I, _I, _I, _F, _F, _L, _L, _L, _P, _P],
     # key, step, shard, d_steps, out, stream
     "threefry_train_keys_launch": [_P, _P, _L, _I, _P, _P],
-    # x, y, key, fold, keep, scale, n, size, jstride, bf16, stream
-    "threefry_dropout_launch": [_P, _P, _P, _L, _F, _F, _L, _LP, _LP, _I, _P],
+    # x, y, words, key, fold, keep_below, scale, n, size, jstride, wrap, bf16,
+    # blocks, stream
+    "threefry_dropout_launch": [_P, _P, _P, _P, _L, _L, _F, _L, _LP, _LP, _LP, _I, _I,
+                                _P],
+    # dy, words, dx, scale, n, bf16, blocks, stream
+    "dropout_mask_launch": [_P, _P, _P, _F, _L, _I, _I, _P],
     # x, y, key, coef, n, bf16, stream
     "threefry_noise_launch": [_P, _P, _P, _F, _L, _I, _P],
 }

@@ -26,14 +26,20 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 BF16_TC_FLOPS_PER_S = 989e12
 TF32_TC_FLOPS_PER_S = 495e12
-# 32-bit integer issue: 132 SMs x 64 INT32 lanes x 1.98 GHz (the H100 SXM's
-# SM in NVIDIA's Hopper white paper).
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # threefry2x32 hashing a counter (0, j): 20 rounds x (IADD, SHF rotate,
 # LOP xor); 5 key injections x 2 (IADD3 folds the round constant into the
 # second word's add); the key's third word (one LOP3) and the counter's
 # add to the second key word (the first word's add is a move from 0).
 CIPHER_INT_OPS = 20 * 3 + 5 * 2 + 1 + 1
+# Of those, only the 20 rotates (SHF) and 20 xors (LOP3) need the integer
+# ALU; an add can issue as IMAD.IADD on the FMA pipe (nvcc's SASS of the
+# dropout kernel puts about two thirds of them there, scripts/kernel_sass.py).
+CIPHER_ALU_OPS = 20 + 20
+# 32-bit integer issue: an H100 SXM SM issues 128 lanes a clock, its integer
+# ALU 64 of them (NVIDIA's Hopper white paper; 132 SMs at 1.98 GHz).  A
+# cipher's ALU share binds: 40 of its 72 instructions at 64 lanes, i.e. its
+# 72 at 64 x 72 / 40 lanes an SM a clock.
+INT32_OPS_PER_S = 132 * 64 * 1.98e9 * CIPHER_INT_OPS / CIPHER_ALU_OPS
 # Bytes a value of each of the sampler's kinds is written in.
 SAMPLE_BYTES = {"bits": 8, "uniform": 4, "randint": 8, "normal": 4}
 # Ciphers a value of each kind costs (a randint: its key's two splits and
@@ -143,10 +149,22 @@ def train_keys(d_steps: int) -> Cost:
     return Cost(24 + 16 * n, int_ops=CIPHER_INT_OPS * 5 * n)
 
 
+def mask_bytes(numel: int) -> int:
+    """A dropout's packed keep mask: a bit an element in 32-bit words."""
+    return 4 * -(-numel // 32)
+
+
 def dropout(numel: int, itemsize: int) -> Cost:
-    """`threefry_dropout_kernel` (forward, or backward on the gradient): x
-    read and y written once, the key read, a cipher an element."""
-    return Cost(2 * numel * itemsize + 16, int_ops=CIPHER_INT_OPS * numel)
+    """`threefry_dropout_kernel`: x read, y and the packed keep mask written
+    once, the key read, a cipher an element."""
+    return Cost(2 * numel * itemsize + mask_bytes(numel) + 16,
+                int_ops=CIPHER_INT_OPS * numel)
+
+
+def dropout_mask(numel: int, itemsize: int) -> Cost:
+    """`dropout_mask_kernel`, the dropout's VJP: dy and the mask read, dx
+    written once; no cipher."""
+    return Cost(2 * numel * itemsize + mask_bytes(numel))
 
 
 def noise(numel: int, itemsize: int) -> Cost:

@@ -44,10 +44,12 @@
 //    and in bfloat16 the two round alike.  The value j of the draw is the
 //    element's row-major position in the flax tensor (B, T, F, C) or (B,
 //    T, H); the port's tensor is contiguous in its own order (NCHW at the
-//    conv sites), so each thread walks the port's memory in order and
-//    computes j from its coordinates and the flax strides (`jstride`).
-//    The backward is the same launch on dy (the mask drawn again): dx =
-//    select(mask, dy * scale, 0).
+//    conv sites).  It also writes the keep mask packed, one bit an element
+//    in the port's order: element m is bit m % 32 of word m / 32, the bits
+//    of the last word past n 0.
+//  - dropout_mask_launch: the dropout's VJP, dx = bit ? dy * scale : 0 in
+//    dy's dtype, from the words the forward wrote; no cipher.  It is linear
+//    in dy, so its own VJP is the same launch (R1's double backward).
 //  - threefry_noise_launch: x + std * normal(key, x.shape, x.dtype), x
 //    contiguous in the flax layout.  float32: XLA folds std * sqrt2 into
 //    one constant and contracts the add, fmaf(f32(std * sqrt2),
@@ -69,17 +71,32 @@
 // of add, funnel-shift rotate and xor, 5 key injections of one add a
 // word (IADD3 folds the round constant in), the key's third word and the
 // counter's add, 72 integer instructions, against 4 bytes written (8 for
-// int64).  At the stream_v5e8 b32 step's noise, 32 × 32 000 normals,
-// that is ~74 M instructions, about 4.4 µs at 64 int32 lanes × 132 SMs ×
-// 1.98 GHz, against 1.2 µs for its 4 MB at 3.35 TB/s.
+// int64).  Only the 20 rotates and 20 xors need the integer ALU (64 lanes
+// an SM a clock); nvcc issues most adds as IMAD.IADD on the FMA pipe.  At
+// the stream_v5e8 b32 step's noise, 32 × 32 000 normals, that is ~41 M
+// ALU instructions, about 2.4 µs at 64 lanes × 132 SMs × 1.98 GHz,
+// against 1.2 µs for its 4 MB at 3.35 TB/s (ops/cost.py).
 // A simple kernel: one thread a value, keys read from device memory (L1
 // serves a row's threads), no shared memory.
-// Dropout and noise are bound the same way: a cipher an element against 8
-// bytes (f32: 4 read, 4 written) or 4 (bf16), so integer issue, about 4x
-// the bytes' time.  They run a grid-stride loop of at most kMaxBlocks
-// blocks, so the site key's cipher (dropout) is paid once a thread, not
-// once an element; the flax index costs three 32-bit divisions by the
-// port's dims a dropout element on top.
+// The noise is bound the same way: a cipher an element against 8 bytes
+// (f32: 4 read, 4 written) or 4 (bf16), so integer issue, about 4x the
+// bytes' time.  It runs a grid-stride loop of at most kMaxBlocks blocks.
+//
+// The dropout forward pays the cipher too, so its design strips the rest
+// of an element's instructions: a thread owns a mask word, 32 consecutive
+// elements of the port's memory, loaded and stored as 16-byte vectors
+// (a scalar path for the last word and for an unaligned tensor); it
+// finds the word's coordinates once, then steps j by the innermost
+// dim's flax stride, adding a precomputed wrap where a coordinate rolls
+// over (no division an element), and moves to its next word by adding
+// the grid's stride in mixed radix; the keep test compares b >> 9 with
+// ceil(keep * 2^23) in integers (u = (b >> 9) * 2^-23 exactly), and the
+// 32 tests are the word's bits.  The site's key is one cipher a thread.
+// What is left binds on the integer ALU (the SASS, scripts/kernel_sass.py),
+// so the cipher's adds go to the FMA pipe as IMADs (ImadAdd).
+// The VJP reads 2 bytes (bf16) or 4 of dy, 1/8 of a byte of mask and
+// writes dx: bytes-bound, one 16-byte vector a thread an iteration.  Both
+// take their block count from the wrapper; the bits do not depend on it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -90,16 +107,47 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 4096;
 constexpr int kDims = 4;
+constexpr int kWordBits = 32;        // elements a mask word
+// Blocks a dropout launch may take: the forward's grid stride in elements,
+// blocks * kThreads * kWordBits, stays below 2^32.
+constexpr long long kMaxDropoutBlocks = (1LL << 32) / (kThreads * kWordBits) - 1;
 enum Kind { kBits = 0, kUniform = 1, kRandint = 2, kNormal = 3 };
 
-// The port tensor's dims (outermost first, 1-padded at the front) and, for
-// each, the stride of that coordinate in the flax tensor's flat index.
+// The port tensor's dims (outermost first, 1-padded at the front); for
+// each, the stride of that coordinate in the flax tensor's flat index;
+// and, for d >= 1, what j gains where coordinate d rolls over to 0 and
+// d - 1 steps on: jstride[d - 1] - size[d] * jstride[d] modulo 2^32
+// (ops/threefry.py::walk_wraps).
 struct Layout {
   uint32_t size[kDims];
   uint32_t jstride[kDims];
+  uint32_t wrap[kDims];
+};
+static_assert(kDims == 4, "coords(), advance() and step() walk four dims");
+
+// The cipher's adds: a + b, as nvcc picks (IADD3 on the integer ALU, or
+// IMAD.IADD on the FMA pipe)...
+struct Add {
+  __device__ __forceinline__ uint32_t operator()(uint32_t a, uint32_t b) const {
+    return a + b;
+  }
 };
 
-__device__ __forceinline__ uint2 threefry(uint2 key, uint2 x) {
+// ... or always an IMAD by `one`, a 1 that ptxas cannot fold
+// (blockDim.x / kThreads), so each issues on the FMA pipe and the integer
+// ALU keeps only the rotates and xors: 40 of a cipher's 72 instructions,
+// not about 50 (the dropout forward, which that ALU bounds).
+struct ImadAdd {
+  uint32_t one;
+  __device__ __forceinline__ uint32_t operator()(uint32_t a, uint32_t b) const {
+    uint32_t d;
+    asm("mad.lo.u32 %0, %1, %2, %3;" : "=r"(d) : "r"(b), "r"(one), "r"(a));
+    return d;
+  }
+};
+
+template <typename A = Add>
+__device__ __forceinline__ uint2 threefry(uint2 key, uint2 x, A add = A()) {
   constexpr int kRot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
   const uint32_t ks[3] = {key.x, key.y, key.x ^ key.y ^ 0x1BD11BDAu};
   x.x += ks[0];
@@ -108,11 +156,11 @@ __device__ __forceinline__ uint2 threefry(uint2 key, uint2 x) {
   for (int i = 0; i < 5; ++i) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      x.x += x.y;
+      x.x = add(x.x, x.y);
       x.y = __funnelshift_l(x.y, x.y, kRot[i % 2][j]) ^ x.x;
     }
-    x.x += ks[(i + 1) % 3];
-    x.y += ks[(i + 2) % 3] + uint32_t(i + 1);
+    x.x = add(x.x, ks[(i + 1) % 3]);
+    x.y = add(x.y, ks[(i + 2) % 3] + uint32_t(i + 1));
   }
   return x;
 }
@@ -122,8 +170,9 @@ __device__ __forceinline__ uint2 child(uint2 key, uint32_t d) {
   return threefry(key, make_uint2(0u, d));
 }
 
-__device__ __forceinline__ uint32_t bits(uint2 key, uint32_t j) {
-  const uint2 y = child(key, j);
+template <typename A = Add>
+__device__ __forceinline__ uint32_t bits(uint2 key, uint32_t j, A add = A()) {
+  const uint2 y = threefry(key, make_uint2(0u, j), add);
   return y.x ^ y.y;
 }
 
@@ -181,6 +230,93 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
 }
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// A 16-byte vector of 4 float32 or 8 bfloat16 values as floats, and back
+// (each bfloat16 rounded to nearest even); p 16-byte aligned.
+__device__ __forceinline__ void load_vec(const float* p, float* v) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
+}
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* v) {
+  const uint4 q = *reinterpret_cast<const uint4*>(p);
+  const uint32_t u[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+  for (int h = 0; h < 4; ++h) {
+    v[2 * h] = __uint_as_float(u[h] << 16);
+    v[2 * h + 1] = __uint_as_float(u[h] & 0xFFFF0000u);
+  }
+}
+__device__ __forceinline__ void store_vec(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float* v) {
+  uint32_t u[4];
+#pragma unroll
+  for (int h = 0; h < 4; ++h)
+    u[h] = uint32_t(__bfloat16_as_ushort(__float2bfloat16_rn(v[2 * h]))) |
+           uint32_t(__bfloat16_as_ushort(__float2bfloat16_rn(v[2 * h + 1]))) << 16;
+  *reinterpret_cast<uint4*>(p) = make_uint4(u[0], u[1], u[2], u[3]);
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+// The coordinates of port offset m (the outermost takes what is left, so
+// a count past the tensor's end has digits too): divisions, once a thread.
+__device__ __forceinline__ void coords(const Layout& lay, uint32_t m, uint32_t* c) {
+#pragma unroll
+  for (int d = kDims - 1; d > 0; --d) {
+    const uint32_t q = m / lay.size[d];
+    c[d] = m - q * lay.size[d];
+    m = q;
+  }
+  c[0] = m;
+}
+
+__device__ __forceinline__ uint32_t flax_index(const Layout& lay, const uint32_t* c) {
+  uint32_t j = 0;
+#pragma unroll
+  for (int d = 0; d < kDims; ++d) j += c[d] * lay.jstride[d];
+  return j;
+}
+
+// One element on in the port's order: j steps by the innermost dim's flax
+// stride; where that dim rolls over (`left` counts down to it, a branch
+// taken once in size[3] elements), its wrap is added and the next dims
+// step, each adding its own wrap where it rolls over in turn (the
+// outermost is not kept: a word ends before it would matter).
+__device__ __forceinline__ void step(const Layout& lay, uint32_t& left, uint32_t& e2,
+                                     uint32_t& e1, uint32_t& j) {
+  j += lay.jstride[3];
+  if (__builtin_expect(--left == 0, 0)) {
+    left = lay.size[3];
+    j += lay.wrap[3];
+    if (++e2 == lay.size[2]) {
+      e2 = 0;
+      j += lay.wrap[2];
+      if (++e1 == lay.size[1]) {
+        e1 = 0;
+        j += lay.wrap[1];
+      }
+    }
+  }
+}
+
+// c += g in mixed radix (g's digits below the sizes, but the outermost).
+__device__ __forceinline__ void advance(const Layout& lay, uint32_t* c, const uint32_t* g) {
+  uint32_t carry = 0;
+#pragma unroll
+  for (int d = kDims - 1; d > 0; --d) {
+    c[d] += g[d] + carry;
+    carry = c[d] >= lay.size[d];
+    if (carry) c[d] -= lay.size[d];
+  }
+  c[0] += g[0] + carry;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -253,22 +389,78 @@ __global__ void threefry_train_keys_kernel(const long long* __restrict__ key,
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     threefry_dropout_kernel(const T* __restrict__ x, T* __restrict__ y,
+                            uint32_t* __restrict__ words,
                             const long long* __restrict__ key, uint32_t fold,
-                            float keep, float scale, uint32_t n, Layout lay) {
-  const uint2 site = child(load_key(key), fold);
+                            uint32_t keep_below, float scale, uint32_t n,
+                            Layout lay, bool vec) {
+  constexpr int kVec = 16 / sizeof(T);              // elements a 16-byte vector
+  const uint32_t nwords = (n - 1) / kWordBits + 1;
   const uint32_t stride = gridDim.x * kThreads;
-  for (uint32_t m = blockIdx.x * kThreads + threadIdx.x; m < n; m += stride) {
-    uint32_t rest = m, j = 0;
+  uint32_t w = blockIdx.x * kThreads + threadIdx.x;
+  if (w >= nwords) return;
+  const uint2 site = child(load_key(key), fold);
+  const ImadAdd imad{blockDim.x / kThreads};
+  // b >> 9 < keep_below where b <= keep_below * 2^9 - 1 (2^32 - 1 at most)
+  const uint32_t keep_max = (keep_below << 9) - 1u;
+  uint32_t c[kDims], g[kDims];
+  coords(lay, w * kWordBits, c);                    // this thread's first word
+  coords(lay, stride * kWordBits, g);               // the grid's stride
+  for (; w < nwords; w += stride, advance(lay, c, g)) {
+    const uint32_t m = w * kWordBits;
+    uint32_t left = lay.size[3] - c[3], e2 = c[2], e1 = c[1];
+    uint32_t j = flax_index(lay, c);
+    uint32_t kept = 0;
+    if (vec && m + kWordBits <= n) {
+      float v[kWordBits];
 #pragma unroll
-    for (int d = kDims - 1; d >= 0; --d) {
-      const uint32_t s = lay.size[d];
-      const uint32_t q = rest / s;
-      j += (rest - q * s) * lay.jstride[d];
-      rest = q;
+      for (int k = 0; k < kWordBits; k += kVec) load_vec(x + m + k, v + k);
+#pragma unroll
+      for (int i = 0; i < kWordBits; ++i) {
+        const bool keep = bits(site, j, imad) <= keep_max;
+        if (keep) kept |= 1u << i;
+        v[i] = keep ? __fmul_rn(v[i], scale) : 0.0f;
+        step(lay, left, e2, e1, j);
+      }
+#pragma unroll
+      for (int k = 0; k < kWordBits; k += kVec) store_vec(y + m + k, v + k);
+    } else {
+      for (uint32_t i = 0; i < kWordBits && m + i < n; ++i) {
+        const bool keep = bits(site, j, imad) <= keep_max;
+        if (keep) kept |= 1u << i;
+        y[m + i] = from_float<T>(keep ? __fmul_rn(to_float(x[m + i]), scale) : 0.0f);
+        step(lay, left, e2, e1, j);
+      }
     }
-    const uint32_t b = bits(site, j);
-    const float u = __fsub_rn(__uint_as_float((b >> 9) | 0x3F800000u), 1.0f);
-    y[m] = from_float<T>(u < keep ? __fmul_rn(to_float(x[m]), scale) : 0.0f);
+    words[w] = kept;
+  }
+}
+
+// dx = bit ? dy * scale : 0, a 16-byte vector of dy a thread an iteration
+// (a scalar path for the tail and an unaligned tensor); a vector's bits
+// lie in one word.  No cipher: the forward's words are the mask.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    dropout_mask_kernel(const T* __restrict__ dy,
+                        const uint32_t* __restrict__ words, T* __restrict__ dx,
+                        float scale, uint32_t n, bool vec) {
+  constexpr uint32_t kVec = 16 / sizeof(T);
+  const uint32_t chunks = (n - 1) / kVec + 1;
+  const uint32_t stride = gridDim.x * kThreads;
+  for (uint32_t q = blockIdx.x * kThreads + threadIdx.x; q < chunks; q += stride) {
+    const uint32_t m = q * kVec;
+    const uint32_t kept = words[m / kWordBits] >> (m % kWordBits);
+    if (vec && m + kVec <= n) {
+      float v[kVec];
+      load_vec(dy + m, v);
+#pragma unroll
+      for (uint32_t i = 0; i < kVec; ++i)
+        v[i] = (kept >> i) & 1u ? __fmul_rn(v[i], scale) : 0.0f;
+      store_vec(dx + m, v);
+    } else {
+      for (uint32_t i = 0; i < kVec && m + i < n; ++i)
+        dx[m + i] = from_float<T>((kept >> i) & 1u ? __fmul_rn(to_float(dy[m + i]), scale)
+                                                  : 0.0f);
+    }
   }
 }
 
@@ -350,32 +542,58 @@ extern "C" int threefry_train_keys_launch(const void* key, const void* step,
 }
 
 // x, y: n elements, float32 (bf16 = 0) or bfloat16 (bf16 = 1), contiguous in
-// the port's order; key: int64 (2,), the site's base key; size/jstride:
-// kDims each (the port's dims, outermost first, and their flax strides).
-extern "C" int threefry_dropout_launch(const void* x, void* y, const void* key,
-                                       long long fold, float keep, float scale,
+// the port's order; words: int32 ceil(n / 32), the keep mask written; key:
+// int64 (2,), the site's base key; keep_below: ceil(keep * 2^23), in [1,
+// 2^23]; size/jstride/wrap: kDims each (the port's dims, outermost first,
+// their flax strides and wraps); blocks: the grid.
+extern "C" int threefry_dropout_launch(const void* x, void* y, void* words,
+                                       const void* key, long long fold,
+                                       long long keep_below, float scale,
                                        long long n, const long long* size,
-                                       const long long* jstride, int bf16,
-                                       void* stream) {
-  if (n < 1 || n > 0xFFFFFFFFLL || fold < 0 || fold > 0xFFFFFFFFLL)
+                                       const long long* jstride,
+                                       const long long* wrap, int bf16,
+                                       int blocks, void* stream) {
+  if (n < 1 || n > 0xFFFFFFFFLL || fold < 0 || fold > 0xFFFFFFFFLL ||
+      keep_below < 1 || keep_below > (1LL << 23) || blocks < 1 ||
+      blocks > kMaxDropoutBlocks)
     return (int)cudaErrorInvalidValue;
   Layout lay;
   for (int d = 0; d < kDims; ++d) {
     if (size[d] < 1 || size[d] > 0xFFFFFFFFLL || jstride[d] < 0 ||
-        jstride[d] > 0xFFFFFFFFLL)
+        jstride[d] > 0xFFFFFFFFLL || wrap[d] < 0 || wrap[d] > 0xFFFFFFFFLL)
       return (int)cudaErrorInvalidValue;
     lay.size[d] = uint32_t(size[d]);
     lay.jstride[d] = uint32_t(jstride[d]);
+    lay.wrap[d] = uint32_t(wrap[d]);
   }
-  const unsigned blocks = grid_blocks(uint32_t(n));
+  const bool vec = aligned16(x) && aligned16(y);
   if (bf16)
     threefry_dropout_kernel<__nv_bfloat16><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        (const __nv_bfloat16*)x, (__nv_bfloat16*)y, (const long long*)key,
-        uint32_t(fold), keep, scale, uint32_t(n), lay);
+        (const __nv_bfloat16*)x, (__nv_bfloat16*)y, (uint32_t*)words,
+        (const long long*)key, uint32_t(fold), uint32_t(keep_below), scale,
+        uint32_t(n), lay, vec);
   else
     threefry_dropout_kernel<float><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        (const float*)x, (float*)y, (const long long*)key, uint32_t(fold), keep,
-        scale, uint32_t(n), lay);
+        (const float*)x, (float*)y, (uint32_t*)words, (const long long*)key,
+        uint32_t(fold), uint32_t(keep_below), scale, uint32_t(n), lay, vec);
+  return (int)cudaGetLastError();
+}
+
+// dy, dx: n elements, float32 (bf16 = 0) or bfloat16 (bf16 = 1), contiguous;
+// words: int32 ceil(n / 32), a dropout forward's keep mask; blocks: the grid.
+extern "C" int dropout_mask_launch(const void* dy, const void* words, void* dx,
+                                   float scale, long long n, int bf16, int blocks,
+                                   void* stream) {
+  if (n < 1 || n > 0xFFFFFFFFLL || blocks < 1 || blocks > kMaxDropoutBlocks)
+    return (int)cudaErrorInvalidValue;
+  const bool vec = aligned16(dy) && aligned16(dx);
+  if (bf16)
+    dropout_mask_kernel<__nv_bfloat16><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        (const __nv_bfloat16*)dy, (const uint32_t*)words, (__nv_bfloat16*)dx, scale,
+        uint32_t(n), vec);
+  else
+    dropout_mask_kernel<float><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        (const float*)dy, (const uint32_t*)words, (float*)dx, scale, uint32_t(n), vec);
   return (int)cudaGetLastError();
 }
 

@@ -67,8 +67,9 @@ def launch_counts() -> Dict[str, int]:
     set to 0: K1 `stft_features`, K2 `masked_istft`, K3 `istft` and its
     backward `istft_bwd`, K4 `stft`, and the threefry launches
     `threefry_keys`, `threefry_sample`, `threefry_train_keys`,
-    `threefry_dropout` (forward), `threefry_dropout_bwd` and
-    `threefry_noise`.  A wrapper called while a CUDA graph
+    `threefry_dropout` (forward), `threefry_dropout_bwd` (its backward,
+    the mask kernel, which reads the forward's packed mask and draws
+    nothing) and `threefry_noise`.  A wrapper called while a CUDA graph
     is captured counts the launch it records; `train/graphed.py` counts
     the launches that replays of its graphs make."""
     return {"stft_features": _k1.launches, "masked_istft": _k2.launches,
@@ -201,9 +202,9 @@ def dropout(x: torch.Tensor, key: torch.Tensor, fold: int, p: float,
             dims) -> torch.Tensor:
     """flax's train-time `nn.Dropout(p)` of x at the site keyed by
     fold_in(key, fold), `dims` x's dims in the flax tensor's order;
-    differentiable.  On a CUDA tensor one kernel launch forward and one
-    backward."""
-    return _rng.Dropout.apply(x, key, fold, p, tuple(dims), _use_kernel(x))
+    differentiable.  On a CUDA tensor one kernel launch forward, which
+    also packs the keep mask, and one backward, which reads it."""
+    return _rng.Dropout.apply(x, key, fold, p, tuple(dims), _use_kernel(x))[0]
 
 
 def instance_noise(x: torch.Tensor, key: torch.Tensor, std: float) -> torch.Tensor:

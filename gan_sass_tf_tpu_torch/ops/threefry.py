@@ -24,13 +24,16 @@ kinds of launch (`data/threefry.py` is the plain version, the bits of
         them (gan_sass_tf_tpu/train/step.py:213-228, :317, :178, :372):
         rng_g; per D step its dropout, noise and R1-dropout keys; the
         adversarial call's dropout and noise keys (`train_key_rows`).
-    dropout(x, key, fold, p, dims)  ->  x's shape and dtype
+    dropout(x, key, fold, p, dims)  ->  (y, words)
         flax's `nn.Dropout(p)` at train time under the `dropout` rng
         `key`, at the site whose `make_rng` folds `fold` (`models/
-        dropout.py`): select(bernoulli(fold_in(key, fold), 1 - p, flax
+        dropout.py`): y = select(bernoulli(fold_in(key, fold), 1 - p, flax
         shape), x * scale, 0); `dims` lists x's dims in the flax tensor's
-        order, whose flat index keys each element.  Its backward is the same
-        launch on the gradient.
+        order, whose flat index keys each element.  `words` is the keep
+        mask packed (`pack_mask`), which the backward reads.
+    dropout_mask(dy, words, scale)  ->  dy's shape and dtype
+        the dropout's VJP, select(mask, dy * scale, 0), the mask read from
+        the forward's words, not drawn again; its own VJP is itself.
     noise(x, key, std)  ->  x + std * normal(key, x.shape, x.dtype), x in
         the flax layout; the gradient passes as it is.
 
@@ -49,6 +52,7 @@ step's keys are drawn inside its captured graph.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -62,10 +66,13 @@ keys_launches = 0      # kernel launches since the last reset (chip_smoke reads 
 sample_launches = 0
 train_keys_launches = 0
 dropout_launches = 0         # forward calls
-dropout_bwd_launches = 0     # backward calls (the same kernel on the gradient)
+dropout_bwd_launches = 0     # backward calls (the mask kernel: no draw)
 noise_launches = 0
 DROPOUT_DIMS = 4             # the kernel's most dims
 DTYPES = (torch.float32, torch.bfloat16)
+WORD_BITS = 32               # elements a mask word
+THREADS = 256                # the dropout kernels' block (csrc/threefry.cu kThreads)
+BLOCKS_PER_SM = 16           # their default grid: at most this many blocks an SM
 
 
 def _launch(name: str, device: torch.device, *args) -> None:
@@ -219,6 +226,13 @@ def dropout_constants(dtype: torch.dtype, p: float) -> Tuple[float, float]:
     return float(np.float32(1.0 - p)), float(np.float32(1.0) / keep_x)
 
 
+def keep_below(keep: float) -> int:
+    """The kernel's integer keep test: bernoulli's uniform is (b >> 9)·2^-23
+    exactly, so u < keep where b >> 9 < ceil(keep·2^23) (float64 holds the
+    float32 keep times 2^23 exactly)."""
+    return math.ceil(keep * 2.0 ** 23)
+
+
 def flax_layout(shape: Sequence[int], dims: Sequence[int]) -> Tuple[list, list]:
     """The kernel's view of a contiguous port tensor of `shape` whose dims,
     in the flax tensor's order, are `dims`: its sizes and, for each, its
@@ -234,21 +248,70 @@ def flax_layout(shape: Sequence[int], dims: Sequence[int]) -> Tuple[list, list]:
     return [1] * pad + list(shape), [0] * pad + jstride
 
 
+def walk_wraps(size: Sequence[int], jstride: Sequence[int]) -> list:
+    """What the flax index gains, modulo 2^32, where the forward kernel's
+    walk rolls coordinate d over to 0 and steps d - 1 on:
+    jstride[d - 1] - size[d]·jstride[d] (0 for the outermost)."""
+    return [0] + [(jstride[d - 1] - size[d] * jstride[d]) & 0xFFFFFFFF
+                  for d in range(1, len(size))]
+
+
+def mask_words(n: int) -> int:
+    return -(-n // WORD_BITS)
+
+
+def pack_mask(kept: torch.Tensor) -> torch.Tensor:
+    """A bool tensor's elements, in row-major order, packed into int32 words:
+    element m is bit m % 32 of word m // 32; the last word's bits past the
+    end are 0."""
+    flat = kept.reshape(-1).to(torch.int64)
+    flat = torch.nn.functional.pad(flat, (0, mask_words(flat.numel()) * WORD_BITS
+                                          - flat.numel()))
+    shifts = torch.arange(WORD_BITS, device=kept.device)
+    words = (flat.view(-1, WORD_BITS) << shifts).sum(-1)
+    return torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
+
+
+def unpack_mask(words: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """pack_mask's inverse: the bool tensor of `shape`."""
+    n = math.prod(shape)
+    shifts = torch.arange(WORD_BITS, device=words.device)
+    bits = (words.to(torch.int64)[:, None] >> shifts) & 1
+    return bits.reshape(-1)[:n].view(*shape).bool()
+
+
+def _check_words(t: torch.Tensor, words: torch.Tensor, what: str) -> None:
+    if words.dtype != torch.int32 or words.shape != (mask_words(t.numel()),) \
+            or words.device != t.device:
+        raise ValueError(f"{what}: int32 ({mask_words(t.numel())},) words on "
+                         f"{t.device}, got {words.dtype} {tuple(words.shape)} on "
+                         f"{words.device}")
+
+
+def dropout_blocks(units: int, device: torch.device) -> int:
+    """The dropout kernels' default grid for `units` (mask words forward,
+    16-byte vectors backward), a thread each: at most BLOCKS_PER_SM blocks
+    an SM, each thread then walking several."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(-(-units // THREADS), BLOCKS_PER_SM * sms))
+
+
 def dropout_reference(x: torch.Tensor, key: torch.Tensor, fold: int, p: float,
-                      dims: Sequence[int]) -> torch.Tensor:
+                      dims: Sequence[int]) -> Tuple[torch.Tensor, torch.Tensor]:
     _check_key(key, "dropout")
     keep, scale = dropout_constants(x.dtype, p)
     flax_layout(x.shape, dims)
     kept = tf.bernoulli(tf.fold_in(key, fold), 1.0 - p, [x.shape[d] for d in dims])
     kept = kept.permute(*np.argsort(dims).tolist())
-    return torch.where(kept, (x.float() * scale).to(x.dtype), 0.0)
+    return torch.where(kept, (x.float() * scale).to(x.dtype), 0.0), pack_mask(kept)
 
 
 def dropout_kernel(x: torch.Tensor, key: torch.Tensor, fold: int, p: float,
-                   dims: Sequence[int], backward: bool = False) -> torch.Tensor:
-    """One launch of `threefry_dropout_launch`; `backward` counts it as a
-    backward launch."""
-    global dropout_launches, dropout_bwd_launches
+                   dims: Sequence[int], blocks: Optional[int] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of `threefry_dropout_launch`: (y, words), the same bits
+    whatever `blocks` (default `dropout_blocks`)."""
+    global dropout_launches
     _check_key(key, "dropout kernel")
     keep, scale = dropout_constants(x.dtype, p)
     size, jstride = flax_layout(x.shape, dims)
@@ -259,35 +322,79 @@ def dropout_kernel(x: torch.Tensor, key: torch.Tensor, fold: int, p: float,
         raise ValueError(f"dropout kernel: {x.numel()} elements, fold {fold}")
     x, key = x.contiguous(), key.contiguous()
     y = torch.empty_like(x)
-    _launch("threefry_dropout", x.device, x.data_ptr(), y.data_ptr(), key.data_ptr(),
-            fold, keep, scale, x.numel(), (ctypes.c_longlong * DROPOUT_DIMS)(*size),
-            (ctypes.c_longlong * DROPOUT_DIMS)(*jstride), int(x.dtype == torch.bfloat16))
-    if backward:
-        dropout_bwd_launches += 1
-    else:
-        dropout_launches += 1
-    return y
+    words = torch.empty(mask_words(x.numel()), dtype=torch.int32, device=x.device)
+    arr = ctypes.c_longlong * DROPOUT_DIMS
+    _launch("threefry_dropout", x.device, x.data_ptr(), y.data_ptr(), words.data_ptr(),
+            key.data_ptr(), fold, keep_below(keep), scale, x.numel(), arr(*size),
+            arr(*jstride), arr(*walk_wraps(size, jstride)),
+            int(x.dtype == torch.bfloat16),
+            blocks or dropout_blocks(words.numel(), x.device))
+    dropout_launches += 1
+    return y, words
+
+
+def dropout_mask_reference(dy: torch.Tensor, words: torch.Tensor,
+                           scale: float) -> torch.Tensor:
+    _check_words(dy, words, "dropout_mask")
+    kept = unpack_mask(words, dy.shape)
+    return torch.where(kept, (dy.float() * scale).to(dy.dtype), 0.0)
+
+
+def dropout_mask_kernel(dy: torch.Tensor, words: torch.Tensor, scale: float,
+                        blocks: Optional[int] = None) -> torch.Tensor:
+    """One launch of `dropout_mask_launch` (counted as a dropout backward):
+    the same bits whatever `blocks` (default `dropout_blocks`)."""
+    global dropout_bwd_launches
+    _check_words(dy, words, "dropout_mask kernel")
+    if not (dy.is_cuda and dy.dtype in DTYPES and 1 <= dy.numel() < 1 << 32):
+        raise ValueError(f"dropout_mask kernel: a float32 or bfloat16 CUDA tensor, "
+                         f"got {dy.dtype} {tuple(dy.shape)} on {dy.device}")
+    dy = dy.contiguous()
+    dx = torch.empty_like(dy)
+    _launch("dropout_mask", dy.device, dy.data_ptr(), words.data_ptr(), dx.data_ptr(),
+            scale, dy.numel(), int(dy.dtype == torch.bfloat16),
+            blocks or dropout_blocks(-(-(dy.numel() * dy.element_size()) // 16),
+                                    dy.device))
+    dropout_bwd_launches += 1
+    return dx
 
 
 class Dropout(torch.autograd.Function):
-    """dropout(x) with its gradient, select(mask, dy * scale, 0): the same
-    launch (or plain version) on dy, the mask drawn again from the key;
-    differentiable again, for R1's double backward."""
+    """dropout(x) -> (y, words) with y's gradient select(mask, dy * scale,
+    0) read from the words (`DropoutMask`), which are saved in place of the
+    key; the words have no gradient."""
 
     @staticmethod
-    def forward(ctx, x, key, fold, p, dims, kernel, backward=False):
-        ctx.save_for_backward(key)
-        ctx.args = (fold, p, dims, kernel)
+    def forward(ctx, x, key, fold, p, dims, kernel):
+        fn = dropout_kernel if kernel else dropout_reference
+        y, words = fn(x, key, fold, p, dims)
+        ctx.mark_non_differentiable(words)
+        ctx.save_for_backward(words)
+        ctx.args = (dropout_constants(x.dtype, p)[1], kernel)
+        return y, words
+
+    @staticmethod
+    def backward(ctx, dy, _):
+        (words,) = ctx.saved_tensors
+        return DropoutMask.apply(dy, words, *ctx.args), None, None, None, None, None
+
+
+class DropoutMask(torch.autograd.Function):
+    """select(mask, dy * scale, 0) from packed words; linear in dy, so its
+    gradient is the same again (R1's double backward)."""
+
+    @staticmethod
+    def forward(ctx, dy, words, scale, kernel):
+        ctx.save_for_backward(words)
+        ctx.args = (scale, kernel)
         if kernel:
-            return dropout_kernel(x, key, fold, p, dims, backward)
-        return dropout_reference(x, key, fold, p, dims)
+            return dropout_mask_kernel(dy, words, scale)
+        return dropout_mask_reference(dy, words, scale)
 
     @staticmethod
-    def backward(ctx, dy):
-        (key,) = ctx.saved_tensors
-        fold, p, dims, kernel = ctx.args
-        return (Dropout.apply(dy, key, fold, p, dims, kernel, True),
-                None, None, None, None, None, None)
+    def backward(ctx, g):
+        (words,) = ctx.saved_tensors
+        return DropoutMask.apply(g, words, *ctx.args), None, None, None
 
 
 def noise_coef(dtype: torch.dtype, std: float) -> float:

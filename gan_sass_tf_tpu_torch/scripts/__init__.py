@@ -11,6 +11,8 @@
     python -m gan_sass_tf_tpu_torch.scripts.run_queue [ROUND]
     python -m gan_sass_tf_tpu_torch.scripts.bytes_ledger [PRESET ...] ...
     python -m gan_sass_tf_tpu_torch.scripts.roofline [PRESET ...] ...
+    python -m gan_sass_tf_tpu_torch.scripts.time_dropout [PRESET] [BATCH] ...
+    python -m gan_sass_tf_tpu_torch.scripts.kernel_sass [KERNEL ...]
 """
 
 from typing import Dict, List, Sequence, Tuple

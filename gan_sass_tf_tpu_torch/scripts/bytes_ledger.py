@@ -403,11 +403,14 @@ def _wrappers(ledger: Ledger) -> Dict[str, Callable]:
         return run
 
     def dropout(x, key, fold, p, dims):
-        c = cost.dropout(x.numel(), x.element_size())
+        # Forward the cipher kernel; backward (and R1's double backward) the
+        # mask kernel, which reads the forward's packed mask.
+        n, item = x.numel(), x.element_size()
         return _charged(
             ledger, lambda xx: orig["dropout"](xx, key, fold, p, dims), (x,),
-            lambda xs, outs: ledger.kernel("threefry_dropout", c),
-            lambda wrt, outs, g, got: ledger.kernel("threefry_dropout_bwd", c))
+            lambda xs, outs: ledger.kernel("threefry_dropout", cost.dropout(n, item)),
+            lambda wrt, outs, g, got: ledger.kernel("threefry_dropout_bwd",
+                                                    cost.dropout_mask(n, item)))
 
     return {
         **{name: quiet_call("stft_features", orig[name], k1_cost)

@@ -193,6 +193,215 @@ def test_dropout_gradient_is_the_mask_drawn_again():
                                rtol=0, atol=0)
 
 
+# -- the packed keep mask and the VJP that reads it ---------------------------
+
+# Port shapes whose size is not a multiple of 32 (the mask's last word has a
+# tail), with the flax dims of an NCHW conv site or of a (B, T, H) site; F = 65
+# is the largest every-option site's.
+MASK_SHAPES = {"nchw": [(3, 5, 7, 11), (2, 3, 7, 65)], "bth": [(3, 13, 10), (5, 9, 7)]}
+
+
+class _One(nn.Module):
+    p: float = 0.3
+
+    @nn.compact
+    def __call__(self, x):
+        return nn.Dropout(self.p, deterministic=False)(x)
+
+
+def _to_flax(t, layout):
+    return t.permute(0, 2, 3, 1) if layout == "nchw" else t
+
+
+def _to_port(a, layout):
+    return np.transpose(a, (0, 3, 1, 2)) if layout == "nchw" else a
+
+
+def _packed(kept: np.ndarray) -> np.ndarray:
+    """numpy's packing of a bool array in row-major order: bit m % 32 of
+    word m // 32, as int32."""
+    flat = np.packbits(kept.reshape(-1), bitorder="little")
+    flat = np.pad(flat, (0, -len(flat) % 4))
+    return flat.view("<u4").astype(np.uint32).view(np.int32)
+
+
+@pytest.mark.parametrize("shape_i", [0, 1])
+@pytest.mark.parametrize("layout", ["nchw", "bth"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_words_equal_flax_dropout_mask(dtype, layout, shape_i):
+    """dropout_reference's words are flax's nn.Dropout mask (jitted, three
+    sites and paths) packed in the port's memory order, the tail word's
+    bits past the end 0."""
+    shape = MASK_SHAPES[layout][shape_i]
+    n = int(np.prod(shape))
+    assert n % 32
+    x = np.abs(np.random.default_rng(5).standard_normal(shape)).astype(np.float32) + 0.5
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    refs = jax.jit(lambda v, k: _Sites().apply({}, v, rngs={"dropout": k}))(
+        jnp.asarray(np.asarray(_to_flax(torch.from_numpy(x), layout)), dtype),
+        jax.random.PRNGKey(23))
+    dims = NCHW if layout == "nchw" else None
+    key = tf.prng_key(23)
+    sites = [(DropoutKey(key), 0, 0.1), (DropoutKey(key), 1, 0.5),
+             (DropoutKey(key, ("_Inner_0",)), 0, 0.3)]
+    for (dk, site, p), ref in zip(sites, refs):
+        kept = _to_port(np.asarray(ref).astype(np.float32) != 0, layout)
+        y, words = rng_ops.dropout_reference(tx, key, dk.fold(site), p,
+                                             dims or tuple(range(len(shape))))
+        assert words.dtype == torch.int32 and words.shape == (-(-n // 32),)
+        np.testing.assert_array_equal(words.numpy(), _packed(kept),
+                                      err_msg=f"{dtype} {layout} {dk.path} {site}")
+        assert (int(words[-1]) & 0xFFFFFFFF) >> (n % 32) == 0
+        assert torch.equal(rng_ops.unpack_mask(words, shape), torch.from_numpy(kept))
+        assert torch.equal(y, dk.apply(tx, p, site, dims))
+
+
+@pytest.mark.parametrize("layout", ["nchw", "bth"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mask_backward_equals_jax_vjp_and_second_derivative(dtype, layout):
+    """The backward through the saved words against jax.vjp of flax's
+    dropout (jitted), and its own backward (R1's double backward) against
+    JAX's second derivative, bit for bit; what the forward saves is the
+    words, not the key."""
+    shape, p = MASK_SHAPES[layout][1], 0.3
+    rng = np.random.default_rng(8)
+    x, dy, w = (rng.standard_normal(shape).astype(np.float32) for _ in range(3))
+    jdt = getattr(jnp, dtype)
+    flax_in = [jnp.asarray(np.asarray(_to_flax(torch.from_numpy(a), layout)), jdt)
+               for a in (x, dy, w)]
+
+    def f(v, k):
+        return _One(p).apply({}, v, rngs={"dropout": k})
+
+    def vjp(v, ct, k):
+        return jax.vjp(lambda u: f(u, k), v)[1](ct)[0]
+
+    def second(v, ct, ww, k):
+        return jax.vjp(lambda c: vjp(v, c, k), ct)[1](ww)[0]
+
+    jk = jax.random.PRNGKey(31)
+    ref_dx = np.asarray(jax.jit(vjp)(flax_in[0], flax_in[1], jk))
+    ref_ddy = np.asarray(jax.jit(second)(*flax_in, jk))
+    tdt = getattr(torch, dtype)
+    tx = torch.from_numpy(x).to(tdt).requires_grad_()
+    tdy = torch.from_numpy(dy).to(tdt).requires_grad_()
+    dims = NCHW if layout == "nchw" else None
+    y = DropoutKey(tf.prng_key(31)).apply(tx, p, 0, dims)
+    (saved,) = y.grad_fn.saved_tensors
+    assert saved.dtype == torch.int32 and saved.shape == (-(-tx.numel() // 32),)
+    (dx,) = torch.autograd.grad(y, tx, tdy, create_graph=True)
+    (ddy,) = torch.autograd.grad(dx, tdy, torch.from_numpy(w).to(tdt))
+    for ours, ref in ((dx, ref_dx), (ddy, ref_ddy)):
+        ours = _to_flax(ours.detach(), layout).float().numpy()
+        np.testing.assert_array_equal(ours.view(np.int32),
+                                      ref.astype(np.float32).view(np.int32))
+    scale = rng_ops.dropout_constants(tdt, p)[1]
+    assert torch.equal(dx.detach(), rng_ops.dropout_mask_reference(tdy.detach(), saved,
+                                                                   scale))
+
+
+def _forward_walk(shape, dims, blocks):
+    """numpy mirror of threefry_dropout_kernel's walk (csrc/threefry.cu) over
+    `blocks` blocks of rng_ops.THREADS threads, in uint32 arithmetic: a
+    thread's first word's coordinates and the grid's stride's digits by
+    division, once; a word's elements by steps of the innermost flax
+    stride, counting down to where the innermost dim rolls over, and the
+    wraps of rng_ops.walk_wraps; the next word by a mixed-radix add.
+    Returns each element's (j, word, bit, visits)."""
+    m32 = np.uint64(0xFFFFFFFF)
+    size, jstride = rng_ops.flax_layout(shape, dims)
+    wrap = rng_ops.walk_wraps(size, jstride)
+    size, jstride, wrap = (np.array(a, np.uint64) for a in (size, jstride, wrap))
+    n, bits = int(np.prod(shape)), rng_ops.WORD_BITS
+    nwords, stride = -(-n // bits), blocks * rng_ops.THREADS
+
+    def coords(m):
+        m, c = np.asarray(m, np.uint64), [None] * 4
+        for d in range(3, 0, -1):
+            c[d], m = m % size[d], m // size[d]
+        c[0] = m
+        return c
+
+    j_of, word_of, bit_of = (np.zeros(n, np.int64) for _ in range(3))
+    visits = np.zeros(n, np.int64)
+    w = np.arange(min(stride, nwords), dtype=np.uint64)
+    c, g = coords(w * np.uint64(bits)), coords(stride * bits)
+    one = np.uint64(1)
+    while True:
+        live = w < nwords
+        if not live.any():
+            return j_of, word_of, bit_of, visits
+        left, e2, e1 = size[3] - c[3], c[2].copy(), c[1].copy()
+        j = sum(c[d] * jstride[d] for d in range(4)) & m32
+        for i in range(bits):
+            m = w * np.uint64(bits) + np.uint64(i)
+            ok = live & (m < n)
+            idx = m[ok].astype(np.int64)
+            j_of[idx], word_of[idx], bit_of[idx] = j[ok], w[ok], i
+            visits[idx] += 1
+            # step(): j by the innermost stride; the rare branch where it rolls over
+            j, left = (j + jstride[3]) & m32, left - one
+            roll = left == 0
+            left = np.where(roll, size[3], left)
+            j = np.where(roll, (j + wrap[3]) & m32, j)
+            e2 = np.where(roll, e2 + one, e2)
+            roll = roll & (e2 == size[2])
+            e2 = np.where(roll, np.uint64(0), e2)
+            j = np.where(roll, (j + wrap[2]) & m32, j)
+            e1 = np.where(roll, e1 + one, e1)
+            roll = roll & (e1 == size[1])
+            e1 = np.where(roll, np.uint64(0), e1)
+            j = np.where(roll, (j + wrap[1]) & m32, j)
+        w = w + np.uint64(stride)
+        carry = np.zeros_like(w)
+        for d in (3, 2, 1):
+            c[d] = c[d] + g[d] + carry
+            carry = (c[d] >= size[d]).astype(np.uint64)
+            c[d] = c[d] - carry * size[d]
+        c[0] = c[0] + g[0] + carry
+
+
+@pytest.mark.parametrize("shape,dims", [
+    ((2, 3, 41, 65), NCHW), ((3, 5, 37, 65), NCHW), ((2, 1, 9, 65), NCHW),
+    ((4, 3, 1, 7), NCHW), ((3, 13, 10), (0, 1, 2)), ((5, 33, 7), (0, 1, 2))])
+def test_forward_walk_mirror_equals_flax_index(shape, dims):
+    """Every element's j on the kernel's walk (no division an element) is
+    its flax flat index (flax_layout's strides), its word m // 32 and bit
+    m % 32, each element once: at one block (a thread walks many words),
+    two, and a thread a word."""
+    size, jstride = rng_ops.flax_layout(shape, dims)
+    n = int(np.prod(shape))
+    coord = np.unravel_index(np.arange(n), size)
+    want = sum(c * s for c, s in zip(coord, jstride))
+    m = np.arange(n)
+    for blocks in (1, 2, -(-rng_ops.mask_words(n) // rng_ops.THREADS)):
+        j, word, bit, visits = _forward_walk(shape, dims, blocks)
+        assert (visits == 1).all(), blocks
+        np.testing.assert_array_equal(j, want, err_msg=f"blocks {blocks}")
+        np.testing.assert_array_equal(word, m // 32)
+        np.testing.assert_array_equal(bit, m % 32)
+
+
+@pytest.mark.parametrize("p", [0.5, 0.4, 0.3, 0.2, 0.1])
+def test_integer_keep_test_equals_the_float_one(p):
+    """(b >> 9) < keep_below(keep) against bernoulli's float32 uniform below
+    keep, for all 2^23 values of b >> 9 at keep = 1 - p."""
+    keep, _ = rng_ops.dropout_constants(torch.float32, p)
+    k = np.arange(1 << 23, dtype=np.uint32)
+    u = (k | np.uint32(0x3F800000)).view(np.float32) - np.float32(1.0)
+    np.testing.assert_array_equal(k < rng_ops.keep_below(keep), u < np.float32(keep))
+
+
+def test_dropout_kernels_refuse_cpu_tensors():
+    """On the CPU the dispatch takes the plain versions; the kernels' wrappers
+    launch on CUDA tensors or raise."""
+    x = torch.randn(2, 3, 4, 5)
+    with pytest.raises(ValueError, match="CUDA"):
+        rng_ops.dropout_kernel(x, tf.prng_key(1), 7, 0.5, NCHW)
+    with pytest.raises(ValueError, match="CUDA"):
+        rng_ops.dropout_mask_kernel(x, torch.zeros(4, dtype=torch.int32), 2.0)
+
+
 # -- every module's dropout sites ---------------------------------------------
 
 def _site_cfg(kind, dtype):

@@ -213,7 +213,8 @@ def test_kernel_modules_import_without_toolchain():
     assert {"istft_launch", "istft_adjoint_launch", "masked_istft_launch",
             "stft_launch", "stft_features_launch", "synthesis_prepare",
             "threefry_keys_launch", "threefry_sample_launch", "threefry_train_keys_launch",
-            "threefry_dropout_launch", "threefry_noise_launch"} == set(build._SIGNATURES)
+            "threefry_dropout_launch", "dropout_mask_launch",
+            "threefry_noise_launch"} == set(build._SIGNATURES)
     assert build.library_path().parent == build.build_dir()
 
 

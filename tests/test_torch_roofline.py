@@ -243,6 +243,7 @@ def test_dropout_charged_forward_backward_and_double_backward():
     x = torch.randn(2, 3, 4, 5, requires_grad=True)
     dy = torch.randn(2, 3, 4, 5, requires_grad=True)
     key, c = prng_key(3), cost.dropout(x.numel(), 4)
+    cm = cost.dropout_mask(x.numel(), 4)
 
     def run():
         y = dispatch.dropout(x, key, 7, 0.5, (0, 3, 1, 2))
@@ -254,9 +255,10 @@ def test_dropout_charged_forward_backward_and_double_backward():
     y_ref = dispatch.dropout(x, key, 7, 0.5, (0, 3, 1, 2))
     assert torch.equal(y, y_ref) and torch.equal(gx, torch.where(y_ref != 0, 2 * dy, 0))
     assert ledger.launches() == {"threefry_dropout": 1, "threefry_dropout_bwd": 2}
-    assert ledger.kernel_bytes() == 3 * c.bytes
+    assert ledger.kernel_bytes() == c.bytes + 2 * cm.bytes
+    assert ledger.kernels["threefry_dropout_bwd"]["int_ops"] == 0
     ones = 4 * x.numel()                       # the ones_like written
-    assert ledger.total_bytes() == 3 * c.bytes + ones
+    assert ledger.total_bytes() == c.bytes + 2 * cm.bytes + ones
 
 
 def test_draws_charged_from_their_shapes():
@@ -321,7 +323,9 @@ def test_roofline_shares_and_the_over_peak_check():
 
 # -- the cost module against PERF.md §6's bound column --------------------------
 
-BOUNDS = {   # ms at 3.35 TB/s, 67 TFLOP/s f32, 132 x 64 x 1.98 GHz int32
+# ms at 3.35 TB/s, 67 TFLOP/s f32 and a threefry cipher's 40 integer-ALU
+# instructions at 132 x 64 x 1.98 GHz (cost.INT32_OPS_PER_S)
+BOUNDS = {
     "K1 bench mixtures": (lambda: cost.stft_features(
         128, 23936, 512, 128, ("mag", "logmag", "logmel"), 80), 0.0204),
     "K1 bench targets": (lambda: cost.stft_features(
@@ -331,9 +335,10 @@ BOUNDS = {   # ms at 3.35 TB/s, 67 TFLOP/s f32, 132 x 64 x 1.98 GHz int32
     "K3": (lambda: cost.istft(64, 247, 512, 128), 0.01215),
     "K3 VJP": (lambda: cost.istft_adjoint(64, 247, 512, 128), 0.01215),
     "K4": (lambda: cost.stft(64, 32000, 512, 128), 0.01215),
-    "sampler": (lambda: cost.sample(32, 32000, "normal"), 0.00441),
-    "dropout": (lambda: cost.dropout(128 * 32 * 123 * 65, 2), 0.141),
-    "noise": (lambda: cost.noise(128 * 123 * 257 * 4, 2), 0.0697),
+    "sampler": (lambda: cost.sample(32, 32000, "normal"), 0.00245),
+    "dropout": (lambda: cost.dropout(128 * 32 * 123 * 65, 2), 0.0783),
+    "dropout VJP": (lambda: cost.dropout_mask(128 * 32 * 123 * 65, 2), 0.0403),
+    "noise": (lambda: cost.noise(128 * 123 * 257 * 4, 2), 0.0387),
 }
 
 
