@@ -33,8 +33,13 @@ Phases, one JSON line each:
               picks and shifts, gains, bits bit for bit, the noise's
               normals within NORMAL_ULP; the step's draws keyed from the
               device step inside a captured CUDA graph against eager
-              draws over 3 replays; device ms of the noise draw, the keys
-              launch and a step's five launches at the stream_v5e8 step.
+              draws over 3 replays; the sampler's four kinds at R x n in
+              SAMPLE_SHAPES (bits, uniforms, randints bit-equal, normals
+              within NORMAL_ULP); device ms of the noise draw, the keys
+              launch and a step's five launches at the stream_v5e8 step,
+              beside torch.randn at the noise's shape and torch.randint
+              and torch.rand at the bench's 128 x 2 (yardsticks, used
+              nowhere in the port).
               Then the step's dropout and noise keys, flax's dropout
               (forward, its packed mask, the backward that reads it and
               the double backward) at every dropout site of the
@@ -42,7 +47,8 @@ Phases, one JSON line each:
               D inputs, in bf16 (the step's dtype) and f32: keys, outputs,
               masks, gradients and bf16 noise bit-equal to the plain
               versions, f32 noise within NORMAL_ULP of the normal; the
-              largest site the same bits at three grids; a captured graph
+              largest site and the largest D input's noise the same bits
+              at three grids; a captured graph
               of keys, dropout, its backward and noise keyed from the
               device step against eager launches over 3 replays; device
               ms at the largest site and the D input beside the plain
@@ -382,6 +388,10 @@ SEGMENTS = (1, 5, 10 ** 6)           # segment rows the k2/k3 bit checks also ru
 NORMAL_ULP = 4               # a threefry normal, kernel vs plain (log1pf's bit)
 RNG_REPLAYS = 3
 SEED_RNG_DROPOUT = 16                # the dropout and noise checks' own generator
+SEED_RNG_SAMPLER = 17                # the sampler shapes' key
+# R x n the sampler is held to its plain version at: one value, short rows
+# with a tail, the bench step's picks and shifts, the stream step's noise.
+SAMPLE_SHAPES = ((1, 1), (3, 5), (128, 2), (32, 32000))
 PRESETS = ("stream_v5e8", "wsj0_logmel", "3src_pit", "music_complex_44k")
 # The JAX package's oracle bounds (dB) on the CPU, from
 #   JAX_PLATFORMS=cpu python scripts/recompute_bounds.py PRESET [--hard] --cpu
@@ -2884,6 +2894,36 @@ def step_draws(key, step, b, s, nb, t, g, noise=True) -> list:
     return out + ([dispatch.draw(keys[1][1], t, "normal")] if noise else [])
 
 
+def sampler_shapes(dev) -> dict:
+    """The sampler's four kinds at each R x n of SAMPLE_SHAPES against the
+    plain version, rows keyed from one seed: bits, uniforms and randints (a
+    narrow and the widest int32 range) bit for bit, normals within
+    NORMAL_ULP."""
+    key = prng_key(SEED_RNG_SAMPLER, dev)
+    draws = (("bits", 0, 1), ("uniform", -1.5, 2.5), ("randint", 0, 9),
+             ("randint", -2 ** 31, 2 ** 31 - 1), ("normal", 0.0, 1.0))
+    out = {}
+    for r, n in SAMPLE_SHAPES:
+        keys = rng_ops.example_keys_reference(key, 0, r)[0][0]
+        got = {}
+        for kind, lo, hi in draws:
+            what = f"{kind} [{lo}, {hi})" if kind in ("uniform", "randint") else kind
+            ker = rng_ops.sample_kernel(keys, n, kind, lo, hi)
+            ref = rng_ops.sample_reference(keys, n, kind, lo, hi)
+            check(ker.shape == ref.shape == (r, n) and ker.dtype == ref.dtype,
+                  f"rng sampler {r} x {n} {what}: {ker.shape} {ker.dtype} vs "
+                  f"{ref.shape} {ref.dtype}")
+            if kind == "normal":
+                got[what] = {"max_ulp": ulps(ker, ref), "max_abs_err": max_err(ker, ref)}
+                check(got[what]["max_ulp"] <= NORMAL_ULP,
+                      f"rng sampler {r} x {n} normal: {got[what]} over {NORMAL_ULP} ulp")
+            else:
+                got[what] = {"bit_equal": bool(torch.equal(ker, ref))}
+                check(got[what]["bit_equal"], f"rng sampler {r} x {n} {what}: kernel != plain")
+        out[f"{r} x {n}"] = got
+    return out
+
+
 def phase_rng(dev):
     """The threefry kernels against their plain versions at the
     stream_v5e8 --hard b32 and wsj0_logmel b128 steps' shapes (keys, bits,
@@ -2973,19 +3013,33 @@ def phase_rng(dev):
         "plain_ms": plain_ms(lambda: rng_ops.example_keys_reference(*keys_args)),
         "bound_ms": keys_bound[0], "bound_by": keys_bound[1], "library_ms": None,
         "max_abs_err": keys_err, "shape": f"{b} examples x 2 bases from the device step"}
+    # Yardsticks (used nowhere in the port): PyTorch's Philox draws of as
+    # many numbers, at the noise's shape and the bench step's 128 x 2.
+    kb = rng_ops.example_keys_reference(key, 0, 128)[0][0]
+    rows["threefry_sample"].update(
+        library_ms=graph_ms(lambda: torch.randn(b, t, device=dev)),
+        library=f"torch.randn({b}, {t}): as many normals with Philox bits",
+        bench_draws_ms={
+            "randint 128 x 2": graph_ms(lambda: rng_ops.sample_kernel(kb, 2, "randint", 0, 9)),
+            "uniform 128 x 2": graph_ms(lambda: rng_ops.sample_kernel(kb, 2, "uniform", -1, 1)),
+            "torch.randint(0, 9, (128, 2))": graph_ms(
+                lambda: torch.randint(0, 9, (128, 2), device=dev)),
+            "torch.rand(128, 2)": graph_ms(lambda: torch.rand(128, 2, device=dev))})
+    shapes = sampler_shapes(dev)
     plain_step_ms = plain_ms(lambda: [rng_ops.example_keys_reference(*keys_args)]
                              + [rng_ops.sample_reference(*a) for a in (
                                  (keys[0][0], s, "randint", 0, nb),
                                  (keys[0][1], s, "randint", 0, t),
                                  (keys[1][0], s, "uniform", -g, g), noise_args)])
-    emit("rng", cases=cases, stream_v5e8_step={
+    emit("rng", cases=cases, sampler_shapes=shapes, stream_v5e8_step={
         "draws_ms": step_ms, "plain_draws_ms": plain_step_ms,
         "launches_a_step": {"threefry_keys": 1, "threefry_sample": 4},
         "config": "stream_v5e8 --hard b32 (picks, shifts, gains, noise)"},
          rows=rows, tol=f"keys, bits, uniforms, randints bit-equal; normals "
                         f"within {NORMAL_ULP} ulp; replays bit-equal to eager",
          int32_ops_per_s=cost.INT32_OPS_PER_S, cipher_int_ops=cost.CIPHER_INT_OPS,
-         library="none: PyTorch has no threefry sampler")
+         library="PyTorch has no threefry sampler: torch.randn, torch.randint and "
+                 "torch.rand (Philox) are yardsticks")
     rows.update(phase_rng_dropout(dev))
     return rows
 
@@ -3134,9 +3188,32 @@ def phase_rng_dropout(dev) -> dict:
           f"rng dropout {shape}: y, words, dx differ by grid: {grids_equal}")
     default_blocks = rng_ops.dropout_blocks(n_words, xd.device)
 
+    # The largest D input's noise at other grids: the same bits.
+    n_shape, n_dtype, std = max(noises, key=lambda c: math.prod(c[0]))
+    noise_grids = {}
+    for dt in dict.fromkeys((n_dtype, torch.float32)):
+        xg = torch.randn(n_shape, device=dev, generator=gen).to(dt)
+        kg = ker_keys[d_rows[0][1]]
+        vecs = -(-xg.numel() * xg.element_size() // 16)
+        blocks = {"default": None, "seven": 7,
+                  "two_vectors_a_thread": -(-vecs // (2 * rng_ops.THREADS))}
+        got = {name: rng_ops.noise_kernel(xg, kg, std, b) for name, b in blocks.items()}
+        ref = rng_ops.noise_reference(xg, kg, std)
+        same = {name: bool(torch.equal(y, got["default"])) for name, y in got.items()}
+        check(all(same.values()), f"rng noise {n_shape} {dt}: differs by grid: {same}")
+        err = max_err(got["default"], ref)
+        if dt == torch.bfloat16:
+            check(torch.equal(got["default"], ref), f"rng noise {n_shape} bf16: kernel != plain")
+        else:
+            check(err <= noise_tol(ref, std), f"rng noise {n_shape} f32: {err}")
+        noise_grids[str(dt)] = {
+            "blocks": {k: v or rng_ops.dropout_blocks(vecs, dev) for k, v in blocks.items()},
+            "equal_default": same, "max_abs_err": err,
+            "bit_equal": bool(torch.equal(got["default"], ref))}
+        del xg, got, ref
+
     # Captured: keys from the device step, dropout forward and backward at
     # the largest site, the noise at the largest D input.
-    n_shape, n_dtype, std = max(noises, key=lambda c: math.prod(c[0]))
     x = xd.clone().requires_grad_()
     dy = dyd
     xn = torch.randn(n_shape, device=dev, generator=gen).to(n_dtype)
@@ -3176,6 +3253,8 @@ def phase_rng_dropout(dev) -> dict:
     mask_bound = cost.dropout_mask(n, item).bound()
     nn_, n_item = xn.numel(), xn.element_size()
     noise_bound = cost.noise(nn_, n_item).bound()
+    noise_f32_bound = cost.noise(nn_, 4).bound()
+    xn32 = xn.float()
     keys_bound = cost.train_keys(d_steps).bound()
     k_n = ker_keys[adv_rows[1]]
     plain_ms = lambda fn: time_fns(calls=2, plain=fn)["plain"]   # noqa: E731
@@ -3209,6 +3288,10 @@ def phase_rng_dropout(dev) -> dict:
             "library_ms": graph_ms(lambda: torch.normal(xn, std)),
             "library": "torch.normal(x, std): x + std·N(0, 1) with Philox bits",
             "max_abs_err": max(c["max_abs_err"] for c in noise_cases),
+            "blocks": noise_grids[str(n_dtype)]["blocks"]["default"],
+            "float32": {"ms": graph_ms(lambda: rng_ops.noise_kernel(xn32, k_n, std)),
+                        "bound_ms": noise_f32_bound[0], "bound_by": noise_f32_bound[1],
+                        "library_ms": graph_ms(lambda: torch.normal(xn32, std))},
             "shape": f"{list(n_shape)} {n_dtype} (the largest D input)"},
         "threefry_train_keys": {
             "ms": graph_ms(lambda: rng_ops.train_keys_kernel(key, step, 0, d_steps)),
@@ -3221,6 +3304,7 @@ def phase_rng_dropout(dev) -> dict:
          train_keys_bit_equal=True, replays_equal_eager=replays,
          largest_site_grids={"blocks": {k: v or default_blocks for k, v in grids.items()},
                              "y_words_dx_equal_default": grids_equal},
+         largest_noise_grids=noise_grids,
          step_dropout_ms=step_ms, step_dropout_by_site=by_site,
          pr16_largest_site_ms={"forward": 0.184, "backward": 0.185,
                                "source": "PERF.md §6: PR 16's kernel, its chip run 6"},

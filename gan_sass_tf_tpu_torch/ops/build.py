@@ -63,8 +63,8 @@ _SIGNATURES = {
                                 _P],
     # dy, words, dx, scale, n, bf16, blocks, stream
     "dropout_mask_launch": [_P, _P, _P, _F, _L, _I, _I, _P],
-    # x, y, key, coef, n, bf16, stream
-    "threefry_noise_launch": [_P, _P, _P, _F, _L, _I, _P],
+    # x, y, key, coef, n, bf16, blocks, stream
+    "threefry_noise_launch": [_P, _P, _P, _F, _L, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

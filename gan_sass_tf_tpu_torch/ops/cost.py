@@ -42,9 +42,11 @@ CIPHER_ALU_OPS = 20 + 20
 INT32_OPS_PER_S = 132 * 64 * 1.98e9 * CIPHER_INT_OPS / CIPHER_ALU_OPS
 # Bytes a value of each of the sampler's kinds is written in.
 SAMPLE_BYTES = {"bits": 8, "uniform": 4, "randint": 8, "normal": 4}
-# Ciphers a value of each kind costs (a randint: its key's two splits and
-# its two bit arrays, csrc/threefry.cu).
-SAMPLE_CIPHERS = {"bits": 1, "uniform": 1, "randint": 4, "normal": 1}
+# Ciphers a value of each kind costs (a randint two: one for each of its
+# bit arrays), and a row (a randint's key's two splits): the least the
+# function needs, whatever csrc/threefry.cu repeats a thread.
+SAMPLE_CIPHERS = {"bits": 1, "uniform": 1, "randint": 2, "normal": 1}
+SAMPLE_ROW_CIPHERS = {"bits": 0, "uniform": 0, "randint": 2, "normal": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,9 +139,10 @@ def example_keys(b: int, step: bool) -> Cost:
 
 def sample(rows: int, n: int, kind: str) -> Cost:
     """`threefry_sample_kernel`: `rows` keys read, rows·n values of `kind`
-    written, a cipher a value (a randint four)."""
+    written, a cipher a value (a randint two a value and two a row)."""
+    ciphers = SAMPLE_CIPHERS[kind] * n + SAMPLE_ROW_CIPHERS[kind]
     return Cost(16 * rows + SAMPLE_BYTES[kind] * rows * n,
-                int_ops=CIPHER_INT_OPS * SAMPLE_CIPHERS[kind] * rows * n)
+                int_ops=CIPHER_INT_OPS * ciphers * rows)
 
 
 def train_keys(d_steps: int) -> Cost:

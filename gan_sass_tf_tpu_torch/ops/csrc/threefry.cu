@@ -67,21 +67,33 @@
 // normals differ from it by log1pf's last bit at most.
 //
 // What bounds it on this card: integer issue.  A value costs one cipher
-// (a randint three: its key's split and its two bit arrays): 20 rounds
-// of add, funnel-shift rotate and xor, 5 key injections of one add a
-// word (IADD3 folds the round constant in), the key's third word and the
-// counter's add, 72 integer instructions, against 4 bytes written (8 for
-// int64).  Only the 20 rotates and 20 xors need the integer ALU (64 lanes
-// an SM a clock); nvcc issues most adds as IMAD.IADD on the FMA pipe.  At
-// the stream_v5e8 b32 step's noise, 32 × 32 000 normals, that is ~41 M
-// ALU instructions, about 2.4 µs at 64 lanes × 132 SMs × 1.98 GHz,
-// against 1.2 µs for its 4 MB at 3.35 TB/s (ops/cost.py).
-// A simple kernel: one thread a value, keys read from device memory (L1
-// serves a row's threads), no shared memory.
-// The noise is bound the same way: a cipher an element against 8 bytes
-// (f32: 4 read, 4 written) or 4 (bf16), so integer issue, about 4x the
-// bytes' time.  It runs a grid-stride loop of at most kMaxBlocks blocks.
-//
+// (a randint two, one for each of its bit arrays, and its key's two splits
+// a row): 20 rounds of add, funnel-shift rotate and xor, 5 key injections
+// of one add a word (IADD3 folds the round constant in), the key's third
+// word and the counter's add, 72 integer instructions, against 4 bytes
+// written (8 for int64).  Only the 20 rotates and 20 xors need the integer
+// ALU (64 lanes an SM a clock); the adds can issue as IMADs on the FMA pipe
+// (ImadAdd).  At the stream_v5e8 b32 step's noise, 32 × 32 000 normals,
+// that is ~41 M ALU instructions, about 2.4 µs at 64 lanes × 132 SMs ×
+// 1.98 GHz, against 1.2 µs for its 4 MB at 3.35 TB/s (ops/cost.py).
+// So each kernel strips what an element pays besides its cipher:
+//  - the sampler: a thread owns 4 consecutive values of one row (one
+//    value where rows are shorter than that: such draws are launch-bound,
+//    so a thread's chain of four ciphers, or the IMADs' longer latency,
+//    would only add to it) and finds (row, first value) once, with one
+//    32-bit division; a block
+//    holds several short rows, or a long row spans blocks on x, rows step
+//    on y (a loop past 65 535).  The row's key (a randint's two splits)
+//    once a thread; 16-byte stores (a scalar path for a row's tail and an
+//    unaligned row).  erf⁻¹ branches on w < 5 instead of selecting each
+//    of its nine coefficients: about 0.3 % of values take the long side.
+//  - the noise: a thread owns a 16-byte vector of x, 8 bf16 or 4 float32
+//    values (a scalar path for the tail and an unaligned tensor), in a
+//    grid-stride loop of the wrapper's block count.  A bf16 normal has
+//    only 128 values (7 bits of a byte), so each block fills a table of
+//    the 128 terms round_bf16(coef · z) once, by the very arithmetic of
+//    the plain version; an element pays its cipher, a byte, a load from
+//    shared memory and the add.  float32 runs erf⁻¹ a value, branching.
 // The dropout forward pays the cipher too, so its design strips the rest
 // of an element's instructions: a thread owns a mask word, 32 consecutive
 // elements of the port's memory, loaded and stored as 16-byte vectors
@@ -95,8 +107,9 @@
 // What is left binds on the integer ALU (the SASS, scripts/kernel_sass.py),
 // so the cipher's adds go to the FMA pipe as IMADs (ImadAdd).
 // The VJP reads 2 bytes (bf16) or 4 of dy, 1/8 of a byte of mask and
-// writes dx: bytes-bound, one 16-byte vector a thread an iteration.  Both
-// take their block count from the wrapper; the bits do not depend on it.
+// writes dx: bytes-bound, one 16-byte vector a thread an iteration.  They
+// and the noise take their block count from the wrapper; the bits do not
+// depend on it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -105,11 +118,13 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 4096;
 constexpr int kDims = 4;
 constexpr int kWordBits = 32;        // elements a mask word
-// Blocks a dropout launch may take: the forward's grid stride in elements,
-// blocks * kThreads * kWordBits, stays below 2^32.
+constexpr uint32_t kSampleVec = 4;   // a sampler thread's values of a long row
+constexpr uint32_t kMaxGridY = 65535;
+constexpr int kNormals = 128;        // the bf16 normal's values
+// Blocks a dropout or noise launch may take: the dropout forward's grid
+// stride in elements, blocks * kThreads * kWordBits, stays below 2^32.
 constexpr long long kMaxDropoutBlocks = (1LL << 32) / (kThreads * kWordBits) - 1;
 enum Kind { kBits = 0, kUniform = 1, kRandint = 2, kNormal = 3 };
 
@@ -192,8 +207,20 @@ __device__ __forceinline__ float uniform(uint32_t b, float lo, float span) {
   return fmaxf(lo, __fmaf_rn(f, span, lo));
 }
 
+// Horner's rule, one rounding a step, the coefficients immediates.
+template <int N>
+__device__ __forceinline__ float horner(const float (&c)[N], float w) {
+  float p = c[0];
+#pragma unroll
+  for (int i = 1; i < N; ++i) p = __fmaf_rn(p, w, c[i]);
+  return p;
+}
+
 // XLA's float32 erf⁻¹ (Giles): w = -log1p(-x²); a degree-8 polynomial in
-// w - 2.5 (w < 5) or sqrt(w) - 3, times x; ±1 gives ±inf.
+// w - 2.5 (w < 5) or sqrt(w) - 3, times x; ±1 gives ±inf.  A branch, not a
+// select a coefficient: the same operations in the same order, so the same
+// bits, and |x| < 0.99662 (w < 5) for all but about 0.3 % of uniforms, so
+// a warp mostly runs one side.
 __device__ __forceinline__ float erf_inv(float x) {
   constexpr float kSmall[9] = {2.81022636e-08f,  3.43273939e-07f,
                                -3.5233877e-06f,  -4.39150654e-06f,
@@ -205,12 +232,12 @@ __device__ __forceinline__ float erf_inv(float x) {
                                0.00573950773f,   -0.0076224613f,
                                0.00943887047f,   1.00167406f,
                                2.83297682f};
-  float w = -log1pf(__fmul_rn(x, -x));
-  const bool small = w < 5.0f;
-  w = small ? __fsub_rn(w, 2.5f) : __fsub_rn(__fsqrt_rn(w), 3.0f);
-  float p = small ? kSmall[0] : kLarge[0];
-#pragma unroll
-  for (int i = 1; i < 9; ++i) p = __fmaf_rn(p, w, small ? kSmall[i] : kLarge[i]);
+  const float w = -log1pf(__fmul_rn(x, -x));
+  float p;
+  if (w < 5.0f)
+    p = horner(kSmall, __fsub_rn(w, 2.5f));
+  else
+    p = horner(kLarge, __fsub_rn(__fsqrt_rn(w), 3.0f));
   return fabsf(x) == 1.0f ? __fmul_rn(x, __int_as_float(0x7F800000)) : __fmul_rn(p, x);
 }
 
@@ -230,6 +257,15 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
 }
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// The bf16 noise of a byte's top 7 bits m, round_bf16(coef · z): jax's
+// bf16 uniform u = (4 m - 255) / 256 exactly, z = erf⁻¹(u) in float32
+// rounded to bf16, times bf16(√2) rounded (its normal), coef = bf16(std).
+__device__ __forceinline__ float bf16_noise(uint32_t m, float coef) {
+  const float u = __fmul_rn(float(int(m) * 4 - 255), 0.00390625f);
+  const float z = round_bf16(__fmul_rn(round_bf16(erf_inv(u)), 1.4140625f));
+  return round_bf16(__fmul_rn(coef, z));
 }
 
 // A 16-byte vector of 4 float32 or 8 bfloat16 values as floats, and back
@@ -262,8 +298,34 @@ __device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float* v) {
   *reinterpret_cast<uint4*>(p) = make_uint4(u[0], u[1], u[2], u[3]);
 }
 
-bool aligned16(const void* p) {
+__host__ __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+// A sampler thread's `count` values (at most V) to p: with V = 4, one
+// float4 or two 16-byte int64 pairs where all four go and p is aligned;
+// else one at a time.
+template <uint32_t V>
+__device__ __forceinline__ void store_values(float* p, const float* v, uint32_t count) {
+  if constexpr (V == 4) {
+    if (count == V && aligned16(p)) {
+      *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+      return;
+    }
+  }
+  for (uint32_t i = 0; i < count; ++i) p[i] = v[i];
+}
+template <uint32_t V>
+__device__ __forceinline__ void store_values(long long* p, const long long* v,
+                                             uint32_t count) {
+  if constexpr (V == 4) {
+    if (count == V && aligned16(p)) {
+      *reinterpret_cast<longlong2*>(p) = make_longlong2(v[0], v[1]);
+      *reinterpret_cast<longlong2*>(p + 2) = make_longlong2(v[2], v[3]);
+      return;
+    }
+  }
+  for (uint32_t i = 0; i < count; ++i) p[i] = v[i];
 }
 
 // The coordinates of port offset m (the outermost takes what is left, so
@@ -340,30 +402,59 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Row r's values j0 .. j0 + V - 1 of kind K a thread (V 4 or 1), for r =
+// g * rows + local over the thread's row groups g (blockIdx.y, stepping by
+// gridDim.y).  A row is `chunks` threads: with fewer than a block's,
+// `rows` of them share a block (blockIdx.x 0); else a row spans blocks on
+// x (rows 1).
+template <int K, uint32_t V>
 __global__ void __launch_bounds__(kThreads)
-    threefry_sample_kernel(const long long* __restrict__ keys, long long total,
-                           int n, int kind, float lo, float hi,
-                           uint32_t span, uint32_t mult, long long minval,
+    threefry_sample_kernel(const long long* __restrict__ keys, uint32_t R, uint32_t n,
+                           uint32_t chunks, uint32_t rows, uint32_t groups, float lo,
+                           float hi, uint32_t span, uint32_t mult, long long minval,
                            void* __restrict__ out) {
-  const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (idx >= total) return;
-  const uint32_t j = uint32_t(idx % n);
-  const uint2 key = load_key(keys + 2 * (idx / n));
-  if (kind == kRandint) {
-    const uint32_t h = bits(child(key, 0u), j) % span;
-    const uint32_t l = bits(child(key, 1u), j) % span;
-    static_cast<long long*>(out)[idx] = minval + (h * mult + l) % span;
-    return;
-  }
-  const uint32_t b = bits(key, j);
-  if (kind == kBits) {
-    static_cast<long long*>(out)[idx] = b;
-  } else if (kind == kUniform) {
-    static_cast<float*>(out)[idx] = uniform(b, lo, __fsub_rn(hi, lo));
-  } else {
-    const float u = uniform(b, lo, __fsub_rn(hi, lo));
-    const float sqrt2 = __int_as_float(0x3FB504F3);   // float32(√2)
-    static_cast<float*>(out)[idx] = __fmul_rn(sqrt2, erf_inv(u));
+  const uint32_t local = threadIdx.x / chunks;      // the one division
+  const uint32_t chunk = blockIdx.x * kThreads + threadIdx.x - local * chunks;
+  if (local >= rows || chunk >= chunks) return;
+  const uint32_t j0 = chunk * V;
+  const uint32_t count = min(n - j0, V);
+  const auto add = [] {                // ImadAdd where issue binds, else nvcc's adds
+    if constexpr (V == 1) return Add();
+    else return ImadAdd{blockDim.x / kThreads};
+  }();
+  const float span_f = __fsub_rn(hi, lo);
+  for (uint32_t g = blockIdx.y; g < groups; g += gridDim.y) {
+    const uint32_t row = g * rows + local;
+    if (row >= R) return;
+    const uint2 row_key = load_key(keys + 2 * size_t(row));
+    const size_t at = size_t(row) * n + j0;
+    // All V values are drawn (a row's tail's extra ones not stored).
+    if constexpr (K == kBits || K == kRandint) {
+      long long v[V];
+      if constexpr (K == kBits) {
+#pragma unroll
+        for (uint32_t i = 0; i < V; ++i) v[i] = bits(row_key, j0 + i, add);
+      } else {
+        const uint2 hk = threefry(row_key, make_uint2(0u, 0u), add);   // split[0]
+        const uint2 lk = threefry(row_key, make_uint2(0u, 1u), add);   // split[1]
+#pragma unroll
+        for (uint32_t i = 0; i < V; ++i) {
+          const uint32_t h = bits(hk, j0 + i, add) % span;
+          const uint32_t l = bits(lk, j0 + i, add) % span;
+          v[i] = minval + (h * mult + l) % span;
+        }
+      }
+      store_values<V>(static_cast<long long*>(out) + at, v, count);
+    } else {
+      float v[V];
+#pragma unroll
+      for (uint32_t i = 0; i < V; ++i) {
+        v[i] = uniform(bits(row_key, j0 + i, add), lo, span_f);
+        if constexpr (K == kNormal)
+          v[i] = __fmul_rn(__int_as_float(0x3FB504F3), erf_inv(v[i]));   // float32(√2)
+      }
+      store_values<V>(static_cast<float*>(out) + at, v, count);
+    }
   }
 }
 
@@ -464,32 +555,46 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// x + noise, a 16-byte vector of x a thread an iteration (a scalar path for
+// the tail and an unaligned tensor).  bf16: the element's byte picks one of
+// the block's 128 noise terms (bf16_noise), added in float32 and rounded
+// once to bf16 as the plain version's bf16 add is; float32: coef = float32(
+// float32(std) · float32(√2)), one rounding, fmaf(coef, erf⁻¹(u), x).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     threefry_noise_kernel(const T* __restrict__ x, T* __restrict__ y,
                           const long long* __restrict__ key, float coef,
-                          uint32_t n) {
+                          uint32_t n, bool vec) {
+  constexpr uint32_t kVec = 16 / sizeof(T);
+  __shared__ float table[kNormals];
+  if constexpr (sizeof(T) == 2) {
+    if (threadIdx.x < kNormals) table[threadIdx.x] = bf16_noise(threadIdx.x, coef);
+    __syncthreads();
+  }
   const uint2 k = load_key(key);
+  const ImadAdd imad{blockDim.x / kThreads};
+  const float lo = __int_as_float(0xBF7FFFFF);          // nextafter(-1, 0)
+  const float span = __fsub_rn(1.0f, lo);
+  const auto noisy = [&](float v, uint32_t j) {
+    const uint32_t b = bits(k, j, imad);
+    if constexpr (sizeof(T) == 2) return __fadd_rn(v, table[(b & 0xFFu) >> 1]);
+    else return __fmaf_rn(coef, erf_inv(uniform(b, lo, span)), v);
+  };
+  const uint32_t chunks = (n - 1) / kVec + 1;
   const uint32_t stride = gridDim.x * kThreads;
-  for (uint32_t j = blockIdx.x * kThreads + threadIdx.x; j < n; j += stride) {
-    const uint32_t b = bits(k, j);
-    if constexpr (sizeof(T) == 4) {
-      // coef = float32(float32(std) * float32(sqrt2)), one rounding.
-      const float lo = __int_as_float(0xBF7FFFFF);          // nextafter(-1, 0)
-      const float u = uniform(b, lo, __fsub_rn(1.0f, lo));
-      y[j] = from_float<T>(__fmaf_rn(coef, erf_inv(u), to_float(x[j])));
+  for (uint32_t q = blockIdx.x * kThreads + threadIdx.x; q < chunks; q += stride) {
+    const uint32_t m = q * kVec;
+    if (vec && m + kVec <= n) {
+      float v[kVec];
+      load_vec(x + m, v);
+#pragma unroll
+      for (uint32_t i = 0; i < kVec; ++i) v[i] = noisy(v[i], m + i);
+      store_vec(y + m, v);
     } else {
-      // coef = bf16(std); bf16 u = (4 m - 255) / 256, m the byte's top 7 bits.
-      const float u = __fmul_rn(float(int((b & 0xFFu) >> 1) * 4 - 255), 0.00390625f);
-      const float z = round_bf16(__fmul_rn(round_bf16(erf_inv(u)), 1.4140625f));
-      y[j] = from_float<T>(__fadd_rn(to_float(x[j]), round_bf16(__fmul_rn(coef, z))));
+      for (uint32_t i = 0; i < kVec && m + i < n; ++i)
+        y[m + i] = from_float<T>(noisy(to_float(x[m + i]), m + i));
     }
   }
-}
-
-unsigned grid_blocks(uint32_t n) {
-  const unsigned blocks = (n + kThreads - 1) / kThreads;
-  return blocks < kMaxBlocks ? blocks : kMaxBlocks;
 }
 
 }  // namespace
@@ -515,15 +620,32 @@ extern "C" int threefry_sample_launch(const void* keys, int R, int n, int kind,
                                       float lo, float hi, long long span,
                                       long long mult, long long minval,
                                       void* out, void* stream) {
-  const long long total = (long long)R * n;
   if (R < 1 || n < 1 || kind < kBits || kind > kNormal ||
       (kind == kRandint && (span < 1 || span > 0xFFFFFFFFLL)))
     return (int)cudaErrorInvalidValue;
-  const long long blocks = (total + kThreads - 1) / kThreads;
-  threefry_sample_kernel<<<(unsigned)blocks, kThreads, 0,
-                           (cudaStream_t)stream>>>(
-      (const long long*)keys, total, n, kind, lo, hi, uint32_t(span),
-      uint32_t(mult), minval, out);
+  const bool vec = uint32_t(n) >= kSampleVec;      // else a value a thread
+  const uint32_t chunks = vec ? (uint32_t(n) - 1) / kSampleVec + 1 : uint32_t(n);
+  const uint32_t rows = chunks >= kThreads ? 1 : kThreads / chunks;
+  const uint32_t groups = (uint32_t(R) - 1) / rows + 1;
+  const dim3 grid(chunks >= kThreads ? (chunks - 1) / kThreads + 1 : 1,
+                  groups < kMaxGridY ? groups : kMaxGridY);
+  const auto go = [&](auto kernel) {
+    kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        (const long long*)keys, uint32_t(R), uint32_t(n), chunks, rows, groups, lo, hi,
+        uint32_t(span), uint32_t(mult), minval, out);
+  };
+  const auto of_kind = [&](auto kernel4, auto kernel1) {
+    if (vec) go(kernel4);
+    else go(kernel1);
+  };
+  if (kind == kBits)
+    of_kind(threefry_sample_kernel<kBits, kSampleVec>, threefry_sample_kernel<kBits, 1>);
+  else if (kind == kUniform)
+    of_kind(threefry_sample_kernel<kUniform, kSampleVec>, threefry_sample_kernel<kUniform, 1>);
+  else if (kind == kRandint)
+    of_kind(threefry_sample_kernel<kRandint, kSampleVec>, threefry_sample_kernel<kRandint, 1>);
+  else
+    of_kind(threefry_sample_kernel<kNormal, kSampleVec>, threefry_sample_kernel<kNormal, 1>);
   return (int)cudaGetLastError();
 }
 
@@ -598,18 +720,20 @@ extern "C" int dropout_mask_launch(const void* dy, const void* words, void* dx,
 }
 
 // x, y: n elements, float32 or bfloat16, contiguous in the flax layout;
-// key: int64 (2,); coef: float32(std) * sqrt2 in float32, or bf16(std).
+// key: int64 (2,); coef: float32(std) * sqrt2 in float32, or bf16(std);
+// blocks: the grid.
 extern "C" int threefry_noise_launch(const void* x, void* y, const void* key,
-                                     float coef, long long n, int bf16,
+                                     float coef, long long n, int bf16, int blocks,
                                      void* stream) {
-  if (n < 1 || n > 0xFFFFFFFFLL) return (int)cudaErrorInvalidValue;
-  const unsigned blocks = grid_blocks(uint32_t(n));
+  if (n < 1 || n > 0xFFFFFFFFLL || blocks < 1 || blocks > kMaxDropoutBlocks)
+    return (int)cudaErrorInvalidValue;
+  const bool noise_vec = aligned16(x) && aligned16(y);
   if (bf16)
     threefry_noise_kernel<__nv_bfloat16><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
         (const __nv_bfloat16*)x, (__nv_bfloat16*)y, (const long long*)key, coef,
-        uint32_t(n));
+        uint32_t(n), noise_vec);
   else
     threefry_noise_kernel<float><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        (const float*)x, (float*)y, (const long long*)key, coef, uint32_t(n));
+        (const float*)x, (float*)y, (const long long*)key, coef, uint32_t(n), noise_vec);
   return (int)cudaGetLastError();
 }

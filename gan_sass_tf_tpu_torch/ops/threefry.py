@@ -71,7 +71,7 @@ noise_launches = 0
 DROPOUT_DIMS = 4             # the kernel's most dims
 DTYPES = (torch.float32, torch.bfloat16)
 WORD_BITS = 32               # elements a mask word
-THREADS = 256                # the dropout kernels' block (csrc/threefry.cu kThreads)
+THREADS = 256                # the kernels' block (csrc/threefry.cu kThreads)
 BLOCKS_PER_SM = 16           # their default grid: at most this many blocks an SM
 
 
@@ -289,9 +289,10 @@ def _check_words(t: torch.Tensor, words: torch.Tensor, what: str) -> None:
 
 
 def dropout_blocks(units: int, device: torch.device) -> int:
-    """The dropout kernels' default grid for `units` (mask words forward,
-    16-byte vectors backward), a thread each: at most BLOCKS_PER_SM blocks
-    an SM, each thread then walking several."""
+    """The dropout and noise kernels' default grid for `units` (mask words
+    in the dropout forward, 16-byte vectors in its backward and the
+    noise), a thread each: at most BLOCKS_PER_SM blocks an SM, each thread
+    then walking several."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, min(-(-units // THREADS), BLOCKS_PER_SM * sms))
 
@@ -416,8 +417,10 @@ def noise_reference(x: torch.Tensor, key: torch.Tensor, std: float) -> torch.Ten
     return x + tf.normal(key, x.shape, torch.bfloat16) * coef
 
 
-def noise_kernel(x: torch.Tensor, key: torch.Tensor, std: float) -> torch.Tensor:
-    """One launch of `threefry_noise_launch`."""
+def noise_kernel(x: torch.Tensor, key: torch.Tensor, std: float,
+                 blocks: Optional[int] = None) -> torch.Tensor:
+    """One launch of `threefry_noise_launch`: the same bits whatever
+    `blocks` (default `dropout_blocks` of x's 16-byte vectors)."""
     global noise_launches
     _check_key(key, "noise kernel")
     coef = noise_coef(x.dtype, std)
@@ -429,7 +432,8 @@ def noise_kernel(x: torch.Tensor, key: torch.Tensor, std: float) -> torch.Tensor
     x, key = x.contiguous(), key.contiguous()
     y = torch.empty_like(x)
     _launch("threefry_noise", x.device, x.data_ptr(), y.data_ptr(), key.data_ptr(), coef,
-            x.numel(), int(x.dtype == torch.bfloat16))
+            x.numel(), int(x.dtype == torch.bfloat16),
+            blocks or dropout_blocks(-(-(x.numel() * x.element_size()) // 16), x.device))
     noise_launches += 1
     return y
 

@@ -279,6 +279,17 @@ def test_draws_charged_from_their_shapes():
     assert sum(r["int_ops"] for r in ledger.kernels.values()) == want.int_ops
 
 
+def test_randint_charges_two_ciphers_a_value_and_two_a_row():
+    """A randint draws two bit arrays (a cipher a value each) under its key's
+    two splits (two ciphers a row); the other kinds a cipher a value."""
+    for rows, n in ((1, 1), (128, 2), (32, 32000)):
+        assert cost.sample(rows, n, "randint").int_ops \
+            == cost.CIPHER_INT_OPS * (2 * n + 2) * rows
+        for kind in ("bits", "uniform", "normal"):
+            assert cost.sample(rows, n, kind).int_ops == cost.CIPHER_INT_OPS * n * rows
+    assert cost.sample(128, 2, "randint").bytes == 16 * 128 + 8 * 128 * 2
+
+
 # -- the roofline's line -------------------------------------------------------
 
 ROOFLINE_KEYS = {
