@@ -28,19 +28,26 @@ Phases, one JSON line each:
               forward bit-equal at three segment lengths and on a repeat
               call
     rng       the threefry kernels (ops/csrc/threefry.cu) against their
-              plain versions at the stream_v5e8 --hard b32 and wsj0_logmel b128
-              steps' shapes: per-example keys from the device step, bank
-              picks and shifts, gains, bits bit for bit, the noise's
-              normals within NORMAL_ULP; the step's draws keyed from the
-              device step inside a captured CUDA graph against eager
-              draws over 3 replays; the sampler's four kinds at R x n in
+              plain versions.  The batch kernel (a step's keys, bank rows,
+              shifts, gains, mix and noise in one launch, the noise in a
+              second) at the stream_v5e8 --hard b32 and wsj0_logmel b128
+              steps' shapes, also at offset 3·b and on host-batch sources:
+              picks, shifts, gains and train keys bit for bit, scaled
+              within 1 ulp, the mixture within 1 ulp (under noise within
+              1e-6·max|mixture|), the same bits at three grids; the
+              step's batch keyed from the device step inside a captured
+              CUDA graph against eager calls over 3 replays; the sampler
+              (on no path since; its device code is the batch's) at the
+              step's noise keys and its four kinds at R x n in
               SAMPLE_SHAPES (bits, uniforms, randints bit-equal, normals
-              within NORMAL_ULP); device ms of the noise draw, the keys
-              launch and a step's five launches at the stream_v5e8 step,
-              beside torch.randn at the noise's shape and torch.randint
-              and torch.rand at the bench's 128 x 2 (yardsticks, used
-              nowhere in the port).
-              Then the step's dropout and noise keys, flax's dropout
+              within NORMAL_ULP); device ms of the batch and of each of
+              its kernels, the one-launch variant under noise, the plain
+              version, the bound and a yardstick (take_rows and the mix
+              on the kernel's draws); the sampler's beside torch.randn,
+              torch.randint and torch.rand (yardsticks, used nowhere in
+              the port).
+              Then the step's dropout and noise keys (the batch
+              kernel's), flax's dropout
               (forward, its packed mask, the backward that reads it and
               the double backward) at every dropout site of the
               every-option stream_v5e8 step and its instance noise at the
@@ -55,9 +62,9 @@ Phases, one JSON line each:
               versions, torch.nn.functional.dropout and aten's dropout
               backward; the step's dropout launches' device ms summed
   7 train     Experiment(stream_v5e8).train() at full width, batch 32: the
-              losses finite, G and D moved, the five kernels of the step
-              (K1, K3, its backward, the threefry keys and sampler)
-              launched; one step from one state on the kernel and the plain
+              losses finite, G and D moved, the four kernels of the step
+              (K1, K3, its backward, the threefry batch) launched, no
+              sampler; one step from one state on the kernel and the plain
               DSP path agrees; the step's device ms by kernel family
               (torch.profiler); evaluate(); the CLI trains wsj0_logmel
     graph     the train step captured as a CUDA graph (train/graphed.py)
@@ -323,6 +330,8 @@ from gan_sass_tf_tpu_torch.bench import bench_config
 from gan_sass_tf_tpu_torch import entry as port_entry
 from gan_sass_tf_tpu_torch.examples import quickstart
 from gan_sass_tf_tpu_torch.data import make_dataset, mix_sources, prng_key, sample_bank
+from gan_sass_tf_tpu_torch.data.device_bank import take_rows
+from gan_sass_tf_tpu_torch.data.mixer import mix, noise_snr
 from gan_sass_tf_tpu_torch.data.fixtures import write_fixture_corpus
 from gan_sass_tf_tpu_torch.dsp.features import mel_filterbank
 from gan_sass_tf_tpu_torch.dsp.windows import get_window
@@ -389,6 +398,7 @@ NORMAL_ULP = 4               # a threefry normal, kernel vs plain (log1pf's bit)
 RNG_REPLAYS = 3
 SEED_RNG_DROPOUT = 16                # the dropout and noise checks' own generator
 SEED_RNG_SAMPLER = 17                # the sampler shapes' key
+SEED_RNG_BATCH = 18                  # the batch checks' banks and sources
 # R x n the sampler is held to its plain version at: one value, short rows
 # with a tail, the bench step's picks and shifts, the stream step's noise.
 SAMPLE_SHAPES = ((1, 1), (3, 5), (128, 2), (32, 32000))
@@ -466,9 +476,9 @@ INSTALL_STEPS = 2                    # the installed console script's train
 TRACE_KERNELS = {"stft_features_kernel": ("stft_features", "stft"),
                  "istft_ola_kernel": ("istft", "masked_istft"),
                  "istft_adjoint_kernel": ("istft_bwd",),
-                 "threefry_keys_kernel": ("threefry_keys",),
+                 "threefry_batch_kernel": ("threefry_batch",),
+                 "threefry_batch_noise_kernel": ("threefry_batch_noise",),
                  "threefry_sample_kernel": ("threefry_sample",),
-                 "threefry_train_keys_kernel": ("threefry_train_keys",),
                  "threefry_dropout_kernel": ("threefry_dropout",),
                  "dropout_mask_kernel": ("threefry_dropout_bwd",),
                  "threefry_noise_kernel": ("threefry_noise",)}
@@ -993,10 +1003,12 @@ def phase_train(dev):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {k: v for k, v in launch_counts().items()
-              if k in ("stft_features", "istft", "istft_bwd", "threefry_keys",
-                       "threefry_sample")}
-    check(min(counts.values()) > 0, f"a kernel of the train step never "
-          f"launched: {counts}")
+              if k in ("stft_features", "istft", "istft_bwd", "threefry_batch",
+                       "threefry_batch_noise", "threefry_sample")}
+    check(min(counts[k] for k in ("stft_features", "istft", "istft_bwd",
+                                  "threefry_batch")) > 0
+          and counts["threefry_sample"] == 0 and counts["threefry_batch_noise"] == 0,
+          f"the train step's kernels: {counts}")
     check(all(np.isfinite(v) for v in last.values()), f"non-finite: {last}")
     moved = {"g": max(max_err(a, p) for a, p in zip(g0, exp.state.g.parameters())),
              "d": max(max_err(a, p) for a, p in zip(d0, exp.state.d.parameters()))}
@@ -1389,7 +1401,8 @@ def phase_graph(dev, tmp: Path) -> tuple:
     cases' own runs, and those of the bank-mode runs that the host-batch
     cases' train() rates are compared with (host_batch_report).  The
     host-batch cases must record K1 twice a replay, (c) also K3 and its
-    backward once, and a threefry key launch."""
+    backward once; every case the batch kernel once a replay (and its
+    noise launch where the data adds noise) and no sampler launch."""
     corpus = tmp / "corpus"
     write_fixture_corpus(str(corpus), n_speakers=6, utts_per_speaker=4,
                          seconds=3.0, sample_rate=SR_STREAM, seed=SEED)
@@ -1401,10 +1414,15 @@ def phase_graph(dev, tmp: Path) -> tuple:
             (tmp / mode / str(i)).mkdir(parents=True)
             cases.append(graph_case(name, cfg, dev, tmp / mode / str(i)))
             emit("graph", **cases[-1])
+            per = cases[-1]["launches_per_replay"]
+            noise = int(cfg.data.num_noise > 0
+                        and rng_ops.batch_tiles(cfg.segment_samples) > 1)
+            check(per["threefry_batch"] == 1 and per["threefry_batch_noise"] == noise
+                  and per["threefry_sample"] == 0,
+                  f"graph {name}: the data path's launches a replay {per}")
             if mode == "host":
-                per = cases[-1]["launches_per_replay"]
                 wav = cfg.loss.recon_domain == "wav"
-                check(per["stft_features"] == 2 and per["threefry_keys"] >= 1
+                check(per["stft_features"] == 2
                       and per["istft"] == per["istft_bwd"] == int(wav),
                       f"graph {name}: launches a replay {per}")
         torch.cuda.synchronize()
@@ -1729,8 +1747,8 @@ def phase_workdir(dev, tmp: Path):
     reset_launch_counts()
     out = captured(cli.main, ["train", *common, "--steps", "4", *sets])
     counts = {k: v for k, v in launch_counts().items()
-              if k in ("stft_features", "istft", "istft_bwd", "threefry_keys",
-                       "threefry_sample")}
+              if k in ("stft_features", "istft", "istft_bwd", "threefry_batch",
+                       "threefry_batch_noise", "threefry_sample")}
     check(counts["istft"] == 4 and counts["istft_bwd"] == 4
           and counts["stft_features"] >= 8, f"workdir train launches {counts}")
     losses = {4: cli_losses(out, 4)}
@@ -2884,14 +2902,47 @@ def ulps(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.view(torch.int32).long() - b.view(torch.int32).long()).abs().max())
 
 
-def step_draws(key, step, b, s, nb, t, g, noise=True) -> list:
-    """The train step's data draws (`train/step.py`): the per-example
-    keys from the device step, then picks, shifts, gains and noise."""
-    keys = dispatch.example_keys(key, 0, b, step)
-    out = [dispatch.draw(keys[0][0], s, "randint", 0, nb),
-           dispatch.draw(keys[0][1], s, "randint", 0, t),
-           dispatch.draw(keys[1][0], s, "uniform", -g, g)]
-    return out + ([dispatch.draw(keys[1][1], t, "normal")] if noise else [])
+def batch_args(cfg, offset=0, step=None, from_bank=True, keys=None) -> dict:
+    """rng_ops.batch_*'s arguments for `cfg`'s train step: its batch, gain
+    and noise, and with a step its dropout and noise keys at the config's
+    d_steps where `keys` (default: where the step draws dropout or
+    instance noise, `train/step.py`)."""
+    if keys is None:
+        keys = cfg.model.dropout > 0.0 or cfg.train.d_instance_noise > 0.0
+    return {"b": cfg.train.batch_size, "gain_db": cfg.data.gain_jitter_db,
+            "snr_db": noise_snr(cfg.data), "offset": offset, "step": step,
+            "from_bank": from_bank,
+            "d_steps": cfg.train.d_steps if step is not None and keys else 0}
+
+
+def batch_check(what: str, ker, ref, noise: bool) -> dict:
+    """The batch kernel's outputs against its plain version's: picks,
+    shifts, gains and train keys bit-equal; scaled within 1 ulp (the
+    samples off counted); the mixture within 1 ulp, or under noise within
+    1e-6·max|mixture|."""
+    for f in ("picks", "shifts", "gains", "train_keys"):
+        a, b = getattr(ker, f), getattr(ref, f)
+        check((a is None) == (b is None) and (a is None or torch.equal(a, b)),
+              f"rng batch {what}: kernel {f} != plain")
+    out = {"scaled_max_ulp": ulps(ker.scaled, ref.scaled),
+           "scaled_samples_off": int((ker.scaled != ref.scaled).sum()),
+           "scaled_samples": ref.scaled.numel(),
+           "mixture_max_abs_err": max_err(ker.mixture, ref.mixture),
+           "mixture_samples_off": int((ker.mixture != ref.mixture).sum())}
+    check(out["scaled_max_ulp"] <= 1, f"rng batch {what}: scaled {out}")
+    if noise:
+        out["mixture_tol"] = 1e-6 * float(ref.mixture.abs().max())
+        check(out["mixture_max_abs_err"] <= out["mixture_tol"],
+              f"rng batch {what}: mixture {out}")
+    else:
+        out["mixture_max_ulp"] = ulps(ker.mixture, ref.mixture)
+        check(out["mixture_max_ulp"] <= 1, f"rng batch {what}: mixture {out}")
+    return out
+
+
+def outputs(batch) -> list:
+    """A Batch's tensors, its Nones left out."""
+    return [x for x in batch if x is not None]
 
 
 def sampler_shapes(dev) -> dict:
@@ -2925,47 +2976,61 @@ def sampler_shapes(dev) -> dict:
 
 
 def phase_rng(dev):
-    """The threefry kernels against their plain versions at the
-    stream_v5e8 --hard b32 and wsj0_logmel b128 steps' shapes (keys, bits,
-    uniforms and randints bit for bit, normals within NORMAL_ULP), draws
-    keyed from the device step inside a captured CUDA graph against eager
-    draws over RNG_REPLAYS replays, and their times at the stream_v5e8
-    --hard b32 step."""
-    cases, rows = {}, {}
+    """The batch kernel (ops/threefry.py `batch_kernel`) against its plain
+    version at the stream_v5e8 --hard b32 step (the bank, noise, train keys
+    at its d_steps) and the bench's wsj0_logmel b128 (the bank, no noise),
+    each also at offset 3·b and on host-batch sources with no step, at
+    three grids (the default, a block an example, 3 tiles a row): picks,
+    shifts, gains and train keys bit-equal, the rest as batch_check; the
+    sampler's normals under the step's noise keys within NORMAL_ULP (the
+    batch's noise is the same device code); a captured graph of the step's
+    batch keyed from the device step against eager calls over RNG_REPLAYS
+    replays; the batch's device ms (by CUDA graph, and each kernel's by
+    torch.profiler), the one-launch variant's under noise, the plain
+    version's, the bound and a yardstick (take_rows and the mixing on the
+    kernel's draws, graphed); the sampler's four kinds at SAMPLE_SHAPES and
+    its times."""
+    cases, timing = {}, {}
     hard = quality_protocol.protocol_config("stream_v5e8", True)
+    gen = torch.Generator(device=dev).manual_seed(SEED_RNG_BATCH)
+    plain_ms = lambda fn: time_fns(calls=2, plain=fn)["plain"]   # noqa: E731
     for name, cfg in (("stream_v5e8 --hard b32", hard),
                       (f"wsj0_logmel b{B_BENCH} (bench)", bench_config(B_BENCH, 1))):
         b, s, t = cfg.train.batch_size, cfg.data.num_sources, cfg.segment_samples
-        nb, g = cfg.data.bank_utterances, cfg.data.gain_jitter_db
+        noise, tiles = cfg.data.num_noise > 0, rng_ops.batch_tiles(t)
         key = prng_key(cfg.train.seed + 1, dev)
         step = torch.tensor(41, dtype=torch.int64, device=dev)
+        bank = torch.randn(s, cfg.data.bank_utterances, t, device=dev, generator=gen)
+        sources = torch.randn(b, s, t, device=dev, generator=gen)
         errs = {}
-        for what, stepped in (("keys_step", step), ("keys_plain", None)):
-            ker = rng_ops.example_keys_kernel(key, 3, b, stepped)
-            ref = rng_ops.example_keys_reference(key, 3, b, stepped)
-            check(torch.equal(ker, ref), f"rng {name} {what}: kernel keys != plain")
-            errs[what] = 0
-        keys = rng_ops.example_keys_reference(key, 0, b, step)
-        draws = {"picks": (keys[0][0], s, "randint", 0, nb),
-                 "shifts": (keys[0][1], s, "randint", 0, t),
-                 "gains": (keys[1][0], s, "uniform", -g, g),
-                 "noise": (keys[1][1], t, "normal"),
-                 "bits": (keys[1][1], t, "bits")}
-        for what, args in draws.items():
-            ker, ref = rng_ops.sample_kernel(*args), rng_ops.sample_reference(*args)
-            check(ker.shape == ref.shape and ker.dtype == ref.dtype,
-                  f"rng {name} {what}: {ker.shape} {ker.dtype} vs {ref.shape} {ref.dtype}")
-            if args[2] == "normal":
-                errs[what] = {"max_abs_err": max_err(ker, ref), "max_ulp": ulps(ker, ref)}
-                check(errs[what]["max_ulp"] <= NORMAL_ULP,
-                      f"rng {name} normal: {errs[what]} over {NORMAL_ULP} ulp")
-            else:
-                check(torch.equal(ker, ref), f"rng {name} {what}: kernel != plain")
-                errs[what] = 0
+        for what, src, kw in (("bank", bank, batch_args(cfg, 0, step, keys=True)),
+                              ("bank, offset 3b", bank,
+                               batch_args(cfg, 3 * b, step, keys=True)),
+                              ("sources, offset 3b, no step", sources,
+                               batch_args(cfg, 3 * b, None, False))):
+            ref = rng_ops.batch_reference(key, src, **kw)
+            grids = {blocks: rng_ops.batch_kernel(key, src, **kw, blocks=blocks)
+                     for blocks in dict.fromkeys((tiles, 1, min(3, tiles)))}
+            errs[what] = batch_check(f"{name} {what}", grids[tiles], ref, noise)
+            same = all(all(torch.equal(x, y) for x, y in zip(outputs(grids[tiles]),
+                                                             outputs(k)))
+                       for k in grids.values())
+            check(same, f"rng batch {name} {what}: the grids' bits differ")
+            errs[what].update(grids=sorted(grids), grids_bit_equal=same,
+                              train_keys=None if ref.train_keys is None
+                              else len(ref.train_keys))
+        k_noise = rng_ops.example_keys_reference(key, 0, b, step)[1][1]
+        if noise:
+            normals = (rng_ops.sample_kernel(k_noise, t, "normal"),
+                       rng_ops.sample_reference(k_noise, t, "normal"))
+            errs["noise normals (the sampler)"] = {"max_ulp": ulps(*normals),
+                                                   "max_abs_err": max_err(*normals)}
+            check(ulps(*normals) <= NORMAL_ULP, f"rng {name} normals: "
+                  f"{errs['noise normals (the sampler)']} over {NORMAL_ULP} ulp")
         # Captured: keyed from the device step, as the captured train step.
-        step = torch.zeros((), dtype=torch.int64, device=dev)
-        draw = lambda: step_draws(key, step, b, s, nb, t, g,   # noqa: E731
-                                  cfg.data.num_noise > 0)
+        gstep = torch.zeros((), dtype=torch.int64, device=dev)
+        kw = batch_args(cfg, 0, gstep, keys=True)
+        draw = lambda: outputs(rng_ops.batch_kernel(key, bank, **kw))   # noqa: E731
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
@@ -2976,67 +3041,108 @@ def phase_rng(dev):
             static = draw()
         replays = []
         for r in range(RNG_REPLAYS):
-            step.fill_(1000 * r + 7)
+            gstep.fill_(1000 * r + 7)
             graph.replay()
-            eager = draw()
-            same = all(torch.equal(a, e) for a, e in zip(static, eager))
-            check(same, f"rng {name}: replay {r} at step {1000 * r + 7} != eager draws")
+            same = all(torch.equal(a, e) for a, e in zip(static, draw()))
+            check(same, f"rng {name}: replay {r} at step {1000 * r + 7} != eager batch")
             replays.append(same)
-        cases[name] = {"batch": b, "sources": s, "samples": t, "bank": nb,
-                       "noise": cfg.data.num_noise > 0, "kernel_vs_plain": errs,
-                       "replays_equal_eager": replays}
-    # Times at the stream_v5e8 --hard b32 step (the quality protocol's).
-    cfg = hard
-    b, s, t = cfg.train.batch_size, cfg.data.num_sources, cfg.segment_samples
-    nb, g = cfg.data.bank_utterances, cfg.data.gain_jitter_db
-    key = prng_key(cfg.train.seed + 1, dev)
-    step = torch.tensor(41, dtype=torch.int64, device=dev)
-    keys = rng_ops.example_keys_kernel(key, 0, b, step)
-    k_noise = keys[1][1]
-    plain_ms = lambda fn: time_fns(calls=2, plain=fn)["plain"]   # noqa: E731
+        del graph, static
+        cases[name] = {"batch": b, "sources": s, "samples": t, "tiles": tiles,
+                       "bank": cfg.data.bank_utterances, "noise": noise,
+                       "kernel_vs_plain": errs, "replays_equal_eager": replays}
+
+        # Times at the step's shape, from the device step.
+        kw = batch_args(cfg, 0, step)
+        call = lambda: rng_ops.batch_kernel(key, bank, **kw)   # noqa: E731
+        ker = call()
+        normals = rng_ops.sample_kernel(k_noise, t, "normal") if noise else None
+        by_kernel = {("threefry_batch_noise" if "noise" in k else "threefry_batch"): ms
+                     for k, (ms, _) in device_kernels(call).items()
+                     if "threefry_batch" in k}
+        bound = cost.batch(b, s, t, True, True, noise, kw["d_steps"])
+        timing[name] = {
+            "ms": graph_ms(call), "kernel_device_ms": by_kernel,
+            "plain_ms": plain_ms(lambda: rng_ops.batch_reference(key, bank, **kw)),
+            "bound_ms": bound.bound(), "bytes": bound.bytes,
+            "yardstick_ms": graph_ms(lambda: mix(take_rows(bank, ker.picks, ker.shifts),
+                                                 ker.gains, normals, kw["snr_db"])),
+            "yardstick": "take_rows + data.mixer.mix on the kernel's draws (and the "
+                         "sampler's normals), graphed: the plain ops of the batch "
+                         "after its draws",
+            "launches_a_call": 1 + int(noise and tiles > 1)}
+        if noise:
+            nb_ = cost.batch_noise(b, t)
+            ref_mix = ker.mixture.clone()
+            timing[name].update(
+                one_launch_ms=graph_ms(lambda: rng_ops.batch_kernel(key, bank, **kw,
+                                                                    blocks=1)),
+                one_launch="the same batch with a block an example: no second launch, "
+                           f"{b} blocks",
+                noise_bound_ms=nb_.bound(),
+                noise_plain_ms=plain_ms(lambda: ref_mix + rng_ops.sample_reference(
+                    k_noise, t, "normal") * torch.sqrt(
+                        (ref_mix ** 2).mean(-1, keepdim=True) / 10.0 ** (kw["snr_db"] / 10))))
+
+    bench_name = f"wsj0_logmel b{B_BENCH} (bench)"
+    hard_name = "stream_v5e8 --hard b32"
+    bt, ht = timing[bench_name], timing[hard_name]
+    rows = {
+        "threefry_batch": {
+            "ms": bt["ms"], "plain_ms": bt["plain_ms"], "bound_ms": bt["bound_ms"][0],
+            "bound_by": bt["bound_ms"][1], "library_ms": None,
+            "library": "no single PyTorch call computes the batch; yardstick_ms is "
+                       "take_rows + the mixing on its draws",
+            "yardstick_ms": bt["yardstick_ms"],
+            "max_abs_err": max(e["mixture_max_abs_err"] for c in cases.values()
+                               for w, e in c["kernel_vs_plain"].items()
+                               if "mixture_max_abs_err" in e),
+            "shape": f"{bench_name}: the bank's 128 x 2 rows of 23 936, one launch",
+            "stream_v5e8_hard": {k: ht[k] for k in ("ms", "kernel_device_ms", "plain_ms",
+                                                    "bound_ms", "yardstick_ms",
+                                                    "one_launch_ms")}},
+        "threefry_batch_noise": {
+            "ms": ht["kernel_device_ms"].get("threefry_batch_noise"),
+            "ms_by": "torch.profiler, the launch in an eager call",
+            "plain_ms": ht["noise_plain_ms"], "bound_ms": ht["noise_bound_ms"][0],
+            "bound_by": ht["noise_bound_ms"][1], "library_ms": None,
+            "max_abs_err": max(e["mixture_max_abs_err"]
+                               for e in cases[hard_name]["kernel_vs_plain"].values()
+                               if "mixture_max_abs_err" in e),
+            "shape": f"{hard_name}: 32 x 32 000 mixture samples, normals added"}}
+
+    # The sampler (no path draws through it since the batch kernel; a
+    # key a row): the normals at the --hard step's noise shape, and the
+    # bench step's 128 x 2 draws beside PyTorch's Philox draws
+    # (yardsticks, used nowhere in the port).
+    b, t = hard.train.batch_size, hard.segment_samples
+    key = prng_key(hard.train.seed + 1, dev)
+    k_noise = rng_ops.example_keys_reference(
+        key, 0, b, torch.tensor(41, dtype=torch.int64, device=dev))[1][1]
     noise_args = (k_noise, t, "normal")
-    noise_err = max_err(rng_ops.sample_kernel(*noise_args),
-                        rng_ops.sample_reference(*noise_args))
     sample_bound = cost.sample(b, t, "normal").bound()
-    keys_bound = cost.example_keys(b, step=True).bound()
-    step_ms = graph_ms(lambda: step_draws(key, step, b, s, nb, t, g))
-    keys_args = (key, 0, b, step)
-    keys_err = max_err(rng_ops.example_keys_kernel(*keys_args),
-                       rng_ops.example_keys_reference(*keys_args))
+    kb = rng_ops.example_keys_reference(key, 0, 128)[0][0]
     rows["threefry_sample"] = {
         "ms": graph_ms(lambda: rng_ops.sample_kernel(*noise_args)),
         "plain_ms": plain_ms(lambda: rng_ops.sample_reference(*noise_args)),
-        "bound_ms": sample_bound[0], "bound_by": sample_bound[1], "library_ms": None,
-        "max_abs_err": noise_err, "shape": f"{b} x {t} normals (the step's noise)"}
-    rows["threefry_keys"] = {
-        "ms": graph_ms(lambda: rng_ops.example_keys_kernel(*keys_args)),
-        "plain_ms": plain_ms(lambda: rng_ops.example_keys_reference(*keys_args)),
-        "bound_ms": keys_bound[0], "bound_by": keys_bound[1], "library_ms": None,
-        "max_abs_err": keys_err, "shape": f"{b} examples x 2 bases from the device step"}
-    # Yardsticks (used nowhere in the port): PyTorch's Philox draws of as
-    # many numbers, at the noise's shape and the bench step's 128 x 2.
-    kb = rng_ops.example_keys_reference(key, 0, 128)[0][0]
-    rows["threefry_sample"].update(
-        library_ms=graph_ms(lambda: torch.randn(b, t, device=dev)),
-        library=f"torch.randn({b}, {t}): as many normals with Philox bits",
-        bench_draws_ms={
+        "bound_ms": sample_bound[0], "bound_by": sample_bound[1],
+        "max_abs_err": max_err(rng_ops.sample_kernel(*noise_args),
+                               rng_ops.sample_reference(*noise_args)),
+        "shape": f"{b} x {t} normals (the --hard step's noise shape)",
+        "library_ms": graph_ms(lambda: torch.randn(b, t, device=dev)),
+        "library": f"torch.randn({b}, {t}): as many normals with Philox bits",
+        "bench_draws_ms": {
             "randint 128 x 2": graph_ms(lambda: rng_ops.sample_kernel(kb, 2, "randint", 0, 9)),
             "uniform 128 x 2": graph_ms(lambda: rng_ops.sample_kernel(kb, 2, "uniform", -1, 1)),
             "torch.randint(0, 9, (128, 2))": graph_ms(
                 lambda: torch.randint(0, 9, (128, 2), device=dev)),
-            "torch.rand(128, 2)": graph_ms(lambda: torch.rand(128, 2, device=dev))})
+            "torch.rand(128, 2)": graph_ms(lambda: torch.rand(128, 2, device=dev))}}
     shapes = sampler_shapes(dev)
-    plain_step_ms = plain_ms(lambda: [rng_ops.example_keys_reference(*keys_args)]
-                             + [rng_ops.sample_reference(*a) for a in (
-                                 (keys[0][0], s, "randint", 0, nb),
-                                 (keys[0][1], s, "randint", 0, t),
-                                 (keys[1][0], s, "uniform", -g, g), noise_args)])
-    emit("rng", cases=cases, sampler_shapes=shapes, stream_v5e8_step={
-        "draws_ms": step_ms, "plain_draws_ms": plain_step_ms,
-        "launches_a_step": {"threefry_keys": 1, "threefry_sample": 4},
-        "config": "stream_v5e8 --hard b32 (picks, shifts, gains, noise)"},
-         rows=rows, tol=f"keys, bits, uniforms, randints bit-equal; normals "
-                        f"within {NORMAL_ULP} ulp; replays bit-equal to eager",
+    emit("rng", cases=cases, timing=timing, sampler_shapes=shapes, rows=rows,
+         launches_a_step={"bank, no noise": {"threefry_batch": 1},
+                          "bank, noise": {"threefry_batch": 1, "threefry_batch_noise": 1}},
+         tol="picks, shifts, gains, train keys bit-equal; scaled within 1 ulp; the "
+             "mixture within 1 ulp, under noise within 1e-6·max|mixture|; normals within "
+             f"{NORMAL_ULP} ulp; every grid and replay bit-equal",
          int32_ops_per_s=cost.INT32_OPS_PER_S, cipher_int_ops=cost.CIPHER_INT_OPS,
          library="PyTorch has no threefry sampler: torch.randn, torch.randint and "
                  "torch.rand (Philox) are yardsticks")
@@ -3132,10 +3238,11 @@ def phase_rng_dropout(dev) -> dict:
     check(sites and noises, f"every-option step: dropout sites {sites}, noise {noises}")
     key = prng_key(cfg.train.seed + 1, dev)
     step = torch.tensor(41, dtype=torch.int64, device=dev)
-    ker_keys = rng_ops.train_keys_kernel(key, step, 0, d_steps)
+    bank = torch.randn(cfg.data.num_sources, cfg.data.bank_utterances,
+                       cfg.segment_samples, device=dev, generator=gen)
+    ker_keys = rng_ops.batch_kernel(key, bank, **batch_args(cfg, 0, step)).train_keys
     ref_keys = rng_ops.train_keys_reference(key, step, 0, d_steps)
-    keys_err = max_err(ker_keys, ref_keys)
-    check(torch.equal(ker_keys, ref_keys), "rng step keys: kernel != plain")
+    check(torch.equal(ker_keys, ref_keys), "rng step keys: the batch kernel's != plain")
     g_row, d_rows, adv_rows = rng_ops.train_key_rows(d_steps)
     fold = DropoutKey(key).fold(1)
     k_g = ker_keys[g_row]
@@ -3220,7 +3327,7 @@ def phase_rng_dropout(dev) -> dict:
     gstep = torch.zeros((), dtype=torch.int64, device=dev)
 
     def draw():
-        keys = rng_ops.train_keys_kernel(key, gstep, 0, d_steps)
+        keys = rng_ops.batch_kernel(key, bank, **batch_args(cfg, 0, gstep)).train_keys
         y, words = rng_ops.Dropout.apply(x, keys[g_row], fold, p, dims, True)
         (dx,) = torch.autograd.grad(y, x, dy)
         return [keys, y.detach(), words, dx, rng_ops.noise_kernel(xn, keys[adv_rows[1]],
@@ -3255,7 +3362,6 @@ def phase_rng_dropout(dev) -> dict:
     noise_bound = cost.noise(nn_, n_item).bound()
     noise_f32_bound = cost.noise(nn_, 4).bound()
     xn32 = xn.float()
-    keys_bound = cost.train_keys(d_steps).bound()
     k_n = ker_keys[adv_rows[1]]
     plain_ms = lambda fn: time_fns(calls=2, plain=fn)["plain"]   # noqa: E731
     step_ms, by_site = step_dropout_ms(sites, fwd_launches, bwd_launches, k_g, fold, gen,
@@ -3293,11 +3399,6 @@ def phase_rng_dropout(dev) -> dict:
                         "bound_ms": noise_f32_bound[0], "bound_by": noise_f32_bound[1],
                         "library_ms": graph_ms(lambda: torch.normal(xn32, std))},
             "shape": f"{list(n_shape)} {n_dtype} (the largest D input)"},
-        "threefry_train_keys": {
-            "ms": graph_ms(lambda: rng_ops.train_keys_kernel(key, step, 0, d_steps)),
-            "plain_ms": plain_ms(lambda: rng_ops.train_keys_reference(key, step, 0, d_steps)),
-            "bound_ms": keys_bound[0], "bound_by": keys_bound[1], "library_ms": None,
-            "max_abs_err": keys_err, "shape": f"{3 + 3 * d_steps} keys at d_steps {d_steps}"},
     }
     emit("rng", case="dropout and noise at the every-option stream_v5e8 step",
          sets=list(STREAM_OPTIONS), dropout_sites=cases, noise_inputs=noise_cases,
@@ -3624,7 +3725,8 @@ def phase_options(dev, tmp: Path):
     last, counts["options_stream_train"] = counted(lambda: exp.train(num_steps=2))
     c = counts["options_stream_train"]
     check(c["istft"] == 2 and c["istft_bwd"] == 2 and c["stft_features"] == 4
-          and c["threefry_train_keys"] == 2 and c["threefry_dropout"] > 0
+          and c["threefry_batch"] == 2 and c["threefry_sample"] == 0
+          and c["threefry_dropout"] > 0
           and c["threefry_dropout_bwd"] > 0 and c["threefry_noise"] > 0,
           f"stream options train launches {c}")
     check(all(np.isfinite(v) for v in last.values()), f"stream options: {last}")
@@ -3681,13 +3783,15 @@ def phase_quality(dev):
     for name, argv, need in (
         ("wsj0_logmel --hard", ["wsj0_logmel", str(QUALITY_WSJ0_STEPS),
                                 "--hard", "--seeds", "0,7", "--device", str(dev)],
-         ("stft_features", "masked_istft", "stft")),
+         ("stft_features", "masked_istft", "stft", "threefry_batch",
+          "threefry_batch_noise")),
         ("stream_v5e8 --hard", ["stream_v5e8", str(QUALITY_STREAM_STEPS),
                                 "--hard", "--seeds", "0,7", "--device", str(dev)],
-         ("stft_features", "masked_istft", "istft", "istft_bwd", "stft")),
+         ("stft_features", "masked_istft", "istft", "istft_bwd", "stft",
+          "threefry_batch", "threefry_batch_noise")),
         ("music_complex_44k", ["music_complex_44k", str(QUALITY_MUSIC_STEPS),
                                "--device", str(dev)],
-         ("stft_features", "masked_istft", "stft")),
+         ("stft_features", "masked_istft", "stft", "threefry_batch")),
     ):
         reset()
         torch.cuda.reset_peak_memory_stats()
@@ -4573,7 +4677,9 @@ def main() -> int:
         tools = phase_tools(dev, Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
         install = phase_install(Path(tmp))
-    quality_launches = {"stft": sum(r["launches"]["stft"] for r in quality_runs.values())}
+    quality_launches = {k: sum(r["launches"][k] for r in quality_runs.values())
+                        for k in ("stft", "threefry_batch", "threefry_batch_noise",
+                                  "threefry_sample")}
 
     def by_path(name, **paths):
         got = {p: c[name] for p, c in paths.items()}
@@ -4655,13 +4761,19 @@ def main() -> int:
                      graph_host_bank_rate=graph_host_bank_counts, workdir=workdir_counts,
                      dp_train=dp_counts["dp_train"],
                      options_stream_train=opt["options_stream_train"],
-                     serve_graph=serve_counts),
+                     serve_graph=serve_counts, quality=quality_launches),
            **rng_rows[name]}
           for name, replaces in (
-              ("threefry_keys", "none: jax.random keys at "
-                                "gan_sass_tf_tpu/train/step.py:213-214"),
+              ("threefry_batch", "none: jax.random keys and draws and the mix at "
+                                 "gan_sass_tf_tpu/train/step.py:212-237, "
+                                 "gan_sass_tf_tpu/data/device_bank.py:41-57, "
+                                 "gan_sass_tf_tpu/data/mixer.py:31-51"),
+              ("threefry_batch_noise", "none: the mixture's noise at "
+                                       "gan_sass_tf_tpu/data/mixer.py:44-48"),
               ("threefry_sample", "none: jax.random draws at "
-                                  "gan_sass_tf_tpu/data/mixer.py:31-51"))),
+                                  "gan_sass_tf_tpu/data/mixer.py:31-51 (on no path "
+                                  "since the batch kernel; held to its plain version "
+                                  "at SAMPLE_SHAPES)"))),
         *({"name": name, "route": "cuda",
            "source": "gan_sass_tf_tpu_torch/ops/csrc/threefry.cu",
            "replaces": replaces,
@@ -4670,8 +4782,6 @@ def main() -> int:
                      options_stream_train=opt["options_stream_train"]),
            **rng_rows[name]}
           for name, replaces in (
-              ("threefry_train_keys", "none: jax.random dropout and noise keys at "
-                                     "gan_sass_tf_tpu/train/step.py:213-228"),
               ("threefry_dropout", "none: flax nn.Dropout at "
                                    "gan_sass_tf_tpu/models/generator.py:440"),
               ("threefry_dropout_bwd", "none: the VJP of flax nn.Dropout at "

@@ -5,7 +5,8 @@ built on the host once, uploaded to the card once, and every train step
 samples its (B, S, T) sources there (an utterance per source slot and a
 circular shift), so no batch crosses from the host.  Picks and shifts are
 the JAX package's: `jax.random.randint` under split(fold_in(key, i)) for
-global example i (`ops.dispatch.example_keys` / `draw`, threefry).
+global example i (`ops.dispatch.step_batch`, threefry; a train step draws
+and mixes its batch in that one launch).
 """
 
 from __future__ import annotations
@@ -44,20 +45,11 @@ def take_rows(bank: torch.Tensor, picks: torch.Tensor,
     return torch.gather(rows, -1, idx)
 
 
-def draw_rows(bank: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
-    """(S, N_bank, T) bank, (2, B, 2) per-example keys (k_pick, k_shift) ->
-    (B, S, T) sources: randint(k_pick, (S,), 0, N_bank) utterances, each
-    rolled back by randint(k_shift, (S,), 0, T)."""
-    s, nb, t = bank.shape
-    picks = dispatch.draw(keys[0], s, "randint", 0, nb)
-    shifts = dispatch.draw(keys[1], s, "randint", 0, t)
-    return take_rows(bank, picks, shifts)
-
-
 def sample_bank(bank: torch.Tensor, key: torch.Tensor, local_batch: int,
                 example_offset: int = 0) -> torch.Tensor:
     """(S, N_bank, T) bank -> (B_local, S, T) sources, drawn on the bank's
     device for global examples example_offset + [0, B_local) under the
-    threefry `key` (the JAX package's `sample_bank` under the same key)."""
-    keys = dispatch.example_keys(key.to(bank.device), example_offset, local_batch)
-    return draw_rows(bank, keys[0])
+    threefry `key` (the JAX package's `sample_bank` under the same key):
+    the batch launch with no gain and no noise, its scaled sources."""
+    return dispatch.step_batch(key.to(bank.device), bank, 0.0, offset=example_offset,
+                               bank_batch=local_batch).scaled

@@ -3,8 +3,8 @@
 Port of `gan_sass_tf_tpu/data/mixer.py::mix_sources`, with its draws: for
 global example i, (k_gain, k_noise) = split(fold_in(key, i)), gains
 `jax.random.uniform(k_gain, (S, 1), -g, g)` in dB and noise
-`jax.random.normal(k_noise, (T,))` (threefry, `ops.dispatch.example_keys`
-/ `draw`), so a data-parallel split of the batch draws the same numbers.
+`jax.random.normal(k_noise, (T,))` (threefry, `ops.dispatch.step_batch`),
+so a data-parallel split of the batch draws the same numbers.
 `apply_mix` takes the draws as arguments, for tests that inject them.
 """
 
@@ -17,39 +17,42 @@ import torch
 from gan_sass_tf_tpu_torch.ops import dispatch
 
 
+def mix(sources: torch.Tensor, gains_db: torch.Tensor,
+        noise: Optional[torch.Tensor] = None,
+        snr_db: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, S, T) sources, (B, S) gains in dB and, for noise, (B, T)
+    standard normals at snr_db -> (mixture (B, T), gain-scaled sources
+    (B, S, T)), as the JAX package's `mix_sources` computes them."""
+    scaled = sources * torch.pow(10.0, gains_db / 20.0)[..., None]
+    mixture = scaled.sum(dim=1)
+    if noise is not None:
+        sig_pow = (mixture ** 2).mean(dim=-1, keepdim=True)
+        noise_pow = sig_pow / 10.0 ** (snr_db / 10.0)
+        mixture = mixture + noise * torch.sqrt(noise_pow)
+    return mixture, scaled
+
+
+def noise_snr(data_cfg) -> Optional[float]:
+    """The mixture's noise SNR in dB, None when the data adds no noise."""
+    return float(data_cfg.snr_db) if data_cfg.num_noise > 0 else None
+
+
 def apply_mix(sources: torch.Tensor, gains_db: torch.Tensor,
               noise: Optional[torch.Tensor],
               data_cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, S, T) sources, (B, S) gains in dB, (B, T) standard-normal noise
     (used when data_cfg.num_noise > 0) -> (mixture (B, T), gain-scaled
     sources (B, S, T)).  The targets are the scaled sources."""
-    scaled = sources * torch.pow(10.0, gains_db / 20.0)[..., None]
-    mixture = scaled.sum(dim=1)
-    if data_cfg.num_noise > 0:
-        sig_pow = (mixture ** 2).mean(dim=-1, keepdim=True)
-        noise_pow = sig_pow / 10.0 ** (data_cfg.snr_db / 10.0)
-        mixture = mixture + noise * torch.sqrt(noise_pow)
-    return mixture, scaled
-
-
-def mix_keyed(sources: torch.Tensor, keys: torch.Tensor,
-              data_cfg) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(B, S, T) sources, (2, B, 2) per-example keys (k_gain, k_noise) ->
-    (mixture (B, T), scaled sources (B, S, T)): gains uniform in
-    ±gain_jitter_db, noise at snr_db."""
-    _, s, t = sources.shape
-    g = data_cfg.gain_jitter_db
-    gains_db = dispatch.draw(keys[0], s, "uniform", -g, g)
-    noise = (dispatch.draw(keys[1], t, "normal")
-             if data_cfg.num_noise > 0 else None)
-    return apply_mix(sources, gains_db, noise, data_cfg)
+    snr = noise_snr(data_cfg)
+    return mix(sources, gains_db, None if snr is None else noise, snr)
 
 
 def mix_sources(sources: torch.Tensor, key: torch.Tensor, data_cfg,
                 example_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """-> (mixture (B, T), scaled sources (B, S, T)), drawn on the sources'
     device for global examples example_offset + [0, B) under the threefry
-    `key` (the JAX package's `mix_sources` under the same key)."""
-    keys = dispatch.example_keys(key.to(sources.device), example_offset,
-                                 sources.shape[0])
-    return mix_keyed(sources, keys[0], data_cfg)
+    `key` (the JAX package's `mix_sources` under the same key): gains
+    uniform in ±gain_jitter_db, noise at snr_db."""
+    out = dispatch.step_batch(key.to(sources.device), sources, data_cfg.gain_jitter_db,
+                              noise_snr(data_cfg), offset=example_offset)
+    return out.mixture, out.scaled

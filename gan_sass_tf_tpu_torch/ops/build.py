@@ -51,12 +51,10 @@ _SIGNATURES = {
     "masked_istft_launch": [_P] * 5,
     # plan, spec, out, stream
     "istft_launch": [_P] * 4,
-    # key, step, offset, B, out, stream
-    "threefry_keys_launch": [_P, _P, _L, _I, _P, _P],
     # keys, R, n, kind, lo, hi, span, mult, minval, out, stream
     "threefry_sample_launch": [_P, _I, _I, _I, _F, _F, _L, _L, _L, _P, _P],
-    # key, step, shard, d_steps, out, stream
-    "threefry_train_keys_launch": [_P, _P, _L, _I, _P, _P],
+    # args (ops/threefry.py::BatchArgs), blocks, stream
+    "threefry_batch_launch": [_P, _I, _P],
     # x, y, words, key, fold, keep_below, scale, n, size, jstride, wrap, bf16,
     # blocks, stream
     "threefry_dropout_launch": [_P, _P, _P, _P, _L, _L, _F, _L, _LP, _LP, _LP, _I, _I,

@@ -19,6 +19,8 @@ import dataclasses
 import math
 from typing import Sequence, Tuple
 
+from gan_sass_tf_tpu_torch.ops.threefry import batch_tiles
+
 # The H100 SXM's published peaks (NVIDIA's data sheet, dense rates): HBM3
 # bytes/s, f32 flops/s outside the tensor cores, and the tensor cores' bf16
 # and TF32 rates.
@@ -127,14 +129,33 @@ def istft_adjoint(rows: int, f: int, n_fft: int, hop: int) -> Cost:
     return stft(rows, (f - 1) * hop + n_fft, n_fft, hop)
 
 
-def example_keys(b: int, step: bool) -> Cost:
-    """`threefry_keys_kernel`: the key (and the step) read, (bases, 2, b, 2)
-    int64 keys written; with the step the key's fold and split (3 ciphers)
-    and 6 an example (two bases, a fold and two children each), else 3 an
-    example."""
-    if step:
-        return Cost(24 + 2 * b * 32, int_ops=CIPHER_INT_OPS * (3 + 6 * b))
-    return Cost(16 + b * 32, int_ops=CIPHER_INT_OPS * 3 * b)
+def batch(b: int, s: int, t: int, from_bank: bool, step: bool, noise: bool,
+          d_steps: int = 0) -> Cost:
+    """`threefry_batch_kernel`: the source rows read once (the bank's picked
+    rows or the given sources), the scaled sources, the mixture and the
+    draws written once (picks and shifts int64 with the bank, gains f32;
+    under noise each tile's sum of mixture² and the noise keys); ciphers:
+    with the step its fold and two splits, then an example's fold under
+    rng_mix and its gain key (2; the noise key a third under noise), with
+    the bank its fold under rng_data, the pick and shift keys and their
+    randints' two splits each (7), and a source's gain (1) and pick and
+    shift (2 + 2); the train keys about five a key."""
+    per_example = 2 + int(noise) + (7 if from_bank else 0)
+    per_source = 1 + (4 if from_bank else 0)
+    ciphers = 3 * int(step) + b * (per_example + s * per_source) \
+        + (5 * (3 + 3 * d_steps) if d_steps else 0)
+    draws = b * s * (4 + (16 if from_bank else 0))
+    nbytes = (4 * 2 * b * s * t + 4 * b * t + draws + 16 + 8 * int(step)
+              + (4 * b * batch_tiles(t) + 16 * b if noise else 0)
+              + 16 * (3 + 3 * d_steps) * int(d_steps > 0))
+    return Cost(nbytes, int_ops=CIPHER_INT_OPS * ciphers)
+
+
+def batch_noise(b: int, t: int) -> Cost:
+    """`threefry_batch_noise_kernel`: the mixture read and written once, the
+    tiles' sums and the noise keys read; a cipher a sample."""
+    return Cost(8 * b * t + 4 * b * batch_tiles(t) + 16 * b,
+                int_ops=CIPHER_INT_OPS * b * t)
 
 
 def sample(rows: int, n: int, kind: str) -> Cost:
@@ -143,13 +164,6 @@ def sample(rows: int, n: int, kind: str) -> Cost:
     ciphers = SAMPLE_CIPHERS[kind] * n + SAMPLE_ROW_CIPHERS[kind]
     return Cost(16 * rows + SAMPLE_BYTES[kind] * rows * n,
                 int_ops=CIPHER_INT_OPS * ciphers * rows)
-
-
-def train_keys(d_steps: int) -> Cost:
-    """`threefry_train_keys_kernel`: the key and the step read, 3 + 3·d_steps
-    keys written, about five ciphers a key."""
-    n = 3 + 3 * d_steps
-    return Cost(24 + 16 * n, int_ops=CIPHER_INT_OPS * 5 * n)
 
 
 def mask_bytes(numel: int) -> int:

@@ -1,25 +1,37 @@
-// jax.random's threefry-2x32 draws for Hopper (sm_90a): the train step's
-// per-example keys, and bits, uniforms, randints and normals from a key a
-// row; the step's dropout and instance-noise keys, flax's dropout and the
-// D's instance noise, fused.
+// jax.random's threefry-2x32 draws for Hopper (sm_90a): a train step's
+// batch (its keys, bank rows, shifts, gains, mix and noise) in one launch,
+// bits, uniforms, randints and normals from a key a row, flax's dropout and
+// the D's instance noise, fused.
 //
 // Replaces no TPU kernel.  The JAX package draws its bank picks and
-// shifts (gan_sass_tf_tpu/data/device_bank.py:49-53), its gains and noise
+// shifts (gan_sass_tf_tpu/data/device_bank.py:41-57), its gains and noise
 // (data/mixer.py:31-51) and its eval and bound mixtures through
-// jax.random, which XLA compiles into the step; these two launches give the
+// jax.random, which XLA compiles into the step; these launches give the
 // same numbers from the same keys inside the port's captured step, where
 // the plain version (data/threefry.py: 20 rounds of int64 elementwise ops
 // on masked words) takes over a hundred launches a draw.
 //
-//  - threefry_keys_launch: from a key (and, for a train step, the step
-//    number on the device) the per-example keys, one thread an example.
-//    With a step: r = fold_in(key, step), (rng_mix, rng_data) = split(r,
-//    5)[0:2] (gan_sass_tf_tpu/train/step.py:213-214); then for each base
-//    b in (rng_data, rng_mix) and example i, split(fold_in(b, offset + i))
-//    = (k_pick, k_shift) or (k_gain, k_noise).  Without a step the one
-//    base is the key itself (mix_sources / sample_bank under a given key).
-//    Out: int64 (bases, 2, B, 2): [b][j][i] = split(...)[j] of example i,
-//    so each key array is contiguous; each word < 2^32.
+//  - threefry_batch_launch: a step's batch.  Per example i the JAX step's
+//    keys (gan_sass_tf_tpu/train/step.py:212-237): with a step r =
+//    fold_in(key, step), (rng_mix, rng_data) = split(r, 5)[0:2], without
+//    one the key is both bases (mix_sources / sample_bank under a given
+//    key); (k_pick, k_shift) = split(fold_in(rng_data, offset + i)),
+//    (k_gain, k_noise) = split(fold_in(rng_mix, offset + i)).  With the
+//    bank (S, N, T) source s is bank row randint(k_pick)[s] rolled by
+//    -randint(k_shift)[s], else row s of the example's given sources; it
+//    is scaled by 10^(g/20), g = uniform(k_gain, ∓gain)[s] dB, and the
+//    scaled sources summed in order into the mixture.  Under noise the
+//    mixture gains normal(k_noise, T)·sqrt(mean(mixture²) / 10^(snr/10)):
+//    the mean needs the whole row, so each tile's sum of mixture² is
+//    written in a fixed order and the noise added after all tiles
+//    (threefry_batch_noise_kernel, or the same block where one block takes
+//    a whole example).  With d_steps > 0 block (0, 0) also writes the
+//    step's dropout and noise keys (step.py:213-228, :317, :178, :372):
+//    rng_g, rng_dl, rng_ga = split(r, 5)[2:5], each folded with the
+//    shard; rng_g; per D step di split(fold_in(rng_dl, di), 3) (D dropout,
+//    noise, R1 dropout); split(rng_ga) (the adversarial call's dropout,
+//    noise).  It writes the picks, shifts and gains too (B x S, for the
+//    checks).
 //  - threefry_sample_launch: R rows of n values, row r under keys[r], the
 //    value j from the counter pair (0, j) (jax's partitionable bits: the
 //    two output words xored).  kind 0 bits (int64), 1 uniform (float32 on
@@ -27,13 +39,6 @@
 //    of split(key)[0] and [1]), 3 normal (float32, √2·erf⁻¹ of a uniform
 //    on (nextafter(-1, 0), 1), XLA's float32 polynomial).
 //
-//  - threefry_train_keys_launch: the step's dropout and noise keys, one
-//    thread a key, as the JAX step derives them
-//    (gan_sass_tf_tpu/train/step.py:213-228, :317, :178, :372): r =
-//    fold_in(key, step); rng_g, rng_dl, rng_ga = split(r, 5)[2:5], each
-//    folded with the shard index; out[0] = rng_g; out[1 + 3 di + j] =
-//    split(fold_in(rng_dl, di), 3)[j] (D dropout, noise, R1 dropout); out[1
-//    + 3 D + j] = split(rng_ga)[j] (the adversarial call's dropout, noise).
 //  - threefry_dropout_launch: flax's nn.Dropout at one site,
 //    select(uniform(k, shape) < keep, x * scale, 0) in x's dtype (float32
 //    or bfloat16), k = fold_in(base, fold) the site's make_rng key (fold
@@ -94,6 +99,18 @@
 //    the 128 terms round_bf16(coef · z) once, by the very arithmetic of
 //    the plain version; an element pays its cipher, a byte, a load from
 //    shared memory and the add.  float32 runs erf⁻¹ a value, branching.
+// The batch launch is bytes-bound instead: a sample reads S source values
+// and writes S scaled ones and the mixture (under noise the mixture once
+// more, with a cipher and erf⁻¹), while the keys and draws are a few
+// dozen ciphers an example.  It replaces a keys launch, three or four
+// sampler launches and about ten PyTorch passes over (B, S, T) with their
+// int64 index of the roll.  A block takes a (tile of kBatchTile samples,
+// example), not a whole example (32 examples would fill a quarter of the
+// SMs), and derives the example's keys itself in warp 0.  Each of a
+// thread's samples sits a block apart (coalesced 4-byte accesses: a
+// shift aligns no vector), read through __ldg so the loads need not wait
+// for the stores.  The tile is a constant, so the bits do not depend on
+// the grid, and the noise's mean is summed in a fixed order (no atomics).
 // The dropout forward pays the cipher too, so its design strips the rest
 // of an element's instructions: a thread owns a mask word, 32 consecutive
 // elements of the port's memory, loaded and stored as 16-byte vectors
@@ -241,6 +258,22 @@ __device__ __forceinline__ float erf_inv(float x) {
   return fabsf(x) == 1.0f ? __fmul_rn(x, __int_as_float(0x7F800000)) : __fmul_rn(p, x);
 }
 
+// A normal from its uniform on (nextafter(-1, 0), 1): float32(√2)·erf⁻¹(u).
+__device__ __forceinline__ float normal_of(float u) {
+  return __fmul_rn(__int_as_float(0x3FB504F3), erf_inv(u));
+}
+
+// randint's value j less minval, from the bits of split(key)[0] (hk) and
+// [1] (lk): ((hi mod span)·mult + lo mod span) mod span in uint32.
+template <typename A = Add>
+__device__ __forceinline__ uint32_t randint_offset(uint2 hk, uint2 lk, uint32_t j,
+                                                  uint32_t span, uint32_t mult,
+                                                  A add = A()) {
+  const uint32_t h = bits(hk, j, add) % span;
+  const uint32_t l = bits(lk, j, add) % span;
+  return (h * mult + l) % span;
+}
+
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
@@ -381,27 +414,6 @@ __device__ __forceinline__ void advance(const Layout& lay, uint32_t* c, const ui
   c[0] += g[0] + carry;
 }
 
-__global__ void __launch_bounds__(kThreads)
-    threefry_keys_kernel(const long long* __restrict__ key,
-                         const long long* __restrict__ step, long long offset,
-                         int B, long long* __restrict__ out) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= B) return;
-  uint2 base[2] = {load_key(key), load_key(key)};
-  int bases = 1;
-  if (step != nullptr) {
-    const uint2 r = child(base[0], uint32_t(*step));
-    base[0] = child(r, 1u);   // rng_data
-    base[1] = child(r, 0u);   // rng_mix
-    bases = 2;
-  }
-  for (int b = 0; b < bases; ++b) {
-    const uint2 e = child(base[b], uint32_t(offset + i));
-    store_key(out + (size_t(2 * b) * B + i) * 2, child(e, 0u));
-    store_key(out + (size_t(2 * b + 1) * B + i) * 2, child(e, 1u));
-  }
-}
-
 // Row r's values j0 .. j0 + V - 1 of kind K a thread (V 4 or 1), for r =
 // g * rows + local over the thread's row groups g (blockIdx.y, stepping by
 // gridDim.y).  A row is `chunks` threads: with fewer than a block's,
@@ -438,11 +450,8 @@ __global__ void __launch_bounds__(kThreads)
         const uint2 hk = threefry(row_key, make_uint2(0u, 0u), add);   // split[0]
         const uint2 lk = threefry(row_key, make_uint2(0u, 1u), add);   // split[1]
 #pragma unroll
-        for (uint32_t i = 0; i < V; ++i) {
-          const uint32_t h = bits(hk, j0 + i, add) % span;
-          const uint32_t l = bits(lk, j0 + i, add) % span;
-          v[i] = minval + (h * mult + l) % span;
-        }
+        for (uint32_t i = 0; i < V; ++i)
+          v[i] = minval + randint_offset(hk, lk, j0 + i, span, mult, add);
       }
       store_values<V>(static_cast<long long*>(out) + at, v, count);
     } else {
@@ -450,31 +459,195 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (uint32_t i = 0; i < V; ++i) {
         v[i] = uniform(bits(row_key, j0 + i, add), lo, span_f);
-        if constexpr (K == kNormal)
-          v[i] = __fmul_rn(__int_as_float(0x3FB504F3), erf_inv(v[i]));   // float32(√2)
+        if constexpr (K == kNormal) v[i] = normal_of(v[i]);
       }
       store_values<V>(static_cast<float*>(out) + at, v, count);
     }
   }
 }
 
-__global__ void threefry_train_keys_kernel(const long long* __restrict__ key,
-                                          const long long* __restrict__ step,
-                                          uint32_t shard, int d_steps,
-                                          long long* __restrict__ out) {
-  const int i = threadIdx.x;
-  if (i >= 3 + 3 * d_steps) return;
-  const uint2 r = child(load_key(key), uint32_t(*step));
-  uint2 k;
-  if (i == 0) {
-    k = child(child(r, 2u), shard);                       // rng_g
-  } else if (i <= 3 * d_steps) {                          // rng_dl's
+// The step's dropout or noise key k of the 3 + 3 d_steps that
+// ops/threefry.py::train_key_rows names, from r = fold_in(key, step):
+// rng_g, rng_dl, rng_ga = split(r, 5)[2:5], each folded with the shard;
+// k 0 rng_g, 1 + 3 di + j split(fold_in(rng_dl, di), 3)[j], 1 + 3 D + j
+// split(rng_ga)[j].
+__device__ __forceinline__ uint2 train_key(uint2 r, uint32_t shard, int d_steps, int k) {
+  if (k == 0) return child(child(r, 2u), shard);
+  if (k <= 3 * d_steps) {
     const uint2 dl = child(child(r, 3u), shard);
-    k = child(child(dl, uint32_t((i - 1) / 3)), uint32_t((i - 1) % 3));
-  } else {                                                // rng_ga's
-    k = child(child(child(r, 4u), shard), uint32_t(i - 1 - 3 * d_steps));
+    return child(child(dl, uint32_t((k - 1) / 3)), uint32_t((k - 1) % 3));
   }
-  store_key(out + 2 * i, k);
+  return child(child(child(r, 4u), shard), uint32_t(k - 1 - 3 * d_steps));
+}
+
+// threefry_batch_launch's arguments (ops/threefry.py::BatchArgs mirrors
+// them field for field).
+struct BatchArgs {
+  const float* src;        // the bank (S, N, T), or the sources (B, S, T)
+  const long long* key;    // (2,)
+  const long long* step;   // 0-d; null: the key is the one base
+  float* scaled;           // (B, S, T)
+  float* mixture;          // (B, T)
+  long long* picks;        // (B, S) with the bank; null with sources
+  long long* shifts;       // (B, S) with the bank
+  float* gains;            // (B, S), dB
+  float* partial;          // (B, tiles) sums of mixture² under noise, else null
+  long long* noise_keys;   // (B, 2) k_noise under noise
+  long long* train_keys;   // (3 + 3 d_steps, 2), or null
+  long long offset;        // the first example's global index
+  uint32_t B, S, N, T, tiles;
+  uint32_t pick_mult, shift_mult;   // randint's multipliers for spans N and T
+  float gain_lo, gain_hi;           // ∓ gain_jitter_db
+  float inv_t, inv_snr;             // float32 1/T and 1/10^(snr/10)
+  uint32_t shard;
+  int d_steps;                      // 0: no train keys
+};
+
+constexpr uint32_t kMaxSources = 8;
+constexpr uint32_t kBatchPer = 4;                      // samples a thread a tile
+constexpr uint32_t kBatchTile = kThreads * kBatchPer;  // samples a tile
+
+// Example i's noise std: its tiles' sums of mixture² in tile order, times
+// 1/T (the mean), times 1/10^(snr/10), square-rooted.
+__device__ __forceinline__ float noise_std(const BatchArgs& a, uint32_t i) {
+  const float* p = a.partial + size_t(i) * a.tiles;
+  float sum = p[0];
+  for (uint32_t t = 1; t < a.tiles; ++t) sum = __fadd_rn(sum, p[t]);
+  return __fsqrt_rn(__fmul_rn(__fmul_rn(sum, a.inv_t), a.inv_snr));
+}
+
+// mixture[t] + normal(k, t) · std over tile `tile` of example i, each
+// sample by the thread that wrote it.
+__device__ __forceinline__ void add_noise(const BatchArgs& a, uint32_t i, uint32_t tile,
+                                          uint2 k, float std) {
+  const ImadAdd imad{blockDim.x / kThreads};
+  const float lo = __int_as_float(0xBF7FFFFF);          // nextafter(-1, 0)
+  const float span = __fsub_rn(1.0f, lo);
+  float* m = a.mixture + size_t(i) * a.T;
+#pragma unroll
+  for (uint32_t q = 0; q < kBatchPer; ++q) {
+    const uint32_t t = tile * kBatchTile + q * kThreads + threadIdx.x;
+    if (t < a.T)
+      m[t] = __fadd_rn(m[t], __fmul_rn(normal_of(uniform(bits(k, t, imad), lo, span)), std));
+  }
+}
+
+// A block a (tile, example) on (x, y); x steps by gridDim.x over the
+// tiles.  Warp 0 derives the example's keys (every lane alike) and lane s
+// draws source s's pick, shift and gain; the block then writes its tiles'
+// scaled sources and mixture, the rows read at the roll's two segments.
+// Under noise each tile's sum of mixture² goes to `partial` in a fixed
+// order (a thread's samples in order, the warp by an xor butterfly, the
+// warps in order), and with one block an example (gridDim.x 1) the noise
+// is added in this launch; else threefry_batch_noise_kernel adds it.
+__global__ void __launch_bounds__(kThreads) threefry_batch_kernel(const BatchArgs a) {
+  __shared__ const float* row[kMaxSources];
+  __shared__ uint32_t shift[kMaxSources];
+  __shared__ float factor[kMaxSources];
+  __shared__ float warp_sum[kThreads / 32];
+  __shared__ uint2 noise_key;
+  const uint32_t i = blockIdx.y, S = a.S, T = a.T;
+  const uint32_t lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const bool first = blockIdx.x == 0;
+  if (warp == 0) {
+    uint2 data = load_key(a.key), mix = data;
+    if (a.step != nullptr) {
+      const uint2 r = child(data, uint32_t(*a.step));
+      data = child(r, 1u);                     // rng_data
+      mix = child(r, 0u);                      // rng_mix
+    }
+    const uint32_t ex = uint32_t(a.offset + i);
+    const uint2 em = child(mix, ex);           // split: (k_gain, k_noise)
+    if (lane < S) {
+      const float g = uniform(bits(child(em, 0u), lane), a.gain_lo,
+                              __fsub_rn(a.gain_hi, a.gain_lo));
+      // 10^(g / 20), the division as PyTorch's CUDA op takes it: g · f32(1/20)
+      factor[lane] = powf(10.0f, __fmul_rn(g, 0.05f));
+      uint32_t pick = 0, sh = 0;
+      if (a.picks != nullptr) {
+        const uint2 ed = child(data, ex);      // split: (k_pick, k_shift)
+        const uint2 kp = child(ed, 0u), ks = child(ed, 1u);
+        pick = randint_offset(child(kp, 0u), child(kp, 1u), lane, a.N, a.pick_mult);
+        sh = randint_offset(child(ks, 0u), child(ks, 1u), lane, T, a.shift_mult);
+        row[lane] = a.src + (size_t(lane) * a.N + pick) * T;
+      } else {
+        row[lane] = a.src + (size_t(i) * S + lane) * T;
+      }
+      shift[lane] = sh;
+      if (first) {
+        a.gains[i * S + lane] = g;
+        if (a.picks != nullptr) {
+          a.picks[i * S + lane] = pick;
+          a.shifts[i * S + lane] = sh;
+        }
+      }
+    }
+    if (lane == 0 && a.partial != nullptr) {
+      noise_key = child(em, 1u);
+      if (first) store_key(a.noise_keys + 2 * size_t(i), noise_key);
+    }
+  } else if (a.train_keys != nullptr && first && i == 0 &&
+             int(threadIdx.x) - 32 < 3 + 3 * a.d_steps) {
+    const int k = int(threadIdx.x) - 32;
+    store_key(a.train_keys + 2 * k,
+              train_key(child(load_key(a.key), uint32_t(*a.step)), a.shard, a.d_steps, k));
+  }
+  __syncthreads();
+
+  for (uint32_t tile = blockIdx.x; tile < a.tiles; tile += gridDim.x) {
+    float m[kBatchPer] = {};
+    for (uint32_t s = 0; s < S; ++s) {
+      const float* src = row[s];
+      const uint32_t sh = shift[s];
+      const float f = factor[s];
+      float* out = a.scaled + (size_t(i) * S + s) * T;
+#pragma unroll
+      for (uint32_t q = 0; q < kBatchPer; ++q) {
+        const uint32_t t = tile * kBatchTile + q * kThreads + threadIdx.x;
+        if (t < T) {
+          const float v = __fmul_rn(__ldg(src + (t < T - sh ? t + sh : t + sh - T)), f);
+          out[t] = v;
+          m[q] = s == 0 ? v : __fadd_rn(m[q], v);
+        }
+      }
+    }
+    float sq = 0.0f;
+    float* mo = a.mixture + size_t(i) * T;
+#pragma unroll
+    for (uint32_t q = 0; q < kBatchPer; ++q) {
+      const uint32_t t = tile * kBatchTile + q * kThreads + threadIdx.x;
+      if (t < T) {
+        mo[t] = m[q];
+        sq = __fadd_rn(sq, __fmul_rn(m[q], m[q]));
+      }
+    }
+    if (a.partial != nullptr) {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        sq = __fadd_rn(sq, __shfl_xor_sync(0xFFFFFFFFu, sq, off));
+      if (lane == 0) warp_sum[warp] = sq;
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        float p = warp_sum[0];
+        for (int w = 1; w < kThreads / 32; ++w) p = __fadd_rn(p, warp_sum[w]);
+        a.partial[size_t(i) * a.tiles + tile] = p;
+      }
+      __syncthreads();       // the partial seen by the block; warp_sum free again
+    }
+  }
+  if (a.partial != nullptr && gridDim.x == 1) {
+    const float std = noise_std(a, i);
+    for (uint32_t tile = 0; tile < a.tiles; ++tile) add_noise(a, i, tile, noise_key, std);
+  }
+}
+
+// The noise of threefry_batch_kernel's mixture, on its grid.
+__global__ void __launch_bounds__(kThreads) threefry_batch_noise_kernel(const BatchArgs a) {
+  const uint32_t i = blockIdx.y;
+  const float std = noise_std(a, i);
+  const uint2 k = load_key(a.noise_keys + 2 * size_t(i));
+  for (uint32_t tile = blockIdx.x; tile < a.tiles; tile += gridDim.x)
+    add_noise(a, i, tile, k, std);
 }
 
 template <typename T>
@@ -599,19 +772,6 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
-// key: int64 (2,); step: int64 0-d or null; out: int64 (bases, 2, B, 2),
-// bases 2 with a step (rng_data's keys, then rng_mix's), else 1.
-extern "C" int threefry_keys_launch(const void* key, const void* step,
-                                    long long offset, int B, void* out,
-                                    void* stream) {
-  if (B < 1) return (int)cudaErrorInvalidValue;
-  threefry_keys_kernel<<<(B + kThreads - 1) / kThreads, kThreads, 0,
-                         (cudaStream_t)stream>>>(
-      (const long long*)key, (const long long*)step, offset, B,
-      (long long*)out);
-  return (int)cudaGetLastError();
-}
-
 // keys: int64 (R, 2); out: (R, n) int64 (bits, randint) or float32
 // (uniform, normal); lo and hi bound a uniform (a normal's are
 // nextafter(-1, 0) and 1); span, mult = (2^16 mod span)² mod span (in
@@ -649,17 +809,28 @@ extern "C" int threefry_sample_launch(const void* keys, int R, int n, int kind,
   return (int)cudaGetLastError();
 }
 
-// key: int64 (2,); step: int64 0-d; out: int64 (3 + 3 d_steps, 2): rng_g,
-// then (D dropout, noise, R1 dropout) per D step, then the adversarial
-// call's (dropout, noise); the shard folded in, as the JAX step does.
-extern "C" int threefry_train_keys_launch(const void* key, const void* step,
-                                         long long shard, int d_steps,
-                                         void* out, void* stream) {
-  if (d_steps < 1 || d_steps > 64 || shard < 0 || shard > 0xFFFFFFFFLL)
+// args: a BatchArgs; blocks: the grid's tiles a row, 1 to args.tiles (its
+// rows are the examples).  Under noise with blocks > 1 a second launch
+// adds the noise.
+extern "C" int threefry_batch_launch(const void* args, int blocks, void* stream) {
+  const BatchArgs& a = *static_cast<const BatchArgs*>(args);
+  const bool noise = a.partial != nullptr;
+  if (a.B < 1 || a.B > kMaxGridY || a.S < 1 || a.S > kMaxSources || a.T < 1 ||
+      a.T > 0x7FFFFFFFu || a.tiles != (a.T - 1) / kBatchTile + 1 || blocks < 1 ||
+      uint32_t(blocks) > a.tiles || a.src == nullptr || a.key == nullptr ||
+      a.scaled == nullptr || a.mixture == nullptr || a.gains == nullptr ||
+      (a.picks != nullptr && (a.N < 1 || a.shifts == nullptr)) ||
+      (noise && a.noise_keys == nullptr) || a.d_steps < 0 || a.d_steps > 64 ||
+      (a.train_keys != nullptr) != (a.d_steps > 0) ||
+      (a.train_keys != nullptr && a.step == nullptr))
     return (int)cudaErrorInvalidValue;
-  threefry_train_keys_kernel<<<1, 3 + 3 * d_steps, 0, (cudaStream_t)stream>>>(
-      (const long long*)key, (const long long*)step, uint32_t(shard), d_steps,
-      (long long*)out);
+  const dim3 grid(blocks, a.B);
+  threefry_batch_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(a);
+  if (noise && blocks > 1) {
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    threefry_batch_noise_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(a);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -66,7 +66,8 @@ def launch_counts() -> Dict[str, int]:
     """Each kernel wrapper's count of its launches since the count was last
     set to 0: K1 `stft_features`, K2 `masked_istft`, K3 `istft` and its
     backward `istft_bwd`, K4 `stft`, and the threefry launches
-    `threefry_keys`, `threefry_sample`, `threefry_train_keys`,
+    `threefry_batch` (a step's batch), `threefry_batch_noise` (its noise,
+    the second launch under noise), `threefry_sample`,
     `threefry_dropout` (forward), `threefry_dropout_bwd` (its backward,
     the mask kernel, which reads the forward's packed mask and draws
     nothing) and `threefry_noise`.  A wrapper called while a CUDA graph
@@ -74,9 +75,9 @@ def launch_counts() -> Dict[str, int]:
     the launches that replays of its graphs make."""
     return {"stft_features": _k1.launches, "masked_istft": _k2.launches,
             "istft": _k3.launches, "istft_bwd": _k3.bwd_launches,
-            "stft": _k4.launches, "threefry_keys": _rng.keys_launches,
+            "stft": _k4.launches, "threefry_batch": _rng.batch_launches,
+            "threefry_batch_noise": _rng.batch_noise_launches,
             "threefry_sample": _rng.sample_launches,
-            "threefry_train_keys": _rng.train_keys_launches,
             "threefry_dropout": _rng.dropout_launches,
             "threefry_dropout_bwd": _rng.dropout_bwd_launches,
             "threefry_noise": _rng.noise_launches}
@@ -85,8 +86,8 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     """Set every count of `launch_counts` to 0."""
     _k1.launches = _k2.launches = _k3.launches = _k3.bwd_launches = 0
-    _k4.launches = _rng.keys_launches = _rng.sample_launches = 0
-    _rng.train_keys_launches = _rng.dropout_launches = 0
+    _k4.launches = _rng.batch_launches = _rng.batch_noise_launches = 0
+    _rng.sample_launches = _rng.dropout_launches = 0
     _rng.dropout_bwd_launches = _rng.noise_launches = 0
 
 
@@ -169,15 +170,23 @@ def istft(spec: torch.Tensor, n_fft: int, hop: int, window: str = "hann",
     return _plain_istft(spec, n_fft, hop, window, length, norm="global")
 
 
-def example_keys(key: torch.Tensor, offset: int, b: int,
-                 step: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Per-example threefry keys (`ops/threefry.py`): (bases, 2, b, 2)
-    int64, examples offset + [0, b); with the train step's 0-d `step`,
-    rng_data's (k_pick, k_shift) then rng_mix's (k_gain, k_noise), as the
-    JAX step derives them; else split(fold_in(key, i)).  [base][j] holds
-    the examples' j-th keys.  On a CUDA key one kernel launch."""
-    fn = _rng.example_keys_kernel if _use_kernel(key) else _rng.example_keys_reference
-    return fn(key, offset, b, step)
+def step_batch(key: torch.Tensor, data: torch.Tensor, gain_db: float,
+               snr_db: Optional[float] = None, offset: int = 0,
+               step: Optional[torch.Tensor] = None, bank_batch: int = 0,
+               shard: int = 0, d_steps: int = 0) -> _rng.Batch:
+    """A train step's batch under the threefry `key` (`ops/threefry.py`
+    `batch`): with bank_batch > 0 that many examples drawn from the (S, N,
+    T) bank `data` (picks and circular shifts), else the (B, S, T) sources
+    `data`; for global examples offset + [0, B), each source scaled by a
+    gain in ±gain_db dB and the mixture summed, with `snr_db` noise added
+    at that SNR.  With the train step's 0-d `step` the keys are the JAX
+    step's (rng_data, rng_mix of fold_in(key, step)), else the key is both
+    bases; d_steps > 0 also derives the step's dropout and noise keys with
+    `shard` folded in.  -> `Batch` (mixture, scaled, train_keys, picks,
+    shifts, gains).  On CUDA tensors one kernel launch, two under noise."""
+    fn = _rng.batch_kernel if _use_kernel(data) else _rng.batch_reference
+    return fn(key, data, bank_batch or data.shape[0], gain_db, snr_db, offset, step,
+              bank_batch > 0, shard, d_steps)
 
 
 def draw(keys: torch.Tensor, n: int, kind: str, lo=0.0, hi=1.0) -> torch.Tensor:
@@ -186,16 +195,6 @@ def draw(keys: torch.Tensor, n: int, kind: str, lo=0.0, hi=1.0) -> torch.Tensor:
     CUDA keys one kernel launch."""
     fn = _rng.sample_kernel if _use_kernel(keys) else _rng.sample_reference
     return fn(keys, n, kind, lo, hi)
-
-
-def train_keys(key: torch.Tensor, step: torch.Tensor, shard: int,
-              d_steps: int) -> torch.Tensor:
-    """The train step's dropout and instance-noise keys (`ops/threefry.py`
-    `train_keys`): (3 + 3·d_steps, 2) int64, rows as
-    `threefry.train_key_rows(d_steps)` names them.  On a CUDA key one kernel
-    launch."""
-    fn = _rng.train_keys_kernel if _use_kernel(key) else _rng.train_keys_reference
-    return fn(key, step, shard, d_steps)
 
 
 def dropout(x: torch.Tensor, key: torch.Tensor, fold: int, p: float,

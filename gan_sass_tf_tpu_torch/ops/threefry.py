@@ -1,29 +1,27 @@
-"""The threefry launches: per-example keys, keyed samplers, the step's
-dropout and noise keys, flax's dropout and the D's instance noise — the
-CUDA kernels' wrappers and their plain PyTorch versions.
+"""The threefry launches: a train step's batch, keyed samplers, flax's
+dropout and the D's instance noise — the CUDA kernels' wrappers and their
+plain PyTorch versions.
 
 Not a port of a TPU kernel: the JAX package draws its bank picks and
 shifts, gains, noise and eval mixtures with `jax.random`, which XLA
-compiles into its step.  `csrc/threefry.cu` draws the same numbers in two
-kinds of launch (`data/threefry.py` is the plain version, the bits of
-`jax.random`):
+compiles into its step.  `csrc/threefry.cu` draws the same numbers
+(`data/threefry.py` is the plain version, the bits of `jax.random`):
 
-    example_keys(key, offset, b, step)  ->  (bases, 2, b, 2) int64
-        with a step (a 0-d int64 tensor, the train step's number):
-        r = fold_in(key, step); for (rng_data, rng_mix) = split(r, 5)[1],
-        [0] and each example i, split(fold_in(base, offset + i), 2), i.e.
-        (k_pick, k_shift) and (k_gain, k_noise) (bases 2); without, the
-        key is the one base (bases 1).  [base][j] is the (b, 2) array of
-        the examples' j-th keys.
+    batch(key, src, b, gain_db, snr_db, offset, step, from_bank, shard,
+          d_steps)  ->  Batch(mixture, scaled, train_keys, picks, shifts,
+          gains)
+        the step's data as the JAX step draws it (gan_sass_tf_tpu/train/
+        step.py:212-237, data/device_bank.py:41-57, data/mixer.py:31-51):
+        the per-example keys (`example_keys_reference`), with the (S, N, T)
+        bank each example's rows picked and rolled (`data.take_rows`), else
+        the (b, S, T) sources, scaled by gains in ±gain_db dB and summed
+        (`data.mixer.mix`), with snr_db the noise; with d_steps > 0 also
+        the step's dropout and noise keys (`train_keys_reference`).  One
+        launch, two under noise.
     sample(keys (R, 2), n, kind, lo, hi)  ->  (R, n)
         row r drawn under keys[r]: "bits" (int64 in [0, 2^32)),
         "uniform" (float32 on [lo, hi)), "randint" (int64 in [lo, hi)),
         "normal" (float32).
-    train_keys(key, step, shard, d_steps)  ->  (3 + 3 d_steps, 2) int64
-        the step's dropout and instance-noise keys as the JAX step derives
-        them (gan_sass_tf_tpu/train/step.py:213-228, :317, :178, :372):
-        rng_g; per D step its dropout, noise and R1-dropout keys; the
-        adversarial call's dropout and noise keys (`train_key_rows`).
     dropout(x, key, fold, p, dims)  ->  (y, words)
         flax's `nn.Dropout(p)` at train time under the `dropout` rng
         `key`, at the site whose `make_rng` folds `fold` (`models/
@@ -53,7 +51,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -62,9 +60,9 @@ from gan_sass_tf_tpu_torch.data import threefry as tf
 
 KINDS = {"bits": 0, "uniform": 1, "randint": 2, "normal": 3}
 
-keys_launches = 0      # kernel launches since the last reset (chip_smoke reads them)
-sample_launches = 0
-train_keys_launches = 0
+sample_launches = 0    # kernel launches since the last reset (chip_smoke reads them)
+batch_launches = 0           # threefry_batch_kernel
+batch_noise_launches = 0     # threefry_batch_noise_kernel
 dropout_launches = 0         # forward calls
 dropout_bwd_launches = 0     # backward calls (the mask kernel: no draw)
 noise_launches = 0
@@ -73,6 +71,8 @@ DTYPES = (torch.float32, torch.bfloat16)
 WORD_BITS = 32               # elements a mask word
 THREADS = 256                # the kernels' block (csrc/threefry.cu kThreads)
 BLOCKS_PER_SM = 16           # their default grid: at most this many blocks an SM
+BATCH_TILE = THREADS * 4     # the batch kernel's samples a tile (kBatchTile)
+MAX_SOURCES = 8              # its most sources (kMaxSources)
 
 
 def _launch(name: str, device: torch.device, *args) -> None:
@@ -104,6 +104,10 @@ def _bounds(kind: str, lo, hi):
 
 def example_keys_reference(key: torch.Tensor, offset: int, b: int,
                            step: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-example keys (bases, 2, b, 2) int64 for examples offset + [0,
+    b): with the train step's `step`, r = fold_in(key, step) and the
+    bases (rng_data, rng_mix) = split(r, 5)[1], [0] (bases 2), else the key
+    (bases 1); [base][j] holds split(fold_in(base, offset + i))[j]."""
     _check_key(key, "example_keys")
     if step is not None:
         r = tf.split(tf.fold_in(key, step), 5)
@@ -112,29 +116,6 @@ def example_keys_reference(key: torch.Tensor, offset: int, b: int,
         bases = key[None]
     ids = offset + torch.arange(b, device=key.device)
     return tf.split(tf.fold_in(bases[:, None], ids), 2).transpose(1, 2)
-
-
-def example_keys_kernel(key: torch.Tensor, offset: int, b: int,
-                        step: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One launch of `threefry_keys_launch`."""
-    global keys_launches
-    _check_key(key, "example_keys")
-    if not key.is_cuda or key.shape != (2,):
-        raise ValueError(f"example_keys kernel: a (2,) CUDA key, got "
-                         f"{tuple(key.shape)} on {key.device}")
-    if step is not None and (step.device != key.device or step.dtype != torch.int64
-                             or step.dim() != 0):
-        raise ValueError("example_keys kernel: the step must be a 0-d int64 "
-                         "tensor on the key's device")
-    if not 1 <= b < 1 << 31:
-        raise ValueError(f"example_keys kernel: {b} examples")
-    key = key.contiguous()
-    out = torch.empty((1 if step is None else 2, 2, b, 2), dtype=torch.int64,
-                      device=key.device)
-    _launch("threefry_keys", key.device, key.data_ptr(),
-            None if step is None else step.data_ptr(), offset, b, out.data_ptr())
-    keys_launches += 1
-    return out
 
 
 def sample_reference(keys: torch.Tensor, n: int, kind: str, lo=0.0,
@@ -176,7 +157,8 @@ def sample_kernel(keys: torch.Tensor, n: int, kind: str, lo=0.0,
 
 def train_key_rows(d_steps: int):
     """(rng_g's row, [per D step (dropout, noise, R1 dropout) rows],
-    (adversarial dropout, noise) rows) of train_keys()."""
+    (adversarial dropout, noise) rows) of `train_keys_reference` and of a
+    batch's train keys."""
     return (0, [tuple(1 + 3 * di + j for j in range(3)) for di in range(d_steps)],
             (1 + 3 * d_steps, 2 + 3 * d_steps))
 
@@ -195,6 +177,10 @@ def _check_step(key: torch.Tensor, step: torch.Tensor, shard: int, d_steps: int,
 
 def train_keys_reference(key: torch.Tensor, step: torch.Tensor, shard: int,
                         d_steps: int) -> torch.Tensor:
+    """The step's dropout and instance-noise keys as the JAX step derives
+    them (gan_sass_tf_tpu/train/step.py:213-228, :317, :178, :372), the
+    shard folded in: (3 + 3 d_steps, 2) int64, rows as `train_key_rows`
+    names them."""
     _check_step(key, step, shard, d_steps, "train_keys")
     r = tf.split(tf.fold_in(key, step), 5)
     g, dl, ga = (tf.fold_in(r[j], shard) for j in (2, 3, 4))
@@ -202,18 +188,132 @@ def train_keys_reference(key: torch.Tensor, step: torch.Tensor, shard: int,
     return torch.cat([g[None], per_d.reshape(-1, 2), tf.split(ga, 2)])
 
 
-def train_keys_kernel(key: torch.Tensor, step: torch.Tensor, shard: int,
-                     d_steps: int) -> torch.Tensor:
-    """One launch of `threefry_train_keys_launch`."""
-    global train_keys_launches
-    _check_step(key, step, shard, d_steps, "train_keys kernel")
-    if not key.is_cuda:
-        raise ValueError(f"train_keys kernel: a CUDA key, got one on {key.device}")
-    key = key.contiguous()
-    out = torch.empty((3 + 3 * d_steps, 2), dtype=torch.int64, device=key.device)
-    _launch("threefry_train_keys", key.device, key.data_ptr(), step.data_ptr(), shard,
-            d_steps, out.data_ptr())
-    train_keys_launches += 1
+class Batch(NamedTuple):
+    """A step's batch: the mixture (B, T) and the gain-scaled sources (B, S,
+    T), the step's dropout and noise keys (None unless asked for), and the
+    draws: the bank picks and shifts (B, S) int64 (None for given
+    sources) and the gains (B, S) in dB."""
+
+    mixture: torch.Tensor
+    scaled: torch.Tensor
+    train_keys: Optional[torch.Tensor]
+    picks: Optional[torch.Tensor]
+    shifts: Optional[torch.Tensor]
+    gains: torch.Tensor
+
+
+class BatchArgs(ctypes.Structure):
+    """`threefry_batch_launch`'s arguments: csrc/threefry.cu's BatchArgs,
+    field for field."""
+
+    _fields_ = ([(n, ctypes.c_void_p) for n in (
+        "src", "key", "step", "scaled", "mixture", "picks", "shifts", "gains",
+        "partial", "noise_keys", "train_keys")]
+        + [("offset", ctypes.c_longlong)]
+        + [(n, ctypes.c_uint32) for n in (
+            "B", "S", "N", "T", "tiles", "pick_mult", "shift_mult")]
+        + [(n, ctypes.c_float) for n in ("gain_lo", "gain_hi", "inv_t", "inv_snr")]
+        + [("shard", ctypes.c_uint32), ("d_steps", ctypes.c_int)])
+
+
+def batch_tiles(t: int) -> int:
+    """The batch kernel's tiles of a T-sample row, its default grid's x."""
+    return -(-t // BATCH_TILE)
+
+
+def _check_batch(key, src, b, step, from_bank, shard, d_steps) -> Tuple[int, int, int, int]:
+    """(B, S, N, T) of a batch call, N the bank's utterances (0 for given
+    sources); ValueError on what neither version takes."""
+    _check_key(key, "batch")
+    if key.shape != (2,) or src.dim() != 3 or src.dtype != torch.float32:
+        raise ValueError(f"batch: a (2,) key and float32 sources or bank of 3 dims, got "
+                         f"{tuple(key.shape)} and {src.dtype} {tuple(src.shape)}")
+    if step is not None and (step.dim() != 0 or step.dtype != torch.int64):
+        raise ValueError(f"batch: the step must be a 0-d int64 tensor, got "
+                         f"{step.dtype} {tuple(step.shape)}")
+    if d_steps and step is None:
+        raise ValueError("batch: the train keys need the step")
+    if not (0 <= shard < 1 << 32 and 0 <= d_steps <= 64):
+        raise ValueError(f"batch: shard {shard}, d_steps {d_steps}")
+    if from_bank:
+        s, nb, t = src.shape
+    else:
+        b, (_, s, t), nb = src.shape[0], src.shape, 0
+    if b < 1:
+        raise ValueError(f"batch: {b} examples")
+    return b, s, nb, t
+
+
+def batch_reference(key: torch.Tensor, src: torch.Tensor, b: int, gain_db: float,
+                    snr_db: Optional[float] = None, offset: int = 0,
+                    step: Optional[torch.Tensor] = None, from_bank: bool = False,
+                    shard: int = 0, d_steps: int = 0) -> Batch:
+    from gan_sass_tf_tpu_torch.data.device_bank import take_rows
+    from gan_sass_tf_tpu_torch.data.mixer import mix
+
+    b, s, nb, t = _check_batch(key, src, b, step, from_bank, shard, d_steps)
+    keys = example_keys_reference(key, offset, b, step)
+    data_keys, mix_keys = keys[0], keys[-1]       # without a step one base
+    picks = shifts = None
+    sources = src
+    if from_bank:
+        picks = sample_reference(data_keys[0], s, "randint", 0, nb)
+        shifts = sample_reference(data_keys[1], s, "randint", 0, t)
+        sources = take_rows(src, picks, shifts)
+    gains = sample_reference(mix_keys[0], s, "uniform", -gain_db, gain_db)
+    noise = None if snr_db is None else sample_reference(mix_keys[1], t, "normal")
+    mixture, scaled = mix(sources, gains, noise, snr_db)
+    train_keys = train_keys_reference(key, step, shard, d_steps) if d_steps else None
+    return Batch(mixture, scaled, train_keys, picks, shifts, gains)
+
+
+def batch_kernel(key: torch.Tensor, src: torch.Tensor, b: int, gain_db: float,
+                 snr_db: Optional[float] = None, offset: int = 0,
+                 step: Optional[torch.Tensor] = None, from_bank: bool = False,
+                 shard: int = 0, d_steps: int = 0,
+                 blocks: Optional[int] = None) -> Batch:
+    """`threefry_batch_launch`: one launch of threefry_batch_kernel on a
+    grid of `blocks` (default `batch_tiles(T)`) by B blocks, and under
+    noise with blocks > 1 one of threefry_batch_noise_kernel; the same
+    bits whatever `blocks`."""
+    global batch_launches, batch_noise_launches
+    b, s, nb, t = _check_batch(key, src, b, step, from_bank, shard, d_steps)
+    dev = src.device
+    if not (src.is_cuda and key.device == dev and (step is None or step.device == dev)):
+        raise ValueError(f"batch kernel: CUDA sources or bank with the key and the step "
+                         f"on their device, got {dev}, {key.device} and "
+                         f"{None if step is None else step.device}")
+    tiles = batch_tiles(t)
+    blocks = tiles if blocks is None else blocks
+    if not (b <= 65535 and s <= MAX_SOURCES and t < 1 << 31 and 0 <= offset
+            and offset + b <= 1 << 32 and 1 <= blocks <= tiles):
+        raise ValueError(f"batch kernel: {b} examples of {s} x {t} at offset {offset}, "
+                         f"{blocks} blocks of {tiles} tiles")
+    src, key = src.contiguous(), key.contiguous()
+    f32, i64 = {"dtype": torch.float32, "device": dev}, {"dtype": torch.int64, "device": dev}
+    out = Batch(torch.empty((b, t), **f32), torch.empty((b, s, t), **f32),
+                torch.empty((3 + 3 * d_steps, 2), **i64) if d_steps else None,
+                torch.empty((b, s), **i64) if from_bank else None,
+                torch.empty((b, s), **i64) if from_bank else None,
+                torch.empty((b, s), **f32))
+    noise = snr_db is not None
+    partial = torch.empty((b, tiles), **f32) if noise else None
+    noise_keys = torch.empty((b, 2), **i64) if noise else None
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+    args = BatchArgs(
+        ptr(src), ptr(key), ptr(step), ptr(out.scaled), ptr(out.mixture), ptr(out.picks),
+        ptr(out.shifts), ptr(out.gains), ptr(partial), ptr(noise_keys),
+        ptr(out.train_keys), offset, b, s, nb, t, tiles,
+        tf.randint_span(0, nb)[1] if from_bank else 0, tf.randint_span(0, t)[1],
+        float(np.float32(-gain_db)), float(np.float32(gain_db)),
+        float(np.float32(1.0) / np.float32(t)),
+        float(np.float32(1.0) / np.float32(10.0 ** (snr_db / 10.0))) if noise else 0.0,
+        shard, d_steps)
+    _launch("threefry_batch", dev, ctypes.addressof(args), blocks)
+    batch_launches += 1
+    batch_noise_launches += int(noise and blocks > 1)
     return out
 
 

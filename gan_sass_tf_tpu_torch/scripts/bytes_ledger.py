@@ -368,8 +368,8 @@ def _wrappers(ledger: Ledger) -> Dict[str, Callable]:
     orig = {name: getattr(dispatch, name) for name in (
         "stft_features_kernel", "stft_features_reference", "stft_kernel",
         "stft_reference", "masked_istft_kernel", "masked_istft_reference",
-        "istft_ri_kernel", "_plain_istft", "example_keys", "draw",
-        "train_keys", "dropout", "instance_noise")}
+        "istft_ri_kernel", "_plain_istft", "step_batch", "draw", "dropout",
+        "instance_noise")}
 
     def quiet_call(name, fn, c):
         def run(*args, **kwargs):
@@ -412,6 +412,21 @@ def _wrappers(ledger: Ledger) -> Dict[str, Callable]:
             lambda wrt, outs, g, got: ledger.kernel("threefry_dropout_bwd",
                                                     cost.dropout_mask(n, item)))
 
+    def step_batch(key, data, gain_db, snr_db=None, offset=0, step=None, bank_batch=0,
+                   shard=0, d_steps=0):
+        # The batch launch, and under noise the noise launch where the
+        # kernel takes one (more than one tile a row).
+        with ledger.quiet():
+            out = orig["step_batch"](key, data, gain_db, snr_db, offset, step,
+                                     bank_batch, shard, d_steps)
+        b, s, t = out.scaled.shape
+        noise = snr_db is not None
+        ledger.kernel("threefry_batch", cost.batch(b, s, t, bank_batch > 0,
+                                                   step is not None, noise, d_steps))
+        if noise and cost.batch_tiles(t) > 1:
+            ledger.kernel("threefry_batch_noise", cost.batch_noise(b, t))
+        return out
+
     return {
         **{name: quiet_call("stft_features", orig[name], k1_cost)
            for name in ("stft_features_kernel", "stft_features_reference")},
@@ -421,15 +436,10 @@ def _wrappers(ledger: Ledger) -> Dict[str, Callable]:
            for name in ("masked_istft_kernel", "masked_istft_reference")},
         "istft_ri_kernel": k3(orig["istft_ri_kernel"], 3),
         "_plain_istft": k3(orig["_plain_istft"], 2),
-        "example_keys": quiet_call(
-            "threefry_keys", orig["example_keys"],
-            lambda key, offset, b, step=None: cost.example_keys(b, step is not None)),
+        "step_batch": step_batch,
         "draw": quiet_call(
             "threefry_sample", orig["draw"],
             lambda keys, n, kind, lo=0.0, hi=1.0: cost.sample(keys.shape[0], n, kind)),
-        "train_keys": quiet_call(
-            "threefry_train_keys", orig["train_keys"],
-            lambda key, step, shard, d_steps: cost.train_keys(d_steps)),
         "dropout": dropout,
         # The noise's gradient passes as it is: no launch, no op.
         "instance_noise": quiet_call(

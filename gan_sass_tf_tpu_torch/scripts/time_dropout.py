@@ -1,5 +1,5 @@
 """Time a train step's threefry draws: the device ms a step of its dropout,
-noise and sampler launches, the step's device ms graphed and eager, and
+noise, sampler and batch launches, the step's device ms graphed and eager, and
 the eager step's peak memory; or the noise and the sampler alone at the
 steps' shapes; or the dropout forward and the noise against edited copies
 of their kernels.
@@ -21,7 +21,7 @@ values unrounded:
   {"nvidia_smi", "preset", "batch", "sets",
    "device_ms": {"graphed", "eager"},    kernels, copies and fills a step
    "<g>_ms": {"graphed", "eager"},       for each of `GROUPS` (dropout,
-                                         noise, sample): the device ms a
+                                         noise, sample, batch): the device ms a
                                          step of the kernels whose name
                                          holds one of its substrings
    "<g>_kernels": {"graphed", "eager"}: {kernel: [ms, launches] a step}
@@ -82,7 +82,7 @@ SAMPLE_NORMALS = (32, 32000)                    # stream_v5e8 b32's noise, R x n
 SAMPLE_DRAWS = (128, 2)                         # the bench step's picks and shifts
 # {group: substrings of a kernel's lower-cased name}
 GROUPS = {"dropout": ("dropout",), "noise": ("threefry_noise",),
-          "sample": ("threefry_sample",)}
+          "sample": ("threefry_sample",), "batch": ("threefry_batch",)}
 _KEEP = "const bool keep = bits(site, j, imad) <= keep_max;"
 _VEC = "const bool noise_vec = aligned16(x) && aligned16(y);"
 _BRANCH = """  float p;

@@ -45,12 +45,13 @@ Random numbers: every draw is the JAX step's, from its keys (threefry,
 `ops/threefry.py`).  The bank picks and shifts, the gains and the noise:
 the train key folded with the step number, split in 5, rng_data and
 rng_mix folded with each global example and split again
-(`gan_sass_tf_tpu/train/step.py:213-214`), all in one launch on the card,
-then one launch a draw.  Dropout's keep-masks and D's instance noise, when
-either is on: rng_g, rng_dl and rng_ga (entries 2-4 of that split) folded
-with the rank's shard index, rng_dl folded with each D step and split in
-3, rng_ga split in 2 (`:215-228`, `:317`, `:178`, `:372`), in one launch
-a step (`ops.dispatch.train_keys`); each module call draws its masks under
+(`gan_sass_tf_tpu/train/step.py:213-214`).  Dropout's keep-masks and D's
+instance noise, when either is on: rng_g, rng_dl and rng_ga (entries 2-4
+of that split) folded with the rank's shard index, rng_dl folded with each
+D step and split in 3, rng_ga split in 2 (`:215-228`, `:317`, `:178`,
+`:372`).  On the card one launch derives all of those keys and assembles
+the batch (rows, shifts, gains, mixture; a second launch adds the noise:
+`ops.dispatch.step_batch`); each module call draws its masks under
 flax's `make_rng` keys (`models/dropout.py`), the noise under its own
 key, one fused launch each.  So R ranks draw what JAX's shard_map step
 draws at R shards.  The key is a (2,) int64 tensor on the device and the
@@ -70,8 +71,7 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
-from gan_sass_tf_tpu_torch.data.device_bank import draw_rows
-from gan_sass_tf_tpu_torch.data.mixer import mix_keyed, mix_sources
+from gan_sass_tf_tpu_torch.data.mixer import mix_sources, noise_snr
 from gan_sass_tf_tpu_torch.data.threefry import prng_key
 from gan_sass_tf_tpu_torch.dsp.masks import apply_mask
 from gan_sass_tf_tpu_torch.models.dropout import DropoutKey
@@ -182,6 +182,7 @@ def build_train_step(cfg, from_bank: bool = False, local_batch: int = 0,
         return loss.detach(), real.detach().mean(), fake.detach().mean()
 
     step_draws = d_noise > 0.0 or cfg.model.dropout > 0.0
+    snr_db = noise_snr(cfg.data)
     g_row, d_rows, adv_rows = train_key_rows(tcfg.d_steps)
 
     def dropout_key(key):
@@ -192,15 +193,16 @@ def build_train_step(cfg, from_bank: bool = False, local_batch: int = 0,
         b = local_batch if from_bank else data.shape[0]
         offset = dp.rank * b                      # this rank's first global example
         with record_function("dsp"):
-            # Dropout's and instance noise's keys, the shard folded in.
-            rk = (ops.train_keys(key, step, dp.rank, tcfg.d_steps) if step_draws
-                  else None)
+            # The batch, and dropout's and instance noise's keys with the
+            # shard folded in.
+            batch = ops.step_batch(key, data, cfg.data.gain_jitter_db, snr_db,
+                                   offset=offset, step=step,
+                                   bank_batch=b if from_bank else 0, shard=dp.rank,
+                                   d_steps=tcfg.d_steps if step_draws else 0)
+            mixture, scaled, rk = batch.mixture, batch.scaled, batch.train_keys
 
             def key_at(row):
                 return None if rk is None else rk[row]
-            keys = ops.example_keys(key, offset, b, step=step)
-            sources = draw_rows(data, keys[0]) if from_bank else data
-            mixture, scaled = mix_keyed(sources, keys[1], cfg.data)
             mix_out = ops.stft_features(mixture, dcfg, emit=mix_emit)
             tgt_out = ops.stft_features(scaled, dcfg, emit=tgt_emit)
         spec_mix, mag_mix = mix_out.get("spec"), mix_out["mag"]

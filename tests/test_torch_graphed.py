@@ -88,7 +88,9 @@ def test_train_keys_follow_the_in_place_step():
     x = torch.zeros(4, 8)
 
     def draw(at=step):
-        return instance_noise(x, 1.0, dispatch.train_keys(key, at, 0, 1)[2])
+        keys = dispatch.step_batch(key, torch.zeros(1, 2, 8), 0.0, step=at,
+                                   d_steps=1).train_keys
+        return instance_noise(x, 1.0, keys[2])
 
     before = draw()
     step.add_(1)

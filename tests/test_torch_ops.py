@@ -212,7 +212,7 @@ def test_kernel_modules_import_without_toolchain():
     assert [p.name for p in build._headers()] == ["fft.cuh"]
     assert {"istft_launch", "istft_adjoint_launch", "masked_istft_launch",
             "stft_launch", "stft_features_launch", "synthesis_prepare",
-            "threefry_keys_launch", "threefry_sample_launch", "threefry_train_keys_launch",
+            "threefry_batch_launch", "threefry_sample_launch",
             "threefry_dropout_launch", "dropout_mask_launch",
             "threefry_noise_launch"} == set(build._SIGNATURES)
     assert build.library_path().parent == build.build_dir()

@@ -315,7 +315,9 @@ def test_instance_noise_folds_in_the_shard():
     rng_dl = jax.random.split(jax.random.fold_in(jax.random.PRNGKey(9), 4), 5)[3]
     got = []
     for rank in range(WORLD):
-        ours = instance_noise(x, std, dispatch.train_keys(key, step, rank, 1)[d_rows[0][1]])
+        keys = dispatch.step_batch(key, torch.zeros(1, 2, 8), 0.0, step=step, shard=rank,
+                                   d_steps=1).train_keys
+        ours = instance_noise(x, std, keys[d_rows[0][1]])
         k = jax.random.split(jax.random.fold_in(jax.random.fold_in(rng_dl, rank), 0), 3)[1]
         np.testing.assert_allclose(ours.numpy(), np.asarray(std * jax.random.normal(k, x.shape)),
                                    rtol=0, atol=1e-6)

@@ -26,6 +26,7 @@ from gan_sass_tf_tpu.train.state import create_train_state as j_create_train_sta
 from gan_sass_tf_tpu.train.step import build_train_step as j_build_train_step
 from gan_sass_tf_tpu_torch import config
 from gan_sass_tf_tpu_torch.data import prng_key
+from gan_sass_tf_tpu_torch.data.threefry import split
 from gan_sass_tf_tpu_torch.ops import cost, dispatch
 from gan_sass_tf_tpu_torch.scripts import bytes_ledger as bl
 from gan_sass_tf_tpu_torch.scripts import roofline
@@ -202,7 +203,7 @@ def test_every_op_of_a_step_lands_in_one_range(flop_counts):
     assert "aten.convolution_backward" in ops["g_bwd"] & ops["d_step"]
     assert "aten.convolution" in ops["g_fwd"] & ops["d_step"]
     assert {"kernel stft_features", "kernel istft", "kernel istft_bwd",
-            "kernel threefry_keys", "kernel threefry_sample"} <= ops["dsp"]
+            "kernel threefry_batch"} <= ops["dsp"]
     assert any(op.startswith("aten._foreach") for op in ops["optimizer"])
     assert ledger.bytes[bl.OTHER] < 1e-3 * ledger.total_bytes()
 
@@ -262,19 +263,26 @@ def test_dropout_charged_forward_backward_and_double_backward():
 
 
 def test_draws_charged_from_their_shapes():
+    """A step's batch charged one launch of the batch kernel and, under
+    noise with more than one tile a row, one of its noise pass (none at one
+    tile, where the same block adds it); the sampler a launch a draw; the
+    plain ops inside counted no more."""
     key, step = prng_key(5), torch.tensor(3)
+    bank, keys = torch.randn(2, 6, 1500), split(key, 4)
 
     def run():
-        keys = dispatch.example_keys(key, 0, 4, step=step)
-        return (dispatch.draw(keys[0][0], 7, "randint", 0, 9),
-                dispatch.draw(keys[1][1], 11, "normal"),
-                dispatch.train_keys(key, step, 0, 2))
+        return (dispatch.step_batch(key, bank, 3.0, 10.0, step=step, bank_batch=4,
+                                    d_steps=2),
+                dispatch.step_batch(key, bank[:, :3, :900].transpose(0, 1), 3.0, 10.0),
+                dispatch.draw(keys, 7, "randint", 0, 9),
+                dispatch.draw(keys, 11, "normal"))
 
     ledger, _ = bl.count(run)
-    assert ledger.launches() == {"threefry_keys": 1, "threefry_sample": 2,
-                                 "threefry_train_keys": 1}
-    want = (cost.example_keys(4, True) + cost.sample(4, 7, "randint")
-            + cost.sample(4, 11, "normal") + cost.train_keys(2))
+    assert ledger.launches() == {"threefry_batch": 2, "threefry_batch_noise": 1,
+                                 "threefry_sample": 2}
+    want = (cost.batch(4, 2, 1500, True, True, True, 2) + cost.batch_noise(4, 1500)
+            + cost.batch(3, 2, 900, False, False, True) + cost.sample(4, 7, "randint")
+            + cost.sample(4, 11, "normal"))
     assert ledger.kernel_bytes() == want.bytes
     assert sum(r["int_ops"] for r in ledger.kernels.values()) == want.int_ops
 
@@ -318,8 +326,7 @@ def test_roofline_cpu_line_keeps_its_contract(capsys):
     for key in ("achieved_tflops", "achieved_gbs", "tc_util_vs_peak",
                 "hbm_util_vs_peak", "bound", "sol_headroom_x", "gpu"):
         assert line[key] is None, key
-    assert line["kernel_launches"] == {"stft_features": 2, "threefry_keys": 1,
-                                       "threefry_sample": 3}
+    assert line["kernel_launches"] == {"stft_features": 2, "threefry_batch": 1}
 
 
 def test_roofline_shares_and_the_over_peak_check():

@@ -302,12 +302,12 @@ def _jax_exports(sub: str):
     return names
 
 
-# The data package's exports beyond the JAX package's: the device bank and
-# the keyed mixing the train step runs, and jax.random's PRNGKey.  Every
+# The data package's exports beyond the JAX package's: the device bank,
+# the bank's rows and the mixing on given draws (the plain parts of the
+# step's batch), and jax.random's PRNGKey.  Every
 # draw is the JAX package's (`data/threefry.py`); no other generator is
 # exported.
-DATA_PORT_ONLY = {"apply_mix", "build_bank", "draw_rows", "mix_keyed", "prng_key",
-                  "sample_bank", "take_rows"}
+DATA_PORT_ONLY = {"apply_mix", "build_bank", "prng_key", "sample_bank", "take_rows"}
 
 
 def test_data_exports_the_jax_names_and_the_device_draws_only():
