@@ -1415,8 +1415,7 @@ def phase_graph(dev, tmp: Path) -> tuple:
             cases.append(graph_case(name, cfg, dev, tmp / mode / str(i)))
             emit("graph", **cases[-1])
             per = cases[-1]["launches_per_replay"]
-            noise = int(cfg.data.num_noise > 0
-                        and rng_ops.batch_tiles(cfg.segment_samples) > 1)
+            noise = int(cfg.data.num_noise > 0)
             check(per["threefry_batch"] == 1 and per["threefry_batch_noise"] == noise
                   and per["threefry_sample"] == 0,
                   f"graph {name}: the data path's launches a replay {per}")
@@ -2986,8 +2985,7 @@ def phase_rng(dev):
     batch's noise is the same device code); a captured graph of the step's
     batch keyed from the device step against eager calls over RNG_REPLAYS
     replays; the batch's device ms (by CUDA graph, and each kernel's by
-    torch.profiler), the one-launch variant's under noise, the plain
-    version's, the bound and a yardstick (take_rows and the mixing on the
+    torch.profiler), the plain version's, the bound and a yardstick (take_rows and the mixing on the
     kernel's draws, graphed); the sampler's four kinds at SAMPLE_SHAPES and
     its times."""
     cases, timing = {}, {}
@@ -3059,7 +3057,7 @@ def phase_rng(dev):
         by_kernel = {("threefry_batch_noise" if "noise" in k else "threefry_batch"): ms
                      for k, (ms, _) in device_kernels(call).items()
                      if "threefry_batch" in k}
-        bound = cost.batch(b, s, t, True, True, noise, kw["d_steps"])
+        bound = cost.batch(b, s, t, tiles, True, True, noise, kw["d_steps"])
         timing[name] = {
             "ms": graph_ms(call), "kernel_device_ms": by_kernel,
             "plain_ms": plain_ms(lambda: rng_ops.batch_reference(key, bank, **kw)),
@@ -3069,15 +3067,11 @@ def phase_rng(dev):
             "yardstick": "take_rows + data.mixer.mix on the kernel's draws (and the "
                          "sampler's normals), graphed: the plain ops of the batch "
                          "after its draws",
-            "launches_a_call": 1 + int(noise and tiles > 1)}
+            "launches_a_call": 1 + int(noise)}
         if noise:
-            nb_ = cost.batch_noise(b, t)
+            nb_ = cost.batch_noise(b, t, tiles)
             ref_mix = ker.mixture.clone()
             timing[name].update(
-                one_launch_ms=graph_ms(lambda: rng_ops.batch_kernel(key, bank, **kw,
-                                                                    blocks=1)),
-                one_launch="the same batch with a block an example: no second launch, "
-                           f"{b} blocks",
                 noise_bound_ms=nb_.bound(),
                 noise_plain_ms=plain_ms(lambda: ref_mix + rng_ops.sample_reference(
                     k_noise, t, "normal") * torch.sqrt(
@@ -3098,8 +3092,7 @@ def phase_rng(dev):
                                if "mixture_max_abs_err" in e),
             "shape": f"{bench_name}: the bank's 128 x 2 rows of 23 936, one launch",
             "stream_v5e8_hard": {k: ht[k] for k in ("ms", "kernel_device_ms", "plain_ms",
-                                                    "bound_ms", "yardstick_ms",
-                                                    "one_launch_ms")}},
+                                                    "bound_ms", "yardstick_ms")}},
         "threefry_batch_noise": {
             "ms": ht["kernel_device_ms"].get("threefry_batch_noise"),
             "ms_by": "torch.profiler, the launch in an eager call",

@@ -5,7 +5,8 @@ global example i, (k_gain, k_noise) = split(fold_in(key, i)), gains
 `jax.random.uniform(k_gain, (S, 1), -g, g)` in dB and noise
 `jax.random.normal(k_noise, (T,))` (threefry, `ops.dispatch.step_batch`),
 so a data-parallel split of the batch draws the same numbers.
-`apply_mix` takes the draws as arguments, for tests that inject them.
+`mix` takes the draws as arguments: the plain version's mixing, and tests
+inject the JAX package's draws through it.
 """
 
 from __future__ import annotations
@@ -20,12 +21,13 @@ from gan_sass_tf_tpu_torch.ops import dispatch
 def mix(sources: torch.Tensor, gains_db: torch.Tensor,
         noise: Optional[torch.Tensor] = None,
         snr_db: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(B, S, T) sources, (B, S) gains in dB and, for noise, (B, T)
-    standard normals at snr_db -> (mixture (B, T), gain-scaled sources
-    (B, S, T)), as the JAX package's `mix_sources` computes them."""
+    """(B, S, T) sources, (B, S) gains in dB and (B, T) standard normals,
+    added at snr_db (`noise_snr`; None adds no noise) -> (mixture (B, T),
+    gain-scaled sources (B, S, T)), as the JAX package's `mix_sources`
+    computes them.  The targets are the scaled sources."""
     scaled = sources * torch.pow(10.0, gains_db / 20.0)[..., None]
     mixture = scaled.sum(dim=1)
-    if noise is not None:
+    if snr_db is not None:
         sig_pow = (mixture ** 2).mean(dim=-1, keepdim=True)
         noise_pow = sig_pow / 10.0 ** (snr_db / 10.0)
         mixture = mixture + noise * torch.sqrt(noise_pow)
@@ -35,16 +37,6 @@ def mix(sources: torch.Tensor, gains_db: torch.Tensor,
 def noise_snr(data_cfg) -> Optional[float]:
     """The mixture's noise SNR in dB, None when the data adds no noise."""
     return float(data_cfg.snr_db) if data_cfg.num_noise > 0 else None
-
-
-def apply_mix(sources: torch.Tensor, gains_db: torch.Tensor,
-              noise: Optional[torch.Tensor],
-              data_cfg) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(B, S, T) sources, (B, S) gains in dB, (B, T) standard-normal noise
-    (used when data_cfg.num_noise > 0) -> (mixture (B, T), gain-scaled
-    sources (B, S, T)).  The targets are the scaled sources."""
-    snr = noise_snr(data_cfg)
-    return mix(sources, gains_db, None if snr is None else noise, snr)
 
 
 def mix_sources(sources: torch.Tensor, key: torch.Tensor, data_cfg,

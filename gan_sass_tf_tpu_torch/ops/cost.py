@@ -19,8 +19,6 @@ import dataclasses
 import math
 from typing import Sequence, Tuple
 
-from gan_sass_tf_tpu_torch.ops.threefry import batch_tiles
-
 # The H100 SXM's published peaks (NVIDIA's data sheet, dense rates): HBM3
 # bytes/s, f32 flops/s outside the tensor cores, and the tensor cores' bf16
 # and TF32 rates.
@@ -129,12 +127,13 @@ def istft_adjoint(rows: int, f: int, n_fft: int, hop: int) -> Cost:
     return stft(rows, (f - 1) * hop + n_fft, n_fft, hop)
 
 
-def batch(b: int, s: int, t: int, from_bank: bool, step: bool, noise: bool,
-          d_steps: int = 0) -> Cost:
-    """`threefry_batch_kernel`: the source rows read once (the bank's picked
-    rows or the given sources), the scaled sources, the mixture and the
-    draws written once (picks and shifts int64 with the bank, gains f32;
-    under noise each tile's sum of mixture² and the noise keys); ciphers:
+def batch(b: int, s: int, t: int, tiles: int, from_bank: bool, step: bool,
+          noise: bool, d_steps: int = 0) -> Cost:
+    """`threefry_batch_kernel` on rows of `tiles` tiles: the source rows
+    read once (the bank's picked rows or the given sources), the scaled
+    sources, the mixture and the draws written once (picks and shifts int64
+    with the bank, gains f32; under noise each tile's sum of mixture² and
+    the noise keys); ciphers:
     with the step its fold and two splits, then an example's fold under
     rng_mix and its gain key (2; the noise key a third under noise), with
     the bank its fold under rng_data, the pick and shift keys and their
@@ -146,15 +145,15 @@ def batch(b: int, s: int, t: int, from_bank: bool, step: bool, noise: bool,
         + (5 * (3 + 3 * d_steps) if d_steps else 0)
     draws = b * s * (4 + (16 if from_bank else 0))
     nbytes = (4 * 2 * b * s * t + 4 * b * t + draws + 16 + 8 * int(step)
-              + (4 * b * batch_tiles(t) + 16 * b if noise else 0)
+              + (4 * b * tiles + 16 * b if noise else 0)
               + 16 * (3 + 3 * d_steps) * int(d_steps > 0))
     return Cost(nbytes, int_ops=CIPHER_INT_OPS * ciphers)
 
 
-def batch_noise(b: int, t: int) -> Cost:
+def batch_noise(b: int, t: int, tiles: int) -> Cost:
     """`threefry_batch_noise_kernel`: the mixture read and written once, the
-    tiles' sums and the noise keys read; a cipher a sample."""
-    return Cost(8 * b * t + 4 * b * batch_tiles(t) + 16 * b,
+    `tiles` sums of each row and the noise keys read; a cipher a sample."""
+    return Cost(8 * b * t + 4 * b * tiles + 16 * b,
                 int_ops=CIPHER_INT_OPS * b * t)
 
 

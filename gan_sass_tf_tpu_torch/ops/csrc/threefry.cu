@@ -23,9 +23,8 @@
 //    scaled sources summed in order into the mixture.  Under noise the
 //    mixture gains normal(k_noise, T)·sqrt(mean(mixture²) / 10^(snr/10)):
 //    the mean needs the whole row, so each tile's sum of mixture² is
-//    written in a fixed order and the noise added after all tiles
-//    (threefry_batch_noise_kernel, or the same block where one block takes
-//    a whole example).  With d_steps > 0 block (0, 0) also writes the
+//    written in a fixed order and a second launch adds the noise after
+//    all tiles (threefry_batch_noise_kernel).  With d_steps > 0 block (0, 0) also writes the
 //    step's dropout and noise keys (step.py:213-228, :317, :178, :372):
 //    rng_g, rng_dl, rng_ga = split(r, 5)[2:5], each folded with the
 //    shard; rng_g; per D step di split(fold_in(rng_dl, di), 3) (D dropout,
@@ -516,36 +515,18 @@ __device__ __forceinline__ float noise_std(const BatchArgs& a, uint32_t i) {
   return __fsqrt_rn(__fmul_rn(__fmul_rn(sum, a.inv_t), a.inv_snr));
 }
 
-// mixture[t] + normal(k, t) · std over tile `tile` of example i, each
-// sample by the thread that wrote it.
-__device__ __forceinline__ void add_noise(const BatchArgs& a, uint32_t i, uint32_t tile,
-                                          uint2 k, float std) {
-  const ImadAdd imad{blockDim.x / kThreads};
-  const float lo = __int_as_float(0xBF7FFFFF);          // nextafter(-1, 0)
-  const float span = __fsub_rn(1.0f, lo);
-  float* m = a.mixture + size_t(i) * a.T;
-#pragma unroll
-  for (uint32_t q = 0; q < kBatchPer; ++q) {
-    const uint32_t t = tile * kBatchTile + q * kThreads + threadIdx.x;
-    if (t < a.T)
-      m[t] = __fadd_rn(m[t], __fmul_rn(normal_of(uniform(bits(k, t, imad), lo, span)), std));
-  }
-}
-
 // A block a (tile, example) on (x, y); x steps by gridDim.x over the
 // tiles.  Warp 0 derives the example's keys (every lane alike) and lane s
 // draws source s's pick, shift and gain; the block then writes its tiles'
 // scaled sources and mixture, the rows read at the roll's two segments.
 // Under noise each tile's sum of mixture² goes to `partial` in a fixed
 // order (a thread's samples in order, the warp by an xor butterfly, the
-// warps in order), and with one block an example (gridDim.x 1) the noise
-// is added in this launch; else threefry_batch_noise_kernel adds it.
+// warps in order), and threefry_batch_noise_kernel adds the noise.
 __global__ void __launch_bounds__(kThreads) threefry_batch_kernel(const BatchArgs a) {
   __shared__ const float* row[kMaxSources];
   __shared__ uint32_t shift[kMaxSources];
   __shared__ float factor[kMaxSources];
   __shared__ float warp_sum[kThreads / 32];
-  __shared__ uint2 noise_key;
   const uint32_t i = blockIdx.y, S = a.S, T = a.T;
   const uint32_t lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const bool first = blockIdx.x == 0;
@@ -582,10 +563,8 @@ __global__ void __launch_bounds__(kThreads) threefry_batch_kernel(const BatchArg
         }
       }
     }
-    if (lane == 0 && a.partial != nullptr) {
-      noise_key = child(em, 1u);
-      if (first) store_key(a.noise_keys + 2 * size_t(i), noise_key);
-    }
+    if (lane == 0 && first && a.partial != nullptr)
+      store_key(a.noise_keys + 2 * size_t(i), child(em, 1u));
   } else if (a.train_keys != nullptr && first && i == 0 &&
              int(threadIdx.x) - 32 < 3 + 3 * a.d_steps) {
     const int k = int(threadIdx.x) - 32;
@@ -635,19 +614,26 @@ __global__ void __launch_bounds__(kThreads) threefry_batch_kernel(const BatchArg
       __syncthreads();       // the partial seen by the block; warp_sum free again
     }
   }
-  if (a.partial != nullptr && gridDim.x == 1) {
-    const float std = noise_std(a, i);
-    for (uint32_t tile = 0; tile < a.tiles; ++tile) add_noise(a, i, tile, noise_key, std);
-  }
 }
 
-// The noise of threefry_batch_kernel's mixture, on its grid.
+// The noise of threefry_batch_kernel's mixture, on its grid: mixture[t] +
+// normal(k_noise, t) · std, each sample by the thread that wrote it there.
 __global__ void __launch_bounds__(kThreads) threefry_batch_noise_kernel(const BatchArgs a) {
   const uint32_t i = blockIdx.y;
   const float std = noise_std(a, i);
   const uint2 k = load_key(a.noise_keys + 2 * size_t(i));
-  for (uint32_t tile = blockIdx.x; tile < a.tiles; tile += gridDim.x)
-    add_noise(a, i, tile, k, std);
+  const ImadAdd imad{blockDim.x / kThreads};
+  const float lo = __int_as_float(0xBF7FFFFF);          // nextafter(-1, 0)
+  const float span = __fsub_rn(1.0f, lo);
+  float* m = a.mixture + size_t(i) * a.T;
+  for (uint32_t tile = blockIdx.x; tile < a.tiles; tile += gridDim.x) {
+#pragma unroll
+    for (uint32_t q = 0; q < kBatchPer; ++q) {
+      const uint32_t t = tile * kBatchTile + q * kThreads + threadIdx.x;
+      if (t < a.T)
+        m[t] = __fadd_rn(m[t], __fmul_rn(normal_of(uniform(bits(k, t, imad), lo, span)), std));
+    }
+  }
 }
 
 template <typename T>
@@ -810,8 +796,7 @@ extern "C" int threefry_sample_launch(const void* keys, int R, int n, int kind,
 }
 
 // args: a BatchArgs; blocks: the grid's tiles a row, 1 to args.tiles (its
-// rows are the examples).  Under noise with blocks > 1 a second launch
-// adds the noise.
+// rows are the examples).  Under noise a second launch adds the noise.
 extern "C" int threefry_batch_launch(const void* args, int blocks, void* stream) {
   const BatchArgs& a = *static_cast<const BatchArgs*>(args);
   const bool noise = a.partial != nullptr;
@@ -826,7 +811,7 @@ extern "C" int threefry_batch_launch(const void* args, int blocks, void* stream)
     return (int)cudaErrorInvalidValue;
   const dim3 grid(blocks, a.B);
   threefry_batch_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(a);
-  if (noise && blocks > 1) {
+  if (noise) {
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
     threefry_batch_noise_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(a);

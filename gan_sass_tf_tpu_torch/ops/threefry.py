@@ -274,7 +274,7 @@ def batch_kernel(key: torch.Tensor, src: torch.Tensor, b: int, gain_db: float,
                  blocks: Optional[int] = None) -> Batch:
     """`threefry_batch_launch`: one launch of threefry_batch_kernel on a
     grid of `blocks` (default `batch_tiles(T)`) by B blocks, and under
-    noise with blocks > 1 one of threefry_batch_noise_kernel; the same
+    noise one of threefry_batch_noise_kernel on the same grid; the same
     bits whatever `blocks`."""
     global batch_launches, batch_noise_launches
     b, s, nb, t = _check_batch(key, src, b, step, from_bank, shard, d_steps)
@@ -313,7 +313,7 @@ def batch_kernel(key: torch.Tensor, src: torch.Tensor, b: int, gain_db: float,
         shard, d_steps)
     _launch("threefry_batch", dev, ctypes.addressof(args), blocks)
     batch_launches += 1
-    batch_noise_launches += int(noise and blocks > 1)
+    batch_noise_launches += int(noise)
     return out
 
 

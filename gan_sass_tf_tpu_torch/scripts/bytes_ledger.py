@@ -77,6 +77,7 @@ from torch.utils.flop_counter import flop_registry
 from gan_sass_tf_tpu_torch import config
 from gan_sass_tf_tpu_torch.cli import _apply_overrides
 from gan_sass_tf_tpu_torch.ops import cost, dispatch
+from gan_sass_tf_tpu_torch.ops import threefry as rng_ops
 from gan_sass_tf_tpu_torch.scripts import split_args
 from gan_sass_tf_tpu_torch.scripts.quality_protocol import device_or_exit
 from gan_sass_tf_tpu_torch.utils.profiler import STEP_RANGES
@@ -414,17 +415,16 @@ def _wrappers(ledger: Ledger) -> Dict[str, Callable]:
 
     def step_batch(key, data, gain_db, snr_db=None, offset=0, step=None, bank_batch=0,
                    shard=0, d_steps=0):
-        # The batch launch, and under noise the noise launch where the
-        # kernel takes one (more than one tile a row).
+        # The batch launch, and under noise the noise launch.
         with ledger.quiet():
             out = orig["step_batch"](key, data, gain_db, snr_db, offset, step,
                                      bank_batch, shard, d_steps)
         b, s, t = out.scaled.shape
-        noise = snr_db is not None
-        ledger.kernel("threefry_batch", cost.batch(b, s, t, bank_batch > 0,
+        noise, tiles = snr_db is not None, rng_ops.batch_tiles(t)
+        ledger.kernel("threefry_batch", cost.batch(b, s, t, tiles, bank_batch > 0,
                                                    step is not None, noise, d_steps))
-        if noise and cost.batch_tiles(t) > 1:
-            ledger.kernel("threefry_batch_noise", cost.batch_noise(b, t))
+        if noise:
+            ledger.kernel("threefry_batch_noise", cost.batch_noise(b, t, tiles))
         return out
 
     return {

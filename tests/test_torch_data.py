@@ -22,6 +22,7 @@ from gan_sass_tf_tpu.data.synthetic import SyntheticDataset as JSynthetic
 from gan_sass_tf_tpu_torch import config
 from gan_sass_tf_tpu_torch import data as tdata
 from gan_sass_tf_tpu_torch.data import threefry as tf
+from gan_sass_tf_tpu_torch.data.mixer import noise_snr
 from gan_sass_tf_tpu_torch.data.threefry import fold_in
 
 
@@ -133,8 +134,8 @@ def test_apply_mix_matches_mix_sources_on_injected_draws(rng, num_noise):
                 jax.random.normal(k_noise, (400,)))
 
     gains, noise = (np.array(a) for a in jax.vmap(draws)(keys))
-    ours = tdata.apply_mix(torch.from_numpy(src), torch.from_numpy(gains),
-                           torch.from_numpy(noise), cfg.data)
+    ours = tdata.mix(torch.from_numpy(src), torch.from_numpy(gains),
+                     torch.from_numpy(noise), noise_snr(cfg.data))
     np.testing.assert_allclose(ours[0].numpy(), np.asarray(mix), rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(ours[1].numpy(), np.asarray(scaled), rtol=1e-6,
                                atol=1e-6)

@@ -25,6 +25,7 @@ from gan_sass_tf_tpu.losses import oracle_bound_si_sdr as j_oracle_bound
 from gan_sass_tf_tpu.losses import oracle_masks as j_oracle_masks
 from gan_sass_tf_tpu_torch import config
 from gan_sass_tf_tpu_torch import data as tdata
+from gan_sass_tf_tpu_torch.data.mixer import noise_snr
 from gan_sass_tf_tpu_torch.losses import oracle_bound_si_sdr, oracle_masks
 from gan_sass_tf_tpu_torch.ops import masked_istft as k2
 from gan_sass_tf_tpu_torch.ops import stft as k4
@@ -107,7 +108,7 @@ def _jax_mix_draws(key, b, s, t, gain_db):
 ])
 def test_oracle_bound_matches_jax_on_injected_draws(name, mask_type, act, hard):
     """Same sources, and the JAX mixer's gains and noise injected through
-    `apply_mix`: the bound, its SI-SDR and the mixture's agree within
+    `data.mix`: the bound, its SI-SDR and the mixture's agree within
     0.01 dB."""
     cfg = quality_protocol.protocol_config(name, hard, [
         f"dsp.mask_type={mask_type}", f"dsp.mask_activation={act}",
@@ -118,7 +119,7 @@ def test_oracle_bound_matches_jax_on_injected_draws(name, mask_type, act, hard):
     ref = j_oracle_bound(*j_mix_sources(jnp.asarray(src), key, jcfg.data), jcfg.dsp)
     b, s, t = src.shape
     gains, noise = _jax_mix_draws(key, b, s, t, cfg.data.gain_jitter_db)
-    mix, scaled = tdata.apply_mix(torch.from_numpy(src), gains, noise, cfg.data)
+    mix, scaled = tdata.mix(torch.from_numpy(src), gains, noise, noise_snr(cfg.data))
     ours = oracle_bound_si_sdr(mix, scaled, cfg.dsp)
     assert set(ours) == set(ref)
     for key_ in ref:

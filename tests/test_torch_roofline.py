@@ -264,9 +264,8 @@ def test_dropout_charged_forward_backward_and_double_backward():
 
 def test_draws_charged_from_their_shapes():
     """A step's batch charged one launch of the batch kernel and, under
-    noise with more than one tile a row, one of its noise pass (none at one
-    tile, where the same block adds it); the sampler a launch a draw; the
-    plain ops inside counted no more."""
+    noise, one of its noise pass, at one tile a row as at two; the sampler
+    a launch a draw; the plain ops inside counted no more."""
     key, step = prng_key(5), torch.tensor(3)
     bank, keys = torch.randn(2, 6, 1500), split(key, 4)
 
@@ -278,10 +277,11 @@ def test_draws_charged_from_their_shapes():
                 dispatch.draw(keys, 11, "normal"))
 
     ledger, _ = bl.count(run)
-    assert ledger.launches() == {"threefry_batch": 2, "threefry_batch_noise": 1,
+    assert ledger.launches() == {"threefry_batch": 2, "threefry_batch_noise": 2,
                                  "threefry_sample": 2}
-    want = (cost.batch(4, 2, 1500, True, True, True, 2) + cost.batch_noise(4, 1500)
-            + cost.batch(3, 2, 900, False, False, True) + cost.sample(4, 7, "randint")
+    want = (cost.batch(4, 2, 1500, 2, True, True, True, 2) + cost.batch_noise(4, 1500, 2)
+            + cost.batch(3, 2, 900, 1, False, False, True) + cost.batch_noise(3, 900, 1)
+            + cost.sample(4, 7, "randint")
             + cost.sample(4, 11, "normal"))
     assert ledger.kernel_bytes() == want.bytes
     assert sum(r["int_ops"] for r in ledger.kernels.values()) == want.int_ops

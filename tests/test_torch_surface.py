@@ -307,7 +307,7 @@ def _jax_exports(sub: str):
 # step's batch), and jax.random's PRNGKey.  Every
 # draw is the JAX package's (`data/threefry.py`); no other generator is
 # exported.
-DATA_PORT_ONLY = {"apply_mix", "build_bank", "prng_key", "sample_bank", "take_rows"}
+DATA_PORT_ONLY = {"build_bank", "mix", "prng_key", "sample_bank", "take_rows"}
 
 
 def test_data_exports_the_jax_names_and_the_device_draws_only():
