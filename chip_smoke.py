@@ -1121,8 +1121,15 @@ def device_spans(fn, calls=PROFILE_STEPS, open_calls=0) -> dict:
     synchronize and PROFILE_PAD_S idle open the trace ahead of the calls,
     a synchronize, that idle and as many fills (TRACE_CLOSE) close it
     after them, and what the device started from half that pad before the
-    calls' span to half that pad before the closing fills is counted (by
-    its own start: a replay's kernels run past the span's host window).  "kernels_in_trace" counts TRACE_KERNELS over the
+    calls' span to half that pad before the closing fills is timed (by
+    its own start: a replay's kernels run past the span's host window).
+    The launches of TRACE_KERNELS are counted by the host time of their
+    launch (a replay's kernels by their graph launch's) within the
+    calls' span, so a device record whose start the trace misplaces still
+    counts with its call; a record with no launch in the trace counts by
+    its own start in the timed window.  "kernels_off_window" counts the
+    launches so counted whose device start lay outside that window.
+    "kernels_in_trace" counts TRACE_KERNELS over the
     whole trace; "span_ms" the host's ms a call over the traced calls;
     "nccl_kernels" and "nccl_ms" the NCCL kernels a call and their
     device ms.
@@ -1153,8 +1160,17 @@ def device_spans(fn, calls=PROFILE_STEPS, open_calls=0) -> dict:
              if e["name"] in (TRACE_SPAN, TRACE_CLOSE)}
     span, close = marks[TRACE_SPAN], marks[TRACE_CLOSE]
     every = profiler.device_events(trace)
-    events = [e for e in every if span["ts"] - PROFILE_PAD_S * 0.5e6 <= e["ts"]
-              < close["ts"] - PROFILE_PAD_S * 0.5e6]
+
+    def timed(e):
+        return span["ts"] - PROFILE_PAD_S * 0.5e6 <= e["ts"] < close["ts"] - PROFILE_PAD_S * 0.5e6
+
+    def launched(e):
+        if e["launch_ts"] == e["ts"]:           # no launch record: its own start
+            return timed(e)
+        return span["ts"] <= e["launch_ts"] <= span["ts"] + span["dur"]
+
+    events = [e for e in every if timed(e)]
+    counted = [e for e in every if launched(e) and any(n in e["name"] for n in TRACE_KERNELS)]
     busy, end = 0.0, float("-inf")
     for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in events):
         if b > end:
@@ -1165,8 +1181,9 @@ def device_spans(fn, calls=PROFILE_STEPS, open_calls=0) -> dict:
             "events": len(events) / calls,
             "nccl_kernels": len(nccl) / calls,
             "nccl_ms": sum(e["dur"] for e in nccl) / calls / 1e3,
-            "kernels": {n: sum(n in e["name"] for e in events) / calls
+            "kernels": {n: sum(n in e["name"] for e in counted) / calls
                         for n in TRACE_KERNELS},
+            "kernels_off_window": sum(not timed(e) for e in counted),
             "kernels_in_trace": {n: sum(n in e["name"] for e in every)
                                  for n in TRACE_KERNELS}}
 
@@ -1358,7 +1375,9 @@ def graph_case(name: str, cfg, dev, tmp: Path) -> dict:
           f"{device['eager']['kernels']}, recorded by the capture {recorded}; "
           f"in the whole traces (fill and {PROFILE_STEPS} calls): replays "
           f"{device['graphed']['kernels_in_trace']}, eager "
-          f"{device['eager']['kernels_in_trace']}")
+          f"{device['eager']['kernels_in_trace']}; counted by launch with a device start "
+          f"outside the window: replays {device['graphed']['kernels_off_window']}, "
+          f"eager {device['eager']['kernels_off_window']}")
 
     step0, replays0, captures0 = int(exp.state.step), g.replays, graphed.captures()
     exp.train(num_steps=GRAPH_SPD + 2)
@@ -2102,9 +2121,12 @@ def serve_path(name, run, inputs, calls_of, load_weights, captured_calls, second
           f"{spans['eager']['kernels']}, recorded by the capture ({per_call} "
           f"replays) {recorded}; in the whole traces: replays "
           f"{spans['graphed']['kernels_in_trace']}, eager "
-          f"{spans['eager']['kernels_in_trace']}")
+          f"{spans['eager']['kernels_in_trace']}; counted by launch with a device start "
+          f"outside the window: replays {spans['graphed']['kernels_off_window']}, "
+          f"eager {spans['eager']['kernels_off_window']}")
     busy = {side: {"busy_ms": sp["busy_ms"], "traced_call_ms": sp["span_ms"],
-                   "share": sp["busy_ms"] / sp["span_ms"], "kernel_sum_ms": sp["sum_ms"]}
+                   "share": sp["busy_ms"] / sp["span_ms"], "kernel_sum_ms": sp["sum_ms"],
+                   "launches_off_window": sp["kernels_off_window"]}
             for side, sp in spans.items()}
     return {"first_call": first, "graphed_vs_eager": agree,
             "calls_to_capture": 1 + warm_calls, "later_calls": reuse,
