@@ -6,7 +6,11 @@ that row's preset, step count, protocol and seeds, at the preset's own
 batch and dtype.  The records the runner wrote, `results/r6pt_results.jsonl`,
 are held to the queue they came from.  `results/r7pt_queue.txt` runs the
 `stream_v5e8` hard row's seeds 0 and 7 again under torchrun on four cards,
-held alike with `results/r7pt_results.jsonl`."""
+held alike with `results/r7pt_results.jsonl`.  `results/r8pt_queue.txt`
+carries the reference's other recorded rows (the bench's batch, the adv=0
+controls, the wsj0 revival levers) over from `results/r5_queue.txt`, each
+with its r5 row's preset, steps, protocol, seeds and `--set` overrides,
+and is held alike with `results/r8pt_results.jsonl`."""
 
 import _torch_threads  # noqa: F401  (first: the CPU thread budget)
 
@@ -139,3 +143,106 @@ def test_four_card_records_hold_the_queue():
         assert (res["preset"], res["steps"], res["hard"], tuple(res["seeds"])) == \
             ROWS4[r["tag"]], r
         assert len(res["si_sdr_improvement_per_seed"]) == len(ROWS4[r["tag"]][3])
+
+
+QUEUE8 = RESULTS / "r8pt_queue.txt"
+RECORDS8 = RESULTS / "r8pt_results.jsonl"
+R5_QUEUE = RESULTS / "r5_queue.txt"
+R5_SCRIPT = ["python", "scripts/quality_protocol.py"]
+# Each r8pt tag and the r5 row it carries over (results/r5_queue.txt line),
+# in the queue's order: the bench's batch first (BASELINE.md:649,652), the
+# adv=0 controls (:678-684), the wsj0 revival levers (:700-703).
+ROWS8 = {
+    "pt_wsj0_b128_hard": "d_wsj0_b128_hard",        # :66
+    "pt_wsj0_b128_easy": "d_wsj0_b128_easy",        # :65
+    "pt_stream_adv0_hard": "b_stream_adv0_hard",    # :55
+    "pt_wsj0_adv0_hard": "b_wsj0_adv0_hard",        # :53
+    "pt_3src_adv0_hard": "b_3src_adv0_hard",        # :54
+    "pt_wsj0_r1_hard": "c_wsj0_r1_hard",            # :59
+    "pt_wsj0_dlrcos_hard": "c_wsj0_dlrcos_hard",    # :60
+    "pt_wsj0_r1_bnD_hard": "c_wsj0_r1_bnD_hard",    # :61
+    "pt_wsj0_weakD_hard": "c_wsj0_weakD_hard",      # :62
+}
+
+
+def _args(argv):
+    """(preset, steps, hard, seeds, --set overrides, anything else) of a
+    quality-protocol command's arguments."""
+    rest, sets = [a for a in argv if a != "--hard"], []
+    while "--set" in rest:
+        i = rest.index("--set")
+        sets.append(rest[i + 1])
+        del rest[i:i + 2]
+    i = rest.index("--seeds")
+    seeds = tuple(int(s) for s in rest[i + 1].split(","))
+    del rest[i:i + 2]
+    return rest[0], int(rest[1]), "--hard" in argv, seeds, sets, rest[2:]
+
+
+def _r5_row(tag):
+    """The r5 row's arguments, its `timeout` prefix and root script taken
+    off."""
+    argv = shlex.split(dict(run_queue.parse_queue(str(R5_QUEUE)))[tag])
+    assert argv[:2] == ["timeout", "5400"] and argv[2:4] == R5_SCRIPT, argv
+    return _args(argv[4:])
+
+
+def _r8_row(tag):
+    argv = shlex.split(dict(run_queue.parse_queue(str(QUEUE8)))[tag])
+    assert argv[:3] == ["python3", "-m", MODULE], argv
+    return _args(argv[3:])
+
+
+def _records(path):
+    return [json.loads(ln) for ln in path.read_text().splitlines() if ln.strip()]
+
+
+def test_r8pt_rows_parse_as_tag_and_command_in_order():
+    lines = [ln.strip() for ln in QUEUE8.read_text().splitlines()]
+    rows = [ln for ln in lines if ln and not ln.startswith("#")]
+    for ln in rows:
+        tag, sep, cmd = ln.partition(" | ")
+        assert sep and tag.strip() == tag and tag and cmd.strip(), ln
+    assert [t for t, _ in run_queue.parse_queue(str(QUEUE8))] == list(ROWS8)
+
+
+@pytest.mark.parametrize("tag", list(ROWS8))
+def test_r8pt_row_is_a_fresh_port_tag(tag):
+    assert tag.startswith("pt_")
+    other = {r["tag"] for f in (R5_RECORDS, RECORDS, RECORDS4) for r in _records(f)}
+    assert tag not in other and tag not in ROWS and tag not in ROWS4
+
+
+@pytest.mark.parametrize("tag", list(ROWS8))
+def test_r8pt_row_carries_its_r5_row_over(tag):
+    """The port's protocol by module, no `.py` path, and the r5 row's
+    preset, steps, protocol, seeds and overrides letter for letter; that
+    r5 row ran to rc 0."""
+    cmd = dict(run_queue.parse_queue(str(QUEUE8)))[tag]
+    assert "scripts/" not in cmd and not any(
+        a.endswith(".py") for a in shlex.split(cmd)), cmd
+    ours, ref = _r8_row(tag), _r5_row(ROWS8[tag])
+    assert ours == ref and ours[5] == [], (ours, ref)
+    assert "--device" not in cmd
+    r5 = [r for r in _records(R5_RECORDS) if r["tag"] == ROWS8[tag]]
+    assert any(r["rc"] == 0 and r["result"] for r in r5), ROWS8[tag]
+
+
+@pytest.mark.parametrize("tag", list(ROWS8))
+def test_r8pt_record_holds_its_queued_row(tag):
+    """One record for the row, in the runner's format, with the command
+    as queued, rc 0 and the row's preset, steps, protocol and seeds."""
+    records = [r for r in _records(RECORDS8) if r["tag"] == tag]
+    assert len(records) == 1, tag
+    r = records[0]
+    assert set(r) >= {"tag", "cmd", "rc", "wall_s", "result"}, r
+    assert r["cmd"] == dict(run_queue.parse_queue(str(QUEUE8)))[tag] and r["rc"] == 0, r
+    preset, steps, hard, seeds, _, _ = _r8_row(tag)
+    res = r["result"]
+    assert (res["preset"], res["steps"], res["hard"], tuple(res["seeds"])) == (
+        preset, steps, hard, seeds), r
+    assert len(res["si_sdr_improvement_per_seed"]) == len(seeds)
+
+
+def test_r8pt_records_name_only_queued_rows():
+    assert {r["tag"] for r in _records(RECORDS8)} <= set(ROWS8)

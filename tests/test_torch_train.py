@@ -75,7 +75,7 @@ def _run_both(cfg, n_steps=2, key=None):
     """`n_steps` steps of each package from one init on the same sources
     under PRNGKey(7) (the port's `key`, by default made from the int): the
     per-step metrics of both, the states after step 1 and after the last
-    step."""
+    step, and both D's parameters after every step."""
     jcfg = _jax(cfg)
     g, d = jmodels.build_generator(jcfg), jmodels.build_discriminator(jcfg)
     jstate = create_train_state(jcfg, g, d, jax.random.PRNGKey(0))
@@ -87,13 +87,16 @@ def _run_both(cfg, n_steps=2, key=None):
     tstep, tkey = build_train_step(cfg), prng_key(7) if key is None else key
     ds = SyntheticDataset(jcfg, seed=3)
     out = {"jax": [], "torch": [], "cfg": cfg,
-           "jstate0": jax.tree.map(np.asarray, jstate)}
+           "jstate0": jax.tree.map(np.asarray, jstate), "jd": [], "td": []}
     for i in range(n_steps):
         src = ds.batch()
         jstate, jm = jstep(jstate, jnp.asarray(src), jax.random.PRNGKey(7))
         tstate, tm = tstep(tstate, torch.from_numpy(src), tkey)
         out["jax"].append({k: float(v) for k, v in jm.items()})
         out["torch"].append({k: float(v) for k, v in tm.items()})
+        out["jd"].append(dict(_flat(jax.tree.map(np.asarray, jstate.d_params))))
+        out["td"].append(dict(_flat(tmodels.discriminator_variables_to_flax(
+            tstate.d.state_dict())["params"])))
         if i == 0:
             out["jstate1"] = jax.tree.map(np.asarray, jstate)
             out["tstate1"] = (
@@ -182,6 +185,46 @@ def _check_moves(ours, ref, init, lr, what, flat_share=0.05):
         assert (~sharp).mean() <= flat_share, (what, k, (~sharp).mean())
 
 
+def _null_biases(cfg):
+    """D's conv biases that feed a batch norm in train mode (every conv but
+    the first under d_norm="batch"): the norm subtracts the batch mean, so
+    no loss depends on them and their gradient is rounding noise in both
+    packages, which Adam's first steps turn into moves of up to lr of
+    either sign.  They are held to Adam's bound (`_check_null_moves`), and
+    the running mean they feed once their difference's share is taken out
+    (`_check_running_mean`)."""
+    if cfg.model.d_norm != "batch":
+        return set()
+    return {f"Conv_{i}/bias" for i in range(1, len(cfg.model.d_channels))}
+
+
+def _check_null_moves(run):
+    """The first step moves each null bias by at most lr (Adam's bound) in
+    both packages, and every step leaves them finite."""
+    cfg, lr = run["cfg"], run["cfg"].train.d_lr
+    init = dict(_flat(run["jstate0"].d_params))
+    for k in _null_biases(cfg):
+        for states in (run["jd"], run["td"]):
+            assert np.all(np.abs(states[0][k] - init[k]) <= lr * (1 + 1e-4)), k
+            assert all(np.all(np.isfinite(s[k])) for s in states), k
+
+
+def _check_running_mean(run, layer, ours, ref, step):
+    """BN's running mean after `step` steps: m_n = 0.99·m_{n-1} + 0.01·μ_n,
+    where step n's batch mean μ_n holds its conv's bias before the step,
+    so the two packages' means differ by the same average of their null
+    biases' difference, and by no more than the file's tolerance beyond."""
+    i = int(layer.split("_")[1]) + 1           # BatchNorm_i follows Conv_{i+1}
+    k = f"Conv_{i}/bias"
+    init = dict(_flat(run["jstate0"].d_params))[k]
+    tb = [init] + [s[k] for s in run["td"][:step - 1]]
+    jb = [init] + [s[k] for s in run["jd"][:step - 1]]
+    shift = sum(0.01 * 0.99 ** (step - n) * (t - j)
+                for n, (t, j) in enumerate(zip(tb, jb), 1))
+    np.testing.assert_allclose(ours - shift, ref, atol=1e-2 * run["cfg"].train.d_lr,
+                               rtol=0, err_msg=f"{layer}/mean after step {step}")
+
+
 def _check_run(run, flat_share=0.05):
     for step, (j, t) in enumerate(zip(run["jax"], run["torch"]), 1):
         for k in METRICS:
@@ -191,10 +234,12 @@ def _check_run(run, flat_share=0.05):
     cfg, js, j0 = run["cfg"], run["jstate1"], run["jstate0"]
     tg, td, tema = run["tstate1"]
     g_lr, d_lr = cfg.train.g_lr, cfg.train.d_lr
+    null = _null_biases(cfg)
     _check_moves(_flat(tg), dict(_flat(js.g_params)), dict(_flat(j0.g_params)),
                  g_lr, "G", flat_share)
-    _check_moves(_flat(td["params"]), dict(_flat(js.d_params)),
-                 dict(_flat(j0.d_params)), d_lr, "D")
+    _check_moves(((k, v) for k, v in _flat(td["params"]) if k not in null),
+                 dict(_flat(js.d_params)), dict(_flat(j0.d_params)), d_lr, "D")
+    _check_null_moves(run)
     stats = dict(_flat(js.d_batch_stats))       # power iteration: no Adam
     for k, v in _flat(td["batch_stats"]):
         np.testing.assert_allclose(v, stats[k], atol=1e-2 * d_lr, rtol=0, err_msg=k)
@@ -281,14 +326,103 @@ def test_train_trajectory_matches_jax_over_12_steps(trajectory_run):
         for k in ("g_loss", "d_loss", "g_recon"):
             np.testing.assert_allclose(t[k], j[k], rtol=1e-4,
                                        err_msg=f"{k} after step {step}")
-    js = run["jstate_last"]
+    _check_last(run)
+
+
+def _check_last(run):
+    """After the last step every G and D parameter, and D's running
+    statistics, within 1e-2·lr of the reference's; the null biases and the
+    running means they feed as `_check_null_moves` and
+    `_check_running_mean` hold them."""
+    cfg, js, n = run["cfg"], run["jstate_last"], run["tstep_last"]
     tg, td = run["tstate_last"]
+    null = _null_biases(cfg)
     for ours, ref, lr, what in ((tg, js.g_params, cfg.train.g_lr, "G"),
-                                (td["params"], js.d_params, cfg.train.d_lr, "D")):
+                                (td["params"], js.d_params, cfg.train.d_lr, "D"),
+                                (td["batch_stats"], js.d_batch_stats,
+                                 cfg.train.d_lr, "D stats")):
         ref = dict(_flat(ref))
         for k, v in _flat(ours):
+            if what == "D" and k in null:
+                continue
+            if what == "D stats" and k.startswith("BatchNorm_") and k.endswith("/mean"):
+                _check_running_mean(run, k.split("/")[0], v, ref[k], n)
+                continue
             np.testing.assert_allclose(v, ref[k], atol=1e-2 * lr, rtol=0,
-                                       err_msg=f"{what} {k} after step 12")
+                                       err_msg=f"{what} {k} after step {n}")
+    _check_null_moves(run)
+
+
+# The `--set` overrides of the reference's quality rows that no other case
+# here trains with: the adv=0 control (results/r5_queue.txt:53-55) and R1
+# on a batch-norm D (:61), each on the main path's preset.
+_OVERRIDES = {
+    "adv0": ("loss.adv_weight=0",),
+    "r1_bnD": ("train.r1_gamma=10", "model.d_norm=batch"),
+}
+
+
+@pytest.fixture(scope="module", params=sorted(_OVERRIDES))
+def override_run(request):
+    """TRAJECTORY_STEPS steps of wsj0_logmel's step at narrow widths under
+    one row's overrides, parsed as the quality protocol parses `--set`."""
+    cfg = cli._apply_overrides(_wsj0_cfg(), _OVERRIDES[request.param])
+    return request.param, _run_both(
+        cfg, n_steps=TRAJECTORY_STEPS,
+        key=prng_key(torch.tensor(7, dtype=torch.int64)))
+
+
+def test_override_step_matches_jax_over_12_steps(override_run):
+    """Under the row's overrides the per-step metrics agree within 1e-4
+    relative at every step, the states after step 1 as in `_check_run`
+    and after step 12 as in the trajectory test, D's running statistics
+    included."""
+    _, run = override_run
+    assert run["tstep_last"] == TRAJECTORY_STEPS
+    _check_run(run)
+    _check_last(run)
+
+
+def test_override_row_trains_as_the_reference_describes(override_run):
+    """adv=0: G's loss is the reconstruction term's alone while D still
+    trains on G's output.  R1 on the batch-norm D: the running statistics
+    move away from their init, and the biases before the norm are null."""
+    name, run = override_run
+    cfg, j0 = run["cfg"], run["jstate0"]
+    tg, td = run["tstate_last"]
+    d_moved = max(float(np.abs(v - dict(_flat(j0.d_params))[k]).max())
+                  for k, v in _flat(td["params"]))
+    assert d_moved > cfg.train.d_lr
+    if name == "adv0":
+        assert cfg.loss.adv_weight == 0.0
+        for t in run["torch"]:
+            assert np.isfinite(t["g_adv"])
+            np.testing.assert_allclose(t["g_loss"], cfg.loss.recon_weight * t["g_recon"],
+                                       rtol=1e-6)
+    else:
+        assert (cfg.train.r1_gamma, cfg.model.d_norm) == (10.0, "batch")
+        stats = dict(_flat(td["batch_stats"]))
+        init = dict(_flat(j0.d_batch_stats))
+        assert stats and set(stats) == set(init)
+        assert all(not np.array_equal(v, init[k]) for k, v in stats.items())
+        # The null biases are null: shifting them leaves the train-mode
+        # logits and the input gradient R1 penalises as they were.
+        d = tmodels.load_discriminator(
+            cfg, {"params": j0.d_params, "batch_stats": j0.d_batch_stats}, "cpu")
+        x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+            (4, cfg.num_frames, cfg.dsp.n_fft // 2 + 1, 2)).astype(np.float32))
+
+        def logits_and_grad():
+            xr = x.clone().requires_grad_()
+            lg = d(xr, train=True)
+            return lg.detach(), torch.autograd.grad(lg.sum(), xr)[0]
+
+        before = logits_and_grad()
+        with torch.no_grad():
+            for i in range(1, len(cfg.model.d_channels)):
+                d.convs[i].bias.add_(0.5)
+        for a, b in zip(logits_and_grad(), before):
+            torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
 
 
 def test_r1_changes_the_d_update(wav_run, extras_run):
