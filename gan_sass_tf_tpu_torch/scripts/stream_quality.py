@@ -5,6 +5,8 @@ chaining), and compare one-shot separation with both streaming modes.
 
     python -m gan_sass_tf_tpu_torch.scripts.stream_quality [STEPS] [--easy]
         [--seed N] [--set sec.key=val ...] [--device cuda]
+    python -m gan_sass_tf_tpu_torch.scripts.stream_quality --load PATH
+        [--device cuda]
 
 Port of `scripts/stream_quality.py`, with its arguments (and --device,
 default cuda, which fails when no GPU is visible) and its JSON keys.  A
@@ -12,6 +14,12 @@ mid-stream source flip destroys the stream-global PIT SI-SDR, so the
 streaming-vs-one-shot delta is the chaining health check (the JAX
 verdict's bar: < 0.5 dB).  Segment i is mixed under PRNGKey(7000 + i)
 (`data.mix_sources`), as in the JAX script.
+
+With STREAM_QUALITY_SAVE=PATH in the environment the trained G (its
+eval weights), the stream, its targets and the run's arguments are also
+saved to PATH with `torch.save`; `--load PATH` then separates that stream
+with that G again, on --device (the CPU plain path, say), without
+training, and prints the same line.
 
 Prints one JSON line:
   {"preset", "hard", "steps", "seed", "stream_seconds",
@@ -23,6 +31,7 @@ Prints one JSON line:
 from __future__ import annotations
 
 import json
+import os
 import sys
 from typing import List, Tuple
 
@@ -88,9 +97,45 @@ def separate_three_ways(g, cfg, mixture: np.ndarray, device):
             separate_streaming_scan(g, cfg, mixture, device))
 
 
+def train_and_stream(cfg, steps: int, seed: int, device):
+    """Train `cfg` for `steps` from `seed`; (its eval G, the stream, its
+    targets)."""
+    from gan_sass_tf_tpu_torch.train import Experiment
+
+    exp = Experiment(cfg, workdir=None, device=device)
+    exp.reseed(seed)
+    exp.train(num_steps=steps,
+              log_fn=lambda s, m: (s % 2000 == 0) and print(
+                  f"step {s}: d={m['d_loss']:.3f}", file=sys.stderr, flush=True))
+    mixture, targets = long_stream(stream_parts(exp),
+                                   int(GAP_SECONDS * cfg.dsp.sample_rate))
+    return exp.eval_generator(), mixture, targets
+
+
+def save_run(path: str, g, mixture, targets, steps, seed, hard, overrides) -> None:
+    """`g`'s weights on the CPU, the stream, its targets and the run's
+    arguments, to `path`."""
+    torch.save({"g": {k: v.cpu() for k, v in g.state_dict().items()},
+                "mixture": mixture, "targets": targets, "steps": steps,
+                "seed": seed, "hard": hard, "overrides": overrides}, path)
+
+
+def load_run(path: str, device):
+    """A run saved by `save_run`: (its config, steps, seed, hard, its G on
+    `device`, the stream, its targets)."""
+    from gan_sass_tf_tpu_torch.models import build_generator
+
+    saved = torch.load(path, map_location="cpu", weights_only=False)
+    cfg = protocol_config("stream_v5e8", saved["hard"], saved["overrides"])
+    g = build_generator(cfg, device)
+    g.load_state_dict(saved["g"])
+    return (cfg, saved["steps"], saved["seed"], saved["hard"], g,
+            saved["mixture"], saved["targets"])
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    overrides, skip, seed, device = [], set(), 0, "cuda"
+    overrides, skip, seed, device, load = [], set(), 0, "cuda", None
     for i, a in enumerate(argv):
         if a == "--set" and i + 1 < len(argv):
             overrides.append(argv[i + 1])
@@ -101,6 +146,9 @@ def main(argv=None) -> int:
         elif a == "--device" and i + 1 < len(argv):
             device = argv[i + 1]
             skip.update((i, i + 1))
+        elif a == "--load" and i + 1 < len(argv):
+            load = argv[i + 1]
+            skip.update((i, i + 1))
         elif a.startswith("--"):
             skip.add(i)
     args = [a for i, a in enumerate(argv) if i not in skip]
@@ -108,19 +156,17 @@ def main(argv=None) -> int:
     hard = "--easy" not in argv
     dev = device_or_exit(device)
 
-    from gan_sass_tf_tpu_torch.train import Experiment
-
-    cfg = protocol_config("stream_v5e8", hard, overrides)
-    exp = Experiment(cfg, workdir=None, device=dev)
-    exp.reseed(seed)
-    exp.train(num_steps=steps,
-              log_fn=lambda s, m: (s % 2000 == 0) and print(
-                  f"step {s}: d={m['d_loss']:.3f}", file=sys.stderr, flush=True))
-    g = exp.eval_generator()
+    if load:
+        cfg, steps, seed, hard, g, mixture, targets = load_run(load, dev)
+    else:
+        cfg = protocol_config("stream_v5e8", hard, overrides)
+        g, mixture, targets = train_and_stream(cfg, steps, seed, dev)
     sr = cfg.dsp.sample_rate
-    mixture, targets = long_stream(stream_parts(exp), int(GAP_SECONDS * sr))
     si_one, si_batch, si_scan = (si_sdr_improvement(est, targets, mixture)
                                  for est in separate_three_ways(g, cfg, mixture, dev))
+    if os.environ.get("STREAM_QUALITY_SAVE") and not load:
+        save_run(os.environ["STREAM_QUALITY_SAVE"], g, mixture, targets,
+                 steps, seed, hard, overrides)
     print(json.dumps({
         "preset": "stream_v5e8",
         "hard": hard,

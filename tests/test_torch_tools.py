@@ -37,6 +37,7 @@ from gan_sass_tf_tpu_torch.scripts import (
     bench_presets,
     bench_streaming_compute,
     profile_step,
+    quality_protocol,
     run_queue,
     stream_quality,
     train_wavdir_fixture,
@@ -306,12 +307,12 @@ def test_entry_needs_a_gpu_unless_asked_for_the_cpu():
 SR = 8000
 
 
-def _stream_cfg():
+def _stream_cfg(perm_hysteresis=0.0):
     cfg = config.get_config("2src_toy_cpu")
     return cfg.replace(
         model=dataclasses.replace(cfg.model, g_channels=(8, 16)),
         stream=dataclasses.replace(cfg.stream, chunk_seconds=1.0, batch_chunks=4,
-                                   perm_hysteresis=0.0))
+                                   perm_hysteresis=perm_hysteresis))
 
 
 def _tone_parts():
@@ -325,11 +326,13 @@ def _tone_parts():
     return parts
 
 
-def test_stream_quality_matches_jax_on_the_same_stream():
+@pytest.mark.parametrize("perm_hysteresis", [0.0, 1e-3])
+def test_stream_quality_matches_jax_on_the_same_stream(perm_hysteresis):
     """The stream builder and SI-SDRi function against the JAX script's
     (inline) ones on the same numpy sources and the same converted G, for
-    the one-shot and both streaming separations: within 0.01 dB."""
-    cfg = _stream_cfg()
+    the one-shot and both streaming separations, with argmin chaining and
+    with the hysteresis of the JAX script's older default: within 0.01 dB."""
+    cfg = _stream_cfg(perm_hysteresis)
     jcfg = _jax(cfg)
     jg = jmodels.build_generator(jcfg)
     params = jg.init(jax.random.PRNGKey(0),
@@ -371,12 +374,66 @@ def test_stream_quality_matches_jax_on_the_same_stream():
         assert abs(j_sisdri(o) - j_sisdri(r)) <= 0.01
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_stream_parts_are_the_jax_scripts_segments(seed):
+    """`stream_parts` of a seeded stream-hard experiment against the JAX
+    script's own loop (`scripts/stream_quality.py`: the experiment's eval
+    dataset, `batch()[:1]`, mixed under PRNGKey(7000 + i)) on the eval
+    dataset the JAX `Experiment.reseed(seed)` makes: mixtures and scaled
+    sources within 1e-5 of the largest sample."""
+    from gan_sass_tf_tpu.data import make_dataset as j_make_dataset
+    from gan_sass_tf_tpu.data.mixer import mix_sources as j_mix_sources
+
+    cfg = quality_protocol.protocol_config(
+        "stream_v5e8", True, [a for a in TINY if a != "--set"])
+    jcfg = _jax(cfg)
+    exp = Experiment(cfg, device="cpu")
+    exp.reseed(seed)
+    ours = stream_quality.stream_parts(exp, n=3)
+    j_eval = j_make_dataset(jcfg, seed=seed + 9999, split=jcfg.data.eval_split)
+    for i, (mixture, scaled) in enumerate(ours):
+        sources = jnp.asarray(j_eval.batch())[:1]
+        ref_mix, ref_scaled = jax.jit(j_mix_sources, static_argnums=2)(
+            sources, jax.random.PRNGKey(7_000 + i), jcfg.data)
+        ref_mix, ref_scaled = np.asarray(ref_mix[0]), np.asarray(ref_scaled[0])
+        assert mixture.shape == ref_mix.shape and scaled.shape == ref_scaled.shape
+        tol = 1e-5 * float(np.abs(ref_scaled).max())
+        np.testing.assert_allclose(mixture, ref_mix, atol=tol, rtol=0)
+        np.testing.assert_allclose(scaled, ref_scaled, atol=tol, rtol=0)
+
+
 def test_stream_quality_run_prints_the_jax_keys(capsys):
     assert stream_quality.main(["2", "--device", "cpu", *TINY]) == 0
     rows = _json_lines(capsys.readouterr().out)
     assert len(rows) == 1 and _jax_script_keys(rows, "stream_quality.py")
     assert len(rows[0]) == 11 and rows[0]["hard"] and rows[0]["steps"] == 2
     assert all(math.isfinite(v) for v in rows[0].values() if isinstance(v, float))
+
+
+def test_stream_quality_saves_its_g_and_stream(capsys, monkeypatch, tmp_path):
+    """Under STREAM_QUALITY_SAVE the run saves its trained G and its stream;
+    `--load` separates that stream with that G again, untrained, and prints
+    the run's line: the same SI-SDRi in every mode within 0.01 dB."""
+    path = tmp_path / "g.pt"
+    monkeypatch.setenv("STREAM_QUALITY_SAVE", str(path))
+    assert stream_quality.main(["2", "--device", "cpu", "--seed", "1", *TINY]) == 0
+    (row,) = _json_lines(capsys.readouterr().out)
+    monkeypatch.delenv("STREAM_QUALITY_SAVE")
+    assert stream_quality.main(["--load", str(path), "--device", "cpu"]) == 0
+    (again,) = _json_lines(capsys.readouterr().out)
+    assert set(again) == set(row) and (again["seed"], again["steps"]) == (1, 2)
+    for k, v in row.items():
+        if isinstance(v, float):
+            assert abs(again[k] - v) <= 0.01, k
+        else:
+            assert again[k] == v, k
+    # The loaded G carries the saved weights, not a fresh G's.
+    saved = torch.load(path, weights_only=False)
+    cfg, _, _, _, g, _, _ = stream_quality.load_run(str(path), torch.device("cpu"))
+    fresh = tmodels.build_generator(cfg, torch.device("cpu"), seed=1).state_dict()
+    assert cfg.model.g_channels == (8, 16)
+    assert all(torch.equal(g.state_dict()[k], v) for k, v in saved["g"].items())
+    assert not all(torch.equal(fresh[k], v) for k, v in saved["g"].items())
 
 
 # ---------------------------------------------------------------------------
